@@ -1,0 +1,18 @@
+"""Host-side experience storage: the port's own NumPy copies of the JAX
+package's uniform ring, PER segment trees and schedules."""
+
+from d4pg_tpu_torch.replay.per import PrioritizedReplayBuffer, SampledIndices
+from d4pg_tpu_torch.replay.schedules import linear_schedule, noise_scale_schedule
+from d4pg_tpu_torch.replay.segment_tree import MinTree, SumTree
+from d4pg_tpu_torch.replay.uniform import ReplayBuffer, Transition
+
+__all__ = [
+    "MinTree",
+    "PrioritizedReplayBuffer",
+    "ReplayBuffer",
+    "SampledIndices",
+    "SumTree",
+    "Transition",
+    "linear_schedule",
+    "noise_scale_schedule",
+]
