@@ -8,7 +8,8 @@ It imports nothing of JAX or of ``d4pg_tpu``. Phases, each printing one
 JSON line:
 
 1. ``env``: torch/CUDA versions, the card (``nvidia-smi``), and the nvcc
-   build of every ``d4pg_tpu_torch/csrc/*.cu`` with its seconds.
+   build of every ``d4pg_tpu_torch/csrc/*.cu`` (one process each, all at
+   once) with its seconds.
 2. ``kernel``: each hand-written kernel against its plain PyTorch version
    on the card, at B=256 and a ragged B=200 with A=51 atoms, on the
    Pendulum support [-300, 0] and on [-10, 10], with terminal rows and
@@ -17,9 +18,22 @@ JSON line:
    in a CUDA graph, CUDA events around its replays), its eager per-call
    time (median over 100 calls), the same two for the plain version, and
    the kernel's bound.
-3. ``step_parity``: one full-width ``train_step`` on the card (through the
+3. ``tree_kernel``: kernel B3 (the PER prefix descent) against its plain
+   version (``cumsum`` + ``searchsorted``): exactly, at L = 64 to 2^20
+   and n = 2048 and 256 draws, on integer leaves (every summation order
+   exact) with zero-mass runs, a zero tail and prefixes on the cumsum
+   boundaries, B4's indices too at L = 2^20; on the main path's real-valued
+   leaves at L = 2^20 (n = 2048 and 256 stratified draws, as the megastep
+   makes them) every index must be a valid answer under a float64 cumsum
+   within the tolerance stated in ``csrc/per_tree.cuh``, and the draws that
+   differ from the plain version are counted. Kernel B4 (loss + next
+   descent) at B=256 and 200, both supports, terminal and clipping rows:
+   its ce/ov ``torch.equal`` to B1f's and its indices to B3's. Then the
+   same timings as phase 2 for both, plus the library call
+   (``torch.searchsorted(torch.cumsum(...))``) for B3.
+4. ``step_parity``: one full-width ``train_step`` on the card (through the
    kernels) against the same step on the CPU (plain versions).
-4. ``slice``: the learner end to end, ``Trainer`` on cuda at the full
+5. ``slice``: the learner end to end, ``Trainer`` on cuda at the full
    default width (3x256 MLPs, 51 atoms, B=256, 16 envs x 32-step
    segments, n-step 3, PER): warmup 1000 env steps, then grad steps and
    an eval, once with ``projection="fused"`` (the default: forward and
@@ -27,11 +41,26 @@ JSON line:
    projection-only kernel). Launch counters are zeroed right before each
    run and read right after; every kernel of a run's path must have
    launched exactly once per grad step.
+6. ``device_slice``: the device-resident learner (``replay_placement=
+   "device"``, K = 8 grad steps per megastep dispatch) at the same width
+   with a 1M-row device ring and 2^20-leaf device tree: PER with the
+   fused descent (B3 once and B4 K times a dispatch), PER with separate
+   kernels (B3 once, B1f K times) and uniform replay. Exact launch counts
+   per run, finite metrics, ``max_priority`` off its 1.0 seed, and every
+   dispatch after the first under ``torch.cuda.set_sync_debug_mode(
+   "error")`` (``debug_guards``): a host synchronisation inside a
+   steady-state dispatch fails the run. After each run, a few more
+   dispatches give the wall and device time of a grad step and the
+   device's idle share (``steady_state``; device time from a
+   ``torch.profiler`` trace).
 
-Then the ``kernels`` line, the card's name and power limit as
+Then the ``kernels`` line (all five kernels; each one's ``launches`` from
+the run of its ``main_path``, with ``launches_by_path`` for every run;
+B3's ``max_abs_err`` is the largest index distance to its plain version,
+B4's the largest ce/ov error), the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero; with no CUDA device it exits 2 before
-printing any result.
+failure raises and exits non-zero; with no CUDA device, or alone in a
+directory without the package, it exits 2 before printing any result.
 """
 
 from __future__ import annotations
@@ -53,6 +82,9 @@ ATOL, RTOL = 2e-5, 1e-5
 
 GRAD_STEPS = 1000            # fused run
 GRAD_STEPS_PROJECTION = 200  # projection-only run
+DEVICE_STEPS = {"fused_descent": 1000, "separate": 200, "uniform": 200}
+K = 8                        # grad steps per megastep dispatch
+TREE_L = 2**20               # device tree leaves at the 1M-row replay
 SEED = 0
 
 
@@ -63,6 +95,23 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter dict."""
+    from d4pg_tpu_torch.ops import cuda_fused_step, cuda_projection, cuda_tree
+
+    return (cuda_projection.LAUNCHES, cuda_tree.LAUNCHES, cuda_fused_step.LAUNCHES)
+
+
+def reset_counts() -> None:
+    for counter in launch_counters():
+        for k in counter:
+            counter[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for counter in launch_counters() for k, v in counter.items()}
 
 
 def nvidia_smi() -> str:
@@ -263,7 +312,7 @@ def step_parity(cfg_cls, create_train_state, train_step):
     emit({"phase": "step_parity", "cuda": mc, "cpu": mh, "priority_max_abs_err": pri_err, "ok": True})
 
 
-def slice_run(cp, Trainer, TrainConfig, projection: str, grad_steps: int, card: str, log_dir: str):
+def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str, log_dir: str):
     import dataclasses
 
     import torch
@@ -282,12 +331,12 @@ def slice_run(cp, Trainer, TrainConfig, projection: str, grad_steps: int, card: 
     )
     trainer = Trainer(cfg, device="cuda")
     try:
-        cp.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         row = trainer.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(cp.LAUNCHES)
+        launches = read_counts()
     finally:
         trainer.close()
     a = trainer.config.agent
@@ -298,6 +347,7 @@ def slice_run(cp, Trainer, TrainConfig, projection: str, grad_steps: int, card: 
         if projection == "fused"
         else {"fused_fwd": 0, "fused_bwd": 0, "project": grad_steps}
     )
+    expect.update(tree_count=0, fused_step=0)
     check(launches == expect, f"launch counts {launches}, expected {expect}")
     emit({
         "phase": "slice",
@@ -321,6 +371,347 @@ def slice_run(cp, Trainer, TrainConfig, projection: str, grad_steps: int, card: 
     return launches
 
 
+def chain_tolerance(L: int, chunk: int) -> int:
+    """The longest chain of float32 adds behind one of kernel B3's cumsum
+    values (csrc/per_tree.cuh, "Numerics")."""
+    nchunks = -(-L // chunk)
+    return 2 * (-(-nchunks // 32)) + 5 + chunk // 32 + 5 + 1
+
+
+def valid_under_f64(leaves, prefixes, idx, chain: int):
+    """Per draw: is ``idx`` a valid count for ``prefix`` under the float64
+    cumsum of the same leaves, within chain·2^-24·total either side?"""
+    import torch
+
+    cs64 = torch.cumsum(leaves.double(), 0)
+    tol = chain * 2.0**-24 * float(cs64[-1])
+    i = idx.reshape(-1).long()
+    pre = prefixes.reshape(-1).double()
+    lo = torch.where(i > 0, cs64[(i - 1).clamp_min(0)], torch.zeros_like(pre))
+    hi = cs64[i]
+    return (lo - tol <= pre) & ((pre < hi + tol) | (i == leaves.numel() - 1))
+
+
+def integer_leaves(L: int, gen, device):
+    """Leaves in {0, 1, 2, 3} with a zero-mass run and a zero tail past a
+    60 % fill, as past the ring's fill. Every partial sum is an integer
+    below 3·2^20 < 2^24, so every summation order is exact in float32."""
+    import torch
+
+    leaves = torch.randint(0, 4, (L,), generator=gen, device=device).float()
+    leaves[L // 3: L // 3 + L // 10] = 0.0   # a zero-mass run
+    leaves[int(0.6 * L):] = 0.0              # zero tail
+    return leaves
+
+
+def exact_prefixes(leaves, n: int, gen):
+    """``n`` prefixes over ``leaves``: on cumsum boundaries, half a unit
+    below them, uniform over the mass, and 0, the total and just below."""
+    import torch
+
+    cs = torch.cumsum(leaves, 0)
+    total = cs[-1:]
+    third = (n - 3) // 3
+    pick = torch.randint(0, leaves.numel(), (third,), generator=gen, device=leaves.device)
+    rest = n - 3 - 2 * third
+    return torch.cat([
+        cs[pick], cs[pick] - 0.5, torch.rand(rest, generator=gen, device=leaves.device) * total,
+        torch.zeros(1, device=leaves.device), total, total - 0.25,
+    ]).contiguous()
+
+
+def leaves_needed(idx, chunk: int) -> int:
+    """Leaves a count must read given the chunk sums: in every chunk a draw
+    lands in, those from the chunk's start to the furthest draw's index."""
+    import torch
+
+    i = idx.reshape(-1).long()
+    c = i // chunk
+    far = torch.zeros(int(c.max()) + 1, dtype=torch.long, device=i.device)
+    far.scatter_reduce_(0, c, i % chunk + 1, reduce="amax")
+    return int(far.sum())
+
+
+def main_path_leaves(gen, device):
+    """A 2^20-leaf tree's leaves as the megastep meets them: (|td| + eps)^0.6
+    priorities over the first 600k rows, zero mass past the fill."""
+    import torch
+
+    leaves = torch.zeros(TREE_L, device=device)
+    fill = 600_000
+    td = torch.rand(fill, generator=gen, device=device) * 3.0 + 0.05
+    leaves[:fill] = td.pow(0.6)
+    return leaves
+
+
+def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
+    """Kernels B3 and B4 against their plain versions and each other;
+    timings at the main path's shapes."""
+    import torch
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device).manual_seed(SEED + 10)
+    chunk = cuda_tree.CHUNK
+    err = {"per_tree_find_prefix": 0, "c51_fused_step": 0.0}
+    mismatch = {}
+
+    # (a) integer-valued leaves: every summation order is exact, so the
+    # kernel must EQUAL the plain version, boundary prefixes included; at
+    # L = 2^20 this checks the multi-chunk-per-lane offsets and the binary
+    # search over 1024 chunks, at the megastep's n = K·B and B draws.
+    A = 51
+    supports = {"pendulum": make_support(-300.0, 0.0, A), "sym10": make_support(-10.0, 10.0, A)}
+    for L in (64, 1000, 4096, TREE_L):
+        leaves = integer_leaves(L, gen, device)
+        for n in (K * 256, 256):
+            pre = exact_prefixes(leaves, n, gen)
+            idx, sums = cuda_tree.find_prefix(leaves, pre)
+            torch.cuda.synchronize()
+            want = cuda_tree.find_prefix_plain(leaves, pre)
+            check(sums.shape == (-(-L // chunk),), f"B3 L={L}: chunk sums shape {tuple(sums.shape)}")
+            check(torch.equal(idx, want),
+                  f"B3 L={L} n={n}: {int((idx != want).sum())} draws differ from plain")
+            emit({"phase": "tree_kernel", "case": f"B3 L={L} n={n} integer leaves",
+                  "exact": True, "ok": True})
+    # B4's count at L = 2^20, B = 256, on the same exact leaves.
+    q, p, r, d, _, _ = make_inputs(256, A, supports["pendulum"], gen, device)
+    _, _, idx = cfs.fused_step_fwd(supports["pendulum"], q, p, r, d, pre, leaves, sums)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, cuda_tree.find_prefix_plain(leaves, pre)),
+          "B4 L=2^20 B=256 integer leaves: idx differs from plain")
+    emit({"phase": "tree_kernel", "case": "B4 L=2^20 B=256 integer leaves", "exact": True, "ok": True})
+
+    # (b) L = 2^20 at the megastep's draws: valid under float64, mismatches counted.
+    leaves = main_path_leaves(gen, device)
+    total = leaves.sum()
+    chain = chain_tolerance(TREE_L, chunk)
+    main_pre = {}
+    for k_, b_ in ((K, 256), (1, 256)):
+        u = torch.rand((k_, b_), generator=gen, device=device)
+        pre = dper.stratified_prefixes(u, k_, b_, total)
+        main_pre[k_ * b_] = pre
+        idx, _ = cuda_tree.find_prefix(leaves, pre)
+        torch.cuda.synchronize()
+        plain = cuda_tree.find_prefix_plain(leaves, pre)
+        ok = valid_under_f64(leaves, pre, idx, chain)
+        check(bool(ok.all()), f"B3 L=2^20 n={pre.numel()}: {int((~ok).sum())} invalid draws")
+        n_diff = int((idx != plain).sum())
+        mismatch[f"B3 n={pre.numel()}"] = n_diff
+        err["per_tree_find_prefix"] = max(err["per_tree_find_prefix"],
+                                          int((idx.long() - plain.long()).abs().max()))
+        emit({"phase": "tree_kernel", "case": f"B3 L=2^20 n={pre.numel()}", "chain": chain,
+              "tolerance_of_total": chain * 2.0**-24, "draws_differing_from_plain": n_diff,
+              "max_index_distance": err["per_tree_find_prefix"], "ok": True})
+
+    # (c) B4 = B1f (ce, ov) + B3 (idx), bit for bit; and against the plain version.
+    for B in (256, 200):
+        for sname, support in supports.items():
+            q, p, r, d, _, _ = make_inputs(B, A, support, gen, device)
+            pre = dper.stratified_prefixes(
+                torch.rand((1, B), generator=gen, device=device), 1, B, total).reshape(B)
+            idx3, sums = cuda_tree.find_prefix(leaves, pre)
+            ce, ov, idx = cfs.fused_step_fwd(support, q, p, r, d, pre, leaves, sums)
+            ce1, ov1 = cp.fused_loss_fwd(support, q, p, r, d)
+            torch.cuda.synchronize()
+            case = f"B4 B={B} A={A} support={sname}"
+            check(torch.equal(ce, ce1) and torch.equal(ov, ov1), f"{case}: ce/ov differ from B1f")
+            check(torch.equal(idx, idx3), f"{case}: idx differs from B3")
+            pce, pov, pidx = cfs.fused_step_plain(support, q, p, r, d, pre, leaves)
+            for g, w in ((ce, pce), (ov, pov)):
+                check(torch.allclose(g, w, atol=ATOL, rtol=RTOL), f"{case}: loss off the plain version")
+                err["c51_fused_step"] = max(err["c51_fused_step"], float((g - w).abs().max()))
+            check(bool(valid_under_f64(leaves, pre, idx, chain).all()), f"{case}: invalid draws")
+            mismatch[case] = int((idx != pidx).sum())
+            emit({"phase": "tree_kernel", "case": case, "equal_to_b1f_and_b3": True,
+                  "draws_differing_from_plain": mismatch[case],
+                  "max_abs_err": err["c51_fused_step"], "ok": True})
+
+    # (d) timings at the main path's shapes.
+    f4 = 4
+    B, support = 256, supports["pendulum"]
+    q, p, r, d, _, _ = make_inputs(B, A, support, gen, device)
+    pre_b = main_pre[256].reshape(B)
+    idx_b, sums = cuda_tree.find_prefix(leaves, pre_b)
+    nchunks = sums.numel()
+    phi = 16 * A
+
+    def walk_ops(idx):
+        # per draw: ~10 compares to find its chunk, then a scan add and a
+        # compare per leaf from the chunk's start to the index
+        i = idx.reshape(-1).long()
+        return int((2 * (i % chunk + 1) + 10).sum())
+
+    timing = {}
+    for n, pre in sorted(main_pre.items()):
+        name = f"per_tree_find_prefix n={n}"
+        idx_n, _ = cuda_tree.find_prefix(leaves, pre)
+        # leaves once (the chunk sums need them all), prefixes in, indices
+        # and chunk sums out
+        nbytes = f4 * TREE_L + f4 * n + f4 * n + f4 * nchunks
+        ops = TREE_L + walk_ops(idx_n)
+        timing[name] = {
+            "fn": lambda pre=pre: cuda_tree.find_prefix(leaves, pre),
+            "plain": lambda pre=pre: cuda_tree.find_prefix_plain(leaves, pre),
+            "library": lambda pre=pre: torch.searchsorted(
+                torch.cumsum(leaves, 0), pre.reshape(-1), right=True).clamp_max(TREE_L - 1),
+            "bytes": nbytes, "ops": ops,
+        }
+    needed = leaves_needed(idx_b, chunk)
+    timing["c51_fused_step"] = {
+        "fn": lambda: cfs.fused_step_fwd(support, q, p, r, d, pre_b, leaves, sums),
+        "plain": lambda: cfs.fused_step_plain(support, q, p, r, d, pre_b, leaves),
+        "library": None,
+        # B1f's bytes, the prefixes, the chunk sums once, the leaves this
+        # run's draws need (leaves_needed), the indices out
+        "bytes": f4 * (2 * B * A + 2 * B) + f4 * 2 * B + f4 * B + f4 * nchunks
+        + f4 * needed + f4 * B,
+        "ops": B * (phi + 10 * A) + walk_ops(idx_b),
+        "leaves_needed": needed,
+    }
+    out = {}
+    for name, t in timing.items():
+        t_bytes, t_ops = t["bytes"] / HBM_BYTES_PER_S, t["ops"] / F32_OPS_PER_S
+        out[name] = {
+            "ms": device_ms(t["fn"]),
+            "plain_ms": device_ms(t["plain"]),
+            "library_ms": device_ms(t["library"]) if t["library"] else None,
+            "call_ms": call_ms(t["fn"]),
+            "plain_call_ms": call_ms(t["plain"]),
+            "library_call_ms": call_ms(t["library"]) if t["library"] else None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": t["bytes"], "ops": t["ops"],
+        }
+        if "leaves_needed" in t:
+            out[name]["leaves_needed"] = t["leaves_needed"]
+        emit({"phase": "kernel_time", "name": name, "L": TREE_L, **out[name]})
+    return err, mismatch, out
+
+
+def check_sync_guard() -> None:
+    """The guard the device slice relies on must bite on this torch: a
+    .item() under set_sync_debug_mode("error") raises."""
+    import torch
+
+    from d4pg_tpu_torch.runtime.trainer import _sync_debug_error
+
+    x = torch.ones(2, device="cuda")
+    try:
+        with _sync_debug_error():
+            x.sum().item()
+    except RuntimeError:
+        return
+    raise RuntimeError("chip_smoke: set_sync_debug_mode('error') did not raise on .item()")
+
+
+def device_busy(trainer, dispatches: int = 4) -> dict:
+    """Where a steady-state dispatch's time goes: the wall time a grad step
+    takes (host clock over ``dispatches`` megasteps ending in a
+    synchronize, no profiler attached), the device time a grad step takes
+    (the CUDA kernel and copy events of a ``torch.profiler`` trace of as
+    many more dispatches; one stream, so they do not overlap), and the
+    device's idle share, 1 - device / wall. None where the trace holds no
+    device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        trainer._megastep_dispatch_once()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * K)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(dispatches):
+            trainer._megastep_dispatch_once()
+        torch.cuda.synchronize()
+    device_us = sum(
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    device_ms = device_us / 1e3 / (dispatches * K) if device_us else None
+    return {
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
+    }
+
+
+def device_slice_run(Trainer, TrainConfig, tier: str, card: str, log_dir: str):
+    """The device-resident learner at full width, one tier; exact launch
+    counts for N grad steps in N/K dispatches."""
+    import torch
+
+    n = DEVICE_STEPS[tier]
+    kw = {
+        "fused_descent": dict(prioritized=True, fused_descent=True),
+        "separate": dict(prioritized=True),
+        "uniform": dict(prioritized=False),
+    }[tier]
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n, eval_episodes=10,
+        log_dir=log_dir, seed=SEED, replay_placement="device", steps_per_dispatch=K,
+        debug_guards=True, **kw,
+    )
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stages = trainer.timers.scalars()
+        dispatched = trainer._dispatches
+        busy = device_busy(trainer)  # after the counts: these dispatches are extra
+    finally:
+        trainer.close()
+    for k in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
+        check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"), f"{tier}: {k} not finite: {row.get(k)}")
+    dispatches = n // K
+    expect = {
+        "fused_descent": dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches, fused_step=n),
+        "separate": dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=dispatches, fused_step=0),
+        "uniform": dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+    }[tier]
+    check(launches == expect, f"{tier}: launch counts {launches}, expected {expect}")
+    check(dispatched == dispatches and trainer.grad_steps == n,
+          f"{tier}: {dispatched} dispatches for {trainer.grad_steps} grad steps")
+    max_priority = None
+    if trainer._dev_per is not None:
+        max_priority = float(trainer._dev_per.tree.max_priority)
+        check(max_priority > 1.0, f"{tier}: max_priority {max_priority} did not move off 1.0")
+    a = trainer.config.agent
+    emit({
+        "phase": "device_slice",
+        "tier": tier,
+        "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "batch": trainer.config.batch_size, "num_envs": trainer.config.num_envs,
+                  "n_step": a.n_step, "prioritized": trainer.config.prioritized,
+                  "replay_capacity": trainer.config.replay_capacity,
+                  "tree_leaves": TREE_L if trainer._dev_per is not None else None,
+                  "steps_per_dispatch": K},
+        "grad_steps": n,
+        "dispatches": dispatches,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+        "env_steps": trainer.env_steps,
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "env_steps_per_sec": row["env_steps_per_sec"],
+        "critic_loss": row["critic_loss"],
+        "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"],
+        "eval_return_mean": row["eval_return_mean"],
+        "max_priority": max_priority,
+        "launches": launches,
+        "stages": stages,
+        "steady_state": busy,
+        "ok": True,
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -331,9 +722,10 @@ def main() -> int:
         from d4pg_tpu_torch.agent import create_train_state, train_step
         from d4pg_tpu_torch.agent.state import D4PGConfig
         from d4pg_tpu_torch.config import TrainConfig
-        from d4pg_tpu_torch.ops import _build
+        from d4pg_tpu_torch.ops import _build, cuda_fused_step, cuda_tree
         from d4pg_tpu_torch.ops import cuda_projection as cp
         from d4pg_tpu_torch.ops.categorical import make_support
+        from d4pg_tpu_torch.replay import device_per as dper
         from d4pg_tpu_torch.runtime.trainer import Trainer
     except ImportError as e:
         print(f"chip_smoke: the d4pg_tpu_torch package is not here ({e})", file=sys.stderr)
@@ -342,6 +734,7 @@ def main() -> int:
     card = nvidia_smi()
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    _build.build_all(sources)
     for name in sources:
         _build.load(name)
     build_s = time.perf_counter() - t0
@@ -359,28 +752,50 @@ def main() -> int:
     })
 
     err, timing = kernel_phase(cp, make_support)
+    tree_err, mismatch, tree_timing = tree_kernel_phase(cp, cuda_tree, cuda_fused_step, dper, make_support)
     step_parity(D4PGConfig, create_train_state, train_step)
+    check_sync_guard()
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        fused = slice_run(cp, Trainer, TrainConfig, "fused", GRAD_STEPS, card, f"{tmp}/fused")
-        proj = slice_run(cp, Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card,
-                         f"{tmp}/projection")
+        paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card, f"{tmp}/fused")
+        paths["host_projection"] = slice_run(
+            Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card, f"{tmp}/projection")
+        for tier in DEVICE_STEPS:
+            paths[f"device_{tier}"] = device_slice_run(Trainer, TrainConfig, tier, card, f"{tmp}/{tier}")
 
-    source = "d4pg_tpu_torch/csrc/projection.cu"
+    def per_path(counter):
+        return {path: counts[counter] for path, counts in paths.items()}
+
+    b3 = tree_timing[f"per_tree_find_prefix n={K * 256}"]
+    b4 = tree_timing["c51_fused_step"]
     rows = [
-        ("c51_fused_loss_fwd", "d4pg_tpu/ops/pallas_projection.py:163", fused["fused_fwd"]),
-        ("c51_fused_loss_bwd", "d4pg_tpu/ops/pallas_projection.py:172", fused["fused_bwd"]),
-        ("c51_project", "d4pg_tpu/ops/pallas_projection.py:77", proj["project"]),
+        # name, source, replaces, launch counter, main path it is read on, error, timing
+        ("c51_fused_loss_fwd", "projection.cu", "d4pg_tpu/ops/pallas_projection.py:163",
+         "fused_fwd", "host_fused", err["c51_fused_loss_fwd"], timing["c51_fused_loss_fwd"]),
+        ("c51_fused_loss_bwd", "projection.cu", "d4pg_tpu/ops/pallas_projection.py:172",
+         "fused_bwd", "host_fused", err["c51_fused_loss_bwd"], timing["c51_fused_loss_bwd"]),
+        ("c51_project", "projection.cu", "d4pg_tpu/ops/pallas_projection.py:77",
+         "project", "host_projection", err["c51_project"], timing["c51_project"]),
+        ("per_tree_find_prefix", "per_tree.cu", "d4pg_tpu/ops/pallas_tree.py:80",
+         "tree_count", "device_fused_descent", tree_err["per_tree_find_prefix"], b3),
+        ("c51_fused_step", "fused_step.cu", "d4pg_tpu/ops/pallas_fused_step.py:53",
+         "fused_step", "device_fused_descent", tree_err["c51_fused_step"], b4),
     ]
-    emit({"kernels": [
-        {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err[name],
-            "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
-            "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
-            "library_ms": None, "ok": True,
+    kernels = []
+    for name, source, replaces, counter, path, error, t in rows:
+        entry = {
+            "name": name, "route": "cuda", "source": f"d4pg_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": paths[path][counter], "main_path": path,
+            "launches_by_path": per_path(counter), "max_abs_err": error,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "ok": True,
         }
-        for name, replaces, launches in rows
-    ]})
+        tag = {"tree_count": "B3", "fused_step": "B4"}.get(counter)
+        if tag:  # draws whose index differs from the plain version's
+            entry["index_mismatches_vs_plain"] = {
+                case: n for case, n in mismatch.items() if case.startswith(tag)}
+        kernels.append(entry)
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

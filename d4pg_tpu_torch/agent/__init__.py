@@ -3,6 +3,8 @@ from d4pg_tpu_torch.agent.d4pg import (
     act_deterministic,
     create_train_state,
     exploration_mixture,
+    fused_train_scan,
+    gather_batches,
     make_noise,
     make_optimizers,
     noisy_explore,
@@ -20,6 +22,8 @@ __all__ = [
     "act_deterministic",
     "create_train_state",
     "exploration_mixture",
+    "fused_train_scan",
+    "gather_batches",
     "make_noise",
     "make_optimizers",
     "noisy_explore",

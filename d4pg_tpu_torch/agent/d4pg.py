@@ -7,6 +7,11 @@ torch CE), the PER-weighted critic loss, the critic Adam step, the actor's
 −E[Q] loss against the UPDATED critic, the actor Adam step, and the Polyak
 update of both targets. PyTorch runs it eagerly and updates the state in
 place; the JAX version is a pure function of an immutable state.
+
+:func:`gather_batches` and :func:`fused_train_scan` are the megastep's
+inner loop (``runtime/megastep.py``): K batches gathered from the device
+ring in one op per field, then K train steps as a Python loop (the JAX
+package's ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from d4pg_tpu_torch.ops import (
     polyak_update,
     project,
 )
+from d4pg_tpu_torch.ops.cuda_fused_step import fused_categorical_loss_descent
 
 
 def support_of(config: D4PGConfig) -> CategoricalSupport:
@@ -167,19 +173,29 @@ def noisy_explore(config: D4PGConfig, noise_sample, a, generator, nstate, scale)
     return exploration_mixture(config, generator, a), nstate
 
 
-def _loss_terms(config, support, pred, target_probs, batch):
-    """Per-sample (ce, overlap) under the configured projection backend."""
+def _loss_terms(config, support, pred, target_probs, batch, descent):
+    """Per-sample (ce, overlap) under the configured projection backend,
+    plus the next step's raw leaf indices when ``descent`` is given."""
+    if descent is not None:
+        leaves, next_prefixes, chunk_sums = descent
+        return fused_categorical_loss_descent(
+            support, pred, target_probs, batch["reward"], batch["discount"],
+            next_prefixes, leaves, chunk_sums,
+        )
     if config.projection_backend == "fused":
-        return fused_categorical_loss(
+        ce, ov = fused_categorical_loss(
             support, pred, target_probs, batch["reward"], batch["discount"]
         )
-    return ce_and_overlap(
-        project(support, target_probs, batch["reward"], batch["discount"]), pred
-    )
+    else:
+        ce, ov = ce_and_overlap(
+            project(support, target_probs, batch["reward"], batch["discount"]), pred
+        )
+    return ce, ov, None
 
 
 def train_step(
-    config: D4PGConfig, state: TrainState, batch: Mapping[str, torch.Tensor]
+    config: D4PGConfig, state: TrainState, batch: Mapping[str, torch.Tensor],
+    descent=None,
 ):
     """One full D4PG SGD step, in place on ``state``.
 
@@ -187,11 +203,23 @@ def train_step(
       batch: obs [B,O], action [B,A], reward [B], next_obs [B,O],
         discount [B] (= γ^m·(1−terminal)), and optionally weights [B]
         (PER importance weights; absent → ones). All on the state's device.
+      descent: ``(leaves [L], next_prefixes [B], chunk_sums)``, the
+        fused-descent seam: the step's loss kernel (B4) also descends the
+        device PER tree for the NEXT step's prefixes. ``chunk_sums`` are
+        those kernel B3 returned for ``leaves`` this dispatch (``None`` on
+        the CPU). Requires ``projection_backend="fused"``.
 
     Returns:
       (state, metrics dict of 0-d tensors, priorities [B]) — the metrics and
-      priorities stay on the device; reading them synchronises.
+      priorities stay on the device; reading them synchronises. With
+      ``descent``, a fourth element: next_idx [B] int32, the raw leaf
+      indices before the fill clamp.
     """
+    if descent is not None and config.projection_backend != "fused":
+        raise ValueError(
+            "descent= (the fused-descent tier) requires projection_backend="
+            f"'fused', got {config.projection_backend!r}"
+        )
     support = support_of(config)
     weights = batch.get("weights")
 
@@ -204,7 +232,7 @@ def train_step(
 
     # ---- critic ----
     pred = state.critic(batch["obs"], batch["action"])
-    ce, overlap = _loss_terms(config, support, pred, target_probs, batch)
+    ce, overlap, next_idx = _loss_terms(config, support, pred, target_probs, batch, descent)
     critic_loss = (ce if weights is None else weights * ce).mean()
     priorities = (overlap if config.priority_kind == "overlap" else ce).detach()
     state.critic_opt.zero_grad(set_to_none=True)
@@ -238,4 +266,36 @@ def train_step(
         "q_support_frac": (q_mean - config.dist.v_min)
         / (config.dist.v_max - config.dist.v_min),
     }
+    if descent is not None:
+        return state, metrics, priorities, next_idx
     return state, metrics, priorities
+
+
+BATCH_FIELDS = ("obs", "action", "reward", "next_obs", "discount")
+
+
+def gather_batches(store, idx: torch.Tensor) -> dict:
+    """[K, B] batches from a columnar store (the device ring) in ONE gather
+    per field. No ``weights`` key: the uniform megastep trains without one
+    (IS weights identically 1) and the PER megastep adds its own."""
+    flat = idx.reshape(-1).long()
+    return {
+        k: getattr(store, k).index_select(0, flat).reshape(
+            idx.shape + getattr(store, k).shape[1:]
+        )
+        for k in BATCH_FIELDS
+    }
+
+
+def fused_train_scan(config: D4PGConfig, state: TrainState, batches: dict):
+    """``train_step`` over pre-gathered [K, B] batches, a Python loop over K
+    (the JAX ``lax.scan``), in place on ``state``. Returns (state, metrics
+    dict of [K] tensors, priorities [K, B])."""
+    k = batches["reward"].shape[0]
+    step_metrics, priorities = [], []
+    for t in range(k):
+        _, m, pri = train_step(config, state, {key: v[t] for key, v in batches.items()})
+        step_metrics.append(m)
+        priorities.append(pri)
+    metrics = {key: torch.stack([m[key] for m in step_metrics]) for key in step_metrics[0]}
+    return state, metrics, torch.stack(priorities)

@@ -32,9 +32,22 @@ class TrainConfig:
     log_dir: str = "runs/default"
     agent: D4PGConfig = field(default_factory=D4PGConfig)
     seed: int = 0
+    # Where sampled batches live: "host" = host replay, one host-to-device
+    # batch copy per grad step; "device" = the device ring + (with PER) the
+    # device sum tree, K grad steps per megastep dispatch with no host
+    # operand (runtime/megastep.py). "hybrid" waits for ROADMAP A6.
+    replay_placement: str = "host"
+    steps_per_dispatch: int = 1        # K grad steps per megastep dispatch
+    # Fuse the next step's descent into each step's loss kernel (B4).
+    fused_descent: bool = False
+    # Run every megastep dispatch after the first under
+    # torch.cuda.set_sync_debug_mode("error"): a host synchronisation in
+    # the steady-state loop raises.
+    debug_guards: bool = False
 
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
+PLACEMENTS = ("host", "device")
 
 # Per-env presets: categorical support and episode limit.
 ENV_PRESETS = {
@@ -70,3 +83,41 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
         max_episode_steps=config.max_episode_steps or preset["max_episode_steps"],
         replay_capacity=config.replay_capacity or DEFAULT_REPLAY_CAPACITY,
     )
+
+
+def check_placement(config: TrainConfig) -> None:
+    """Refuse a replay placement, dispatch width or descent tier the port
+    cannot run, as ``d4pg_tpu/replay/source.py`` refuses them: an unported
+    feature raises ``NotImplementedError`` naming its ROADMAP item, an
+    illegal combination ``ValueError`` naming every gap."""
+    if config.replay_placement == "hybrid":
+        raise NotImplementedError(
+            "replay_placement='hybrid' (host-descended PER indices for the "
+            "device ring, through the host sample_block) is not ported to "
+            "d4pg_tpu_torch yet (ROADMAP A6)"
+        )
+    if config.replay_placement not in PLACEMENTS:
+        raise ValueError(
+            f"replay_placement must be one of {PLACEMENTS}, got {config.replay_placement!r}"
+        )
+    if config.steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {config.steps_per_dispatch}")
+    if config.replay_placement == "host" and config.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 with replay_placement='host' needs the "
+            "host replay's sample_block, which is not ported to d4pg_tpu_torch "
+            "yet (ROADMAP A5); use replay_placement='device'"
+        )
+    if config.fused_descent:
+        gaps = [
+            (config.replay_placement != "device", "replay_placement='device'"),
+            (not config.prioritized, "prioritized replay"),
+            (config.agent.dist.kind != "categorical", "the categorical critic head"),
+            (config.agent.projection_backend != "fused", "projection_backend='fused'"),
+        ]
+        missing = [what for gap, what in gaps if gap]
+        if missing:
+            raise ValueError(
+                "fused_descent fuses the device PER tree descent into the fused "
+                f"loss kernel; it requires {', '.join(missing)}"
+            )

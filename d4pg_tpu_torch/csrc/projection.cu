@@ -9,8 +9,10 @@
 // The projection is the hat-function gather of _project_tile:
 //   m[b, i] = sum_j p[b, j] * max(0, 1 - |bfrac[b, j] - i|),
 //   bfrac[b, j] = (clip(r[b] + d[b] * z_j, v_min, v_max) - v_min) / delta.
-// All three kernels call the same __device__ project_row, so they cannot
-// drift apart numerically (the Pallas code's no-drift discipline).
+// All three kernels call the same __device__ project_row, and B1f's body is
+// c51::loss_row, which kernel B4 (csrc/fused_step.cu) runs too: the row
+// functions live in c51_rows.cuh, so the kernels cannot drift apart
+// numerically (the Pallas code's no-drift discipline).
 //
 // Layout: one block per batch row, thread i owns destination atom i (block
 // size = A rounded up to a warp; threads past A are masked). The row's p and
@@ -28,65 +30,11 @@
 // shuffles. Packing several rows per block, or fusing into the critic's
 // output layer, is left for a later change.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "c51_rows.cuh"
 
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum / max, result broadcast to every thread. blockDim.x is a
-// multiple of 32; `scratch` holds 32 floats of shared memory. The leading
-// barrier keeps a previous reduction's readers ahead of this one's writers.
-__device__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  return warp_sum(lane < nwarps ? scratch[lane] : 0.f);
-}
-
-__device__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  return warp_max(lane < nwarps ? scratch[lane] : -INFINITY);
-}
-
-// Phi(r + d*z) for one row: returns m[i] for this thread's atom (0 for the
-// masked threads past A). Stages p and bfrac of the row in shared memory.
-__device__ float project_row(const float* __restrict__ p_row, float r, float d,
-                             int A, float v_min, float v_max, float delta,
-                             float* p_s, float* bfrac_s) {
-  for (int j = threadIdx.x; j < A; j += blockDim.x) {
-    const float z = v_min + (float)j * delta;
-    const float tz = fminf(fmaxf(r + d * z, v_min), v_max);
-    bfrac_s[j] = (tz - v_min) / delta;
-    p_s[j] = p_row[j];
-  }
-  __syncthreads();
-  float acc = 0.f;
-  if ((int)threadIdx.x < A) {
-    const float fi = (float)threadIdx.x;
-    for (int j = 0; j < A; ++j) {
-      acc += p_s[j] * fmaxf(0.f, 1.f - fabsf(bfrac_s[j] - fi));
-    }
-  }
-  return acc;
-}
+using namespace c51;
 
 // Shared memory layout of every kernel: p_s[A] | bfrac_s[A] | scratch[32].
 
@@ -104,19 +52,6 @@ __global__ void project_kernel(const float* __restrict__ p,
   if ((int)threadIdx.x < A) m[row + threadIdx.x] = mi;
 }
 
-// Log-softmax pieces of one row of logits: returns q_i - max for the live
-// threads (0 for masked ones) and writes the row's log-sum-exp of the
-// shifted logits to *lse.
-__device__ float shifted_logit(const float* __restrict__ q_row, int A,
-                               float* scratch, float* lse) {
-  const bool live = (int)threadIdx.x < A;
-  const float qi = live ? q_row[threadIdx.x] : -INFINITY;
-  const float mx = block_max(qi, scratch);
-  const float sh = live ? qi - mx : 0.f;
-  *lse = logf(block_sum(live ? expf(sh) : 0.f, scratch));
-  return sh;
-}
-
 // Replaces _fused_loss_kernel (fused_categorical_loss, forward): per row
 // ce = -sum(m * log_softmax(q)), ov = |-sum(m * softmax(q))|; m stays in
 // registers.
@@ -128,21 +63,7 @@ __global__ void fused_loss_fwd_kernel(const float* __restrict__ q,
                                       float* __restrict__ ov, int A,
                                       float v_min, float v_max, float delta) {
   extern __shared__ float smem[];
-  float* scratch = smem + 2 * A;
-  const int b = blockIdx.x;
-  const size_t row = (size_t)b * A;
-  const bool live = (int)threadIdx.x < A;
-  const float m = project_row(p + row, r[b], d[b], A, v_min, v_max, delta,
-                              smem, smem + A);
-  float lse;
-  const float sh = shifted_logit(q + row, A, scratch, &lse);
-  const float logp = sh - lse;
-  const float ce_sum = block_sum(live ? m * logp : 0.f, scratch);
-  const float ov_sum = block_sum(live ? m * expf(logp) : 0.f, scratch);
-  if (threadIdx.x == 0) {
-    ce[b] = -ce_sum;
-    ov[b] = fabsf(-ov_sum);
-  }
+  loss_row(q, p, r, d, ce, ov, blockIdx.x, A, v_min, v_max, delta, smem);
 }
 
 // Replaces _fused_loss_grad_kernel (the VJP of fused_categorical_loss), with
@@ -178,9 +99,6 @@ __global__ void fused_loss_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-inline int threads_for(int A) { return ((A + 31) / 32) * 32; }
-inline size_t smem_for(int A) { return (2 * (size_t)A + 32) * sizeof(float); }
-
 }  // namespace
 
 // C entry points. Each launches on `stream` (PyTorch's current stream),
@@ -192,8 +110,9 @@ extern "C" int c51_project(const float* p, const float* r, const float* d,
                            float* m, int B, int A, float v_min, float v_max,
                            float delta, void* stream) {
   if (B > 0) {
-    project_kernel<<<B, threads_for(A), smem_for(A), (cudaStream_t)stream>>>(
-        p, r, d, m, A, v_min, v_max, delta);
+    project_kernel<<<B, c51::threads_for(A), c51::smem_for(A),
+                     (cudaStream_t)stream>>>(p, r, d, m, A, v_min, v_max,
+                                             delta);
   }
   return (int)cudaGetLastError();
 }
@@ -203,7 +122,7 @@ extern "C" int c51_fused_loss_fwd(const float* q, const float* p,
                                   float* ov, int B, int A, float v_min,
                                   float v_max, float delta, void* stream) {
   if (B > 0) {
-    fused_loss_fwd_kernel<<<B, threads_for(A), smem_for(A),
+    fused_loss_fwd_kernel<<<B, c51::threads_for(A), c51::smem_for(A),
                             (cudaStream_t)stream>>>(q, p, r, d, ce, ov, A,
                                                     v_min, v_max, delta);
   }
@@ -216,7 +135,7 @@ extern "C" int c51_fused_loss_bwd(const float* q, const float* p,
                                   float* dq, int B, int A, float v_min,
                                   float v_max, float delta, void* stream) {
   if (B > 0) {
-    fused_loss_bwd_kernel<<<B, threads_for(A), smem_for(A),
+    fused_loss_bwd_kernel<<<B, c51::threads_for(A), c51::smem_for(A),
                             (cudaStream_t)stream>>>(q, p, r, d, g_ce, g_ov, dq,
                                                     A, v_min, v_max, delta);
   }

@@ -1,5 +1,7 @@
 """Tensor ops of the port: categorical math, the CUDA projection kernels,
-Polyak, noise and n-step returns."""
+Polyak, noise and n-step returns. The device-PER descent kernel and the
+fused loss + descent kernel live in ``ops.cuda_tree`` and
+``ops.cuda_fused_step``."""
 
 from d4pg_tpu_torch.ops.categorical import (
     CategoricalSupport,

@@ -1,0 +1,159 @@
+"""CUDA kernel B4: the categorical loss of one grad step plus the tree
+descent for the next step's prefixes, in one launch.
+
+Counterpart of ``d4pg_tpu/ops/pallas_fused_step.py``. The hand-written
+kernel ``c51_fused_step`` (``csrc/fused_step.cu``) replaces the Pallas
+``_fused_step_kernel`` behind ``fused_categorical_loss_descent``: its
+first B blocks run kernel B1f's row function, the rest run kernel B3's
+count on the chunk sums of the dispatch's one B3 call. Both halves are the
+shared device bodies, so on the same inputs ce/ov equal B1f's and the
+indices equal B3's, bit for bit.
+
+:func:`fused_categorical_loss_descent` is the ``torch.autograd.Function``
+around it; its backward is kernel B1b (``cuda_projection.fused_loss_bwd``),
+as the Pallas VJP reuses ``_fused_loss_grad_kernel``: the descent takes no
+gradient.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs :func:`fused_step_plain` (the plain fused loss and the
+plain descent).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from d4pg_tpu_torch.ops import _build
+from d4pg_tpu_torch.ops import cuda_projection as cp
+from d4pg_tpu_torch.ops import cuda_tree
+from d4pg_tpu_torch.ops.categorical import CategoricalSupport
+
+# Kernel launches of the wrapper; chip_smoke.py zeroes the count before
+# driving the learner and reads it after.
+LAUNCHES = {"fused_step": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "c51_fused_step": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _I, _P, _I, _P, _P, _P,
+    ],
+}
+_fns: dict = {}
+
+
+def fused_step_plain(
+    support: CategoricalSupport, q, p, r, d, next_prefixes, leaves
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ce, ov) of :func:`cuda_projection.fused_loss_plain` and the int32
+    indices of :func:`cuda_tree.find_prefix_plain`."""
+    with torch.no_grad():
+        ce, ov = cp.fused_loss_plain(support, q, p, r, d)
+    return ce, ov, cuda_tree.find_prefix_plain(leaves, next_prefixes)
+
+
+def fused_step_fwd(
+    support: CategoricalSupport,
+    q: torch.Tensor,
+    p: torch.Tensor,
+    r: torch.Tensor,
+    d: torch.Tensor,
+    next_prefixes: torch.Tensor,
+    leaves: torch.Tensor,
+    chunk_sums: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ce [B], ov [B], next_idx [B] int32). CUDA tensors: the
+    ``c51_fused_step`` kernel, which needs ``chunk_sums`` from
+    :func:`cuda_tree.find_prefix` on the same ``leaves``."""
+    B, A, device = cp._validate(
+        support, {"q": q, "p": p}, {"r": r, "d": d, "next_prefixes": next_prefixes}
+    )
+    cuda_tree._check_leaves(leaves)
+    if leaves.device != device:
+        raise ValueError(f"leaves are on {leaves.device}, the batch on {device}")
+    if device.type != "cuda":
+        return fused_step_plain(support, q, p, r, d, next_prefixes, leaves)
+    L = leaves.numel()
+    if chunk_sums is None or tuple(chunk_sums.shape) != (cuda_tree.num_chunks(L),):
+        raise ValueError(
+            "the CUDA fused step needs the chunk sums that cuda_tree.find_prefix "
+            f"returned for these {L} leaves"
+        )
+    cp._check("chunk_sums", chunk_sums, (cuda_tree.num_chunks(L),), device)
+    ce = torch.empty((B,), device=device, dtype=torch.float32)
+    ov = torch.empty((B,), device=device, dtype=torch.float32)
+    idx = torch.empty((B,), device=device, dtype=torch.int32)
+    if B == 0:
+        return ce, ov, idx
+    if not _fns:
+        _fns.update(_build.bind("fused_step", _SIGNATURES))
+    _build.launch(
+        _fns["c51_fused_step"], device, q.data_ptr(), p.data_ptr(), r.data_ptr(),
+        d.data_ptr(), ce.data_ptr(), ov.data_ptr(), B, A, *cp._scalars(support),
+        leaves.data_ptr(), L, chunk_sums.data_ptr(), chunk_sums.numel(),
+        next_prefixes.data_ptr(), idx.data_ptr(),
+    )
+    LAUNCHES["fused_step"] += 1
+    return ce, ov, idx
+
+
+class _FusedStepLoss(torch.autograd.Function):
+    """Forward: kernel B4. Backward: kernel B1b, which recomputes Φ, so the
+    only saved tensors are the loss inputs; the indices take no gradient."""
+
+    @staticmethod
+    def forward(ctx, support, q, p, r, d, next_prefixes, leaves, chunk_sums):
+        ctx.support = support
+        ctx.save_for_backward(q, p, r, d)
+        ce, ov, idx = fused_step_fwd(support, q, p, r, d, next_prefixes, leaves, chunk_sums)
+        ctx.mark_non_differentiable(idx)
+        return ce, ov, idx
+
+    @staticmethod
+    def backward(ctx, g_ce, g_ov, _g_idx):
+        q, p, r, d = ctx.saved_tensors
+        zeros = None
+        if g_ce is None or g_ov is None:
+            zeros = torch.zeros_like(r)
+        dq = cp.fused_loss_bwd(
+            ctx.support, q, p, r, d,
+            (zeros if g_ce is None else g_ce).contiguous(),
+            (zeros if g_ov is None else g_ov).contiguous(),
+        )
+        return None, dq, None, None, None, None, None, None
+
+
+def fused_categorical_loss_descent(
+    support: CategoricalSupport,
+    pred_logits: torch.Tensor,
+    target_probs: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    next_prefixes: torch.Tensor,
+    leaves: torch.Tensor,
+    chunk_sums: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`cuda_projection.fused_categorical_loss` for this grad step,
+    plus the descent of the NEXT step's prefixes over ``leaves``.
+
+    Returns (ce [B], overlap [B], next_idx [B] int32); next_idx is
+    ``min(count, L − 1)``, before the caller's fill clamp. Gradients flow
+    to ``pred_logits`` only.
+    """
+    return _FusedStepLoss.apply(
+        support,
+        pred_logits.contiguous(),
+        target_probs.detach().contiguous(),
+        rewards.detach().contiguous(),
+        discounts.detach().contiguous(),
+        next_prefixes.detach().contiguous(),
+        leaves.detach(),
+        chunk_sums,
+    )

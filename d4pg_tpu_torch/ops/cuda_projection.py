@@ -59,16 +59,9 @@ _fns: dict = {}
 
 def _kernel(name: str):
     """The ctypes entry point, built and loaded at first use."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("projection")
-        for sym, argtypes in _SIGNATURES.items():
-            f = getattr(lib, sym)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-            _fns[sym] = f
-        fn = _fns[name]
-    return fn
+    if not _fns:
+        _fns.update(_build.bind("projection", _SIGNATURES))
+    return _fns[name]
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -105,10 +98,7 @@ def _launch(name: str, counter: str, device: torch.device, B: int, *args) -> Non
     CUDA refused it. An empty batch launches nothing and counts nothing."""
     if B == 0:
         return
-    with torch.cuda.device(device):
-        status = _kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {status}")
+    _build.launch(_kernel(name), device, *args)
     LAUNCHES[counter] += 1
 
 

@@ -1,0 +1,106 @@
+"""CUDA kernel B3: the device-PER prefix descent.
+
+Counterpart of ``d4pg_tpu/ops/pallas_tree.py``. The hand-written kernel
+``per_tree_find_prefix`` (``csrc/per_tree.cu``, design in
+``csrc/per_tree.cuh``) replaces the Pallas ``_count_kernel`` /
+``count_tile`` behind ``find_prefix_pallas``::
+
+    idx = min(#{ i : cumsum(leaves)[i] <= prefix }, L - 1)
+
+which is the segment tree's descent with its ``>=`` rule (a prefix on a
+cumsum boundary selects the next leaf; zero-mass leaves are skipped).
+
+:func:`find_prefix` returns the indices and the per-chunk leaf sums that
+its first pass computed: the fused-descent megastep hands those to every
+kernel-B4 launch of the dispatch (``ops/cuda_fused_step.py``), whose count
+blocks run the same device code, so B4's indices equal B3's.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs :func:`find_prefix_plain`, which is what the CPU tests hold
+against the JAX package's descent and what ``chip_smoke.py`` holds the
+kernel against on the card. The two sum the leaves in different orders:
+see ``csrc/per_tree.cuh`` for the stated tolerance at L = 2^20.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from d4pg_tpu_torch.ops import _build
+
+CHUNK = 1024  # leaves per chunk: per_tree::kChunk in csrc/per_tree.cuh
+MAX_CHUNKS = 12288  # chunk offsets staged in 48 KB of shared memory
+
+# Kernel launches per wrapper call (both passes are one call); chip_smoke.py
+# zeroes the count before driving the learner and reads it after.
+LAUNCHES = {"tree_count": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"per_tree_find_prefix": [_P, _I, _P, _I, _P, _I, _P, _P]}
+_fns: dict = {}
+
+
+def num_chunks(L: int) -> int:
+    return -(-L // CHUNK)
+
+
+def _check_leaves(leaves: torch.Tensor) -> None:
+    if leaves.dim() != 1 or leaves.numel() < 1:
+        raise ValueError(f"leaves must be a non-empty [L] vector, got {tuple(leaves.shape)}")
+    if leaves.dtype != torch.float32:
+        raise TypeError(f"leaves must be float32, got {leaves.dtype}")
+    if not leaves.is_contiguous():
+        raise ValueError("leaves must be contiguous")
+    if leaves.is_cuda and num_chunks(leaves.numel()) > MAX_CHUNKS:
+        raise ValueError(
+            f"the CUDA descent takes at most {MAX_CHUNKS * CHUNK} leaves, got {leaves.numel()}"
+        )
+
+
+def _check_prefixes(prefixes: torch.Tensor, device: torch.device) -> None:
+    if prefixes.device != device:
+        raise ValueError(f"prefixes are on {prefixes.device}, leaves on {device}")
+    if prefixes.dtype != torch.float32:
+        raise TypeError(f"prefixes must be float32, got {prefixes.dtype}")
+
+
+def find_prefix_plain(leaves: torch.Tensor, prefixes: torch.Tensor) -> torch.Tensor:
+    """#{i : cumsum(leaves)[i] <= prefix} clamped to L − 1, as int32 of
+    ``prefixes``' shape: ``searchsorted(cumsum, right=True)``."""
+    cs = torch.cumsum(leaves, 0)
+    idx = torch.searchsorted(cs, prefixes.reshape(-1).contiguous(), right=True)
+    return idx.clamp_max(leaves.numel() - 1).to(torch.int32).reshape(prefixes.shape)
+
+
+def find_prefix(
+    leaves: torch.Tensor, prefixes: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Leaf indices (int32, ``prefixes``' shape) and the chunk sums
+    ([num_chunks(L)] float32, ``None`` on the CPU) of ``leaves`` [L].
+    CUDA tensors: the ``per_tree_find_prefix`` kernel (one launch count per
+    call). An empty ``prefixes`` launches nothing and counts nothing."""
+    _check_leaves(leaves)
+    _check_prefixes(prefixes, leaves.device)
+    if not leaves.is_cuda:
+        return find_prefix_plain(leaves, prefixes), None
+    L = leaves.numel()
+    flat = prefixes.reshape(-1).contiguous()
+    idx = torch.empty(flat.shape, device=leaves.device, dtype=torch.int32)
+    sums = torch.empty((num_chunks(L),), device=leaves.device, dtype=torch.float32)
+    if flat.numel():
+        if not _fns:
+            _fns.update(_build.bind("per_tree", _SIGNATURES))
+        _build.launch(
+            _fns["per_tree_find_prefix"], leaves.device, leaves.data_ptr(), L,
+            sums.data_ptr(), sums.numel(), flat.data_ptr(), flat.numel(), idx.data_ptr(),
+        )
+        LAUNCHES["tree_count"] += 1
+    return idx.reshape(prefixes.shape), sums

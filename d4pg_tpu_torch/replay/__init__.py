@@ -1,5 +1,7 @@
-"""Host-side experience storage: the port's own NumPy copies of the JAX
-package's uniform ring, PER segment trees and schedules."""
+"""Experience storage. Exported here, the host side: the port's own NumPy
+copies of the JAX package's uniform ring, PER segment trees and
+schedules. The device side is ``replay.device_ring`` (the ring mirrored
+onto the card) and ``replay.device_per`` (the device PER sum tree)."""
 
 from d4pg_tpu_torch.replay.per import PrioritizedReplayBuffer, SampledIndices
 from d4pg_tpu_torch.replay.schedules import linear_schedule, noise_scale_schedule

@@ -1,8 +1,9 @@
 """Uniform ring-buffer replay on preallocated NumPy arrays.
 
 The port's own copy of ``d4pg_tpu/replay/uniform.py``, cut to what the
-host-placement learner uses: columnar float32 storage, O(1) vectorized
-batched writes, gather-based sampling and per-slot write generations.
+learner uses: columnar float32 storage, O(1) vectorized batched writes,
+gather-based sampling, per-slot write generations and the monotone
+``total_added`` counter the device-ring mirror diffs against.
 Snapshots and uint8 pixel storage wait for ROADMAP A5 and A10.
 
 Transitions carry an explicit per-sample ``discount`` = γ^m·(1−terminal)
@@ -43,9 +44,19 @@ class ReplayBuffer:
         self._gen = np.zeros((capacity,), np.int64)
         self._pos = 0
         self._size = 0
+        # Monotone lifetime write counter (never wraps): the device-ring
+        # mirror (replay/device_ring.py) diffs it to find the slots
+        # written since its last flush. Write j (0-based) landed at slot
+        # j % capacity.
+        self._total_added = 0
 
     def __len__(self) -> int:
         return self._size
+
+    @property
+    def total_added(self) -> int:
+        """Monotone count of rows ever written (including overwrites)."""
+        return self._total_added
 
     def add_batch(self, t: Transition) -> np.ndarray:
         """Insert a batch of transitions; returns the slot indices written."""
@@ -60,6 +71,7 @@ class ReplayBuffer:
         self._gen[idx] += 1
         self._pos = int((self._pos + n) % self.capacity)
         self._size = int(min(self._size + n, self.capacity))
+        self._total_added += n
         return idx
 
     def gather(self, idx: np.ndarray) -> Mapping[str, np.ndarray]:

@@ -8,9 +8,10 @@ metrics, the throughput counters, the eval scalars and the cumulative
 number. TensorBoard is not written; NVTX ranges wait for ROADMAP A11.
 
 The stage timers read the host clock. On the card the learner's work is
-asynchronous, so ``train_dispatch`` measures the enqueue, and the wait for
-the device lands in whichever stage next synchronizes (the priority
-write-back's fetch, or the next collection's copy to the host).
+asynchronous, so ``train_dispatch`` and ``megastep_dispatch`` measure the
+enqueue, and the wait for the device lands in whichever stage next
+synchronizes (the priority write-back's fetch, or the next collection's
+copy to the host).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ class StageTimers:
         "h2d_stage",           # pinned copy + host→device transfer start
         "train_dispatch",      # train_step enqueue
         "priority_writeback",  # device→host priority fetch + tree update
+        "ingest_chunk",        # device placement: host ring → device ring flush
+        "megastep_dispatch",   # device placement: K-step megastep enqueue
     )
 
     def __init__(self):

@@ -1,7 +1,7 @@
-"""The host-placement learner loop (counterpart of the pure-env sync path of
-``d4pg_tpu/runtime/trainer.py``).
+"""The learner loop (counterpart of the pure-env sync path of
+``d4pg_tpu/runtime/trainer.py``), with replay on the host or on the device.
 
-One loop, on one device:
+One loop, on one device. With ``replay_placement="host"``:
 
 - warmup: collect at noise scale 3.0 until ``warmup_steps`` env steps are
   in replay and it can serve a batch;
@@ -17,11 +17,23 @@ One loop, on one device:
   step it just launched;
 - eval and a metrics row at every ``eval_interval`` crossing and at the end.
 
+With ``replay_placement="device"`` (the JAX trainer's ``:427-563`` and
+``_megastep_dispatch_once``) the host ``ReplayBuffer`` stays the
+write-side source of truth, without host trees; each iteration budgets
+collection for K = ``steps_per_dispatch`` grad steps, flushes the new
+rows into the device ring (``ingest_chunk``; with PER the flush's
+``tree_hook`` seeds the same slots into the device tree), then makes ONE
+megastep dispatch of K grad steps (``megastep_dispatch``) whose draws,
+IS weights and priority write-back stay on the device. ``total_steps`` is
+rounded up to whole dispatches. Under ``debug_guards`` every dispatch
+after the first runs under ``torch.cuda.set_sync_debug_mode("error")``.
+
 Checkpoint, resume and preemption wait for ROADMAP A5.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -31,7 +43,7 @@ import torch
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.agent import create_train_state, make_noise, train_step
 from d4pg_tpu_torch.agent.state import check_supported
-from d4pg_tpu_torch.config import TrainConfig, apply_env_preset
+from d4pg_tpu_torch.config import TrainConfig, apply_env_preset, check_placement
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
@@ -39,6 +51,9 @@ from d4pg_tpu_torch.replay import (
     Transition,
     noise_scale_schedule,
 )
+from d4pg_tpu_torch.replay.device_per import DevicePerSync
+from d4pg_tpu_torch.replay.device_ring import DeviceRingSync, device_ring_init
+from d4pg_tpu_torch.runtime import megastep
 from d4pg_tpu_torch.runtime.collect import make_segment_collector
 from d4pg_tpu_torch.runtime.evaluator import evaluate
 from d4pg_tpu_torch.runtime.metrics import MetricsLogger, StageTimers, interval_crossed
@@ -51,13 +66,19 @@ class Trainer:
         self.device = resolve_device(device)
         config = apply_env_preset(config)
         check_supported(config.agent)
+        check_placement(config)
         self.config = config
         agent_cfg = config.agent
         self.env = make_env(config.env)
         self.env.max_episode_steps = config.max_episode_steps
 
         obs_dim, act_dim = agent_cfg.obs_dim, agent_cfg.action_dim
-        if config.prioritized:
+        self.on_device = config.replay_placement == "device"
+        if self.on_device:
+            # the write-side source of truth: a plain host ring, no host
+            # trees (with PER the priorities live in the device tree)
+            self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim)
+        elif config.prioritized:
             self.buffer = PrioritizedReplayBuffer(
                 config.replay_capacity, obs_dim, act_dim,
                 alpha=agent_cfg.per_alpha, beta0=agent_cfg.per_beta0,
@@ -81,6 +102,26 @@ class Trainer:
             config.num_envs, self._collect_gen, self.device
         )
         self.noise_states = noise_fns[0]()
+
+        self._ring = self._ring_sync = self._dev_per = self._megastep = None
+        self._dispatches = 0
+        if self.on_device:
+            self._ring = device_ring_init(config.replay_capacity, obs_dim, act_dim, self.device)
+            self._ring_sync = DeviceRingSync(self.buffer)
+            K, B = config.steps_per_dispatch, config.batch_size
+            if config.prioritized:
+                self._dev_per = DevicePerSync(
+                    config.replay_capacity, agent_cfg.per_alpha, device=self.device
+                )
+                self._ring_sync.tree_hook = self._dev_per.on_chunk
+                if config.fused_descent:
+                    self._megastep = megastep.make_megastep_device_per_fused(agent_cfg, K, B)
+                else:
+                    self._megastep = megastep.make_megastep_device_per(agent_cfg, K, B)
+            else:
+                self._megastep = megastep.make_megastep_uniform(agent_cfg, K, B)
+            # the megastep's draws come from their own device generator
+            self._megastep_gen = torch.Generator(self.device).manual_seed(config.seed + 3)
 
         self.env_steps = 0
         self.grad_steps = 0
@@ -157,34 +198,68 @@ class Trainer:
             self.buffer.update_priorities(indices, host.numpy())
 
     # ------------------------------------------------------------------ train
+    def _dispatch_guard(self):
+        """``set_sync_debug_mode("error")`` around a steady-state megastep
+        dispatch under ``debug_guards`` (the first dispatch builds and loads
+        the kernels, which may synchronise)."""
+        if not (self.config.debug_guards and self.device.type == "cuda" and self._dispatches):
+            return contextlib.nullcontext()
+        return _sync_debug_error()
+
+    def _megastep_dispatch_once(self) -> dict:
+        """Flush new rows into the device ring (and tree), then one megastep
+        dispatch of K grad steps; returns its K-step mean metrics."""
+        with self.timers.stage("ingest_chunk"):
+            self._ring_sync.flush(self._ring)
+        tree = self._dev_per.tree if self._dev_per is not None else None
+        with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
+            metrics = self._megastep(self.state, self._ring, tree, self._megastep_gen)
+        self._dispatches += 1
+        return metrics
+
+    def _host_step(self, pending):
+        """Sample on the host, one ``train_step``, and the one-step-lag PER
+        write-back; returns (metrics, the new pending write-back)."""
+        cfg = self.config
+        indices, dev_batch = self._sample_staged()
+        with self.timers.stage("train_dispatch"):
+            _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
+        if cfg.prioritized:
+            if pending is not None:
+                self._write_back(pending)
+            pending = (indices, self._start_fetch(priorities))
+        return metrics, pending
+
     def train(self, total_steps: Optional[int] = None) -> dict:
-        """Warm up, then run ``total_steps`` grad steps; returns the last
-        metrics row."""
+        """Warm up, then run ``total_steps`` grad steps (rounded up to whole
+        dispatches of K); returns the last metrics row."""
         cfg = self.config
         total = total_steps or cfg.total_steps
+        K = cfg.steps_per_dispatch
+        if total % K:
+            total = -(-total // K) * K
+            print(f"total_steps rounded up to {total} (multiple of steps_per_dispatch={K})",
+                  flush=True)
         self.warmup()
         t_start = time.monotonic()
         env_steps_start = self.env_steps
         per_collect = cfg.num_envs * SEGMENT_LEN
         collect_budget = 0.0
-        pending = None  # (indices, priority fetch) of the previous step
+        pending = None  # host PER: (indices, priority fetch) of the previous step
         last: dict = {}
         done = 0
         while done < total:
-            collect_budget += cfg.env_steps_per_train_step
+            collect_budget += cfg.env_steps_per_train_step * K
             while collect_budget >= per_collect:
                 self._collect_once()
                 collect_budget -= per_collect
-            indices, dev_batch = self._sample_staged()
-            with self.timers.stage("train_dispatch"):
-                _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
-            if cfg.prioritized:
-                if pending is not None:
-                    self._write_back(pending)
-                pending = (indices, self._start_fetch(priorities))
-            done += 1
-            self.grad_steps += 1
-            if interval_crossed(done - 1, done, cfg.eval_interval) or done >= total:
+            if self.on_device:
+                metrics = self._megastep_dispatch_once()
+            else:
+                metrics, pending = self._host_step(pending)
+            done += K
+            self.grad_steps += K
+            if interval_crossed(done - K, done, cfg.eval_interval) or done >= total:
                 last = self._periodic(metrics, t_start, done, env_steps_start)
         if pending is not None:
             self._write_back(pending)
@@ -228,3 +303,13 @@ class Trainer:
 
     def close(self) -> None:
         self.metrics.close()
+
+
+@contextlib.contextmanager
+def _sync_debug_error():
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)

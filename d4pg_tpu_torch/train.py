@@ -9,6 +9,8 @@ is refused by argparse.
 
 Examples:
     python -m d4pg_tpu_torch.train --env pendulum --total-steps 50000
+    python -m d4pg_tpu_torch.train --env pendulum --replay-placement device \
+        --p-replay --steps-per-dispatch 8 --fused-descent
     python -m d4pg_tpu_torch.train --device cpu --hidden-sizes 32,32 \
         --num-envs 2 --bsize 32 --warmup 128 --total-steps 20
 """
@@ -33,10 +35,8 @@ UNPORTED_FLAGS = {
     "--her": "hindsight relabeling (ROADMAP A10)",
     "--obs-norm": "observation normalization (ROADMAP A10)",
     "--async-collect": "asynchronous collection (ROADMAP A5)",
-    "--steps-per-dispatch": "multi-step dispatch (ROADMAP A6)",
     "--prefetch": "the prefetch double buffer (ROADMAP A5)",
-    "--replay-placement": "device replay placement (ROADMAP A6)",
-    "--fused-descent": "the fused descent megastep (ROADMAP A6, kernel B4)",
+    "--ingest-prefetch": "the double-buffered device ring ingest (ROADMAP A6)",
     "--dp": "data parallelism (ROADMAP A7)",
     "--fleet-listen": "the collection fleet (ROADMAP A11)",
     "--resume": "checkpoint and resume (ROADMAP A5)",
@@ -82,6 +82,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "the CE in torch")
     p.add_argument("--total-steps", type=int, default=100_000,
                    help="learner grad steps")
+    p.add_argument("--replay-placement", choices=["host", "device", "hybrid"],
+                   default="host",
+                   help="host = host replay, one batch copy per grad step; "
+                        "device = device ring (+ device PER tree) and one "
+                        "megastep of K grad steps per dispatch; hybrid is "
+                        "not ported yet (ROADMAP A6)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="K grad steps per megastep dispatch (device placement)")
+    p.add_argument("--fused-descent", action="store_true",
+                   help="fuse each step's loss with the next step's descent "
+                        "(CUDA kernel B4); needs --replay-placement device, "
+                        "--p-replay and --projection fused")
+    p.add_argument("--debug-guards", action="store_true",
+                   help="run every megastep dispatch after the first under "
+                        "torch.cuda.set_sync_debug_mode('error')")
     p.add_argument("--env-steps-per-train-step", type=float, default=1.0)
     p.add_argument("--eval-interval", type=int, default=2_000)
     p.add_argument("--eval-episodes", type=int, default=10)
@@ -149,6 +164,10 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         log_dir=log_dir,
         agent=agent,
         seed=args.seed,
+        replay_placement=args.replay_placement,
+        steps_per_dispatch=args.steps_per_dispatch,
+        fused_descent=args.fused_descent,
+        debug_guards=args.debug_guards,
     )
 
 

@@ -272,3 +272,26 @@ def test_exploration_mixture_replaces_whole_action_vectors():
     assert 0.22 < replaced.float().mean() < 0.28
     assert out.abs().max() <= 1.0
     assert torch.equal(exploration_mixture(D4PGConfig(), torch.Generator(), a), a)
+
+
+def test_build_hash_covers_included_headers(tmp_path):
+    """A library's name hashes its source AND every csrc header it
+    includes, so an edited shared header rebuilds every kernel that uses
+    it and no other."""
+    import shutil
+
+    from d4pg_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    names = ("projection", "per_tree", "fused_step")
+    before = {n: _build._target(n, csrc)[1].name for n in names}
+    assert before == {n: _build._target(n)[1].name for n in names}
+    (csrc / "per_tree.cuh").write_text((csrc / "per_tree.cuh").read_text() + "\n// edit\n")
+    after = {n: _build._target(n, csrc)[1].name for n in names}
+    assert after["projection"] == before["projection"]
+    assert after["per_tree"] != before["per_tree"]
+    assert after["fused_step"] != before["fused_step"]
+    (csrc / "c51_rows.cuh").write_text((csrc / "c51_rows.cuh").read_text() + "\n// edit\n")
+    assert _build._target("projection", csrc)[1].name != before["projection"]
+    assert _build._target("fused_step", csrc)[1].name != after["fused_step"]
