@@ -13,23 +13,29 @@ JSON line:
 2. ``kernel``: each hand-written kernel against its plain PyTorch version
    on the card, at B=256 and a ragged B=200 with A=51 atoms, on the
    Pendulum support [-300, 0] and on [-10, 10], with terminal rows and
-   rows whose targets clip at v_min and v_max; then, at the learner's
-   shape (B=256, A=51, Pendulum), the kernel's device time (100 launches
-   in a CUDA graph, CUDA events around its replays), its eager per-call
-   time (median over 100 calls), the same two for the plain version, and
-   the kernel's bound.
+   rows whose targets clip at v_min and v_max; kernel B1f also at every
+   geometry B in {1, 7, 200, 256} x A in {2, 51, 101, 1024} (rows that do
+   not fill a block, atoms that do not fill a warp, several atoms a lane);
+   then, at the learner's shape (B=256, A=51, Pendulum), the kernel's
+   device time (100 launches in a CUDA graph, CUDA events around its
+   replays), its eager per-call time (median over 100 calls), the same two
+   for the plain version, the kernel's bound, and ``floor_ms``: the device
+   time of one one-launch PyTorch op (``zero_()`` of a one-element tensor)
+   in the same harness, the part of a kernel's time that is launch.
 3. ``tree_kernel``: kernel B3 (the PER prefix descent) against its plain
    version (``cumsum`` + ``searchsorted``): exactly, at L = 64 to 2^20
    and n = 2048 and 256 draws, on integer leaves (every summation order
    exact) with zero-mass runs, a zero tail and prefixes on the cumsum
-   boundaries, B4's indices too at L = 2^20; on the main path's real-valued
+   boundaries, B4's indices too at L = 2^20, and B3's stored chunk offsets
+   ``torch.equal`` to the plain ones; on the main path's real-valued
    leaves at L = 2^20 (n = 2048 and 256 stratified draws, as the megastep
    makes them) every index must be a valid answer under a float64 cumsum
-   within the tolerance stated in ``csrc/per_tree.cuh``, and the draws that
-   differ from the plain version are counted. Kernel B4 (loss + next
-   descent) at B=256 and 200, both supports, terminal and clipping rows:
-   its ce/ov ``torch.equal`` to B1f's and its indices to B3's. Then the
-   same timings as phase 2 for both, plus the library call
+   within the tolerance stated in ``csrc/per_tree.cuh``, the offsets within
+   that tolerance of a float64 sum, and the draws that differ from the
+   plain version are counted. Kernel B4 (loss + next descent) at
+   B in {1, 7, 200, 256} x A in {51, 101}, both supports, terminal and
+   clipping rows: its ce/ov ``torch.equal`` to B1f's and its indices to
+   B3's. Then the same timings as phase 2 for both, plus the library call
    (``torch.searchsorted(torch.cumsum(...))``) for B3.
 4. ``step_parity``: one full-width ``train_step`` on the card (through the
    kernels) against the same step on the CPU (plain versions).
@@ -75,10 +81,16 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 
-# Kernel vs plain version on the card: both sum 51 float32 terms per
+# Kernel vs plain version on the card: both sum the same float32 terms per
 # output, in another order (the plain projection is a batched matmul), so
 # results agree to a few float32 ulps of values up to ~10.
 ATOL, RTOL = 2e-5, 1e-5
+
+# B1f against its plain version at these (B, A); B4 at the A of
+# GEOMETRY_ATOMS_B4, L = 2^20.
+GEOMETRY_BATCHES = (1, 7, 200, 256)
+GEOMETRY_ATOMS = (2, 51, 101, 1024)
+GEOMETRY_ATOMS_B4 = (51, 101)
 
 GRAD_STEPS = 1000            # fused run
 GRAD_STEPS_PROJECTION = 200  # projection-only run
@@ -169,6 +181,16 @@ def device_ms(fn, n: int = 100, replays: int = 11) -> float:
     return statistics.median(times)
 
 
+def floor_ms() -> float:
+    """Device time of one one-launch PyTorch op, ``zero_()`` of a
+    one-element CUDA tensor, in the harness of :func:`device_ms`: the part
+    of a small kernel's time that is launch, not work."""
+    import torch
+
+    one = torch.empty(1, device="cuda")
+    return device_ms(one.zero_)
+
+
 def make_inputs(B: int, A: int, support, gen, device):
     """Logits, target probabilities, rewards and discounts with terminal
     rows (d=0) and rows whose targets clip at v_min and at v_max."""
@@ -189,7 +211,7 @@ def make_inputs(B: int, A: int, support, gen, device):
     return q, p, r.contiguous(), d.contiguous(), g_ce, g_ov
 
 
-def kernel_phase(cp, make_support):
+def kernel_phase(cp, make_support, floor: float):
     """Kernel vs plain on every case; timings at the learner's shape."""
     import torch
 
@@ -228,6 +250,20 @@ def kernel_phase(cp, make_support):
             )
             emit({"phase": "kernel", "case": case, "max_abs_err": dict(err), "ok": True})
 
+    # B1f's warp-per-row geometry: a block of R rows that B does not fill,
+    # atoms that do not fill a warp, 1 to 32 atoms a lane.
+    for A_g in GEOMETRY_ATOMS:
+        for sname, (lo, hi) in (("pendulum", (-300.0, 0.0)), ("sym10", (-10.0, 10.0))):
+            support = make_support(lo, hi, A_g)
+            for B in GEOMETRY_BATCHES:
+                case = f"B1f geometry B={B} A={A_g} support={sname}"
+                q, p, r, d, _, _ = make_inputs(B, A_g, support, gen, device)
+                ce, ov = cp.fused_loss_fwd(support, q, p, r, d)
+                torch.cuda.synchronize()
+                compare("c51_fused_loss_fwd", [ce, ov], list(cp.fused_loss_plain(support, q, p, r, d)), case)
+        emit({"phase": "kernel", "case": f"B1f geometry A={A_g} B={list(GEOMETRY_BATCHES)}",
+              "max_abs_err": err["c51_fused_loss_fwd"], "ok": True})
+
     # Timing at the learner's shape.
     B, support = 256, supports["pendulum"]
     q, p, r, d, g_ce, g_ov = make_inputs(B, A, support, gen, device)
@@ -265,6 +301,7 @@ def kernel_phase(cp, make_support):
             "plain_call_ms": call_ms(pfn),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "floor_ms": floor,
             "bytes": nbytes,
             "ops": ops,
         }
@@ -371,13 +408,6 @@ def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str,
     return launches
 
 
-def chain_tolerance(L: int, chunk: int) -> int:
-    """The longest chain of float32 adds behind one of kernel B3's cumsum
-    values (csrc/per_tree.cuh, "Numerics")."""
-    nchunks = -(-L // chunk)
-    return 2 * (-(-nchunks // 32)) + 5 + chunk // 32 + 5 + 1
-
-
 def valid_under_f64(leaves, prefixes, idx, chain: int):
     """Per draw: is ``idx`` a valid count for ``prefix`` under the float64
     cumsum of the same leaves, within chain·2^-24·total either side?"""
@@ -421,7 +451,7 @@ def exact_prefixes(leaves, n: int, gen):
 
 
 def leaves_needed(idx, chunk: int) -> int:
-    """Leaves a count must read given the chunk sums: in every chunk a draw
+    """Leaves a count must read given the chunk offsets: in every chunk a draw
     lands in, those from the chunk's start to the furthest draw's index."""
     import torch
 
@@ -444,7 +474,7 @@ def main_path_leaves(gen, device):
     return leaves
 
 
-def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
+def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
     """Kernels B3 and B4 against their plain versions and each other;
     timings at the main path's shapes."""
     import torch
@@ -465,17 +495,19 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
         leaves = integer_leaves(L, gen, device)
         for n in (K * 256, 256):
             pre = exact_prefixes(leaves, n, gen)
-            idx, sums = cuda_tree.find_prefix(leaves, pre)
+            idx, offsets = cuda_tree.find_prefix(leaves, pre)
             torch.cuda.synchronize()
             want = cuda_tree.find_prefix_plain(leaves, pre)
-            check(sums.shape == (-(-L // chunk),), f"B3 L={L}: chunk sums shape {tuple(sums.shape)}")
+            check(offsets.shape == (-(-L // chunk),), f"B3 L={L}: offsets shape {tuple(offsets.shape)}")
             check(torch.equal(idx, want),
                   f"B3 L={L} n={n}: {int((idx != want).sum())} draws differ from plain")
+            check(torch.equal(offsets, cuda_tree.chunk_offsets_plain(leaves)),
+                  f"B3 L={L} n={n}: stored chunk offsets differ from plain")
             emit({"phase": "tree_kernel", "case": f"B3 L={L} n={n} integer leaves",
                   "exact": True, "ok": True})
     # B4's count at L = 2^20, B = 256, on the same exact leaves.
     q, p, r, d, _, _ = make_inputs(256, A, supports["pendulum"], gen, device)
-    _, _, idx = cfs.fused_step_fwd(supports["pendulum"], q, p, r, d, pre, leaves, sums)
+    _, _, idx = cfs.fused_step_fwd(supports["pendulum"], q, p, r, d, pre, leaves, offsets)
     torch.cuda.synchronize()
     check(torch.equal(idx, cuda_tree.find_prefix_plain(leaves, pre)),
           "B4 L=2^20 B=256 integer leaves: idx differs from plain")
@@ -484,14 +516,19 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
     # (b) L = 2^20 at the megastep's draws: valid under float64, mismatches counted.
     leaves = main_path_leaves(gen, device)
     total = leaves.sum()
-    chain = chain_tolerance(TREE_L, chunk)
+    chain = cuda_tree.chain_length(TREE_L)
+    tol = chain * 2.0**-24 * float(leaves.double().sum())
+    chunk64 = torch.nn.functional.pad(leaves.double(), (0, -TREE_L % chunk)).reshape(-1, chunk).sum(1)
+    exact_offsets = torch.cumsum(chunk64, 0) - chunk64
     main_pre = {}
     for k_, b_ in ((K, 256), (1, 256)):
         u = torch.rand((k_, b_), generator=gen, device=device)
         pre = dper.stratified_prefixes(u, k_, b_, total)
         main_pre[k_ * b_] = pre
-        idx, _ = cuda_tree.find_prefix(leaves, pre)
+        idx, offsets = cuda_tree.find_prefix(leaves, pre)
         torch.cuda.synchronize()
+        off_err = float((offsets.double() - exact_offsets).abs().max())
+        check(off_err <= tol, f"B3 L=2^20: stored offsets off a float64 sum by {off_err:.3e} > {tol:.3e}")
         plain = cuda_tree.find_prefix_plain(leaves, pre)
         ok = valid_under_f64(leaves, pre, idx, chain)
         check(bool(ok.all()), f"B3 L=2^20 n={pre.numel()}: {int((~ok).sum())} invalid draws")
@@ -500,39 +537,43 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
         err["per_tree_find_prefix"] = max(err["per_tree_find_prefix"],
                                           int((idx.long() - plain.long()).abs().max()))
         emit({"phase": "tree_kernel", "case": f"B3 L=2^20 n={pre.numel()}", "chain": chain,
-              "tolerance_of_total": chain * 2.0**-24, "draws_differing_from_plain": n_diff,
+              "tolerance_of_total": chain * 2.0**-24, "offsets_max_abs_err_vs_f64": off_err,
+              "draws_differing_from_plain": n_diff,
               "max_index_distance": err["per_tree_find_prefix"], "ok": True})
 
-    # (c) B4 = B1f (ce, ov) + B3 (idx), bit for bit; and against the plain version.
-    for B in (256, 200):
-        for sname, support in supports.items():
-            q, p, r, d, _, _ = make_inputs(B, A, support, gen, device)
-            pre = dper.stratified_prefixes(
-                torch.rand((1, B), generator=gen, device=device), 1, B, total).reshape(B)
-            idx3, sums = cuda_tree.find_prefix(leaves, pre)
-            ce, ov, idx = cfs.fused_step_fwd(support, q, p, r, d, pre, leaves, sums)
-            ce1, ov1 = cp.fused_loss_fwd(support, q, p, r, d)
-            torch.cuda.synchronize()
-            case = f"B4 B={B} A={A} support={sname}"
-            check(torch.equal(ce, ce1) and torch.equal(ov, ov1), f"{case}: ce/ov differ from B1f")
-            check(torch.equal(idx, idx3), f"{case}: idx differs from B3")
-            pce, pov, pidx = cfs.fused_step_plain(support, q, p, r, d, pre, leaves)
-            for g, w in ((ce, pce), (ov, pov)):
-                check(torch.allclose(g, w, atol=ATOL, rtol=RTOL), f"{case}: loss off the plain version")
-                err["c51_fused_step"] = max(err["c51_fused_step"], float((g - w).abs().max()))
-            check(bool(valid_under_f64(leaves, pre, idx, chain).all()), f"{case}: invalid draws")
-            mismatch[case] = int((idx != pidx).sum())
-            emit({"phase": "tree_kernel", "case": case, "equal_to_b1f_and_b3": True,
-                  "draws_differing_from_plain": mismatch[case],
-                  "max_abs_err": err["c51_fused_step"], "ok": True})
+    # (c) B4 = B1f (ce, ov) + B3 (idx), bit for bit; and against the plain
+    # version, at every geometry of GEOMETRY_BATCHES x GEOMETRY_ATOMS_B4.
+    cases = [(B, A_g, sname, make_support(lo, hi, A_g))
+             for A_g in GEOMETRY_ATOMS_B4 for B in GEOMETRY_BATCHES
+             for sname, (lo, hi) in (("pendulum", (-300.0, 0.0)), ("sym10", (-10.0, 10.0)))]
+    for B, A_g, sname, support in cases:
+        q, p, r, d, _, _ = make_inputs(B, A_g, support, gen, device)
+        pre = dper.stratified_prefixes(
+            torch.rand((1, B), generator=gen, device=device), 1, B, total).reshape(B)
+        idx3, offsets = cuda_tree.find_prefix(leaves, pre)
+        ce, ov, idx = cfs.fused_step_fwd(support, q, p, r, d, pre, leaves, offsets)
+        ce1, ov1 = cp.fused_loss_fwd(support, q, p, r, d)
+        torch.cuda.synchronize()
+        case = f"B4 B={B} A={A_g} support={sname}"
+        check(torch.equal(ce, ce1) and torch.equal(ov, ov1), f"{case}: ce/ov differ from B1f")
+        check(torch.equal(idx, idx3), f"{case}: idx differs from B3")
+        pce, pov, pidx = cfs.fused_step_plain(support, q, p, r, d, pre, leaves)
+        for g, w in ((ce, pce), (ov, pov)):
+            check(torch.allclose(g, w, atol=ATOL, rtol=RTOL), f"{case}: loss off the plain version")
+            err["c51_fused_step"] = max(err["c51_fused_step"], float((g - w).abs().max()))
+        check(bool(valid_under_f64(leaves, pre, idx, chain).all()), f"{case}: invalid draws")
+        mismatch[case] = int((idx != pidx).sum())
+        emit({"phase": "tree_kernel", "case": case, "equal_to_b1f_and_b3": True,
+              "draws_differing_from_plain": mismatch[case],
+              "max_abs_err": err["c51_fused_step"], "ok": True})
 
     # (d) timings at the main path's shapes.
     f4 = 4
     B, support = 256, supports["pendulum"]
     q, p, r, d, _, _ = make_inputs(B, A, support, gen, device)
     pre_b = main_pre[256].reshape(B)
-    idx_b, sums = cuda_tree.find_prefix(leaves, pre_b)
-    nchunks = sums.numel()
+    idx_b, offsets_b = cuda_tree.find_prefix(leaves, pre_b)
+    nchunks = offsets_b.numel()
     phi = 16 * A
 
     def walk_ops(idx):
@@ -545,8 +586,8 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
     for n, pre in sorted(main_pre.items()):
         name = f"per_tree_find_prefix n={n}"
         idx_n, _ = cuda_tree.find_prefix(leaves, pre)
-        # leaves once (the chunk sums need them all), prefixes in, indices
-        # and chunk sums out
+        # leaves once (the offsets need them all), prefixes in, indices and
+        # chunk offsets out
         nbytes = f4 * TREE_L + f4 * n + f4 * n + f4 * nchunks
         ops = TREE_L + walk_ops(idx_n)
         timing[name] = {
@@ -558,10 +599,10 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
         }
     needed = leaves_needed(idx_b, chunk)
     timing["c51_fused_step"] = {
-        "fn": lambda: cfs.fused_step_fwd(support, q, p, r, d, pre_b, leaves, sums),
+        "fn": lambda: cfs.fused_step_fwd(support, q, p, r, d, pre_b, leaves, offsets_b),
         "plain": lambda: cfs.fused_step_plain(support, q, p, r, d, pre_b, leaves),
         "library": None,
-        # B1f's bytes, the prefixes, the chunk sums once, the leaves this
+        # B1f's bytes, the prefixes, the chunk offsets once, the leaves this
         # run's draws need (leaves_needed), the indices out
         "bytes": f4 * (2 * B * A + 2 * B) + f4 * 2 * B + f4 * B + f4 * nchunks
         + f4 * needed + f4 * B,
@@ -580,6 +621,7 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support):
             "library_call_ms": call_ms(t["library"]) if t["library"] else None,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "floor_ms": floor,
             "bytes": t["bytes"], "ops": t["ops"],
         }
         if "leaves_needed" in t:
@@ -747,12 +789,16 @@ def main() -> int:
         "nvidia_smi": card,
         "build_s": build_s,
         "sources": sources,
-        "ptxas": {n: [ln for ln in log.splitlines() if "ptxas info" in ln]
+        # registers, shared memory and spills of every kernel
+        "ptxas": {n: [ln.strip() for ln in log.splitlines() if "ptxas info" in ln or "spill" in ln]
                   for n, log in _build.build_logs.items()},
     })
 
-    err, timing = kernel_phase(cp, make_support)
-    tree_err, mismatch, tree_timing = tree_kernel_phase(cp, cuda_tree, cuda_fused_step, dper, make_support)
+    floor = floor_ms()
+    emit({"phase": "floor", "op": "zero_() of a one-element CUDA tensor", "floor_ms": floor})
+    err, timing = kernel_phase(cp, make_support, floor)
+    tree_err, mismatch, tree_timing = tree_kernel_phase(
+        cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
     step_parity(D4PGConfig, create_train_state, train_step)
     check_sync_guard()
     paths = {}
@@ -788,7 +834,8 @@ def main() -> int:
             "replaces": replaces, "launches": paths[path][counter], "main_path": path,
             "launches_by_path": per_path(counter), "max_abs_err": error,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "ok": True,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "floor_ms": t["floor_ms"], "ok": True,
         }
         tag = {"tree_count": "B3", "fused_step": "B4"}.get(counter)
         if tag:  # draws whose index differs from the plain version's

@@ -177,10 +177,10 @@ def _loss_terms(config, support, pred, target_probs, batch, descent):
     """Per-sample (ce, overlap) under the configured projection backend,
     plus the next step's raw leaf indices when ``descent`` is given."""
     if descent is not None:
-        leaves, next_prefixes, chunk_sums = descent
+        leaves, next_prefixes, chunk_offsets = descent
         return fused_categorical_loss_descent(
             support, pred, target_probs, batch["reward"], batch["discount"],
-            next_prefixes, leaves, chunk_sums,
+            next_prefixes, leaves, chunk_offsets,
         )
     if config.projection_backend == "fused":
         ce, ov = fused_categorical_loss(
@@ -203,11 +203,13 @@ def train_step(
       batch: obs [B,O], action [B,A], reward [B], next_obs [B,O],
         discount [B] (= γ^m·(1−terminal)), and optionally weights [B]
         (PER importance weights; absent → ones). All on the state's device.
-      descent: ``(leaves [L], next_prefixes [B], chunk_sums)``, the
+      descent: ``(leaves [L], next_prefixes [B], chunk_offsets)``, the
         fused-descent seam: the step's loss kernel (B4) also descends the
-        device PER tree for the NEXT step's prefixes. ``chunk_sums`` are
-        those kernel B3 returned for ``leaves`` this dispatch (``None`` on
-        the CPU). Requires ``projection_backend="fused"``.
+        device PER tree for the NEXT step's prefixes. ``chunk_offsets``
+        ([num_chunks(L)] float32, the leaf mass before each 1024-leaf
+        chunk) are those kernel B3 returned for ``leaves`` this dispatch
+        (its plain version's on the CPU). Requires
+        ``projection_backend="fused"``.
 
     Returns:
       (state, metrics dict of 0-d tensors, priorities [B]) — the metrics and

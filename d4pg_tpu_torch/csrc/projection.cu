@@ -9,26 +9,35 @@
 // The projection is the hat-function gather of _project_tile:
 //   m[b, i] = sum_j p[b, j] * max(0, 1 - |bfrac[b, j] - i|),
 //   bfrac[b, j] = (clip(r[b] + d[b] * z_j, v_min, v_max) - v_min) / delta.
-// All three kernels call the same __device__ project_row, and B1f's body is
-// c51::loss_row, which kernel B4 (csrc/fused_step.cu) runs too: the row
-// functions live in c51_rows.cuh, so the kernels cannot drift apart
-// numerically (the Pallas code's no-drift discipline).
-//
-// Layout: one block per batch row, thread i owns destination atom i (block
-// size = A rounded up to a warp; threads past A are masked). The row's p and
-// bfrac live in shared memory and every thread walks the A source atoms.
+// The row functions live in c51_rows.cuh, so the kernels cannot drift apart
+// numerically (the Pallas code's no-drift discipline): B2 and B1b call
+// project_row, and B1f's body is c51::loss_row_warp, which kernel B4
+// (csrc/fused_step.cu) runs too.
 //
 // What bounds them on an H100: at the learner's shapes (B = 256, A = 51) the
 // fused forward reads q, p [B, A] and r, d [B] (about 106 KB) and writes two
-// [B] vectors: well under a microsecond at 3.35 TB/s, and the arithmetic
-// (A^2 hat terms per row, about 4 MFLOP) is a few tens of nanoseconds at the
-// float32 peak. So each launch is bound by launch latency and by one wave of
-// B small blocks, not by bytes or FLOPs. The design answers that by never
-// materialising m in device memory (forward and backward recompute it in
-// shared memory and registers, as the Pallas kernels do in VMEM), by doing
-// one launch per call with no workspace, and by reducing in-block with warp
-// shuffles. Packing several rows per block, or fusing into the critic's
-// output layer, is left for a later change.
+// [B] vectors: ~0.03 us at 3.35 TB/s, and the arithmetic Phi needs (each
+// source atom lands on at most two destinations) is far below the float32
+// peak. So each launch is bound by launch latency and by the chain of
+// dependent memory and reduction latencies inside one partial wave of
+// blocks, not by bytes or FLOPs. None of them writes m to device memory
+// (forward and backward recompute it on chip, as the Pallas kernels do in
+// VMEM), and each is one launch with no workspace.
+//
+// Layouts:
+//   - B1f: one warp per batch row, kRowsPerBlock = 4 rows a block (64
+//     blocks of 128 threads for B = 256). The warp issues the
+//     loads of q, p, r and d together, before Phi, so that one memory
+//     latency covers them; it reduces with warp shuffles only (no
+//     __syncthreads, no shared scratch). Since ce and ov are linear in m,
+//     it never forms m: each lane pushes its source atoms' mass onto the
+//     staged (log_softmax, softmax) of the two atoms each lands between
+//     (c51::loss_row_warp says why that beats a gather per destination).
+//   - B1b and B2: one block per batch row, thread i owns destination atom
+//     i (block size = A rounded up to a warp; threads past A are masked),
+//     the row's p and bfrac in shared memory, every thread walks the A
+//     source atoms, block reductions through shared scratch. Moving them
+//     onto the warp-per-row body is queued.
 
 #include "c51_rows.cuh"
 
@@ -36,7 +45,7 @@ namespace {
 
 using namespace c51;
 
-// Shared memory layout of every kernel: p_s[A] | bfrac_s[A] | scratch[32].
+// Shared memory of B2 and B1b: p_s[A] | bfrac_s[A] | scratch[32].
 
 // Replaces _projection_kernel (categorical_projection_pallas): m = Phi(r + d*z)
 // written out, [B, A].
@@ -54,16 +63,23 @@ __global__ void project_kernel(const float* __restrict__ p,
 
 // Replaces _fused_loss_kernel (fused_categorical_loss, forward): per row
 // ce = -sum(m * log_softmax(q)), ov = |-sum(m * softmax(q))|; m stays in
-// registers.
+// registers. One warp per row; warps past B have no row and do nothing
+// (no barrier follows in the block).
+template <int NPL>
 __global__ void fused_loss_fwd_kernel(const float* __restrict__ q,
                                       const float* __restrict__ p,
                                       const float* __restrict__ r,
                                       const float* __restrict__ d,
                                       float* __restrict__ ce,
-                                      float* __restrict__ ov, int A,
+                                      float* __restrict__ ov, int B, int A,
                                       float v_min, float v_max, float delta) {
-  extern __shared__ float smem[];
-  loss_row(q, p, r, d, ce, ov, blockIdx.x, A, v_min, v_max, delta, smem);
+  extern __shared__ __align__(16) float row_stage[];
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
+  if (b < B) {
+    loss_row_warp<NPL>(q, p, r, d, ce, ov, b, A, v_min, v_max, delta,
+                       reinterpret_cast<float2*>(row_stage) + (size_t)w * A);
+  }
 }
 
 // Replaces _fused_loss_grad_kernel (the VJP of fused_categorical_loss), with
@@ -122,9 +138,13 @@ extern "C" int c51_fused_loss_fwd(const float* q, const float* p,
                                   float* ov, int B, int A, float v_min,
                                   float v_max, float delta, void* stream) {
   if (B > 0) {
-    fused_loss_fwd_kernel<<<B, c51::threads_for(A), c51::smem_for(A),
-                            (cudaStream_t)stream>>>(q, p, r, d, ce, ov, A,
-                                                    v_min, v_max, delta);
+    const int rows = c51::kRowsPerBlock;
+    c51::with_atoms_per_lane(A, [&](auto npl) {
+      fused_loss_fwd_kernel<decltype(npl)::value>
+          <<<(B + rows - 1) / rows, 32 * rows, c51::warp_smem_for(A),
+             (cudaStream_t)stream>>>(q, p, r, d, ce, ov, B, A, v_min, v_max,
+                                     delta);
+    });
   }
   return (int)cudaGetLastError();
 }

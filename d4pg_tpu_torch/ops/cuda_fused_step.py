@@ -4,10 +4,10 @@ descent for the next step's prefixes, in one launch.
 Counterpart of ``d4pg_tpu/ops/pallas_fused_step.py``. The hand-written
 kernel ``c51_fused_step`` (``csrc/fused_step.cu``) replaces the Pallas
 ``_fused_step_kernel`` behind ``fused_categorical_loss_descent``: its
-first B blocks run kernel B1f's row function, the rest run kernel B3's
-count on the chunk sums of the dispatch's one B3 call. Both halves are the
-shared device bodies, so on the same inputs ce/ov equal B1f's and the
-indices equal B3's, bit for bit.
+loss blocks run kernel B1f's warp-per-row body, its count blocks run
+kernel B3's count on the chunk offsets that the dispatch's one B3 call
+returned. Both halves are the shared device bodies, so on the same inputs
+ce/ov equal B1f's and the indices equal B3's, bit for bit.
 
 :func:`fused_categorical_loss_descent` is the ``torch.autograd.Function``
 around it; its backward is kernel B1b (``cuda_projection.fused_loss_bwd``),
@@ -16,7 +16,8 @@ gradient.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`fused_step_plain` (the plain fused loss and the
-plain descent).
+plain descent). The chunk offsets are checked on both devices, so a CPU
+run catches what the card would refuse.
 """
 
 from __future__ import annotations
@@ -67,26 +68,27 @@ def fused_step_fwd(
     d: torch.Tensor,
     next_prefixes: torch.Tensor,
     leaves: torch.Tensor,
-    chunk_sums: torch.Tensor | None,
+    chunk_offsets: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(ce [B], ov [B], next_idx [B] int32). CUDA tensors: the
-    ``c51_fused_step`` kernel, which needs ``chunk_sums`` from
-    :func:`cuda_tree.find_prefix` on the same ``leaves``."""
+    """(ce [B], ov [B], next_idx [B] int32). ``chunk_offsets`` are those
+    :func:`cuda_tree.find_prefix` returned for the same ``leaves``
+    ([num_chunks(L)] float32, contiguous, on the batch's device). CUDA
+    tensors: the ``c51_fused_step`` kernel."""
     B, A, device = cp._validate(
         support, {"q": q, "p": p}, {"r": r, "d": d, "next_prefixes": next_prefixes}
     )
     cuda_tree._check_leaves(leaves)
     if leaves.device != device:
         raise ValueError(f"leaves are on {leaves.device}, the batch on {device}")
-    if device.type != "cuda":
-        return fused_step_plain(support, q, p, r, d, next_prefixes, leaves)
     L = leaves.numel()
-    if chunk_sums is None or tuple(chunk_sums.shape) != (cuda_tree.num_chunks(L),):
+    if chunk_offsets is None:
         raise ValueError(
-            "the CUDA fused step needs the chunk sums that cuda_tree.find_prefix "
+            "the fused step needs the chunk offsets that cuda_tree.find_prefix "
             f"returned for these {L} leaves"
         )
-    cp._check("chunk_sums", chunk_sums, (cuda_tree.num_chunks(L),), device)
+    cp._check("chunk_offsets", chunk_offsets, (cuda_tree.num_chunks(L),), device)
+    if device.type != "cuda":
+        return fused_step_plain(support, q, p, r, d, next_prefixes, leaves)
     ce = torch.empty((B,), device=device, dtype=torch.float32)
     ov = torch.empty((B,), device=device, dtype=torch.float32)
     idx = torch.empty((B,), device=device, dtype=torch.int32)
@@ -97,7 +99,7 @@ def fused_step_fwd(
     _build.launch(
         _fns["c51_fused_step"], device, q.data_ptr(), p.data_ptr(), r.data_ptr(),
         d.data_ptr(), ce.data_ptr(), ov.data_ptr(), B, A, *cp._scalars(support),
-        leaves.data_ptr(), L, chunk_sums.data_ptr(), chunk_sums.numel(),
+        leaves.data_ptr(), L, chunk_offsets.data_ptr(), chunk_offsets.numel(),
         next_prefixes.data_ptr(), idx.data_ptr(),
     )
     LAUNCHES["fused_step"] += 1
@@ -109,10 +111,10 @@ class _FusedStepLoss(torch.autograd.Function):
     only saved tensors are the loss inputs; the indices take no gradient."""
 
     @staticmethod
-    def forward(ctx, support, q, p, r, d, next_prefixes, leaves, chunk_sums):
+    def forward(ctx, support, q, p, r, d, next_prefixes, leaves, chunk_offsets):
         ctx.support = support
         ctx.save_for_backward(q, p, r, d)
-        ce, ov, idx = fused_step_fwd(support, q, p, r, d, next_prefixes, leaves, chunk_sums)
+        ce, ov, idx = fused_step_fwd(support, q, p, r, d, next_prefixes, leaves, chunk_offsets)
         ctx.mark_non_differentiable(idx)
         return ce, ov, idx
 
@@ -138,10 +140,11 @@ def fused_categorical_loss_descent(
     discounts: torch.Tensor,
     next_prefixes: torch.Tensor,
     leaves: torch.Tensor,
-    chunk_sums: torch.Tensor | None = None,
+    chunk_offsets: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`cuda_projection.fused_categorical_loss` for this grad step,
-    plus the descent of the NEXT step's prefixes over ``leaves``.
+    plus the descent of the NEXT step's prefixes over ``leaves``, given the
+    ``chunk_offsets`` that :func:`cuda_tree.find_prefix` returned for them.
 
     Returns (ce [B], overlap [B], next_idx [B] int32); next_idx is
     ``min(count, L − 1)``, before the caller's fill clamp. Gradients flow
@@ -155,5 +158,5 @@ def fused_categorical_loss_descent(
         discounts.detach().contiguous(),
         next_prefixes.detach().contiguous(),
         leaves.detach(),
-        chunk_sums,
+        chunk_offsets,
     )

@@ -35,7 +35,9 @@ import torch.nn.functional as F
 from d4pg_tpu_torch.ops import _build
 from d4pg_tpu_torch.ops.categorical import CategoricalSupport
 
-MAX_ATOMS = 1024  # one thread per destination atom, one block per row
+# B1b and B2 run one thread per destination atom in a block per row; B1f
+# runs a warp per row whose lanes loop over ceil(A / 32) atoms.
+MAX_ATOMS = 1024
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
 # kernel and nowhere else; chip_smoke.py zeroes them before driving the

@@ -10,10 +10,11 @@ Counterpart of ``d4pg_tpu/ops/pallas_tree.py``. The hand-written kernel
 which is the segment tree's descent with its ``>=`` rule (a prefix on a
 cumsum boundary selects the next leaf; zero-mass leaves are skipped).
 
-:func:`find_prefix` returns the indices and the per-chunk leaf sums that
-its first pass computed: the fused-descent megastep hands those to every
-kernel-B4 launch of the dispatch (``ops/cuda_fused_step.py``), whose count
-blocks run the same device code, so B4's indices equal B3's.
+:func:`find_prefix` returns the indices and the exclusive chunk offsets
+(the leaf mass before each chunk of ``CHUNK`` leaves) that its count
+blocks searched: the fused-descent megastep hands those to every kernel-B4
+launch of the dispatch (``ops/cuda_fused_step.py``), whose count blocks
+load them and run the same device code, so B4's indices equal B3's.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`find_prefix_plain`, which is what the CPU tests hold
@@ -44,12 +45,20 @@ def reset_launch_counts() -> None:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"per_tree_find_prefix": [_P, _I, _P, _I, _P, _I, _P, _P]}
+_SIGNATURES = {"per_tree_find_prefix": [_P, _I, _P, _P, _I, _P, _I, _P, _P]}
 _fns: dict = {}
 
 
 def num_chunks(L: int) -> int:
     return -(-L // CHUNK)
+
+
+def chain_length(L: int) -> int:
+    """The longest chain of float32 adds behind one of the kernel's cumsum
+    values at ``L`` leaves (``csrc/per_tree.cuh``, "Numerics"): the chunk
+    offset's, then the walk inside the chunk. A value is within
+    ``chain_length(L) * 2**-24 * total`` of the exact sum."""
+    return 2 * (-(-num_chunks(L) // 32)) + 5 + CHUNK // 32 + 5 + 1
 
 
 def _check_leaves(leaves: torch.Tensor) -> None:
@@ -80,27 +89,46 @@ def find_prefix_plain(leaves: torch.Tensor, prefixes: torch.Tensor) -> torch.Ten
     return idx.clamp_max(leaves.numel() - 1).to(torch.int32).reshape(prefixes.shape)
 
 
+def chunk_offsets_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """The exclusive cumsum of the per-chunk leaf sums, [num_chunks(L)]
+    float32: the leaf mass before each chunk of ``CHUNK`` leaves (a ragged
+    last chunk sums what it has). The kernel sums in another order; the
+    tolerance is stated in ``csrc/per_tree.cuh``."""
+    L = leaves.numel()
+    padded = torch.zeros(num_chunks(L) * CHUNK, dtype=leaves.dtype, device=leaves.device)
+    padded[:L] = leaves
+    sums = padded.reshape(-1, CHUNK).sum(1)
+    return torch.cumsum(sums, 0) - sums
+
+
 def find_prefix(
     leaves: torch.Tensor, prefixes: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Leaf indices (int32, ``prefixes``' shape) and the chunk sums
-    ([num_chunks(L)] float32, ``None`` on the CPU) of ``leaves`` [L].
-    CUDA tensors: the ``per_tree_find_prefix`` kernel (one launch count per
-    call). An empty ``prefixes`` launches nothing and counts nothing."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Leaf indices (int32, ``prefixes``' shape) and the chunk offsets
+    ([num_chunks(L)] float32) of ``leaves`` [L]. CUDA tensors: the
+    ``per_tree_find_prefix`` kernel (one launch count per call), whose
+    offsets are the ones its count searched; CPU tensors:
+    :func:`find_prefix_plain` and :func:`chunk_offsets_plain`. An empty
+    ``prefixes`` launches nothing and counts nothing (nor are the offsets
+    written)."""
     _check_leaves(leaves)
     _check_prefixes(prefixes, leaves.device)
     if not leaves.is_cuda:
-        return find_prefix_plain(leaves, prefixes), None
-    L = leaves.numel()
+        return find_prefix_plain(leaves, prefixes), chunk_offsets_plain(leaves)
+    L, nchunks = leaves.numel(), num_chunks(leaves.numel())
     flat = prefixes.reshape(-1).contiguous()
     idx = torch.empty(flat.shape, device=leaves.device, dtype=torch.int32)
-    sums = torch.empty((num_chunks(L),), device=leaves.device, dtype=torch.float32)
+    # one buffer: the offsets first (the allocator's alignment, so B4 loads
+    # them 16 bytes at a time), then the chunk sums, scratch of pass 1
+    work = torch.empty((2 * nchunks,), device=leaves.device, dtype=torch.float32)
+    offsets, sums = work[:nchunks], work[nchunks:]
     if flat.numel():
         if not _fns:
             _fns.update(_build.bind("per_tree", _SIGNATURES))
         _build.launch(
             _fns["per_tree_find_prefix"], leaves.device, leaves.data_ptr(), L,
-            sums.data_ptr(), sums.numel(), flat.data_ptr(), flat.numel(), idx.data_ptr(),
+            sums.data_ptr(), offsets.data_ptr(), nchunks, flat.data_ptr(),
+            flat.numel(), idx.data_ptr(),
         )
         LAUNCHES["tree_count"] += 1
-    return idx.reshape(prefixes.shape), sums
+    return idx.reshape(prefixes.shape), offsets

@@ -148,8 +148,8 @@ def descend_prefix(sums: torch.Tensor, prefixes: torch.Tensor) -> torch.Tensor:
 
 
 def find_leaves(sums: torch.Tensor, prefixes: torch.Tensor):
-    """(raw leaf indices, chunk sums or None) from kernel B3, whose chunk
-    sums a fused-descent dispatch reuses."""
+    """(raw leaf indices, chunk offsets) from kernel B3, whose chunk
+    offsets a fused-descent dispatch hands to every B4 launch."""
     return cuda_tree.find_prefix(sums[sums.shape[0] // 2:], prefixes)
 
 

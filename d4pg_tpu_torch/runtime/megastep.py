@@ -22,8 +22,9 @@ Three bodies, one per tier:
   weights from the leaves at dispatch start, K steps on the fused loss
   kernels (B1f, B1b), then the last-wins write-back;
 - :func:`megastep_device_per_fused_body`: one B3 call descends the first
-  step's prefixes; from then on each step's loss kernel (B4) also descends
-  the NEXT step's prefixes, so a dispatch runs B3 once and B4 K times.
+  step's prefixes and returns the tree's chunk offsets; from then on each
+  step's loss kernel (B4) also descends the NEXT step's prefixes on those
+  offsets, so a dispatch runs B3 once and B4 K times.
 
 Every body takes an explicit ``idx`` / ``prefixes`` for tests that feed
 the JAX package's draws; by default it draws from the ``torch.Generator``
@@ -116,14 +117,14 @@ def megastep_device_per_fused_body(
     """The fused-descent tier: the draws, weights and write-back of
     :func:`megastep_device_per_body`, but pipelined. The tree is constant until the write-back, so every step's
     prefixes are known up front: one B3 call descends ``pre[0]`` (and
-    yields the chunk sums), then step t's loss kernel B4 descends
-    ``pre[t+1]``. The last step descends the rolled-around ``pre[0]`` and
+    yields the chunk offsets, which stay on the device), then step t's loss
+    kernel B4 descends ``pre[t+1]`` on them. The last step descends the rolled-around ``pre[0]`` and
     that result is dropped, as in the JAX body."""
     sums = tree.sums
     half = sums.shape[0] // 2
     leaves, total = sums[half:], sums[1]
     pre = _draw_prefixes(generator, k, batch, total, prefixes)
-    raw0, chunk_sums = dper.find_leaves(sums, pre[0])
+    raw0, chunk_offsets = dper.find_leaves(sums, pre[0])
     idx_t = dper.clamp_to_fill(raw0, ring.size)
     min_ratio = dper.lane_min_leaf(sums) / total
     beta = dper.beta_at(state.step, config.per_beta0, config.per_beta_steps)
@@ -135,7 +136,7 @@ def megastep_device_per_fused_body(
             leaves.index_select(0, idx_t.long()), total, min_ratio, ring.size, beta
         )
         _, m, pri, raw = train_step(
-            config, state, batch_t, descent=(leaves, pre_next[t], chunk_sums)
+            config, state, batch_t, descent=(leaves, pre_next[t], chunk_offsets)
         )
         step_metrics.append(m)
         priorities.append(pri)

@@ -116,8 +116,11 @@ def test_descend_and_b3_plain_equal_the_reference_descent(cap, n):
     pre = r.uniform(0.0, float(jt[1]), (7, 37)).astype(np.float32)
     want = np.asarray(jdper.descend_prefix(jt, jnp.asarray(pre)))
     got_tree = dper.descend_prefix(tt, torch.from_numpy(pre))
-    got_b3, sums = cuda_tree.find_prefix(tt[tt.shape[0] // 2:], torch.from_numpy(pre))
-    assert got_tree.dtype == got_b3.dtype == torch.int32 and sums is None
+    leaves = tt[tt.shape[0] // 2:]
+    got_b3, offsets = cuda_tree.find_prefix(leaves, torch.from_numpy(pre))
+    assert got_tree.dtype == got_b3.dtype == torch.int32
+    assert offsets.dtype == torch.float32 and offsets.shape == (cuda_tree.num_chunks(len(leaves)),)
+    assert torch.equal(offsets, cuda_tree.chunk_offsets_plain(leaves))
     np.testing.assert_array_equal(got_tree.numpy(), want)
     np.testing.assert_array_equal(got_b3.numpy(), want)
 
@@ -219,8 +222,9 @@ def test_b4_plain_is_b1f_plus_b3_and_matches_the_reference():
     q, p, rew, disc, pre, leaves = _loss_inputs()
     sup = make_support(-5.0, 5.0, 11)
     tq = torch.from_numpy(q).requires_grad_(True)
+    offsets = cuda_tree.chunk_offsets_plain(torch.from_numpy(leaves))
     ce, ov, idx = cfs.fused_categorical_loss_descent(
-        sup, tq, *map(torch.from_numpy, (p, rew, disc, pre, leaves))
+        sup, tq, *map(torch.from_numpy, (p, rew, disc, pre, leaves)), offsets
     )
     ce1, ov1 = cp.fused_loss_fwd(sup, *map(torch.from_numpy, (q, p, rew, disc)))
     assert torch.equal(ce, ce1) and torch.equal(ov, ov1)
@@ -244,8 +248,8 @@ def test_tree_and_fused_step_wrappers_count_no_launch_on_the_cpu():
     cuda_tree.reset_launch_counts()
     cfs.reset_launch_counts()
     q, p, rew, disc, pre, leaves = map(torch.from_numpy, _loss_inputs())
-    cuda_tree.find_prefix(leaves, pre)
-    cfs.fused_step_fwd(make_support(-5.0, 5.0, 11), q, p, rew, disc, pre, leaves, None)
+    _, offsets = cuda_tree.find_prefix(leaves, pre)
+    cfs.fused_step_fwd(make_support(-5.0, 5.0, 11), q, p, rew, disc, pre, leaves, offsets)
     assert cuda_tree.LAUNCHES == {"tree_count": 0} and cfs.LAUNCHES == {"fused_step": 0}
 
 
@@ -262,3 +266,66 @@ def test_tree_wrapper_refuses_what_the_kernel_does_not_take(bad):
         pre = pre.to("meta")
     with pytest.raises((TypeError, ValueError)):
         cuda_tree.find_prefix(leaves, pre)
+
+
+def _j_chunk_offsets(pa, cap):
+    """The exclusive cumsum, in float64, of the JAX device-PER tree's nodes
+    at the level whose nodes each cover ``CHUNK`` leaves."""
+    sums = np.asarray(jdper.tree_from_priorities(np.asarray(pa, np.float32), cap).sums[0])
+    half = sums.shape[0] // 2
+    level = sums[half // cuda_tree.CHUNK: 2 * half // cuda_tree.CHUNK].astype(np.float64)
+    return np.cumsum(level) - level
+
+
+@pytest.mark.parametrize("cap,fill", [(8192, 8192), (5000, 3100), (2048, 1500)])
+def test_chunk_offsets_plain_equal_the_reference_tree_on_integer_leaves(cap, fill):
+    """Integer leaves below 2^24 in total: every summation order is exact,
+    so the plain offsets EQUAL the tree's level sums' exclusive cumsum."""
+    pa = np.zeros(cap, np.float32)
+    pa[:fill] = np.random.default_rng(cap).integers(0, 4, fill)
+    leaves = _t_tree(pa, cap)[dper.tree_width(cap) // 2:]
+    got = cuda_tree.chunk_offsets_plain(leaves)
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), _j_chunk_offsets(pa, cap))
+
+
+@pytest.mark.parametrize("cap", [8192, 6000])
+def test_chunk_offsets_plain_match_the_reference_tree_within_the_chain(cap):
+    """Real-valued leaves: the plain offsets and the tree's pairwise level
+    sums add in other orders; each is within the stated chain of float32
+    adds of the exact value, so they differ by at most twice that."""
+    pa = np.random.default_rng(cap).uniform(0.1, 3.0, cap).astype(np.float32)
+    leaves = _t_tree(pa, cap)[dper.tree_width(cap) // 2:]
+    got = cuda_tree.chunk_offsets_plain(leaves).numpy().astype(np.float64)
+    want = _j_chunk_offsets(pa, cap)
+    tol = 2 * cuda_tree.chain_length(len(leaves)) * 2.0**-24 * float(pa.astype(np.float64).sum())
+    assert got.shape == want.shape and got[0] == want[0] == 0.0
+    assert np.abs(got - want).max() <= tol
+
+
+def test_chunk_offsets_plain_on_a_ragged_last_chunk():
+    leaves = torch.arange(2500, dtype=torch.float32) % 5
+    got = cuda_tree.chunk_offsets_plain(leaves)
+    c = leaves.double().cumsum(0)
+    assert got.tolist() == [0.0, float(c[1023]), float(c[2047])]
+
+
+@pytest.mark.parametrize("bad", ["none", "shape", "dtype", "contiguous", "device_mix"])
+def test_fused_step_wrapper_refuses_bad_chunk_offsets(bad):
+    """B4's wrapper checks the offsets before it branches on the device, so
+    the CPU refuses what the card would."""
+    q, p, rew, disc, pre, _ = map(torch.from_numpy, _loss_inputs())
+    leaves = torch.from_numpy(np.random.default_rng(2).uniform(0.1, 3.0, 3000).astype(np.float32))
+    offsets = cuda_tree.chunk_offsets_plain(leaves)  # 3 chunks
+    cfs.fused_step_fwd(make_support(-5.0, 5.0, 11), q, p, rew, disc, pre, leaves, offsets)
+    if bad == "none":
+        offsets = None
+    elif bad == "shape":
+        offsets = torch.cat([offsets, offsets])
+    elif bad == "dtype":
+        offsets = offsets.double()
+    elif bad == "contiguous":
+        offsets = torch.stack([offsets, offsets], 1)[:, 0]
+    elif bad == "device_mix":
+        offsets = offsets.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        cfs.fused_step_fwd(make_support(-5.0, 5.0, 11), q, p, rew, disc, pre, leaves, offsets)
