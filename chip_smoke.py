@@ -13,21 +13,26 @@ JSON line:
 2. ``kernel``: each hand-written kernel against its plain PyTorch version
    on the card, at B=256 and a ragged B=200 with A=51 atoms, on the
    Pendulum support [-300, 0] and on [-10, 10], with terminal rows and
-   rows whose targets clip at v_min and v_max; kernel B1f also at every
-   geometry B in {1, 7, 200, 256} x A in {2, 51, 101, 1024} (rows that do
-   not fill a block, atoms that do not fill a warp, several atoms a lane);
-   then, at the learner's shape (B=256, A=51, Pendulum), the kernel's
-   device time (100 launches in a CUDA graph, CUDA events around its
-   replays), its eager per-call time (median over 100 calls), the same two
-   for the plain version, the kernel's bound, and ``floor_ms``: the device
-   time of one one-launch PyTorch op (``zero_()`` of a one-element tensor)
-   in the same harness, the part of a kernel's time that is launch.
+   rows whose targets clip at v_min and v_max; kernels B1f and B1b also at
+   every geometry B in {1, 7, 200, 256} x A in {2, 51, 101, 1024} (rows
+   that do not fill a block, atoms that do not fill a warp, several atoms
+   a lane), B1b's dq ``torch.equal`` across two calls; then, at the
+   learner's shape (B=256, A=51, Pendulum), the kernel's device time (100
+   launches in a CUDA graph, CUDA events around its replays), its eager
+   per-call time (median over 100 calls), the same two for the plain
+   version, the kernel's bound, and ``floor_ms``: the device time of one
+   one-launch PyTorch op (``zero_()`` of a one-element tensor) in the same
+   harness, the part of a kernel's time that is launch.
 3. ``tree_kernel``: kernel B3 (the PER prefix descent) against its plain
-   version (``cumsum`` + ``searchsorted``): exactly, at L = 64 to 2^20
-   and n = 2048 and 256 draws, on integer leaves (every summation order
+   version (``cumsum`` + ``searchsorted``): exactly, at L = 64 to 2^21 + 5000
+   (single-chunk trees at 64, 1000 and 1024; past 2^20 a lane of pass 1's
+   offsets takes its chunk sums in several pieces) and n = 2048 and 256
+   draws, on integer leaves (every summation order
    exact) with zero-mass runs, a zero tail and prefixes on the cumsum
    boundaries, B4's indices too at L = 2^20, and B3's stored chunk offsets
-   ``torch.equal`` to the plain ones; on the main path's real-valued
+   ``torch.equal`` to the plain ones; idx and offsets bit-equal across two
+   back-to-back calls and across replays of a CUDA graph of three calls
+   (L = 1024 and 2^20); on the main path's real-valued
    leaves at L = 2^20 (n = 2048 and 256 stratified draws, as the megastep
    makes them) every index must be a valid answer under a float64 cumsum
    within the tolerance stated in ``csrc/per_tree.cuh``, the offsets within
@@ -35,8 +40,8 @@ JSON line:
    plain version are counted. Kernel B4 (loss + next descent) at
    B in {1, 7, 200, 256} x A in {51, 101}, both supports, terminal and
    clipping rows: its ce/ov ``torch.equal`` to B1f's and its indices to
-   B3's. Then the same timings as phase 2 for both, plus the library call
-   (``torch.searchsorted(torch.cumsum(...))``) for B3.
+   B3's. Then the same timings as phase 2 for both, plus, for B3, the
+   library call (``torch.searchsorted(torch.cumsum(...))``).
 4. ``step_parity``: one full-width ``train_step`` on the card (through the
    kernels) against the same step on the CPU (plain versions).
 5. ``slice``: the learner end to end, ``Trainer`` on cuda at the full
@@ -86,7 +91,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 # results agree to a few float32 ulps of values up to ~10.
 ATOL, RTOL = 2e-5, 1e-5
 
-# B1f against its plain version at these (B, A); B4 at the A of
+# B1f and B1b against their plain versions at these (B, A); B4 at the A of
 # GEOMETRY_ATOMS_B4, L = 2^20.
 GEOMETRY_BATCHES = (1, 7, 200, 256)
 GEOMETRY_ATOMS = (2, 51, 101, 1024)
@@ -250,19 +255,41 @@ def kernel_phase(cp, make_support, floor: float):
             )
             emit({"phase": "kernel", "case": case, "max_abs_err": dict(err), "ok": True})
 
-    # B1f's warp-per-row geometry: a block of R rows that B does not fill,
-    # atoms that do not fill a warp, 1 to 32 atoms a lane.
+    # B1f's and B1b's warp-per-row geometry: a block of R rows that B does
+    # not fill, atoms that do not fill a warp, 1 to 32 atoms a lane. B1b's
+    # cases over tolerance are gathered and raised after the sweep, so that
+    # every A's line prints; two B1b calls must give the same dq bit for bit
+    # (m is formed with no atomics).
+    b1b_over = []
     for A_g in GEOMETRY_ATOMS:
+        b1b_err, over = 0.0, []
         for sname, (lo, hi) in (("pendulum", (-300.0, 0.0)), ("sym10", (-10.0, 10.0))):
             support = make_support(lo, hi, A_g)
             for B in GEOMETRY_BATCHES:
                 case = f"B1f geometry B={B} A={A_g} support={sname}"
-                q, p, r, d, _, _ = make_inputs(B, A_g, support, gen, device)
+                q, p, r, d, g_ce, g_ov = make_inputs(B, A_g, support, gen, device)
                 ce, ov = cp.fused_loss_fwd(support, q, p, r, d)
                 torch.cuda.synchronize()
                 compare("c51_fused_loss_fwd", [ce, ov], list(cp.fused_loss_plain(support, q, p, r, d)), case)
+                case = f"B1b geometry B={B} A={A_g} support={sname}"
+                dq = cp.fused_loss_bwd(support, q, p, r, d, g_ce, g_ov)
+                dq2 = cp.fused_loss_bwd(support, q, p, r, d, g_ce, g_ov)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(dq).all()), f"{case}: non-finite output")
+                check(torch.equal(dq, dq2), f"{case}: two calls give different dq")
+                want = cp.fused_loss_bwd_plain(support, q, p, r, d, g_ce, g_ov)
+                e = float((dq - want).abs().max())
+                b1b_err = max(b1b_err, e)
+                if not torch.allclose(dq, want, atol=ATOL, rtol=RTOL):
+                    over.append({"case": case, "max_abs_err": e})
         emit({"phase": "kernel", "case": f"B1f geometry A={A_g} B={list(GEOMETRY_BATCHES)}",
               "max_abs_err": err["c51_fused_loss_fwd"], "ok": True})
+        err["c51_fused_loss_bwd"] = max(err["c51_fused_loss_bwd"], b1b_err)
+        emit({"phase": "kernel", "case": f"B1b geometry A={A_g} B={list(GEOMETRY_BATCHES)}",
+              "max_abs_err": b1b_err, "bit_equal_across_calls": True, "over_tolerance": over,
+              "ok": not over})
+        b1b_over += over
+    check(not b1b_over, f"c51_fused_loss_bwd: {len(b1b_over)} geometry cases over tolerance: {b1b_over}")
 
     # Timing at the learner's shape.
     B, support = 256, supports["pendulum"]
@@ -425,7 +452,8 @@ def valid_under_f64(leaves, prefixes, idx, chain: int):
 def integer_leaves(L: int, gen, device):
     """Leaves in {0, 1, 2, 3} with a zero-mass run and a zero tail past a
     60 % fill, as past the ring's fill. Every partial sum is an integer
-    below 3·2^20 < 2^24, so every summation order is exact in float32."""
+    below 3·0.6·L < 2^24 for L < 2^23, so every summation order is exact
+    in float32."""
     import torch
 
     leaves = torch.randint(0, 4, (L,), generator=gen, device=device).float()
@@ -474,6 +502,33 @@ def main_path_leaves(gen, device):
     return leaves
 
 
+def b3_repeatable(cuda_tree, leaves, prefixes, case: str) -> None:
+    """Two back-to-back B3 calls (no synchronisation between them), and two
+    replays of a CUDA graph that holds three calls, all give bit-equal
+    indices and offsets: pass 1's ticket counter resets itself."""
+    import torch
+
+    first = cuda_tree.find_prefix(leaves, prefixes)
+    second = cuda_tree.find_prefix(leaves, prefixes)
+    torch.cuda.synchronize()
+
+    def same(got, what):
+        check(torch.equal(got[0], first[0]) and torch.equal(got[1], first[1]),
+              f"{case}: {what} differ from the first call's idx or offsets")
+
+    same(second, "back-to-back calls")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [cuda_tree.find_prefix(leaves, prefixes) for _ in range(3)]
+    for replay in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            same(out, f"graph replay {replay}")
+    emit({"phase": "tree_kernel", "case": f"{case} repeated", "bit_equal_back_to_back": True,
+          "bit_equal_graph_replays": True, "ok": True})
+
+
 def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
     """Kernels B3 and B4 against their plain versions and each other;
     timings at the main path's shapes."""
@@ -491,7 +546,12 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
     # search over 1024 chunks, at the megastep's n = K·B and B draws.
     A = 51
     supports = {"pendulum": make_support(-300.0, 0.0, A), "sym10": make_support(-10.0, 10.0, A)}
-    for L in (64, 1000, 4096, TREE_L):
+    # L = 64, 1000 and 1024 are single-chunk trees: pass 1 has one block,
+    # which is its own last block. Past 2^20 leaves (1024 chunks) a lane of
+    # pass 1's store_offsets holds more than one piece of chunk sums and
+    # reloads them; at 2^21 + 5000 its pieces are also ragged and unaligned.
+    # TREE_L comes last: B4 below runs on its leaves.
+    for L in (64, 1000, 1024, 4096, 2 * TREE_L, 2 * TREE_L + 5000, TREE_L):
         leaves = integer_leaves(L, gen, device)
         for n in (K * 256, 256):
             pre = exact_prefixes(leaves, n, gen)
@@ -504,7 +564,9 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
             check(torch.equal(offsets, cuda_tree.chunk_offsets_plain(leaves)),
                   f"B3 L={L} n={n}: stored chunk offsets differ from plain")
             emit({"phase": "tree_kernel", "case": f"B3 L={L} n={n} integer leaves",
-                  "exact": True, "ok": True})
+                  "chunks": offsets.numel(), "exact": True, "ok": True})
+        if L == 1024:
+            b3_repeatable(cuda_tree, leaves, pre, f"B3 L={L} n={n} integer leaves")
     # B4's count at L = 2^20, B = 256, on the same exact leaves.
     q, p, r, d, _, _ = make_inputs(256, A, supports["pendulum"], gen, device)
     _, _, idx = cfs.fused_step_fwd(supports["pendulum"], q, p, r, d, pre, leaves, offsets)
@@ -536,6 +598,8 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
         mismatch[f"B3 n={pre.numel()}"] = n_diff
         err["per_tree_find_prefix"] = max(err["per_tree_find_prefix"],
                                           int((idx.long() - plain.long()).abs().max()))
+        if k_ == K:
+            b3_repeatable(cuda_tree, leaves, pre, f"B3 L=2^20 n={pre.numel()}")
         emit({"phase": "tree_kernel", "case": f"B3 L=2^20 n={pre.numel()}", "chain": chain,
               "tolerance_of_total": chain * 2.0**-24, "offsets_max_abs_err_vs_f64": off_err,
               "draws_differing_from_plain": n_diff,

@@ -4,15 +4,13 @@
 // _project_tile / loss_tile. One definition, so the kernels cannot drift.
 //
 // Two layouts, one per body:
-//   - project_row / shifted_logit (B1b, B2): one block per batch row,
-//     thread i owns destination atom i, blockDim.x = A rounded up to a warp
-//     (threads past A are masked), dynamic shared memory
-//     p_s[A] | bfrac_s[A] | scratch[32] (smem_for(A) floats);
-//   - loss_row_warp (B1f, and B4's loss blocks): one warp per batch row,
-//     kRowsPerBlock rows a block, lane l owns atoms l, l + 32, ...;
-//     each warp stages its row's (log_softmax, softmax) pairs in its own A
-//     float2 of dynamic shared memory (warp_smem_for(A) bytes a block) and
-//     reduces with shuffles only.
+//   - project_row (B2): one block per batch row, thread i owns destination
+//     atom i, blockDim.x = A rounded up to a warp (threads past A are
+//     masked), dynamic shared memory p_s[A] | bfrac_s[A] (smem_for(A));
+//   - loss_row_warp (B1f, and B4's loss blocks) and grad_row_warp (B1b):
+//     one warp per batch row, kRowsPerBlock rows a block, lane l owns atoms
+//     l, l + 32, ...; each warp stages what its row needs in its own slice
+//     of dynamic shared memory and reduces with shuffles only.
 
 #pragma once
 
@@ -23,37 +21,34 @@
 
 namespace c51 {
 
+constexpr unsigned kFull = 0xffffffffu;
+
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// Block-wide sum / max, result broadcast to every thread. blockDim.x is a
-// multiple of 32; `scratch` holds 32 floats of shared memory. The leading
-// barrier keeps a previous reduction's readers ahead of this one's writers.
-__device__ inline float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  return warp_sum(lane < nwarps ? scratch[lane] : 0.f);
-}
-
-__device__ inline float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  return warp_max(lane < nwarps ? scratch[lane] : -INFINITY);
+// bfrac of source atom j, (clip(r + d*z_j, v_min, v_max) - v_min) / delta,
+// rounded step by step as the plain version (project_plain) rounds it on
+// the card: each product and sum on its own (no FMA contraction), and the
+// division as a multiply by the float32 reciprocal inv_delta, which is how
+// ATen divides a CUDA tensor by a scalar. bfrac reaches A - 1, where one
+// ulp is up to A * 2^-24 (6e-5 at A = 1024); one ulp moves B1f's ce by that
+// times the gap between neighbouring logits and B1b's m (and so dq) by that
+// times p_j: over the stated tolerance at A = 1024 (measured on the card).
+// The forward (loss_row_warp) and the backward (grad_row_warp) both call
+// it, so the backward differentiates the very Phi the forward computed.
+__device__ __forceinline__ float bfrac_at(int j, float r, float d, float v_min,
+                                          float v_max, float delta,
+                                          float inv_delta) {
+  const float z = __fadd_rn(v_min, __fmul_rn((float)j, delta));
+  const float tz = fminf(fmaxf(__fadd_rn(r, __fmul_rn(d, z)), v_min), v_max);
+  return __fmul_rn(__fsub_rn(tz, v_min), inv_delta);
 }
 
 // Phi(r + d*z) for one row: returns m[i] for this thread's atom (0 for the
@@ -78,17 +73,21 @@ __device__ inline float project_row(const float* __restrict__ p_row, float r,
   return acc;
 }
 
-// Log-softmax pieces of one row of logits: returns q_i - max for the live
-// threads (0 for masked ones) and writes the row's log-sum-exp of the
-// shifted logits to *lse.
-__device__ inline float shifted_logit(const float* __restrict__ q_row, int A,
-                                      float* scratch, float* lse) {
-  const bool live = (int)threadIdx.x < A;
-  const float qi = live ? q_row[threadIdx.x] : -INFINITY;
-  const float mx = block_max(qi, scratch);
-  const float sh = live ? qi - mx : 0.f;
-  *lse = logf(block_sum(live ? expf(sh) : 0.f, scratch));
-  return sh;
+// The row's max logit (.x) and log-sum-exp of the shifted logits (.y), by
+// one warp: lane l holds the logits of atoms l, l + 32, ... (-inf past A).
+template <int NPL>
+__device__ __forceinline__ float2 row_max_lse(const float (&qv)[NPL], int A) {
+  const int lane = threadIdx.x & 31;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) mx = fmaxf(mx, qv[k]);
+  mx = warp_max(mx);
+  float se = 0.f;
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    if (lane + 32 * k < A) se += expf(qv[k] - mx);
+  }
+  return make_float2(mx, logf(warp_sum(se)));
 }
 
 // The fused forward of row b by one warp: ce[b] = -sum(m * log_softmax(q)),
@@ -127,41 +126,23 @@ __device__ __noinline__ void loss_row_warp(const float* __restrict__ q,
     qv[k] = i < A ? q[row + i] : -INFINITY;
     pv[k] = i < A ? p[row + i] : 0.f;
   }
-  float mx = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < NPL; ++k) mx = fmaxf(mx, qv[k]);
-  mx = warp_max(mx);
-  float se = 0.f;
-#pragma unroll
-  for (int k = 0; k < NPL; ++k) {
-    if (lane + 32 * k < A) se += expf(qv[k] - mx);
-  }
-  const float lse = logf(warp_sum(se));
+  const float2 ml = row_max_lse<NPL>(qv, A);
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
     const int i = lane + 32 * k;
     if (i < A) {
-      const float logp = (qv[k] - mx) - lse;
+      const float logp = (qv[k] - ml.x) - ml.y;
       lg[i] = make_float2(logp, expf(logp));
     }
   }
   __syncwarp();
-  // bfrac rounded step by step as the plain version (project_plain) rounds
-  // it on the card: each product and sum on its own (no FMA contraction),
-  // and the division as a multiply by the float32 reciprocal, which is how
-  // ATen divides a CUDA tensor by a scalar. bfrac reaches A - 1, where one
-  // ulp is up to A * 2^-24 (6e-5 at A = 1024), and one ulp of bfrac moves
-  // ce by that times the gap between neighbouring logits: over the stated
-  // tolerance at A = 1024 (measured on the card against float64).
   const float inv_delta = 1.f / delta;
   float ce_acc = 0.f, ov_acc = 0.f;
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
     const int j = lane + 32 * k;
     if (j < A) {
-      const float z = __fadd_rn(v_min, __fmul_rn((float)j, delta));
-      const float tz = fminf(fmaxf(__fadd_rn(rb, __fmul_rn(db, z)), v_min), v_max);
-      const float bf = __fmul_rn(__fsub_rn(tz, v_min), inv_delta);
+      const float bf = bfrac_at(j, rb, db, v_min, v_max, delta, inv_delta);
       const int lo = min(max((int)floorf(bf), 0), A - 1);
       const float w0 = fmaxf(0.f, 1.f - fabsf(bf - (float)lo));
       const float2 g0 = lg[lo];
@@ -184,8 +165,112 @@ __device__ __noinline__ void loss_row_warp(const float* __restrict__ q,
   }
 }
 
+// The fused backward of row b by one warp (kernel B1b), the VJP of
+// loss_row_warp's (ce, ov) for cotangents (g_ce, g_ov), Phi recomputed
+// (_fused_loss_grad_kernel):
+//   dq_i = g_ce * (softmax_i * sum(m) - m_i)
+//        + g_ov * sign(dot) * softmax_i * (m_i - dot),  dot = sum(m * softmax).
+// sum(m) and sign(dot) are computed, not assumed, so dq is exact for
+// unnormalized p too. Unlike the forward, dq needs m_i for every
+// destination atom, so the warp forms m in its shared slice `ws`
+// (part[32] float2 | m[A]) by a push, with no float atomics: in round k
+// lane l takes source j = l + 32k and splits p_j onto lo = floor(bfrac_j)
+// and lo + 1 with the forward's weights; the lanes whose sources share lo
+// (__match_any_sync) are a group. Every lane posts its two parts, then sums
+// its group's parts in lane order in one unrolled pass over the 32 posts
+// (loads issued together, whatever the group's size: a terminal or clipped
+// row sends a whole round to one atom), and the group's lowest lane adds
+// the sums to m[lo], then to m[lo + 1]. Groups have distinct lo, so no two
+// lanes write one atom in a phase. Each m_i is the same sum in the same
+// order on every call, so dq is bit-equal across calls. The row's loads
+// are issued together before Phi, sum(m) and dot come from shuffles, and
+// dq is stored lane by lane (coalesced). All 32 lanes call it; no block
+// barrier.
+template <int NPL>
+__device__ __forceinline__ void grad_row_warp(
+    const float* __restrict__ q, const float* __restrict__ p,
+    const float* __restrict__ r, const float* __restrict__ d,
+    const float* __restrict__ g_ce, const float* __restrict__ g_ov,
+    float* __restrict__ dq, int b, int A, float v_min, float v_max,
+    float delta, float* ws) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)b * A;
+  const float rb = r[b], db = d[b], gce = g_ce[b], gov = g_ov[b];
+  float qv[NPL], pv[NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    const int i = lane + 32 * k;
+    qv[k] = i < A ? q[row + i] : -INFINITY;
+    pv[k] = i < A ? p[row + i] : 0.f;
+  }
+  const float2 ml = row_max_lse<NPL>(qv, A);
+  float sm[NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) sm[k] = expf((qv[k] - ml.x) - ml.y);  // 0 past A
+  const float inv_delta = 1.f / delta;
+  float2* part = reinterpret_cast<float2*>(ws);
+  float* msh = ws + 64;
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    if (lane + 32 * k < A) msh[lane + 32 * k] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    if (32 * k >= A) break;  // uniform: no source left in any lane
+    const int j = lane + 32 * k;
+    int lo = -1;  // no source: a group of its own that writes nothing
+    float c0 = 0.f, c1 = 0.f;
+    if (j < A) {
+      const float bf = bfrac_at(j, rb, db, v_min, v_max, delta, inv_delta);
+      lo = min(max((int)floorf(bf), 0), A - 1);
+      c0 = pv[k] * fmaxf(0.f, 1.f - fabsf(bf - (float)lo));
+      if (lo + 1 < A) c1 = pv[k] * fmaxf(0.f, 1.f - fabsf(bf - (float)(lo + 1)));
+    }
+    const unsigned grp = __match_any_sync(kFull, lo);
+    part[lane] = make_float2(c0, c1);
+    __syncwarp();  // also orders the previous round's writes of m
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < 32; ++t) {
+      if ((grp >> t) & 1u) {
+        const float2 c = part[t];
+        s0 += c.x;
+        s1 += c.y;
+      }
+    }
+    const bool lead = lo >= 0 && lane == __ffs(grp) - 1;
+    if (lead) msh[lo] += s0;
+    __syncwarp();
+    if (lead && lo + 1 < A) msh[lo + 1] += s1;
+    __syncwarp();
+  }
+  float m[NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    m[k] = lane + 32 * k < A ? msh[lane + 32 * k] : 0.f;
+  }
+  float ms = 0.f, dt = 0.f;
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    if (lane + 32 * k < A) {
+      ms += m[k];
+      dt += m[k] * sm[k];
+    }
+  }
+  const float msum = warp_sum(ms);
+  const float dot = warp_sum(dt);
+  const float sgn = (float)((dot > 0.f) - (dot < 0.f));
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    const int i = lane + 32 * k;
+    if (i < A) {
+      dq[row + i] = gce * (sm[k] * msum - m[k]) + gov * sgn * sm[k] * (m[k] - dot);
+    }
+  }
+}
+
 inline int threads_for(int A) { return ((A + 31) / 32) * 32; }
-inline size_t smem_for(int A) { return (2 * (size_t)A + 32) * sizeof(float); }
+inline size_t smem_for(int A) { return 2 * (size_t)A * sizeof(float); }
 
 // Warp-per-row layout: rows (warps) a block. Chosen on the card from 2, 4
 // and 8 (B = 256, A = 51): 4 was the fastest for B4, whose count blocks
@@ -198,9 +283,15 @@ inline size_t warp_smem_for(int A) {
   return (size_t)kRowsPerBlock * A * sizeof(float2);
 }
 
-// Calls f(std::integral_constant<int, NPL>()) with the NPL of
-// loss_row_warp for A atoms (2 <= A <= 1024): ceil(A / 32) rounded up to
-// a power of two, so that B1f and B4 pick the same instantiation.
+// Floats of grad_row_warp's shared slice per warp (row); even, so that
+// every warp's slice starts 8-byte aligned for its float2 staging.
+__host__ __device__ inline int grad_warp_floats(int A) {
+  return 64 + A + (A & 1);
+}
+
+// Calls f(std::integral_constant<int, NPL>()) with the NPL of the warp
+// bodies for A atoms (2 <= A <= 1024): ceil(A / 32) rounded up to a power
+// of two, so that B1f and B4 pick the same instantiation.
 template <typename F>
 inline void with_atoms_per_lane(int A, F&& f) {
   if (A <= 32) f(std::integral_constant<int, 1>());

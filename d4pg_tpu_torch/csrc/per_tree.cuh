@@ -11,12 +11,13 @@
 // A 4 MiB leaf array (L = 2^20) does not fit in a 227 KB block, so the
 // cumsum is built in two levels:
 //   pass 1 (B3's chunk_sums_kernel): one warp per chunk of kChunk leaves
-//     walks it (walk_chunk) and writes the chunk's sum S[c];
-//   pass 2 (B3's count blocks): each block stages the chunks' exclusive
-//     prefix E[c] in shared memory (stage_offsets), and block 0 also stores
-//     E to device memory: B3's second output, which the fused-descent
-//     megastep hands to every B4 launch of the dispatch. B4's count blocks
-//     load that E (load_offsets) instead of staging it again, so B3 and B4
+//     walks it (walk_chunk) and writes the chunk's sum S[c]; the last block
+//     to finish (a ticket on a device counter) computes the chunks'
+//     exclusive prefix E[c] from S once and stores it (store_offsets): B3's
+//     second output, which the fused-descent megastep hands to every B4
+//     launch of the dispatch;
+//   pass 2 (B3's count blocks, and B4's): each block loads E into shared
+//     memory (load_offsets, 16-byte loads, one barrier), so B3 and B4
 //     search the very same E values. Then one warp per draw finds the
 //     last chunk with E[c] <= prefix (two rounds of __ballot_sync over E
 //     at L = 2^20) and walks that chunk from E[c] (count_draw).
@@ -35,7 +36,7 @@
 // Numerics (the declared caveat of pallas_tree.py:22-29, made concrete):
 // every cs[i] is a sum of non-negative float32 terms, and a term's error is
 // bounded by the number of adds on its path to the result. That path is at
-// most  2*ceil(nchunks/32) + 5  adds inside E[c] (stage_offsets: a lane's
+// most  2*ceil(nchunks/32) + 5  adds inside E[c] (store_offsets: a lane's
 // chunks in sequence, a warp scan of the lane totals, the lane's running
 // prefix) plus, for a leaf of an earlier chunk, its chunk sum's
 // kChunk/32 - 1 + 5 (a lane's leaves in sequence, the warp scan), plus 2
@@ -59,7 +60,9 @@
 // each draw (4 KB a draw, mostly from L2, which holds the whole array).
 // What holds a count warp back is latency, not bytes: the offsets, the
 // search, then the chunk's leaves. Loading a whole chunk in one go makes
-// the last of these one round trip instead of up to eight.
+// the last of these one round trip instead of up to eight, and E computed
+// once in pass 1 makes the first one 16-byte load a thread instead of a
+// walk over S in every count block.
 
 #pragma once
 
@@ -135,34 +138,93 @@ __device__ __noinline__ Walk walk_chunk(const float* __restrict__ leaves,
   return Walk{run + __shfl_sync(kFull, incl, 31), count};
 }
 
-// E[c] = sum of S[0..c) for c < nchunks, into shared memory; every thread
-// of the block calls it (it ends in a barrier). Warp 0 does the work in a
-// fixed order: lane l sums its ceil(nchunks/32) consecutive chunk sums in
-// sequence, a warp scan offsets the lanes, then each lane writes its
-// running prefixes. Deterministic, so every block of B3 stages the same E
-// from the same S, and the E that block 0 stores is the one every block
-// searched.
-__device__ __noinline__ void stage_offsets(const float* __restrict__ sums,
-                                           int nchunks, float* E) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int per = (nchunks + 31) / 32;
-    const int c0 = lane * per;
-    float t = 0.f;
-    for (int j = 0; j < per; ++j) {
-      if (c0 + j < nchunks) t += sums[c0 + j];
+// Chunk sums a lane of store_offsets holds in registers at once.
+constexpr int kPiece = 32;
+
+// v[t] = s[first + t] for t < n (n <= kPiece), 0 past n, every load issued
+// before the caller's first add: 16-byte loads where the piece is whole
+// and 16-byte aligned. Through L2 only (__ldcg): other blocks of the same
+// launch wrote s.
+__device__ __forceinline__ void load_piece(const float* s, int first, int n,
+                                           float (&v)[kPiece]) {
+  if (n == kPiece && (reinterpret_cast<size_t>(s + first) & 15) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(s + first);
+#pragma unroll
+    for (int t = 0; t < kPiece / 4; ++t) {
+      const float4 x = __ldcg(src + t);
+      v[4 * t] = x.x;
+      v[4 * t + 1] = x.y;
+      v[4 * t + 2] = x.z;
+      v[4 * t + 3] = x.w;
     }
-    const float incl = warp_incl_scan(t);
-    float run = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) run = 0.f;
-    for (int j = 0; j < per; ++j) {
-      if (c0 + j < nchunks) {
-        E[c0 + j] = run;
-        run += sums[c0 + j];
+  } else {
+#pragma unroll
+    for (int t = 0; t < kPiece; ++t) v[t] = t < n ? __ldcg(s + first + t) : 0.f;
+  }
+}
+
+// offsets[first + t] = run, then run += v[t], for t < n (n <= kPiece): the
+// lane's running prefixes, in sequence. 16-byte stores where the piece is
+// whole and 16-byte aligned (lanes 128 bytes apart: a scalar store a chunk
+// would touch 32 lines an instruction, four times as often).
+__device__ __forceinline__ void store_piece(float* offsets, int first, int n,
+                                            const float (&v)[kPiece],
+                                            float& run) {
+  if (n == kPiece && (reinterpret_cast<size_t>(offsets + first) & 15) == 0) {
+    float4* dst = reinterpret_cast<float4*>(offsets + first);
+#pragma unroll
+    for (int t = 0; t < kPiece / 4; ++t) {
+      float4 o;
+      o.x = run;
+      run += v[4 * t];
+      o.y = run;
+      run += v[4 * t + 1];
+      o.z = run;
+      run += v[4 * t + 2];
+      o.w = run;
+      run += v[4 * t + 3];
+      dst[t] = o;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < kPiece; ++t) {
+      if (t < n) {
+        offsets[first + t] = run;
+        run += v[t];
       }
     }
   }
-  __syncthreads();
+}
+
+// E[c] = sum of S[0..c) for c < nchunks, stored to `offsets` by one warp
+// (all 32 lanes call it), in a fixed order: lane l sums its
+// per = ceil(nchunks/32) consecutive chunk sums in sequence, a warp scan
+// offsets the lanes, then each lane writes its running prefixes. A lane
+// holds its chunk sums kPiece at a time; up to nchunks = 1024 (L = 2^20)
+// that is one piece, loaded once, so E waits for one round trip to S.
+__device__ __noinline__ void store_offsets(const float* sums, int nchunks,
+                                           float* __restrict__ offsets) {
+  const int lane = threadIdx.x & 31;
+  const int per = (nchunks + 31) / 32;
+  const int c0 = lane * per;
+  const int own = max(0, min(per, nchunks - c0));  // chunks of this lane
+  float v[kPiece];
+  float t = 0.f;
+  for (int base = 0; base < per; base += kPiece) {
+    load_piece(sums, c0 + base, max(0, min(kPiece, own - base)), v);
+#pragma unroll
+    for (int k = 0; k < kPiece; ++k) {
+      if (base + k < own) t += v[k];
+    }
+  }
+  const float incl = warp_incl_scan(t);
+  float run = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) run = 0.f;
+  for (int base = 0; base < per; base += kPiece) {
+    const int n = max(0, min(kPiece, own - base));
+    if (per > kPiece) load_piece(sums, c0 + base, n, v);
+    store_piece(offsets, c0 + base, n, v, run);
+  }
 }
 
 // The count of one draw, for the warp that calls it: the last chunk c with
@@ -187,7 +249,7 @@ __device__ __noinline__ int count_draw(const float* __restrict__ leaves, int L,
   return c * kChunk + walk_chunk(leaves, L, c * kChunk, E[c], prefix).count;
 }
 
-// E[0..nchunks) from device memory (B3's stored offsets) into shared
+// E[0..nchunks) from device memory (pass 1's stored offsets) into shared
 // memory, by every thread of the block, in 16-byte loads where `offsets`
 // is 16-byte aligned (as find_prefix allocates it). Ends in a barrier, so
 // every thread of the block must call it before any warp leaves.

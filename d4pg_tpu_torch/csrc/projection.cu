@@ -10,9 +10,10 @@
 //   m[b, i] = sum_j p[b, j] * max(0, 1 - |bfrac[b, j] - i|),
 //   bfrac[b, j] = (clip(r[b] + d[b] * z_j, v_min, v_max) - v_min) / delta.
 // The row functions live in c51_rows.cuh, so the kernels cannot drift apart
-// numerically (the Pallas code's no-drift discipline): B2 and B1b call
-// project_row, and B1f's body is c51::loss_row_warp, which kernel B4
-// (csrc/fused_step.cu) runs too.
+// numerically (the Pallas code's no-drift discipline): B2 calls
+// project_row; B1f's body is c51::loss_row_warp, which kernel B4
+// (csrc/fused_step.cu) runs too, and B1b's is c51::grad_row_warp, which
+// rounds bfrac through the same c51::bfrac_at as loss_row_warp.
 //
 // What bounds them on an H100: at the learner's shapes (B = 256, A = 51) the
 // fused forward reads q, p [B, A] and r, d [B] (about 106 KB) and writes two
@@ -25,27 +26,28 @@
 // VMEM), and each is one launch with no workspace.
 //
 // Layouts:
-//   - B1f: one warp per batch row, kRowsPerBlock = 4 rows a block (64
-//     blocks of 128 threads for B = 256). The warp issues the
-//     loads of q, p, r and d together, before Phi, so that one memory
-//     latency covers them; it reduces with warp shuffles only (no
-//     __syncthreads, no shared scratch). Since ce and ov are linear in m,
-//     it never forms m: each lane pushes its source atoms' mass onto the
-//     staged (log_softmax, softmax) of the two atoms each lands between
+//   - B1f and B1b: one warp per batch row, kRowsPerBlock = 4 rows a block
+//     (64 blocks of 128 threads for B = 256). The warp issues the loads of
+//     its row (q, p, r, d, and B1b's g_ce, g_ov) together, before Phi, so
+//     that one memory latency covers them; it reduces with warp shuffles
+//     only (no __syncthreads). Since ce and ov are linear in m, B1f never
+//     forms m: each lane pushes its source atoms' mass onto the staged
+//     (log_softmax, softmax) of the two atoms each lands between
 //     (c51::loss_row_warp says why that beats a gather per destination).
-//   - B1b and B2: one block per batch row, thread i owns destination atom
-//     i (block size = A rounded up to a warp; threads past A are masked),
-//     the row's p and bfrac in shared memory, every thread walks the A
-//     source atoms, block reductions through shared scratch. Moving them
-//     onto the warp-per-row body is queued.
+//     B1b's dq needs m per destination atom: the warp forms m in its shared
+//     slice by the same push, lanes that share a destination summing in
+//     lane order (no atomics, so dq is deterministic), then stores dq
+//     coalesced (c51::grad_row_warp).
+//   - B2: one block per batch row, thread i owns destination atom i (block
+//     size = A rounded up to a warp; threads past A are masked), the row's
+//     p and bfrac in shared memory (p_s[A] | bfrac_s[A]), every thread
+//     walks the A source atoms. Moving it onto a warp per row is queued.
 
 #include "c51_rows.cuh"
 
 namespace {
 
 using namespace c51;
-
-// Shared memory of B2 and B1b: p_s[A] | bfrac_s[A] | scratch[32].
 
 // Replaces _projection_kernel (categorical_projection_pallas): m = Phi(r + d*z)
 // written out, [B, A].
@@ -86,32 +88,22 @@ __global__ void fused_loss_fwd_kernel(const float* __restrict__ q,
 // Phi recomputed rather than saved:
 //   dce/dq = softmax * sum(m) - m
 //   dov/dq = sign(dot) * softmax * (m - dot),  dot = sum(m * softmax)
-// sum(m) and sign(dot) are computed, not assumed, so the gradient is exact
-// for unnormalized inputs too.
+// One warp per row, as B1f; warps past B have no row and do nothing.
+template <int NPL>
 __global__ void fused_loss_bwd_kernel(const float* __restrict__ q,
                                       const float* __restrict__ p,
                                       const float* __restrict__ r,
                                       const float* __restrict__ d,
                                       const float* __restrict__ g_ce,
                                       const float* __restrict__ g_ov,
-                                      float* __restrict__ dq, int A,
+                                      float* __restrict__ dq, int B, int A,
                                       float v_min, float v_max, float delta) {
-  extern __shared__ float smem[];
-  float* scratch = smem + 2 * A;
-  const int b = blockIdx.x;
-  const size_t row = (size_t)b * A;
-  const bool live = (int)threadIdx.x < A;
-  const float m = project_row(p + row, r[b], d[b], A, v_min, v_max, delta,
-                              smem, smem + A);
-  float lse;
-  const float sh = shifted_logit(q + row, A, scratch, &lse);
-  const float sm = live ? expf(sh - lse) : 0.f;
-  const float msum = block_sum(m, scratch);
-  const float dot = block_sum(m * sm, scratch);
-  const float sgn = (float)((dot > 0.f) - (dot < 0.f));
-  if (live) {
-    dq[row + threadIdx.x] =
-        g_ce[b] * (sm * msum - m) + g_ov[b] * sgn * sm * (m - dot);
+  extern __shared__ __align__(16) float row_stage[];
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
+  if (b < B) {
+    grad_row_warp<NPL>(q, p, r, d, g_ce, g_ov, dq, b, A, v_min, v_max, delta,
+                       row_stage + (size_t)w * grad_warp_floats(A));
   }
 }
 
@@ -155,9 +147,13 @@ extern "C" int c51_fused_loss_bwd(const float* q, const float* p,
                                   float* dq, int B, int A, float v_min,
                                   float v_max, float delta, void* stream) {
   if (B > 0) {
-    fused_loss_bwd_kernel<<<B, c51::threads_for(A), c51::smem_for(A),
-                            (cudaStream_t)stream>>>(q, p, r, d, g_ce, g_ov, dq,
-                                                    A, v_min, v_max, delta);
+    const int rows = c51::kRowsPerBlock;
+    const size_t smem = rows * c51::grad_warp_floats(A) * sizeof(float);
+    c51::with_atoms_per_lane(A, [&](auto npl) {
+      fused_loss_bwd_kernel<decltype(npl)::value>
+          <<<(B + rows - 1) / rows, 32 * rows, smem, (cudaStream_t)stream>>>(
+              q, p, r, d, g_ce, g_ov, dq, B, A, v_min, v_max, delta);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -35,8 +35,8 @@ import torch.nn.functional as F
 from d4pg_tpu_torch.ops import _build
 from d4pg_tpu_torch.ops.categorical import CategoricalSupport
 
-# B1b and B2 run one thread per destination atom in a block per row; B1f
-# runs a warp per row whose lanes loop over ceil(A / 32) atoms.
+# B2 runs one thread per destination atom in a block per row; B1f and B1b
+# run a warp per row whose lanes loop over ceil(A / 32) atoms.
 MAX_ATOMS = 1024
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its

@@ -16,6 +16,17 @@ blocks searched: the fused-descent megastep hands those to every kernel-B4
 launch of the dispatch (``ops/cuda_fused_step.py``), whose count blocks
 load them and run the same device code, so B4's indices equal B3's.
 
+The kernel's first pass computes those offsets once, in its last block to
+finish, which it finds by a ticket on a device counter: one persistent
+int32 counter per (device, stream) (``_ticket``), reset to 0 by the kernel
+itself at the end of every pass 1, so back-to-back calls and CUDA-graph
+replays need no host step. Calls on one stream run in order, and calls on
+two streams take two counters, so they may overlap. The counters are made
+zeroed, ``_TICKETS_PER_BLOCK`` at a time, at a device's first call, which
+must therefore not be inside a graph capture; a stream met later, inside a
+capture too, takes a counter already made. A captured graph keeps the
+counter of the stream it was captured on.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`find_prefix_plain`, which is what the CPU tests hold
 against the JAX package's descent and what ``chip_smoke.py`` holds the
@@ -45,8 +56,11 @@ def reset_launch_counts() -> None:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"per_tree_find_prefix": [_P, _I, _P, _P, _I, _P, _I, _P, _P]}
+_SIGNATURES = {"per_tree_find_prefix": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _P]}
 _fns: dict = {}
+_TICKETS_PER_BLOCK = 64
+_tickets: dict = {}  # (device, stream handle) -> its int32 ticket counter (0 between calls)
+_spare_tickets: dict = {}  # device -> zeroed counters not yet given to a stream
 
 
 def num_chunks(L: int) -> int:
@@ -59,6 +73,25 @@ def chain_length(L: int) -> int:
     offset's, then the walk inside the chunk. A value is within
     ``chain_length(L) * 2**-24 * total`` of the exact sum."""
     return 2 * (-(-num_chunks(L) // 32)) + 5 + CHUNK // 32 + 5 + 1
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The ticket counter of ``device``'s current stream. A new block of
+    zeroed counters made inside a graph capture would live in the graph's
+    memory pool and be zeroed only by a replay, so that is refused."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _tickets.get(key)
+    if t is None:
+        spare = _spare_tickets.get(device)
+        if not spare:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "call find_prefix once on this device before capturing it in a CUDA graph"
+                )
+            block = torch.zeros((_TICKETS_PER_BLOCK,), device=device, dtype=torch.int32)
+            spare = _spare_tickets[device] = list(block.split(1))
+        t = _tickets[key] = spare.pop()
+    return t
 
 
 def _check_leaves(leaves: torch.Tensor) -> None:
@@ -118,8 +151,9 @@ def find_prefix(
     L, nchunks = leaves.numel(), num_chunks(leaves.numel())
     flat = prefixes.reshape(-1).contiguous()
     idx = torch.empty(flat.shape, device=leaves.device, dtype=torch.int32)
-    # one buffer: the offsets first (the allocator's alignment, so B4 loads
-    # them 16 bytes at a time), then the chunk sums, scratch of pass 1
+    # one buffer: the offsets first (the allocator's alignment, so the count
+    # blocks of B3 and B4 load them 16 bytes at a time), then the chunk
+    # sums, scratch of pass 1
     work = torch.empty((2 * nchunks,), device=leaves.device, dtype=torch.float32)
     offsets, sums = work[:nchunks], work[nchunks:]
     if flat.numel():
@@ -128,7 +162,7 @@ def find_prefix(
         _build.launch(
             _fns["per_tree_find_prefix"], leaves.device, leaves.data_ptr(), L,
             sums.data_ptr(), offsets.data_ptr(), nchunks, flat.data_ptr(),
-            flat.numel(), idx.data_ptr(),
+            flat.numel(), idx.data_ptr(), _ticket(leaves.device).data_ptr(),
         )
         LAUNCHES["tree_count"] += 1
     return idx.reshape(prefixes.shape), offsets

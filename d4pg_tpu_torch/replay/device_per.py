@@ -127,7 +127,10 @@ def stratified_prefixes(
     the total never falls off the last nonzero leaf."""
     n = k * batch
     seg = torch.arange(n, dtype=torch.float32, device=u.device).reshape(batch, k).T
-    pre = (seg + u) * (total / n)
+    # u first: the sum takes u's contiguous layout, not seg's transposed
+    # one, so the kernels' wrappers (B3 once a dispatch, B4 each step) need
+    # no copy of the prefixes to make them contiguous
+    pre = (u + seg) * (total / n)
     return torch.minimum(pre, torch.nextafter(total, torch.zeros_like(total)))
 
 

@@ -29,6 +29,12 @@ Three bodies, one per tier:
 Every body takes an explicit ``idx`` / ``prefixes`` for tests that feed
 the JAX package's draws; by default it draws from the ``torch.Generator``
 it is given.
+
+A CUDA graph of a PER dispatch must be captured after one eager dispatch
+on the same device: kernel B3 (``ops/cuda_tree.py``) makes its ticket
+counters at a device's first call, and refuses that first call inside a
+capture. The graph then keeps the counter of the stream it was captured
+on, so it must not replay while a B3 call on that stream is in flight.
 """
 
 from __future__ import annotations

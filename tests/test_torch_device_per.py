@@ -137,6 +137,13 @@ def test_stratified_prefixes_from_the_reference_uniforms():
     assert float(edge.max()) == float(np.nextafter(np.float32(5.0), np.float32(0.0)))
 
 
+def test_stratified_prefixes_are_contiguous_row_by_row():
+    """The megastep hands the whole [K, B] block to B3 and row t to B4 at
+    step t; a wrapper given a non-contiguous input copies it first."""
+    pre = dper.stratified_prefixes(torch.rand(K, B), K, B, torch.tensor(5.0))
+    assert pre.is_contiguous() and all(pre[t].is_contiguous() for t in range(K))
+
+
 def test_lane_draw_min_leaf_weights_and_beta_match_the_reference():
     pri = np.random.default_rng(11).uniform(0.1, 3.0, SIZE)
     jt, tt = _j_tree(pri), _t_tree(pri)
@@ -300,6 +307,15 @@ def test_chunk_offsets_plain_match_the_reference_tree_within_the_chain(cap):
     tol = 2 * cuda_tree.chain_length(len(leaves)) * 2.0**-24 * float(pa.astype(np.float64).sum())
     assert got.shape == want.shape and got[0] == want[0] == 0.0
     assert np.abs(got - want).max() <= tol
+
+
+def test_chain_length_pins_the_kernel_summation_order():
+    """The chain stated in csrc/per_tree.cuh: the chunk offsets' order (a
+    lane's chunk sums in sequence, one warp scan, the lane's running prefix)
+    and the walk inside a chunk. 107 adds at the 1M-row tree's 2^20 leaves;
+    a single-chunk tree has the shortest."""
+    assert cuda_tree.chain_length(2**20) == 107
+    assert cuda_tree.chain_length(cuda_tree.CHUNK) == 45
 
 
 def test_chunk_offsets_plain_on_a_ragged_last_chunk():

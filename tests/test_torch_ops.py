@@ -95,12 +95,18 @@ def test_fused_loss_forward_matches_pallas(B, v_min, v_max):
 
 
 @pytest.mark.parametrize("v_min,v_max", SUPPORTS)
-@pytest.mark.parametrize("B", [7, 200])
-def test_fused_loss_gradient_matches_pallas_vjp(B, v_min, v_max):
+@pytest.mark.parametrize(
+    "B,A",
+    # the A = 51 cases keep their ids; A = 2 and 101 put fewer atoms than a
+    # warp and several atoms a lane in the CUDA kernel's warp-per-row body
+    [pytest.param(B, 51, id=str(B)) for B in (7, 200)]
+    + [pytest.param(B, A, id=f"{B}-A{A}") for A in (2, 101) for B in (7, 200)],
+)
+def test_fused_loss_gradient_matches_pallas_vjp(B, A, v_min, v_max):
     """dq for nonzero cotangents on BOTH outputs (ce and overlap)."""
-    q, p, r, d, g_ce, g_ov = _inputs(B, 51, v_min, v_max, seed=2)
-    jsup = jcat.make_support(v_min, v_max, 51)
-    tsup = tcat.make_support(v_min, v_max, 51)
+    q, p, r, d, g_ce, g_ov = _inputs(B, A, v_min, v_max, seed=2)
+    jsup = jcat.make_support(v_min, v_max, A)
+    tsup = tcat.make_support(v_min, v_max, A)
     jp, jr, jd = _j(p, r, d)
     _, vjp = jax.vjp(lambda x: j_fused_loss(jsup, x, jp, jr, jd, interpret=True), jnp.asarray(q))
     (dq_j,) = vjp((jnp.asarray(g_ce), jnp.asarray(g_ov)))
