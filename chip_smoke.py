@@ -13,16 +13,18 @@ JSON line:
 2. ``kernel``: each hand-written kernel against its plain PyTorch version
    on the card, at B=256 and a ragged B=200 with A=51 atoms, on the
    Pendulum support [-300, 0] and on [-10, 10], with terminal rows and
-   rows whose targets clip at v_min and v_max; kernels B1f and B1b also at
-   every geometry B in {1, 7, 200, 256} x A in {2, 51, 101, 1024} (rows
-   that do not fill a block, atoms that do not fill a warp, several atoms
-   a lane), B1b's dq ``torch.equal`` across two calls; then, at the
-   learner's shape (B=256, A=51, Pendulum), the kernel's device time (100
-   launches in a CUDA graph, CUDA events around its replays), its eager
-   per-call time (median over 100 calls), the same two for the plain
-   version, the kernel's bound, and ``floor_ms``: the device time of one
-   one-launch PyTorch op (``zero_()`` of a one-element tensor) in the same
-   harness, the part of a kernel's time that is launch.
+   rows whose targets clip at v_min and v_max; kernels B1f, B1b and B2
+   also at every geometry B in {1, 7, 200, 256} x A in {2, 51, 101, 1024}
+   (rows that do not fill a block, atoms that do not fill a warp, several
+   atoms a lane), B1b's dq and B2's m ``torch.equal`` across two calls;
+   then, at the learner's shape (B=256, A=51, Pendulum), the kernel's
+   device time (100 launches in a CUDA graph, CUDA events around its
+   replays), its eager per-call time (median over 100 calls), the same two
+   for the plain version, the kernel's bound, and ``floor_ms``: the device
+   time of one one-launch PyTorch op (``zero_()`` of a one-element tensor)
+   in the same harness, the part of a kernel's time that is launch. B2 is
+   also timed alone at A = 1024 (its plain version's [B, A, A] weight is
+   1 GiB there).
 3. ``tree_kernel``: kernel B3 (the PER prefix descent) against its plain
    version (``cumsum`` + ``searchsorted``): exactly, at L = 64 to 2^21 + 5000
    (single-chunk trees at 64, 1000 and 1024; past 2^20 a lane of pass 1's
@@ -91,8 +93,8 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 # results agree to a few float32 ulps of values up to ~10.
 ATOL, RTOL = 2e-5, 1e-5
 
-# B1f and B1b against their plain versions at these (B, A); B4 at the A of
-# GEOMETRY_ATOMS_B4, L = 2^20.
+# B1f, B1b and B2 against their plain versions at these (B, A); B4 at the
+# A of GEOMETRY_ATOMS_B4, L = 2^20.
 GEOMETRY_BATCHES = (1, 7, 200, 256)
 GEOMETRY_ATOMS = (2, 51, 101, 1024)
 GEOMETRY_ATOMS_B4 = (51, 101)
@@ -255,14 +257,15 @@ def kernel_phase(cp, make_support, floor: float):
             )
             emit({"phase": "kernel", "case": case, "max_abs_err": dict(err), "ok": True})
 
-    # B1f's and B1b's warp-per-row geometry: a block of R rows that B does
-    # not fill, atoms that do not fill a warp, 1 to 32 atoms a lane. B1b's
-    # cases over tolerance are gathered and raised after the sweep, so that
-    # every A's line prints; two B1b calls must give the same dq bit for bit
-    # (m is formed with no atomics).
-    b1b_over = []
+    # The warp-per-row geometry of B1f, B1b and B2: a block of R rows that
+    # B does not fill, atoms that do not fill a warp, 1 to 32 atoms a lane.
+    # B1b's and B2's cases over tolerance are gathered and raised after the
+    # sweep, so that every A's line prints; two calls must give the same dq
+    # and the same m bit for bit (m is formed with no atomics).
+    b1b_over, b2_over = [], []
     for A_g in GEOMETRY_ATOMS:
         b1b_err, over = 0.0, []
+        b2_err, b2_cases = 0.0, []
         for sname, (lo, hi) in (("pendulum", (-300.0, 0.0)), ("sym10", (-10.0, 10.0))):
             support = make_support(lo, hi, A_g)
             for B in GEOMETRY_BATCHES:
@@ -282,6 +285,17 @@ def kernel_phase(cp, make_support, floor: float):
                 b1b_err = max(b1b_err, e)
                 if not torch.allclose(dq, want, atol=ATOL, rtol=RTOL):
                     over.append({"case": case, "max_abs_err": e})
+                case = f"B2 geometry B={B} A={A_g} support={sname}"
+                m = cp.project(support, p, r, d)
+                m2 = cp.project(support, p, r, d)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(m).all()), f"{case}: non-finite output")
+                check(torch.equal(m, m2), f"{case}: two calls give different m")
+                want = cp.project_plain(support, p, r, d)
+                e = float((m - want).abs().max())
+                b2_err = max(b2_err, e)
+                if not torch.allclose(m, want, atol=ATOL, rtol=RTOL):
+                    b2_cases.append({"case": case, "max_abs_err": e})
         emit({"phase": "kernel", "case": f"B1f geometry A={A_g} B={list(GEOMETRY_BATCHES)}",
               "max_abs_err": err["c51_fused_loss_fwd"], "ok": True})
         err["c51_fused_loss_bwd"] = max(err["c51_fused_loss_bwd"], b1b_err)
@@ -289,7 +303,13 @@ def kernel_phase(cp, make_support, floor: float):
               "max_abs_err": b1b_err, "bit_equal_across_calls": True, "over_tolerance": over,
               "ok": not over})
         b1b_over += over
+        err["c51_project"] = max(err["c51_project"], b2_err)
+        emit({"phase": "kernel", "case": f"B2 geometry A={A_g} B={list(GEOMETRY_BATCHES)}",
+              "max_abs_err": b2_err, "bit_equal_across_calls": True, "over_tolerance": b2_cases,
+              "ok": not b2_cases})
+        b2_over += b2_cases
     check(not b1b_over, f"c51_fused_loss_bwd: {len(b1b_over)} geometry cases over tolerance: {b1b_over}")
+    check(not b2_over, f"c51_project: {len(b2_over)} geometry cases over tolerance: {b2_over}")
 
     # Timing at the learner's shape.
     B, support = 256, supports["pendulum"]
@@ -333,6 +353,27 @@ def kernel_phase(cp, make_support, floor: float):
             "ops": ops,
         }
         emit({"phase": "kernel_time", "name": name, "B": B, "A": A, **timing[name]})
+
+    # B2 alone at the widest support, where the push's O(A) work a row
+    # replaces the gather's O(A^2); its plain version's [B, A, A] weight is
+    # 1 GiB there (and a graph of 100 calls would hold it 100 times).
+    A_w = GEOMETRY_ATOMS[-1]
+    support_w = make_support(-300.0, 0.0, A_w)
+    _, p_w, r_w, d_w, _, _ = make_inputs(B, A_w, support_w, gen, device)
+    nbytes, ops = f4 * (B * A_w + 2 * B) + f4 * B * A_w, B * 16 * A_w
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+
+    def wide():
+        return cp.project(support_w, p_w, r_w, d_w)
+
+    wide_t = {
+        "ms": device_ms(wide), "call_ms": call_ms(wide), "plain_ms": None,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "floor_ms": floor, "bytes": nbytes, "ops": ops,
+    }
+    emit({"phase": "kernel_time", "name": "c51_project", "B": B, "A": A_w, **wide_t})
+    timing["c51_project"]["at_A1024"] = wide_t
     return err, timing
 
 
@@ -901,6 +942,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "floor_ms": t["floor_ms"], "ok": True,
         }
+        if "at_A1024" in t:  # B2 alone at B = 256, A = 1024
+            entry["at_A1024"] = {k: t["at_A1024"][k] for k in ("ms", "bound_ms", "bound_by")}
         tag = {"tree_count": "B3", "fused_step": "B4"}.get(counter)
         if tag:  # draws whose index differs from the plain version's
             entry["index_mismatches_vs_plain"] = {

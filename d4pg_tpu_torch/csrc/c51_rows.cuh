@@ -3,14 +3,13 @@
 // csrc/fused_step.cu (kernel B4), as the Pallas files share
 // _project_tile / loss_tile. One definition, so the kernels cannot drift.
 //
-// Two layouts, one per body:
-//   - project_row (B2): one block per batch row, thread i owns destination
-//     atom i, blockDim.x = A rounded up to a warp (threads past A are
-//     masked), dynamic shared memory p_s[A] | bfrac_s[A] (smem_for(A));
-//   - loss_row_warp (B1f, and B4's loss blocks) and grad_row_warp (B1b):
-//     one warp per batch row, kRowsPerBlock rows a block, lane l owns atoms
-//     l, l + 32, ...; each warp stages what its row needs in its own slice
-//     of dynamic shared memory and reduces with shuffles only.
+// One layout for every body: one warp per batch row, kRowsPerBlock rows a
+// block, lane l owns atoms l, l + 32, ...; each warp stages what its row
+// needs in its own slice of dynamic shared memory and reduces with
+// shuffles only. loss_row_warp is the body of B1f and of B4's loss blocks;
+// form_m_warp forms m per destination atom for B2 (which stores it) and
+// for B1b (grad_row_warp, which differentiates it). Every body rounds
+// bfrac through bfrac_at.
 
 #pragma once
 
@@ -40,37 +39,16 @@ __device__ __forceinline__ float warp_max(float v) {
 // ATen divides a CUDA tensor by a scalar. bfrac reaches A - 1, where one
 // ulp is up to A * 2^-24 (6e-5 at A = 1024); one ulp moves B1f's ce by that
 // times the gap between neighbouring logits and B1b's m (and so dq) by that
-// times p_j: over the stated tolerance at A = 1024 (measured on the card).
-// The forward (loss_row_warp) and the backward (grad_row_warp) both call
-// it, so the backward differentiates the very Phi the forward computed.
+// times p_j: over the stated tolerance at A = 1024 (measured on the card,
+// for B1f, B1b and B2). The forward (loss_row_warp) and form_m_warp (B2,
+// and the backward through grad_row_warp) all call it, so the backward
+// differentiates the very Phi the forward computed, and B2 writes it.
 __device__ __forceinline__ float bfrac_at(int j, float r, float d, float v_min,
                                           float v_max, float delta,
                                           float inv_delta) {
   const float z = __fadd_rn(v_min, __fmul_rn((float)j, delta));
   const float tz = fminf(fmaxf(__fadd_rn(r, __fmul_rn(d, z)), v_min), v_max);
   return __fmul_rn(__fsub_rn(tz, v_min), inv_delta);
-}
-
-// Phi(r + d*z) for one row: returns m[i] for this thread's atom (0 for the
-// masked threads past A). Stages p and bfrac of the row in shared memory.
-__device__ inline float project_row(const float* __restrict__ p_row, float r,
-                                    float d, int A, float v_min, float v_max,
-                                    float delta, float* p_s, float* bfrac_s) {
-  for (int j = threadIdx.x; j < A; j += blockDim.x) {
-    const float z = v_min + (float)j * delta;
-    const float tz = fminf(fmaxf(r + d * z, v_min), v_max);
-    bfrac_s[j] = (tz - v_min) / delta;
-    p_s[j] = p_row[j];
-  }
-  __syncthreads();
-  float acc = 0.f;
-  if ((int)threadIdx.x < A) {
-    const float fi = (float)threadIdx.x;
-    for (int j = 0; j < A; ++j) {
-      acc += p_s[j] * fmaxf(0.f, 1.f - fabsf(bfrac_s[j] - fi));
-    }
-  }
-  return acc;
 }
 
 // The row's max logit (.x) and log-sum-exp of the shifted logits (.y), by
@@ -165,48 +143,39 @@ __device__ __noinline__ void loss_row_warp(const float* __restrict__ q,
   }
 }
 
-// The fused backward of row b by one warp (kernel B1b), the VJP of
-// loss_row_warp's (ce, ov) for cotangents (g_ce, g_ov), Phi recomputed
-// (_fused_loss_grad_kernel):
-//   dq_i = g_ce * (softmax_i * sum(m) - m_i)
-//        + g_ov * sign(dot) * softmax_i * (m_i - dot),  dot = sum(m * softmax).
-// sum(m) and sign(dot) are computed, not assumed, so dq is exact for
-// unnormalized p too. Unlike the forward, dq needs m_i for every
-// destination atom, so the warp forms m in its shared slice `ws`
-// (part[32] float2 | m[A]) by a push, with no float atomics: in round k
-// lane l takes source j = l + 32k and splits p_j onto lo = floor(bfrac_j)
-// and lo + 1 with the forward's weights; the lanes whose sources share lo
-// (__match_any_sync) are a group. Every lane posts its two parts, then sums
-// its group's parts in lane order in one unrolled pass over the 32 posts
-// (loads issued together, whatever the group's size: a terminal or clipped
-// row sends a whole round to one atom), and the group's lowest lane adds
-// the sums to m[lo], then to m[lo + 1]. Groups have distinct lo, so no two
-// lanes write one atom in a phase. Each m_i is the same sum in the same
-// order on every call, so dq is bit-equal across calls. The row's loads
-// are issued together before Phi, sum(m) and dot come from shuffles, and
-// dq is stored lane by lane (coalesced). All 32 lanes call it; no block
-// barrier.
+// m = Phi(r + d*z) of one row by one warp, the body kernels B2 and B1b
+// share (_project_tile). pv holds the lane's p (0 past A), rb and db the
+// row's r and d. A Bellman-mapped source atom lands on at most two
+// destination atoms, so the warp pushes each source onto them, O(A) work a
+// row with no float atomics, into its shared slice `ws` (part[32] float2 |
+// m[A], m_warp_floats(A) floats): in round k lane l takes source
+// j = l + 32k, rounds bfrac_j through bfrac_at and splits p_j onto
+// lo = floor(bfrac_j) and lo + 1 with the hat weights; the lanes whose
+// sources share lo (__match_any_sync) are a group. Every lane posts its two
+// parts, then sums its group's parts in lane order in one unrolled pass
+// over the 32 posts (loads issued together, whatever the group's size: a
+// terminal or clipped row sends a whole round to one atom), and the
+// group's lowest lane adds the sums to m[lo], then to m[lo + 1]. Groups
+// have distinct lo, so no two lanes write one atom in a phase. Each m_i is
+// the same sum in the same order on every call, so m is bit-equal across
+// calls. Returns m, ws + 64, complete and visible to every lane. All 32
+// lanes call it; no block barrier.
+// Inlined. A __noinline__ body, one compiled body for both kernels, was
+// timed on the card (PERF.md, section 6): with no stack frame, it cost
+// B1b 0.17 us at A = 51 and B2 0.3 us at A = 51 and 9 us at A = 1024
+// (likely the call waiting for every load in flight and the shared slice
+// reached through generic addresses; the machine code was not read).
+// Inlined, B2's m is still the m B1b differentiates: both run this
+// source, where bfrac_at rounds each step explicitly and the only other
+// products (p_j times a hat weight) are posted to shared memory before
+// they are summed, so no multiply feeds an add that the compiler could
+// contract in one kernel and not in the other.
 template <int NPL>
-__device__ __forceinline__ void grad_row_warp(
-    const float* __restrict__ q, const float* __restrict__ p,
-    const float* __restrict__ r, const float* __restrict__ d,
-    const float* __restrict__ g_ce, const float* __restrict__ g_ov,
-    float* __restrict__ dq, int b, int A, float v_min, float v_max,
-    float delta, float* ws) {
+__device__ __forceinline__ const float* form_m_warp(const float (&pv)[NPL],
+                                                    float rb, float db, int A,
+                                                    float v_min, float v_max,
+                                                    float delta, float* ws) {
   const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)b * A;
-  const float rb = r[b], db = d[b], gce = g_ce[b], gov = g_ov[b];
-  float qv[NPL], pv[NPL];
-#pragma unroll
-  for (int k = 0; k < NPL; ++k) {
-    const int i = lane + 32 * k;
-    qv[k] = i < A ? q[row + i] : -INFINITY;
-    pv[k] = i < A ? p[row + i] : 0.f;
-  }
-  const float2 ml = row_max_lse<NPL>(qv, A);
-  float sm[NPL];
-#pragma unroll
-  for (int k = 0; k < NPL; ++k) sm[k] = expf((qv[k] - ml.x) - ml.y);  // 0 past A
   const float inv_delta = 1.f / delta;
   float2* part = reinterpret_cast<float2*>(ws);
   float* msh = ws + 64;
@@ -244,6 +213,43 @@ __device__ __forceinline__ void grad_row_warp(
     if (lead && lo + 1 < A) msh[lo + 1] += s1;
     __syncwarp();
   }
+  return msh;
+}
+
+// The fused backward of row b by one warp (kernel B1b), the VJP of
+// loss_row_warp's (ce, ov) for cotangents (g_ce, g_ov), Phi recomputed
+// (_fused_loss_grad_kernel):
+//   dq_i = g_ce * (softmax_i * sum(m) - m_i)
+//        + g_ov * sign(dot) * softmax_i * (m_i - dot),  dot = sum(m * softmax).
+// sum(m) and sign(dot) are computed, not assumed, so dq is exact for
+// unnormalized p too. Unlike the forward, dq needs m_i for every
+// destination atom: form_m_warp forms m in the warp's shared slice `ws`,
+// rounding bfrac as the forward does, so the backward differentiates the
+// forward's Phi, and dq is bit-equal across calls. The row's loads are
+// issued together before Phi, sum(m) and dot come from shuffles, and dq is
+// stored lane by lane (coalesced). All 32 lanes call it; no block barrier.
+template <int NPL>
+__device__ __forceinline__ void grad_row_warp(
+    const float* __restrict__ q, const float* __restrict__ p,
+    const float* __restrict__ r, const float* __restrict__ d,
+    const float* __restrict__ g_ce, const float* __restrict__ g_ov,
+    float* __restrict__ dq, int b, int A, float v_min, float v_max,
+    float delta, float* ws) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)b * A;
+  const float rb = r[b], db = d[b], gce = g_ce[b], gov = g_ov[b];
+  float qv[NPL], pv[NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    const int i = lane + 32 * k;
+    qv[k] = i < A ? q[row + i] : -INFINITY;
+    pv[k] = i < A ? p[row + i] : 0.f;
+  }
+  const float2 ml = row_max_lse<NPL>(qv, A);
+  float sm[NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) sm[k] = expf((qv[k] - ml.x) - ml.y);  // 0 past A
+  const float* msh = form_m_warp<NPL>(pv, rb, db, A, v_min, v_max, delta, ws);
   float m[NPL];
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
@@ -269,9 +275,6 @@ __device__ __forceinline__ void grad_row_warp(
   }
 }
 
-inline int threads_for(int A) { return ((A + 31) / 32) * 32; }
-inline size_t smem_for(int A) { return 2 * (size_t)A * sizeof(float); }
-
 // Warp-per-row layout: rows (warps) a block. Chosen on the card from 2, 4
 // and 8 (B = 256, A = 51): 4 was the fastest for B4, whose count blocks
 // take as many draws as its loss blocks take rows, and within a few
@@ -283,15 +286,15 @@ inline size_t warp_smem_for(int A) {
   return (size_t)kRowsPerBlock * A * sizeof(float2);
 }
 
-// Floats of grad_row_warp's shared slice per warp (row); even, so that
+// Floats of form_m_warp's shared slice per warp (row); even, so that
 // every warp's slice starts 8-byte aligned for its float2 staging.
-__host__ __device__ inline int grad_warp_floats(int A) {
+__host__ __device__ inline int m_warp_floats(int A) {
   return 64 + A + (A & 1);
 }
 
 // Calls f(std::integral_constant<int, NPL>()) with the NPL of the warp
 // bodies for A atoms (2 <= A <= 1024): ceil(A / 32) rounded up to a power
-// of two, so that B1f and B4 pick the same instantiation.
+// of two, so that B1f and B4 pick the same instantiation, and B2 and B1b.
 template <typename F>
 inline void with_atoms_per_lane(int A, F&& f) {
   if (A <= 32) f(std::integral_constant<int, 1>());

@@ -6,42 +6,44 @@
 //   c51_fused_loss_fwd   <- _fused_loss_kernel        (fused_categorical_loss, forward)
 //   c51_fused_loss_bwd   <- _fused_loss_grad_kernel   (fused_categorical_loss, VJP)
 //
-// The projection is the hat-function gather of _project_tile:
+// The projection is the hat function of _project_tile:
 //   m[b, i] = sum_j p[b, j] * max(0, 1 - |bfrac[b, j] - i|),
 //   bfrac[b, j] = (clip(r[b] + d[b] * z_j, v_min, v_max) - v_min) / delta.
 // The row functions live in c51_rows.cuh, so the kernels cannot drift apart
-// numerically (the Pallas code's no-drift discipline): B2 calls
-// project_row; B1f's body is c51::loss_row_warp, which kernel B4
-// (csrc/fused_step.cu) runs too, and B1b's is c51::grad_row_warp, which
-// rounds bfrac through the same c51::bfrac_at as loss_row_warp.
+// numerically (the Pallas code's no-drift discipline): B1f's body is
+// c51::loss_row_warp, which kernel B4 (csrc/fused_step.cu) runs too; B2
+// and B1b form m with one body, c51::form_m_warp; every body rounds bfrac
+// through c51::bfrac_at.
 //
 // What bounds them on an H100: at the learner's shapes (B = 256, A = 51) the
 // fused forward reads q, p [B, A] and r, d [B] (about 106 KB) and writes two
 // [B] vectors: ~0.03 us at 3.35 TB/s, and the arithmetic Phi needs (each
 // source atom lands on at most two destinations) is far below the float32
-// peak. So each launch is bound by launch latency and by the chain of
+// peak. B2 reads p, r, d and writes m [B, A]: 106 KB, a bound of 3.18e-05
+// ms. So each launch is bound by launch latency and by the chain of
 // dependent memory and reduction latencies inside one partial wave of
-// blocks, not by bytes or FLOPs. None of them writes m to device memory
+// blocks, not by bytes or FLOPs. B1f and B1b never write m to device memory
 // (forward and backward recompute it on chip, as the Pallas kernels do in
-// VMEM), and each is one launch with no workspace.
+// VMEM), and each kernel is one launch with no workspace.
 //
-// Layouts:
-//   - B1f and B1b: one warp per batch row, kRowsPerBlock = 4 rows a block
-//     (64 blocks of 128 threads for B = 256). The warp issues the loads of
-//     its row (q, p, r, d, and B1b's g_ce, g_ov) together, before Phi, so
-//     that one memory latency covers them; it reduces with warp shuffles
-//     only (no __syncthreads). Since ce and ov are linear in m, B1f never
-//     forms m: each lane pushes its source atoms' mass onto the staged
-//     (log_softmax, softmax) of the two atoms each lands between
-//     (c51::loss_row_warp says why that beats a gather per destination).
-//     B1b's dq needs m per destination atom: the warp forms m in its shared
-//     slice by the same push, lanes that share a destination summing in
-//     lane order (no atomics, so dq is deterministic), then stores dq
-//     coalesced (c51::grad_row_warp).
-//   - B2: one block per batch row, thread i owns destination atom i (block
-//     size = A rounded up to a warp; threads past A are masked), the row's
-//     p and bfrac in shared memory (p_s[A] | bfrac_s[A]), every thread
-//     walks the A source atoms. Moving it onto a warp per row is queued.
+// Layout: one warp per batch row, kRowsPerBlock = 4 rows a block (64
+// blocks of 128 threads for B = 256). The warp issues the loads of its row
+// (p, r, d, and B1f's and B1b's q, B1b's g_ce, g_ov) together, before Phi,
+// so that one memory latency covers them; it reduces with warp shuffles
+// only (no __syncthreads).
+//   - B1f: since ce and ov are linear in m, B1f never forms m: each lane
+//     pushes its source atoms' mass onto the staged (log_softmax, softmax)
+//     of the two atoms each lands between (c51::loss_row_warp says why
+//     that beats a gather per destination).
+//   - B2 and B1b need m per destination atom: the warp forms it in its
+//     shared slice by the same push, lanes that share a destination
+//     summing in lane order (no atomics, so m and dq are deterministic;
+//     c51::form_m_warp). B2 stores m, B1b dq, lane by lane (coalesced).
+//     The Pallas body gathers instead: every destination atom walks all A
+//     sources, A^2 hat terms a row (1,048,576 at A = 1024), which are VPU
+//     lanes on the TPU but a serial loop a thread on Hopper. A source lands
+//     on at most two atoms, so the push does O(A) work a row: ceil(A / 32)
+//     rounds of one bfrac, one match and one 32-post group sum a lane.
 
 #include "c51_rows.cuh"
 
@@ -50,17 +52,35 @@ namespace {
 using namespace c51;
 
 // Replaces _projection_kernel (categorical_projection_pallas): m = Phi(r + d*z)
-// written out, [B, A].
+// written out, [B, A]. One warp per row; warps past B have no row and do
+// nothing (no barrier follows in the block).
+template <int NPL>
 __global__ void project_kernel(const float* __restrict__ p,
                                const float* __restrict__ r,
                                const float* __restrict__ d,
-                               float* __restrict__ m, int A, float v_min,
-                               float v_max, float delta) {
-  extern __shared__ float smem[];
-  const size_t row = (size_t)blockIdx.x * A;
-  const float mi = project_row(p + row, r[blockIdx.x], d[blockIdx.x], A, v_min,
-                               v_max, delta, smem, smem + A);
-  if ((int)threadIdx.x < A) m[row + threadIdx.x] = mi;
+                               float* __restrict__ m, int B, int A,
+                               float v_min, float v_max, float delta) {
+  extern __shared__ __align__(16) float row_stage[];
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
+  if (b < B) {
+    const int lane = threadIdx.x & 31;
+    const size_t row = (size_t)b * A;
+    const float rb = r[b], db = d[b];
+    float pv[NPL];
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int i = lane + 32 * k;
+      pv[k] = i < A ? p[row + i] : 0.f;
+    }
+    const float* msh = form_m_warp<NPL>(pv, rb, db, A, v_min, v_max, delta,
+                                        row_stage + (size_t)w * m_warp_floats(A));
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int i = lane + 32 * k;
+      if (i < A) m[row + i] = msh[i];
+    }
+  }
 }
 
 // Replaces _fused_loss_kernel (fused_categorical_loss, forward): per row
@@ -103,7 +123,7 @@ __global__ void fused_loss_bwd_kernel(const float* __restrict__ q,
   const int b = blockIdx.x * (blockDim.x >> 5) + w;
   if (b < B) {
     grad_row_warp<NPL>(q, p, r, d, g_ce, g_ov, dq, b, A, v_min, v_max, delta,
-                       row_stage + (size_t)w * grad_warp_floats(A));
+                       row_stage + (size_t)w * m_warp_floats(A));
   }
 }
 
@@ -118,9 +138,13 @@ extern "C" int c51_project(const float* p, const float* r, const float* d,
                            float* m, int B, int A, float v_min, float v_max,
                            float delta, void* stream) {
   if (B > 0) {
-    project_kernel<<<B, c51::threads_for(A), c51::smem_for(A),
-                     (cudaStream_t)stream>>>(p, r, d, m, A, v_min, v_max,
-                                             delta);
+    const int rows = c51::kRowsPerBlock;
+    const size_t smem = rows * c51::m_warp_floats(A) * sizeof(float);
+    c51::with_atoms_per_lane(A, [&](auto npl) {
+      project_kernel<decltype(npl)::value>
+          <<<(B + rows - 1) / rows, 32 * rows, smem, (cudaStream_t)stream>>>(
+              p, r, d, m, B, A, v_min, v_max, delta);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -148,7 +172,7 @@ extern "C" int c51_fused_loss_bwd(const float* q, const float* p,
                                   float v_max, float delta, void* stream) {
   if (B > 0) {
     const int rows = c51::kRowsPerBlock;
-    const size_t smem = rows * c51::grad_warp_floats(A) * sizeof(float);
+    const size_t smem = rows * c51::m_warp_floats(A) * sizeof(float);
     c51::with_atoms_per_lane(A, [&](auto npl) {
       fused_loss_bwd_kernel<decltype(npl)::value>
           <<<(B + rows - 1) / rows, 32 * rows, smem, (cudaStream_t)stream>>>(

@@ -35,8 +35,8 @@ import torch.nn.functional as F
 from d4pg_tpu_torch.ops import _build
 from d4pg_tpu_torch.ops.categorical import CategoricalSupport
 
-# B2 runs one thread per destination atom in a block per row; B1f and B1b
-# run a warp per row whose lanes loop over ceil(A / 32) atoms.
+# Every kernel runs a warp per row whose lanes loop over ceil(A / 32) atoms,
+# at most 32 a lane.
 MAX_ATOMS = 1024
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
@@ -115,8 +115,9 @@ def project_plain(
     support: CategoricalSupport, p: torch.Tensor, r: torch.Tensor, d: torch.Tensor
 ) -> torch.Tensor:
     """Φ(r + d·z) by the hat formula, vectorised as a [B, A, A] tensor:
-    m[b, i] = Σ_j p[b, j]·max(0, 1 − |bfrac[b, j] − i|), with the same
-    arithmetic as the kernel's ``project_row``."""
+    m[b, i] = Σ_j p[b, j]·max(0, 1 − |bfrac[b, j] − i|). bfrac is rounded
+    step by step, and ATen divides a CUDA tensor by the scalar delta through
+    its float32 reciprocal: the rounding of the kernels' ``c51::bfrac_at``."""
     A = support.num_atoms
     col = torch.arange(A, device=p.device, dtype=torch.float32)
     z = support.v_min + col * support.delta

@@ -52,6 +52,21 @@ def _inputs(B, A, v_min, v_max, seed=0):
     return q, p, r, d, g_ce, g_ov
 
 
+def _xla_atol(A, v_min, v_max):
+    """Tolerance of the port's projections against the XLA projection.
+    XLA takes z from ``jnp.linspace``, the port's one-hot projection from
+    ``torch.linspace``, the Pallas kernel and the port's hat projection
+    from v_min + j·delta; these differ by up to half an ulp of max|v|, which
+    moves tz by an ulp and bfrac by ulp(max|v|)/delta, so m by that times
+    p_j. Up to A = 51 that term stays under 5.1e-06 and ATOL holds; at
+    A = 101 on [-300, 0] the JAX package's own XLA and Pallas projections
+    differ by 1.02e-05 (seed 0, B = 200), so wider supports add it."""
+    if A <= 51:
+        return ATOL
+    delta = (v_max - v_min) / (A - 1)
+    return ATOL + float(np.spacing(np.float32(max(abs(v_min), abs(v_max))))) / delta
+
+
 def _t(*arrs):
     return [torch.from_numpy(a) for a in arrs]
 
@@ -61,20 +76,47 @@ def _j(*arrs):
 
 
 @pytest.mark.parametrize("v_min,v_max", SUPPORTS)
-@pytest.mark.parametrize("B", [7, 200])
-def test_projection_matches_xla_and_pallas(B, v_min, v_max):
-    q, p, r, d, _, _ = _inputs(B, 51, v_min, v_max)
-    jsup = jcat.make_support(v_min, v_max, 51)
-    tsup = tcat.make_support(v_min, v_max, 51)
+@pytest.mark.parametrize(
+    "B,A",
+    # the A = 51 cases keep their ids; A = 2 and 101 put fewer atoms than a
+    # warp and several atoms a lane in the CUDA kernel's warp-per-row body
+    [pytest.param(B, 51, id=str(B)) for B in (7, 200)]
+    + [pytest.param(B, A, id=f"{B}-A{A}") for A in (2, 101) for B in (7, 200)],
+)
+def test_projection_matches_xla_and_pallas(B, A, v_min, v_max):
+    q, p, r, d, _, _ = _inputs(B, A, v_min, v_max)
+    jsup = jcat.make_support(v_min, v_max, A)
+    tsup = tcat.make_support(v_min, v_max, A)
     want_xla = np.asarray(jcat.categorical_projection(jsup, *_j(p, r, d)))
     want_pallas = np.asarray(categorical_projection_pallas(jsup, *_j(p, r, d), True))
     onehot = tcat.categorical_projection(tsup, *_t(p, r, d)).numpy()
     hat = cp.project(tsup, *_t(p, r, d)).numpy()
-    np.testing.assert_allclose(onehot, want_xla, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(onehot, want_xla, atol=_xla_atol(A, v_min, v_max), rtol=0)
     np.testing.assert_allclose(hat, want_pallas, atol=ATOL, rtol=0)
-    np.testing.assert_allclose(hat, want_xla, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(hat, want_xla, atol=_xla_atol(A, v_min, v_max), rtol=0)
     # terminal rows put all mass on clip(r); mass is conserved everywhere
     np.testing.assert_allclose(hat.sum(-1), 1.0, atol=ATOL)
+
+
+@pytest.mark.parametrize("v_min,v_max", SUPPORTS)
+def test_projection_matches_xla_at_1024_atoms(v_min, v_max):
+    """The widest support the CUDA kernels take (32 atoms a lane), against
+    the XLA projection only: the Pallas interpreter unrolls one pass per
+    source atom. Rows 0 and 5 are terminal, rows 1 and 6 clip at v_min and
+    row 2 at v_max."""
+    A = 1024
+    _, p, r, d, _, _ = _inputs(7, A, v_min, v_max)
+    jsup = jcat.make_support(v_min, v_max, A)
+    tsup = tcat.make_support(v_min, v_max, A)
+    want_xla = np.asarray(jcat.categorical_projection(jsup, *_j(p, r, d)))
+    hat = cp.project(tsup, *_t(p, r, d)).numpy()
+    np.testing.assert_allclose(hat, want_xla, atol=_xla_atol(A, v_min, v_max), rtol=0)
+    # Mass is conserved as the reference conserves it. A source clipped at
+    # v_max may round its bfrac one ulp of A - 1 past the last atom, and
+    # the part past it leaves the support in both (one_hot of A is zero):
+    # 2.37e-05 of row 2 on [-300, 0].
+    np.testing.assert_allclose(hat.sum(-1), want_xla.sum(-1), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(hat.sum(-1), 1.0, atol=ATOL + float(np.spacing(np.float32(A - 1))))
 
 
 @pytest.mark.parametrize("v_min,v_max", SUPPORTS)
