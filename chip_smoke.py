@@ -66,6 +66,23 @@ JSON line:
    dispatches give the wall and device time of a grad step and the
    device's idle share (``steady_state``; device time from a
    ``torch.profiler`` trace).
+7. ``resume``: checkpoint and resume of the device learner at the same
+   width (fused descent, K = 8, ``debug_guards``, ``snapshot_replay``):
+   leg 1 trains 200 grad steps with ``checkpoint_interval=100`` (saves at
+   104 and 200); a new ``Trainer(resume=True)`` on its log dir must hold
+   every parameter, target, Adam moment and step, the ring rows, the
+   ring size and the tree's sums and max priority ``torch.equal`` to leg
+   1's live objects. One megastep dispatch of each trainer from the same
+   generator state must then give bit-equal parameters and tree (checked
+   first on two deep copies of leg 1's state: whether the card itself
+   repeats the dispatch bit for bit; if it does not, the trainers are held
+   at 1e-6). The resumed trainer trains 200 more grad steps with exact
+   launch counts, skipping the warmup; a third trainer is preempted from a
+   thread at grad step >= 16 and must leave a committed step whose
+   manifest verifies. The line carries the save and restore seconds and
+   the sizes of ``state.pt``, ``replay.npz`` and ``device_per.npz``, and
+   under ``full_ring`` the same for a full 1M-row ring (seeded rows and
+   priorities), whose restore must be ``torch.equal`` too.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -102,6 +119,9 @@ GEOMETRY_ATOMS_B4 = (51, 101)
 GRAD_STEPS = 1000            # fused run
 GRAD_STEPS_PROJECTION = 200  # projection-only run
 DEVICE_STEPS = {"fused_descent": 1000, "separate": 200, "uniform": 200}
+RESUME_STEPS = 200           # each leg of the resume phase
+RESUME_INTERVAL = 100        # its checkpoint interval (saves at 104 and 200)
+PREEMPT_AT = 16              # grad steps before the third trainer is preempted
 K = 8                        # grad steps per megastep dispatch
 TREE_L = 2**20               # device tree leaves at the 1M-row replay
 SEED = 0
@@ -859,6 +879,265 @@ def device_slice_run(Trainer, TrainConfig, tier: str, card: str, log_dir: str):
     return launches
 
 
+def state_tensors(state):
+    """(name, tensor) for every tensor a checkpoint holds: the four
+    networks and both optimizers' per-parameter state."""
+    from d4pg_tpu_torch.runtime.checkpoint import NETWORKS, OPTIMIZERS
+
+    for name in NETWORKS:
+        for k, v in getattr(state, name).state_dict().items():
+            yield f"{name}.{k}", v
+    for name in OPTIMIZERS:
+        opt = getattr(state, name)
+        for i, p in enumerate(opt.param_groups[0]["params"]):
+            for k, v in sorted(opt.state[p].items()):
+                yield f"{name}.{i}.{k}", v
+
+
+def learner_of(trainer):
+    """The tensors one megastep dispatch reads and writes: (state, ring,
+    tree), the megastep's own arguments."""
+    return trainer.state, trainer._ring, trainer._dev_per.tree
+
+
+def learner_tensors(state, ring, tree):
+    """``state_tensors`` plus the ring rows over [0, size), the ring size
+    and the tree."""
+    yield from state_tensors(state)
+    n = int(ring.size)
+    for k in ("obs", "action", "reward", "next_obs", "discount"):
+        yield f"ring.{k}", getattr(ring, k)[:n]
+    yield "ring.size", ring.size
+    yield "tree.sums", tree.sums
+    yield "tree.max_priority", tree.max_priority
+
+
+def compare_learners(a, b) -> dict:
+    """Every tensor of learner ``a`` against ``b`` (each a
+    :func:`learner_of` tuple): the names that differ (or sit on
+    another device), the largest absolute difference and the tensor that
+    holds it, and how many tensors were compared."""
+    import torch
+
+    ta, tb = dict(learner_tensors(*a)), dict(learner_tensors(*b))
+    check(ta.keys() == tb.keys(), f"tensor sets differ: {sorted(ta.keys() ^ tb.keys())}")
+    differ, worst, worst_name = [], 0.0, None
+    for k, x in ta.items():
+        y = tb[k]
+        if x.device != y.device or x.shape != y.shape or x.dtype != y.dtype:
+            differ.append(f"{k} (device/shape/dtype)")
+            continue
+        if not torch.equal(x, y):
+            differ.append(k)
+            d = float((x.double() - y.double()).abs().max())
+            if d > worst:
+                worst, worst_name = d, k
+    return {"differ": differ, "max_abs_diff": worst, "worst": worst_name, "compared": len(ta)}
+
+
+def full_ring_save_restore(Trainer, cfg) -> dict:
+    """The save and the restore a long run pays: a full ring (every row
+    seeded from numpy), its tree re-rooted at seeded priorities, saved with
+    its snapshots, then restored by a new ``Trainer(resume=True)``, whose
+    first flush ships the whole ring again. The restore must be
+    ``torch.equal`` to the saved learner."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.replay import Transition
+
+    saver = Trainer(cfg, device="cuda")
+    a, cap = saver.config.agent, saver.config.replay_capacity
+    rng = np.random.default_rng(SEED)
+    rows = lambda *shape: rng.standard_normal((cap, *shape), dtype=np.float32)  # noqa: E731
+    saver.buffer.add_batch(Transition(obs=rows(a.obs_dim), action=rows(a.action_dim),
+                                      reward=rows(), next_obs=rows(a.obs_dim),
+                                      discount=rng.random(cap, dtype=np.float32)))
+    saver._ring_sync.flush(saver._ring)
+    saver._dev_per.restore_host(rng.random(cap, dtype=np.float32) + 0.01, 1.01)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver._save_checkpoint()
+    save_s = time.perf_counter() - t0
+    ck = os.path.join(cfg.log_dir, "checkpoints")
+    sizes = {f: os.path.getsize(os.path.join(ck, f)) for f in ("replay.npz", "device_per.npz")}
+    saver.close()
+    t0 = time.perf_counter()
+    restorer = Trainer(dataclasses.replace(cfg, resume=True), device="cuda")
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    stages = restorer.timers.scalars()
+    restorer.close()
+    same = compare_learners(learner_of(saver), learner_of(restorer))
+    check(not same["differ"], f"resume: the full ring's restore differs: {same}")
+    check(int(restorer._ring.size) == cap, f"resume: full ring restored {int(restorer._ring.size)} rows")
+    return {"rows": cap, "torch_equal": True, "tensors_compared": same["compared"],
+            "save_s": save_s, "restore_s": stages["stage_checkpoint_restore_s"],
+            "restore_ring_flush_s": stages["stage_ingest_chunk_s"],
+            "trainer_construct_with_restore_s": construct_s, "bytes": sizes}
+
+
+def resume_phase(Trainer, TrainConfig, card: str, log_dir: str):
+    """Checkpoint, resume and preemption of the device learner at full
+    width; returns the resumed leg's launch counts."""
+    import copy
+    import dataclasses
+    import os
+    import threading
+
+    import torch
+
+    cfg = TrainConfig(
+        env="pendulum", total_steps=RESUME_STEPS, warmup_steps=1000, eval_interval=RESUME_STEPS,
+        eval_episodes=2, log_dir=f"{log_dir}/resume", seed=SEED, replay_placement="device",
+        steps_per_dispatch=K, prioritized=True, fused_descent=True, debug_guards=True,
+        checkpoint_interval=RESUME_INTERVAL, snapshot_replay=True,
+    )
+    # Leg 1: two saves, at the crossings 96 -> 104 and 192 -> 200.
+    leg1 = Trainer(cfg, device="cuda")
+    try:
+        leg1.train()
+        torch.cuda.synchronize()
+    finally:
+        leg1.close()
+    saved = leg1.ckpt.all_steps()
+    want = sorted({d for d in range(K, RESUME_STEPS + 1, K)
+                   if d // RESUME_INTERVAL > (d - K) // RESUME_INTERVAL} | {RESUME_STEPS})
+    check(saved == want, f"resume: leg 1 saved steps {saved}, expected {want}")
+    stages1 = leg1.timers.scalars()
+    ck = os.path.join(cfg.log_dir, "checkpoints")
+    sizes = {
+        "state.pt": os.path.getsize(os.path.join(ck, str(RESUME_STEPS), "state.pt")),
+        "replay.npz": os.path.getsize(os.path.join(ck, "replay.npz")),
+        "device_per.npz": os.path.getsize(os.path.join(ck, "device_per.npz")),
+    }
+
+    # Restore onto the card, held against leg 1's live objects.
+    t0 = time.perf_counter()
+    leg2 = Trainer(dataclasses.replace(cfg, resume=True), device="cuda")
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    stages2 = leg2.timers.scalars()
+    restored = compare_learners(learner_of(leg1), learner_of(leg2))
+    check(not restored["differ"], f"resume: restored tensors differ from leg 1's: {restored}")
+    restored_at = leg2.grad_steps
+    check(restored_at == RESUME_STEPS and leg2.state.step == leg1.state.step,
+          f"resume: grad_steps {leg2.grad_steps}, state.step {leg2.state.step}")
+    check(leg2.env_steps == leg1.env_steps, f"resume: env_steps {leg2.env_steps} != {leg1.env_steps}")
+    check(leg2._ckpt_fallbacks == 0, f"resume: {leg2._ckpt_fallbacks} checkpoint fallbacks")
+    check(leg2._replay_restored and leg2._effective_warmup() == 0, "resume: replay not restored")
+
+    # Is one dispatch bit-reproducible on this card? Twice from deep copies
+    # of leg 1's state, from the same generator state.
+    gen_state = leg1._megastep_gen.get_state()
+    copies = []
+    for _ in range(2):
+        c = copy.deepcopy(learner_of(leg1))
+        g = torch.Generator(device="cuda")
+        g.set_state(gen_state)
+        leg1._megastep(*c, g)
+        copies.append(c)
+    torch.cuda.synchronize()
+    repeat = compare_learners(*copies)
+    card_repeats = not repeat["differ"]
+
+    # One dispatch on each trainer, no collection between: the same bits
+    # (or, on a card that does not repeat itself, within 1e-6).
+    leg2._megastep_gen.set_state(gen_state)
+    for t in (leg1, leg2):
+        t._megastep_dispatch_once()
+        t.grad_steps += K  # what train() counts for a dispatch
+    torch.cuda.synchronize()
+    across = compare_learners(learner_of(leg1), learner_of(leg2))
+    if card_repeats:
+        check(not across["differ"], f"resume: one dispatch after the restore is not bit-equal: {across}")
+    else:
+        check(across["max_abs_diff"] <= 1e-6,
+              f"resume: one dispatch after the restore differs by more than 1e-6: {across}")
+
+    # The resumed trainer trains on: exact launches, no warmup.
+    env0 = leg2.env_steps
+    try:
+        reset_counts()
+        row = leg2.train(total_steps=RESUME_STEPS)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        leg2.close()
+    dispatches = RESUME_STEPS // K
+    expect = dict(fused_fwd=0, fused_bwd=RESUME_STEPS, project=0, tree_count=dispatches,
+                  fused_step=RESUME_STEPS)
+    check(launches == expect, f"resume: launch counts {launches}, expected {expect}")
+    for k in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
+        check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"),
+              f"resume: {k} not finite: {row.get(k)}")
+    collected = leg2.env_steps - env0
+    check(collected < cfg.warmup_steps, f"resume: {collected} env steps collected: the warmup ran")
+
+    # Preemption armed from a thread once grad_steps >= PREEMPT_AT.
+    cfg3 = dataclasses.replace(cfg, log_dir=f"{log_dir}/preempt", total_steps=100_000,
+                               eval_interval=100_000, checkpoint_interval=100_000)
+    leg3 = Trainer(cfg3, device="cuda")
+
+    def arm():
+        while leg3.grad_steps < PREEMPT_AT:
+            time.sleep(0.001)
+        leg3.request_preemption()
+
+    arming = threading.Thread(target=arm, daemon=True)
+    arming.start()
+    try:
+        leg3.train()
+    finally:
+        leg3.close()
+    arming.join(timeout=60)
+    check(not arming.is_alive(), "resume: the preemption thread did not finish")
+    g3 = leg3.grad_steps
+    verdict = leg3.ckpt.verify_step(g3)
+    check(leg3.preempted and g3 >= PREEMPT_AT and leg3.ckpt.latest_step() == g3,
+          f"resume: preempted={leg3.preempted} at {g3}, latest step {leg3.ckpt.latest_step()}")
+    check(verdict[0], f"resume: the preemption step's manifest does not verify: {verdict}")
+    full = full_ring_save_restore(Trainer, dataclasses.replace(cfg, log_dir=f"{log_dir}/full"))
+
+    a = cfg.agent
+    emit({
+        "phase": "resume",
+        "card": card,
+        "width": {"hidden": list(leg1.config.agent.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "batch": cfg.batch_size, "num_envs": cfg.num_envs,
+                  "n_step": leg1.config.agent.n_step,
+                  "replay_capacity": leg1.config.replay_capacity,
+                  "tree_leaves": leg1._dev_per.tree.sums.shape[0] // 2,
+                  "steps_per_dispatch": K, "tier": "fused_descent"},
+        "saved_steps": saved,
+        "restore": {"torch_equal": True, "tensors_compared": restored["compared"],
+                    "grad_steps": restored_at, "env_steps": leg1.env_steps,
+                    "checkpoint_fallbacks": leg2._ckpt_fallbacks},
+        "card_repeats_one_dispatch": card_repeats,
+        "card_repeat_check": repeat,
+        "one_dispatch": {"bit_equal": not across["differ"], "held_at": 0.0 if card_repeats else 1e-6,
+                         **across},
+        "continue": {"grad_steps": RESUME_STEPS, "launches": launches,
+                     "env_steps_collected": collected, "warmup_steps": cfg.warmup_steps,
+                     "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+                     "eval_return_mean": row["eval_return_mean"]},
+        "preempt": {"grad_step": g3, "preempted": True, "manifest_verified": True},
+        "save_s_per_checkpoint": stages1["stage_checkpoint_save_s"]
+        / stages1["stage_checkpoint_save_calls"],
+        "restore_s": stages2["stage_checkpoint_restore_s"],
+        "restore_ring_flush_s": stages2["stage_ingest_chunk_s"],
+        "restore_ring_rows": int(leg1._ring.size),
+        "trainer_construct_with_restore_s": construct_s,
+        "bytes": sizes,
+        "full_ring": full,
+        "ok": True,
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -913,6 +1192,7 @@ def main() -> int:
             Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card, f"{tmp}/projection")
         for tier in DEVICE_STEPS:
             paths[f"device_{tier}"] = device_slice_run(Trainer, TrainConfig, tier, card, f"{tmp}/{tier}")
+        paths["device_resumed"] = resume_phase(Trainer, TrainConfig, card, tmp)
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

@@ -30,6 +30,16 @@ class TrainConfig:
     eval_episodes: int = 10
     ewma_alpha: float = 0.05
     log_dir: str = "runs/default"
+    checkpoint_interval: int = 10_000  # grad steps of a leg between saves
+    resume: bool = False
+    # Also snapshot the replay buffer (and, on the device placement with
+    # PER, the device tree's priorities) with each checkpoint and restore
+    # it on resume, so a resumed run does not repay its warmup.
+    snapshot_replay: bool = False
+    # When > 0, the trainer reads its own RSS at every eval crossing and,
+    # past the limit, checkpoints and stops with ``preempted`` set; the CLI
+    # then exits 75 so a supervisor reruns it with --resume.
+    max_rss_gb: float = 0.0
     agent: D4PGConfig = field(default_factory=D4PGConfig)
     seed: int = 0
     # Where sampled batches live: "host" = host replay, one host-to-device

@@ -1,8 +1,9 @@
 """Device-resident PER: the priority sum tree lives on the card.
 
 Counterpart of ``d4pg_tpu/replay/device_per.py`` for one lane (the sharded
-lanes wait for ROADMAP A7, the ``device_per.npz`` sidecar for A5). The
-tree is the host trees' flat layout (``replay/segment_tree.py``): ``sums``
+lanes wait for ROADMAP A7), with the ``device_per.npz`` checkpoint sidecar
+(:meth:`DevicePerSync.snapshot_host` / :meth:`DevicePerSync.restore_host`).
+The tree is the host trees' flat layout (``replay/segment_tree.py``): ``sums``
 is ``[2L]`` float32 with the root at index 1 and the α-exponentiated leaf
 priorities at ``[L, 2L)``, ``L = next_pow2(capacity)``. Index 0 is unused
 by the layout; the port routes pad writes there (the JAX scatters drop
@@ -12,9 +13,10 @@ each write, so no pad ever reaches a real node.
 The stratified descent, the IS weights and the post-step write-back all
 run on the device inside the megastep (``runtime/megastep.py``), with no
 host operand and no host synchronisation: nothing here reads a device
-value on the host. Every write updates ``sums`` IN PLACE and returns it
-(the JAX functions return a new array); ``max_priority`` is updated in
-place by the megastep.
+value on the host, except the checkpoint sidecar's snapshot (one copy per
+checkpoint, never per step). Every write updates ``sums`` IN PLACE and
+returns it (the JAX functions return a new array); ``max_priority`` is
+updated in place by the megastep.
 
 The descent is kernel B3 (``ops/cuda_tree.py``; its plain cumsum search on
 CPU tensors). :func:`descend_prefix`, the log-depth gather walk of the JAX
@@ -240,14 +242,34 @@ class DevicePerSync:
             self.alpha, self.capacity, self.tree.sums, self.tree.max_priority, slots
         )
 
+    # ------------------------------------------------- snapshot / restore
+    def snapshot_host(self) -> tuple[np.ndarray, float]:
+        """The α-exponentiated leaf priorities in slot order (``[capacity]``
+        float32) and the pre-α max priority: the checkpoint's priority
+        sidecar. Reads the device (one copy of the leaves, one of the
+        scalar), so it runs per checkpoint, never per step."""
+        half = self.tree.sums.shape[0] // 2
+        leaves = self.tree.sums[half: half + self.capacity].cpu().numpy()
+        return leaves, float(self.tree.max_priority.cpu())
+
+    def restore_host(self, pa_host: np.ndarray, max_priority: float) -> None:
+        """Rebuild the tree from snapshotted α-exponentiated priorities
+        (zeros stay zero-mass) on the tree's device. The level sums are the
+        device repair's float32 pairwise adds, so the rebuilt tree equals
+        the snapshotted one bit for bit. Replaces ``self.tree``: readers
+        take ``self.tree`` at each use and hold no older tensor."""
+        self.tree = tree_from_priorities(
+            pa_host, self.capacity, max_priority, device=self.tree.sums.device
+        )
+
 
 def tree_from_priorities(
     pa_host: np.ndarray, capacity: int, max_priority: float = 1.0, device=None
 ) -> DevicePerTree:
     """A tree from host-order α-exponentiated priorities ``[capacity]``:
     numpy level-wise construction with the same float32 pairwise sums the
-    device repair computes (test seeding), on ``device`` (default: the CUDA
-    card)."""
+    device repair computes (the sidecar restore and the tests' seeding),
+    on ``device`` (default: the CUDA card)."""
     device = resolve_device(device)
     pa_host = np.asarray(pa_host, np.float32)
     if pa_host.shape != (capacity,):

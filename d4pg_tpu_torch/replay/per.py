@@ -9,7 +9,10 @@ normalized by the max weight (via the min tree), priorities update as
 The draw consumes the seeded ``np.random.Generator`` exactly as the JAX
 package's NumPy backend does (one ``uniform`` over the B equal-mass
 strata per batch), so the same adds, seed and priority updates give the
-same indices and IS weights in both packages.
+same indices and IS weights in both packages. Snapshots add the
+α-exponentiated leaves (``tree_priorities``) and the pre-α
+``max_priority`` to the uniform buffer's ``.npz`` keys, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -111,3 +114,34 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         self._sum.set(idx, pa)
         self._min.set(idx, pa)
         self._max_priority = max(self._max_priority, float(pri.max()))
+
+    def _snapshot_arrays(self) -> dict:
+        data = super()._snapshot_arrays()
+        n = self._size
+        data["tree_priorities"] = self._sum.get(np.arange(n))  # α-exponentiated
+        data["max_priority"] = np.asarray(self._max_priority)
+        return data
+
+    def _restore_arrays(self, data) -> int:
+        n = super()._restore_arrays(data)
+        idx = np.arange(n)
+        if "tree_priorities" in data:
+            pa = np.asarray(data["tree_priorities"], np.float64)
+            self._max_priority = float(np.asarray(data["max_priority"]).item())
+            # A zero leaf (a row snapshotted between its ring write and its
+            # tree write) would poison the min tree (every IS weight
+            # collapses) and never be repaired, since an unsampled row
+            # gets no priority update: seed it as add_batch would have.
+            pa = np.where(pa <= 0.0, self._max_priority**self.alpha, pa)
+        else:  # a snapshot from a uniform buffer: every row at max priority
+            pa = np.full(n, self._max_priority**self.alpha)
+        self._sum.set(idx, pa)
+        self._min.set(idx, pa)
+        # Clear stale mass past the snapshot (restoring into a used
+        # buffer): leftover leaves would draw prefixes that the idx clamp
+        # folds onto row n-1.
+        if n < self.capacity:
+            tail = np.arange(n, self.capacity)
+            self._sum.set(tail, np.zeros(tail.shape))
+            self._min.set(tail, np.full(tail.shape, np.inf))
+        return n

@@ -2,9 +2,10 @@
 
 The port's own copy of ``d4pg_tpu/replay/uniform.py``, cut to what the
 learner uses: columnar float32 storage, O(1) vectorized batched writes,
-gather-based sampling, per-slot write generations and the monotone
-``total_added`` counter the device-ring mirror diffs against.
-Snapshots and uint8 pixel storage wait for ROADMAP A5 and A10.
+gather-based sampling, per-slot write generations, the monotone
+``total_added`` counter the device-ring mirror diffs against, and
+``.npz`` snapshots in the JAX package's layout (either package restores
+the other's). uint8 pixel storage waits for ROADMAP A10.
 
 Transitions carry an explicit per-sample ``discount`` = γ^m·(1−terminal)
 so the learner's projection needs no gamma/n plumbing.
@@ -12,6 +13,7 @@ so the learner's projection needs no gamma/n plumbing.
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, NamedTuple
 
 import numpy as np
@@ -87,3 +89,61 @@ class ReplayBuffer:
         """Uniform sample of stacked arrays."""
         idx = rng.integers(0, self._size, size=batch_size)
         return self.gather(idx)
+
+    # ------------------------------------------------------------- snapshot
+    def _snapshot_arrays(self) -> dict:
+        """Stored rows in ring order [0, size) as live views, plus the
+        write head and the fill count."""
+        n = self._size
+        return {
+            "obs": self.obs[:n],
+            "action": self.action[:n],
+            "reward": self.reward[:n],
+            "next_obs": self.next_obs[:n],
+            "discount": self.discount[:n],
+            "pos": np.asarray(self._pos),
+            "size": np.asarray(n),
+        }
+
+    def snapshot(self, path: str) -> None:
+        """Write the buffer contents to ``path`` (.npz, atomically by
+        rename), so ``--resume`` keeps its experience."""
+        tmp = f"{path}.tmp.npz"  # savez appends .npz unless present
+        # Uncompressed: replay rows are high-entropy floats (deflate gains
+        # ~10%) and compression would stall the learner at 1M rows.
+        np.savez(tmp, **self._snapshot_arrays())
+        os.replace(tmp, path)
+
+    def _restore_arrays(self, data) -> int:
+        n = int(np.asarray(data["size"]).item())
+        if n > self.capacity:
+            raise ValueError(
+                f"snapshot holds {n} rows > capacity {self.capacity}; "
+                "raise --rmsize to restore it"
+            )
+        if data["obs"].shape[1] != self.obs.shape[1]:
+            raise ValueError("snapshot obs_dim does not match this buffer")
+        self.obs[:n] = data["obs"]
+        self.action[:n] = data["action"]
+        self.reward[:n] = data["reward"]
+        self.next_obs[:n] = data["next_obs"]
+        self.discount[:n] = data["discount"]
+        # Every row changed identity: invalidate the generation stamps of
+        # samples taken before the restore.
+        self._gen += 1
+        self._size = n
+        # Same capacity: resume the saved write head so FIFO eviction order
+        # survives a wrapped ring; otherwise the data sits at [0, n).
+        saved_pos = int(np.asarray(data["pos"]).item())
+        self._pos = saved_pos if n == self.capacity else n % self.capacity
+        # Re-derive the lifetime counter so total_added % capacity == pos
+        # and min(total_added, capacity) == size keep holding: the
+        # device-ring mirror's slot math rests on both, and a fresh mirror
+        # (synced = 0) then resyncs the whole restored buffer.
+        self._total_added = self._pos + self.capacity if n == self.capacity else n
+        return n
+
+    def restore(self, path: str) -> int:
+        """Load a :meth:`snapshot`; returns the number of rows restored."""
+        with np.load(path, allow_pickle=False) as data:
+            return self._restore_arrays(data)

@@ -40,6 +40,8 @@ class StageTimers:
         "priority_writeback",  # device→host priority fetch + tree update
         "ingest_chunk",        # device placement: host ring → device ring flush
         "megastep_dispatch",   # device placement: K-step megastep enqueue
+        "checkpoint_save",     # state + meta + snapshots + manifest
+        "checkpoint_restore",  # resume (its ring flush also counts as ingest_chunk)
     )
 
     def __init__(self):

@@ -28,13 +28,29 @@ IS weights and priority write-back stay on the device. ``total_steps`` is
 rounded up to whole dispatches. Under ``debug_guards`` every dispatch
 after the first runs under ``torch.cuda.set_sync_debug_mode("error")``.
 
-Checkpoint, resume and preemption wait for ROADMAP A5.
+Checkpoints (the JAX trainer's single-process contract,
+``runtime/checkpoint.py``): at every ``checkpoint_interval`` crossing of
+the leg's grad-step count and at the end of ``train()``, the state is
+saved under the global step, then ``trainer_meta.json``, then (with
+``snapshot_replay``) ``replay.npz`` and, on the device placement with PER,
+the ``device_per.npz`` priority sidecar, and the manifest LAST. With
+``resume`` the newest intact step is restored with all of it; a restored
+replay skips the warmup. :meth:`Trainer.request_preemption` (the CLI's
+SIGTERM/SIGINT handler) makes the loop checkpoint at its next iteration
+and stop with ``preempted`` set, as does the RSS watchdog
+(``max_rss_gb``); the CLI then exits 75. The champion actor of the evals
+is kept in ``checkpoints/best_actor.npz`` (the JAX leaf layout) with
+``best_eval.json``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import threading
 import time
+import zipfile
 from typing import Optional
 
 import numpy as np
@@ -54,11 +70,29 @@ from d4pg_tpu_torch.replay import (
 from d4pg_tpu_torch.replay.device_per import DevicePerSync
 from d4pg_tpu_torch.replay.device_ring import DeviceRingSync, device_ring_init
 from d4pg_tpu_torch.runtime import megastep
+from d4pg_tpu_torch.runtime.checkpoint import (
+    CheckpointManager,
+    best_eval_path,
+    load_trainer_meta,
+    save_best_eval,
+    save_trainer_meta,
+    trainer_meta_path,
+)
 from d4pg_tpu_torch.runtime.collect import make_segment_collector
 from d4pg_tpu_torch.runtime.evaluator import evaluate
 from d4pg_tpu_torch.runtime.metrics import MetricsLogger, StageTimers, interval_crossed
+from d4pg_tpu_torch.weights import best_actor_path, save_best_actor
 
 SEGMENT_LEN = 32  # env steps per env per collect (the JAX sync trainer's)
+
+
+def _rss_gb() -> float:
+    """This process's resident set size in GB (Linux's ``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 1024 / 1024
+    raise OSError("no VmRSS line in /proc/self/status")
 
 
 class Trainer:
@@ -129,6 +163,128 @@ class Trainer:
         self._best_eval: Optional[float] = None
         self.timers = StageTimers()
         self.metrics = MetricsLogger(config.log_dir)
+        self.ckpt = CheckpointManager(os.path.join(config.log_dir, "checkpoints"))
+        self.preempted = False
+        # Signal handlers only set this event (signal- and thread-safe);
+        # the train and warmup loops act on it at their next iteration.
+        self._preempt_requested = threading.Event()
+        self._replay_restored = False
+        self._ckpt_fallbacks = 0
+        if config.resume and self.ckpt.latest_step() is not None:
+            with self.timers.stage("checkpoint_restore"):
+                self._resume()
+
+    # ------------------------------------------------------------ checkpoints
+    def _replay_snapshot_path(self) -> str:
+        return os.path.join(self.config.log_dir, "checkpoints", "replay.npz")
+
+    def _device_per_snapshot_path(self) -> str:
+        return os.path.join(self.config.log_dir, "checkpoints", "device_per.npz")
+
+    def _resume(self) -> None:
+        """Restore the newest intact checkpoint in place, with the trainer
+        meta, the keep-best score and (``snapshot_replay``) the replay and
+        the device-PER priorities."""
+        cfg = self.config
+        _, restored_step, fallbacks = self.ckpt.restore_verified(self.state)
+        self._ckpt_fallbacks = len(fallbacks)
+        for fb in fallbacks:
+            print(f"[checkpoint] fallback: {fb}")
+        print(f"[checkpoint] resumed from step {restored_step}", flush=True)
+        self.grad_steps = self.state.step
+        meta = load_trainer_meta(cfg.log_dir)
+        # env_steps drives the noise schedule: without it a resumed run
+        # would re-explore at full scale
+        self.env_steps = int(meta.get("env_steps", 0))
+        self.ewma_return = meta.get("ewma_return")
+        best_json = best_eval_path(cfg.log_dir)
+        if os.path.exists(best_actor_path(cfg.log_dir)) and os.path.exists(best_json):
+            try:
+                with open(best_json) as f:
+                    self._best_eval = float(json.load(f)["eval_return_mean"])
+            except (OSError, ValueError, KeyError):
+                pass  # a corrupt best file: start fresh, never crash
+        snap = self._replay_snapshot_path()
+        if cfg.snapshot_replay and os.path.exists(snap):
+            try:
+                n = self.buffer.restore(snap)
+                self._replay_restored = True
+                print(f"restored replay snapshot: {n} transitions")
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+                # a torn snapshot degrades (the warmup is repaid), never
+                # kills the resume
+                print(
+                    f"[checkpoint] replay snapshot {snap} unreadable ({e}); "
+                    "resuming with an empty buffer (warmup will be repaid)"
+                )
+        if self._replay_restored and self._dev_per is not None:
+            # Mirror the restored rows NOW (setup, not loop: the tree hook
+            # seeds every leaf at max priority), then overwrite the seeds
+            # with the sidecar's priorities when it loads.
+            with self.timers.stage("ingest_chunk"):
+                self._ring_sync.flush(self._ring)
+            dp_snap = self._device_per_snapshot_path()
+            if os.path.exists(dp_snap):
+                try:
+                    with np.load(dp_snap) as z:
+                        self._dev_per.restore_host(
+                            z["priorities_alpha"], float(z["max_priority"])
+                        )
+                    print("restored device-PER priorities")
+                except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+                    print(
+                        f"[checkpoint] device-PER snapshot {dp_snap} unreadable "
+                        f"({e}); priorities re-seeded at max"
+                    )
+
+    def _save_checkpoint(self) -> None:
+        """The state, the trainer meta, the replay snapshot and the
+        device-PER sidecar, then the manifest that names them LAST (the
+        commit record): a crash anywhere before it leaves the step
+        unattested. Reads device values, so it runs outside
+        :meth:`_dispatch_guard`."""
+        cfg = self.config
+        with self.timers.stage("checkpoint_save"):
+            self.ckpt.save(self.grad_steps, self.state)
+            save_trainer_meta(cfg.log_dir, self.env_steps, self.ewma_return)
+            side = [trainer_meta_path(cfg.log_dir)]
+            if cfg.snapshot_replay:
+                self.buffer.snapshot(self._replay_snapshot_path())
+                side.append(self._replay_snapshot_path())
+                if self._dev_per is not None:
+                    # Rows the ring has not mirrored yet (all of them after
+                    # a preemption during the warmup) have no leaves in the
+                    # tree; flush them first so the sidecar names every row
+                    # of replay.npz, as the JAX multi-process save does.
+                    with self.timers.stage("ingest_chunk"):
+                        self._ring_sync.flush(self._ring)
+                    pa, mp = self._dev_per.snapshot_host()
+                    dp_path = self._device_per_snapshot_path()
+                    tmp = dp_path + ".tmp"
+                    with open(tmp, "wb") as f:  # a file object: savez appends no suffix
+                        np.savez(f, priorities_alpha=pa, max_priority=mp)
+                    os.replace(tmp, dp_path)
+                    side.append(dp_path)
+            self.ckpt.write_manifest(self.grad_steps, side_files=side)
+
+    def request_preemption(self) -> None:
+        """Ask the trainer to checkpoint and stop at the next loop boundary
+        (signal-handler-safe: only sets an event)."""
+        self._preempt_requested.set()
+
+    def _preempt_now(self, where: str) -> None:
+        self._save_checkpoint()
+        print(
+            f"[preempt] stop requested ({where}): checkpointed at grad step "
+            f"{self.grad_steps}; exiting for a --resume restart",
+            flush=True,
+        )
+        self.preempted = True
+
+    def _effective_warmup(self) -> int:
+        """Warmup env steps still owed: none once a replay snapshot was
+        restored (that experience already paid its warmup)."""
+        return 0 if self._replay_restored else self.config.warmup_steps
 
     def _noise_scale(self) -> float:
         agent = self.config.agent
@@ -152,7 +308,9 @@ class Trainer:
     def warmup(self) -> None:
         """Pre-fill replay with high-noise exploration."""
         cfg = self.config
-        while self.env_steps < cfg.warmup_steps or len(self.buffer) < cfg.batch_size:
+        while self.env_steps < self._effective_warmup() or len(self.buffer) < cfg.batch_size:
+            if self._preempt_requested.is_set():
+                return  # the train loop's first check checkpoints
             self._collect_once(noise_scale=3.0)
 
     # ---------------------------------------------------------------- batches
@@ -231,8 +389,9 @@ class Trainer:
         return metrics, pending
 
     def train(self, total_steps: Optional[int] = None) -> dict:
-        """Warm up, then run ``total_steps`` grad steps (rounded up to whole
-        dispatches of K); returns the last metrics row."""
+        """Warm up, then run ``total_steps`` grad steps in this leg (rounded
+        up to whole dispatches of K); returns the last metrics row (``{}``
+        when preempted before the first step)."""
         cfg = self.config
         total = total_steps or cfg.total_steps
         K = cfg.steps_per_dispatch
@@ -249,6 +408,11 @@ class Trainer:
         last: dict = {}
         done = 0
         while done < total:
+            if self._preempt_requested.is_set():
+                # before any sampling: a preemption that cut the warmup
+                # short never samples a buffer that cannot serve a batch
+                self._preempt_now("train loop")
+                break
             collect_budget += cfg.env_steps_per_train_step * K
             while collect_budget >= per_collect:
                 self._collect_once()
@@ -259,8 +423,28 @@ class Trainer:
                 metrics, pending = self._host_step(pending)
             done += K
             self.grad_steps += K
-            if interval_crossed(done - K, done, cfg.eval_interval) or done >= total:
+            eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
+            if eval_crossed or done >= total:
                 last = self._periodic(metrics, t_start, done, env_steps_start)
+            # crossings of the LEG's count, saved under the global step
+            saved = interval_crossed(done - K, done, cfg.checkpoint_interval) or done >= total
+            if saved:
+                self._save_checkpoint()
+            if cfg.max_rss_gb > 0 and done < total and eval_crossed:
+                rss = _rss_gb()
+                if rss > cfg.max_rss_gb:
+                    if not saved:
+                        self._save_checkpoint()
+                    print(
+                        f"[rss-watchdog] RSS {rss:.1f} GB > --max-rss-gb "
+                        f"{cfg.max_rss_gb}: checkpointed at step {self.grad_steps}; "
+                        "exiting for a --resume restart",
+                        flush=True,
+                    )
+                    self.preempted = True
+                    break
+        # The host placement's lagged write-back lands after the loop, so
+        # after a preemption checkpoint too (as in the JAX trainer).
         if pending is not None:
             self._write_back(pending)
         return last
@@ -290,6 +474,9 @@ class Trainer:
             )
         if self._best_eval is None or ev["eval_return_mean"] > self._best_eval:
             self._best_eval = ev["eval_return_mean"]
+            self._save_best(self.grad_steps, self._best_eval)
+        if self._ckpt_fallbacks:
+            scalars["checkpoint_fallbacks"] = float(self._ckpt_fallbacks)
         scalars.update(ev)
         scalars["best_eval_return"] = self._best_eval
         scalars["avg_test_reward_ewma"] = self.ewma_return
@@ -300,6 +487,12 @@ class Trainer:
             flush=True,
         )
         return scalars
+
+    def _save_best(self, step: int, score: float) -> None:
+        """The champion actor, then its score: params first, JSON second,
+        so the JSON never claims params that were not saved."""
+        save_best_actor(self.config.log_dir, self.state.actor)
+        save_best_eval(self.config.log_dir, step, score, self.env_steps)
 
     def close(self) -> None:
         self.metrics.close()

@@ -7,12 +7,19 @@ JAX CLI whose feature is not ported yet raises ``NotImplementedError``
 naming the ROADMAP item (:data:`UNPORTED_FLAGS`); any other unknown flag
 is refused by argparse.
 
+SIGTERM/SIGINT trigger a graceful preemption: the current dispatch
+finishes, a full checkpoint (and the replay snapshot with
+``--snapshot-replay``) lands, and the process exits 75, the "restart me
+with --resume" contract of the JAX CLI. A second signal hard-kills.
+
 Examples:
     python -m d4pg_tpu_torch.train --env pendulum --total-steps 50000
     python -m d4pg_tpu_torch.train --env pendulum --replay-placement device \
         --p-replay --steps-per-dispatch 8 --fused-descent
     python -m d4pg_tpu_torch.train --device cpu --hidden-sizes 32,32 \
         --num-envs 2 --bsize 32 --warmup 128 --total-steps 20
+    python -m d4pg_tpu_torch.train --log-dir runs/p1 --checkpoint-interval 5000 \
+        --snapshot-replay            # then the same command with --resume
 """
 
 from __future__ import annotations
@@ -39,7 +46,40 @@ UNPORTED_FLAGS = {
     "--ingest-prefetch": "the double-buffered device ring ingest (ROADMAP A6)",
     "--dp": "data parallelism (ROADMAP A7)",
     "--fleet-listen": "the collection fleet (ROADMAP A11)",
-    "--resume": "checkpoint and resume (ROADMAP A5)",
+    "--async-writeback": "the asynchronous priority write-back (ROADMAP A5 (c))",
+    "--publish-interval": "asynchronous collection (ROADMAP A5 (c))",
+    "--concurrent-eval": "the concurrent evaluator thread (ROADMAP A5 (c))",
+    "--no-concurrent-eval": "the concurrent evaluator thread (ROADMAP A5 (c))",
+    "--tree-backend": "the native sum tree (ROADMAP A5 (b))",
+    "--pool-start-method": "the host actor pool (ROADMAP A5 (d))",
+    "--pool-step-timeout": "the host actor pool (ROADMAP A5 (d))",
+    "--actor-device": "the host actor pool (ROADMAP A5 (d))",
+    "--device-tree-backend": "a choice of device PER descent: the port has one, "
+                             "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
+    "--ring-dtype": "the bfloat16 device ring (ROADMAP A3)",
+    "--transfer-dtype": "the bfloat16 and uint8 batch wire formats (ROADMAP A3)",
+    "--on-device": "the on-device rollout learner (ROADMAP A9)",
+    "--action-repeat": "the on-device rollout learner (ROADMAP A9)",
+    "--tp": "tensor parallelism (ROADMAP A7)",
+    "--dp-hogwild": "asynchronous data parallelism (ROADMAP A7)",
+    "--distributed": "multi-host training (ROADMAP A7)",
+    "--coordinator": "multi-host training (ROADMAP A7)",
+    "--num-processes": "multi-host training (ROADMAP A7)",
+    "--process-id": "multi-host training (ROADMAP A7)",
+    "--export-bundle": "serving bundles (ROADMAP A8)",
+    "--her-k": "hindsight relabeling (ROADMAP A10)",
+    "--num-mixtures": "the mixture-of-Gaussians critic head (ROADMAP A10)",
+    "--ensemble-min-targets": "critic ensembles (ROADMAP A10)",
+    "--batch-scale": "the --batch-scale recipe (ROADMAP A10)",
+    "--profile-dir": "profiler traces (ROADMAP A11 (c))",
+    "--chaos": "fault injection (ROADMAP A11 (e))",
+    "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
+    "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
+    "--fleet-publish-interval": "the collection fleet (ROADMAP A11 (e))",
+    "--fleet-max-gen-lag": "the collection fleet (ROADMAP A11 (e))",
+    "--fleet-wire-dtype": "the collection fleet (ROADMAP A11 (e))",
+    "--variant-id": "league training (ROADMAP A11 (e))",
+    "--league-generation": "league training (ROADMAP A11 (e))",
 }
 
 
@@ -100,6 +140,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env-steps-per-train-step", type=float, default=1.0)
     p.add_argument("--eval-interval", type=int, default=2_000)
     p.add_argument("--eval-episodes", type=int, default=10)
+    p.add_argument("--checkpoint-interval", type=int, default=10_000)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--snapshot-replay", action="store_true",
+                   help="save/restore the replay buffer with checkpoints so "
+                        "--resume keeps its experience")
+    p.add_argument("--max-rss-gb", type=float, default=0.0,
+                   help="RSS watchdog: past this limit the trainer "
+                        "checkpoints and exits 75 so a supervisor can "
+                        "--resume (0 = off)")
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)
@@ -168,6 +217,23 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         steps_per_dispatch=args.steps_per_dispatch,
         fused_descent=args.fused_descent,
         debug_guards=args.debug_guards,
+        checkpoint_interval=args.checkpoint_interval,
+        resume=args.resume,
+        snapshot_replay=args.snapshot_replay,
+        max_rss_gb=args.max_rss_gb,
+    )
+
+
+def install_preemption_handlers(stop_callback) -> None:
+    """SIGTERM/SIGINT → graceful preemption via ``stop_callback`` (which
+    must be signal-safe: it only sets an event). The first signal arms the
+    checkpoint-and-exit-75 path, a second hard-kills."""
+    from d4pg_tpu_torch.utils.signals import install_graceful_signals
+
+    install_graceful_signals(
+        stop_callback,
+        "[signal] {sig}: checkpointing and exiting 75 "
+        "(--resume restarts; second signal hard-kills)",
     )
 
 
@@ -180,11 +246,16 @@ def main(argv=None) -> dict:
 
     trainer = Trainer(cfg, device=args.device)
     print(f"config: {trainer.config}", flush=True)
+    install_preemption_handlers(trainer.request_preemption)
     try:
         final = trainer.train()
     finally:
         trainer.close()
     print(f"done: {final}", flush=True)
+    if trainer.preempted:
+        # EX_TEMPFAIL: "checkpointed, restart me with --resume"; a
+        # supervisor tells preemption (75) from completion (0) by it
+        sys.exit(75)
     return final
 
 

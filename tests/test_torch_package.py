@@ -102,7 +102,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     [("her", True, "A10"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
      ("steps_per_dispatch", 4, "A5"), ("prefetch", True, "A5"),
      ("replay_placement", "hybrid", "A6"), ("ingest_prefetch", True, "A6"),
-     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("resume", True, "A5")],
+     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("tree_backend", "numpy", "A5")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
     """A flag of the unported table, or (``--steps-per-dispatch`` on the
