@@ -46,15 +46,32 @@ JSON line:
    library call (``torch.searchsorted(torch.cumsum(...))``).
 4. ``step_parity``: one full-width ``train_step`` on the card (through the
    kernels) against the same step on the CPU (plain versions).
-5. ``slice``: the learner end to end, ``Trainer`` on cuda at the full
+5. ``native_tree``: a host check on the card's machine. The port's native
+   tree backend (``csrc/sumtree.cpp``, built by this machine's g++)
+   against its NumPy backend at 2^20 leaves: after the same 1M adds and
+   [K, B] priority write-backs, ``sample_block`` must give ``array_equal``
+   idx, gen, IS weights and rows at K = 1 and K = 8 (B = 256). Also the
+   host time (median of 21 calls) of an 8 x 256 ``sample_block`` and of
+   its write-back on each backend.
+6. ``slice``: the learner end to end, ``Trainer`` on cuda at the full
    default width (3x256 MLPs, 51 atoms, B=256, 16 envs x 32-step
-   segments, n-step 3, PER): warmup 1000 env steps, then grad steps and
-   an eval, once with ``projection="fused"`` (the default: forward and
-   backward kernels) and once with ``projection="projection"`` (the
-   projection-only kernel). Launch counters are zeroed right before each
-   run and read right after; every kernel of a run's path must have
-   launched exactly once per grad step.
-6. ``device_slice``: the device-resident learner (``replay_placement=
+   segments, n-step 3, PER on NumPy trees, K = 1): warmup 1000 env steps,
+   then grad steps and an eval, once with ``projection="fused"`` (the
+   default: forward and backward kernels) and once with
+   ``projection="projection"`` (the projection-only kernel). Launch
+   counters are zeroed right before each run and read right after; every
+   kernel of a run's path must have launched exactly once per grad step.
+   The line carries ``stage_ms_per_step``: the host-clock ms a grad step
+   of ``sample``, ``h2d_stage``, ``priority_writeback`` and the dispatch.
+7. ``host_block``: the host placement at the same width with K = 8 grad
+   steps per dispatch on the native tree (one ``sample_block`` C call and
+   one [8, 256] copy to the card a dispatch, ``fused_train_scan``, the
+   [8, 256] priorities written back one dispatch later): 1000 grad steps
+   after the 1000-env-step warmup. Exact launch counts (B1f and B1b once a
+   grad step, B2, B3 and B4 never), finite metrics, ``max_priority`` off
+   its 1.0 seed, the backend in use, ``stage_ms_per_step`` and
+   ``steady_state`` as in ``device_slice``.
+8. ``device_slice``: the device-resident learner (``replay_placement=
    "device"``, K = 8 grad steps per megastep dispatch) at the same width
    with a 1M-row device ring and 2^20-leaf device tree: PER with the
    fused descent (B3 once and B4 K times a dispatch), PER with separate
@@ -66,7 +83,14 @@ JSON line:
    dispatches give the wall and device time of a grad step and the
    device's idle share (``steady_state``; device time from a
    ``torch.profiler`` trace).
-7. ``resume``: checkpoint and resume of the device learner at the same
+9. ``hybrid_slice``: ``replay_placement="hybrid"`` at the same width, K =
+   8, on the native tree with ``debug_guards``: a 1M-row device ring and a
+   2^20-leaf host tree; each dispatch copies only the [8, 256] indices and
+   IS weights to the card and gathers the rows from the ring. 1000 grad
+   steps with the checks of ``host_block``, every dispatch after the first
+   under ``torch.cuda.set_sync_debug_mode("error")``, and the ring's fill
+   equal to the host buffer's.
+10. ``resume``: checkpoint and resume of the device learner at the same
    width (fused descent, K = 8, ``debug_guards``, ``snapshot_replay``):
    leg 1 trains 200 grad steps with ``checkpoint_interval=100`` (saves at
    104 and 200); a new ``Trainer(resume=True)`` on its log dir must hold
@@ -119,6 +143,7 @@ GEOMETRY_ATOMS_B4 = (51, 101)
 GRAD_STEPS = 1000            # fused run
 GRAD_STEPS_PROJECTION = 200  # projection-only run
 DEVICE_STEPS = {"fused_descent": 1000, "separate": 200, "uniform": 200}
+HOST_BLOCK_STEPS = 1000      # host K = 8 and hybrid runs
 RESUME_STEPS = 200           # each leg of the resume phase
 RESUME_INTERVAL = 100        # its checkpoint interval (saves at 104 and 200)
 PREEMPT_AT = 16              # grad steps before the third trainer is preempted
@@ -452,6 +477,7 @@ def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str,
         eval_episodes=10,
         log_dir=log_dir,
         seed=SEED,
+        tree_backend="numpy",  # K = 1 on NumPy trees: the host baseline
         agent=dataclasses.replace(D4PGConfig(), projection_backend=projection),
     )
     trainer = Trainer(cfg, device="cuda")
@@ -490,7 +516,163 @@ def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str,
         "q_mean": row["q_mean"],
         "eval_return_mean": row["eval_return_mean"],
         "launches": launches,
+        "tree_backend": trainer.buffer.tree_backend,
+        "stage_ms_per_step": stage_ms_per_step(trainer.timers.scalars(), grad_steps),
         "stages": trainer.timers.scalars(),
+        "ok": True,
+    })
+    return launches
+
+
+def stage_ms_per_step(stages: dict, grad_steps: int) -> dict:
+    """Host-clock ms a grad step of each data-plane and dispatch stage."""
+    names = ("sample", "h2d_stage", "priority_writeback", "train_dispatch",
+             "megastep_dispatch", "ingest_chunk")
+    return {name: stages[f"stage_{name}_s"] * 1e3 / grad_steps for name in names}
+
+
+def native_tree_phase(repeats: int = 21):
+    """The port's native tree backend, built by this machine's g++, against
+    its NumPy backend at the 1M-row replay's 2^20 leaves: after the same
+    adds and priority write-backs, ``sample_block`` must give equal idx,
+    gen, IS weights and rows at K = 1 and 8 (B = 256). Then, on this host,
+    the median of ``repeats`` calls of each backend's ``sample_block``
+    (K = 8) and of its write-back of that block."""
+    import numpy as np
+
+    from d4pg_tpu_torch.replay import PrioritizedReplayBuffer, Transition
+
+    rows, B = TREE_L, 256
+    rng = np.random.default_rng(SEED)
+    data = Transition(
+        rng.normal(size=(rows, 3)).astype(np.float32),
+        rng.uniform(-1, 1, (rows, 1)).astype(np.float32),
+        rng.uniform(-16, 0, rows).astype(np.float32),
+        rng.normal(size=(rows, 3)).astype(np.float32),
+        np.where(rng.uniform(size=rows) < 0.005, 0.0, 0.99**3).astype(np.float32),
+    )
+    bufs = {b: PrioritizedReplayBuffer(rows, 3, 1, tree_backend=b) for b in ("native", "numpy")}
+    check(bufs["native"].tree_backend == "native", "the native tree backend did not load")
+    t = {}
+    for name, buf in bufs.items():
+        t0 = time.perf_counter()
+        buf.add_batch(data)
+        t[f"{name}_add_1M_s"] = time.perf_counter() - t0
+    # write-backs as the learner makes them: a [K, B] block of fresh draws,
+    # its priorities from a seeded gamma
+    for r in range(4):
+        pri = np.random.default_rng(200 + r).gamma(2.0, size=(K, B))
+        for buf in bufs.values():
+            blk = buf.sample_block(B, K, np.random.default_rng(100 + r), step=r)
+            buf.update_priorities(blk["indices"], pri)
+    equal = {}
+    for k in (1, K):
+        got = {}
+        for name, buf in bufs.items():
+            blk = buf.sample_block(B, k, np.random.default_rng(7 + k), step=500)
+            got[name] = {"idx": blk["indices"].idx, "gen": blk["indices"].gen,
+                         **{f: blk[f] for f in ("weights", "obs", "action", "reward",
+                                                "next_obs", "discount")}}
+        equal[f"K{k}"] = {f: bool(np.array_equal(got["native"][f], got["numpy"][f]))
+                          for f in got["native"]}
+        check(all(equal[f"K{k}"].values()), f"native_tree: K={k} differs from NumPy: {equal[f'K{k}']}")
+    check(bufs["native"]._max_priority == bufs["numpy"]._max_priority > 1.0,
+          "native_tree: max_priority differs or did not move")
+    for name, buf in bufs.items():
+        draw, write = [], []
+        rng = np.random.default_rng(300)
+        for r in range(repeats):
+            t0 = time.perf_counter()
+            blk = buf.sample_block(B, K, rng, step=600 + r)
+            t1 = time.perf_counter()
+            buf.update_priorities(blk["indices"], rng.gamma(2.0, size=(K, B)))
+            t2 = time.perf_counter()
+            draw.append(t1 - t0)
+            write.append(t2 - t1)
+        t[f"{name}_sample_block_K{K}_ms"] = statistics.median(draw) * 1e3
+        t[f"{name}_writeback_K{K}_ms"] = statistics.median(write) * 1e3
+    emit({"phase": "native_tree", "leaves": TREE_L, "batch": B, "array_equal": equal,
+          "host_ms_median_of": repeats, "host_times": t, "ok": True})
+
+
+def host_data_plane_run(Trainer, TrainConfig, placement: str, card: str, log_dir: str):
+    """The host data plane at full width, K = 8, on the native tree:
+    ``host`` (one ``sample_block`` C call and one [K, B] H2D a dispatch,
+    ``fused_train_scan``) or ``hybrid`` (the host tree's [K, B] indices and
+    weights to the device, rows gathered from the 1M-row device ring, every
+    dispatch after the first under ``set_sync_debug_mode("error")``). Exact
+    launch counts, the backend in use, stage counters and steady state."""
+    import dataclasses
+
+    import torch
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+
+    n = HOST_BLOCK_STEPS
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n, eval_episodes=10,
+        log_dir=log_dir, seed=SEED, replay_placement=placement, steps_per_dispatch=K,
+        prioritized=True, tree_backend="native", debug_guards=placement == "hybrid",
+        agent=dataclasses.replace(D4PGConfig(), projection_backend="fused"),
+    )
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        check(trainer.buffer.tree_backend == "native", f"{placement}: tree backend "
+              f"{trainer.buffer.tree_backend}, not native")
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stages = trainer.timers.scalars()
+        busy = device_busy(trainer)  # after the counts: these dispatches are extra
+    finally:
+        trainer.close()
+    for k in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
+        check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"),
+              f"{placement}: {k} not finite: {row.get(k)}")
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"{placement}: launch counts {launches}, expected {expect}")
+    dispatch_stage = "megastep_dispatch" if placement == "hybrid" else "train_dispatch"
+    check(stages[f"stage_{dispatch_stage}_calls"] == n // K and trainer.grad_steps == n,
+          f"{placement}: {stages[f'stage_{dispatch_stage}_calls']} dispatches for "
+          f"{trainer.grad_steps} grad steps")
+    max_priority = trainer.buffer._max_priority
+    check(max_priority > 1.0, f"{placement}: max_priority {max_priority} did not move off 1.0")
+    if placement == "hybrid":
+        size = len(trainer.buffer)
+        check(int(trainer._ring.size) == size, f"hybrid: ring holds {int(trainer._ring.size)} "
+              f"rows, the host buffer {size}")
+    a = trainer.config.agent
+    emit({
+        "phase": "host_block" if placement == "host" else "hybrid_slice",
+        "placement": placement,
+        "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "batch": trainer.config.batch_size, "num_envs": trainer.config.num_envs,
+                  "n_step": a.n_step, "prioritized": True,
+                  "replay_capacity": trainer.config.replay_capacity,
+                  "host_tree_leaves": TREE_L, "steps_per_dispatch": K,
+                  "projection": a.projection_backend},
+        "tree_backend": trainer.buffer.tree_backend,
+        "grad_steps": n,
+        "dispatches": n // K,
+        "sync_guard": ("set_sync_debug_mode('error') on every dispatch after the first"
+                       if placement == "hybrid" else None),
+        "env_steps": trainer.env_steps,
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "env_steps_per_sec": row["env_steps_per_sec"],
+        "critic_loss": row["critic_loss"],
+        "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"],
+        "eval_return_mean": row["eval_return_mean"],
+        "max_priority": max_priority,
+        "launches": launches,
+        "stage_ms_per_step": stage_ms_per_step(stages, n),
+        "stages": stages,
+        "steady_state": busy,
         "ok": True,
     })
     return launches
@@ -773,8 +955,8 @@ def check_sync_guard() -> None:
 
 def device_busy(trainer, dispatches: int = 4) -> dict:
     """Where a steady-state dispatch's time goes: the wall time a grad step
-    takes (host clock over ``dispatches`` megasteps ending in a
-    synchronize, no profiler attached), the device time a grad step takes
+    takes (host clock over ``dispatches`` dispatches of K steps on the
+    trainer's placement, ending in a synchronize, no profiler attached), the device time a grad step takes
     (the CUDA kernel and copy events of a ``torch.profiler`` trace of as
     many more dispatches; one stream, so they do not overlap), and the
     device's idle share, 1 - device / wall. None where the trace holds no
@@ -785,12 +967,12 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(dispatches):
-        trainer._megastep_dispatch_once()
+        trainer._dispatch_once()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * K)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(dispatches):
-            trainer._megastep_dispatch_once()
+            trainer._dispatch_once()
         torch.cuda.synchronize()
     device_us = sum(
         e.time_range.elapsed_us() for e in prof.events()
@@ -1185,13 +1367,16 @@ def main() -> int:
         cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
     step_parity(D4PGConfig, create_train_state, train_step)
     check_sync_guard()
+    native_tree_phase()
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card, f"{tmp}/fused")
         paths["host_projection"] = slice_run(
             Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card, f"{tmp}/projection")
+        paths["host_block"] = host_data_plane_run(Trainer, TrainConfig, "host", card, f"{tmp}/block")
         for tier in DEVICE_STEPS:
             paths[f"device_{tier}"] = device_slice_run(Trainer, TrainConfig, tier, card, f"{tmp}/{tier}")
+        paths["hybrid_slice"] = host_data_plane_run(Trainer, TrainConfig, "hybrid", card, f"{tmp}/hybrid")
         paths["device_resumed"] = resume_phase(Trainer, TrainConfig, card, tmp)
 
     def per_path(counter):

@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from d4pg_tpu_torch.agent.state import D4PGConfig
+from d4pg_tpu_torch.replay.per import TREE_BACKENDS
 
 
 @dataclass(frozen=True)
@@ -42,12 +43,19 @@ class TrainConfig:
     max_rss_gb: float = 0.0
     agent: D4PGConfig = field(default_factory=D4PGConfig)
     seed: int = 0
-    # Where sampled batches live: "host" = host replay, one host-to-device
-    # batch copy per grad step; "device" = the device ring + (with PER) the
-    # device sum tree, K grad steps per megastep dispatch with no host
-    # operand (runtime/megastep.py). "hybrid" waits for ROADMAP A6.
+    # Where sampled batches live: "host" = host replay, its [K, B] block
+    # copied to the device once per dispatch of K grad steps; "device" =
+    # the device ring + (with PER) the device sum tree, K grad steps per
+    # megastep dispatch with no host operand (runtime/megastep.py);
+    # "hybrid" = the host PER tree descends, only the [K, B] indices and IS
+    # weights cross to the device, and the rows are gathered from the
+    # device ring.
     replay_placement: str = "host"
-    steps_per_dispatch: int = 1        # K grad steps per megastep dispatch
+    steps_per_dispatch: int = 1        # K grad steps per dispatch
+    # Host PER tree backend: "auto" (native, else NumPy with a printed
+    # line), "native" (the g++-built C++ trees; raises if they cannot be
+    # built) or "numpy".
+    tree_backend: str = "auto"
     # Fuse the next step's descent into each step's loss kernel (B4).
     fused_descent: bool = False
     # Run every megastep dispatch after the first under
@@ -57,7 +65,7 @@ class TrainConfig:
 
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
-PLACEMENTS = ("host", "device")
+PLACEMENTS = ("host", "device", "hybrid")
 
 # Per-env presets: categorical support and episode limit.
 ENV_PRESETS = {
@@ -96,27 +104,25 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
 
 
 def check_placement(config: TrainConfig) -> None:
-    """Refuse a replay placement, dispatch width or descent tier the port
-    cannot run, as ``d4pg_tpu/replay/source.py`` refuses them: an unported
-    feature raises ``NotImplementedError`` naming its ROADMAP item, an
-    illegal combination ``ValueError`` naming every gap."""
-    if config.replay_placement == "hybrid":
-        raise NotImplementedError(
-            "replay_placement='hybrid' (host-descended PER indices for the "
-            "device ring, through the host sample_block) is not ported to "
-            "d4pg_tpu_torch yet (ROADMAP A6)"
-        )
+    """Refuse a replay placement, dispatch width, tree backend or descent
+    tier the port cannot run, as ``d4pg_tpu/replay/source.py`` refuses
+    them: an illegal combination raises ``ValueError`` naming every gap."""
     if config.replay_placement not in PLACEMENTS:
         raise ValueError(
             f"replay_placement must be one of {PLACEMENTS}, got {config.replay_placement!r}"
         )
     if config.steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {config.steps_per_dispatch}")
-    if config.replay_placement == "host" and config.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 with replay_placement='host' needs the "
-            "host replay's sample_block, which is not ported to d4pg_tpu_torch "
-            "yet (ROADMAP A5); use replay_placement='device'"
+    if config.replay_placement == "hybrid" and not config.prioritized:
+        # the reference's hybrid_requires_per gap, in its words
+        raise ValueError(
+            "hybrid_requires_per: replay_placement=hybrid is the PER mode "
+            "(host sum-tree indices + on-device gather); use "
+            "replay_placement=device for uniform replay"
+        )
+    if config.tree_backend not in TREE_BACKENDS:
+        raise ValueError(
+            f"tree_backend must be one of {TREE_BACKENDS}, got {config.tree_backend!r}"
         )
     if config.fused_descent:
         gaps = [

@@ -1,7 +1,7 @@
 """Array-based segment trees with batched, vectorized operations.
 
-The port's own copy of ``d4pg_tpu/replay/segment_tree.py`` (NumPy trees
-only; the native C++ tree comes later). Flat NumPy arrays and
+The port's own copy of ``d4pg_tpu/replay/segment_tree.py``: the NumPy
+trees (the native C++ ones are ``replay/native.py``). Flat NumPy arrays and
 level-synchronous vector ops instead of per-element recursive Python, so a
 256-sample PER batch costs ~log2(capacity) vectorized passes in total.
 

@@ -1,20 +1,21 @@
 """The megastep: K grad steps per dispatch over the device-resident ring.
 
 Counterpart of ``d4pg_tpu/runtime/megastep.py`` on one device (the
-sharded megasteps wait for ROADMAP A7, the ``hybrid`` placement for A6).
-One dispatch draws its [K, B] indices on the device, gathers the K
-batches from the device ring in one op per field, runs K ``train_step``s
-and, with PER, writes the priorities back into the device tree. Nothing
-is read on the host: the state, the ring, the tree and the generator stay
-on the device between dispatches, and every body runs clean under
-``torch.cuda.set_sync_debug_mode("error")``.
+sharded megasteps wait for ROADMAP A7). One dispatch draws its [K, B]
+indices on the device (or, on the ``hybrid`` placement, takes them from
+the host tree), gathers the K batches from the device ring in one op per
+field, runs K ``train_step``s and, with device PER, writes the priorities
+back into the device tree. Nothing is read on the host: the state, the
+ring, the tree and the generator stay on the device between dispatches,
+and every body runs clean under ``torch.cuda.set_sync_debug_mode("error")``.
 
 JAX jits each body into one donated-buffer program; here the bodies run
 eagerly and update the train state (``train_step``), the tree's ``sums``
 and ``max_priority`` IN PLACE. Each returns the K-step mean of the step
-metrics as 0-d device tensors.
+metrics as 0-d device tensors (the hybrid body also its [K, B]
+priorities).
 
-Three bodies, one per tier:
+Four bodies, one per tier:
 
 - :func:`megastep_uniform_body`: uniform draws, no IS weights;
 - :func:`megastep_device_per_body`: the stratified PER draw over the whole
@@ -24,10 +25,14 @@ Three bodies, one per tier:
 - :func:`megastep_device_per_fused_body`: one B3 call descends the first
   step's prefixes and returns the tree's chunk offsets; from then on each
   step's loss kernel (B4) also descends the NEXT step's prefixes on those
-  offsets, so a dispatch runs B3 once and B4 K times.
+  offsets, so a dispatch runs B3 once and B4 K times;
+- :func:`megastep_hybrid_body`: the ``hybrid`` placement. The host PER
+  tree drew the [K, B] indices and IS weights (the only host-to-device
+  copy of the dispatch); the rows come from the device ring, and the
+  [K, B] priorities go back to the host tree (the only copy back).
 
-Every body takes an explicit ``idx`` / ``prefixes`` for tests that feed
-the JAX package's draws; by default it draws from the ``torch.Generator``
+Every other body takes an explicit ``idx`` / ``prefixes`` for tests that
+feed the JAX package's draws; by default it draws from the ``torch.Generator``
 it is given.
 
 A CUDA graph of a PER dispatch must be captured after one eager dispatch
@@ -152,6 +157,21 @@ def megastep_device_per_fused_body(
     return {key: torch.stack([m[key] for m in step_metrics]).mean() for key in step_metrics[0]}
 
 
+def megastep_hybrid_body(
+    config: D4PGConfig, state: TrainState, ring: DeviceRing,
+    idx: torch.Tensor, weights: torch.Tensor,
+):
+    """K grad steps on host-descended PER draws: ``idx`` and ``weights``
+    are the [K, B] blocks of the host tree's ``sample_block_indices``, on
+    the device; the rows are gathered from the ring. Returns ``(metrics,
+    the K-step mean; priorities [K, B])``. The caller writes the
+    priorities back into the host tree."""
+    batches = gather_batches(ring, idx)
+    batches["weights"] = weights
+    _, metrics, priorities = fused_train_scan(config, state, batches)
+    return _mean(metrics), priorities
+
+
 def make_megastep_uniform(config: D4PGConfig, k: int, batch: int):
     """``(state, ring, tree, generator) -> metrics``; ``tree`` is unused
     (``None``), so all three makers share one signature."""
@@ -167,3 +187,9 @@ def make_megastep_device_per(config: D4PGConfig, k: int, batch: int):
 def make_megastep_device_per_fused(config: D4PGConfig, k: int, batch: int):
     """``(state, ring, tree, generator) -> metrics``, the fused-descent tier."""
     return partial(megastep_device_per_fused_body, config, k, batch)
+
+
+def make_megastep_hybrid(config: D4PGConfig):
+    """``(state, ring, idx, weights) -> (metrics, priorities)``; K and B
+    come from the index block's shape."""
+    return partial(megastep_hybrid_body, config)

@@ -1,20 +1,24 @@
 """The learner loop (counterpart of the pure-env sync path of
 ``d4pg_tpu/runtime/trainer.py``), with replay on the host or on the device.
 
-One loop, on one device. With ``replay_placement="host"``:
+One loop, on one device, in dispatches of K = ``steps_per_dispatch`` grad
+steps. With ``replay_placement="host"``:
 
 - warmup: collect at noise scale 3.0 until ``warmup_steps`` env steps are
   in replay and it can serve a batch;
 - collection budgeted by ``env_steps_per_train_step``: each budgeted
   collect rolls every env one segment on the device and bulk-inserts the
   n-step-collapsed block into host replay;
-- sample (PER or uniform) on the host → pinned host tensors →
-  ``non_blocking`` copies to the device;
-- :func:`~d4pg_tpu_torch.agent.d4pg.train_step`;
-- the PER priority write-back with a one-step lag: step N's priorities
-  start their device→host copy right after step N is enqueued and are
-  written back after step N+1 is enqueued, so the host never waits on the
-  step it just launched;
+- sample on the host (PER: one ``sample_block`` call for the [K, B]
+  block, one C call on the native tree backend; uniform: K ``sample``
+  calls, stacked) → pinned host tensors → ``non_blocking`` copies to the
+  device; K = 1 keeps the flat [B] batch;
+- :func:`~d4pg_tpu_torch.agent.d4pg.train_step` (K = 1) or
+  :func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan` (K > 1);
+- the PER priority write-back with a one-dispatch lag: dispatch N's
+  priorities start their device→host copy right after it is enqueued and
+  are written back after dispatch N+1 is enqueued, so the host never waits
+  on the dispatch it just launched;
 - eval and a metrics row at every ``eval_interval`` crossing and at the end.
 
 With ``replay_placement="device"`` (the JAX trainer's ``:427-563`` and
@@ -28,11 +32,24 @@ IS weights and priority write-back stay on the device. ``total_steps`` is
 rounded up to whole dispatches. Under ``debug_guards`` every dispatch
 after the first runs under ``torch.cuda.set_sync_debug_mode("error")``.
 
+With ``replay_placement="hybrid"`` (PER only; the JAX trainer's hybrid
+branch of ``_megastep_dispatch_once``) the host
+``PrioritizedReplayBuffer`` keeps its trees and the rows are mirrored
+into the device ring with no tree hook. Each dispatch draws the [K, B]
+indices and IS weights from the host tree (``sample_block_indices``)
+BEFORE the ring flush, so every row that carries tree mass is mirrored by
+the time it is gathered; copies those two blocks to the device (its only
+host-to-device copy); runs the hybrid megastep (rows gathered from the
+ring, K fused-loss steps) under the same guard; and writes the [K, B]
+priorities back through the host placement's one-dispatch lag. Its seeded
+index stream equals the host placement's.
+
 Checkpoints (the JAX trainer's single-process contract,
 ``runtime/checkpoint.py``): at every ``checkpoint_interval`` crossing of
 the leg's grad-step count and at the end of ``train()``, the state is
 saved under the global step, then ``trainer_meta.json``, then (with
-``snapshot_replay``) ``replay.npz`` and, on the device placement with PER,
+``snapshot_replay``) ``replay.npz`` (on the host and hybrid placements
+with the host tree's priorities) and, on the device placement with PER,
 the ``device_per.npz`` priority sidecar, and the manifest LAST. With
 ``resume`` the newest intact step is restored with all of it; a restored
 replay skips the warmup. :meth:`Trainer.request_preemption` (the CLI's
@@ -58,12 +75,14 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.agent import create_train_state, make_noise, train_step
+from d4pg_tpu_torch.agent.d4pg import fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
 from d4pg_tpu_torch.config import TrainConfig, apply_env_preset, check_placement
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
+    SampledIndices,
     Transition,
     noise_scale_schedule,
 )
@@ -108,6 +127,7 @@ class Trainer:
 
         obs_dim, act_dim = agent_cfg.obs_dim, agent_cfg.action_dim
         self.on_device = config.replay_placement == "device"
+        self.hybrid = config.replay_placement == "hybrid"
         if self.on_device:
             # the write-side source of truth: a plain host ring, no host
             # trees (with PER the priorities live in the device tree)
@@ -117,6 +137,7 @@ class Trainer:
                 config.replay_capacity, obs_dim, act_dim,
                 alpha=agent_cfg.per_alpha, beta0=agent_cfg.per_beta0,
                 beta_steps=agent_cfg.per_beta_steps, eps=agent_cfg.per_eps,
+                tree_backend=config.tree_backend,
             )
         else:
             self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim)
@@ -139,9 +160,15 @@ class Trainer:
 
         self._ring = self._ring_sync = self._dev_per = self._megastep = None
         self._dispatches = 0
-        if self.on_device:
+        # PER: (indices, priority fetch) of the previous dispatch, written
+        # back after the next one is enqueued
+        self._pending = None
+        if self.on_device or self.hybrid:
             self._ring = device_ring_init(config.replay_capacity, obs_dim, act_dim, self.device)
             self._ring_sync = DeviceRingSync(self.buffer)
+        if self.hybrid:
+            self._megastep = megastep.make_megastep_hybrid(agent_cfg)
+        elif self.on_device:
             K, B = config.steps_per_dispatch, config.batch_size
             if config.prioritized:
                 self._dev_per = DevicePerSync(
@@ -217,12 +244,15 @@ class Trainer:
                     f"[checkpoint] replay snapshot {snap} unreadable ({e}); "
                     "resuming with an empty buffer (warmup will be repaid)"
                 )
-        if self._replay_restored and self._dev_per is not None:
-            # Mirror the restored rows NOW (setup, not loop: the tree hook
-            # seeds every leaf at max priority), then overwrite the seeds
-            # with the sidecar's priorities when it loads.
+        if self._replay_restored and self._ring_sync is not None:
+            # Mirror the restored rows NOW, before the first gather (setup,
+            # not loop). On the device placement the tree hook seeds every
+            # leaf at max priority; the sidecar's priorities overwrite the
+            # seeds when it loads. The hybrid placement's priorities came
+            # back with replay.npz, in the host tree.
             with self.timers.stage("ingest_chunk"):
                 self._ring_sync.flush(self._ring)
+        if self._replay_restored and self._dev_per is not None:
             dp_snap = self._device_per_snapshot_path()
             if os.path.exists(dp_snap):
                 try:
@@ -322,20 +352,39 @@ class Trainer:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _sample_staged(self):
-        """Sample one batch on the host and start its copy to the device.
-        Returns (indices for the write-back or None, device batch)."""
+    def _sample_staged(self, k: int):
+        """Sample one dispatch's K batches on the host and start their copy
+        to the device. Returns (indices for the write-back or None, device
+        batch): [K, B, ...] fields, or the flat [B] batch when K = 1.
+
+        PER: one ``sample_block`` call (on the native backend one C call
+        for the descents, the IS weights, the generation capture and the
+        gather of every row); K = 1 draws the same stream as ``sample``.
+        Uniform: K ``sample`` calls, stacked (no ``weights`` key: uniform IS
+        weights are identically 1)."""
         cfg = self.config
         with self.timers.stage("sample"):
             if cfg.prioritized:
-                batch = self.buffer.sample(cfg.batch_size, self._rng, step=self.grad_steps)
-                indices = batch.pop("indices")
+                block = self.buffer.sample_block(cfg.batch_size, k, self._rng, step=self.grad_steps)
+                indices = block.pop("indices")
+                if k == 1:
+                    indices = SampledIndices(indices.idx[0], indices.gen[0])
+                    block = {key: v[0] for key, v in block.items()}
+            elif k == 1:
+                block = dict(self.buffer.sample(cfg.batch_size, self._rng))
+                indices = None
             else:
-                # no "weights" key: uniform IS weights are identically 1
-                batch = dict(self.buffer.sample(cfg.batch_size, self._rng))
+                samples = [self.buffer.sample(cfg.batch_size, self._rng) for _ in range(k)]
+                block = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
                 indices = None
         with self.timers.stage("h2d_stage"):
-            dev_batch = {k: self._to_device(v) for k, v in batch.items()}
+            # sample_block's fields are views of a staging slot that is
+            # rewritten STAGING_SLOTS - 1 calls later. That is safe because
+            # _to_device copies each view before it returns into a fresh
+            # pinned block (pin_memory() copies), and on the CPU the step
+            # reads it synchronously before the next sample. Pinning the
+            # slots themselves would have to honour the rotation.
+            dev_batch = {key: self._to_device(v) for key, v in block.items()}
         return indices, dev_batch
 
     def _start_fetch(self, priorities: torch.Tensor):
@@ -354,6 +403,20 @@ class Trainer:
             if done is not None:
                 done.synchronize()
             self.buffer.update_priorities(indices, host.numpy())
+
+    def _lagged_write_back(self, indices, priorities: torch.Tensor) -> None:
+        """Write back the previous dispatch's priorities, then start this
+        one's device→host copy: the host never waits on the dispatch it
+        just enqueued."""
+        if self._pending is not None:
+            self._write_back(self._pending)
+        self._pending = (indices, self._start_fetch(priorities))
+
+    def _flush_write_back(self) -> None:
+        """Apply the last dispatch's lagged priority write-back, if any."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._write_back(pending)
 
     # ------------------------------------------------------------------ train
     def _dispatch_guard(self):
@@ -375,18 +438,56 @@ class Trainer:
         self._dispatches += 1
         return metrics
 
-    def _host_step(self, pending):
-        """Sample on the host, one ``train_step``, and the one-step-lag PER
-        write-back; returns (metrics, the new pending write-back)."""
+    def _hybrid_dispatch_once(self) -> dict:
+        """One hybrid dispatch of K grad steps, in the JAX trainer's order:
+        the host tree's [K, B] draw, the ring flush, the indices' and
+        weights' copy to the device, the megastep, then the lagged
+        write-back of its [K, B] priorities. Returns its K-step mean
+        metrics."""
         cfg = self.config
-        indices, dev_batch = self._sample_staged()
+        with self.timers.stage("sample"):
+            # BEFORE the flush: every row that carries tree mass now is
+            # mirrored by the time the megastep gathers it
+            idx, weights, gen = self.buffer.sample_block_indices(
+                cfg.batch_size, cfg.steps_per_dispatch, self._rng, step=self.grad_steps
+            )
+        with self.timers.stage("ingest_chunk"):
+            self._ring_sync.flush(self._ring)
+        with self.timers.stage("h2d_stage"):
+            # the dispatch's only host-to-device copy, explicit staging
+            # outside the guard
+            idx_dev = self._to_device(idx.astype(np.int32))
+            w_dev = self._to_device(weights)
+        with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
+            metrics, priorities = self._megastep(self.state, self._ring, idx_dev, w_dev)
+        self._dispatches += 1
+        self._lagged_write_back(SampledIndices(idx, gen), priorities)
+        return metrics
+
+    def _host_dispatch_once(self) -> dict:
+        """Sample K batches on the host, one ``train_step`` (K = 1) or
+        ``fused_train_scan`` (K > 1), and the lagged PER write-back;
+        returns the K-step mean metrics."""
+        cfg = self.config
+        k = cfg.steps_per_dispatch
+        indices, dev_batch = self._sample_staged(k)
         with self.timers.stage("train_dispatch"):
-            _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
+            if k == 1:
+                _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
+            else:
+                _, metrics_k, priorities = fused_train_scan(cfg.agent, self.state, dev_batch)
+                metrics = {key: v.mean() for key, v in metrics_k.items()}
         if cfg.prioritized:
-            if pending is not None:
-                self._write_back(pending)
-            pending = (indices, self._start_fetch(priorities))
-        return metrics, pending
+            self._lagged_write_back(indices, priorities)
+        return metrics
+
+    def _dispatch_once(self) -> dict:
+        """One dispatch of K grad steps on this trainer's placement."""
+        if self.on_device:
+            return self._megastep_dispatch_once()
+        if self.hybrid:
+            return self._hybrid_dispatch_once()
+        return self._host_dispatch_once()
 
     def train(self, total_steps: Optional[int] = None) -> dict:
         """Warm up, then run ``total_steps`` grad steps in this leg (rounded
@@ -404,7 +505,6 @@ class Trainer:
         env_steps_start = self.env_steps
         per_collect = cfg.num_envs * SEGMENT_LEN
         collect_budget = 0.0
-        pending = None  # host PER: (indices, priority fetch) of the previous step
         last: dict = {}
         done = 0
         while done < total:
@@ -417,10 +517,7 @@ class Trainer:
             while collect_budget >= per_collect:
                 self._collect_once()
                 collect_budget -= per_collect
-            if self.on_device:
-                metrics = self._megastep_dispatch_once()
-            else:
-                metrics, pending = self._host_step(pending)
+            metrics = self._dispatch_once()
             done += K
             self.grad_steps += K
             eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
@@ -443,10 +540,9 @@ class Trainer:
                     )
                     self.preempted = True
                     break
-        # The host placement's lagged write-back lands after the loop, so
-        # after a preemption checkpoint too (as in the JAX trainer).
-        if pending is not None:
-            self._write_back(pending)
+        # The host tree's lagged write-back lands after the loop, so after a
+        # preemption checkpoint too (as in the JAX trainer).
+        self._flush_write_back()
         return last
 
     def _periodic(self, metrics, t_start, grad_steps_done, env_steps_start) -> dict:

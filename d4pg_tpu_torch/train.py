@@ -14,8 +14,12 @@ with --resume" contract of the JAX CLI. A second signal hard-kills.
 
 Examples:
     python -m d4pg_tpu_torch.train --env pendulum --total-steps 50000
+    python -m d4pg_tpu_torch.train --env pendulum --steps-per-dispatch 8 \
+        --tree-backend native     # host replay, one [8, B] block a dispatch
     python -m d4pg_tpu_torch.train --env pendulum --replay-placement device \
         --p-replay --steps-per-dispatch 8 --fused-descent
+    python -m d4pg_tpu_torch.train --env pendulum --replay-placement hybrid \
+        --p-replay --steps-per-dispatch 8   # host tree, device ring
     python -m d4pg_tpu_torch.train --device cpu --hidden-sizes 32,32 \
         --num-envs 2 --bsize 32 --warmup 128 --total-steps 20
     python -m d4pg_tpu_torch.train --log-dir runs/p1 --checkpoint-interval 5000 \
@@ -50,7 +54,6 @@ UNPORTED_FLAGS = {
     "--publish-interval": "asynchronous collection (ROADMAP A5 (c))",
     "--concurrent-eval": "the concurrent evaluator thread (ROADMAP A5 (c))",
     "--no-concurrent-eval": "the concurrent evaluator thread (ROADMAP A5 (c))",
-    "--tree-backend": "the native sum tree (ROADMAP A5 (b))",
     "--pool-start-method": "the host actor pool (ROADMAP A5 (d))",
     "--pool-step-timeout": "the host actor pool (ROADMAP A5 (d))",
     "--actor-device": "the host actor pool (ROADMAP A5 (d))",
@@ -124,12 +127,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="learner grad steps")
     p.add_argument("--replay-placement", choices=["host", "device", "hybrid"],
                    default="host",
-                   help="host = host replay, one batch copy per grad step; "
-                        "device = device ring (+ device PER tree) and one "
-                        "megastep of K grad steps per dispatch; hybrid is "
-                        "not ported yet (ROADMAP A6)")
+                   help="host = host replay, one [K, B] batch copy per "
+                        "dispatch; device = device ring (+ device PER tree) "
+                        "and one megastep of K grad steps per dispatch; "
+                        "hybrid = host PER tree, device ring: only the "
+                        "[K, B] indices and IS weights cross per dispatch "
+                        "(needs --p-replay)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="K grad steps per megastep dispatch (device placement)")
+                   help="K grad steps per dispatch (every placement)")
+    p.add_argument("--tree-backend", choices=["auto", "numpy", "native"], default="auto",
+                   help="host PER trees: native = the C++ trees built with "
+                        "g++ at first use (raises if they cannot be); numpy; "
+                        "auto = native, else numpy with a printed line")
     p.add_argument("--fused-descent", action="store_true",
                    help="fuse each step's loss with the next step's descent "
                         "(CUDA kernel B4); needs --replay-placement device, "
@@ -215,6 +224,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         seed=args.seed,
         replay_placement=args.replay_placement,
         steps_per_dispatch=args.steps_per_dispatch,
+        tree_backend=args.tree_backend,
         fused_descent=args.fused_descent,
         debug_guards=args.debug_guards,
         checkpoint_interval=args.checkpoint_interval,

@@ -306,7 +306,7 @@ def _make(pkg, kind, capacity=CAP):
         return JReplay(capacity, 3, 1) if kind == "uniform" else \
             JPER(capacity, 3, 1, beta_steps=50, tree_backend="numpy")
     return ReplayBuffer(capacity, 3, 1) if kind == "uniform" else \
-        PrioritizedReplayBuffer(capacity, 3, 1, beta_steps=50)
+        PrioritizedReplayBuffer(capacity, 3, 1, beta_steps=50, tree_backend="numpy")
 
 
 @pytest.mark.parametrize("wrapped", [False, True], ids=["partial", "wrapped"])
@@ -343,6 +343,33 @@ def test_replay_snapshot_restores_in_both_packages(source, kind, wrapped, tmp_pa
         b = ref.sample(16, np.random.default_rng(7), step=30)
         np.testing.assert_array_equal(a["indices"].idx, b["indices"].idx)
         np.testing.assert_array_equal(a["weights"], b["weights"])
+
+
+@pytest.mark.parametrize("source", ["jax", "port"])
+def test_native_tree_snapshot_restores_in_both_packages(source, tmp_path):
+    """A native-backend PER writes the same ``replay.npz`` keys, and a
+    restore rebuilds the native trees: leaves, root, min and draws equal to
+    the JAX package's native buffer restored from the same file."""
+    src = (JPER(CAP, 3, 1, beta_steps=50, tree_backend="native") if source == "jax"
+           else PrioritizedReplayBuffer(CAP, 3, 1, beta_steps=50, tree_backend="native"))
+    _fill(src, JTransition if source == "jax" else Transition, 96, seed=0)
+    rng = np.random.default_rng(1)
+    src.update_priorities(rng.integers(0, CAP, 24), rng.gamma(2.0, size=24))
+    snap = str(tmp_path / "replay.npz")
+    src.snapshot(snap)
+    ours = PrioritizedReplayBuffer(CAP, 3, 1, beta_steps=50, tree_backend="native")
+    ref = JPER(CAP, 3, 1, beta_steps=50, tree_backend="native")
+    assert ours.restore(snap) == ref.restore(snap) == CAP
+    assert ours.tree_backend == "native"
+    leaves = np.arange(CAP)
+    np.testing.assert_array_equal(ours._sum.get(leaves), src._sum.get(leaves))
+    np.testing.assert_array_equal(ours._sum.get(leaves), ref._sum.get(leaves))
+    assert ours._sum.sum() == ref._sum.sum() and ours._min.min() == ref._min.min()
+    assert ours._max_priority == ref._max_priority == src._max_priority
+    a = ours.sample_block(8, 2, np.random.default_rng(7), step=30)
+    b = ref.sample_block(8, 2, np.random.default_rng(7), step=30)
+    np.testing.assert_array_equal(a["indices"].idx, b["indices"].idx)
+    np.testing.assert_array_equal(a["weights"], b["weights"])
 
 
 def test_uniform_snapshot_into_per_seeds_max_priority_and_clears_the_tail(tmp_path):

@@ -326,8 +326,10 @@ def test_cli_device_placement_fused_descent_smoke(tmp_path):
         (dict(fused_descent=True, prioritized=False), ValueError, "prioritized"),
         (dict(fused_descent=True, agent=D4PGConfig(projection_backend="projection")),
          ValueError, "projection_backend='fused'"),
-        (dict(steps_per_dispatch=4), NotImplementedError, "A5"),
-        (dict(replay_placement="hybrid"), NotImplementedError, "A6"),
+        (dict(replay_placement="hybrid", prioritized=False), ValueError,
+         "replay_placement=hybrid is the PER mode"),
+        (dict(replay_placement="hybrid", fused_descent=True), ValueError,
+         "replay_placement='device'"),
         (dict(replay_placement="nowhere"), ValueError, "replay_placement must be one of"),
         (dict(replay_placement="device", steps_per_dispatch=0), ValueError, ">= 1"),
     ],

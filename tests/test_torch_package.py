@@ -100,18 +100,17 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "field,value,item",
     [("her", True, "A10"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
-     ("steps_per_dispatch", 4, "A5"), ("prefetch", True, "A5"),
-     ("replay_placement", "hybrid", "A6"), ("ingest_prefetch", True, "A6"),
-     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("tree_backend", "numpy", "A5")],
+     ("async_writeback", True, "A5"), ("prefetch", True, "A5"),
+     ("ring_dtype", "bfloat16", "A3"), ("ingest_prefetch", True, "A6"),
+     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("on_device", True, "A9")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
-    """A flag of the unported table, or (``--steps-per-dispatch`` on the
-    host placement, ``--replay-placement hybrid``) a value the placement
-    check refuses, raises naming its ROADMAP item before any run."""
+    """A flag of the unported table raises naming its ROADMAP item before
+    any run."""
     from d4pg_tpu_torch.train import UNPORTED_FLAGS, main
 
     flag = "--" + field.replace("_", "-")
-    assert (flag in UNPORTED_FLAGS) == (field not in ("steps_per_dispatch", "replay_placement"))
+    assert flag in UNPORTED_FLAGS
     arg = flag if value is True else f"{flag}={value}"
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", arg])
@@ -127,7 +126,7 @@ def test_cli_refuses_unknown_flags(tmp_path):
 
 @pytest.mark.parametrize(
     "flag", ["--her", "--twin-critic", "--critic-ensemble=3", "--compute-dtype=bfloat16",
-             "--critic-head=scalar", "--replay-placement=hybrid", "--dp=2"],
+             "--critic-head=scalar", "--transfer-dtype=bfloat16", "--dp=2"],
 )
 def test_cli_refuses_unported_flags(flag, tmp_path):
     from d4pg_tpu_torch.train import main

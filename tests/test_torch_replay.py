@@ -1,4 +1,6 @@
-"""The port's own NumPy replay against the JAX package's NumPy backend.
+"""The port's own NumPy replay against the JAX package's NumPy backend
+(the native tree backend has its own files, ``test_torch_native_tree.py``
+and ``test_torch_sample_block.py``).
 
 The same adds, the same ``np.random.default_rng(seed)`` and the same
 priority updates must give EQUAL indices and IS weights: the port copies
@@ -40,7 +42,7 @@ def _rows(rng, n, obs_dim=3, act_dim=1):
 @pytest.mark.parametrize("capacity", [100, 1000])
 def test_per_index_stream_equals_reference(capacity):
     kw = dict(alpha=0.6, beta0=0.4, beta_steps=50, eps=1e-6)
-    ours = PrioritizedReplayBuffer(capacity, 3, 1, **kw)
+    ours = PrioritizedReplayBuffer(capacity, 3, 1, tree_backend="numpy", **kw)
     ref = JPER(capacity, 3, 1, tree_backend="numpy", **kw)
     data_rng = np.random.default_rng(0)
     r_ours, r_ref = np.random.default_rng(42), np.random.default_rng(42)
@@ -69,7 +71,7 @@ def test_per_index_stream_equals_reference(capacity):
 
 
 def test_recycled_slot_write_back_is_dropped():
-    buf = PrioritizedReplayBuffer(8, 3, 1)
+    buf = PrioritizedReplayBuffer(8, 3, 1, tree_backend="numpy")
     rng = np.random.default_rng(0)
     buf.add_batch(Transition(*_rows(rng, 8)))
     b = buf.sample(4, np.random.default_rng(1))
