@@ -81,8 +81,8 @@ JSON line:
    "error")`` (``debug_guards``): a host synchronisation inside a
    steady-state dispatch fails the run. After each run, a few more
    dispatches give the wall and device time of a grad step and the
-   device's idle share (``steady_state``; device time from a
-   ``torch.profiler`` trace).
+   device's idle share (``steady_state``; device time: the union of the
+   kernel, copy and memset intervals of a ``torch.profiler`` trace).
 9. ``hybrid_slice``: ``replay_placement="hybrid"`` at the same width, K =
    8, on the native tree with ``debug_guards``: a 1M-row device ring and a
    2^20-leaf host tree; each dispatch copies only the [8, 256] indices and
@@ -107,6 +107,51 @@ JSON line:
    the sizes of ``state.pt``, ``replay.npz`` and ``device_per.npz``, and
    under ``full_ring`` the same for a full 1M-row ring (seeded rows and
    priorities), whose restore must be ``torch.equal`` too.
+11. ``host_async`` (twice, both with ``debug_guards``: K = 1 on NumPy
+   trees right after the ``slice`` runs, and K = 8 on the native tree
+   right after ``host_block``): the host placement at the same width with ``prefetch``
+   (each dispatch's batch sampled and its copy started, on a copy stream
+   of its own, right after the previous dispatch) and
+   ``async_priority_writeback`` (the flusher thread), 1000 grad steps.
+   Exact launch counts (B1f and B1b once a grad step, B2, B3, B4 never),
+   exactly one applied write-back per dispatch, the flusher's thread
+   stopped and its queue gone after ``train()``, ``max_priority`` off
+   1.0, finite metrics and every dispatch after the first under
+   ``set_sync_debug_mode("error")`` while the flusher waits on its
+   copy-done event in its own thread (the ``sync_guard`` line, before the
+   learner phases, shows that ``.item()`` raises under the guard and
+   ``Event.synchronize()``, the flusher's wait, does not).
+   ``stage_ms_per_step`` and ``steady_state``
+   (measured with the prefetch and the flusher running) beside the
+   synchronous runs.
+12. ``prefetch_first_step``: two trainers from one seed, prefetch on and
+   off, one grad step each: the step's metrics and every tensor of the
+   learner state ``torch.equal``.
+13. ``device_ingest_prefetch_pair``: the fused-descent device learner of
+   ``device_slice``, 200 grad steps with ``ingest_prefetch`` on and off
+   from one seed: exact launch counts, ``stage_ingest_stage_calls`` equal
+   to the dispatches on the first, the chunks ``stage()`` staged (0 in
+   this synchronous loop: collection and the flush run before each
+   dispatch), and the final params, Adam moments, ring and tree
+   ``torch.equal``.
+14. ``ingest_stage``: ``DeviceRingSync.stage`` driven directly on a 1M-row
+   ring with the device tree hooked, against a twin that flushes with no
+   stage: a chunk staged while a fused-descent megastep is in flight,
+   then a chunk staged and every staged slot overwritten across the wrap
+   before the flush; ring and tree ``torch.equal`` to the twin's after
+   each flush, and the staged host-to-device copies, in a
+   ``torch.profiler`` trace, on a stream no megastep kernel runs on (how
+   many overlapped a kernel is recorded, not gated).
+15. ``hybrid_async``: ``hybrid_slice`` (K = 8, native, ``debug_guards``)
+   with ``async_priority_writeback`` and ``prefetch=True`` passed: the
+   ``prefetch_ignored`` line printed, then the checks of ``host_async``.
+16. ``profile``: host K = 8, native, ``prefetch``, the flusher and
+   ``profile_dir``, 80 grad steps: the trace of grad steps [16, 64) must
+   hold the ranges ``host/sample``, ``host/h2d_stage``,
+   ``host/train_dispatch``, ``host/prefetch`` and
+   ``host/priority_writeback`` and one B1f and one B1b launch a grad step;
+   the window's host ms a grad step per range and device ms a grad step
+   per kernel name.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -144,6 +189,9 @@ GRAD_STEPS = 1000            # fused run
 GRAD_STEPS_PROJECTION = 200  # projection-only run
 DEVICE_STEPS = {"fused_descent": 1000, "separate": 200, "uniform": 200}
 HOST_BLOCK_STEPS = 1000      # host K = 8 and hybrid runs
+ASYNC_STEPS = 1000           # host_async and hybrid_async runs
+INGEST_PAIR_STEPS = 200      # each run of the ingest_prefetch pair
+PROFILE_STEPS = 80           # the profile phase's run (trace of [16, 64))
 RESUME_STEPS = 200           # each leg of the resume phase
 RESUME_INTERVAL = 100        # its checkpoint interval (saves at 104 and 200)
 PREEMPT_AT = 16              # grad steps before the third trainer is preempted
@@ -527,7 +575,7 @@ def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str,
 def stage_ms_per_step(stages: dict, grad_steps: int) -> dict:
     """Host-clock ms a grad step of each data-plane and dispatch stage."""
     names = ("sample", "h2d_stage", "priority_writeback", "train_dispatch",
-             "megastep_dispatch", "ingest_chunk")
+             "megastep_dispatch", "ingest_chunk", "ingest_stage")
     return {name: stages[f"stage_{name}_s"] * 1e3 / grad_steps for name in names}
 
 
@@ -938,51 +986,106 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
 
 
 def check_sync_guard() -> None:
-    """The guard the device slice relies on must bite on this torch: a
-    .item() under set_sync_debug_mode("error") raises."""
+    """The guard the steady-state dispatches run under must bite on this
+    torch: a .item() under set_sync_debug_mode("error") raises. The
+    write-back thread waits with ``Event.synchronize()`` while the loop
+    thread may be inside the guard (the mode is process-wide), so that
+    wait must not raise."""
     import torch
 
     from d4pg_tpu_torch.runtime.trainer import _sync_debug_error
 
+    def raises(fn) -> bool:
+        try:
+            with _sync_debug_error():
+                fn()
+        except RuntimeError:
+            return True
+        return False
+
     x = torch.ones(2, device="cuda")
-    try:
-        with _sync_debug_error():
-            x.sum().item()
-    except RuntimeError:
-        return
-    raise RuntimeError("chip_smoke: set_sync_debug_mode('error') did not raise on .item()")
+    done = torch.cuda.Event()
+    done.record()
+    seen = {"item": raises(lambda: x.sum().item()),
+            "event_synchronize": raises(done.synchronize)}
+    check(seen["item"], "set_sync_debug_mode('error') did not raise on .item()")
+    check(not seen["event_synchronize"],
+          "set_sync_debug_mode('error') raised on Event.synchronize()")
+    emit({"phase": "sync_guard", "raises": seen, "ok": True})
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device work in a Chrome trace
+
+
+def union_ms(spans) -> float:
+    """Length of the union of (start, end) intervals, in the trace's us, as ms."""
+    total, reach = 0.0, None
+    for s0, s1 in sorted(spans):
+        if reach is None or s0 > reach:
+            total += s1 - s0
+            reach = s1
+        elif s1 > reach:
+            total += s1 - reach
+            reach = s1
+    return total / 1e3
 
 
 def device_busy(trainer, dispatches: int = 4) -> dict:
     """Where a steady-state dispatch's time goes: the wall time a grad step
     takes (host clock over ``dispatches`` dispatches of K steps on the
-    trainer's placement, ending in a synchronize, no profiler attached), the device time a grad step takes
-    (the CUDA kernel and copy events of a ``torch.profiler`` trace of as
-    many more dispatches; one stream, so they do not overlap), and the
-    device's idle share, 1 - device / wall. None where the trace holds no
-    device event."""
+    trainer's placement, ending in a synchronize, no profiler attached), the
+    device time a grad step takes (the union of the kernel, copy and memset
+    intervals of a ``torch.profiler`` trace of as many more dispatches: the
+    batch copies run on a copy stream of their own and may overlap the
+    kernels), and the device's idle share, 1 - device / wall. None where
+    the trace holds no device event. Also each category's sum a step, and
+    ``device_events_sum_ms_per_step``: every CUDA-side profiler event
+    summed, the measure of PRs 4-7, which since the ``host/<name>`` ranges
+    also counts their GPU-side projections (``gpu_user_annotation``). The
+    trainer's ``prefetch`` and write-back thread run as in ``train()``."""
+    import tempfile
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(dispatches):
-        trainer._dispatch_once()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * K)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(dispatches):
-            trainer._dispatch_once()
+    k = trainer.config.steps_per_dispatch
+
+    def run():
+        for i in range(dispatches):
+            trainer._dispatch_once(prefetch_next=i + 1 < dispatches)
+
+    with trainer._async_writeback():
         torch.cuda.synchronize()
-    device_us = sum(
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * k)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    steps = dispatches * k
+    events_us = sum(
         e.time_range.elapsed_us() for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
-    device_ms = device_us / 1e3 / (dispatches * K) if device_us else None
+    with tempfile.TemporaryDirectory() as tmp:
+        events = trace_events(prof, f"{tmp}/busy.json")
+    by_cat, annotations = {}, {}
+    for e in events:
+        cat = e.get("cat")
+        if cat in DEVICE_CATS or cat == "gpu_user_annotation":
+            by_cat[cat] = by_cat.get(cat, 0.0) + e.get("dur", 0) / 1e3 / steps
+        if cat == "gpu_user_annotation":
+            annotations[e["name"]] = annotations.get(e["name"], 0.0) + e.get("dur", 0) / 1e3 / steps
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
+    device_ms = union_ms(device) / steps if device else None
     return {
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
+        "device_ms_per_step_by_category": by_cat,
+        "device_events_sum_ms_per_step": events_us / 1e3 / steps,
+        "gpu_user_annotation_ms_per_step": dict(sorted(annotations.items(), key=lambda kv: -kv[1])[:6]),
     }
 
 
@@ -1320,6 +1423,411 @@ def resume_phase(Trainer, TrainConfig, card: str, log_dir: str):
     return launches
 
 
+def guard_counter(trainer) -> list:
+    """Count the dispatches that run under ``set_sync_debug_mode("error")``:
+    wraps the trainer's ``_dispatch_guard`` and records each call that
+    returns the real guard."""
+    import contextlib
+
+    guarded = []
+    orig = trainer._dispatch_guard
+
+    def counting():
+        cm = orig()
+        if not isinstance(cm, contextlib.nullcontext):
+            guarded.append(1)
+        return cm
+
+    trainer._dispatch_guard = counting
+    return guarded
+
+
+def async_run(Trainer, TrainConfig, phase: str, placement: str, k: int, backend: str,
+              card: str, log_dir: str):
+    """The asynchronous host data plane at full width: ``prefetch`` and
+    ``async_priority_writeback`` on the host placement (``host_async``) or
+    the hybrid one (``hybrid_async``, where ``prefetch`` is declared
+    ignored), with ``debug_guards``. Exact launch counts, one applied
+    write-back per dispatch, the flusher stopped and its queue gone after
+    ``train()``, and every dispatch after the first under the sync guard
+    while the flusher thread waits in its own thread."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+
+    n = ASYNC_STEPS
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n, eval_episodes=10,
+        log_dir=log_dir, seed=SEED, replay_placement=placement, steps_per_dispatch=k,
+        prioritized=True, tree_backend=backend, debug_guards=True, prefetch=True,
+        async_priority_writeback=True,
+        agent=dataclasses.replace(D4PGConfig(), projection_backend="fused"),
+    )
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        trainer = Trainer(cfg, device="cuda")
+    print(said.getvalue(), end="", flush=True)
+    declared = "--prefetch double-buffers the host batch upload" in said.getvalue()
+    check(declared == (placement != "host"), f"{phase}: prefetch_ignored line printed: {declared}")
+    check(trainer.config.prefetch == (placement == "host"), f"{phase}: prefetch {trainer.config.prefetch}")
+    guarded = guard_counter(trainer)
+    try:
+        check(trainer.buffer.tree_backend == backend, f"{phase}: tree backend {trainer.buffer.tree_backend}")
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stages = trainer.timers.scalars()
+        applied = trainer.writebacks_applied
+        flusher = {"writebacks_applied": applied,
+                   "thread_stopped": trainer._wb_thread is None,
+                   "queue_gone": trainer._wb_queue is None,
+                   "idle": trainer._wb_idle.is_set(),
+                   "lagged_pending": trainer._pending is not None}
+        n_guarded = len(guarded)
+        busy = device_busy(trainer)  # after the counts: these dispatches are extra
+    finally:
+        trainer.close()
+    dispatches = n // k
+    for key in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"{phase}: {key} not finite: {row.get(key)}")
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"{phase}: launch counts {launches}, expected {expect}")
+    check(trainer.grad_steps == n, f"{phase}: {trainer.grad_steps} grad steps")
+    check(applied == dispatches and flusher["thread_stopped"] and flusher["queue_gone"]
+          and flusher["idle"] and not flusher["lagged_pending"],
+          f"{phase}: flusher {flusher} for {dispatches} dispatches")
+    check(n_guarded == dispatches - 1,
+          f"{phase}: {n_guarded} of {dispatches} dispatches under the sync guard")
+    max_priority = trainer.buffer._max_priority
+    check(max_priority > 1.0, f"{phase}: max_priority {max_priority} did not move off 1.0")
+    a = trainer.config.agent
+    emit({
+        "phase": phase,
+        "placement": placement,
+        "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "batch": trainer.config.batch_size, "num_envs": trainer.config.num_envs,
+                  "n_step": a.n_step, "prioritized": True,
+                  "replay_capacity": trainer.config.replay_capacity, "steps_per_dispatch": k},
+        "tree_backend": backend,
+        "prefetch": trainer.config.prefetch,
+        "prefetch_ignored_declared": declared,
+        "grad_steps": n,
+        "dispatches": dispatches,
+        "sync_guard_dispatches": n_guarded,
+        "flusher": flusher,
+        "env_steps": trainer.env_steps,
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "env_steps_per_sec": row["env_steps_per_sec"],
+        "critic_loss": row["critic_loss"],
+        "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"],
+        "eval_return_mean": row["eval_return_mean"],
+        "max_priority": max_priority,
+        "launches": launches,
+        "stage_ms_per_step": stage_ms_per_step(stages, n),
+        "stages": stages,
+        "steady_state": busy,
+        "ok": True,
+    })
+    return launches
+
+
+def prefetch_first_step(Trainer, TrainConfig, card: str, log_dir: str) -> None:
+    """Two trainers from one seed, prefetch on and off, one dispatch each:
+    the first step's metrics and every tensor of the learner state must be
+    ``torch.equal`` (the reference's ``test_prefetch.py`` first-dispatch
+    check, exact on the card)."""
+    import torch
+
+    rows, states = [], []
+    for prefetch in (False, True):
+        cfg = TrainConfig(env="pendulum", total_steps=1, warmup_steps=1000, eval_interval=1,
+                          eval_episodes=1, log_dir=f"{log_dir}/first_{prefetch}", seed=SEED,
+                          tree_backend="numpy", prefetch=prefetch)
+        trainer = Trainer(cfg, device="cuda")
+        try:
+            rows.append(trainer.train())
+            torch.cuda.synchronize()
+            states.append(dict(state_tensors(trainer.state)))
+        finally:
+            trainer.close()
+    keys = ("critic_loss", "actor_loss", "priority_mean", "q_mean")
+    check(all(rows[0][key] == rows[1][key] for key in keys),
+          f"prefetch_first_step: metrics differ: {[{key: r[key] for key in keys} for r in rows]}")
+    check(states[0].keys() == states[1].keys(), "prefetch_first_step: state tensor sets differ")
+    differ = [name for name, x in states[0].items() if not torch.equal(x, states[1][name])]
+    check(not differ, f"prefetch_first_step: state tensors differ: {differ}")
+    emit({"phase": "prefetch_first_step", "card": card, "torch_equal": True,
+          "tensors_compared": len(states[0]), "critic_loss": rows[0]["critic_loss"], "ok": True})
+
+
+def ingest_prefetch_pair(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """The fused-descent device learner, ``ingest_prefetch`` on and off,
+    same seed, INGEST_PAIR_STEPS grad steps each: the final learners
+    (params, Adam moments, ring, tree) must be ``torch.equal``. Returns each
+    run's launch counts by path name."""
+    import torch
+
+    n, out, learners, staged = INGEST_PAIR_STEPS, {}, {}, {}
+    info = {}
+    for on in (True, False):
+        cfg = TrainConfig(env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
+                          eval_episodes=2, log_dir=f"{log_dir}/ingest_{on}", seed=SEED,
+                          replay_placement="device", steps_per_dispatch=K, prioritized=True,
+                          fused_descent=True, debug_guards=True, ingest_prefetch=on)
+        trainer = Trainer(cfg, device="cuda")
+        chunks = []
+        stage = trainer._ring_sync.stage
+
+        def counting_stage(ring, stage=stage, chunks=chunks):
+            got = stage(ring)
+            chunks.append(got)
+            return got
+
+        trainer._ring_sync.stage = counting_stage
+        try:
+            reset_counts()
+            row = trainer.train()
+            torch.cuda.synchronize()
+            launches = read_counts()
+        finally:
+            trainer.close()
+        stages = trainer.timers.scalars()
+        dispatches = n // K
+        expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches, fused_step=n)
+        check(launches == expect, f"ingest_prefetch={on}: launch counts {launches}, expected {expect}")
+        check(stages["stage_ingest_stage_calls"] == (dispatches if on else 0),
+              f"ingest_prefetch={on}: {stages['stage_ingest_stage_calls']} ingest_stage calls")
+        for key in ("critic_loss", "q_mean", "priority_mean"):
+            check(row[key] == row[key] and abs(row[key]) != float("inf"),
+                  f"ingest_prefetch={on}: {key} not finite")
+        name = f"device_ingest_prefetch_{'on' if on else 'off'}"
+        out[name] = launches
+        learners[on] = learner_of(trainer)
+        staged[on] = sum(chunks)
+        info[name] = {"grad_steps_per_sec": row["grad_steps_per_sec"],
+                      "stage_ingest_stage_calls": stages["stage_ingest_stage_calls"],
+                      "stage_ms_per_step": stage_ms_per_step(stages, n),
+                      "chunks_staged": staged[on], "chunks_ingested": trainer._ring_sync.chunks_ingested,
+                      "launches": launches}
+    same = compare_learners(learners[True], learners[False])
+    check(not same["differ"], f"ingest_prefetch pair: final learners differ: {same}")
+    emit({"phase": "device_ingest_prefetch_pair", "card": card, "grad_steps": n,
+          "torch_equal": True, "tensors_compared": same["compared"], "runs": info,
+          "chunks_staged_predicted": 0, "ok": True})
+    return out
+
+
+def trace_events(prof, path: str) -> list:
+    """The events of a finished ``torch.profiler`` session, via its Chrome
+    trace (which carries each device event's stream)."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def ingest_stage_phase(card: str, log_dir: str) -> None:
+    """``DeviceRingSync.stage`` driven directly on a 1M-row ring with the
+    device tree hooked, against a twin that flushes with no stage, from the
+    same host adds. Round 1: a fused-descent megastep dispatch is in flight
+    on the ring (with a tree of its own) while a chunk is staged; more rows
+    arrive; both flush. Round 2: a chunk is staged, then enough rows to
+    wrap the ring overwrite every staged slot before the flush. After each
+    round the ring's fields and the tree must be ``torch.equal`` to the
+    twin's, and round 1's profiler trace must put the staged chunk's
+    host-to-device copies on a stream the megastep's kernels do not use."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d4pg_tpu_torch.agent import create_train_state
+    from d4pg_tpu_torch.config import TrainConfig, apply_env_preset
+    from d4pg_tpu_torch.replay import ReplayBuffer, Transition
+    from d4pg_tpu_torch.replay.device_per import DevicePerSync
+    from d4pg_tpu_torch.replay.device_ring import DeviceRingSync, device_ring_init
+    from d4pg_tpu_torch.runtime import megastep
+
+    agent = apply_env_preset(TrainConfig()).agent
+    cap = apply_env_preset(TrainConfig()).replay_capacity
+    rng = np.random.default_rng(SEED + 20)
+
+    def rows(n):
+        return Transition(rng.normal(size=(n, 3)).astype(np.float32),
+                          rng.uniform(-1, 1, (n, 1)).astype(np.float32),
+                          rng.uniform(-16, 0, n).astype(np.float32),
+                          rng.normal(size=(n, 3)).astype(np.float32),
+                          np.full(n, 0.99**3, np.float32))
+
+    sides = []
+    for _ in range(2):  # [staged, twin]
+        buf = ReplayBuffer(cap, 3, 1)
+        sync = DeviceRingSync(buf)
+        dps = DevicePerSync(cap, agent.per_alpha, device="cuda")
+        sync.tree_hook = dps.on_chunk
+        sides.append((buf, sync, device_ring_init(cap, 3, 1, "cuda"), dps))
+
+    def add(n):
+        t = rows(n)
+        for buf, *_ in sides:
+            buf.add_batch(t)
+
+    def flush_both():
+        for _, sync, ring, _ in sides:
+            sync.flush(ring)
+
+    def compare(what):
+        (_, _, ra, da), (_, _, rb, db) = sides
+        torch.cuda.synchronize()
+        differ = [k for k in ("obs", "action", "reward", "next_obs", "discount", "size")
+                  if not torch.equal(getattr(ra, k), getattr(rb, k))]
+        differ += [k for k in ("sums", "max_priority")
+                   if not torch.equal(getattr(da.tree, k), getattr(db.tree, k))]
+        check(not differ, f"ingest_stage {what}: staged and plain mirrors differ in {differ}")
+
+    add(cap - 2000)
+    flush_both()
+    buf_a, sync_a, ring_a, dps_a = sides[0]
+    state = create_train_state(agent, SEED, "cuda")
+    step = megastep.make_megastep_device_per_fused(agent, K, 256)
+    tree_c = copy.deepcopy(dps_a.tree)  # the in-flight dispatch's own tree
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    step(state, ring_a, tree_c, gen)  # builds and loads the kernels
+    torch.cuda.synchronize()
+
+    # Round 1: 4000 rows (wrapping at slot 1M) staged under a dispatch.
+    add(4000)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, ring_a, tree_c, gen)
+        t0 = time.perf_counter()
+        staged = sync_a.stage(ring_a)
+        stage_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    check(staged and sync_a._staged is not None, "ingest_stage: nothing staged")
+    events = trace_events(prof, f"{log_dir}/ingest_stage.json")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernel_streams = sorted({e["args"]["stream"] for e in kernels})
+    copy_streams = sorted({e["args"]["stream"] for e in h2d})
+    # the staged chunk is six copies (five fields and the slots); any copy
+    # on a kernel stream is the dispatch's own
+    staged_copies = [e for e in h2d if e["args"]["stream"] not in kernel_streams]
+    check(kernels and len(staged_copies) >= 6,
+          f"ingest_stage: {len(kernels)} kernels on streams {kernel_streams}; HtoD copies on "
+          f"streams {copy_streams}, {len(staged_copies)} of them off the kernels' streams")
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
+    overlapped = sum(any(s < c1 and c0 < e for s, e in spans)
+                     for c0, c1 in ((c["ts"], c["ts"] + c["dur"]) for c in staged_copies))
+    add(1500)
+    flush_both()
+    compare("round 1")
+
+    # Round 2: stage 3000 rows, then wrap the ring over every staged slot.
+    add(3000)
+    check(sync_a.stage(ring_a), "ingest_stage: round 2 staged nothing")
+    add(cap - 1000)
+    flush_both()
+    compare("round 2 (overwrites across the wrap)")
+    emit({"phase": "ingest_stage", "card": card, "ring_rows": cap,
+          "tree_leaves": dps_a.tree.sums.shape[0] // 2, "torch_equal": True,
+          "h2d_copies_traced": len(h2d), "staged_copies": len(staged_copies),
+          "copy_streams": copy_streams,
+          "kernel_streams": kernel_streams, "copies_overlapping_a_kernel": overlapped,
+          "stage_host_ms": stage_s * 1e3, "chunks_ingested": sync_a.chunks_ingested,
+          "twin_chunks_ingested": sides[1][1].chunks_ingested, "ok": True})
+
+
+PROFILE_RANGES = ("host/sample", "host/h2d_stage", "host/train_dispatch", "host/prefetch",
+                  "host/priority_writeback")
+
+
+def profile_phase(Trainer, TrainConfig, card: str, log_dir: str) -> None:
+    """Host K = 8 on the native tree with ``prefetch``, the write-back
+    thread and ``profile_dir``: the trace of grad steps [16, 64) must exist
+    and hold the five ``host/*`` ranges and B1f's and B1b's launches. Prints
+    the window's host ms a grad step per range and device ms a grad step
+    per kernel name."""
+    import collections
+    import dataclasses
+    import glob
+    import os
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+
+    trace_dir = f"{log_dir}/trace"
+    cfg = TrainConfig(
+        env="pendulum", total_steps=PROFILE_STEPS, warmup_steps=1000, eval_interval=PROFILE_STEPS,
+        eval_episodes=2, log_dir=f"{log_dir}/profile", seed=SEED, steps_per_dispatch=K,
+        prioritized=True, tree_backend="native", prefetch=True, async_priority_writeback=True,
+        profile_dir=trace_dir, agent=dataclasses.replace(D4PGConfig(), projection_backend="fused"),
+    )
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"profile: {len(files)} trace files in {trace_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    # the trace runs from the first dispatch boundary at or past grad step
+    # 10 to the first at or past max(60, 10 + K): [16, 64) at K = 8
+    window = -(-max(60, 10 + K) // K) * K - -(-10 // K) * K
+    host = collections.defaultdict(float)
+    threads = collections.defaultdict(set)
+    for e in events:
+        if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("host/"):
+            host[e["name"]] += e.get("dur", 0) / 1e3 / window
+            threads[e["name"]].add(e.get("tid"))
+    device = collections.defaultdict(float)
+    for e in events:
+        if e.get("cat") in DEVICE_CATS:
+            device[e["name"]] += e.get("dur", 0) / 1e3 / window
+    # The loop thread's window: the span of its host/* ranges, the part
+    # inside them (nested ranges counted once) and the rest; and the union
+    # of the device's work over the same window.
+    loop_tid = next(iter(threads["host/train_dispatch"])) if threads["host/train_dispatch"] else None
+    loop = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e.get("tid") == loop_tid
+            and str(e.get("name", "")).startswith("host/")]
+    span = (max(t1 for _, t1 in loop) - min(t0 for t0, _ in loop)) / 1e3 if loop else 0.0
+    busy = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS])
+    loop_thread = {"span_ms_per_step": span / window,
+                   "in_host_ranges_ms_per_step": union_ms(loop) / window,
+                   "outside_host_ranges_ms_per_step": (span - union_ms(loop)) / window,
+                   "device_busy_ms_per_step": busy / window,
+                   "device_idle_share": 1.0 - busy / span if span else None}
+    missing = [r for r in PROFILE_RANGES if r not in host]
+    check(not missing, f"profile: ranges {missing} not in the trace")
+    b1f = sum(v for k, v in device.items() if "fused_loss_fwd_kernel" in k)
+    b1b = sum(v for k, v in device.items() if "fused_loss_bwd_kernel" in k)
+    check(b1f > 0 and b1b > 0, f"profile: B1f {b1f} / B1b {b1b} device ms in the trace")
+    launches = {name: sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+                for name in ("fused_loss_fwd_kernel", "fused_loss_bwd_kernel")}
+    check(all(v == window for v in launches.values()),
+          f"profile: kernel launches {launches} in a window of {window} grad steps")
+    top = dict(sorted(device.items(), key=lambda kv: -kv[1])[:12])
+    emit({"phase": "profile", "card": card, "trace_bytes": os.path.getsize(files[0]),
+          "window_grad_steps": window, "launches_in_window": launches,
+          "host_ms_per_step": dict(host),
+          "threads_per_range": {k: len(v) for k, v in threads.items()},
+          "loop_thread": loop_thread,
+          "device_ms_per_step_total": sum(device.values()),
+          "device_ms_per_step_by_name": top, "ok": True})
+
+
 def main() -> int:
     import torch
 
@@ -1373,11 +1881,21 @@ def main() -> int:
         paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card, f"{tmp}/fused")
         paths["host_projection"] = slice_run(
             Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card, f"{tmp}/projection")
+        paths["host_async_k1"] = async_run(
+            Trainer, TrainConfig, "host_async", "host", 1, "numpy", card, f"{tmp}/async1")
         paths["host_block"] = host_data_plane_run(Trainer, TrainConfig, "host", card, f"{tmp}/block")
+        paths["host_async_k8"] = async_run(
+            Trainer, TrainConfig, "host_async", "host", K, "native", card, f"{tmp}/async8")
+        prefetch_first_step(Trainer, TrainConfig, card, tmp)
         for tier in DEVICE_STEPS:
             paths[f"device_{tier}"] = device_slice_run(Trainer, TrainConfig, tier, card, f"{tmp}/{tier}")
+        paths.update(ingest_prefetch_pair(Trainer, TrainConfig, card, tmp))
+        ingest_stage_phase(card, tmp)
         paths["hybrid_slice"] = host_data_plane_run(Trainer, TrainConfig, "hybrid", card, f"{tmp}/hybrid")
+        paths["hybrid_async"] = async_run(
+            Trainer, TrainConfig, "hybrid_async", "hybrid", K, "native", card, f"{tmp}/hybrid_async")
         paths["device_resumed"] = resume_phase(Trainer, TrainConfig, card, tmp)
+        profile_phase(Trainer, TrainConfig, card, tmp)
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

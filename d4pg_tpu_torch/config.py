@@ -58,10 +58,33 @@ class TrainConfig:
     tree_backend: str = "auto"
     # Fuse the next step's descent into each step's loss kernel (B4).
     fused_descent: bool = False
-    # Run every megastep dispatch after the first under
+    # Host placement: sample dispatch N+1's batch and start its copy to the
+    # device right after dispatch N is enqueued, so the copy overlaps the
+    # dispatch in flight (the sample still runs on the loop thread). On an
+    # H100 it moved grad steps/s by no more than the spread between runs
+    # (PERF.md section 5). The batch sees replay one dispatch staler
+    # (the staleness class of steps_per_dispatch > 1). Ignored, with a
+    # printed line, on the device and hybrid placements.
+    prefetch: bool = False
+    # Device placement: right after each megastep dispatch, gather the next
+    # flush's first chunk and start its copy (DeviceRingSync.stage), so the
+    # copy overlaps the dispatch. Ignored, with a printed line, elsewhere.
+    ingest_prefetch: bool = False
+    # Run every host, megastep and hybrid dispatch after the first under
     # torch.cuda.set_sync_debug_mode("error"): a host synchronisation in
     # the steady-state loop raises.
     debug_guards: bool = False
+    # Host and hybrid placements with PER: a background thread applies the
+    # priority write-backs (drain and batch: each wake takes every dispatch
+    # queued since the last one and waits once, for the newest copy), so
+    # the loop never waits on the device for them. Measured on an H100 it
+    # is no gain: it cost the K = 1 host loop 10-29 % of its grad steps/s
+    # and left K = 8 and hybrid within the spread between runs; the cause
+    # is open (PERF.md sections 5 and 7).
+    async_priority_writeback: bool = False
+    # Capture a torch.profiler trace of grad steps [10, max(60, 10 + K))
+    # of the leg into this directory (a Chrome trace, *.pt.trace.json).
+    profile_dir: Optional[str] = None
 
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
@@ -101,6 +124,30 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
         max_episode_steps=config.max_episode_steps or preset["max_episode_steps"],
         replay_capacity=config.replay_capacity or DEFAULT_REPLAY_CAPACITY,
     )
+
+
+def apply_declared_actions(config: TrainConfig) -> TrainConfig:
+    """The declared downgrades of ``d4pg_tpu/replay/source.py``
+    (``prefetch_ignored``, ``ingest_prefetch_ignored``): an option that the
+    placement makes moot is dropped with a printed line, never an error."""
+    placement = config.replay_placement
+    if config.prefetch and placement != "host":
+        print(
+            "[replay] --prefetch double-buffers the host batch "
+            f"upload, which replay_placement={placement} removes; "
+            "ignoring it",
+            flush=True,
+        )
+        config = dataclasses.replace(config, prefetch=False)
+    if config.ingest_prefetch and placement != "device":
+        print(
+            "[replay] --ingest-prefetch double-buffers the device ring "
+            "ingest in front of each megastep dispatch of "
+            f"replay_placement=device, not {placement}; ignoring it",
+            flush=True,
+        )
+        config = dataclasses.replace(config, ingest_prefetch=False)
+    return config
 
 
 def check_placement(config: TrainConfig) -> None:

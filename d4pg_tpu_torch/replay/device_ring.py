@@ -14,23 +14,25 @@ host-to-device batch copy per grad step.
 - :class:`DeviceRingSync`: the host-side flusher. It diffs the host
   buffer's monotone ``total_added`` counter and ships only the rows
   written since the last flush, in chunks of at most ``chunk_cap`` rows,
-  through pinned memory and asynchronous copies.
+  through pinned memory and asynchronous copies; ``stage`` starts the
+  next flush's first chunk early (``--ingest-prefetch``).
 
 Chunks are exactly as long as the rows they carry: eager PyTorch has no
 per-shape compile, so the fixed-shape padding the JAX ingest needs is not
-used, and no pad row or pad slot exists to land. ``stage()`` /
-``--ingest-prefetch`` and the sharded and multi-host syncs wait for ROADMAP
-A6 and A7.
+used, and no pad row or pad slot exists to land. The sharded and
+multi-host syncs wait for ROADMAP A7.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
+from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
 
 FIELDS = ("obs", "action", "reward", "next_obs", "discount")
 
@@ -75,17 +77,36 @@ def ingest_body(ring: DeviceRing, chunk: dict, slots: torch.Tensor, new_size: in
     return ring
 
 
+@dataclass
+class _StagedChunk:
+    """The next flush's first chunk, copied ahead by :meth:`DeviceRingSync.stage`."""
+
+    synced_at: int     # the sync's mirrored count when it was staged
+    covers: int        # the mirrored count once it lands
+    dev_chunk: dict    # FIELDS and "slots" (int64), on the device
+    ready: object      # the copy-done event (None on the CPU)
+    new_size: int
+    nbytes: int
+
+
 class DeviceRingSync:
     """Keeps a :class:`DeviceRing` mirroring a host ``ReplayBuffer``'s ring.
 
     ``flush(ring)`` ships every row written to the host buffer since the
     last flush (by its ``total_added`` counter): slot indices come from the
     host write head (write j landed at slot ``j % capacity``), rows from
-    the buffer's own ``gather``. More than ``capacity`` pending writes
-    collapse to one full-ring resync: the overwritten rows no longer exist
-    to ship. Rows are staged to the ring's own device. ``tree_hook``, when
-    set, is called with each chunk's device slot tensor
+    the buffer's own locked ``gather``. More than ``capacity`` pending
+    writes collapse to one full-ring resync: the overwritten rows no longer
+    exist to ship. Rows are copied to the ring's own device on the
+    current stream, which scatters them next.
+    ``tree_hook``, when set, is called with each chunk's device slot tensor
     (``DevicePerSync.on_chunk`` seeds the priority leaves of the same rows).
+
+    ``stage(ring)`` (``--ingest-prefetch``) gathers the next flush's first
+    chunk and starts its copy early, while a dispatch runs, on a copy
+    stream of its own (:class:`~d4pg_tpu_torch.utils.h2d.H2DStream`); ``flush``
+    scatters it first and ships the rows written since in its remainder
+    loop, after it, so the last write to a slot wins.
     """
 
     def __init__(self, buffer, chunk_cap: int = 4096):
@@ -96,39 +117,81 @@ class DeviceRingSync:
         self.tree_hook = None
         self.bytes_ingested = 0
         self.chunks_ingested = 0
+        self._staged: Optional[_StagedChunk] = None
+        self._h2d: Optional[H2DStream] = None
 
     def pending(self) -> int:
         return min(self._buffer.total_added - self._synced, self.capacity)
 
-    @staticmethod
-    def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if device.type == "cuda":
-            # pinned staging, so the copy is asynchronous; PyTorch's host
-            # allocator keeps the pinned block until the copy has run
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
+    def _copier(self, ring: DeviceRing) -> H2DStream:
+        device = ring.obs.device
+        if self._h2d is None or self._h2d.device != device:
+            self._h2d = H2DStream(device)
+        return self._h2d
+
+    def _gather(self, ring: DeviceRing, first: int, n: int, ahead: bool):
+        """The rows of writes [first, first + n) and their slots, copy
+        started on the current stream, or with ``ahead`` on the copy
+        stream: ``(device chunk, ready event or None, bytes)``."""
+        slots = (first + np.arange(n)) % self.capacity
+        chunk = dict(self._buffer.gather(slots))  # locked: never a torn row
+        chunk["slots"] = slots.astype(np.int64)
+        nbytes = sum(v.nbytes for v in chunk.values())
+        if ahead:
+            return (*self._copier(ring).put(chunk), nbytes)
+        return to_device(chunk, ring.obs.device), None, nbytes
+
+    def _ingest(self, ring: DeviceRing, dev_chunk: dict, ready, new_size: int, nbytes: int) -> None:
+        if ready is not None:
+            self._h2d.consume(dev_chunk, ready)
+        ingest_body(ring, dev_chunk, dev_chunk["slots"], new_size)
+        if self.tree_hook is not None:
+            self.tree_hook(dev_chunk["slots"])
+        self.bytes_ingested += nbytes
+        self.chunks_ingested += 1
+
+    def stage(self, ring: DeviceRing) -> bool:
+        """Gather at most ``chunk_cap`` pending rows and start their copy to
+        the ring's device NOW, so that the copy overlaps the dispatch in
+        flight instead of running in front of the next one. A no-op when a
+        chunk is already staged or nothing is pending; returns True iff a
+        chunk is staged on exit. The ring is not written until
+        :meth:`flush`."""
+        if self._staged is not None:
+            return True
+        total = self._buffer.total_added
+        n_pending = min(total - self._synced, self.capacity)
+        if n_pending <= 0:
+            return False
+        first = total - n_pending
+        n = min(n_pending, self.chunk_cap)
+        dev_chunk, ready, nbytes = self._gather(ring, first, n, ahead=True)
+        covers = first + n
+        self._staged = _StagedChunk(
+            synced_at=self._synced, covers=covers, dev_chunk=dev_chunk, ready=ready,
+            new_size=min(covers, self.capacity), nbytes=nbytes,
+        )
+        return True
 
     def flush(self, ring: DeviceRing) -> DeviceRing:
         """Mirror all pending host writes into ``ring``, IN PLACE; returns
         ``ring``."""
+        staged, self._staged = self._staged, None
+        if staged is not None and staged.synced_at == self._synced:
+            # Its rows were current when staged; rows written (or
+            # overwritten) since fall in [covers, total) and ship below, in
+            # write order, so this scatter never shadows a newer row.
+            self._ingest(ring, staged.dev_chunk, staged.ready, staged.new_size, staged.nbytes)
+            self._synced = staged.covers
         total = self._buffer.total_added
         n_pending = min(total - self._synced, self.capacity)
         if n_pending <= 0:
             return ring
         first = total - n_pending
         new_size = min(total, self.capacity)
-        device = ring.obs.device
         for lo in range(0, n_pending, self.chunk_cap):
             n = min(self.chunk_cap, n_pending - lo)
-            slots = (first + lo + np.arange(n)) % self.capacity
-            chunk = self._buffer.gather(slots)
-            dev_chunk = {k: self._stage(chunk[k], device) for k in FIELDS}
-            slots_dev = self._stage(slots.astype(np.int64), device)
-            ingest_body(ring, dev_chunk, slots_dev, new_size)
-            if self.tree_hook is not None:
-                self.tree_hook(slots_dev)
-            self.bytes_ingested += sum(v.nbytes for v in chunk.values()) + 8 * n
-            self.chunks_ingested += 1
+            dev_chunk, ready, nbytes = self._gather(ring, first + lo, n, ahead=False)
+            self._ingest(ring, dev_chunk, ready, new_size, nbytes)
         self._synced = total
         return ring

@@ -11,9 +11,9 @@ normalized by the max weight (via the min tree), priorities update as
 The draw consumes the seeded ``np.random.Generator`` exactly as the JAX
 package does (one ``uniform`` over the n equal-mass strata of an n-row
 draw), so the same adds, seed and priority updates give the same
-indices, IS weights and rows in both packages and on both backends. A
-``threading.Lock`` guards the trees: every insert, draw and write-back
-takes it. Snapshots add the
+indices, IS weights and rows in both packages and on both backends. The
+base buffer's re-entrant lock also guards the trees: every insert, draw,
+gather, write-back and snapshot takes it. Snapshots add the
 α-exponentiated leaves (``tree_priorities``) and the pre-α
 ``max_priority`` to the uniform buffer's ``.npz`` keys, as the JAX
 package's do.
@@ -21,7 +21,6 @@ package's do.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -69,7 +68,6 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         self.beta0 = beta0
         self.beta_steps = beta_steps
         self.eps = eps
-        self._lock = threading.Lock()
         self._use_native = False
         if tree_backend != "numpy":
             try:
@@ -138,10 +136,6 @@ class PrioritizedReplayBuffer(ReplayBuffer):
             # the copy is the capture: a view would follow a later writer
             gen = self._gen[idx].copy()
         return idx, weights.astype(np.float32), gen
-
-    def gather(self, idx: np.ndarray):
-        with self._lock:  # no row is read while a writer is halfway through it
-            return super().gather(idx)
 
     def sample(self, batch_size: int, rng: np.random.Generator, step: int = 0):
         """Stratified proportional sample: a batch dict with the extra keys

@@ -7,6 +7,12 @@ gather-based sampling, per-slot write generations, the monotone
 ``.npz`` snapshots in the JAX package's layout (either package restores
 the other's). uint8 pixel storage waits for ROADMAP A10.
 
+One re-entrant lock (``_lock``, a ``threading.RLock`` made once here)
+guards every write, gather, snapshot copy and restore, so the priority write-back
+thread never reads a torn row; the prioritized subclass takes the same
+lock around its trees and calls back into these methods while it holds
+it.
+
 Transitions carry an explicit per-sample ``discount`` = γ^m·(1−terminal)
 so the learner's projection needs no gamma/n plumbing.
 """
@@ -14,6 +20,7 @@ so the learner's projection needs no gamma/n plumbing.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Mapping, NamedTuple
 
 import numpy as np
@@ -30,8 +37,7 @@ class Transition(NamedTuple):
 
 
 class ReplayBuffer:
-    """Columnar ring buffer. Single-threaded: the learner loop is the only
-    reader and writer."""
+    """Columnar ring buffer; thread-safe (see the module docstring)."""
 
     def __init__(self, capacity: int, obs_dim: int, action_dim: int):
         self.capacity = int(capacity)
@@ -49,8 +55,12 @@ class ReplayBuffer:
         # Monotone lifetime write counter (never wraps): the device-ring
         # mirror (replay/device_ring.py) diffs it to find the slots
         # written since its last flush. Write j (0-based) landed at slot
-        # j % capacity.
+        # j % capacity. Plain-int reads are safe off the lock: a reader one
+        # batch behind ships the rows at its next flush.
         self._total_added = 0
+        # Re-entrant: the PER subclass holds it around its trees and calls
+        # add_batch / gather / _snapshot_arrays of this class inside.
+        self._lock = threading.RLock()
 
     def __len__(self) -> int:
         return self._size
@@ -64,26 +74,28 @@ class ReplayBuffer:
         """Insert a batch of transitions; returns the slot indices written."""
         obs = np.atleast_2d(np.asarray(t.obs, np.float32))
         n = obs.shape[0]
-        idx = (self._pos + np.arange(n)) % self.capacity
-        self.obs[idx] = obs
-        self.action[idx] = np.atleast_2d(np.asarray(t.action, np.float32))
-        self.reward[idx] = np.asarray(t.reward, np.float32).reshape(n)
-        self.next_obs[idx] = np.atleast_2d(np.asarray(t.next_obs, np.float32))
-        self.discount[idx] = np.asarray(t.discount, np.float32).reshape(n)
-        self._gen[idx] += 1
-        self._pos = int((self._pos + n) % self.capacity)
-        self._size = int(min(self._size + n, self.capacity))
-        self._total_added += n
+        with self._lock:
+            idx = (self._pos + np.arange(n)) % self.capacity
+            self.obs[idx] = obs
+            self.action[idx] = np.atleast_2d(np.asarray(t.action, np.float32))
+            self.reward[idx] = np.asarray(t.reward, np.float32).reshape(n)
+            self.next_obs[idx] = np.atleast_2d(np.asarray(t.next_obs, np.float32))
+            self.discount[idx] = np.asarray(t.discount, np.float32).reshape(n)
+            self._gen[idx] += 1
+            self._pos = int((self._pos + n) % self.capacity)
+            self._size = int(min(self._size + n, self.capacity))
+            self._total_added += n
         return idx
 
     def gather(self, idx: np.ndarray) -> Mapping[str, np.ndarray]:
-        return {
-            "obs": self.obs[idx],
-            "action": self.action[idx],
-            "reward": self.reward[idx],
-            "next_obs": self.next_obs[idx],
-            "discount": self.discount[idx],
-        }
+        with self._lock:  # never a torn row
+            return {
+                "obs": self.obs[idx],
+                "action": self.action[idx],
+                "reward": self.reward[idx],
+                "next_obs": self.next_obs[idx],
+                "discount": self.discount[idx],
+            }
 
     def sample(self, batch_size: int, rng: np.random.Generator):
         """Uniform sample of stacked arrays."""
@@ -92,8 +104,9 @@ class ReplayBuffer:
 
     # ------------------------------------------------------------- snapshot
     def _snapshot_arrays(self) -> dict:
-        """Stored rows in ring order [0, size) as live views, plus the
-        write head and the fill count."""
+        """Stored rows in ring order [0, size) as LIVE VIEWS, plus the write
+        head and the fill count. The caller holds ``_lock`` and copies
+        every value before releasing it."""
         n = self._size
         return {
             "obs": self.obs[:n],
@@ -108,10 +121,14 @@ class ReplayBuffer:
     def snapshot(self, path: str) -> None:
         """Write the buffer contents to ``path`` (.npz, atomically by
         rename), so ``--resume`` keeps its experience."""
+        with self._lock:
+            # real copies: a writer may mutate the live arrays while the
+            # file is written below, unlocked
+            data = {k: np.array(v, copy=True) for k, v in self._snapshot_arrays().items()}
         tmp = f"{path}.tmp.npz"  # savez appends .npz unless present
         # Uncompressed: replay rows are high-entropy floats (deflate gains
         # ~10%) and compression would stall the learner at 1M rows.
-        np.savez(tmp, **self._snapshot_arrays())
+        np.savez(tmp, **data)
         os.replace(tmp, path)
 
     def _restore_arrays(self, data) -> int:
@@ -146,4 +163,5 @@ class ReplayBuffer:
     def restore(self, path: str) -> int:
         """Load a :meth:`snapshot`; returns the number of rows restored."""
         with np.load(path, allow_pickle=False) as data:
-            return self._restore_arrays(data)
+            with self._lock:
+                return self._restore_arrays(data)

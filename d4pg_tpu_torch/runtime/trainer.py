@@ -44,6 +44,37 @@ ring, K fused-loss steps) under the same guard; and writes the [K, B]
 priorities back through the host placement's one-dispatch lag. Its seeded
 index stream equals the host placement's.
 
+The asynchronous host data plane (the JAX trainer's ``--prefetch``,
+``--async-writeback`` and ``--ingest-prefetch``):
+
+- ``prefetch`` (host placement): right after dispatch N is enqueued, the
+  batch of dispatch N+1 is sampled and its copy to the device started; the
+  next dispatch consumes it (the first one samples its own). The staged
+  batch is copied on a copy stream of its own
+  (:class:`~d4pg_tpu_torch.utils.h2d.H2DStream`), so the copy overlaps the
+  dispatch in flight; the consumer's stream waits on its event. A batch
+  read at once is copied on the compute stream, as without prefetch. A
+  staged batch that no dispatch consumes (a preemption) is dropped.
+- ``async_priority_writeback`` (host and hybrid placements with PER): a
+  flusher thread applies the write-backs. Each wake takes every dispatch
+  queued since the last one, waits once for the newest device→host copy
+  (``Event.synchronize()``, which releases the interpreter lock and which
+  ``set_sync_debug_mode`` does not count; ``chip_smoke.py`` checks that)
+  and applies them in order. A checkpoint's replay snapshot drains it
+  first; ``train()`` stops it however the loop ends, and a flusher that
+  died fails the run.
+- ``ingest_prefetch`` (device placement): right after each megastep
+  dispatch, ``DeviceRingSync.stage`` gathers the next flush's first chunk
+  and starts its copy (stage ``ingest_stage``). In this synchronous loop
+  collection and the flush run before each dispatch, so nothing is
+  pending then and no chunk is staged; a concurrent writer is what gives
+  it rows.
+
+Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
+the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
+leg (``utils/profiling.py``). Under ``debug_guards`` every host dispatch
+after the first runs under the sync guard too.
+
 Checkpoints (the JAX trainer's single-process contract,
 ``runtime/checkpoint.py``): at every ``checkpoint_interval`` crossing of
 the leg's grad-step count and at the end of ``train()``, the state is
@@ -65,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import queue
 import threading
 import time
 import zipfile
@@ -77,7 +109,12 @@ from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.agent import create_train_state, make_noise, train_step
 from d4pg_tpu_torch.agent.d4pg import fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
-from d4pg_tpu_torch.config import TrainConfig, apply_env_preset, check_placement
+from d4pg_tpu_torch.config import (
+    TrainConfig,
+    apply_declared_actions,
+    apply_env_preset,
+    check_placement,
+)
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
@@ -100,9 +137,12 @@ from d4pg_tpu_torch.runtime.checkpoint import (
 from d4pg_tpu_torch.runtime.collect import make_segment_collector
 from d4pg_tpu_torch.runtime.evaluator import evaluate
 from d4pg_tpu_torch.runtime.metrics import MetricsLogger, StageTimers, interval_crossed
+from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
+from d4pg_tpu_torch.utils.profiling import annotate, profile_trace
 from d4pg_tpu_torch.weights import best_actor_path, save_best_actor
 
 SEGMENT_LEN = 32  # env steps per env per collect (the JAX sync trainer's)
+WB_JOIN_S = 60.0  # how long stopping or draining the write-back thread may take
 
 
 def _rss_gb() -> float:
@@ -120,6 +160,7 @@ class Trainer:
         config = apply_env_preset(config)
         check_supported(config.agent)
         check_placement(config)
+        config = apply_declared_actions(config)
         self.config = config
         agent_cfg = config.agent
         self.env = make_env(config.env)
@@ -160,9 +201,25 @@ class Trainer:
 
         self._ring = self._ring_sync = self._dev_per = self._megastep = None
         self._dispatches = 0
+        # host-to-device batch copies, on a stream of their own on the card
+        self._h2d = H2DStream(self.device)
+        # --prefetch: (indices, device batch, copy-done event) sampled after
+        # the previous dispatch, for the next one
+        self._staged = None
         # PER: (indices, priority fetch) of the previous dispatch, written
         # back after the next one is enqueued
         self._pending = None
+        # --async-writeback: the flusher thread and its queue. _wb_idle is
+        # set iff every queued write-back has been applied; _wb_idle_lock
+        # orders a producer's clear + put against the flusher's empty check
+        # + set, so the flusher never sets it over a queued item.
+        self._wb_queue: Optional[queue.Queue] = None
+        self._wb_thread: Optional[threading.Thread] = None
+        self._wb_error: Optional[BaseException] = None
+        self._wb_idle = threading.Event()
+        self._wb_idle.set()
+        self._wb_idle_lock = threading.Lock()
+        self.writebacks_applied = 0  # dispatches whose priorities reached the tree
         if self.on_device or self.hybrid:
             self._ring = device_ring_init(config.replay_capacity, obs_dim, act_dim, self.device)
             self._ring_sync = DeviceRingSync(self.buffer)
@@ -189,6 +246,8 @@ class Trainer:
         self.ewma_return: Optional[float] = None
         self._best_eval: Optional[float] = None
         self.timers = StageTimers()
+        for name in StageTimers.STAGES:  # every row carries every stage
+            self.timers.ensure(name)
         self.metrics = MetricsLogger(config.log_dir)
         self.ckpt = CheckpointManager(os.path.join(config.log_dir, "checkpoints"))
         self.preempted = False
@@ -279,6 +338,9 @@ class Trainer:
             save_trainer_meta(cfg.log_dir, self.env_steps, self.ewma_return)
             side = [trainer_meta_path(cfg.log_dir)]
             if cfg.snapshot_replay:
+                # in-flight async write-backs land first, or the snapshot
+                # freezes priorities the flusher was about to overwrite
+                self._drain_writeback()
                 self.buffer.snapshot(self._replay_snapshot_path())
                 side.append(self._replay_snapshot_path())
                 if self._dev_per is not None:
@@ -344,22 +406,17 @@ class Trainer:
             self._collect_once(noise_scale=3.0)
 
     # ---------------------------------------------------------------- batches
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            # pinned staging, so the copy is asynchronous; PyTorch's host
-            # allocator keeps the pinned block until the copy has run
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def _sample_staged(self, k: int):
+    def _sample_staged(self, k: int, ahead: bool = False):
         """Sample one dispatch's K batches on the host and start their copy
-        to the device. Returns (indices for the write-back or None, device
-        batch): [K, B, ...] fields, or the flat [B] batch when K = 1.
+        to the device: on the compute stream for a dispatch that reads them
+        at once, or with ``ahead`` (``--prefetch``) on the copy stream.
+        Returns (indices for the write-back or None, device batch, copy-done
+        event or None): [K, B, ...] fields, or the flat [B] batch when K = 1.
+        The batch may be read only after ``self._h2d.consume``.
 
-        PER: one ``sample_block`` call (on the native backend one C call
-        for the descents, the IS weights, the generation capture and the
-        gather of every row); K = 1 draws the same stream as ``sample``.
+        PER: one ``sample_block`` call (on the native tree backend one C
+        call for the descents, the IS weights, the generation capture and
+        the gather of every row); K = 1 draws the same stream as ``sample``.
         Uniform: K ``sample`` calls, stacked (no ``weights`` key: uniform IS
         weights are identically 1)."""
         cfg = self.config
@@ -380,12 +437,17 @@ class Trainer:
         with self.timers.stage("h2d_stage"):
             # sample_block's fields are views of a staging slot that is
             # rewritten STAGING_SLOTS - 1 calls later. That is safe because
-            # _to_device copies each view before it returns into a fresh
-            # pinned block (pin_memory() copies), and on the CPU the step
-            # reads it synchronously before the next sample. Pinning the
-            # slots themselves would have to honour the rotation.
-            dev_batch = {key: self._to_device(v) for key, v in block.items()}
-        return indices, dev_batch
+            # on the card both copies pin each view into a fresh block
+            # before they return, and on the CPU the dispatch that reads the
+            # views runs before the slot comes round again: with --prefetch
+            # one batch is in flight, sampled after one dispatch and read by
+            # the next. Pinning the slots themselves would have to honour
+            # the rotation.
+            if ahead:
+                dev_batch, ready = self._h2d.put(block)
+            else:
+                dev_batch, ready = to_device(block, self.device), None
+        return indices, dev_batch, ready
 
     def _start_fetch(self, priorities: torch.Tensor):
         """Start the device→host copy of one step's priorities."""
@@ -403,6 +465,7 @@ class Trainer:
             if done is not None:
                 done.synchronize()
             self.buffer.update_priorities(indices, host.numpy())
+        self.writebacks_applied += 1
 
     def _lagged_write_back(self, indices, priorities: torch.Tensor) -> None:
         """Write back the previous dispatch's priorities, then start this
@@ -418,32 +481,166 @@ class Trainer:
             pending, self._pending = self._pending, None
             self._write_back(pending)
 
+    def _hand_off(self, indices, priorities: torch.Tensor) -> None:
+        """One dispatch's priorities to the write-back thread when it runs,
+        else to the one-dispatch-lagged write-back."""
+        if self._wb_thread is not None:
+            self._queue_writeback(indices, priorities)
+        else:
+            self._lagged_write_back(indices, priorities)
+
+    # ------------------------------------------------------ async write-back
+    def _wants_writeback(self) -> bool:
+        """--async-writeback on a placement whose priorities come back to
+        the host (the device placement's never leave the device)."""
+        cfg = self.config
+        return cfg.async_priority_writeback and cfg.prioritized and not self.on_device
+
+    def _check_writeback(self) -> None:
+        if self._wb_error is not None:
+            raise RuntimeError("priority write-back thread died") from self._wb_error
+
+    def _writeback_loop(self) -> None:
+        """Drain-and-batch priority flusher. Each wake takes every item
+        queued since the last one, waits once, for the newest item's
+        copy-done event (the copies run in stream order, so every older one
+        is done too), then applies the items in FIFO order."""
+        try:
+            while True:
+                # sentinel-terminated: _stop_writeback always puts None
+                item = self._wb_queue.get()
+                stop = item is None
+                items = [] if stop else [item]
+                while True:
+                    try:
+                        nxt = self._wb_queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        stop = True
+                    else:
+                        items.append(nxt)
+                if items:
+                    with self.timers.stage("priority_writeback"):
+                        done = items[-1][1][1]
+                        if done is not None:
+                            # set_sync_debug_mode is process-wide and may be
+                            # on in the loop thread's guarded dispatch; it
+                            # does not count an event's synchronize
+                            done.synchronize()
+                        for indices, (host, _) in items:
+                            self.buffer.update_priorities(indices, host.numpy())
+                        self.writebacks_applied += len(items)
+                with self._wb_idle_lock:
+                    if self._wb_queue.empty():
+                        # idle = drained AND applied; producers clear it
+                        # under the same lock before every put
+                        self._wb_idle.set()
+                if stop:
+                    return
+        except BaseException as e:
+            self._wb_error = e
+            self._wb_idle.set()  # never leave a drain waiting
+            raise
+
+    def _start_writeback(self) -> None:
+        if self._wb_thread is not None and self._wb_thread.is_alive():
+            raise RuntimeError("a priority write-back thread is already running")
+        self._flush_write_back()  # a lagged write-back lands first, in order
+        self._wb_queue = queue.Queue()
+        self._wb_idle.set()
+        self._wb_error = None
+        self._wb_thread = threading.Thread(
+            target=self._writeback_loop, name="priority-writeback", daemon=True
+        )
+        self._wb_thread.start()
+
+    def _stop_writeback(self) -> None:
+        """Apply everything queued, stop the thread, and raise if it died."""
+        if self._wb_thread is not None:
+            self._wb_queue.put(None)
+            self._wb_thread.join(timeout=WB_JOIN_S)
+            if self._wb_thread.is_alive():
+                # keep the references: a later _start_writeback must refuse
+                raise RuntimeError(
+                    f"priority write-back thread failed to drain within {WB_JOIN_S:.0f} s; "
+                    "queued priority updates were not applied"
+                )
+            self._wb_thread = None
+        self._wb_queue = None
+        self._check_writeback()
+
+    def _queue_writeback(self, indices, priorities: torch.Tensor) -> None:
+        """Hand one dispatch's (indices, priorities) to the flusher, with
+        its device→host copy already started."""
+        self._check_writeback()
+        with self.timers.stage("priority_writeback"):
+            fetch = self._start_fetch(priorities)
+            with self._wb_idle_lock:
+                self._wb_idle.clear()
+                self._wb_queue.put((indices, fetch))  # unbounded: never blocks
+
+    def _drain_writeback(self) -> None:
+        """Wait until the flusher has applied everything queued so far
+        (before a replay snapshot, so that it holds no stale priority)."""
+        if self._wb_thread is None:
+            return
+        if not self._wb_idle.wait(WB_JOIN_S):
+            raise RuntimeError(
+                f"priority write-back queue not drained within {WB_JOIN_S:.0f} s"
+            )
+        self._check_writeback()
+
+    @contextlib.contextmanager
+    def _async_writeback(self):
+        """The flusher thread for the block, when configured. It is stopped
+        however the block ends; a failure to stop never masks an error
+        already propagating out of the block."""
+        if not self._wants_writeback():
+            yield
+            return
+        self._start_writeback()
+        try:
+            yield
+        except BaseException:
+            try:
+                self._stop_writeback()
+            except RuntimeError as e:
+                print(f"[priority-writeback] {e} (original error propagating)", flush=True)
+            raise
+        self._stop_writeback()
+
     # ------------------------------------------------------------------ train
     def _dispatch_guard(self):
-        """``set_sync_debug_mode("error")`` around a steady-state megastep
-        dispatch under ``debug_guards`` (the first dispatch builds and loads
-        the kernels, which may synchronise)."""
+        """``set_sync_debug_mode("error")`` around a steady-state host,
+        megastep or hybrid dispatch under ``debug_guards`` (the first
+        dispatch builds and loads the kernels, which may synchronise). The
+        operands must already be on the device."""
         if not (self.config.debug_guards and self.device.type == "cuda" and self._dispatches):
             return contextlib.nullcontext()
         return _sync_debug_error()
 
     def _megastep_dispatch_once(self) -> dict:
         """Flush new rows into the device ring (and tree), then one megastep
-        dispatch of K grad steps; returns its K-step mean metrics."""
+        dispatch of K grad steps; returns its K-step mean metrics. With
+        ``ingest_prefetch`` the next flush's first chunk is staged right
+        after the dispatch, outside the guard (explicit staging)."""
         with self.timers.stage("ingest_chunk"):
             self._ring_sync.flush(self._ring)
         tree = self._dev_per.tree if self._dev_per is not None else None
         with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
             metrics = self._megastep(self.state, self._ring, tree, self._megastep_gen)
         self._dispatches += 1
+        if self.config.ingest_prefetch:
+            with self.timers.stage("ingest_stage"):
+                self._ring_sync.stage(self._ring)
         return metrics
 
     def _hybrid_dispatch_once(self) -> dict:
         """One hybrid dispatch of K grad steps, in the JAX trainer's order:
         the host tree's [K, B] draw, the ring flush, the indices' and
-        weights' copy to the device, the megastep, then the lagged
-        write-back of its [K, B] priorities. Returns its K-step mean
-        metrics."""
+        weights' copy to the device, the megastep, then the write-back of
+        its [K, B] priorities. Returns its K-step mean metrics."""
         cfg = self.config
         with self.timers.stage("sample"):
             # BEFORE the flush: every row that carries tree mass now is
@@ -456,43 +653,57 @@ class Trainer:
         with self.timers.stage("h2d_stage"):
             # the dispatch's only host-to-device copy, explicit staging
             # outside the guard
-            idx_dev = self._to_device(idx.astype(np.int32))
-            w_dev = self._to_device(weights)
+            dev = to_device({"idx": idx.astype(np.int32), "weights": weights}, self.device)
         with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
-            metrics, priorities = self._megastep(self.state, self._ring, idx_dev, w_dev)
+            metrics, priorities = self._megastep(self.state, self._ring, dev["idx"], dev["weights"])
         self._dispatches += 1
-        self._lagged_write_back(SampledIndices(idx, gen), priorities)
+        self._hand_off(SampledIndices(idx, gen), priorities)
         return metrics
 
-    def _host_dispatch_once(self) -> dict:
-        """Sample K batches on the host, one ``train_step`` (K = 1) or
-        ``fused_train_scan`` (K > 1), and the lagged PER write-back;
-        returns the K-step mean metrics."""
+    def _host_dispatch_once(self, prefetch_next: bool) -> dict:
+        """One ``train_step`` (K = 1) or ``fused_train_scan`` (K > 1) on
+        host-sampled batches, then the PER write-back; returns the K-step
+        mean metrics. The batch is the one staged after the previous
+        dispatch when there is one (``--prefetch``), else sampled now; with
+        ``prefetch_next`` the next dispatch's batch is sampled and its copy
+        started right after this dispatch is enqueued. Its generation
+        stamps are taken at that sample, so a write-back to a slot recycled
+        since is dropped."""
         cfg = self.config
         k = cfg.steps_per_dispatch
-        indices, dev_batch = self._sample_staged(k)
-        with self.timers.stage("train_dispatch"):
+        if self._staged is not None:
+            (indices, dev_batch, ready), self._staged = self._staged, None
+        else:
+            indices, dev_batch, ready = self._sample_staged(k)
+        self._h2d.consume(dev_batch, ready)
+        with self.timers.stage("train_dispatch"), self._dispatch_guard():
             if k == 1:
                 _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
             else:
                 _, metrics_k, priorities = fused_train_scan(cfg.agent, self.state, dev_batch)
                 metrics = {key: v.mean() for key, v in metrics_k.items()}
+        self._dispatches += 1
+        if prefetch_next:
+            with annotate("host/prefetch"):
+                self._staged = self._sample_staged(k, ahead=True)
         if cfg.prioritized:
-            self._lagged_write_back(indices, priorities)
+            self._hand_off(indices, priorities)
         return metrics
 
-    def _dispatch_once(self) -> dict:
-        """One dispatch of K grad steps on this trainer's placement."""
+    def _dispatch_once(self, prefetch_next: bool = False) -> dict:
+        """One dispatch of K grad steps on this trainer's placement;
+        ``prefetch_next`` (a later dispatch follows) arms ``--prefetch``."""
         if self.on_device:
             return self._megastep_dispatch_once()
         if self.hybrid:
             return self._hybrid_dispatch_once()
-        return self._host_dispatch_once()
+        return self._host_dispatch_once(prefetch_next and self.config.prefetch)
 
     def train(self, total_steps: Optional[int] = None) -> dict:
         """Warm up, then run ``total_steps`` grad steps in this leg (rounded
         up to whole dispatches of K); returns the last metrics row (``{}``
-        when preempted before the first step)."""
+        when preempted before the first step). The write-back thread and a
+        profiler trace are stopped however the loop ends."""
         cfg = self.config
         total = total_steps or cfg.total_steps
         K = cfg.steps_per_dispatch
@@ -507,39 +718,54 @@ class Trainer:
         collect_budget = 0.0
         last: dict = {}
         done = 0
-        while done < total:
-            if self._preempt_requested.is_set():
-                # before any sampling: a preemption that cut the warmup
-                # short never samples a buffer that cannot serve a batch
-                self._preempt_now("train loop")
-                break
-            collect_budget += cfg.env_steps_per_train_step * K
-            while collect_budget >= per_collect:
-                self._collect_once()
-                collect_budget -= per_collect
-            metrics = self._dispatch_once()
-            done += K
-            self.grad_steps += K
-            eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
-            if eval_crossed or done >= total:
-                last = self._periodic(metrics, t_start, done, env_steps_start)
-            # crossings of the LEG's count, saved under the global step
-            saved = interval_crossed(done - K, done, cfg.checkpoint_interval) or done >= total
-            if saved:
-                self._save_checkpoint()
-            if cfg.max_rss_gb > 0 and done < total and eval_crossed:
-                rss = _rss_gb()
-                if rss > cfg.max_rss_gb:
-                    if not saved:
+        trace = contextlib.ExitStack()
+        tracing = profiled = False
+        try:
+            with self._async_writeback(), trace:
+                while done < total:
+                    if self._preempt_requested.is_set():
+                        # before any sampling: a preemption that cut the
+                        # warmup short never samples a buffer that cannot
+                        # serve a batch
+                        self._preempt_now("train loop")
+                        break
+                    if cfg.profile_dir and not (profiled or tracing) and done >= 10:
+                        trace.enter_context(profile_trace(cfg.profile_dir))
+                        tracing = True
+                    if tracing and done >= max(60, 10 + K):
+                        trace.close()
+                        tracing, profiled = False, True
+                    collect_budget += cfg.env_steps_per_train_step * K
+                    while collect_budget >= per_collect:
+                        self._collect_once()
+                        collect_budget -= per_collect
+                    metrics = self._dispatch_once(prefetch_next=done + K < total)
+                    done += K
+                    self.grad_steps += K
+                    eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
+                    if eval_crossed or done >= total:
+                        last = self._periodic(metrics, t_start, done, env_steps_start)
+                    # crossings of the LEG's count, saved under the global step
+                    saved = interval_crossed(done - K, done, cfg.checkpoint_interval) or done >= total
+                    if saved:
                         self._save_checkpoint()
-                    print(
-                        f"[rss-watchdog] RSS {rss:.1f} GB > --max-rss-gb "
-                        f"{cfg.max_rss_gb}: checkpointed at step {self.grad_steps}; "
-                        "exiting for a --resume restart",
-                        flush=True,
-                    )
-                    self.preempted = True
-                    break
+                    if cfg.max_rss_gb > 0 and done < total and eval_crossed:
+                        rss = _rss_gb()
+                        if rss > cfg.max_rss_gb:
+                            if not saved:
+                                self._save_checkpoint()
+                            print(
+                                f"[rss-watchdog] RSS {rss:.1f} GB > --max-rss-gb "
+                                f"{cfg.max_rss_gb}: checkpointed at step {self.grad_steps}; "
+                                "exiting for a --resume restart",
+                                flush=True,
+                            )
+                            self.preempted = True
+                            break
+        finally:
+            # a batch staged for a dispatch that never ran (a preemption,
+            # an error) is dropped; its rows got no write-back
+            self._staged = None
         # The host tree's lagged write-back lands after the loop, so after a
         # preemption checkpoint too (as in the JAX trainer).
         self._flush_write_back()

@@ -20,6 +20,8 @@ Examples:
         --p-replay --steps-per-dispatch 8 --fused-descent
     python -m d4pg_tpu_torch.train --env pendulum --replay-placement hybrid \
         --p-replay --steps-per-dispatch 8   # host tree, device ring
+    python -m d4pg_tpu_torch.train --env pendulum --steps-per-dispatch 8 \
+        --prefetch --async-writeback --profile-dir runs/trace
     python -m d4pg_tpu_torch.train --device cpu --hidden-sizes 32,32 \
         --num-envs 2 --bsize 32 --warmup 128 --total-steps 20
     python -m d4pg_tpu_torch.train --log-dir runs/p1 --checkpoint-interval 5000 \
@@ -45,15 +47,15 @@ UNPORTED_FLAGS = {
     "--compute-dtype": "bfloat16 compute (ROADMAP A3)",
     "--her": "hindsight relabeling (ROADMAP A10)",
     "--obs-norm": "observation normalization (ROADMAP A10)",
-    "--async-collect": "asynchronous collection (ROADMAP A5)",
-    "--prefetch": "the prefetch double buffer (ROADMAP A5)",
-    "--ingest-prefetch": "the double-buffered device ring ingest (ROADMAP A6)",
+    "--async-collect": "asynchronous collection, which needs the host actor pool (ROADMAP A5 (d))",
     "--dp": "data parallelism (ROADMAP A7)",
     "--fleet-listen": "the collection fleet (ROADMAP A11)",
-    "--async-writeback": "the asynchronous priority write-back (ROADMAP A5 (c))",
-    "--publish-interval": "asynchronous collection (ROADMAP A5 (c))",
-    "--concurrent-eval": "the concurrent evaluator thread (ROADMAP A5 (c))",
-    "--no-concurrent-eval": "the concurrent evaluator thread (ROADMAP A5 (c))",
+    "--publish-interval": "asynchronous collection, which needs the host actor pool "
+                          "(ROADMAP A5 (d))",
+    "--concurrent-eval": "the concurrent evaluator thread, which scores host-pool envs "
+                         "(ROADMAP A5 (d))",
+    "--no-concurrent-eval": "the concurrent evaluator thread, which scores host-pool envs "
+                            "(ROADMAP A5 (d))",
     "--pool-start-method": "the host actor pool (ROADMAP A5 (d))",
     "--pool-step-timeout": "the host actor pool (ROADMAP A5 (d))",
     "--actor-device": "the host actor pool (ROADMAP A5 (d))",
@@ -74,7 +76,6 @@ UNPORTED_FLAGS = {
     "--num-mixtures": "the mixture-of-Gaussians critic head (ROADMAP A10)",
     "--ensemble-min-targets": "critic ensembles (ROADMAP A10)",
     "--batch-scale": "the --batch-scale recipe (ROADMAP A10)",
-    "--profile-dir": "profiler traces (ROADMAP A11 (c))",
     "--chaos": "fault injection (ROADMAP A11 (e))",
     "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
     "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
@@ -144,8 +145,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "(CUDA kernel B4); needs --replay-placement device, "
                         "--p-replay and --projection fused")
     p.add_argument("--debug-guards", action="store_true",
-                   help="run every megastep dispatch after the first under "
-                        "torch.cuda.set_sync_debug_mode('error')")
+                   help="run every host, megastep and hybrid dispatch after "
+                        "the first under torch.cuda.set_sync_debug_mode('error')")
+    p.add_argument("--prefetch", action="store_true",
+                   help="double-buffered replay->device pipeline: batch N+1 "
+                        "is host-sampled and its copy to the device started "
+                        "while the device runs step N, so sampling + H2D "
+                        "transfer leave the critical path (one dispatch of "
+                        "priority/freshness staleness, same class as "
+                        "--steps-per-dispatch; host placement)")
+    p.add_argument("--async-writeback", action="store_true",
+                   help="flush PER priorities from a background thread that "
+                        "drains everything queued since its last wake and "
+                        "waits once for the newest device->host copy (host "
+                        "and hybrid placements). Measured on an H100 it "
+                        "costs the K = 1 host loop 10-29%% of its grad "
+                        "steps/s and gains nothing at K = 8 or on hybrid "
+                        "(PERF.md section 5)")
+    p.add_argument("--ingest-prefetch", action="store_true",
+                   help="double-buffer the ring ingest: gather + H2D the "
+                        "next flush's first chunk right after each "
+                        "megastep dispatch, overlapping the transfer with "
+                        "the in-flight compute (device placement; ignored "
+                        "— declared — elsewhere)")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace (Chrome trace "
+                        "*.pt.trace.json) of grad steps 10-60 here")
     p.add_argument("--env-steps-per-train-step", type=float, default=1.0)
     p.add_argument("--eval-interval", type=int, default=2_000)
     p.add_argument("--eval-episodes", type=int, default=10)
@@ -227,6 +252,10 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         tree_backend=args.tree_backend,
         fused_descent=args.fused_descent,
         debug_guards=args.debug_guards,
+        prefetch=args.prefetch,
+        async_priority_writeback=args.async_writeback,
+        ingest_prefetch=args.ingest_prefetch,
+        profile_dir=args.profile_dir,
         checkpoint_interval=args.checkpoint_interval,
         resume=args.resume,
         snapshot_replay=args.snapshot_replay,

@@ -100,8 +100,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "field,value,item",
     [("her", True, "A10"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
-     ("async_writeback", True, "A5"), ("prefetch", True, "A5"),
-     ("ring_dtype", "bfloat16", "A3"), ("ingest_prefetch", True, "A6"),
+     ("publish_interval", 5, "A5"), ("pool_start_method", "fork", "A5"),
+     ("ring_dtype", "bfloat16", "A3"), ("variant_id", 1, "A11"),
      ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("on_device", True, "A9")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
