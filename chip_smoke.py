@@ -152,6 +152,25 @@ JSON line:
    ``host/priority_writeback`` and one B1f and one B1b launch a grad step;
    the window's host ms a grad step per range and device ms a grad step
    per kernel name.
+17. ``planar_step_parity``: one HalfCheetah control step (20 substeps of
+   the planar engine) for 128 seeded states, most in ground contact, on the
+   card against the same step on the CPU: q, q̇, obs and reward within the
+   stated tolerances, terminated and truncated equal; the card's wall ms of
+   one control step for the 128 envs and the kernels one step launches.
+18. ``on_device_pendulum``: ``OnDeviceRun`` (``train --on-device``) at the
+   default width (3x256, 51 atoms, B = 256, 16 envs x 32 steps, so K = 512
+   grad steps a train iteration, n-step 3, PER): one warmup segment, 2
+   train iterations, the second under ``set_sync_debug_mode("error")``;
+   B1f and B1b exactly K x 2 launches, B2, B3 and B4 none, finite metrics,
+   the ring's fill equal to the rows appended, ``max_priority`` off 1.0.
+   Then one segment alone and one more train iteration under the guard and
+   a device-only ``torch.profiler`` trace: wall ms, device busy ms (the
+   union of kernel, copy and memset intervals) and idle share.
+19. ``on_device_halfcheetah``: the same at the README's HalfCheetah
+   command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
+   PER, default widths; K = 4096): one warmup segment, ONE train
+   iteration and one eval episode (the depth cuts), the same checks and
+   measurements.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -1828,6 +1847,201 @@ def profile_phase(Trainer, TrainConfig, card: str, log_dir: str) -> None:
           "device_ms_per_step_by_name": top, "ok": True})
 
 
+PLANAR_ENVS = 128             # planar_step_parity's HalfCheetah batch
+PLANAR_SETTLE = 10            # CPU control steps before the compared one
+PLANAR_TIMED = 20             # timed control steps on the card
+# planar_step_parity's tolerances, tests/test_torch_locomotion.py's: 20
+# substeps of stiff penalty contacts amplify the ulp differences of the
+# card's and the CPU's cos, sin, sums and LU solve
+PLANAR_Q_ATOL, PLANAR_QD_ATOL, PLANAR_R_ATOL = 1e-5, 5e-4, 1e-4
+ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1}  # train iterations a phase
+
+
+def planar_step_parity(card: str) -> dict:
+    """One HalfCheetah control step (20 substeps) of 128 seeded states on
+    the card against the same step on the CPU. The states come from a
+    seeded reset and ``PLANAR_SETTLE`` CPU steps under seeded random
+    actions, so most rows touch the ground. Also the card's wall ms of one
+    control step for the 128 envs (median of ``PLANAR_TIMED`` synchronized
+    steps) and the kernels one step launches (a ``torch.profiler`` trace)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d4pg_tpu_torch.envs import EnvState, HalfCheetah
+    from d4pg_tpu_torch.envs import planar
+
+    env = HalfCheetah()
+    gen = torch.Generator().manual_seed(SEED)
+    state, _ = env.reset(PLANAR_ENVS, gen)
+    for _ in range(PLANAR_SETTLE):
+        a = 2.0 * torch.rand((PLANAR_ENVS, env.action_dim), generator=gen) - 1.0
+        state = env.step(state, a)[0]
+    action = 2.4 * torch.rand((PLANAR_ENVS, env.action_dim), generator=gen) - 1.2
+    q = state.physics[:, :env.nq]
+    pen = env.model.con_radius - planar.contact_points(env.model, q)[..., 1].numpy()
+    contact_rows = int((pen > 0).any(axis=1).sum())
+    cpu = env.step(state, action)
+    dev_state = EnvState(state.physics.cuda(), state.t.cuda())
+    card_out = env.step(dev_state, action.cuda())
+    nq = env.nq
+    err = {
+        "q": (card_out[0].physics[:, :nq].cpu() - cpu[0].physics[:, :nq]).abs().max().item(),
+        "qd": (card_out[0].physics[:, nq:].cpu() - cpu[0].physics[:, nq:]).abs().max().item(),
+        "obs": (card_out[1].cpu() - cpu[1]).abs().max().item(),
+        "reward": (card_out[2].cpu() - cpu[2]).abs().max().item(),
+    }
+    flags_equal = all(torch.equal(c.cpu(), h) for c, h in zip(card_out[3:], cpu[3:]))
+    times = []
+    for i in range(PLANAR_TIMED + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_state = env.step(dev_state, action.cuda())[0]
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        env.step(dev_state, action.cuda())
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels = sum(1 for e in trace_events(prof, f"{tmp}/step.json") if e.get("cat") == "kernel")
+    check(err["q"] <= PLANAR_Q_ATOL and err["qd"] <= PLANAR_QD_ATOL and err["obs"] <= PLANAR_QD_ATOL
+          and err["reward"] <= PLANAR_R_ATOL and flags_equal,
+          f"planar_step_parity: card vs CPU {err}, flags equal {flags_equal}")
+    out = {"phase": "planar_step_parity", "card": card, "envs": PLANAR_ENVS,
+           "substeps": env.n_substeps, "contact_rows": contact_rows,
+           "max_abs_err": err, "tolerance": {"q": PLANAR_Q_ATOL, "qd_and_obs": PLANAR_QD_ATOL,
+                                             "reward": PLANAR_R_ATOL},
+           "terminated_truncated_equal": flags_equal,
+           "control_step_wall_ms_median": statistics.median(times),
+           "control_step_wall_ms_min": min(times),
+           "kernels_per_control_step": kernels, "ok": True}
+    emit(out)
+    return out
+
+
+def on_device_config(TrainConfig, env_name: str, log_dir: str):
+    """The on-device phases' configurations. Pendulum: the default width
+    (3x256, 51 atoms, B = 256, 16 envs x 32 steps: K = 512), n-step 3, PER,
+    one warmup segment, 2 train iterations. HalfCheetah: the README's
+    command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
+    PER, default widths: K = 4096), one warmup segment, one train
+    iteration, one eval episode. Depth is the only cut."""
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.models.critic import DistConfig
+
+    if env_name == "pendulum":
+        k = 16 * 32
+        return TrainConfig(env="pendulum", num_envs=16, n_step=3, warmup_steps=k,
+                           total_steps=ON_DEVICE_ITERS["pendulum"] * k,
+                           eval_interval=ON_DEVICE_ITERS["pendulum"] * k, eval_episodes=10,
+                           log_dir=log_dir, seed=SEED, debug_guards=True)
+    k = 128 * 32
+    return TrainConfig(env="halfcheetah", num_envs=128, n_step=5, replay_capacity=1_048_576,
+                       total_steps=ON_DEVICE_ITERS["halfcheetah"] * k,
+                       eval_interval=ON_DEVICE_ITERS["halfcheetah"] * k, eval_episodes=1,
+                       agent=D4PGConfig(dist=DistConfig(v_min=-100.0, v_max=1500.0)),
+                       log_dir=log_dir, seed=SEED, debug_guards=True)
+
+
+def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict:
+    """``OnDeviceRun`` (what ``train --on-device`` runs) at full width on
+    the card: exact launch counts (B1f and B1b K times a train iteration,
+    B2, B3 and B4 never), finite metrics, the ring's fill equal to the rows
+    appended, and every train iteration after the first under
+    ``set_sync_debug_mode("error")``. Then, past the counts, one segment
+    alone and one more train iteration (under the guard and a
+    ``torch.profiler`` trace of the device only): their wall ms, and the
+    iteration's device busy ms (the union of kernel, copy and memset
+    intervals) and idle share."""
+    import math
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d4pg_tpu_torch.runtime.on_device import OnDeviceRun
+    from d4pg_tpu_torch.runtime.trainer import _sync_debug_error
+
+    phase = f"on_device_{env_name}"
+    iters = ON_DEVICE_ITERS[env_name]
+    run = OnDeviceRun(on_device_config(TrainConfig, env_name, log_dir), device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    row = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    k = run.K
+    expect = dict(fused_fwd=k * iters, fused_bwd=k * iters, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"{phase}: launch counts {launches}, expected {expect}")
+    check(run.iterations == iters and run.grad_steps == k * iters,
+          f"{phase}: {run.iterations} iterations, {run.grad_steps} grad steps")
+    check(run.guarded_iterations == iters - 1,
+          f"{phase}: {run.guarded_iterations} of {iters} iterations under the sync guard")
+    filled = min(run.rows_appended, run.capacity)
+    check(run.carry.replay.size == filled == row["replay_size"],
+          f"{phase}: ring size {run.carry.replay.size}, row {row['replay_size']}, appended {filled}")
+    check(all(isinstance(v, float) and math.isfinite(v) for v in row.values()
+              if not isinstance(v, int)), f"{phase}: metrics not finite: {row}")
+    max_priority = float(run.carry.replay.max_priority)
+    check(max_priority > 1.0, f"{phase}: max_priority {max_priority} did not move off 1.0")
+
+    scale = run._noise_scale()
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    run.carry = run.warmup_fn(run.carry, scale)
+    torch.cuda.synchronize()
+    segment_ms = (time.perf_counter() - s0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        i0 = time.perf_counter()
+        with _sync_debug_error():
+            run.carry, _ = run.iterate_fn(run.carry, scale)
+        torch.cuda.synchronize()
+        iteration_ms = (time.perf_counter() - i0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        events = trace_events(prof, f"{tmp}/iteration.json")
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
+    busy = union_ms(device)
+    b1f_traced = sum(1 for e in events if e.get("cat") == "kernel"
+                     and "fused_loss_fwd_kernel" in e.get("name", ""))
+    a = run.config.agent
+    out = {
+        "phase": phase, "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "support": [a.dist.v_min, a.dist.v_max], "batch": run.config.batch_size,
+                  "num_envs": run.config.num_envs, "segment_len": 32, "n_step": a.n_step,
+                  "prioritized": run.config.prioritized, "replay_capacity": run.capacity,
+                  "grad_steps_per_iteration": k, "eval_episodes": run.config.eval_episodes,
+                  "max_episode_steps": run.config.max_episode_steps},
+        "train_iterations": iters, "grad_steps": run.grad_steps,
+        "sync_guard": f"set_sync_debug_mode('error') on {run.guarded_iterations} of {iters} "
+                      "train iterations (all after the first) and on the traced one",
+        "rows_appended": run.rows_appended, "replay_size": row["replay_size"],
+        "wall_s_incl_warmup_and_eval": wall,
+        # host seconds of the run's warmup segments and evals (an eval
+        # reads back, so its time is the device's too)
+        "warmup_s": run.warmup_s, "eval_s": run.eval_s,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "env_steps_per_sec": row["env_steps_per_sec"],
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
+        "train_reward_per_episode_boundary": row["train_reward_per_episode_boundary"],
+        "max_priority": max_priority, "launches": launches,
+        "steady_state": {"segment_wall_ms": segment_ms,
+                         "iteration_wall_ms_traced": iteration_ms,
+                         "iteration_device_busy_ms": busy,
+                         "iteration_device_idle_share": 1.0 - busy / iteration_ms,
+                         "device_events": len(device), "b1f_launches_in_trace": b1f_traced,
+                         "trace_complete": b1f_traced == k},
+        "ok": True,
+    }
+    emit(out)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1896,6 +2110,10 @@ def main() -> int:
             Trainer, TrainConfig, "hybrid_async", "hybrid", K, "native", card, f"{tmp}/hybrid_async")
         paths["device_resumed"] = resume_phase(Trainer, TrainConfig, card, tmp)
         profile_phase(Trainer, TrainConfig, card, tmp)
+        planar_step_parity(card)
+        for env_name in ON_DEVICE_ITERS:
+            paths[f"on_device_{env_name}"] = on_device_phase(
+                TrainConfig, env_name, card, f"{tmp}/on_device_{env_name}")
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

@@ -19,6 +19,7 @@ from d4pg_tpu_torch.replay.per import TREE_BACKENDS
 class TrainConfig:
     env: str = "pendulum"
     max_episode_steps: Optional[int] = None  # None → env default
+    action_repeat: int = 1             # must be 1 for the ported envs
     num_envs: int = 16
     total_steps: int = 100_000         # learner grad steps
     warmup_steps: int = 1_000          # env steps before learning
@@ -93,6 +94,12 @@ PLACEMENTS = ("host", "device", "hybrid")
 # Per-env presets: categorical support and episode limit.
 ENV_PRESETS = {
     "pendulum": dict(v_min=-300.0, v_max=0.0, obs_dim=3, action_dim=1, max_episode_steps=200),
+    "pointmass_goal": dict(v_min=-50.0, v_max=0.0, obs_dim=6, action_dim=2, max_episode_steps=50),
+    # the planar locomotion envs (envs/locomotion.py), trained fully on the
+    # device with --on-device
+    "halfcheetah": dict(v_min=0.0, v_max=1000.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
+    "hopper": dict(v_min=0.0, v_max=500.0, obs_dim=11, action_dim=3, max_episode_steps=1000),
+    "walker2d": dict(v_min=0.0, v_max=500.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
 }
 
 
@@ -184,3 +191,16 @@ def check_placement(config: TrainConfig) -> None:
                 "fused_descent fuses the device PER tree descent into the fused "
                 f"loss kernel; it requires {', '.join(missing)}"
             )
+
+
+def check_on_device(config: TrainConfig) -> None:
+    """Refuse what ``--on-device`` cannot honour, as
+    ``d4pg_tpu/replay/source.py`` refuses it (its ``on_device_*`` gaps; the
+    others concern flags the port refuses by name)."""
+    if config.replay_placement != "host":
+        raise ValueError(
+            "on_device_placement: --replay-placement configures the HOST "
+            "trainer's data plane; --on-device already keeps "
+            "rollout+replay+learn in one XLA program (the flag would be "
+            "silently ignored)"
+        )

@@ -1,19 +1,49 @@
-"""Batched torch environments. Only the pure Pendulum is ported so far
-(ROADMAP A9 lists the rest)."""
+"""Batched torch environments on the device: Pendulum, the goal point
+mass and the planar locomotion tasks (ROADMAP A9 lists the rest)."""
+
+from typing import Optional
 
 from d4pg_tpu_torch.envs.api import Env, EnvState
+from d4pg_tpu_torch.envs.locomotion import HalfCheetah, Hopper, Walker2d
 from d4pg_tpu_torch.envs.pendulum import Pendulum
+from d4pg_tpu_torch.envs.pointmass_goal import PointMassGoal
 
-ENVS = {"pendulum": Pendulum}
+ENVS = {
+    "pendulum": Pendulum,
+    "pointmass_goal": PointMassGoal,
+    "halfcheetah": HalfCheetah,
+    "hopper": Hopper,
+    "walker2d": Walker2d,
+}
 
 
-def make_env(name: str):
+def _reject_action_repeat(name: str, action_repeat: int) -> None:
+    # the locomotion envs already bake frame_skip into their substep counts,
+    # and the presets' value ranges assume per-step reward scale
+    if action_repeat != 1:
+        raise ValueError(
+            f"--action-repeat is only supported for dmc:/dmc_pixels: envs "
+            f"(got {name!r})"
+        )
+
+
+def make_env(name: str, max_episode_steps: Optional[int] = None, action_repeat: int = 1):
+    """Build a batched env by short name; ``max_episode_steps`` overrides
+    its episode limit. ``action_repeat`` must be 1, as the JAX package
+    requires for these envs."""
     if name not in ENVS:
         raise NotImplementedError(
             f"env {name!r} is not ported to d4pg_tpu_torch yet (ROADMAP A9: "
             f"on-device envs; A5: host/gym envs); available: {sorted(ENVS)}"
         )
-    return ENVS[name]()
+    _reject_action_repeat(name, action_repeat)
+    env = ENVS[name]()
+    if max_episode_steps is not None:
+        env.max_episode_steps = max_episode_steps
+    return env
 
 
-__all__ = ["ENVS", "Env", "EnvState", "Pendulum", "make_env"]
+__all__ = [
+    "ENVS", "Env", "EnvState", "HalfCheetah", "Hopper", "Pendulum", "PointMassGoal",
+    "Walker2d", "make_env",
+]

@@ -1,1 +1,2 @@
-"""Host-placement learner loop, collection, evaluation and metrics."""
+"""Learner loops (host, device and hybrid placements, and fully on the
+device), collection, evaluation and metrics."""

@@ -163,8 +163,7 @@ class Trainer:
         config = apply_declared_actions(config)
         self.config = config
         agent_cfg = config.agent
-        self.env = make_env(config.env)
-        self.env.max_episode_steps = config.max_episode_steps
+        self.env = make_env(config.env, config.max_episode_steps, config.action_repeat)
 
         obs_dim, act_dim = agent_cfg.obs_dim, agent_cfg.action_dim
         self.on_device = config.replay_placement == "device"

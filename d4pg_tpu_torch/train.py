@@ -26,6 +26,13 @@ Examples:
         --num-envs 2 --bsize 32 --warmup 128 --total-steps 20
     python -m d4pg_tpu_torch.train --log-dir runs/p1 --checkpoint-interval 5000 \
         --snapshot-replay            # then the same command with --resume
+    python -m d4pg_tpu_torch.train --env halfcheetah --on-device --num-envs 128 \
+        --n-step 5 --v-min -100 --v-max 1500 --rmsize 1048576
+        # rollout, device ring, device PER and learner all on the card
+
+``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
+(the JAX CLI's ``--on-device``) after the same validation plus its own
+refusals (``config.check_on_device``).
 """
 
 from __future__ import annotations
@@ -63,8 +70,6 @@ UNPORTED_FLAGS = {
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
     "--ring-dtype": "the bfloat16 device ring (ROADMAP A3)",
     "--transfer-dtype": "the bfloat16 and uint8 batch wire formats (ROADMAP A3)",
-    "--on-device": "the on-device rollout learner (ROADMAP A9)",
-    "--action-repeat": "the on-device rollout learner (ROADMAP A9)",
     "--tp": "tensor parallelism (ROADMAP A7)",
     "--dp-hogwild": "asynchronous data parallelism (ROADMAP A7)",
     "--distributed": "multi-host training (ROADMAP A7)",
@@ -92,13 +97,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default) runs the CUDA kernels; cpu runs their "
                         "plain PyTorch versions")
-    p.add_argument("--env", default="pendulum", help="pendulum")
+    p.add_argument("--env", default="pendulum",
+                   help="pendulum, pointmass_goal, halfcheetah, hopper, walker2d")
     p.add_argument("--rmsize", "--replay-capacity", dest="replay_capacity",
                    type=int, default=None, help="replay capacity (default 1M)")
     p.add_argument("--tau", type=float, default=0.001)
     p.add_argument("--bsize", "--batch-size", dest="batch_size", type=int, default=256)
     p.add_argument("--gamma", type=float, default=0.99)
     p.add_argument("--max-steps", dest="max_episode_steps", type=int, default=None)
+    p.add_argument("--action-repeat", type=int, default=1,
+                   help="must be 1: the ported envs bake their frame skip "
+                        "into their substeps")
+    p.add_argument("--on-device", action="store_true",
+                   help="rollout, device replay ring (PER by cumsum + "
+                        "searchsorted) and learner all on the device; "
+                        "num_envs x 32 env steps and round(num_envs x 32 / "
+                        "env_steps_per_train_step) grad steps an iteration")
     p.add_argument("--warmup", dest="warmup_steps", type=int, default=1_000)
     p.add_argument("--p-replay", "--prioritized", dest="prioritized",
                    action=argparse.BooleanOptionalAction, default=True)
@@ -234,6 +248,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(
         env=args.env,
         max_episode_steps=args.max_episode_steps,
+        action_repeat=args.action_repeat,
         num_envs=args.num_envs,
         total_steps=args.total_steps,
         warmup_steps=args.warmup_steps,
@@ -281,6 +296,8 @@ def main(argv=None) -> dict:
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if args.on_device:
+        return _main_on_device(cfg, args.device)
     from d4pg_tpu_torch.runtime.trainer import Trainer
 
     trainer = Trainer(cfg, device=args.device)
@@ -294,6 +311,30 @@ def main(argv=None) -> dict:
     if trainer.preempted:
         # EX_TEMPFAIL: "checkpointed, restart me with --resume"; a
         # supervisor tells preemption (75) from completion (0) by it
+        sys.exit(75)
+    return final
+
+
+def _main_on_device(cfg: TrainConfig, device: str) -> dict:
+    """``--on-device``: validate, then the on-device loop with the
+    preemption handlers setting its stop event (exit 75 when it stopped
+    for a ``--resume`` restart)."""
+    import threading
+
+    from d4pg_tpu_torch.config import check_on_device
+    from d4pg_tpu_torch.runtime.on_device import run_on_device
+
+    print(f"config: {cfg}", flush=True)
+    try:
+        check_on_device(cfg)  # the JAX CLI's validation exits with its message
+    except ValueError as e:
+        raise SystemExit(str(e))
+    preempt_event = threading.Event()
+    install_preemption_handlers(preempt_event.set)
+    final = run_on_device(cfg, preempt_event=preempt_event, device=device)
+    preempted = final.pop("_preempted", False)
+    print(f"done: {final}", flush=True)
+    if preempted:
         sys.exit(75)
     return final
 

@@ -1,9 +1,11 @@
-"""The port's batched Pendulum, rollouts and n-step collapse against the
-JAX package, on the CPU.
+"""The port's batched Pendulum, goal point mass, rollouts and n-step
+collapse against the JAX package, on the CPU.
 
 Tolerances: atol 1e-5 on a Pendulum step (the same float32 formulas; sin,
 cos and the remainder may differ in the last ulp between the two
-libraries) and 1e-5 on n-step returns (sums of three float32 terms).
+libraries) and 1e-5 on n-step returns (sums of three float32 terms); 1e-6 on a
+point-mass step (products and clips of float32 values), its sparse reward
+and termination exactly.
 """
 
 import jax
@@ -14,9 +16,10 @@ import torch
 
 from d4pg_tpu.envs.api import EnvState as JEnvState
 from d4pg_tpu.envs.pendulum import Pendulum as JPendulum
+from d4pg_tpu.envs.pointmass_goal import PointMassGoal as JPointMassGoal
 from d4pg_tpu.ops.nstep import nstep_returns as j_nstep
 from d4pg_tpu_torch.agent import D4PGConfig, make_noise
-from d4pg_tpu_torch.envs import EnvState, Pendulum, make_env
+from d4pg_tpu_torch.envs import EnvState, Pendulum, PointMassGoal, make_env
 from d4pg_tpu_torch.envs.rollouts import Trajectory, rollout
 from d4pg_tpu_torch.runtime.collect import collapse_nstep, make_segment_collector
 
@@ -63,7 +66,60 @@ def test_pendulum_reset_distribution_and_obs():
 def test_make_env_refuses_unported_envs():
     assert isinstance(make_env("pendulum"), Pendulum)
     with pytest.raises(NotImplementedError, match="A9"):
-        make_env("halfcheetah")
+        make_env("humanoid")
+
+
+def test_pointmass_goal_step_matches_reference():
+    rng = np.random.default_rng(3)
+    N = 64
+    pos = rng.uniform(-1, 1, (N, 2))
+    goal = pos + rng.normal(0, 0.1, (N, 2))  # some rows reach the goal
+    goal[::4] = rng.uniform(-1, 1, (N // 4, 2))
+    physics = np.concatenate([pos, rng.uniform(-2.5, 2.5, (N, 2)), goal], -1).astype(np.float32)
+    t = rng.integers(45, 50, size=N).astype(np.int32)   # some steps truncate
+    action = rng.uniform(-1.5, 1.5, size=(N, 2)).astype(np.float32)  # some clip
+    jenv, tenv = JPointMassGoal(), PointMassGoal()
+
+    def jstep(ph, tt, a):
+        return jenv.step(JEnvState(physics=ph, t=tt, key=jax.random.PRNGKey(0)), a)
+
+    js, jo, jr, jterm, jtrunc = jax.vmap(jstep)(jnp.asarray(physics), jnp.asarray(t), jnp.asarray(action))
+    ts, to, tr, tterm, ttrunc = tenv.step(
+        EnvState(torch.from_numpy(physics), torch.from_numpy(t)), torch.from_numpy(action)
+    )
+    np.testing.assert_allclose(ts.physics.numpy(), np.asarray(js.physics), atol=1e-6)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tterm.numpy(), np.asarray(jterm))
+    np.testing.assert_array_equal(ttrunc.numpy(), np.asarray(jtrunc))
+    assert 0 < tterm.sum() < N and ttrunc.sum() > 0
+    gobs = tenv.goal_obs(ts)
+    jg = jax.vmap(lambda ph: jenv.goal_obs(JEnvState(physics=ph, t=0, key=None)))(js.physics)
+    for a, b in zip(gobs, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    np.testing.assert_array_equal(
+        tenv.compute_reward(gobs.achieved_goal, gobs.desired_goal).numpy(),
+        np.asarray(jenv.compute_reward(jg.achieved_goal, jg.desired_goal)),
+    )
+
+
+def test_pointmass_goal_reset_and_reset_where():
+    env = PointMassGoal()
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env.reset(4096, gen)
+    assert obs.shape == (4096, 6) and env.flat_obs_dim == 6
+    torch.testing.assert_close(obs, state.physics)
+    assert (state.physics[:, 2:4] == 0).all() and state.physics.abs().max() <= 1.0
+    keys = jax.random.split(jax.random.PRNGKey(0), 4096)
+    jphys = np.asarray(jax.vmap(JPointMassGoal().reset)(keys)[0].physics)
+    np.testing.assert_allclose(state.physics.numpy().mean(0), jphys.mean(0), atol=0.05)
+    np.testing.assert_allclose(state.physics.numpy().std(0), jphys.std(0), atol=0.05)
+    done = torch.zeros(4096)
+    done[:2] = 1.0
+    s2, o2 = env.reset_where(EnvState(state.physics, state.t + 5), obs, done, gen)
+    assert s2.t[:2].tolist() == [0, 0] and (s2.t[2:] == 5).all()
+    torch.testing.assert_close(o2[2:], obs[2:])
+    assert make_env("pointmass_goal").reports_success
 
 
 def test_rollout_auto_resets_and_threads_noise_state():
@@ -150,3 +206,30 @@ def test_segment_collector_yields_flat_nstep_block():
         flat["discount"].numpy().reshape(4, 6)[0], [0.99**3] * 4 + [0.99**2, 0.99], rtol=1e-6
     )
     assert state.t.tolist() == [6] * 4
+
+
+def test_evaluate_reports_success_only_for_goal_envs():
+    """``success_rate`` (episodes that terminated before truncation) only
+    where termination means the goal was reached, as the JAX evaluator."""
+    from d4pg_tpu_torch.runtime.evaluator import evaluate
+
+    class Toward(torch.nn.Module):
+        """Accelerate toward the goal: most episodes reach it."""
+
+        out = torch.nn.Linear(1, 1)
+
+        def forward(self, obs):
+            return (obs[:, 4:6] - obs[:, :2]).clamp(-1, 1) - 0.5 * obs[:, 2:4]
+
+    cfg = D4PGConfig(obs_dim=6, action_dim=2)
+    ev = evaluate(cfg, PointMassGoal(), Toward(), torch.Generator().manual_seed(0), 16)
+    assert 0.5 < ev["success_rate"] <= 1.0 and -50.0 <= ev["eval_return_mean"] < 0.0
+
+    class Idle(torch.nn.Module):
+        out = torch.nn.Linear(1, 1)
+
+        def forward(self, obs):
+            return torch.zeros(obs.shape[0], 1)
+
+    ev = evaluate(D4PGConfig(), Pendulum(), Idle(), torch.Generator().manual_seed(0), 2, max_steps=5)
+    assert "success_rate" not in ev

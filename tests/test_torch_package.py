@@ -27,6 +27,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     code = (
         "import sys\n"
         "import d4pg_tpu_torch, d4pg_tpu_torch.train, d4pg_tpu_torch.runtime.trainer\n"
+        "import d4pg_tpu_torch.runtime.on_device, d4pg_tpu_torch.envs.planar\n"
+        "import d4pg_tpu_torch.envs.locomotion, d4pg_tpu_torch.envs.pointmass_goal\n"
+        "import d4pg_tpu_torch.tools.extract_planar\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -97,12 +100,50 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert not (tmp_path / "metrics.jsonl").exists()
 
 
+def test_envs_and_the_on_device_loop_import_no_mujoco_or_gymnasium():
+    """The planar envs load the committed snapshot: a run needs neither
+    package (only tools/extract_planar.py does, inside its function)."""
+    code = (
+        "import sys, torch\n"
+        "from d4pg_tpu_torch.envs import make_env\n"
+        "import d4pg_tpu_torch.runtime.on_device, d4pg_tpu_torch.tools.extract_planar\n"
+        "env = make_env('halfcheetah')\n"
+        "state, obs = env.reset(2, torch.Generator().manual_seed(0))\n"
+        "env.step(state, torch.zeros(2, 6))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('mujoco', 'gymnasium'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from d4pg_tpu_torch.runtime.on_device import OnDeviceRun, run_on_device
+    from d4pg_tpu_torch.train import main
+
+    _no_card(monkeypatch)
+    cfg = TrainConfig(env="halfcheetah", log_dir=str(tmp_path))
+    for entry in (OnDeviceRun, run_on_device):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            entry(cfg)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--on-device", "--env", "halfcheetah", "--hidden-sizes", "16,16", "--num-envs", "2",
+              "--bsize", "16", "--warmup", "64", "--rmsize", "4096", "--total-steps", "128",
+              "--eval-interval", "64", "--eval-episodes", "1", "--max-steps", "50",
+              "--log-dir", str(tmp_path)])
+    assert not (tmp_path / "metrics.jsonl").exists()
+
+
 @pytest.mark.parametrize(
     "field,value,item",
     [("her", True, "A10"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
      ("publish_interval", 5, "A5"), ("pool_start_method", "fork", "A5"),
      ("ring_dtype", "bfloat16", "A3"), ("variant_id", 1, "A11"),
-     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("on_device", True, "A9")],
+     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("export_bundle", "bundle", "A8")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
     """A flag of the unported table raises naming its ROADMAP item before
