@@ -171,6 +171,38 @@ JSON line:
    PER, default widths; K = 4096): one warmup segment, ONE train
    iteration and one eval episode (the depth cuts), the same checks and
    measurements.
+20. ``stacked_kernel`` (right after ``tree_kernel``): B1f and B1b over E
+   stacked critics in one launch, logits [E, B, A] against the members'
+   shared target [B, A], at E in {2, 10} x B in {1, 7, 256, 2048} x A in
+   {51, 101}, both supports, terminal and clipping rows: each within
+   ATOL/RTOL of its plain version and ``torch.equal`` to E single-member
+   launches; B4 at E in {2, 10} x B in {256, 2048}, L = 2^20: ce/ov
+   ``torch.equal`` to stacked B1f, idx to B3 (one descent for all
+   members). At E = 10, B = 2048, A = 51 each kernel's device time, its
+   plain version's, E separate launches' and its bound at E x B rows
+   (the ``stacked`` entry of its ``kernels`` line).
+21. ``stacked_step_parity`` (after ``step_parity``): one full-width
+   ``train_step`` on the card against the CPU for twin critics, a REDQ
+   ensemble (E = 10, M = 2, one subset fed to both) and bfloat16 compute,
+   each at its stated tolerance, one B1f and one B1b launch a step.
+22. ``on_device_hopper_twin``: the twin arm of
+   ``runs/hopper_ondevice_tpu_r3/NOTES.md`` (``--env hopper --on-device
+   --num-envs 64 --twin-critic``, n-step 3, PER, [0, 500]; K = 2048), one
+   warmup segment, ONE train iteration and one eval episode, with
+   ``on_device_halfcheetah``'s checks and measurements.
+23. ``large_batch``: the large-batch recipe of ``docs/data_plane.md``
+   (device placement, PER, fused descent, ``--compute-dtype bfloat16
+   --steps-per-dispatch 32 --batch-scale 8 --ingest-prefetch``: B = 2048,
+   K = 4) with a REDQ ensemble (E = 10, M = 2), a 1M-row ring: 200 grad
+   steps after the scaled warmup (8000 env steps), every dispatch after
+   the first under the sync guard; exactly one B4 and one B1b launch a
+   grad step, no B1f, B3 once a dispatch; finite metrics, ``max_priority``
+   off 1.0, ``steady_state``.
+24. ``bf16_wire``: one ``on_device_pendulum`` train iteration with
+   ``compute_dtype`` and ``ring_dtype`` bfloat16 (the ring's observations
+   stored as bf16), then 200 host K = 1 grad steps with
+   ``transfer_dtype="bfloat16"`` (the staged observations bf16 on the
+   wire); exact launches and finite metrics on both.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -1854,7 +1886,8 @@ PLANAR_TIMED = 20             # timed control steps on the card
 # substeps of stiff penalty contacts amplify the ulp differences of the
 # card's and the CPU's cos, sin, sums and LU solve
 PLANAR_Q_ATOL, PLANAR_QD_ATOL, PLANAR_R_ATOL = 1e-5, 5e-4, 1e-4
-ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1}  # train iterations a phase
+# train iterations a phase; pendulum_bf16 is bf16_wire's on-device leg
+ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1, "hopper_twin": 1, "pendulum_bf16": 1}
 
 
 def planar_step_parity(card: str) -> dict:
@@ -1927,15 +1960,34 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     one warmup segment, 2 train iterations. HalfCheetah: the README's
     command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
     PER, default widths: K = 4096), one warmup segment, one train
-    iteration, one eval episode. Depth is the only cut."""
+    iteration, one eval episode. Hopper twin: the twin arm of
+    ``runs/hopper_ondevice_tpu_r3/NOTES.md`` (64 envs, n-step 3, PER,
+    [0, 500], ``twin_critic``: K = 2048), one warmup segment, one train
+    iteration, one eval episode. Pendulum bf16 (``bf16_wire``'s on-device
+    leg): Pendulum's configuration with ``compute_dtype`` and
+    ``ring_dtype`` bfloat16, one train iteration. Depth is the only cut."""
     from d4pg_tpu_torch.agent.state import D4PGConfig
     from d4pg_tpu_torch.models.critic import DistConfig
 
-    if env_name == "pendulum":
+    if env_name in ("pendulum", "pendulum_bf16"):
         k = 16 * 32
+        bf16 = env_name == "pendulum_bf16"
         return TrainConfig(env="pendulum", num_envs=16, n_step=3, warmup_steps=k,
-                           total_steps=ON_DEVICE_ITERS["pendulum"] * k,
-                           eval_interval=ON_DEVICE_ITERS["pendulum"] * k, eval_episodes=10,
+                           total_steps=ON_DEVICE_ITERS[env_name] * k,
+                           eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=10,
+                           log_dir=log_dir, seed=SEED, debug_guards=True,
+                           ring_dtype="bfloat16" if bf16 else "auto",
+                           agent=D4PGConfig(compute_dtype="bfloat16" if bf16 else "float32"))
+    if env_name == "hopper_twin":
+        # runs/hopper_ondevice_tpu_r3/NOTES.md's twin arm: 64 envs, PER,
+        # C51 over the preset's [0, 500], n-step 3, noise 1.0 -> 0.15 over
+        # 2M env steps, lr 1e-4, tau 1e-3, --twin-critic; K = 2048
+        k = 64 * 32
+        return TrainConfig(env="hopper", num_envs=64, n_step=3,
+                           total_steps=ON_DEVICE_ITERS[env_name] * k,
+                           eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
+                           agent=D4PGConfig(twin_critic=True, noise_decay_steps=2_000_000,
+                                            noise_scale_final=0.15),
                            log_dir=log_dir, seed=SEED, debug_guards=True)
     k = 128 * 32
     return TrainConfig(env="halfcheetah", num_envs=128, n_step=5, replay_capacity=1_048_576,
@@ -2008,9 +2060,14 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
     b1f_traced = sum(1 for e in events if e.get("cat") == "kernel"
                      and "fused_loss_fwd_kernel" in e.get("name", ""))
     a = run.config.agent
+    ring_dtype = torch.bfloat16 if run.config.ring_dtype == "bfloat16" else torch.float32
+    check(run.carry.replay.obs.dtype == run.carry.replay.next_obs.dtype == ring_dtype,
+          f"{phase}: ring obs dtype {run.carry.replay.obs.dtype}, expected {ring_dtype}")
     out = {
         "phase": phase, "card": card,
         "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "twin_critic": a.twin_critic, "compute_dtype": a.compute_dtype,
+                  "ring_obs_dtype": str(ring_dtype),
                   "support": [a.dist.v_min, a.dist.v_max], "batch": run.config.batch_size,
                   "num_envs": run.config.num_envs, "segment_len": 32, "n_step": a.n_step,
                   "prioritized": run.config.prioritized, "replay_capacity": run.capacity,
@@ -2039,6 +2096,321 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
         "ok": True,
     }
     emit(out)
+    return launches
+
+
+# ----------------------------------------------------------- stacked critics
+STACKED_E = (2, 10)                  # twin, and the REDQ paper's ensemble
+STACKED_B = (1, 7, 256, 2048)        # ragged rows and the large-batch recipe's B
+STACKED_A = (51, 101)
+STACKED_B4_B = (256, 2048)
+LARGE_BATCH_STEPS = 200              # grad steps of the large_batch phase
+WIRE_STEPS = 200                     # host K = 1 grad steps of bf16_wire
+# The card's bf16 products against the CPU's: both accumulate in float32
+# and round once to bf16 (8 significant bits), so a product or a bias add
+# lands at most one bf16 ulp (2^-7 of its value) apart when the two float32
+# sums straddle a rounding boundary; two roundings a layer over the
+# critic's four layers at full width: 8 ulps of the layer's scale.
+BF16_REL_FULL = 8 * 2.0**-7
+
+
+def stacked_inputs(E: int, B: int, A: int, support, gen, device):
+    """``make_inputs``'s target rows (terminal and clipping rows) with
+    stacked logits q [E, B, A] and cotangents g_ce, g_ov [E, B]."""
+    import torch
+
+    _, p, r, d, _, _ = make_inputs(B, A, support, gen, device)
+    q = 2.0 * torch.randn((E, B, A), generator=gen, device=device)
+    g_ce = torch.rand((E, B), generator=gen, device=device) + 0.5
+    g_ov = torch.rand((E, B), generator=gen, device=device) - 0.5
+    return q, p, r, d, g_ce, g_ov
+
+
+def stacked_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
+    """B1f, B1b and B4 over E stacked members in one launch: each against
+    its plain version and ``torch.equal`` to E single-member launches (B4:
+    ce/ov to stacked B1f, idx to B3); then, at E = 10, B = 2048, A = 51,
+    the stacked launch's device time, its plain version's, E separate
+    launches' and the bound at E x B rows."""
+    import torch
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device).manual_seed(SEED + 20)
+    err = {"c51_fused_loss_fwd": 0.0, "c51_fused_loss_bwd": 0.0, "c51_fused_step": 0.0}
+    over = []
+    for A in STACKED_A:
+        for sname, (lo, hi) in (("pendulum", (-300.0, 0.0)), ("sym10", (-10.0, 10.0))):
+            support = make_support(lo, hi, A)
+            for E in STACKED_E:
+                for B in STACKED_B:
+                    case = f"E={E} B={B} A={A} support={sname}"
+                    q, p, r, d, g_ce, g_ov = stacked_inputs(E, B, A, support, gen, device)
+                    ce, ov = cp.fused_loss_fwd(support, q, p, r, d)
+                    dq = cp.fused_loss_bwd(support, q, p, r, d, g_ce, g_ov)
+                    singles = [cp.fused_loss_fwd(support, q[e], p, r, d) for e in range(E)]
+                    dq1 = [cp.fused_loss_bwd(support, q[e], p, r, d, g_ce[e], g_ov[e])
+                           for e in range(E)]
+                    torch.cuda.synchronize()
+                    check(ce.shape == (E, B) and dq.shape == (E, B, A), f"{case}: shapes")
+                    check(torch.equal(ce, torch.stack([s[0] for s in singles]))
+                          and torch.equal(ov, torch.stack([s[1] for s in singles])),
+                          f"B1f {case}: stacked launch differs from {E} single launches")
+                    check(torch.equal(dq, torch.stack(dq1)),
+                          f"B1b {case}: stacked launch differs from {E} single launches")
+                    pce, pov = cp.fused_loss_plain(support, q, p, r, d)
+                    pdq = cp.fused_loss_bwd_plain(support, q, p, r, d, g_ce, g_ov)
+                    for name, got, want in (("c51_fused_loss_fwd", ce, pce),
+                                            ("c51_fused_loss_fwd", ov, pov),
+                                            ("c51_fused_loss_bwd", dq, pdq)):
+                        check(bool(torch.isfinite(got).all()), f"{name} {case}: non-finite")
+                        e = float((got - want).abs().max())
+                        err[name] = max(err[name], e)
+                        if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+                            over.append({"kernel": name, "case": case, "max_abs_err": e})
+            emit({"phase": "stacked_kernel", "case": f"B1f B1b A={A} support={sname} "
+                  f"E={list(STACKED_E)} B={list(STACKED_B)}",
+                  "equal_to_single_launches": True,
+                  "max_abs_err": {k: err[k] for k in ("c51_fused_loss_fwd", "c51_fused_loss_bwd")},
+                  "ok": not over})
+    check(not over, f"stacked B1f/B1b: {len(over)} cases over tolerance: {over}")
+
+    A, support = 51, make_support(-300.0, 0.0, 51)
+    leaves = main_path_leaves(gen, device)
+    total = leaves.sum()
+    chain = cuda_tree.chain_length(TREE_L)
+    b4_inputs = {}
+    for E in STACKED_E:
+        for B in STACKED_B4_B:
+            case = f"B4 E={E} B={B} A={A} L=2^20"
+            q, p, r, d, _, _ = stacked_inputs(E, B, A, support, gen, device)
+            pre = dper.stratified_prefixes(
+                torch.rand((1, B), generator=gen, device=device), 1, B, total).reshape(B)
+            idx3, offsets = cuda_tree.find_prefix(leaves, pre)
+            ce, ov, idx = cfs.fused_step_fwd(support, q, p, r, d, pre, leaves, offsets)
+            ce1, ov1 = cp.fused_loss_fwd(support, q, p, r, d)
+            torch.cuda.synchronize()
+            check(ce.shape == (E, B) and idx.shape == (B,), f"{case}: shapes")
+            check(torch.equal(ce, ce1) and torch.equal(ov, ov1), f"{case}: ce/ov differ from stacked B1f")
+            check(torch.equal(idx, idx3), f"{case}: idx differs from B3")
+            check(bool(valid_under_f64(leaves, pre, idx, chain).all()), f"{case}: invalid draws")
+            pce, pov, _ = cfs.fused_step_plain(support, q, p, r, d, pre, leaves)
+            for g, w in ((ce, pce), (ov, pov)):
+                check(torch.allclose(g, w, atol=ATOL, rtol=RTOL), f"{case}: loss off the plain version")
+                err["c51_fused_step"] = max(err["c51_fused_step"], float((g - w).abs().max()))
+            emit({"phase": "stacked_kernel", "case": case, "equal_to_b1f_and_b3": True,
+                  "max_abs_err": err["c51_fused_step"], "ok": True})
+            b4_inputs[(E, B)] = (q, p, r, d, pre, offsets, idx)
+
+    # timings at the large-batch recipe's shape: E = 10, B = 2048, A = 51
+    E, B = STACKED_E[-1], STACKED_B4_B[-1]
+    q, p, r, d, pre, offsets, idx = b4_inputs[(E, B)]
+    g_ce = torch.rand((E, B), generator=gen, device=device) + 0.5
+    g_ov = torch.rand((E, B), generator=gen, device=device) - 0.5
+    f4, phi, n = 4, 16 * A, E * B
+    needed = leaves_needed(idx, cuda_tree.CHUNK)
+    walk = int((2 * (idx.long() % cuda_tree.CHUNK + 1) + 10).sum())
+    loss_bytes = f4 * (n * A + B * A + 2 * B) + f4 * 2 * n  # q, shared p, r, d in; ce, ov out
+    work = {
+        "c51_fused_loss_fwd": (
+            loss_bytes, n * (phi + 10 * A),
+            lambda: cp.fused_loss_fwd(support, q, p, r, d),
+            lambda: [cp.fused_loss_fwd(support, q[e], p, r, d) for e in range(E)],
+            lambda: cp.fused_loss_plain(support, q, p, r, d)),
+        "c51_fused_loss_bwd": (
+            f4 * (n * A + B * A + 2 * B + 2 * n) + f4 * n * A, n * (phi + 14 * A),
+            lambda: cp.fused_loss_bwd(support, q, p, r, d, g_ce, g_ov),
+            lambda: [cp.fused_loss_bwd(support, q[e], p, r, d, g_ce[e], g_ov[e]) for e in range(E)],
+            lambda: cp.fused_loss_bwd_plain(support, q, p, r, d, g_ce, g_ov)),
+        "c51_fused_step": (
+            loss_bytes + f4 * B + f4 * offsets.numel() + f4 * needed + f4 * B,
+            n * (phi + 10 * A) + walk,
+            lambda: cfs.fused_step_fwd(support, q, p, r, d, pre, leaves, offsets),
+            lambda: [cfs.fused_step_fwd(support, q[e], p, r, d, pre, leaves, offsets)
+                     for e in range(E)],
+            lambda: cfs.fused_step_plain(support, q, p, r, d, pre, leaves)),
+    }
+    timing = {}
+    for name, (nbytes, ops, kfn, sep, pfn) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        timing[name] = {
+            "E": E, "B": B, "A": A,
+            "ms": device_ms(kfn),
+            "separate_ms": device_ms(sep, n=20),
+            "plain_ms": device_ms(pfn, n=20),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "floor_ms": floor, "bytes": nbytes, "ops": ops,
+        }
+        emit({"phase": "kernel_time", "name": name, "stacked": True, **timing[name]})
+    return err, timing
+
+
+def stacked_step_parity(cfg_cls, create_train_state, train_step):
+    """One full-width ``train_step`` on the card (kernels) against the CPU
+    (plain versions), from the same initial weights, batch and REDQ subset:
+    twin critics, a REDQ ensemble (E = 10, M = 2) and bfloat16 compute."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.models.critic import DistConfig
+
+    base = cfg_cls(dist=DistConfig(v_min=-300.0, v_max=0.0), n_step=3)
+    arms = {
+        "twin": dict(twin_critic=True),
+        "redq_e10_m2": dict(critic_ensemble=10, ensemble_min_targets=2),
+        "bf16": dict(compute_dtype="bfloat16"),
+    }
+    rng = np.random.default_rng(SEED + 1)
+    B = 256
+    batch = {
+        "obs": rng.normal(size=(B, 3)).astype(np.float32),
+        "action": rng.uniform(-1, 1, size=(B, 1)).astype(np.float32),
+        "reward": rng.uniform(-16, 0, size=B).astype(np.float32),
+        "next_obs": rng.normal(size=(B, 3)).astype(np.float32),
+        "discount": np.where(rng.uniform(size=B) < 0.1, 0.0, 0.99**3).astype(np.float32),
+        "weights": rng.uniform(0.2, 1.0, size=B).astype(np.float32),
+    }
+    subset = torch.tensor([7, 2])  # the step's REDQ subset, fed to both devices
+    for arm, kw in arms.items():
+        agent = dataclasses.replace(base, **kw)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            state = create_train_state(agent, SEED, dev)
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            reset_counts()
+            _, metrics, pri = train_step(agent, state, tb,
+                                         subset=subset.to(dev) if agent.critic_ensemble else None)
+            launches = read_counts()
+            out[dev] = ({k: float(v) for k, v in metrics.items()}, pri.cpu().numpy(), launches)
+        (mc, pc, lc), (mh, ph, lh) = out["cuda"], out["cpu"]
+        check(all(np.isfinite(v) for v in mc.values()), f"{arm}: non-finite metrics {mc}")
+        check(pc.shape == (B,), f"{arm}: priorities shape {pc.shape}")
+        check(lc["fused_fwd"] == 1 and lc["fused_bwd"] == 1 and sum(lh.values()) == 0,
+              f"{arm}: launches {lc} on the card, {lh} on the CPU")
+        # float32: step_parity's tolerances; bf16: BF16_REL_FULL relative
+        # (the loss and priorities), and q_mean read after one Adam step
+        rel = BF16_REL_FULL if arm == "bf16" else 1e-4
+        pri_err = float(np.abs(pc - ph).max())
+        check(np.allclose(pc, ph, rtol=rel, atol=1e-4), f"{arm}: priorities differ by {pri_err:.3e}")
+        check(abs(mc["critic_loss"] - mh["critic_loss"]) <= rel * abs(mh["critic_loss"]) + 1e-5,
+              f"{arm}: critic_loss {mc['critic_loss']} vs {mh['critic_loss']}")
+        check(abs(mc["q_mean"] - mh["q_mean"]) <= 0.3, f"{arm}: q_mean {mc['q_mean']} vs {mh['q_mean']}")
+        emit({"phase": "stacked_step_parity", "arm": arm, "cuda": mc, "cpu": mh,
+              "priority_max_abs_err": pri_err, "priority_rtol": rel, "launches_cuda": lc,
+              "subset": subset.tolist() if agent.critic_ensemble else None, "ok": True})
+
+
+def large_batch_phase(Trainer, TrainConfig, card: str, log_dir: str):
+    """The large-batch recipe of ``docs/data_plane.md`` (device-PER
+    learner, fused descent, ``--compute-dtype bfloat16 --steps-per-dispatch
+    32 --batch-scale 8 --ingest-prefetch``: B = 2048, K = 4) with a REDQ
+    ensemble (E = 10, M = 2) on top, at full width with a 1M-row ring:
+    200 grad steps after the scaled warmup, every dispatch after the first
+    under the sync guard, exact launches (B4 and B1b once a grad step, B1f
+    never, B3 once a dispatch), finite metrics, ``max_priority`` off 1.0,
+    then the steady state."""
+    import torch
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+
+    n = LARGE_BATCH_STEPS
+    cfg = TrainConfig(
+        env="pendulum", prioritized=True, replay_placement="device", fused_descent=True,
+        ingest_prefetch=True, steps_per_dispatch=32, batch_scale=8, total_steps=n,
+        eval_interval=n, eval_episodes=10, log_dir=log_dir, seed=SEED, debug_guards=True,
+        agent=D4PGConfig(compute_dtype="bfloat16", critic_ensemble=10, ensemble_min_targets=2),
+    )
+    trainer = Trainer(cfg, device="cuda")
+    c = trainer.config
+    check((c.batch_size, c.steps_per_dispatch, c.warmup_steps) == (2048, 4, 8000),
+          f"large_batch: the scaled recipe is B={c.batch_size}, K={c.steps_per_dispatch}, "
+          f"warmup={c.warmup_steps}")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        dispatched = trainer._dispatches
+        busy = device_busy(trainer)
+    finally:
+        trainer.close()
+    k = c.steps_per_dispatch
+    expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=n // k, fused_step=n)
+    check(launches == expect, f"large_batch: launch counts {launches}, expected {expect}")
+    check(dispatched == n // k and trainer.grad_steps == n,
+          f"large_batch: {dispatched} dispatches for {trainer.grad_steps} grad steps")
+    for key in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"large_batch: {key} not finite: {row.get(key)}")
+    max_priority = float(trainer._dev_per.tree.max_priority)
+    check(max_priority > 1.0, f"large_batch: max_priority {max_priority} did not move off 1.0")
+    a = c.agent
+    emit({
+        "phase": "large_batch", "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms, "batch": c.batch_size,
+                  "critic_ensemble": a.critic_ensemble,
+                  "ensemble_min_targets": a.ensemble_min_targets,
+                  "compute_dtype": a.compute_dtype, "batch_scale": c.batch_scale,
+                  "lr_critic": a.lr_critic, "per_beta_steps": a.per_beta_steps,
+                  "warmup_steps": c.warmup_steps, "replay_capacity": c.replay_capacity,
+                  "tree_leaves": TREE_L, "steps_per_dispatch": k, "num_envs": c.num_envs},
+        "grad_steps": n, "dispatches": n // k,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
+        "max_priority": max_priority, "launches": launches,
+        "launches_per_grad_step": {key: v / n for key, v in launches.items()},
+        "steady_state": busy, "ok": True,
+    })
+    return launches
+
+
+def wire_host_run(Trainer, TrainConfig, card: str, log_dir: str):
+    """``bf16_wire``'s host leg: 200 K = 1 grad steps at full width with
+    ``transfer_dtype="bfloat16"`` (the observations copied to the card as
+    bfloat16, cast back to float32 there), under the sync guard after the
+    first dispatch: B1f and B1b once a grad step, finite metrics."""
+    import torch
+
+    from d4pg_tpu_torch.runtime import trainer as trainer_mod
+
+    n = WIRE_STEPS
+    cfg = TrainConfig(env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
+                      eval_episodes=10, log_dir=log_dir, seed=SEED, tree_backend="numpy",
+                      transfer_dtype="bfloat16", debug_guards=True)
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        trainer.warmup()
+        _, staged, ready = trainer._sample_staged(1)
+        wire = {k: str(v.dtype) for k, v in staged.items()}
+        trainer._h2d.consume(staged, ready)
+        check(all(staged[k].dtype == torch.bfloat16 for k in trainer_mod.WIRE_FIELDS)
+              and staged["reward"].dtype == torch.float32, f"bf16_wire: staged dtypes {wire}")
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        trainer.close()
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"bf16_wire host: launch counts {launches}, expected {expect}")
+    for key in ("critic_loss", "q_mean", "actor_loss", "eval_return_mean"):
+        check(row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"bf16_wire host: {key} not finite: {row.get(key)}")
+    emit({"phase": "bf16_wire", "leg": "host_k1_transfer_bf16", "card": card,
+          "staged_dtypes": wire, "grad_steps": n, "wall_s_incl_warmup_and_eval": wall,
+          "grad_steps_per_sec": row["grad_steps_per_sec"], "critic_loss": row["critic_loss"],
+          "q_mean": row["q_mean"], "eval_return_mean": row["eval_return_mean"],
+          "launches": launches,
+          "stage_ms_per_step": stage_ms_per_step(trainer.timers.scalars(), n), "ok": True})
     return launches
 
 
@@ -2087,7 +2459,10 @@ def main() -> int:
     err, timing = kernel_phase(cp, make_support, floor)
     tree_err, mismatch, tree_timing = tree_kernel_phase(
         cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
+    stacked_err, stacked_timing = stacked_kernel_phase(
+        cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
     step_parity(D4PGConfig, create_train_state, train_step)
+    stacked_step_parity(D4PGConfig, create_train_state, train_step)
     check_sync_guard()
     native_tree_phase()
     paths = {}
@@ -2111,9 +2486,14 @@ def main() -> int:
         paths["device_resumed"] = resume_phase(Trainer, TrainConfig, card, tmp)
         profile_phase(Trainer, TrainConfig, card, tmp)
         planar_step_parity(card)
-        for env_name in ON_DEVICE_ITERS:
+        for env_name in ("pendulum", "halfcheetah", "hopper_twin"):
             paths[f"on_device_{env_name}"] = on_device_phase(
                 TrainConfig, env_name, card, f"{tmp}/on_device_{env_name}")
+        paths["large_batch"] = large_batch_phase(Trainer, TrainConfig, card, f"{tmp}/large_batch")
+        # bf16_wire: the bf16 ring on the device, then the bf16 host wire
+        paths["on_device_pendulum_bf16"] = on_device_phase(
+            TrainConfig, "pendulum_bf16", card, f"{tmp}/on_device_pendulum_bf16")
+        paths["host_transfer_bf16"] = wire_host_run(Trainer, TrainConfig, card, f"{tmp}/wire")
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}
@@ -2145,6 +2525,8 @@ def main() -> int:
         }
         if "at_A1024" in t:  # B2 alone at B = 256, A = 1024
             entry["at_A1024"] = {k: t["at_A1024"][k] for k in ("ms", "bound_ms", "bound_by")}
+        if name in stacked_timing:  # E = 10 members over B = 2048 rows, one launch
+            entry["stacked"] = dict(stacked_timing[name], max_abs_err=stacked_err[name])
         tag = {"tree_count": "B3", "fused_step": "B4"}.get(counter)
         if tag:  # draws whose index differs from the plain version's
             entry["index_mismatches_vs_plain"] = {

@@ -24,6 +24,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     and convolutions to full float32: TF32 keeps about three decimal
     digits, which would make the float32 parity against the reference
     meaningless (``allow_tf32`` is set False for both cuBLAS and cuDNN).
+    And it makes cuBLAS accumulate bfloat16 products in float32, as XLA
+    does (``allow_bf16_reduced_precision_reduction`` False): the bf16
+    compute path rounds each product once, to bfloat16.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -35,6 +38,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

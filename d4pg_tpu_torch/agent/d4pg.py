@@ -1,12 +1,20 @@
 """D4PG algorithm core (counterpart of ``d4pg_tpu/agent/d4pg.py``).
 
-:func:`train_step` is the single-critic categorical step of the reference
+:func:`train_step` is the categorical step of the reference
 (``agent/d4pg.py:train_step``): target forward, softmax of the target head,
 the fused projection + cross-entropy kernel (or the projection kernel and a
 torch CE), the PER-weighted critic loss, the critic Adam step, the actor's
 −E[Q] loss against the UPDATED critic, the actor Adam step, and the Polyak
 update of both targets. PyTorch runs it eagerly and updates the state in
 place; the JAX version is a pure function of an immutable state.
+
+With stacked critics (``twin_critic``, ``critic_ensemble``) the critic is
+a :class:`~d4pg_tpu_torch.models.StackedCritic` of E members: the target
+is the clipped-min (twin) or random-subset-min (REDQ) member's whole
+distribution, every member regresses it (one fused-loss launch over the
+E×B rows, the JAX package's vmap), the loss is the members' sum and the
+priorities their mean. Under ``compute_dtype="bfloat16"`` the networks
+compute in bfloat16 on float32 master weights.
 
 :func:`gather_batches` and :func:`fused_train_scan` are the megastep's
 inner loop (``runtime/megastep.py``): K batches gathered from the device
@@ -22,8 +30,14 @@ from typing import Mapping
 import torch
 
 from d4pg_tpu_torch import resolve_device
-from d4pg_tpu_torch.agent.state import D4PGConfig, TrainState, check_supported
-from d4pg_tpu_torch.models import Actor, Critic
+from d4pg_tpu_torch.agent.state import (
+    D4PGConfig,
+    TrainState,
+    check_supported,
+    stack_of,
+    stacked_critics,
+)
+from d4pg_tpu_torch.models import Actor, Critic, StackedCritic
 from d4pg_tpu_torch.ops import (
     CategoricalSupport,
     ce_and_overlap,
@@ -45,22 +59,41 @@ def support_of(config: D4PGConfig) -> CategoricalSupport:
     return make_support(config.dist.v_min, config.dist.v_max, config.dist.num_atoms)
 
 
+def compute_dtype_of(config: D4PGConfig) -> torch.dtype:
+    return torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
+
+
+def _member_generators(generator: torch.Generator, n: int) -> list:
+    """``n`` generators seeded from draws of ``generator``, one per stacked
+    critic: the JAX package's ``jax.random.split(k_critic, n)``."""
+    seeds = torch.randint(0, 2**62, (n,), generator=generator, dtype=torch.int64)
+    return [torch.Generator().manual_seed(int(s)) for s in seeds]
+
+
 def build_networks(
     config: D4PGConfig, generator: torch.Generator | None = None
-) -> tuple[Actor, Critic]:
-    """Actor and critic on the CPU, initialised from ``generator`` if given."""
+) -> tuple[Actor, Critic | StackedCritic]:
+    """Actor and critic on the CPU, initialised from ``generator`` if given
+    (the actor first, then the critic; a stack of E critics from E
+    generators drawn from it)."""
     check_supported(config)
+    dtype = compute_dtype_of(config)
     actor = Actor(
-        config.obs_dim, config.action_dim, tuple(config.hidden_sizes), generator=generator
+        config.obs_dim, config.action_dim, tuple(config.hidden_sizes), generator=generator,
+        compute_dtype=dtype,
     )
-    critic = Critic(
-        config.obs_dim,
-        config.action_dim,
-        config.dist,
-        tuple(config.hidden_sizes),
-        generator=generator,
-    )
-    return actor, critic
+
+    def critic(gen):
+        return Critic(
+            config.obs_dim, config.action_dim, config.dist, tuple(config.hidden_sizes),
+            generator=gen, compute_dtype=dtype,
+        )
+
+    n_stack = stacked_critics(config)
+    if not n_stack:
+        return actor, critic(generator)
+    gens = _member_generators(generator, n_stack) if generator is not None else [None] * n_stack
+    return actor, StackedCritic([critic(g) for g in gens])
 
 
 def make_optimizers(config: D4PGConfig, actor: Actor, critic: Critic):
@@ -77,7 +110,9 @@ def create_train_state(
     config: D4PGConfig, seed: int | torch.Generator = 0, device=None
 ) -> TrainState:
     """Initialise the networks (on the CPU, from ``seed``), move them to
-    ``device`` (default: the CUDA card) and hard-copy the targets."""
+    ``device`` (default: the CUDA card) and hard-copy the targets. With a
+    REDQ ensemble the state also gets the device generator of its target
+    subsets, seeded from a draw of the same seed stream."""
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(int(seed))
     actor, critic = build_networks(config, gen)
@@ -85,7 +120,12 @@ def create_train_state(
     target_actor = copy.deepcopy(actor).requires_grad_(False)
     target_critic = copy.deepcopy(critic).requires_grad_(False)
     actor_opt, critic_opt = make_optimizers(config, actor, critic)
-    return TrainState(actor, critic, target_actor, target_critic, actor_opt, critic_opt)
+    subset_gen = None
+    if config.critic_ensemble:
+        subset_seed = int(torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64))
+        subset_gen = torch.Generator(dev).manual_seed(subset_seed)
+    return TrainState(actor, critic, target_actor, target_critic, actor_opt, critic_opt,
+                      stack=stack_of(config), subset_gen=subset_gen)
 
 
 @torch.no_grad()
@@ -193,9 +233,40 @@ def _loss_terms(config, support, pred, target_probs, batch, descent):
     return ce, ov, None
 
 
+def draw_subset(config: D4PGConfig, state: TrainState) -> torch.Tensor:
+    """REDQ's target subset for one grad step: M = ``ensemble_min_targets``
+    distinct members of E, uniformly, as int64 indices on the state's
+    device (the JAX ``jax.random.permutation(k, E)[:M]``). Drawn as the
+    first M of the argsort of E uniforms from ``state.subset_gen``: no host
+    synchronisation, so it runs under the sync guard."""
+    gen = state.subset_gen
+    u = torch.rand(config.critic_ensemble, generator=gen, device=gen.device)
+    return u.argsort()[: config.ensemble_min_targets]
+
+
+def _target_head(config, support, state, next_obs, subset):
+    """The target critic's logits [B, A] that the Bellman backup projects:
+    the single critic's; under twin critics, per sample, the head of the
+    target critic with the smaller mean (member 0 on ties); under REDQ,
+    per sample, the head of the smallest-mean member of ``subset`` (the
+    first on ties). The whole distribution of the chosen member, never an
+    elementwise min of probabilities."""
+    next_action = state.target_actor(next_obs)
+    heads = state.target_critic(next_obs, next_action)        # [B, A] or [E, B, A]
+    if not (config.twin_critic or config.critic_ensemble):
+        return heads
+    vals = expected_value(support, torch.softmax(heads, dim=-1))  # [E, B]
+    if config.twin_critic:
+        return torch.where((vals[0] <= vals[1])[:, None], heads[0], heads[1])
+    sub_vals = vals.index_select(0, subset)                     # [M, B]
+    sub_heads = heads.index_select(0, subset)                   # [M, B, A]
+    which = sub_vals.argmin(dim=0)                              # [B]
+    return sub_heads.gather(0, which[None, :, None].expand(1, *heads.shape[1:]))[0]
+
+
 def train_step(
     config: D4PGConfig, state: TrainState, batch: Mapping[str, torch.Tensor],
-    descent=None,
+    descent=None, subset: torch.Tensor | None = None,
 ):
     """One full D4PG SGD step, in place on ``state``.
 
@@ -209,7 +280,12 @@ def train_step(
         ([num_chunks(L)] float32, the leaf mass before each 1024-leaf
         chunk) are those kernel B3 returned for ``leaves`` this dispatch
         (its plain version's on the CPU). Requires
-        ``projection_backend="fused"``.
+        ``projection_backend="fused"``. Under stacked critics the one
+        launch descends once for all members.
+      subset: REDQ only: the [M] member indices of this step's target
+        subset (int64, on the state's device), in place of the draw from
+        ``state.subset_gen`` (which then does not advance). The tests feed
+        the subset that the JAX package drew.
 
     Returns:
       (state, metrics dict of 0-d tensors, priorities [B]) — the metrics and
@@ -222,30 +298,46 @@ def train_step(
             "descent= (the fused-descent tier) requires projection_backend="
             f"'fused', got {config.projection_backend!r}"
         )
+    n_stack = stacked_critics(config)
+    if config.critic_ensemble and subset is None:
+        subset = draw_subset(config, state)
     support = support_of(config)
     weights = batch.get("weights")
 
     # ---- target: softmax(Z_target(s', μ_target(s'))) ----
+    # Under bfloat16 each target layer casts its float32 Polyak master to
+    # bfloat16 as it runs, the values of the JAX step's bf16 copy of the
+    # target params.
     with torch.no_grad():
-        next_action = state.target_actor(batch["next_obs"])
         target_probs = torch.softmax(
-            state.target_critic(batch["next_obs"], next_action), dim=-1
+            _target_head(config, support, state, batch["next_obs"], subset), dim=-1
         )
 
-    # ---- critic ----
-    pred = state.critic(batch["obs"], batch["action"])
+    # ---- critic: every stacked member regresses the same target ----
+    pred = state.critic(batch["obs"], batch["action"])           # [B, A] or [E, B, A]
     ce, overlap, next_idx = _loss_terms(config, support, pred, target_probs, batch, descent)
-    critic_loss = (ce if weights is None else weights * ce).mean()
-    priorities = (overlap if config.priority_kind == "overlap" else ce).detach()
+    weighted = ce if weights is None else weights * ce
+    per_sample = overlap if config.priority_kind == "overlap" else ce
+    if n_stack:
+        # the members' losses summed (their gradients are independent),
+        # the priorities their mean
+        critic_loss = weighted.mean(dim=-1).sum()
+        priorities = per_sample.mean(dim=0).detach()
+    else:
+        critic_loss = weighted.mean()
+        priorities = per_sample.detach()
     state.critic_opt.zero_grad(set_to_none=True)
     critic_loss.backward()
     state.critic_opt.step()
 
     # ---- actor: maximise E[Q(s, μ(s))] against the UPDATED critic ----
+    # (critic 0 under twin critics; the mean over members AND batch under
+    # REDQ)
     a = state.actor(batch["obs"])
-    q_mean = expected_value(
-        support, torch.softmax(state.critic(batch["obs"], a), dim=-1)
-    ).mean()
+    head = state.critic(batch["obs"], a, member=0) if config.twin_critic else state.critic(
+        batch["obs"], a
+    )
+    q_mean = expected_value(support, torch.softmax(head, dim=-1)).mean()
     actor_loss = -q_mean
     if config.action_l2:
         actor_loss = actor_loss + config.action_l2 * a.square().mean()
@@ -260,8 +352,10 @@ def train_step(
     state.step += 1
 
     q_mean = q_mean.detach()
+    critic_loss = critic_loss.detach()
     metrics = {
-        "critic_loss": critic_loss.detach(),
+        # per critic: comparable with a single-critic run
+        "critic_loss": critic_loss / n_stack if n_stack else critic_loss,
         "actor_loss": actor_loss.detach(),
         "priority_mean": priorities.mean(),
         "q_mean": q_mean,
@@ -279,12 +373,14 @@ BATCH_FIELDS = ("obs", "action", "reward", "next_obs", "discount")
 def gather_batches(store, idx: torch.Tensor) -> dict:
     """[K, B] batches from a columnar store (the device ring) in ONE gather
     per field. No ``weights`` key: the uniform megastep trains without one
-    (IS weights identically 1) and the PER megastep adds its own."""
+    (IS weights identically 1) and the PER megastep adds its own. A field
+    stored as bfloat16 (the on-device ring's observations under
+    ``ring_dtype="bfloat16"``) is decoded to float32."""
     flat = idx.reshape(-1).long()
     return {
         k: getattr(store, k).index_select(0, flat).reshape(
             idx.shape + getattr(store, k).shape[1:]
-        )
+        ).float()
         for k in BATCH_FIELDS
     }
 

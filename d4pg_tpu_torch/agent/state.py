@@ -4,8 +4,8 @@
 ``D4PGConfig`` keeps the reference's field names and defaults for what
 the port carries, except ``projection_backend``, whose ladder the port
 names in its own words (see the field). Of the options it does not carry
-yet it keeps the ones a user sets (twin/ensemble critics, the head kind,
-bf16, pixels); :func:`check_supported` refuses any value but the default.
+yet it keeps the ones a user sets (the head kind, pixels);
+:func:`check_supported` refuses any value but the default.
 
 The JAX ``TrainState`` is an immutable pytree; here it is a small class
 that owns the four networks and the two optimizers, updated in place by
@@ -48,6 +48,9 @@ class D4PGConfig:
     per_beta_steps: int = 100_000
     per_eps: float = 1e-6
     priority_kind: str = "ce"  # "ce" | "overlap"
+    # "float32" | "bfloat16": bf16 activations through the actor and
+    # critic trunks; master weights, Adam moments, Polyak targets and every
+    # loss reduction stay float32 (the critic head returns float32)
     compute_dtype: str = "float32"
     # Categorical projection implementation:
     #   "fused"      — ONE kernel for projection + log-softmax CE + the
@@ -58,24 +61,64 @@ class D4PGConfig:
     # On CUDA tensors these run the hand-written kernels, on CPU tensors
     # their plain PyTorch versions.
     projection_backend: str = "fused"
-    # not ported: must stay at these defaults (check_supported)
+    # Twin critics with a clipped-min target: two critics stacked on a
+    # leading [2] axis, the Bellman backup taking, per sample, the whole
+    # distribution of the target critic with the smaller mean; the actor
+    # trains against critic 0 (TD3's convention).
     twin_critic: bool = False
+    # A REDQ critic ensemble of E >= 2 stacked critics (0 disables): each
+    # target is the per-sample argmin-mean member of a random subset of
+    # ensemble_min_targets target critics, redrawn every grad step; the
+    # actor ascends the ensemble mean. Exclusive with twin_critic.
     critic_ensemble: int = 0
+    ensemble_min_targets: int = 2
+
+
+def stacked_critics(config: D4PGConfig) -> int:
+    """Leading critic-stack size: 2 (twin), E (ensemble), or 0 (single).
+
+    Twin and ensemble are mutually exclusive — the ensemble subsumes the
+    twin (E=2, M=2 is exactly clipped double-Q with a per-step subset
+    redraw that happens to always pick both)."""
+    if config.critic_ensemble:
+        if config.twin_critic:
+            raise ValueError(
+                "critic_ensemble and twin_critic are mutually exclusive: "
+                "an E=2, ensemble_min_targets=2 ensemble IS the twin"
+            )
+        if config.critic_ensemble < 2:
+            raise ValueError(
+                f"critic_ensemble must be >= 2 (got "
+                f"{config.critic_ensemble}); 0 disables"
+            )
+        if not 1 <= config.ensemble_min_targets <= config.critic_ensemble:
+            raise ValueError(
+                f"ensemble_min_targets must be in [1, critic_ensemble="
+                f"{config.critic_ensemble}], got {config.ensemble_min_targets}"
+            )
+        return config.critic_ensemble
+    return 2 if config.twin_critic else 0
+
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_supported(config: D4PGConfig) -> None:
     """Raise ``NotImplementedError`` for an option this slice of the port
-    does not carry, naming the ROADMAP item it waits for."""
+    does not carry, naming the ROADMAP item it waits for, and
+    ``ValueError`` for an illegal critic stack or compute dtype."""
     gaps = [
-        (config.twin_critic, "twin critics (ROADMAP A10)"),
-        (config.critic_ensemble, "critic ensembles (ROADMAP A10)"),
         (config.dist.kind != "categorical", f"the {config.dist.kind!r} critic head (ROADMAP A10)"),
-        (config.compute_dtype != "float32", f"compute_dtype={config.compute_dtype!r} (ROADMAP A3)"),
         (config.pixel_shape, "pixel observations (ROADMAP A10)"),
     ]
     for present, what in gaps:
         if present:
             raise NotImplementedError(f"{what} is not ported to d4pg_tpu_torch yet")
+    stacked_critics(config)
+    if config.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype must be one of {COMPUTE_DTYPES}, got {config.compute_dtype!r}"
+        )
     if config.projection_backend not in ("fused", "projection"):
         raise ValueError(
             "projection_backend must be 'fused' or 'projection', got "
@@ -86,13 +129,31 @@ def check_supported(config: D4PGConfig) -> None:
 
 
 class TrainState:
-    """The learner's networks, targets and optimizers, plus the step count."""
+    """The learner's networks, targets and optimizers, plus the step count.
 
-    def __init__(self, actor, critic, target_actor, target_critic, actor_opt, critic_opt):
+    ``stack`` records the critic configuration the state was built for
+    (``twin_critic``, ``critic_ensemble``, ``compute_dtype``), which a
+    checkpoint carries so that a resume under another one is refused.
+    ``subset_gen`` is the device generator of the REDQ target subsets
+    (``None`` without an ensemble), the JAX ``TrainState.key``'s one use
+    here: it is checkpointed, so a resumed run continues its stream."""
+
+    def __init__(self, actor, critic, target_actor, target_critic, actor_opt, critic_opt,
+                 stack=None, subset_gen=None):
         self.actor = actor
         self.critic = critic
         self.target_actor = target_actor
         self.target_critic = target_critic
         self.actor_opt = actor_opt
         self.critic_opt = critic_opt
+        self.stack = dict(stack or STACK_DEFAULTS)
+        self.subset_gen = subset_gen
         self.step = 0
+
+
+# The critic configuration of a state built before stacks existed.
+STACK_DEFAULTS = {"twin_critic": False, "critic_ensemble": 0, "compute_dtype": "float32"}
+
+
+def stack_of(config: D4PGConfig) -> dict:
+    return {k: getattr(config, k) for k in STACK_DEFAULTS}

@@ -86,6 +86,20 @@ class TrainConfig:
     # Capture a torch.profiler trace of grad steps [10, max(60, 10 + K))
     # of the leg into this directory (a Chrome trace, *.pt.trace.json).
     profile_dir: Optional[str] = None
+    # The large-batch recipe in one knob S (apply_batch_scale): batch x S,
+    # both learning rates x S, the PER-beta anneal / S, warmup x S,
+    # steps_per_dispatch / S. 1 = off.
+    batch_scale: int = 1
+    # --on-device ring row dtype for the observations: "bfloat16" stores
+    # obs and next_obs at half the bytes and decodes them to float32 at
+    # the gather. "auto" is float32. Ignored by the other placements, as
+    # in the JAX package.
+    ring_dtype: str = "auto"
+    # Host placement: the observations' host-to-device wire format.
+    # "bfloat16" casts obs and next_obs to bfloat16 on the host (round to
+    # nearest even), copies half the bytes and casts them back to float32
+    # on the device. "uint8" (pixel rows) waits for ROADMAP A10.
+    transfer_dtype: str = "float32"
 
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
@@ -131,6 +145,61 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
         max_episode_steps=config.max_episode_steps or preset["max_episode_steps"],
         replay_capacity=config.replay_capacity or DEFAULT_REPLAY_CAPACITY,
     )
+
+
+def apply_batch_scale(config: TrainConfig) -> TrainConfig:
+    """Derive the large-batch recipe from the baseline config (the JAX
+    package's ``apply_batch_scale``): with S = ``batch_scale``,
+
+    ==================  =============  ====================================
+    knob                rule           why
+    ==================  =============  ====================================
+    batch_size          × S            the point
+    lr_actor/lr_critic  × S            linear scaling (Goyal et al. 2017)
+    per_beta_steps      ÷ S (floor 1)  the β anneal tracks data seen
+    warmup_steps        × S            rows for the first wide batch
+    steps_per_dispatch  ÷ S (floor 1)  a wide batch amortizes the dispatch
+    ==================  =============  ====================================
+
+    Applied after :func:`apply_env_preset`. ``S <= 1`` returns the config
+    unchanged."""
+    s = int(config.batch_scale)
+    if s <= 1:
+        return config
+    agent = dataclasses.replace(
+        config.agent,
+        lr_actor=config.agent.lr_actor * s,
+        lr_critic=config.agent.lr_critic * s,
+        per_beta_steps=max(1, config.agent.per_beta_steps // s),
+    )
+    return dataclasses.replace(
+        config,
+        agent=agent,
+        batch_size=config.batch_size * s,
+        warmup_steps=config.warmup_steps * s,
+        steps_per_dispatch=max(1, config.steps_per_dispatch // s),
+    )
+
+
+RING_DTYPES = ("auto", "float32", "bfloat16")
+TRANSFER_DTYPES = ("float32", "bfloat16")
+
+
+def check_wire_dtypes(config: TrainConfig) -> None:
+    """Refuse a ring or transfer dtype the port does not carry: ``uint8``
+    (the pixel rows' wire format) names ROADMAP A10, anything else unknown
+    is a ``ValueError``."""
+    if config.transfer_dtype == "uint8":
+        raise NotImplementedError(
+            "transfer_dtype='uint8' ships the pixel replay's stored bytes; pixel "
+            "observations (ROADMAP A10) are not ported to d4pg_tpu_torch yet"
+        )
+    if config.transfer_dtype not in TRANSFER_DTYPES:
+        raise ValueError(
+            f"transfer_dtype must be float32|bfloat16|uint8, got {config.transfer_dtype!r}"
+        )
+    if config.ring_dtype not in RING_DTYPES:
+        raise ValueError(f"ring_dtype must be one of {RING_DTYPES}, got {config.ring_dtype!r}")
 
 
 def apply_declared_actions(config: TrainConfig) -> TrainConfig:

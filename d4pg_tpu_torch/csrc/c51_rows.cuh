@@ -10,6 +10,13 @@
 // form_m_warp forms m per destination atom for B2 (which stores it) and
 // for B1b (grad_row_warp, which differentiates it). Every body rounds
 // bfrac through bfrac_at.
+//
+// Stacked critics (E members, the JAX package's vmap over the critic
+// stack): the logits and everything indexed like them (q, dq, ce, ov,
+// g_ce, g_ov) are [E, B, ...], the target side (p, r, d) is [B, ...] and
+// shared by the members. A body takes two row indices: qr, the row of the
+// logits (e * B + b), and b, the target row it reads. E = 1 is qr == b,
+// the unstacked launch, with the same arithmetic bit for bit.
 
 #pragma once
 
@@ -68,8 +75,9 @@ __device__ __forceinline__ float2 row_max_lse(const float (&qv)[NPL], int A) {
   return make_float2(mx, logf(warp_sum(se)));
 }
 
-// The fused forward of row b by one warp: ce[b] = -sum(m * log_softmax(q)),
-// ov[b] = |-sum(m * softmax(q))|, m = Phi(r + d*z), which is never formed.
+// The fused forward of logit row qr (target row b) by one warp:
+// ce[qr] = -sum(m * log_softmax(q)), ov[qr] = |-sum(m * softmax(q))|,
+// m = Phi(r[b] + d[b]*z) from p[b], which is never formed.
 // Both sums are linear in m, and m_i = sum_j p_j * hat(bfrac_j - i), where
 // hat(x) = max(0, 1 - |x|) is nonzero only at the two atoms
 // lo = floor(bfrac_j) and lo + 1. So
@@ -90,19 +98,20 @@ __device__ __noinline__ void loss_row_warp(const float* __restrict__ q,
                                            const float* __restrict__ r,
                                            const float* __restrict__ d,
                                            float* __restrict__ ce,
-                                           float* __restrict__ ov, int b,
-                                           int A, float v_min, float v_max,
-                                           float delta, float2* lg) {
+                                           float* __restrict__ ov, int qr,
+                                           int b, int A, float v_min,
+                                           float v_max, float delta,
+                                           float2* lg) {
   const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)b * A;
+  const size_t qrow = (size_t)qr * A, prow = (size_t)b * A;
   // Every load of the row first, so that their latencies overlap.
   const float rb = r[b], db = d[b];
   float qv[NPL], pv[NPL];
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
     const int i = lane + 32 * k;
-    qv[k] = i < A ? q[row + i] : -INFINITY;
-    pv[k] = i < A ? p[row + i] : 0.f;
+    qv[k] = i < A ? q[qrow + i] : -INFINITY;
+    pv[k] = i < A ? p[prow + i] : 0.f;
   }
   const float2 ml = row_max_lse<NPL>(qv, A);
 #pragma unroll
@@ -138,8 +147,8 @@ __device__ __noinline__ void loss_row_warp(const float* __restrict__ q,
   const float ce_sum = warp_sum(ce_acc);
   const float ov_sum = warp_sum(ov_acc);
   if (lane == 0) {
-    ce[b] = -ce_sum;
-    ov[b] = fabsf(-ov_sum);
+    ce[qr] = -ce_sum;
+    ov[qr] = fabsf(-ov_sum);
   }
 }
 
@@ -216,7 +225,8 @@ __device__ __forceinline__ const float* form_m_warp(const float (&pv)[NPL],
   return msh;
 }
 
-// The fused backward of row b by one warp (kernel B1b), the VJP of
+// The fused backward of logit row qr (target row b) by one warp (kernel
+// B1b), the VJP of
 // loss_row_warp's (ce, ov) for cotangents (g_ce, g_ov), Phi recomputed
 // (_fused_loss_grad_kernel):
 //   dq_i = g_ce * (softmax_i * sum(m) - m_i)
@@ -233,17 +243,17 @@ __device__ __forceinline__ void grad_row_warp(
     const float* __restrict__ q, const float* __restrict__ p,
     const float* __restrict__ r, const float* __restrict__ d,
     const float* __restrict__ g_ce, const float* __restrict__ g_ov,
-    float* __restrict__ dq, int b, int A, float v_min, float v_max,
+    float* __restrict__ dq, int qr, int b, int A, float v_min, float v_max,
     float delta, float* ws) {
   const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)b * A;
-  const float rb = r[b], db = d[b], gce = g_ce[b], gov = g_ov[b];
+  const size_t qrow = (size_t)qr * A, prow = (size_t)b * A;
+  const float rb = r[b], db = d[b], gce = g_ce[qr], gov = g_ov[qr];
   float qv[NPL], pv[NPL];
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
     const int i = lane + 32 * k;
-    qv[k] = i < A ? q[row + i] : -INFINITY;
-    pv[k] = i < A ? p[row + i] : 0.f;
+    qv[k] = i < A ? q[qrow + i] : -INFINITY;
+    pv[k] = i < A ? p[prow + i] : 0.f;
   }
   const float2 ml = row_max_lse<NPL>(qv, A);
   float sm[NPL];
@@ -270,7 +280,7 @@ __device__ __forceinline__ void grad_row_warp(
   for (int k = 0; k < NPL; ++k) {
     const int i = lane + 32 * k;
     if (i < A) {
-      dq[row + i] = gce * (sm[k] * msum - m[k]) + gov * sgn * sm[k] * (m[k] - dot);
+      dq[qrow + i] = gce * (sm[k] * msum - m[k]) + gov * sgn * sm[k] * (m[k] - dot);
     }
   }
 }

@@ -27,7 +27,15 @@
 // VMEM), and each kernel is one launch with no workspace.
 //
 // Layout: one warp per batch row, kRowsPerBlock = 4 rows a block (64
-// blocks of 128 threads for B = 256). The warp issues the loads of its row
+// blocks of 128 threads for B = 256). With E stacked critics (twin, REDQ)
+// B1f and B1b take the E x B logit rows in one launch, row e * B + b
+// reading the members' shared target row b by index (no E-fold copy of
+// p): E * B / 4 blocks. Each row still forms its own m: a member shares
+// its target row's m with the others, and forming it once a target row is
+// a later optimisation (ROADMAP queue B). The bound grows with the rows:
+// at E = 10, B = 2048, A = 51 B1f reads 4.2 MB of q and 0.42 MB of p,
+// 1.4 us at 3.35 TB/s.
+// The warp issues the loads of its row
 // (p, r, d, and B1f's and B1b's q, B1b's g_ce, g_ov) together, before Phi,
 // so that one memory latency covers them; it reduces with warp shuffles
 // only (no __syncthreads).
@@ -85,7 +93,8 @@ __global__ void project_kernel(const float* __restrict__ p,
 
 // Replaces _fused_loss_kernel (fused_categorical_loss, forward): per row
 // ce = -sum(m * log_softmax(q)), ov = |-sum(m * softmax(q))|; m stays in
-// registers. One warp per row; warps past B have no row and do nothing
+// registers. One warp per logit row of the E x B stacked rows (row e * B
+// + b reads target row b); warps past E * B have no row and do nothing
 // (no barrier follows in the block).
 template <int NPL>
 __global__ void fused_loss_fwd_kernel(const float* __restrict__ q,
@@ -93,13 +102,14 @@ __global__ void fused_loss_fwd_kernel(const float* __restrict__ q,
                                       const float* __restrict__ r,
                                       const float* __restrict__ d,
                                       float* __restrict__ ce,
-                                      float* __restrict__ ov, int B, int A,
-                                      float v_min, float v_max, float delta) {
+                                      float* __restrict__ ov, int E, int B,
+                                      int A, float v_min, float v_max,
+                                      float delta) {
   extern __shared__ __align__(16) float row_stage[];
   const int w = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + w;
-  if (b < B) {
-    loss_row_warp<NPL>(q, p, r, d, ce, ov, b, A, v_min, v_max, delta,
+  const int qr = blockIdx.x * (blockDim.x >> 5) + w;
+  if (qr < E * B) {
+    loss_row_warp<NPL>(q, p, r, d, ce, ov, qr, qr % B, A, v_min, v_max, delta,
                        reinterpret_cast<float2*>(row_stage) + (size_t)w * A);
   }
 }
@@ -108,7 +118,8 @@ __global__ void fused_loss_fwd_kernel(const float* __restrict__ q,
 // Phi recomputed rather than saved:
 //   dce/dq = softmax * sum(m) - m
 //   dov/dq = sign(dot) * softmax * (m - dot),  dot = sum(m * softmax)
-// One warp per row, as B1f; warps past B have no row and do nothing.
+// One warp per logit row of the E x B stacked rows, as B1f; warps past
+// E * B have no row and do nothing.
 template <int NPL>
 __global__ void fused_loss_bwd_kernel(const float* __restrict__ q,
                                       const float* __restrict__ p,
@@ -116,14 +127,15 @@ __global__ void fused_loss_bwd_kernel(const float* __restrict__ q,
                                       const float* __restrict__ d,
                                       const float* __restrict__ g_ce,
                                       const float* __restrict__ g_ov,
-                                      float* __restrict__ dq, int B, int A,
-                                      float v_min, float v_max, float delta) {
+                                      float* __restrict__ dq, int E, int B,
+                                      int A, float v_min, float v_max,
+                                      float delta) {
   extern __shared__ __align__(16) float row_stage[];
   const int w = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + w;
-  if (b < B) {
-    grad_row_warp<NPL>(q, p, r, d, g_ce, g_ov, dq, b, A, v_min, v_max, delta,
-                       row_stage + (size_t)w * m_warp_floats(A));
+  const int qr = blockIdx.x * (blockDim.x >> 5) + w;
+  if (qr < E * B) {
+    grad_row_warp<NPL>(q, p, r, d, g_ce, g_ov, dq, qr, qr % B, A, v_min, v_max,
+                       delta, row_stage + (size_t)w * m_warp_floats(A));
   }
 }
 
@@ -132,7 +144,9 @@ __global__ void fused_loss_bwd_kernel(const float* __restrict__ q,
 // C entry points. Each launches on `stream` (PyTorch's current stream),
 // allocates nothing, does not synchronise, and returns cudaGetLastError()
 // so the caller can raise on a refused launch. The caller guarantees
-// 2 <= A <= 1024, contiguous float32 buffers and B >= 0.
+// 2 <= A <= 1024, contiguous float32 buffers, B >= 0 and, for the fused
+// pair, E >= 1 stacked members with E * B * A < 2^31: q and dq are
+// [E, B, A], ce, ov, g_ce and g_ov [E, B], p [B, A], r and d [B].
 
 extern "C" int c51_project(const float* p, const float* r, const float* d,
                            float* m, int B, int A, float v_min, float v_max,
@@ -151,14 +165,16 @@ extern "C" int c51_project(const float* p, const float* r, const float* d,
 
 extern "C" int c51_fused_loss_fwd(const float* q, const float* p,
                                   const float* r, const float* d, float* ce,
-                                  float* ov, int B, int A, float v_min,
+                                  float* ov, int E, int B, int A, float v_min,
                                   float v_max, float delta, void* stream) {
+  if (E < 1) return (int)cudaErrorInvalidValue;
   if (B > 0) {
     const int rows = c51::kRowsPerBlock;
+    const int n = E * B;
     c51::with_atoms_per_lane(A, [&](auto npl) {
       fused_loss_fwd_kernel<decltype(npl)::value>
-          <<<(B + rows - 1) / rows, 32 * rows, c51::warp_smem_for(A),
-             (cudaStream_t)stream>>>(q, p, r, d, ce, ov, B, A, v_min, v_max,
+          <<<(n + rows - 1) / rows, 32 * rows, c51::warp_smem_for(A),
+             (cudaStream_t)stream>>>(q, p, r, d, ce, ov, E, B, A, v_min, v_max,
                                      delta);
     });
   }
@@ -168,15 +184,17 @@ extern "C" int c51_fused_loss_fwd(const float* q, const float* p,
 extern "C" int c51_fused_loss_bwd(const float* q, const float* p,
                                   const float* r, const float* d,
                                   const float* g_ce, const float* g_ov,
-                                  float* dq, int B, int A, float v_min,
+                                  float* dq, int E, int B, int A, float v_min,
                                   float v_max, float delta, void* stream) {
+  if (E < 1) return (int)cudaErrorInvalidValue;
   if (B > 0) {
     const int rows = c51::kRowsPerBlock;
+    const int n = E * B;
     const size_t smem = rows * c51::m_warp_floats(A) * sizeof(float);
     c51::with_atoms_per_lane(A, [&](auto npl) {
       fused_loss_bwd_kernel<decltype(npl)::value>
-          <<<(B + rows - 1) / rows, 32 * rows, smem, (cudaStream_t)stream>>>(
-              q, p, r, d, g_ce, g_ov, dq, B, A, v_min, v_max, delta);
+          <<<(n + rows - 1) / rows, 32 * rows, smem, (cudaStream_t)stream>>>(
+              q, p, r, d, g_ce, g_ov, dq, E, B, A, v_min, v_max, delta);
     });
   }
   return (int)cudaGetLastError();

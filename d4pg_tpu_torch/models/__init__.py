@@ -1,4 +1,4 @@
 from d4pg_tpu_torch.models.actor import Actor
-from d4pg_tpu_torch.models.critic import Critic, DistConfig
+from d4pg_tpu_torch.models.critic import Critic, DistConfig, StackedCritic
 
-__all__ = ["Actor", "Critic", "DistConfig"]
+__all__ = ["Actor", "Critic", "DistConfig", "StackedCritic"]

@@ -34,3 +34,14 @@ def small_uniform_(layer: nn.Linear, scale: float, generator: torch.Generator) -
     """Flax ``nn.initializers.uniform(scale)`` on weight and bias: U[0, scale)."""
     _uniform_(layer.weight, 0.0, scale, generator)
     _uniform_(layer.bias, 0.0, scale, generator)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` in the compute dtype. float32 is ``nn.Linear`` itself.
+    Under bfloat16 it is what a Flax ``Dense(dtype=bfloat16,
+    param_dtype=float32)`` does: input, kernel and bias cast to bfloat16,
+    the product rounded to bfloat16, then the bias added in bfloat16 as a
+    separate op (``addmm`` would add it before the one rounding)."""
+    if dtype == torch.float32:
+        return layer(x)
+    return x.to(dtype) @ layer.weight.to(dtype).t() + layer.bias.to(dtype)

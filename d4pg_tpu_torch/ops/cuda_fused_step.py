@@ -1,7 +1,10 @@
 """CUDA kernel B4: the categorical loss of one grad step plus the tree
 descent for the next step's prefixes, in one launch.
 
-Counterpart of ``d4pg_tpu/ops/pallas_fused_step.py``. The hand-written
+Counterpart of ``d4pg_tpu/ops/pallas_fused_step.py``. Under stacked
+critics (twin, REDQ) one launch takes the E x B logit rows of the members
+and descends the B prefixes once: the JAX package's vmapped step runs the
+same descent for every member and returns member 0's. The hand-written
 kernel ``c51_fused_step`` (``csrc/fused_step.cu``) replaces the Pallas
 ``_fused_step_kernel`` behind ``fused_categorical_loss_descent``: its
 loss blocks run kernel B1f's warp-per-row body, its count blocks run
@@ -44,7 +47,7 @@ def reset_launch_counts() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "c51_fused_step": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _I, _P, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _P, _I, _P, _P, _P,
     ],
 }
 _fns: dict = {}
@@ -70,12 +73,16 @@ def fused_step_fwd(
     leaves: torch.Tensor,
     chunk_offsets: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(ce [B], ov [B], next_idx [B] int32). ``chunk_offsets`` are those
-    :func:`cuda_tree.find_prefix` returned for the same ``leaves``
-    ([num_chunks(L)] float32, contiguous, on the batch's device). CUDA
-    tensors: the ``c51_fused_step`` kernel."""
-    B, A, device = cp._validate(
-        support, {"q": q, "p": p}, {"r": r, "d": d, "next_prefixes": next_prefixes}
+    """(ce, ov, next_idx [B] int32): ce and ov ``q.shape[:-1]``, [B] or
+    [E, B] for the stacked logits q [E, B, A] of E critics against the
+    shared target p [B, A]; the descent runs once, for the B prefixes.
+    ``chunk_offsets`` are those :func:`cuda_tree.find_prefix` returned for
+    the same ``leaves`` ([num_chunks(L)] float32, contiguous, on the
+    batch's device). CUDA tensors: the ``c51_fused_step`` kernel, one
+    launch for all E members."""
+    q, p = cp.as_f32(q), cp.as_f32(p)
+    E, B, A, device = cp.validate_stacked(
+        support, q, p, {"r": r, "d": d, "next_prefixes": next_prefixes}
     )
     cuda_tree._check_leaves(leaves)
     if leaves.device != device:
@@ -89,8 +96,8 @@ def fused_step_fwd(
     cp._check("chunk_offsets", chunk_offsets, (cuda_tree.num_chunks(L),), device)
     if device.type != "cuda":
         return fused_step_plain(support, q, p, r, d, next_prefixes, leaves)
-    ce = torch.empty((B,), device=device, dtype=torch.float32)
-    ov = torch.empty((B,), device=device, dtype=torch.float32)
+    ce = torch.empty(q.shape[:-1], device=device, dtype=torch.float32)
+    ov = torch.empty(q.shape[:-1], device=device, dtype=torch.float32)
     idx = torch.empty((B,), device=device, dtype=torch.int32)
     if B == 0:
         return ce, ov, idx
@@ -98,7 +105,7 @@ def fused_step_fwd(
         _fns.update(_build.bind("fused_step", _SIGNATURES))
     _build.launch(
         _fns["c51_fused_step"], device, q.data_ptr(), p.data_ptr(), r.data_ptr(),
-        d.data_ptr(), ce.data_ptr(), ov.data_ptr(), B, A, *cp._scalars(support),
+        d.data_ptr(), ce.data_ptr(), ov.data_ptr(), E, B, A, *cp._scalars(support),
         leaves.data_ptr(), L, chunk_offsets.data_ptr(), chunk_offsets.numel(),
         next_prefixes.data_ptr(), idx.data_ptr(),
     )
@@ -123,7 +130,7 @@ class _FusedStepLoss(torch.autograd.Function):
         q, p, r, d = ctx.saved_tensors
         zeros = None
         if g_ce is None or g_ov is None:
-            zeros = torch.zeros_like(r)
+            zeros = q.new_zeros(q.shape[:-1])
         dq = cp.fused_loss_bwd(
             ctx.support, q, p, r, d,
             (zeros if g_ce is None else g_ce).contiguous(),
@@ -146,14 +153,17 @@ def fused_categorical_loss_descent(
     plus the descent of the NEXT step's prefixes over ``leaves``, given the
     ``chunk_offsets`` that :func:`cuda_tree.find_prefix` returned for them.
 
-    Returns (ce [B], overlap [B], next_idx [B] int32); next_idx is
-    ``min(count, L − 1)``, before the caller's fill clamp. Gradients flow
-    to ``pred_logits`` only.
+    ``pred_logits`` may be the stacked [E, B, A] logits of E critics: one
+    launch computes every member's loss and the descent once.
+
+    Returns (ce, overlap, next_idx [B] int32), ce and overlap
+    ``pred_logits.shape[:-1]``; next_idx is ``min(count, L − 1)``, before
+    the caller's fill clamp. Gradients flow to ``pred_logits`` only.
     """
     return _FusedStepLoss.apply(
         support,
-        pred_logits.contiguous(),
-        target_probs.detach().contiguous(),
+        cp.as_f32(pred_logits).contiguous(),
+        cp.as_f32(target_probs.detach()).contiguous(),
         rewards.detach().contiguous(),
         discounts.detach().contiguous(),
         next_prefixes.detach().contiguous(),

@@ -16,6 +16,14 @@ forward is the fused forward kernel and whose backward is the fused
 backward kernel: the projected target distribution m never reaches device
 memory, in either pass.
 
+The two fused kernels take the E stacked members of a twin or REDQ critic
+in one launch: logits ``q`` [E, B, A] (a 2-D ``q`` is E = 1) against the
+members' shared target ``p`` [B, A], ``r``, ``d`` [B], as the JAX package
+vmaps the single-critic loss over the stack with the target unbatched.
+The wrappers cast bfloat16 logits and target probabilities to float32, as
+the JAX wrappers cast every input (``pallas_projection.py:129,226``); the
+kernels are float32 only.
+
 Which implementation runs is decided by the tensors' device. On a CUDA
 tensor a wrapper launches its kernel or raises; it never falls back. On a
 CPU tensor it runs the plain PyTorch version beside it
@@ -53,8 +61,8 @@ def reset_launch_counts() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "c51_project": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
-    "c51_fused_loss_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
-    "c51_fused_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+    "c51_fused_loss_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "c51_fused_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
 }
 _fns: dict = {}
 
@@ -93,6 +101,35 @@ def _validate(support: CategoricalSupport, rows: dict, cols: dict):
     for n, t in cols.items():
         _check(n, t, (B,), first.device)
     return B, A, first.device
+
+
+def as_f32(t: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 input (the bf16 compute path's) as float32, the JAX
+    wrappers' ``astype(jnp.float32)``; any other dtype is left for
+    :func:`_check` to accept or refuse."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def validate_stacked(support: CategoricalSupport, q, p, cols: dict, stacked: dict | None = None):
+    """Check stacked logits ``q`` [E, B, A] (or [B, A], E = 1), the shared
+    target ``p`` [B, A], the [B] columns ``cols`` and the columns
+    ``stacked`` shaped like ``q`` without its atoms; returns (E, B, A,
+    device) for the kernel launch."""
+    if q.dim() not in (2, 3):
+        raise ValueError(f"expected [E, B, A] or [B, A] logits, got shape {tuple(q.shape)}")
+    E = q.shape[0] if q.dim() == 3 else 1
+    B, A = q.shape[-2:]
+    if E < 1:
+        raise ValueError("a stack of critics needs at least one member")
+    _validate(support, {"p": p}, cols)
+    if tuple(p.shape) != (B, A):
+        raise ValueError(f"p has shape {tuple(p.shape)}, expected {(B, A)}")
+    _check("q", q, tuple(q.shape), p.device)
+    for n, t in (stacked or {}).items():
+        _check(n, t, tuple(q.shape[:-1]), p.device)
+    if E * B * A >= 2**31:
+        raise ValueError(f"{E} x {B} x {A} logits exceed the kernels' int32 row index")
+    return E, B, A, p.device
 
 
 def _launch(name: str, counter: str, device: torch.device, B: int, *args) -> None:
@@ -142,7 +179,8 @@ def fused_loss_plain(
     d: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`ce_and_overlap` of m = Φ(r + d·z), m held constant
-    (differentiable w.r.t. q only)."""
+    (differentiable w.r.t. q only). Stacked logits q [E, B, A] broadcast
+    against the one m [B, A]."""
     return ce_and_overlap(project_plain(support, p, r, d).detach(), q)
 
 
@@ -164,6 +202,7 @@ def project(
     support: CategoricalSupport, p: torch.Tensor, r: torch.Tensor, d: torch.Tensor
 ) -> torch.Tensor:
     """Φ(r + d·z) → m [B, A]. CUDA tensors: the ``c51_project`` kernel."""
+    p = as_f32(p)
     B, A, device = _validate(support, {"p": p}, {"r": r, "d": d})
     if device.type != "cuda":
         return project_plain(support, p, r, d)
@@ -182,16 +221,19 @@ def fused_loss_fwd(
     r: torch.Tensor,
     d: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-sample (ce [B], ov [B]). CUDA tensors: ``c51_fused_loss_fwd``."""
-    B, A, device = _validate(support, {"q": q, "p": p}, {"r": r, "d": d})
+    """Per-sample (ce, ov), each ``q.shape[:-1]``: [B], or [E, B] for
+    stacked logits [E, B, A] against the shared target p [B, A]. CUDA
+    tensors: ``c51_fused_loss_fwd``, one launch for all E members."""
+    q, p = as_f32(q), as_f32(p)
+    E, B, A, device = validate_stacked(support, q, p, {"r": r, "d": d})
     if device.type != "cuda":
         with torch.no_grad():
             return fused_loss_plain(support, q, p, r, d)
-    ce = torch.empty((B,), device=device, dtype=torch.float32)
-    ov = torch.empty((B,), device=device, dtype=torch.float32)
+    ce = torch.empty(q.shape[:-1], device=device, dtype=torch.float32)
+    ov = torch.empty(q.shape[:-1], device=device, dtype=torch.float32)
     _launch(
         "c51_fused_loss_fwd", "fused_fwd", device, B, q.data_ptr(), p.data_ptr(),
-        r.data_ptr(), d.data_ptr(), ce.data_ptr(), ov.data_ptr(), B, A,
+        r.data_ptr(), d.data_ptr(), ce.data_ptr(), ov.data_ptr(), E, B, A,
         *_scalars(support),
     )
     return ce, ov
@@ -200,18 +242,20 @@ def fused_loss_fwd(
 def fused_loss_bwd(
     support: CategoricalSupport, q, p, r, d, g_ce, g_ov
 ) -> torch.Tensor:
-    """dq [B, A] for cotangents (g_ce, g_ov), Φ recomputed. CUDA tensors:
-    ``c51_fused_loss_bwd``."""
-    B, A, device = _validate(
-        support, {"q": q, "p": p}, {"r": r, "d": d, "g_ce": g_ce, "g_ov": g_ov}
+    """dq, shaped like q ([B, A] or stacked [E, B, A]), for cotangents
+    (g_ce, g_ov) shaped like the forward's (ce, ov), Φ recomputed. CUDA
+    tensors: ``c51_fused_loss_bwd``, one launch for all E members."""
+    q, p = as_f32(q), as_f32(p)
+    E, B, A, device = validate_stacked(
+        support, q, p, {"r": r, "d": d}, {"g_ce": g_ce, "g_ov": g_ov}
     )
     if device.type != "cuda":
         return fused_loss_bwd_plain(support, q, p, r, d, g_ce, g_ov)
-    dq = torch.empty((B, A), device=device, dtype=torch.float32)
+    dq = torch.empty(q.shape, device=device, dtype=torch.float32)
     _launch(
         "c51_fused_loss_bwd", "fused_bwd", device, B, q.data_ptr(), p.data_ptr(),
         r.data_ptr(), d.data_ptr(), g_ce.data_ptr(), g_ov.data_ptr(),
-        dq.data_ptr(), B, A, *_scalars(support),
+        dq.data_ptr(), E, B, A, *_scalars(support),
     )
     return dq
 
@@ -231,7 +275,7 @@ class _FusedCategoricalLoss(torch.autograd.Function):
         q, p, r, d = ctx.saved_tensors
         zeros = None
         if g_ce is None or g_ov is None:
-            zeros = torch.zeros_like(r)
+            zeros = q.new_zeros(q.shape[:-1])
         dq = fused_loss_bwd(
             ctx.support, q, p, r, d,
             (zeros if g_ce is None else g_ce).contiguous(),
@@ -247,7 +291,9 @@ def fused_categorical_loss(
     rewards: torch.Tensor,
     discounts: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused Φ-projection + categorical cross-entropy, per sample.
+    """Fused Φ-projection + categorical cross-entropy, per sample, for
+    ``pred_logits`` [B, A] or the stacked members' [E, B, A] against one
+    target (``target_probs`` [B, A], ``rewards``, ``discounts`` [B]).
 
     Equivalent to::
 
@@ -256,12 +302,12 @@ def fused_categorical_loss(
         ov = abs(-sum(m * softmax(pred_logits), -1))
 
     with gradients to ``pred_logits`` only (the target side is detached).
-    Returns (ce [B], ov [B]), both float32.
+    Returns (ce, ov), each ``pred_logits.shape[:-1]``, float32.
     """
     return _FusedCategoricalLoss.apply(
         support,
-        pred_logits.contiguous(),
-        target_probs.detach().contiguous(),
+        as_f32(pred_logits).contiguous(),
+        as_f32(target_probs.detach()).contiguous(),
         rewards.detach().contiguous(),
         discounts.detach().contiguous(),
     )

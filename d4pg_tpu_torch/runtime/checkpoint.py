@@ -5,9 +5,15 @@
 One checkpoint holds everything the learner's :class:`TrainState` carries:
 the step, the four networks' ``state_dict``s and both Adam
 ``state_dict``s (``exp_avg``, ``exp_avg_sq`` and ``step``: optax's ``mu``,
-``nu`` and ``count``), so ``--resume`` continues the same optimisation. No
-torch generator is saved: the trainer re-seeds its generators from
-``--seed`` on every start, as the JAX trainer re-derives its megastep key.
+``nu`` and ``count``), so ``--resume`` continues the same optimisation.
+The trainers' generators are not saved: they re-seed them from ``--seed``
+on every start, as the JAX trainer re-derives its megastep key. The one
+generator saved is a REDQ ensemble's target-subset generator
+(``TrainState.subset_gen``), the use the JAX ``TrainState.key`` has here:
+the JAX checkpoint carries that key, so a resumed run continues its subset
+stream. The state's critic configuration (``TrainState.stack``: twin,
+ensemble width, compute dtype) is saved too, and a restore into a state
+built for another one raises :class:`StackMismatch` naming the field.
 
 Layout: each step is a directory ``<directory>/<step>/state.pt``, written
 into ``<step>.tmp/`` and renamed into place (Orbax's finalize-by-rename),
@@ -39,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from d4pg_tpu_torch.agent.state import TrainState
+from d4pg_tpu_torch.agent.state import STACK_DEFAULTS, TrainState
 from d4pg_tpu_torch.runtime import manifest as _manifest
 
 STATE_FILE = "state.pt"
@@ -47,13 +53,40 @@ NETWORKS = ("actor", "critic", "target_actor", "target_critic")
 OPTIMIZERS = ("actor_opt", "critic_opt")
 
 
+class StackMismatch(ValueError):
+    """A checkpoint of another critic configuration (twin, ensemble width,
+    compute dtype) than the run that restores it. Not a torn file: the
+    restore raises rather than fall back to an older step."""
+
+
 def state_dict_of(state: TrainState) -> dict:
     """Everything one checkpoint saves: the step, every network's and every
-    optimizer's ``state_dict``."""
-    out = {"step": int(state.step)}
+    optimizer's ``state_dict``, the critic configuration and, with a REDQ
+    ensemble, the subset generator's state."""
+    out = {"step": int(state.step), "stack": dict(state.stack)}
     for name in NETWORKS + OPTIMIZERS:
         out[name] = getattr(state, name).state_dict()
+    if state.subset_gen is not None:
+        out["subset_gen"] = state.subset_gen.get_state()
     return out
+
+
+def check_stack(state: TrainState, saved: dict) -> None:
+    """Raise :class:`StackMismatch` naming every field of the critic
+    configuration where the checkpoint and the live state differ. A
+    checkpoint written before the field existed is a single float32
+    critic."""
+    saved_stack = {**STACK_DEFAULTS, **saved.get("stack", {})}
+    diff = [
+        f"{k}={saved_stack[k]!r} in the checkpoint, {state.stack[k]!r} in this run"
+        for k in STACK_DEFAULTS if saved_stack[k] != state.stack[k]
+    ]
+    if diff:
+        raise StackMismatch(
+            "checkpoint of another critic configuration: " + "; ".join(diff)
+            + " — resume with the flags it was trained with (--twin-critic, "
+            "--critic-ensemble, --compute-dtype) or use a fresh --log-dir"
+        )
 
 
 def _steps_on_cpu(opt: torch.optim.Optimizer) -> None:
@@ -74,13 +107,18 @@ def _steps_on_cpu(opt: torch.optim.Optimizer) -> None:
 def load_state_into(state: TrainState, saved: dict) -> TrainState:
     """Load a :func:`state_dict_of` dict IN PLACE: the live modules and
     optimizers keep their identity (the optimizers keep their parameter
-    references)."""
+    references). Raises :class:`StackMismatch` before touching anything if
+    the critic configurations differ."""
+    check_stack(state, saved)
     for name in NETWORKS:
         getattr(state, name).load_state_dict(saved[name])
     for name in OPTIMIZERS:
         opt = getattr(state, name)
         opt.load_state_dict(saved[name])
         _steps_on_cpu(opt)
+    if state.subset_gen is not None and "subset_gen" in saved:
+        # map_location moved the saved ByteTensor; set_state takes it on the host
+        state.subset_gen.set_state(saved["subset_gen"].cpu())
     state.step = int(saved["step"])
     return state
 
@@ -222,7 +260,7 @@ class CheckpointManager:
                     print(f"[checkpoint] step {step}: {w}")
             try:
                 state = self.restore(template, step)
-            except FileNotFoundError:
+            except (FileNotFoundError, StackMismatch):
                 raise
             except Exception as e:
                 # torch.load and load_state_dict raise many types on a torn

@@ -7,7 +7,9 @@ One train iteration:
      envs (auto-reset, noise state threaded through) and collapses it to
      n-step transitions (:func:`~d4pg_tpu_torch.runtime.collect.
      make_segment_collector`);
-  2. appends them to a columnar ring of device tensors (:class:`DeviceReplay`);
+  2. appends them to a columnar ring of device tensors (:class:`DeviceReplay`;
+     with ``ring_dtype="bfloat16"`` the observations are stored as
+     bfloat16, half the bytes, and decoded to float32 at the gather);
   3. draws [K, B] indices (uniform, or proportional to the ring's
      priorities by ``cumsum`` + ``searchsorted`` with IS weights) and runs
      K grad steps (:func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan`,
@@ -40,9 +42,11 @@ from d4pg_tpu_torch.agent.d4pg import fused_train_scan, gather_batches, make_noi
 from d4pg_tpu_torch.agent.state import D4PGConfig, TrainState, check_supported
 from d4pg_tpu_torch.config import (
     TrainConfig,
+    apply_batch_scale,
     apply_env_preset,
     check_on_device,
     check_placement,
+    check_wire_dtypes,
 )
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.envs.api import EnvState
@@ -69,10 +73,10 @@ class DeviceReplay:
     read only with PER); ``max_priority`` is the running max of raw
     priorities, a 0-d device tensor. ``pos`` and ``size`` are host ints."""
 
-    obs: torch.Tensor        # [C, O]
+    obs: torch.Tensor        # [C, O] float32, or bfloat16 (ring_dtype)
     action: torch.Tensor     # [C, A]
     reward: torch.Tensor     # [C]
-    next_obs: torch.Tensor   # [C, O]
+    next_obs: torch.Tensor   # [C, O] as obs
     discount: torch.Tensor   # [C]
     priority: torch.Tensor   # [C] p_i^α, 0 where empty
     max_priority: torch.Tensor  # 0-d float32
@@ -80,13 +84,21 @@ class DeviceReplay:
     size: int = 0            # filled entries
 
 
-def device_replay_init(capacity: int, obs_dim: int, action_dim: int, device=None) -> DeviceReplay:
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+def device_replay_init(
+    capacity: int, obs_dim: int, action_dim: int, device=None,
+    obs_dtype: torch.dtype = torch.float32,
+) -> DeviceReplay:
+    """An empty ring. ``obs_dtype`` bfloat16 stores the observations at
+    half the bytes (the JAX ``_encode_obs``): ``_append``'s copy rounds
+    them to nearest even, and :func:`~d4pg_tpu_torch.agent.d4pg.
+    gather_batches` decodes them to float32."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     return DeviceReplay(
-        obs=z(capacity, obs_dim), action=z(capacity, action_dim), reward=z(capacity),
-        next_obs=z(capacity, obs_dim), discount=z(capacity), priority=z(capacity),
+        obs=z(capacity, obs_dim, dtype=obs_dtype), action=z(capacity, action_dim),
+        reward=z(capacity), next_obs=z(capacity, obs_dim, dtype=obs_dtype),
+        discount=z(capacity), priority=z(capacity),
         max_priority=torch.ones((), dtype=torch.float32, device=device),
     )
 
@@ -190,9 +202,10 @@ def make_on_device_trainer(
       indices without.
 
     ``noise_fns`` replaces the exploration noise process (init, sample,
-    reset) of :func:`~d4pg_tpu_torch.agent.d4pg.make_noise`. ``mesh``,
-    ``obs_uint8`` and ``obs_bf16`` are the JAX package's data-parallel,
-    pixel and bfloat16 rings, which are not ported.
+    reset) of :func:`~d4pg_tpu_torch.agent.d4pg.make_noise`. ``obs_bf16``
+    stores the ring's observations as bfloat16 (``--ring-dtype
+    bfloat16``). ``mesh`` and ``obs_uint8`` are the JAX package's
+    data-parallel and pixel rings, which are not ported.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -203,11 +216,6 @@ def make_on_device_trainer(
         raise NotImplementedError(
             "the uint8 pixel ring (obs_uint8) is not ported to d4pg_tpu_torch "
             "yet (ROADMAP A10)"
-        )
-    if obs_bf16:
-        raise NotImplementedError(
-            "the bfloat16 ring (obs_bf16, --ring-dtype bfloat16) is not ported "
-            "to d4pg_tpu_torch yet (ROADMAP A3)"
         )
     n_new = num_envs * segment_len
     if replay_capacity % n_new != 0:
@@ -223,7 +231,10 @@ def make_on_device_trainer(
     def init_fn(state: TrainState, seed: int) -> Carry:
         reset_gen = torch.Generator(device).manual_seed(leg_seed(seed, 0))
         env_states, obs = env.reset(num_envs, reset_gen, device)
-        replay = device_replay_init(replay_capacity, config.obs_dim, config.action_dim, device)
+        replay = device_replay_init(
+            replay_capacity, config.obs_dim, config.action_dim, device,
+            obs_dtype=torch.bfloat16 if obs_bf16 else torch.float32,
+        )
         return Carry(
             state, env_states, obs, noise_fns[0](), replay,
             torch.Generator(device).manual_seed(leg_seed(seed, 1)),
@@ -289,7 +300,8 @@ class OnDeviceRun:
                 "does not support it"
             )
         self.device = resolve_device(device)
-        config = apply_env_preset(config)
+        check_wire_dtypes(config)
+        config = apply_batch_scale(apply_env_preset(config))
         check_supported(config.agent)
         check_placement(config)
         check_on_device(config)
@@ -311,6 +323,7 @@ class OnDeviceRun:
             agent, self.env, num_envs=config.num_envs, segment_len=SEGMENT_LEN,
             replay_capacity=capacity, batch_size=config.batch_size,
             train_steps_per_iter=self.K, prioritized=config.prioritized, device=self.device,
+            obs_bf16=config.ring_dtype == "bfloat16",
         )
         state = create_train_state(agent, config.seed, self.device)
         self.ckpt = CheckpointManager(os.path.join(config.log_dir, "checkpoints"))

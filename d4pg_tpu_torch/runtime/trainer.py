@@ -12,7 +12,10 @@ steps. With ``replay_placement="host"``:
 - sample on the host (PER: one ``sample_block`` call for the [K, B]
   block, one C call on the native tree backend; uniform: K ``sample``
   calls, stacked) → pinned host tensors → ``non_blocking`` copies to the
-  device; K = 1 keeps the flat [B] batch;
+  device; K = 1 keeps the flat [B] batch. With ``transfer_dtype=
+  "bfloat16"`` the observations are cast to bfloat16 on the host (round to
+  nearest even), cross at half the bytes and are cast back to float32 on
+  the device before the step;
 - :func:`~d4pg_tpu_torch.agent.d4pg.train_step` (K = 1) or
   :func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan` (K > 1);
 - the PER priority write-back with a one-dispatch lag: dispatch N's
@@ -111,9 +114,11 @@ from d4pg_tpu_torch.agent.d4pg import fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
 from d4pg_tpu_torch.config import (
     TrainConfig,
+    apply_batch_scale,
     apply_declared_actions,
     apply_env_preset,
     check_placement,
+    check_wire_dtypes,
 )
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.replay import (
@@ -142,6 +147,7 @@ from d4pg_tpu_torch.utils.profiling import annotate, profile_trace
 from d4pg_tpu_torch.weights import best_actor_path, save_best_actor
 
 SEGMENT_LEN = 32  # env steps per env per collect (the JAX sync trainer's)
+WIRE_FIELDS = ("obs", "next_obs")  # what --transfer-dtype narrows on the wire
 WB_JOIN_S = 60.0  # how long stopping or draining the write-back thread may take
 
 
@@ -156,8 +162,13 @@ def _rss_gb() -> float:
 
 class Trainer:
     def __init__(self, config: TrainConfig, device=None):
+        """``config`` as the user gives it: the env preset and then
+        ``batch_scale`` are applied here, so ``self.config`` holds the
+        scaled values (and ``batch_scale`` itself, as the JAX trainer's
+        config does)."""
         self.device = resolve_device(device)
-        config = apply_env_preset(config)
+        check_wire_dtypes(config)
+        config = apply_batch_scale(apply_env_preset(config))
         check_supported(config.agent)
         check_placement(config)
         config = apply_declared_actions(config)
@@ -433,6 +444,11 @@ class Trainer:
                 samples = [self.buffer.sample(cfg.batch_size, self._rng) for _ in range(k)]
                 block = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
                 indices = None
+        if cfg.transfer_dtype == "bfloat16":
+            block = {
+                key: torch.from_numpy(v).to(torch.bfloat16) if key in WIRE_FIELDS else v
+                for key, v in block.items()
+            }
         with self.timers.stage("h2d_stage"):
             # sample_block's fields are views of a staging slot that is
             # rewritten STAGING_SLOTS - 1 calls later. That is safe because
@@ -676,6 +692,9 @@ class Trainer:
             indices, dev_batch, ready = self._sample_staged(k)
         self._h2d.consume(dev_batch, ready)
         with self.timers.stage("train_dispatch"), self._dispatch_guard():
+            # the bfloat16 wire's observations back to float32, on the device
+            dev_batch = {key: v.float() if key in WIRE_FIELDS else v
+                         for key, v in dev_batch.items()}
             if k == 1:
                 _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
             else:

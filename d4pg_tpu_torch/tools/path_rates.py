@@ -14,6 +14,11 @@ width with a 1000-env-step warmup and seed 0, the synchronous paths of
 step of every stage. Only options that every commit of the port since
 the hybrid placement knows are set, so that two checkouts (a parent and
 its change) can be run alternately in one call on one card and compared.
+
+``--wire`` runs instead the host K = 1 path (``slice``) four ways in
+turns, float32 and bfloat16 ``transfer_dtype``, each with and without
+``debug_guards``, then the same four in reverse order: the bfloat16
+wire's cost against float32's, and the sync guard's.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="the checkout whose package is run")
     ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--wire", action="store_true",
+                    help="host K = 1 with the float32 and the bfloat16 wire, guard off and on")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -60,11 +67,17 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     n = args.steps
+    runs = list(PATHS.items())
+    if args.wire:
+        ways = [(f"slice_{dtype}_wire{'_guarded' if guard else ''}",
+                 dict(tree_backend="numpy", transfer_dtype=dtype, debug_guards=guard))
+                for guard in (False, True) for dtype in ("float32", "bfloat16")]
+        runs = ways + ways[::-1]
     with tempfile.TemporaryDirectory() as tmp:
-        for path, kw in PATHS.items():
+        for i, (path, kw) in enumerate(runs):
             cfg = TrainConfig(
                 env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
-                eval_episodes=1, log_dir=f"{tmp}/{path}", seed=0, prioritized=True,
+                eval_episodes=1, log_dir=f"{tmp}/{i}_{path}", seed=0, prioritized=True,
                 agent=dataclasses.replace(D4PGConfig(), projection_backend="fused"), **kw,
             )
             trainer = Trainer(cfg, device="cuda")

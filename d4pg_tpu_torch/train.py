@@ -29,6 +29,12 @@ Examples:
     python -m d4pg_tpu_torch.train --env halfcheetah --on-device --num-envs 128 \
         --n-step 5 --v-min -100 --v-max 1500 --rmsize 1048576
         # rollout, device ring, device PER and learner all on the card
+    python -m d4pg_tpu_torch.train --env pendulum --replay-placement device \
+        --p-replay --steps-per-dispatch 32 --fused-descent --batch-scale 8 \
+        --compute-dtype bfloat16 --critic-ensemble 10 --ensemble-min-targets 2
+        # the large-batch recipe (B = 2048, K = 4) with a REDQ ensemble
+    python -m d4pg_tpu_torch.train --env hopper --on-device --num-envs 64 \
+        --n-step 3 --twin-critic     # twin critics, the preset's [0, 500]
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -49,9 +55,6 @@ from d4pg_tpu_torch.models.critic import DistConfig
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
     "--critic-head": "the scalar and mixture-of-Gaussians critic heads (ROADMAP A10)",
-    "--twin-critic": "twin critics (ROADMAP A10)",
-    "--critic-ensemble": "critic ensembles (ROADMAP A10)",
-    "--compute-dtype": "bfloat16 compute (ROADMAP A3)",
     "--her": "hindsight relabeling (ROADMAP A10)",
     "--obs-norm": "observation normalization (ROADMAP A10)",
     "--async-collect": "asynchronous collection, which needs the host actor pool (ROADMAP A5 (d))",
@@ -68,8 +71,6 @@ UNPORTED_FLAGS = {
     "--actor-device": "the host actor pool (ROADMAP A5 (d))",
     "--device-tree-backend": "a choice of device PER descent: the port has one, "
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
-    "--ring-dtype": "the bfloat16 device ring (ROADMAP A3)",
-    "--transfer-dtype": "the bfloat16 and uint8 batch wire formats (ROADMAP A3)",
     "--tp": "tensor parallelism (ROADMAP A7)",
     "--dp-hogwild": "asynchronous data parallelism (ROADMAP A7)",
     "--distributed": "multi-host training (ROADMAP A7)",
@@ -79,8 +80,6 @@ UNPORTED_FLAGS = {
     "--export-bundle": "serving bundles (ROADMAP A8)",
     "--her-k": "hindsight relabeling (ROADMAP A10)",
     "--num-mixtures": "the mixture-of-Gaussians critic head (ROADMAP A10)",
-    "--ensemble-min-targets": "critic ensembles (ROADMAP A10)",
-    "--batch-scale": "the --batch-scale recipe (ROADMAP A10)",
     "--chaos": "fault injection (ROADMAP A11 (e))",
     "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
     "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
@@ -197,6 +196,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="RSS watchdog: past this limit the trainer "
                         "checkpoints and exits 75 so a supervisor can "
                         "--resume (0 = off)")
+    p.add_argument("--twin-critic", action="store_true",
+                   help="clipped double-Q (TD3-style) distributional twin "
+                        "critics; fixes the single-critic plateau on "
+                        "Hopper/Walker2d-class tasks")
+    p.add_argument("--critic-ensemble", type=int, default=0,
+                   help="REDQ-style critic ensemble width E (0 = off): E "
+                        "stacked critics, Bellman targets min over a random "
+                        "subset, actor ascends the ensemble mean; mutually "
+                        "exclusive with --twin-critic")
+    p.add_argument("--ensemble-min-targets", type=int, default=2,
+                   help="size M of the random target subset the ensemble "
+                        "backup minimizes over (M=E recovers min-over-all)")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="network compute dtype; bfloat16 keeps float32 master "
+                        "weights, Adam moments, targets and losses")
+    p.add_argument("--batch-scale", type=int, default=1, metavar="S",
+                   help="the large-batch recipe in one knob: batch x S, "
+                        "lr x S (linear scaling), PER-beta anneal / S, "
+                        "warmup x S, steps-per-dispatch / S")
+    p.add_argument("--ring-dtype", choices=["auto", "float32", "bfloat16"], default="auto",
+                   help="--on-device ring row dtype for the observations; "
+                        "bfloat16 halves their bytes")
+    p.add_argument("--transfer-dtype", choices=["float32", "bfloat16", "uint8"],
+                   default="float32",
+                   help="host placement: the observations' host->device wire "
+                        "format; bfloat16 halves their bytes (uint8, the "
+                        "pixel rows', is not ported: ROADMAP A10)")
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)
@@ -235,6 +261,10 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         ou_sigma=args.ou_sigma,
         ou_mu=args.ou_mu,
         projection_backend=args.projection,
+        twin_critic=args.twin_critic,
+        critic_ensemble=args.critic_ensemble,
+        ensemble_min_targets=args.ensemble_min_targets,
+        compute_dtype=args.compute_dtype,
     )
     if args.hidden_sizes:
         agent = dataclasses.replace(
@@ -275,6 +305,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         resume=args.resume,
         snapshot_replay=args.snapshot_replay,
         max_rss_gb=args.max_rss_gb,
+        batch_scale=args.batch_scale,
+        ring_dtype=args.ring_dtype,
+        transfer_dtype=args.transfer_dtype,
     )
 
 

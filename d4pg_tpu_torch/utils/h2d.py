@@ -15,7 +15,8 @@ caching allocator cannot hand their memory out again while the consumer's
 kernels still read it. Nothing here synchronises the host.
 
 On the CPU the arrays are wrapped as tensors without a copy and there is
-no event.
+no event. An array may also be a host tensor already (a bfloat16 wire
+batch, which numpy cannot hold).
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ import numpy as np
 import torch
 
 
+def _host_tensor(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
 def to_device(arrays: Mapping[str, np.ndarray], device: torch.device) -> dict:
     """Copy every array to ``device`` on the current stream; the copies
     are asynchronous (pinned, ``non_blocking``) and the tensors may be
@@ -34,7 +41,7 @@ def to_device(arrays: Mapping[str, np.ndarray], device: torch.device) -> dict:
     each pinned block until its copy has run."""
     out = {}
     for k, v in arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = _host_tensor(v)
         out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
     return out
 
@@ -53,7 +60,7 @@ class H2DStream:
         if self._stream is None:
             return to_device(arrays, self.device), None
         # pinned as in to_device, but allocated and copied under the stream
-        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in arrays.items()}
+        pinned = {k: _host_tensor(v).pin_memory() for k, v in arrays.items()}
         with torch.cuda.stream(self._stream):
             out = {k: p.to(self.device, non_blocking=True) for k, p in pinned.items()}
             ready = torch.cuda.Event()

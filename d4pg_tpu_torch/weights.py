@@ -4,7 +4,11 @@ A Flax ``nn.Dense`` stores ``kernel`` as ``[in, out]`` and computes
 ``x @ kernel + bias``; ``nn.Linear`` stores ``weight`` as ``[out, in]`` and
 computes ``x @ weight.T + bias``. So a kernel is transposed and a bias is
 copied. The layers carry the same names on both sides (``hidden_<i>`` and
-``out``), so a Flax tree maps onto a ``state_dict`` by name.
+``out``), so a Flax tree maps onto a ``state_dict`` by name. A stacked
+critic's tree (twin, REDQ: every leaf with a leading [E] axis, kernels
+[E, in, out]) maps onto a :class:`~d4pg_tpu_torch.models.StackedCritic`,
+which keeps the Flax layout: its ``kernel`` and ``bias`` are copied as
+they are.
 
 The trees come in as nested dicts of numpy arrays (``jax.device_get`` of a
 Flax ``params`` collection, with or without the top-level ``"params"``
@@ -31,11 +35,16 @@ def _layers(params: Mapping) -> Mapping:
 
 
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """One Flax Dense-stack param tree → an ``nn.Module`` ``state_dict``."""
+    """One Flax Dense-stack param tree → an ``nn.Module`` ``state_dict``:
+    ``weight`` [out, in] per layer, or, for a stacked tree ([E, in, out]
+    kernels), ``kernel`` and ``bias`` as they are."""
     sd = {}
     for name, layer in _layers(params).items():
         kernel = np.asarray(layer["kernel"], np.float32)
-        sd[f"{name}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+        if kernel.ndim == 3:
+            sd[f"{name}.kernel"] = torch.from_numpy(np.array(kernel, order="C"))
+        else:
+            sd[f"{name}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
         sd[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
     return sd
 
@@ -71,16 +80,16 @@ def load_jax_params(
 
 def state_dict_to_flax(module: torch.nn.Module) -> dict:
     """A port module → its Flax variables ``{"params": {layer: {"bias",
-    "kernel"}}}`` as numpy arrays; kernels transposed back to ``[in,
-    out]``."""
+    "kernel"}}}`` as float32 numpy arrays; ``weight`` s transposed back to
+    ``[in, out]``, a stacked critic's ``kernel`` s as they are."""
     layers: dict = {}
     for key, t in module.state_dict().items():
         name, kind = key.rsplit(".", 1)
-        arr = t.detach().cpu().numpy()
+        arr = t.detach().float().cpu().numpy()
         if kind == "weight":
             layers.setdefault(name, {})["kernel"] = np.array(arr.T, order="C")
         else:
-            layers.setdefault(name, {})["bias"] = np.array(arr)
+            layers.setdefault(name, {})[kind] = np.array(arr)
     return {"params": layers}
 
 

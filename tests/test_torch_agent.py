@@ -176,7 +176,9 @@ def test_train_state_targets_start_as_copies_and_only_polyak_moves_them():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(twin_critic=True), dict(critic_ensemble=3), dict(compute_dtype="bfloat16"),
+    [dict(dist=DistConfig(kind="mixture_gaussian")),
+     dict(twin_critic=True, dist=DistConfig(kind="scalar")),
+     dict(critic_ensemble=3, pixel_shape=(8, 8, 1)),
      dict(pixel_shape=(8, 8, 1)), dict(dist=DistConfig(kind="scalar"))],
 )
 def test_unported_agent_options_raise(change):

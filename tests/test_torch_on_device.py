@@ -99,7 +99,7 @@ def test_capacity_must_be_a_multiple_of_the_segment_block():
 
 
 @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A7"), (dict(obs_uint8=True), "A10"),
-                                     (dict(obs_bf16=True), "A3")],
+                                     (dict(mesh=object(), obs_bf16=True), "A7")],
                          ids=["mesh", "uint8", "bf16"])
 def test_unported_rings_are_refused_naming_the_roadmap_item(kw, item):
     _, tcfg = _configs()

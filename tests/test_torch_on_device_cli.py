@@ -2,7 +2,7 @@
 Pendulum and HalfCheetah at narrow widths, the checkpoint and ``--resume``
 pair, the exits 75 of SIGTERM and of the RSS watchdog, and the refusals
 (``--replay-placement`` other than host with the JAX CLI's message,
-``--dp`` and ``--ring-dtype`` naming their ROADMAP items)."""
+``--dp`` and ``--critic-head`` naming their ROADMAP items)."""
 
 import json
 import math
@@ -130,8 +130,8 @@ def test_action_repeat_other_than_one_is_refused_on_both_loops(tmp_path):
     (["--replay-placement", "device"], "on_device_placement: --replay-placement configures the HOST "
                                        "trainer's data plane"),
     (["--dp", "2"], "ROADMAP A7"),
-    (["--ring-dtype", "bfloat16"], "ROADMAP A3"),
-], ids=["placement", "dp", "ring_dtype"])
+    (["--critic-head", "scalar"], "ROADMAP A10"),
+], ids=["placement", "dp", "critic_head"])
 def test_cli_on_device_refusals(flags, expect, tmp_path):
     out = _run(SMALL + ["--total-steps", "64", "--log-dir", str(tmp_path), *flags], timeout=120)
     assert out.returncode != 0

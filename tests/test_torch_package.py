@@ -142,7 +142,7 @@ def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
     "field,value,item",
     [("her", True, "A10"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
      ("publish_interval", 5, "A5"), ("pool_start_method", "fork", "A5"),
-     ("ring_dtype", "bfloat16", "A3"), ("variant_id", 1, "A11"),
+     ("num_mixtures", 3, "A10"), ("variant_id", 1, "A11"),
      ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("export_bundle", "bundle", "A8")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
@@ -166,8 +166,8 @@ def test_cli_refuses_unknown_flags(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", ["--her", "--twin-critic", "--critic-ensemble=3", "--compute-dtype=bfloat16",
-             "--critic-head=scalar", "--transfer-dtype=bfloat16", "--dp=2"],
+    "flag", ["--her", "--critic-head=mixture_gaussian", "--num-mixtures=3", "--her-k=4",
+             "--critic-head=scalar", "--transfer-dtype=uint8", "--dp=2"],
 )
 def test_cli_refuses_unported_flags(flag, tmp_path):
     from d4pg_tpu_torch.train import main
