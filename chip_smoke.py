@@ -204,6 +204,25 @@ JSON line:
    ``transfer_dtype="bfloat16"`` (the staged observations bf16 on the
    wire); exact launches and finite metrics on both.
 
+25. ``heads_step_parity`` (after ``stacked_step_parity``): one full-width
+   ``train_step`` with the scalar head and the MoG head (M = 5) on the card
+   against the CPU, single and REDQ (E = 10, M = 2, one subset fed to
+   both): priorities and critic loss at step_parity's tolerances (their
+   max abs errors printed), no kernel launched on either device.
+26. ``heads_device`` (twice: ``mixture_gaussian`` and ``scalar``): the
+   device-PER learner without the fused descent (K = 8, 1M-row ring,
+   2^20-leaf tree, ``debug_guards``) at full width on Pendulum, 200 grad
+   steps: B3 exactly once a dispatch (25), B1f, B1b, B2 and B4 never, the
+   support [-300, 0], finite metrics, ``max_priority`` off 1.0, grad
+   steps/s and ``steady_state`` as in ``device_slice``.
+27. ``her_pointmass``: ``--env pointmass_goal --her --n-step 1`` on the
+   device placement with PER and the fused descent (K = 8, 1M-row ring,
+   ``debug_guards``), full width: whole HER episodes for the warmup, then
+   200 grad steps: B4 and B1b exactly 200, B3 25, B1f and B2 0; the rows
+   in replay and in the ring equal to the writer accounting's prediction
+   (live env steps x (1 + her_k)); finite metrics and ``success_rate``;
+   the wall ms of five more single HER episodes.
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
@@ -521,6 +540,21 @@ def kernel_phase(cp, make_support, floor: float):
     return err, timing
 
 
+def step_batch(rng, B: int) -> dict:
+    """A Pendulum-shaped batch of B rows for the step parity phases, with
+    ~10 % terminal rows and PER importance weights."""
+    import numpy as np
+
+    return {
+        "obs": rng.normal(size=(B, 3)).astype(np.float32),
+        "action": rng.uniform(-1, 1, size=(B, 1)).astype(np.float32),
+        "reward": rng.uniform(-16, 0, size=B).astype(np.float32),
+        "next_obs": rng.normal(size=(B, 3)).astype(np.float32),
+        "discount": np.where(rng.uniform(size=B) < 0.1, 0.0, 0.99**3).astype(np.float32),
+        "weights": rng.uniform(0.2, 1.0, size=B).astype(np.float32),
+    }
+
+
 def step_parity(cfg_cls, create_train_state, train_step):
     """One full-width train step on the card (kernels) vs on the CPU
     (plain versions), from the same initial weights and batch."""
@@ -530,16 +564,8 @@ def step_parity(cfg_cls, create_train_state, train_step):
     from d4pg_tpu_torch.models.critic import DistConfig
 
     agent = cfg_cls(dist=DistConfig(v_min=-300.0, v_max=0.0), n_step=3)
-    rng = np.random.default_rng(SEED)
     B = 256
-    batch = {
-        "obs": rng.normal(size=(B, 3)).astype(np.float32),
-        "action": rng.uniform(-1, 1, size=(B, 1)).astype(np.float32),
-        "reward": rng.uniform(-16, 0, size=B).astype(np.float32),
-        "next_obs": rng.normal(size=(B, 3)).astype(np.float32),
-        "discount": np.where(rng.uniform(size=B) < 0.1, 0.0, 0.99**3).astype(np.float32),
-        "weights": rng.uniform(0.2, 1.0, size=B).astype(np.float32),
-    }
+    batch = step_batch(np.random.default_rng(SEED), B)
     out = {}
     for dev in ("cuda", "cpu"):
         state = create_train_state(agent, SEED, dev)
@@ -1140,11 +1166,48 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
     }
 
 
+FINITE_KEYS = ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean")
+
+
+def device_learner_run(Trainer, cfg, label: str, expect: dict, steady: bool = True):
+    """``Trainer(cfg)`` on the card, launch counters zeroed right before
+    ``train()`` and read right after: the launches must equal ``expect``,
+    the run must take one dispatch per K grad steps and end with finite
+    metrics, and a device PER tree's ``max_priority`` must have moved off
+    its 1.0 seed. With ``steady``, a few more dispatches then give
+    ``device_busy``. Returns (trainer, metrics row, launches, wall s,
+    steady state or None, stage timers)."""
+    import torch
+
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stages = trainer.timers.scalars()
+        dispatched = trainer._dispatches
+        busy = device_busy(trainer) if steady else None  # after the counts: extra dispatches
+    finally:
+        trainer.close()
+    n, k = cfg.total_steps, trainer.config.steps_per_dispatch
+    check(launches == expect, f"{label}: launch counts {launches}, expected {expect}")
+    check(dispatched == n // k and trainer.grad_steps == n,
+          f"{label}: {dispatched} dispatches for {trainer.grad_steps} grad steps")
+    for key in FINITE_KEYS:
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"{label}: {key} not finite: {row.get(key)}")
+    if trainer._dev_per is not None:
+        max_priority = float(trainer._dev_per.tree.max_priority)
+        check(max_priority > 1.0, f"{label}: max_priority {max_priority} did not move off 1.0")
+    return trainer, row, launches, wall, busy, stages
+
+
 def device_slice_run(Trainer, TrainConfig, tier: str, card: str, log_dir: str):
     """The device-resident learner at full width, one tier; exact launch
     counts for N grad steps in N/K dispatches."""
-    import torch
-
     n = DEVICE_STEPS[tier]
     kw = {
         "fused_descent": dict(prioritized=True, fused_descent=True),
@@ -1156,34 +1219,16 @@ def device_slice_run(Trainer, TrainConfig, tier: str, card: str, log_dir: str):
         log_dir=log_dir, seed=SEED, replay_placement="device", steps_per_dispatch=K,
         debug_guards=True, **kw,
     )
-    trainer = Trainer(cfg, device="cuda")
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        row = trainer.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        stages = trainer.timers.scalars()
-        dispatched = trainer._dispatches
-        busy = device_busy(trainer)  # after the counts: these dispatches are extra
-    finally:
-        trainer.close()
-    for k in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
-        check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"), f"{tier}: {k} not finite: {row.get(k)}")
     dispatches = n // K
     expect = {
         "fused_descent": dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches, fused_step=n),
         "separate": dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=dispatches, fused_step=0),
         "uniform": dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
     }[tier]
-    check(launches == expect, f"{tier}: launch counts {launches}, expected {expect}")
-    check(dispatched == dispatches and trainer.grad_steps == n,
-          f"{tier}: {dispatched} dispatches for {trainer.grad_steps} grad steps")
+    trainer, row, launches, wall, busy, stages = device_learner_run(Trainer, cfg, tier, expect)
     max_priority = None
     if trainer._dev_per is not None:
         max_priority = float(trainer._dev_per.tree.max_priority)
-        check(max_priority > 1.0, f"{tier}: max_priority {max_priority} did not move off 1.0")
     a = trainer.config.agent
     emit({
         "phase": "device_slice",
@@ -2262,16 +2307,8 @@ def stacked_step_parity(cfg_cls, create_train_state, train_step):
         "redq_e10_m2": dict(critic_ensemble=10, ensemble_min_targets=2),
         "bf16": dict(compute_dtype="bfloat16"),
     }
-    rng = np.random.default_rng(SEED + 1)
     B = 256
-    batch = {
-        "obs": rng.normal(size=(B, 3)).astype(np.float32),
-        "action": rng.uniform(-1, 1, size=(B, 1)).astype(np.float32),
-        "reward": rng.uniform(-16, 0, size=B).astype(np.float32),
-        "next_obs": rng.normal(size=(B, 3)).astype(np.float32),
-        "discount": np.where(rng.uniform(size=B) < 0.1, 0.0, 0.99**3).astype(np.float32),
-        "weights": rng.uniform(0.2, 1.0, size=B).astype(np.float32),
-    }
+    batch = step_batch(np.random.default_rng(SEED + 1), B)
     subset = torch.tensor([7, 2])  # the step's REDQ subset, fed to both devices
     for arm, kw in arms.items():
         agent = dataclasses.replace(base, **kw)
@@ -2413,6 +2450,161 @@ def wire_host_run(Trainer, TrainConfig, card: str, log_dir: str):
           "stage_ms_per_step": stage_ms_per_step(trainer.timers.scalars(), n), "ok": True})
     return launches
 
+HEAD_STEPS = 200                     # grad steps of each heads_device run
+HER_STEPS = 200                      # grad steps of her_pointmass
+HER_EPISODES_TIMED = 5               # extra HER episodes timed after the run
+
+
+def heads_step_parity(cfg_cls, create_train_state, train_step):
+    """One full-width ``train_step`` with the scalar and the MoG head (M =
+    5) on the card against the same step on the CPU, single and REDQ (E =
+    10, M = 2, one subset fed to both), float32, on the Pendulum support:
+    step_parity's tolerances, and no kernel launched (these heads have
+    none: the JAX package computes their losses in XLA)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.models.critic import DistConfig
+
+    B = 256
+    batch = step_batch(np.random.default_rng(SEED + 2), B)
+    subset = torch.tensor([4, 9])
+    for kind in ("scalar", "mixture_gaussian"):
+        for arm, kw in (("single", {}), ("redq_e10_m2", dict(critic_ensemble=10,
+                                                              ensemble_min_targets=2))):
+            agent = cfg_cls(dist=DistConfig(kind=kind, v_min=-300.0, v_max=0.0), n_step=3)
+            agent = dataclasses.replace(agent, **kw)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                state = create_train_state(agent, SEED, dev)
+                tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                reset_counts()
+                _, metrics, pri = train_step(agent, state, tb,
+                                             subset=subset.to(dev) if kw else None)
+                launches = read_counts()
+                out[dev] = ({k: float(v) for k, v in metrics.items()}, pri.cpu().numpy(), launches)
+            (mc, pc, lc), (mh, ph, lh) = out["cuda"], out["cpu"]
+            name = f"{kind}/{arm}"
+            check(all(np.isfinite(v) for v in mc.values()), f"{name}: non-finite metrics {mc}")
+            check(pc.shape == (B,), f"{name}: priorities shape {pc.shape}")
+            check(sum(lc.values()) == 0 and sum(lh.values()) == 0,
+                  f"{name}: launches {lc} on the card, {lh} on the CPU")
+            pri_err = float(np.abs(pc - ph).max())
+            loss_err = abs(mc["critic_loss"] - mh["critic_loss"])
+            check(np.allclose(pc, ph, rtol=1e-4, atol=1e-4), f"{name}: priorities differ by {pri_err:.3e}")
+            check(loss_err <= 1e-4 * abs(mh["critic_loss"]) + 1e-5,
+                  f"{name}: critic_loss {mc['critic_loss']} vs {mh['critic_loss']}")
+            check(abs(mc["q_mean"] - mh["q_mean"]) <= 0.3, f"{name}: q_mean {mc['q_mean']} vs {mh['q_mean']}")
+            emit({"phase": "heads_step_parity", "head": kind, "arm": arm, "cuda": mc, "cpu": mh,
+                  "priority_max_abs_err": pri_err, "critic_loss_abs_err": loss_err,
+                  "launches_cuda": lc, "subset": subset.tolist() if kw else None, "ok": True})
+
+
+def heads_device_run(Trainer, TrainConfig, head: str, card: str, log_dir: str):
+    """The device-PER learner (K = 8, no fused descent, a 1M-row ring and a
+    2^20-leaf tree, ``debug_guards``) with the scalar or the MoG head at
+    full width on Pendulum: 200 grad steps after the 1000-env-step warmup.
+    B3 exactly once a dispatch (the PER draw), B1f, B1b, B2 and B4 never;
+    finite metrics, ``max_priority`` off 1.0, then ``steady_state``."""
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.config import cli_support
+    from d4pg_tpu_torch.models.critic import DistConfig
+
+    n = HEAD_STEPS
+    # the support `--env pendulum --critic-head <head>` resolves (the JAX
+    # trainer keeps a non-categorical head's support as given)
+    v_min, v_max = cli_support("pendulum", None, None)
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n, eval_episodes=10,
+        log_dir=log_dir, seed=SEED, replay_placement="device", steps_per_dispatch=K,
+        prioritized=True, debug_guards=True,
+        agent=D4PGConfig(dist=DistConfig(kind=head, num_mixtures=5, v_min=v_min, v_max=v_max)),
+    )
+    expect = dict(fused_fwd=0, fused_bwd=0, project=0, tree_count=n // K, fused_step=0)
+    trainer, row, launches, wall, busy, _ = device_learner_run(
+        Trainer, cfg, f"heads_device {head}", expect)
+    dist = trainer.config.agent.dist
+    check((dist.v_min, dist.v_max) == (-300.0, 0.0), f"{head}: support {dist}")
+    check("q_support_frac" not in row, f"heads_device {head}: q_support_frac logged")
+    a = trainer.config.agent
+    emit({
+        "phase": "heads_device", "head": head, "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "head_dim": dist.head_dim,
+                  "num_mixtures": dist.num_mixtures if head == "mixture_gaussian" else None,
+                  "support": [dist.v_min, dist.v_max], "batch": trainer.config.batch_size,
+                  "num_envs": trainer.config.num_envs, "n_step": a.n_step,
+                  "replay_capacity": trainer.config.replay_capacity, "tree_leaves": TREE_L,
+                  "steps_per_dispatch": K},
+        "grad_steps": n, "dispatches": n // K,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
+        "max_priority": float(trainer._dev_per.tree.max_priority), "launches": launches,
+        "steady_state": busy, "ok": True,
+    })
+    return launches
+
+
+def her_pointmass_phase(Trainer, TrainConfig, card: str, log_dir: str):
+    """HER through the trainer: the README's recipe (``--env
+    pointmass_goal --her --n-step 1``) on the device placement with PER and
+    the fused descent (K = 8, a 1M-row ring, ``debug_guards``), full width:
+    the warmup's whole episodes at noise 3.0, then 200 grad steps. B4 and
+    B1b exactly once a grad step, B3 once a dispatch, B1f and B2 never; the
+    replay holding exactly the rows the writer accounting predicts (each
+    live step once as it was and her_k times relabeled) and the ring the
+    same count; finite metrics and ``success_rate``; then the wall ms of
+    single HER episodes (the 50-step loop of one env on the card, its
+    trajectory fetched once)."""
+    import statistics as stats
+
+    import torch
+
+    n = HER_STEPS
+    cfg = TrainConfig(
+        env="pointmass_goal", her=True, n_step=1, total_steps=n, warmup_steps=1000,
+        eval_interval=n, eval_episodes=10, log_dir=log_dir, seed=SEED,
+        replay_placement="device", prioritized=True, fused_descent=True,
+        steps_per_dispatch=K, debug_guards=True,
+    )
+    expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=n // K, fused_step=n)
+    trainer, row, launches, wall, _, _ = device_learner_run(
+        Trainer, cfg, "her_pointmass", expect, steady=False)
+    rows_written, ring_rows = len(trainer.buffer), int(trainer._ring.size)
+    env_steps, episodes = trainer.env_steps, trainer.her_episodes
+    predicted = env_steps * (1 + cfg.her_k)
+    check(rows_written == predicted and ring_rows == rows_written,
+          f"her_pointmass: {rows_written} rows in replay and {ring_rows} in the ring, "
+          f"{predicted} predicted")
+    check(row.get("success_rate") is not None and 0.0 <= row["success_rate"] <= 1.0,
+          f"her_pointmass: success_rate {row.get('success_rate')}")
+    episode_ms = []
+    for _ in range(HER_EPISODES_TIMED):  # after the counts: extra episodes
+        torch.cuda.synchronize()
+        e0 = time.perf_counter()
+        trainer._her_collect_episode()
+        episode_ms.append((time.perf_counter() - e0) * 1e3)
+    a = trainer.config.agent
+    emit({
+        "phase": "her_pointmass", "card": card,
+        "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                  "support": [a.dist.v_min, a.dist.v_max], "batch": trainer.config.batch_size,
+                  "n_step": a.n_step, "her_k": cfg.her_k,
+                  "replay_capacity": trainer.config.replay_capacity, "steps_per_dispatch": K},
+        "grad_steps": n, "dispatches": n // K, "her_episodes": episodes, "env_steps": env_steps,
+        "rows_written": rows_written, "rows_predicted": predicted, "ring_rows": ring_rows,
+        "wall_s_incl_warmup_and_eval": wall, "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "eval_return_mean": row["eval_return_mean"], "success_rate": row["success_rate"],
+        "her_episode_wall_ms": {"median": stats.median(episode_ms), "all": episode_ms},
+        "launches": launches, "ok": True,
+    })
+    return launches
+
 
 def main() -> int:
     import torch
@@ -2463,6 +2655,7 @@ def main() -> int:
         cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
     step_parity(D4PGConfig, create_train_state, train_step)
     stacked_step_parity(D4PGConfig, create_train_state, train_step)
+    heads_step_parity(D4PGConfig, create_train_state, train_step)
     check_sync_guard()
     native_tree_phase()
     paths = {}
@@ -2494,6 +2687,10 @@ def main() -> int:
         paths["on_device_pendulum_bf16"] = on_device_phase(
             TrainConfig, "pendulum_bf16", card, f"{tmp}/on_device_pendulum_bf16")
         paths["host_transfer_bf16"] = wire_host_run(Trainer, TrainConfig, card, f"{tmp}/wire")
+        for head in ("mixture_gaussian", "scalar"):
+            paths[f"heads_device_{head}"] = heads_device_run(
+                Trainer, TrainConfig, head, card, f"{tmp}/heads_{head}")
+        paths["her_pointmass"] = her_pointmass_phase(Trainer, TrainConfig, card, f"{tmp}/her")
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

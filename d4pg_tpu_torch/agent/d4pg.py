@@ -1,19 +1,28 @@
 """D4PG algorithm core (counterpart of ``d4pg_tpu/agent/d4pg.py``).
 
-:func:`train_step` is the categorical step of the reference
-(``agent/d4pg.py:train_step``): target forward, softmax of the target head,
-the fused projection + cross-entropy kernel (or the projection kernel and a
-torch CE), the PER-weighted critic loss, the critic Adam step, the actor's
-−E[Q] loss against the UPDATED critic, the actor Adam step, and the Polyak
-update of both targets. PyTorch runs it eagerly and updates the state in
-place; the JAX version is a pure function of an immutable state.
+:func:`train_step` is the reference's step (``agent/d4pg.py:train_step``):
+target forward, the critic loss of the configured head, the critic Adam
+step, the actor's −E[Q] loss against the UPDATED critic, the actor Adam
+step, and the Polyak update of both targets. The heads' losses:
+
+- categorical: softmax of the target head, the fused projection +
+  cross-entropy kernel (or the projection kernel and a torch CE), PER
+  priority the CE (or the overlap);
+- scalar: the TD(n) target ``r + d·Q'``, a weighted squared loss,
+  priority ``|td|``;
+- mixture of Gaussians: the Gauss-Hermite cross-entropy of ``ops/mog.py``,
+  priority ``|y_mean − E[Z_online]|``.
+
+PyTorch runs it eagerly and updates the state in place; the JAX version
+is a pure function of an immutable state.
 
 With stacked critics (``twin_critic``, ``critic_ensemble``) the critic is
 a :class:`~d4pg_tpu_torch.models.StackedCritic` of E members: the target
 is the clipped-min (twin) or random-subset-min (REDQ) member's whole
 distribution, every member regresses it (one fused-loss launch over the
 E×B rows, the JAX package's vmap), the loss is the members' sum and the
-priorities their mean. Under ``compute_dtype="bfloat16"`` the networks
+priorities their mean. The member is chosen by :func:`_critic_value`, the
+head's E[Z], so the stacks take every head. Under ``compute_dtype="bfloat16"`` the networks
 compute in bfloat16 on float32 master weights.
 
 :func:`gather_batches` and :func:`fused_train_scan` are the megastep's
@@ -34,10 +43,12 @@ from d4pg_tpu_torch.agent.state import (
     D4PGConfig,
     TrainState,
     check_supported,
+    head_of,
     stack_of,
     stacked_critics,
 )
 from d4pg_tpu_torch.models import Actor, Critic, StackedCritic
+from d4pg_tpu_torch.models.critic import mixture_gaussian_mean
 from d4pg_tpu_torch.ops import (
     CategoricalSupport,
     ce_and_overlap,
@@ -53,6 +64,7 @@ from d4pg_tpu_torch.ops import (
     project,
 )
 from d4pg_tpu_torch.ops.cuda_fused_step import fused_categorical_loss_descent
+from d4pg_tpu_torch.ops.mog import mog_bellman_targets, mog_cross_entropy
 
 
 def support_of(config: D4PGConfig) -> CategoricalSupport:
@@ -125,7 +137,7 @@ def create_train_state(
         subset_seed = int(torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64))
         subset_gen = torch.Generator(dev).manual_seed(subset_seed)
     return TrainState(actor, critic, target_actor, target_critic, actor_opt, critic_opt,
-                      stack=stack_of(config), subset_gen=subset_gen)
+                      stack=stack_of(config), subset_gen=subset_gen, head=head_of(config))
 
 
 @torch.no_grad()
@@ -233,6 +245,33 @@ def _loss_terms(config, support, pred, target_probs, batch, descent):
     return ce, ov, None
 
 
+def _critic_terms(config, support, pred, target_head, batch, descent):
+    """Per-sample (loss, priority, next_idx) of the configured head, [B] or
+    [E, B] for a stacked ``pred``; ``target_head`` [B, H] is detached.
+    ``next_idx`` is the fused descent's (categorical only), else None."""
+    kind = config.dist.kind
+    reward, discount = batch["reward"], batch["discount"]
+    if kind == "categorical":
+        target_probs = torch.softmax(target_head, dim=-1)
+        ce, ov, next_idx = _loss_terms(config, support, pred, target_probs, batch, descent)
+        return ce, (ov if config.priority_kind == "overlap" else ce), next_idx
+    if kind == "scalar":
+        # plain DDPG: the TD(n) target
+        td = pred[..., 0] - (reward + discount * target_head[..., 0])
+        return td.square(), td.abs(), None
+    if kind == "mixture_gaussian":
+        m = config.dist.num_mixtures
+        y_nodes, node_w = mog_bellman_targets(
+            target_head, reward, discount, m, config.dist.quadrature_points
+        )
+        # a scalar TD magnitude for the priorities: the CE of a continuous
+        # density can be negative, which scrambles |.|-based rankings
+        y_mean = reward + discount * mixture_gaussian_mean(target_head, m)
+        ce = mog_cross_entropy(pred, y_nodes, node_w, m)
+        return ce, (y_mean - mixture_gaussian_mean(pred, m)).abs(), None
+    raise ValueError(kind)
+
+
 def draw_subset(config: D4PGConfig, state: TrainState) -> torch.Tensor:
     """REDQ's target subset for one grad step: M = ``ensemble_min_targets``
     distinct members of E, uniformly, as int64 indices on the state's
@@ -244,18 +283,30 @@ def draw_subset(config: D4PGConfig, state: TrainState) -> torch.Tensor:
     return u.argsort()[: config.ensemble_min_targets]
 
 
+def _critic_value(config: D4PGConfig, support, head: torch.Tensor) -> torch.Tensor:
+    """E[Z] of a critic head [..., H] under the configured head kind → [...]."""
+    kind = config.dist.kind
+    if kind == "categorical":
+        return expected_value(support, torch.softmax(head, dim=-1))
+    if kind == "scalar":
+        return head[..., 0]
+    if kind == "mixture_gaussian":
+        return mixture_gaussian_mean(head, config.dist.num_mixtures)
+    raise ValueError(kind)
+
+
 def _target_head(config, support, state, next_obs, subset):
-    """The target critic's logits [B, A] that the Bellman backup projects:
-    the single critic's; under twin critics, per sample, the head of the
-    target critic with the smaller mean (member 0 on ties); under REDQ,
-    per sample, the head of the smallest-mean member of ``subset`` (the
-    first on ties). The whole distribution of the chosen member, never an
-    elementwise min of probabilities."""
+    """The target critic's head [B, H] that the Bellman backup uses: the
+    single critic's; under twin critics, per sample, the head of the
+    target critic with the smaller E[Z] (member 0 on ties); under REDQ,
+    per sample, the head of the smallest-E[Z] member of ``subset`` (the
+    first on ties). The whole head of the chosen member, never an
+    elementwise min."""
     next_action = state.target_actor(next_obs)
-    heads = state.target_critic(next_obs, next_action)        # [B, A] or [E, B, A]
+    heads = state.target_critic(next_obs, next_action)        # [B, H] or [E, B, H]
     if not (config.twin_critic or config.critic_ensemble):
         return heads
-    vals = expected_value(support, torch.softmax(heads, dim=-1))  # [E, B]
+    vals = _critic_value(config, support, heads)               # [E, B]
     if config.twin_critic:
         return torch.where((vals[0] <= vals[1])[:, None], heads[0], heads[1])
     sub_vals = vals.index_select(0, subset)                     # [M, B]
@@ -279,8 +330,8 @@ def train_step(
         device PER tree for the NEXT step's prefixes. ``chunk_offsets``
         ([num_chunks(L)] float32, the leaf mass before each 1024-leaf
         chunk) are those kernel B3 returned for ``leaves`` this dispatch
-        (its plain version's on the CPU). Requires
-        ``projection_backend="fused"``. Under stacked critics the one
+        (its plain version's on the CPU). Requires the categorical head
+        and ``projection_backend="fused"``. Under stacked critics the one
         launch descends once for all members.
       subset: REDQ only: the [M] member indices of this step's target
         subset (int64, on the state's device), in place of the draw from
@@ -293,10 +344,13 @@ def train_step(
       ``descent``, a fourth element: next_idx [B] int32, the raw leaf
       indices before the fill clamp.
     """
-    if descent is not None and config.projection_backend != "fused":
+    if descent is not None and not (
+        config.dist.kind == "categorical" and config.projection_backend == "fused"
+    ):
         raise ValueError(
-            "descent= (the fused-descent tier) requires projection_backend="
-            f"'fused', got {config.projection_backend!r}"
+            "descent= (the fused-descent tier) requires the categorical head "
+            f"with projection_backend='fused' (got kind={config.dist.kind!r}, "
+            f"backend={config.projection_backend!r})"
         )
     n_stack = stacked_critics(config)
     if config.critic_ensemble and subset is None:
@@ -304,20 +358,19 @@ def train_step(
     support = support_of(config)
     weights = batch.get("weights")
 
-    # ---- target: softmax(Z_target(s', μ_target(s'))) ----
+    # ---- target: Z_target(s', μ_target(s')) ----
     # Under bfloat16 each target layer casts its float32 Polyak master to
     # bfloat16 as it runs, the values of the JAX step's bf16 copy of the
     # target params.
     with torch.no_grad():
-        target_probs = torch.softmax(
-            _target_head(config, support, state, batch["next_obs"], subset), dim=-1
-        )
+        target_head = _target_head(config, support, state, batch["next_obs"], subset)
 
     # ---- critic: every stacked member regresses the same target ----
-    pred = state.critic(batch["obs"], batch["action"])           # [B, A] or [E, B, A]
-    ce, overlap, next_idx = _loss_terms(config, support, pred, target_probs, batch, descent)
-    weighted = ce if weights is None else weights * ce
-    per_sample = overlap if config.priority_kind == "overlap" else ce
+    pred = state.critic(batch["obs"], batch["action"])           # [B, H] or [E, B, H]
+    loss, per_sample, next_idx = _critic_terms(
+        config, support, pred, target_head, batch, descent
+    )
+    weighted = loss if weights is None else weights * loss
     if n_stack:
         # the members' losses summed (their gradients are independent),
         # the priorities their mean
@@ -337,7 +390,7 @@ def train_step(
     head = state.critic(batch["obs"], a, member=0) if config.twin_critic else state.critic(
         batch["obs"], a
     )
-    q_mean = expected_value(support, torch.softmax(head, dim=-1)).mean()
+    q_mean = _critic_value(config, support, head).mean()
     actor_loss = -q_mean
     if config.action_l2:
         actor_loss = actor_loss + config.action_l2 * a.square().mean()
@@ -359,9 +412,12 @@ def train_step(
         "actor_loss": actor_loss.detach(),
         "priority_mean": priorities.mean(),
         "q_mean": q_mean,
-        "q_support_frac": (q_mean - config.dist.v_min)
-        / (config.dist.v_max - config.dist.v_min),
     }
+    if config.dist.kind == "categorical":
+        # the scalar and MoG heads are unbounded: no support to fill
+        metrics["q_support_frac"] = (q_mean - config.dist.v_min) / (
+            config.dist.v_max - config.dist.v_min
+        )
     if descent is not None:
         return state, metrics, priorities, next_idx
     return state, metrics, priorities

@@ -4,8 +4,8 @@
 ``D4PGConfig`` keeps the reference's field names and defaults for what
 the port carries, except ``projection_backend``, whose ladder the port
 names in its own words (see the field). Of the options it does not carry
-yet it keeps the ones a user sets (the head kind, pixels);
-:func:`check_supported` refuses any value but the default.
+yet it keeps the one a user sets (pixels); :func:`check_supported`
+refuses any value but the default.
 
 The JAX ``TrainState`` is an immutable pytree; here it is a small class
 that owns the four networks and the two optimizers, updated in place by
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from d4pg_tpu_torch.models.critic import DistConfig
+from d4pg_tpu_torch.models.critic import HEAD_KINDS, DistConfig
 
 
 @dataclass(frozen=True)
@@ -106,14 +106,14 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 def check_supported(config: D4PGConfig) -> None:
     """Raise ``NotImplementedError`` for an option this slice of the port
     does not carry, naming the ROADMAP item it waits for, and
-    ``ValueError`` for an illegal critic stack or compute dtype."""
-    gaps = [
-        (config.dist.kind != "categorical", f"the {config.dist.kind!r} critic head (ROADMAP A10)"),
-        (config.pixel_shape, "pixel observations (ROADMAP A10)"),
-    ]
-    for present, what in gaps:
-        if present:
-            raise NotImplementedError(f"{what} is not ported to d4pg_tpu_torch yet")
+    ``ValueError`` for an unknown head, an illegal critic stack or compute
+    dtype."""
+    if config.pixel_shape:
+        raise NotImplementedError(
+            "pixel observations (ROADMAP A10) are not ported to d4pg_tpu_torch yet"
+        )
+    if config.dist.kind not in HEAD_KINDS:
+        raise ValueError(f"unknown critic head kind: {config.dist.kind}")
     stacked_critics(config)
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
@@ -134,12 +134,16 @@ class TrainState:
     ``stack`` records the critic configuration the state was built for
     (``twin_critic``, ``critic_ensemble``, ``compute_dtype``), which a
     checkpoint carries so that a resume under another one is refused.
-    ``subset_gen`` is the device generator of the REDQ target subsets
-    (``None`` without an ensemble), the JAX ``TrainState.key``'s one use
-    here: it is checkpointed, so a resumed run continues its stream."""
+    ``head`` records the critic head (kind, and M for the mixture head),
+    which the checkpoint also carries: a MoG head of M = 17 is as wide as
+    the 51-atom categorical one, so the ``out`` layer's shape cannot tell
+    them apart. ``subset_gen`` is the device generator of the REDQ target
+    subsets (``None`` without an ensemble), the JAX ``TrainState.key``'s
+    one use here: it is checkpointed, so a resumed run continues its
+    stream."""
 
     def __init__(self, actor, critic, target_actor, target_critic, actor_opt, critic_opt,
-                 stack=None, subset_gen=None):
+                 stack=None, subset_gen=None, head=None):
         self.actor = actor
         self.critic = critic
         self.target_actor = target_actor
@@ -148,6 +152,7 @@ class TrainState:
         self.critic_opt = critic_opt
         self.stack = dict(stack or STACK_DEFAULTS)
         self.subset_gen = subset_gen
+        self.head = dict(head or HEAD_DEFAULTS)
         self.step = 0
 
 
@@ -157,3 +162,13 @@ STACK_DEFAULTS = {"twin_critic": False, "critic_ensemble": 0, "compute_dtype": "
 
 def stack_of(config: D4PGConfig) -> dict:
     return {k: getattr(config, k) for k in STACK_DEFAULTS}
+
+
+# The critic head of a state built before the other heads existed.
+HEAD_DEFAULTS = {"critic_head": "categorical", "num_mixtures": 0}
+
+
+def head_of(config: D4PGConfig) -> dict:
+    """The head record: the kind, and M for the mixture head (else 0)."""
+    mog = config.dist.kind == "mixture_gaussian"
+    return {"critic_head": config.dist.kind, "num_mixtures": config.dist.num_mixtures if mog else 0}

@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from d4pg_tpu_torch.agent.state import D4PGConfig
+from d4pg_tpu_torch.models.critic import DistConfig
 from d4pg_tpu_torch.replay.per import TREE_BACKENDS
 
 
@@ -21,6 +22,11 @@ class TrainConfig:
     max_episode_steps: Optional[int] = None  # None → env default
     action_repeat: int = 1             # must be 1 for the ported envs
     num_envs: int = 16
+    # Hindsight relabeling ("future" strategy, her_k relabels a step) on a
+    # goal env: whole single-env episodes through replay/her.py. Ignored by
+    # --on-device, as in the JAX package.
+    her: bool = False
+    her_k: int = 4
     total_steps: int = 100_000         # learner grad steps
     warmup_steps: int = 1_000          # env steps before learning
     env_steps_per_train_step: float = 1.0
@@ -117,11 +123,23 @@ ENV_PRESETS = {
 }
 
 
+def cli_support(env: str, v_min: Optional[float], v_max: Optional[float]) -> tuple:
+    """The support the JAX CLI resolves (``train.py:config_from_args``):
+    the env preset's pair first (the ``DistConfig`` defaults for an env
+    without one), then each explicit ``--v-min`` / ``--v-max`` wins on its
+    own."""
+    preset = ENV_PRESETS.get(env)
+    defaults = DistConfig()
+    lo, hi = (preset["v_min"], preset["v_max"]) if preset else (defaults.v_min, defaults.v_max)
+    return (lo if v_min is None else v_min), (hi if v_max is None else v_max)
+
+
 def apply_env_preset(config: TrainConfig) -> TrainConfig:
     """Fill obs/action dims, the episode limit and the replay capacity from
-    the env preset, and the categorical support too unless the caller moved
-    it off the ``DistConfig`` defaults (as ``_reconcile_config`` of the JAX
-    trainer does: an explicit support is never clobbered)."""
+    the env preset. The support follows the JAX trainer's
+    ``_reconcile_config``: a support equal to the ``DistConfig`` defaults
+    is swapped for the preset's, for the categorical head only; any other
+    support (an explicit one, or the CLI's resolved one) is kept."""
     preset = ENV_PRESETS.get(config.env)
     if preset is None:
         raise NotImplementedError(
@@ -129,8 +147,8 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
             f"A9); available: {sorted(ENV_PRESETS)}"
         )
     dist = config.agent.dist
-    defaults = type(dist)()
-    if (dist.v_min, dist.v_max) == (defaults.v_min, defaults.v_max):
+    defaults = DistConfig()
+    if dist.kind == "categorical" and (dist.v_min, dist.v_max) == (defaults.v_min, defaults.v_max):
         dist = dataclasses.replace(dist, v_min=preset["v_min"], v_max=preset["v_max"])
     agent = dataclasses.replace(
         config.agent,
@@ -247,11 +265,17 @@ def check_placement(config: TrainConfig) -> None:
         raise ValueError(
             f"tree_backend must be one of {TREE_BACKENDS}, got {config.tree_backend!r}"
         )
+    if config.fused_descent and config.agent.dist.kind != "categorical":
+        # the reference's fused_descent_categorical_only gap, in its words
+        raise ValueError(
+            "fused_descent_categorical_only: --fused-descent fuses into the "
+            "CATEGORICAL projection kernel; quantile/IQN heads keep the "
+            "separate-programs tier"
+        )
     if config.fused_descent:
         gaps = [
             (config.replay_placement != "device", "replay_placement='device'"),
             (not config.prioritized, "prioritized replay"),
-            (config.agent.dist.kind != "categorical", "the categorical critic head"),
             (config.agent.projection_backend != "fused", "projection_backend='fused'"),
         ]
         missing = [what for gap, what in gaps if gap]

@@ -1,10 +1,13 @@
 """Distributional critic (counterpart of ``d4pg_tpu/models/critic.py``).
 
 State through the first layer, the action concatenated after it, the
-remaining ReLU layers, then the categorical (C51) head, which emits float32
-LOGITS with atoms in the last axis. Hidden layers are fan-in initialised,
-the head at U[0, 3e-4). Only the categorical head is ported; the scalar and
-mixture-of-Gaussians heads wait for ROADMAP A10.
+remaining ReLU layers, then a float32 value head of one of three kinds
+(``DistConfig.kind``): the categorical (C51) head's LOGITS with atoms in
+the last axis, a scalar Q (plain DDPG), or the mixture-of-Gaussians head's
+[logits | means | log-stds] blocks of M components each. Hidden layers are
+fan-in initialised, the head at U[0, 3e-4); the MoG head's bias adds its
+component means spread over [v_min, v_max] and log-stds at one bin width
+(:func:`mog_bias_offsets`), as the JAX package initialises it.
 
 Under the bfloat16 compute dtype every layer runs as the Flax
 ``Dense(dtype=bfloat16, param_dtype=float32)`` does
@@ -30,24 +33,57 @@ from torch import nn
 from d4pg_tpu_torch.models.init import dense, fanin_uniform_, small_uniform_
 
 
+HEAD_KINDS = ("categorical", "scalar", "mixture_gaussian")
+
+
 @dataclass(frozen=True)
 class DistConfig:
-    """Critic-head configuration (the reference's fields for the
-    categorical head; the mixture head's wait with it for ROADMAP A10)."""
+    """Critic-head configuration (the JAX ``DistConfig``'s fields)."""
 
-    kind: str = "categorical"  # only "categorical" is ported
+    kind: str = "categorical"  # "categorical" | "scalar" | "mixture_gaussian"
     num_atoms: int = 51
     v_min: float = -10.0
     v_max: float = 10.0
+    num_mixtures: int = 5
+    # Gauss-Hermite nodes per target component of the MoG Bellman
+    # cross-entropy (ops/mog.py)
+    quadrature_points: int = 8
 
     @property
     def head_dim(self) -> int:
-        if self.kind != "categorical":
-            raise NotImplementedError(
-                f"critic head {self.kind!r} is not ported yet (ROADMAP A10); "
-                "the port has the categorical head only"
-            )
-        return self.num_atoms
+        if self.kind == "categorical":
+            return self.num_atoms
+        if self.kind == "scalar":
+            return 1
+        if self.kind == "mixture_gaussian":
+            return 3 * self.num_mixtures
+        raise ValueError(f"unknown critic head kind: {self.kind}")
+
+
+def mog_bias_offsets(dist: DistConfig) -> torch.Tensor:
+    """What the MoG head's bias init adds to its U[0, scale) draw, [3M]
+    float32: 0 on the logits, the centers ``v_min + (j + 0.5)·span/M`` on
+    the means and ``log(span/M)`` on the log-stds (float32 arithmetic in
+    the JAX package's order)."""
+    m = dist.num_mixtures
+    span = dist.v_max - dist.v_min
+    centers = dist.v_min + (torch.arange(m, dtype=torch.float32) + 0.5) * span / m
+    log_std = torch.log(torch.tensor(span / m, dtype=torch.float32))
+    return torch.cat([torch.zeros(m), centers, log_std.expand(m)])
+
+
+def mixture_gaussian_params(head: torch.Tensor, num_mixtures: int):
+    """Split a mixture head [..., 3M] into (log-weights, means, stds):
+    log-softmax of the logits, the means, ``exp(clip(log_std, -5, 5))``."""
+    logits, means, log_stds = head.split(num_mixtures, dim=-1)
+    return (torch.log_softmax(logits, dim=-1), means,
+            torch.exp(log_stds.clamp(-5.0, 5.0)))
+
+
+def mixture_gaussian_mean(head: torch.Tensor, num_mixtures: int) -> torch.Tensor:
+    """E[Z] of the mixture head [..., 3M] → [...]."""
+    log_w, means, _ = mixture_gaussian_params(head, num_mixtures)
+    return (torch.exp(log_w) * means).sum(dim=-1)
 
 
 class Critic(nn.Module):
@@ -76,6 +112,9 @@ class Critic(nn.Module):
             for i in range(self.num_hidden):
                 fanin_uniform_(self.get_submodule(f"hidden_{i}"), generator)
             small_uniform_(self.out, final_init_scale, generator)
+            if dist.kind == "mixture_gaussian":
+                with torch.no_grad():
+                    self.out.bias.add_(mog_bias_offsets(dist))
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

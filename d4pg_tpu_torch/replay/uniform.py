@@ -87,6 +87,20 @@ class ReplayBuffer:
             self._total_added += n
         return idx
 
+    def add(self, obs, action, reward, next_obs, discount) -> np.ndarray:
+        """Insert one transition (the n-step and hindsight writers' path):
+        a one-row :meth:`add_batch`, so a prioritized buffer gives the row
+        the max priority."""
+        return self.add_batch(
+            Transition(
+                np.asarray(obs)[None],
+                np.asarray(action)[None],
+                np.asarray([reward]),
+                np.asarray(next_obs)[None],
+                np.asarray([discount]),
+            )
+        )
+
     def gather(self, idx: np.ndarray) -> Mapping[str, np.ndarray]:
         with self._lock:  # never a torn row
             return {

@@ -12,8 +12,9 @@ generator saved is a REDQ ensemble's target-subset generator
 (``TrainState.subset_gen``), the use the JAX ``TrainState.key`` has here:
 the JAX checkpoint carries that key, so a resumed run continues its subset
 stream. The state's critic configuration (``TrainState.stack``: twin,
-ensemble width, compute dtype) is saved too, and a restore into a state
-built for another one raises :class:`StackMismatch` naming the field.
+ensemble width, compute dtype) and its critic head (``TrainState.head``:
+kind and mixture width) are saved too, and a restore into a state built
+for another one raises :class:`StackMismatch` naming the field.
 
 Layout: each step is a directory ``<directory>/<step>/state.pt``, written
 into ``<step>.tmp/`` and renamed into place (Orbax's finalize-by-rename),
@@ -45,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from d4pg_tpu_torch.agent.state import STACK_DEFAULTS, TrainState
+from d4pg_tpu_torch.agent.state import HEAD_DEFAULTS, STACK_DEFAULTS, TrainState
 from d4pg_tpu_torch.runtime import manifest as _manifest
 
 STATE_FILE = "state.pt"
@@ -55,7 +56,7 @@ OPTIMIZERS = ("actor_opt", "critic_opt")
 
 class StackMismatch(ValueError):
     """A checkpoint of another critic configuration (twin, ensemble width,
-    compute dtype) than the run that restores it. Not a torn file: the
+    compute dtype, critic head) than the run that restores it. Not a torn file: the
     restore raises rather than fall back to an older step."""
 
 
@@ -63,7 +64,7 @@ def state_dict_of(state: TrainState) -> dict:
     """Everything one checkpoint saves: the step, every network's and every
     optimizer's ``state_dict``, the critic configuration and, with a REDQ
     ensemble, the subset generator's state."""
-    out = {"step": int(state.step), "stack": dict(state.stack)}
+    out = {"step": int(state.step), "stack": dict(state.stack), "head": dict(state.head)}
     for name in NETWORKS + OPTIMIZERS:
         out[name] = getattr(state, name).state_dict()
     if state.subset_gen is not None:
@@ -75,17 +76,19 @@ def check_stack(state: TrainState, saved: dict) -> None:
     """Raise :class:`StackMismatch` naming every field of the critic
     configuration where the checkpoint and the live state differ. A
     checkpoint written before the field existed is a single float32
-    critic."""
-    saved_stack = {**STACK_DEFAULTS, **saved.get("stack", {})}
-    diff = [
-        f"{k}={saved_stack[k]!r} in the checkpoint, {state.stack[k]!r} in this run"
-        for k in STACK_DEFAULTS if saved_stack[k] != state.stack[k]
-    ]
+    categorical critic."""
+    diff = []
+    for key, defaults, live in (("stack", STACK_DEFAULTS, state.stack),
+                                ("head", HEAD_DEFAULTS, state.head)):
+        was = {**defaults, **saved.get(key, {})}
+        diff += [f"{k}={was[k]!r} in the checkpoint, {live[k]!r} in this run"
+                 for k in defaults if was[k] != live[k]]
     if diff:
         raise StackMismatch(
             "checkpoint of another critic configuration: " + "; ".join(diff)
             + " — resume with the flags it was trained with (--twin-critic, "
-            "--critic-ensemble, --compute-dtype) or use a fresh --log-dir"
+            "--critic-ensemble, --compute-dtype, --critic-head, --num-mixtures) "
+            "or use a fresh --log-dir"
         )
 
 

@@ -20,13 +20,15 @@ Four bodies, one per tier:
 - :func:`megastep_uniform_body`: uniform draws, no IS weights;
 - :func:`megastep_device_per_body`: the stratified PER draw over the whole
   [K, B] block descended once (kernel B3), IS
-  weights from the leaves at dispatch start, K steps on the fused loss
-  kernels (B1f, B1b), then the last-wins write-back;
+  weights from the leaves at dispatch start, K steps (the categorical
+  head's on the fused loss kernels B1f and B1b, the scalar and MoG heads'
+  in plain PyTorch), then the last-wins write-back;
 - :func:`megastep_device_per_fused_body`: one B3 call descends the first
   step's prefixes and returns the tree's chunk offsets; from then on each
   step's loss kernel (B4) also descends the NEXT step's prefixes on those
-  offsets, so a dispatch runs B3 once and B4 K times;
-- :func:`megastep_hybrid_body`: the ``hybrid`` placement. The host PER
+  offsets, so a dispatch runs B3 once and B4 K times (categorical head
+  only);
+- :func:`megastep_hybrid_body`: the ``hybrid`` placement (any head). The host PER
   tree drew the [K, B] indices and IS weights (the only host-to-device
   copy of the dispatch); the rows come from the device ring, and the
   [K, B] priorities go back to the host tree (the only copy back).
@@ -106,7 +108,7 @@ def megastep_device_per_body(
 ) -> dict:
     """K grad steps on PER draws from the device tree: stratified prefixes,
     one B3 descent of the whole [K, B] block, IS weights from the leaves
-    and β at dispatch start, K fused-loss steps, then the last-wins
+    and β at dispatch start, K train steps, then the last-wins
     priority write-back and the max-priority update, all IN PLACE on
     ``tree``."""
     pre = _draw_prefixes(generator, k, batch, tree.sums[1], prefixes)

@@ -73,6 +73,21 @@ The asynchronous host data plane (the JAX trainer's ``--prefetch``,
   pending then and no chunk is staged; a concurrent writer is what gives
   it rows.
 
+Hindsight relabeling (``her``, the JAX trainer's ``_setup_her`` and
+``_her_collect_episode_jax`` for a pure goal env, ``pointmass_goal``):
+each collection is ONE episode of a single env on the device, stepped to
+``max_episode_steps`` by :meth:`Trainer._her_collect_episode` with the
+rollout's own generator (actions, noise, the ``random_eps`` mixture and the
+reset), the trajectory fetched to the host once, cut to its live prefix
+(:func:`live_prefix`) and written through a
+:class:`~d4pg_tpu_torch.replay.her.HindsightWriter` (the original steps and
+``her_k`` "future" relabels each, through an n-step writer) into the host
+buffer, which the ring mirrors on the device and hybrid placements. The
+warmup collects whole episodes at noise scale 3.0; the loop collects one
+each time the collect budget reaches ``max_episode_steps``; ``env_steps``
+counts the live steps. A host goal env (its own episodes, or the actor
+pool's with ``num_envs > 1``) waits for ROADMAP A5 (d).
+
 Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
 the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
 leg (``utils/profiling.py``). Under ``debug_guards`` every host dispatch
@@ -109,7 +124,13 @@ import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
-from d4pg_tpu_torch.agent import create_train_state, make_noise, train_step
+from d4pg_tpu_torch.agent import (
+    act_deterministic,
+    create_train_state,
+    make_noise,
+    noisy_explore,
+    train_step,
+)
 from d4pg_tpu_torch.agent.d4pg import fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
 from d4pg_tpu_torch.config import (
@@ -120,7 +141,7 @@ from d4pg_tpu_torch.config import (
     check_placement,
     check_wire_dtypes,
 )
-from d4pg_tpu_torch.envs import make_env
+from d4pg_tpu_torch.envs import PointMassGoal, make_env
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -130,6 +151,8 @@ from d4pg_tpu_torch.replay import (
 )
 from d4pg_tpu_torch.replay.device_per import DevicePerSync
 from d4pg_tpu_torch.replay.device_ring import DeviceRingSync, device_ring_init
+from d4pg_tpu_torch.replay.her import HindsightWriter
+from d4pg_tpu_torch.replay.nstep_writer import NStepWriter
 from d4pg_tpu_torch.runtime import megastep
 from d4pg_tpu_torch.runtime.checkpoint import (
     CheckpointManager,
@@ -149,6 +172,21 @@ from d4pg_tpu_torch.weights import best_actor_path, save_best_actor
 SEGMENT_LEN = 32  # env steps per env per collect (the JAX sync trainer's)
 WIRE_FIELDS = ("obs", "next_obs")  # what --transfer-dtype narrows on the wire
 WB_JOIN_S = 60.0  # how long stopping or draining the write-back thread may take
+
+
+# The fields of one HER rollout step, in the order they are fetched.
+HER_FIELDS = ("observation", "achieved_goal", "desired_goal", "action", "reward",
+              "next_observation", "next_achieved_goal", "terminated", "truncated")
+
+
+def live_prefix(terminated: np.ndarray, truncated: np.ndarray) -> tuple[int, bool]:
+    """(T, terminated) of an episode's live prefix: the steps up to and
+    including the first terminated or truncated flag (all of them if none
+    is set), and whether that last step terminated. What a batched env
+    does after its episode ended belongs to no episode."""
+    done = (terminated > 0.5) | (truncated > 0.5)
+    T = int(done.argmax()) + 1 if done.any() else len(done)
+    return T, bool(terminated[T - 1] > 0.5)
 
 
 def _rss_gb() -> float:
@@ -208,6 +246,9 @@ class Trainer:
             config.num_envs, self._collect_gen, self.device
         )
         self.noise_states = noise_fns[0]()
+        self.her_writer = None
+        if config.her:
+            self._setup_her()
 
         self._ring = self._ring_sync = self._dev_per = self._megastep = None
         self._dispatches = 0
@@ -394,8 +435,108 @@ class Trainer:
             self.env_steps, agent.noise_decay_steps, agent.noise_scale_final
         )
 
+    # -------------------------------------------------------------------- HER
+    def _make_her_writer(self, reward_fn) -> HindsightWriter:
+        cfg = self.config
+        return HindsightWriter(
+            writer_factory=lambda: NStepWriter(self.buffer, cfg.n_step, cfg.agent.gamma),
+            compute_reward=reward_fn,
+            k_future=cfg.her_k,
+            rng=self._rng,
+        )
+
+    def _setup_her(self) -> None:
+        """The hindsight writer and the single-env rollout of a pure goal
+        env. A host goal env (``is_goal_env``: the gymnasium adapters)
+        waits for the host env adapters and the actor pool."""
+        cfg = self.config
+        env = self.env
+        if getattr(env, "is_goal_env", False):
+            what = (
+                f"--her with num_envs={cfg.num_envs} collects through the host actor "
+                "pool's goal views" if cfg.num_envs > 1
+                else "--her on a host goal env collects its episodes on the host"
+            )
+            raise NotImplementedError(
+                f"{what}; the host env adapters and the actor pool (ROADMAP A5 (d)) "
+                "are not ported to d4pg_tpu_torch yet"
+            )
+        if not isinstance(env, PointMassGoal):
+            raise ValueError(f"--her needs a goal env, got {cfg.env}")
+
+        def reward_fn(ag, dg):
+            return float(env.compute_reward(torch.from_numpy(ag), torch.from_numpy(dg)))
+
+        self.her_writer = self._make_her_writer(reward_fn)
+        init, self._her_noise_sample, self._her_noise_reset = make_noise(
+            cfg.agent, (), self.device
+        )
+        self._her_noise = init()
+        # the rollout's own stream: resets, actions' noise and the mixture
+        self._her_gen = torch.Generator(self.device).manual_seed(cfg.seed + 4)
+        self.her_episodes = 0
+
+    @torch.no_grad()
+    def _her_rollout(self, scale: float) -> dict:
+        """One episode of one env on the device, stepped to
+        ``max_episode_steps`` whatever its flags say (the JAX ``lax.scan``
+        as a loop); the trajectory comes to the host in ONE copy. Returns
+        the HER_FIELDS as [T_max, ...] numpy arrays."""
+        env, agent, gen = self.env, self.config.agent, self._her_gen
+        state, obs = env.reset(1, gen, self.device)
+        nstate = self._her_noise
+        rows = []
+        for _ in range(env.max_episode_steps):
+            a = act_deterministic(agent, self.state.actor, obs)
+            a, nstate = noisy_explore(agent, self._her_noise_sample, a, gen, nstate, scale)
+            g0 = env.goal_obs(state)
+            state, obs, r, term, trunc = env.step(state, a)
+            g1 = env.goal_obs(state)
+            rows.append(torch.cat([
+                g0.observation, g0.achieved_goal, g0.desired_goal, a, r[:, None],
+                g1.observation, g1.achieved_goal, term[:, None], trunc[:, None],
+            ], dim=-1))
+        self._her_noise = self._her_noise_reset(nstate)
+        traj = torch.cat(rows).cpu().numpy()        # [T_max, F], the one fetch
+        widths = (env.observation_dim, env.goal_dim, env.goal_dim, agent.action_dim, 1,
+                  env.observation_dim, env.goal_dim, 1, 1)
+        cols = np.split(traj, np.cumsum(widths)[:-1], axis=1)
+        out = dict(zip(HER_FIELDS, cols))
+        for k in ("reward", "terminated", "truncated"):
+            out[k] = out[k][:, 0]
+        return out
+
+    def _her_collect_episode(self, noise_scale: Optional[float] = None) -> float:
+        """One exploratory episode through the hindsight writer; returns its
+        reward sum. Only the live prefix is written and counted."""
+        scale = self._noise_scale() if noise_scale is None else noise_scale
+        with self.timers.stage("env_step"):
+            traj = self._her_rollout(scale)
+        T, terminated = live_prefix(traj["terminated"], traj["truncated"])
+        with self.timers.stage("replay_insert"):
+            for t in range(T):
+                self.her_writer.add(
+                    observation=traj["observation"][t],
+                    achieved_goal=traj["achieved_goal"][t],
+                    desired_goal=traj["desired_goal"][t],
+                    action=traj["action"][t],
+                    reward=float(traj["reward"][t]),
+                    next_observation=traj["next_observation"][t],
+                    next_achieved_goal=traj["next_achieved_goal"][t],
+                    terminated=terminated and t == T - 1,
+                )
+            self.her_writer.end_episode(truncated=not terminated)
+        self.env_steps += T
+        self.her_episodes += 1
+        return float(traj["reward"][:T].sum())
+
     # ------------------------------------------------------------ collection
     def _collect_once(self, noise_scale: Optional[float] = None) -> None:
+        """One collection: a segment of every env into replay, or with HER
+        one episode through the hindsight writer."""
+        if self.her_writer is not None:
+            self._her_collect_episode(noise_scale)
+            return
         scale = self._noise_scale() if noise_scale is None else noise_scale
         with self.timers.stage("env_step"):
             self.env_states, self.obs, self.noise_states, flat, _ = self._collect(
@@ -732,7 +873,8 @@ class Trainer:
         self.warmup()
         t_start = time.monotonic()
         env_steps_start = self.env_steps
-        per_collect = cfg.num_envs * SEGMENT_LEN
+        # HER: one episode a collection, budgeted at its full length
+        per_collect = cfg.max_episode_steps if cfg.her else cfg.num_envs * SEGMENT_LEN
         collect_budget = 0.0
         last: dict = {}
         done = 0

@@ -35,6 +35,10 @@ Examples:
         # the large-batch recipe (B = 2048, K = 4) with a REDQ ensemble
     python -m d4pg_tpu_torch.train --env hopper --on-device --num-envs 64 \
         --n-step 3 --twin-critic     # twin critics, the preset's [0, 500]
+    python -m d4pg_tpu_torch.train --env pendulum --critic-head mixture_gaussian \
+        --num-mixtures 5 --replay-placement device --p-replay --steps-per-dispatch 8
+    python -m d4pg_tpu_torch.train --env pointmass_goal --her --n-step 1
+        # hindsight relabeling, one single-env episode at a time
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -48,14 +52,12 @@ import dataclasses
 import sys
 
 from d4pg_tpu_torch.agent.state import D4PGConfig
-from d4pg_tpu_torch.config import TrainConfig
+from d4pg_tpu_torch.config import TrainConfig, cli_support
 from d4pg_tpu_torch.models.critic import DistConfig
 
 # Flags of the JAX CLI (``train.py:build_parser``) whose feature the port
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
-    "--critic-head": "the scalar and mixture-of-Gaussians critic heads (ROADMAP A10)",
-    "--her": "hindsight relabeling (ROADMAP A10)",
     "--obs-norm": "observation normalization (ROADMAP A10)",
     "--async-collect": "asynchronous collection, which needs the host actor pool (ROADMAP A5 (d))",
     "--dp": "data parallelism (ROADMAP A7)",
@@ -78,8 +80,6 @@ UNPORTED_FLAGS = {
     "--num-processes": "multi-host training (ROADMAP A7)",
     "--process-id": "multi-host training (ROADMAP A7)",
     "--export-bundle": "serving bundles (ROADMAP A8)",
-    "--her-k": "hindsight relabeling (ROADMAP A10)",
-    "--num-mixtures": "the mixture-of-Gaussians critic head (ROADMAP A10)",
     "--chaos": "fault injection (ROADMAP A11 (e))",
     "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
     "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
@@ -131,6 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--action-l2", type=float, default=0.0)
     p.add_argument("--num-envs", type=int, default=16,
                    help="batched exploration envs on the device")
+    p.add_argument("--her", action="store_true",
+                   help="hindsight relabeling on a goal env (pointmass_goal): "
+                        "whole single-env episodes, each stored with --her-k "
+                        "'future' relabels a step")
+    p.add_argument("--her-k", type=int, default=4)
     p.add_argument("--hidden-sizes", default=None,
                    help="comma-separated MLP trunk widths (default 256,256,256)")
     p.add_argument("--projection", choices=["fused", "projection"], default="fused",
@@ -200,6 +205,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="clipped double-Q (TD3-style) distributional twin "
                         "critics; fixes the single-critic plateau on "
                         "Hopper/Walker2d-class tasks")
+    p.add_argument("--critic-head", choices=["categorical", "scalar", "mixture_gaussian"],
+                   default="categorical",
+                   help="critic value head: categorical (C51, the default), "
+                        "scalar (plain DDPG) or mixture_gaussian (MoG with the "
+                        "Gauss-Hermite cross-entropy Bellman backup, ops/mog.py)")
+    p.add_argument("--num-mixtures", type=int, default=5,
+                   help="mixture components M for --critic-head mixture_gaussian")
     p.add_argument("--critic-ensemble", type=int, default=0,
                    help="REDQ-style critic ensemble width E (0 = off): E "
                         "stacked critics, Bellman targets min over a random "
@@ -238,11 +250,16 @@ def refuse_unported(argv) -> None:
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    defaults = DistConfig()
+    """The flags as a ``TrainConfig``. The support is resolved as the JAX
+    CLI resolves it: the env preset's, then each explicit ``--v-min`` /
+    ``--v-max`` on its own; the trainers keep it."""
+    v_min, v_max = cli_support(args.env, args.v_min, args.v_max)
     dist = DistConfig(
+        kind=args.critic_head,
         num_atoms=args.n_atoms,
-        v_min=defaults.v_min if args.v_min is None else args.v_min,
-        v_max=defaults.v_max if args.v_max is None else args.v_max,
+        num_mixtures=args.num_mixtures,
+        v_min=v_min,
+        v_max=v_max,
     )
     agent = D4PGConfig(
         dist=dist,
@@ -273,13 +290,15 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         )
     log_dir = args.log_dir or (
         f"runs/torch_{args.env}_{'PER' if args.prioritized else 'UNI'}"
-        f"_n{args.n_step}_{args.num_envs}env"
+        f"{'_HER' if args.her else ''}_n{args.n_step}_{args.num_envs}env"
     )
     return TrainConfig(
         env=args.env,
         max_episode_steps=args.max_episode_steps,
         action_repeat=args.action_repeat,
         num_envs=args.num_envs,
+        her=args.her,
+        her_k=args.her_k,
         total_steps=args.total_steps,
         warmup_steps=args.warmup_steps,
         env_steps_per_train_step=args.env_steps_per_train_step,

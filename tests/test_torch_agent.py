@@ -176,12 +176,14 @@ def test_train_state_targets_start_as_copies_and_only_polyak_moves_them():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(dist=DistConfig(kind="mixture_gaussian")),
-     dict(twin_critic=True, dist=DistConfig(kind="scalar")),
+    [dict(dist=DistConfig(kind="mixture_gaussian"), pixel_shape=(8, 8, 1)),
+     dict(twin_critic=True, dist=DistConfig(kind="scalar"), pixel_shape=(8, 8, 1)),
      dict(critic_ensemble=3, pixel_shape=(8, 8, 1)),
-     dict(pixel_shape=(8, 8, 1)), dict(dist=DistConfig(kind="scalar"))],
+     dict(pixel_shape=(8, 8, 1)), dict(dist=DistConfig(kind="scalar"), pixel_shape=(8, 8, 1))],
 )
 def test_unported_agent_options_raise(change):
+    """Pixels are the one agent option still refused, under every head
+    (the scalar and MoG heads are ported: ``tests/test_torch_heads.py``)."""
     with pytest.raises(NotImplementedError):
         create_train_state(dataclasses.replace(D4PGConfig(hidden_sizes=(8,)), **change), device="cpu")
 

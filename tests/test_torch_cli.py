@@ -7,7 +7,12 @@
   port's parser or refused by name (``NotImplementedError`` through
   ``refuse_unported``);
 - the checkpoint and ``--resume`` pair of the CLI on the device
-  placement, whose ``metrics.jsonl`` passes the repo's schema check.
+  placement, whose ``metrics.jsonl`` passes the repo's schema check;
+- the critic support the port's ``Trainer`` ends with equals the JAX
+  trainer's ``_reconcile_config(config_from_args(argv), env)``, one-sided
+  ``--v-min`` / ``--v-max`` included, for every head;
+- ``--critic-head``, ``--num-mixtures``, ``--her`` and ``--her-k`` map into
+  the config as the JAX CLI maps them.
 """
 
 import dataclasses
@@ -102,3 +107,76 @@ def test_cli_checkpoint_then_resume_on_the_device_placement(tmp_path):
     assert sorted(os.listdir(ck)) == sorted(
         ["16", "24", "32", "manifest_16.json", "manifest_24.json", "manifest_32.json",
          "trainer_meta.json", "replay.npz", "device_per.npz", "best_actor.npz"])
+
+
+SUPPORT_ARGV = {
+    "halfcheetah_vmin": ["--env", "halfcheetah", "--v-min", "-100"],
+    "pendulum_vmax": ["--env", "pendulum", "--v-max", "10"],
+    "pendulum_defaults_explicit": ["--env", "pendulum", "--v-min", "-10", "--v-max", "10"],
+    "pendulum_mog": ["--env", "pendulum", "--critic-head", "mixture_gaussian"],
+    "pointmass_scalar_vmin": ["--env", "pointmass_goal", "--critic-head", "scalar",
+                              "--v-min", "-20"],
+}
+
+
+def _port_trainer(cfg, tmp_path):
+    from d4pg_tpu_torch.runtime.trainer import Trainer
+
+    t = Trainer(cfg, device="cpu")
+    t.close()
+    return t
+
+
+def _jax_support(jcfg, port_cfg):
+    """The JAX trainer's support: ``_reconcile_config`` on an env stub with
+    the preset's dims (the support rule reads the preset, not the env)."""
+    import types
+
+    from d4pg_tpu.runtime.trainer import _reconcile_config
+
+    a = port_cfg.agent
+    env = types.SimpleNamespace(observation_dim=a.obs_dim, action_dim=a.action_dim,
+                                max_episode_steps=port_cfg.max_episode_steps)
+    d = _reconcile_config(jcfg, env).agent.dist
+    return d.kind, d.v_min, d.v_max, d.num_mixtures
+
+
+@pytest.mark.parametrize("case", list(SUPPORT_ARGV) + ["mog_from_code"])
+def test_resolved_support_matches_the_jax_trainer(case, tmp_path):
+    from d4pg_tpu_torch.train import config_from_args
+
+    small = ["--hidden-sizes", "8", "--rmsize", "256", "--num-envs", "2",
+             "--log-dir", str(tmp_path)]
+    if case == "mog_from_code":
+        jcfg = JTrainConfig(env="pendulum", agent=JD4PGConfig(dist=JDistConfig(
+            kind="mixture_gaussian")))
+        cfg = TrainConfig(env="pendulum", replay_capacity=256, num_envs=2, log_dir=str(tmp_path),
+                          agent=D4PGConfig(hidden_sizes=(8,),
+                                           dist=DistConfig(kind="mixture_gaussian")))
+    else:
+        argv = SUPPORT_ARGV[case]
+        jcfg = jtrain.config_from_args(jtrain.build_parser().parse_args(argv))
+        cfg = config_from_args(build_parser().parse_args(argv + small))
+    t = _port_trainer(cfg, tmp_path)
+    d = t.config.agent.dist
+    assert (d.kind, d.v_min, d.v_max, d.num_mixtures) == _jax_support(jcfg, t.config), case
+    if case == "mog_from_code":  # the MoG head keeps the DistConfig defaults
+        assert (d.v_min, d.v_max) == (-10.0, 10.0)
+
+
+def test_head_and_her_flags_map_as_the_reference_maps_them():
+    from d4pg_tpu_torch.train import config_from_args
+
+    argv = ["--env", "pointmass_goal", "--critic-head", "mixture_gaussian", "--num-mixtures",
+            "7", "--her", "--her-k", "6", "--n-step", "1"]
+    ours = config_from_args(build_parser().parse_args(argv))
+    ref = jtrain.config_from_args(jtrain.build_parser().parse_args(argv))
+    assert (ours.her, ours.her_k) == (ref.her, ref.her_k) == (True, 6)
+    for f in ("kind", "num_mixtures", "num_atoms", "quadrature_points", "v_min", "v_max"):
+        assert getattr(ours.agent.dist, f) == getattr(ref.agent.dist, f), f
+    assert ours.log_dir == "runs/torch_pointmass_goal_PER_HER_n1_16env"
+    assert ref.log_dir == "runs/pointmass_goal_PER_HER_n1_16env"
+    for flag in ("--critic-head", "--num-mixtures", "--her", "--her-k"):
+        assert flag not in UNPORTED_FLAGS
+    plain = config_from_args(build_parser().parse_args([]))
+    assert (plain.her, plain.her_k, plain.agent.dist.kind) == (False, 4, "categorical")

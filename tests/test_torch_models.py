@@ -102,5 +102,10 @@ def test_init_is_seeded():
 
 @pytest.mark.parametrize("kind", ["scalar", "mixture_gaussian"])
 def test_unported_heads_raise(kind):
-    with pytest.raises(NotImplementedError, match="A10"):
-        Critic(3, 1, DistConfig(kind=kind), (32,))
+    """The scalar and MoG heads are ported (their parity is in
+    ``tests/test_torch_heads.py``): each builds at the JAX head width, and
+    a head kind neither package has raises."""
+    critic = Critic(3, 1, DistConfig(kind=kind), (32,))
+    assert critic.out.out_features == {"scalar": 1, "mixture_gaussian": 15}[kind]
+    with pytest.raises(ValueError, match="unknown critic head kind: quantile"):
+        Critic(3, 1, DistConfig(kind="quantile"), (32,))

@@ -2,7 +2,8 @@
 Pendulum and HalfCheetah at narrow widths, the checkpoint and ``--resume``
 pair, the exits 75 of SIGTERM and of the RSS watchdog, and the refusals
 (``--replay-placement`` other than host with the JAX CLI's message,
-``--dp`` and ``--critic-head`` naming their ROADMAP items)."""
+``--dp`` naming its ROADMAP item, and a ``--critic-head`` neither package
+has)."""
 
 import json
 import math
@@ -130,7 +131,7 @@ def test_action_repeat_other_than_one_is_refused_on_both_loops(tmp_path):
     (["--replay-placement", "device"], "on_device_placement: --replay-placement configures the HOST "
                                        "trainer's data plane"),
     (["--dp", "2"], "ROADMAP A7"),
-    (["--critic-head", "scalar"], "ROADMAP A10"),
+    (["--critic-head", "quantile"], "invalid choice: 'quantile'"),
 ], ids=["placement", "dp", "critic_head"])
 def test_cli_on_device_refusals(flags, expect, tmp_path):
     out = _run(SMALL + ["--total-steps", "64", "--log-dir", str(tmp_path), *flags], timeout=120)

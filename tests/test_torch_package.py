@@ -140,9 +140,9 @@ def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize(
     "field,value,item",
-    [("her", True, "A10"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
+    [("tp", 2, "A7"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
      ("publish_interval", 5, "A5"), ("pool_start_method", "fork", "A5"),
-     ("num_mixtures", 3, "A10"), ("variant_id", 1, "A11"),
+     ("league_generation", 3, "A11"), ("variant_id", 1, "A11"),
      ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("export_bundle", "bundle", "A8")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
@@ -166,8 +166,8 @@ def test_cli_refuses_unknown_flags(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", ["--her", "--critic-head=mixture_gaussian", "--num-mixtures=3", "--her-k=4",
-             "--critic-head=scalar", "--transfer-dtype=uint8", "--dp=2"],
+    "flag", ["--obs-norm", "--concurrent-eval", "--chaos=kill@3", "--dp-hogwild",
+             "--actor-device=cpu", "--transfer-dtype=uint8", "--dp=2"],
 )
 def test_cli_refuses_unported_flags(flag, tmp_path):
     from d4pg_tpu_torch.train import main
