@@ -223,6 +223,32 @@ JSON line:
    (live env steps x (1 + her_k)); finite metrics and ``success_rate``;
    the wall ms of five more single HER episodes.
 
+28. ``serve``: the serving stack on the card. The host_fused run's
+   champion exported by ``python -m d4pg_tpu_torch.train --export-bundle``
+   (its leaves ``torch.equal`` to the run's actor) and a seeded
+   HalfCheetah-width bundle (obs 17, action 6) with non-identity bounds
+   and obs-norm stats, both resident in one ``PolicyServer`` at the full
+   3x256 width, ``max_batch`` 64 (buckets 1 to 64) and ``debug_guards``
+   (every batch after warmup under ``set_sync_debug_mode("error")``; at
+   drain, every parameter still the tensor the graphs captured): 7 CUDA
+   graph captures per policy; 256 seeded observations per policy over the
+   socket against the port's CPU forward within SERVE_TOL; a hot reload of
+   the default policy under 4 pipelined clients (every reply the old or
+   the new forward, every one after the swap the new, captures unchanged,
+   no parameter rebound, one params reload); replays equal to batches;
+   per bucket the forward's device time (100 in one CUDA graph), its
+   captured graph replayed back to back and the eager call. Then the CLI
+   as users run it (``python -m d4pg_tpu_torch.serve --port 0``, no
+   guards, its own process): one request against the CPU forward, the
+   closed-loop load at (connections, window) = (1, 1), (4, 16), (16, 16)
+   from this process (requests/s, client p50/p95/p99, mean rows per
+   batch, each stage's ms a batch over the profile, both processes' CPU,
+   no shed, ``batched_over_single``), SIGTERM, its "drained" line and
+   exit 0. The saturated profile twice more, on the CLI under
+   ``--debug-guards`` and on the in-process guarded server, parts the
+   guard's cost from that of sharing the server's process. No hand
+   kernel launched (the ``serve`` entry of every ``launches_by_path``).
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
@@ -234,6 +260,7 @@ directory without the package, it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -587,7 +614,11 @@ def step_parity(cfg_cls, create_train_state, train_step):
     emit({"phase": "step_parity", "cuda": mc, "cpu": mh, "priority_max_abs_err": pri_err, "ok": True})
 
 
-def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str, log_dir: str):
+def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str, log_dir: str,
+              keep: dict | None = None):
+    """One host K = 1 learner run; ``keep`` (when given) receives the
+    final actor's ``state_dict`` on the CPU, the champion its one eval
+    saved to ``checkpoints/best_actor.npz``."""
     import dataclasses
 
     import torch
@@ -615,6 +646,8 @@ def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str,
         launches = read_counts()
     finally:
         trainer.close()
+    if keep is not None:
+        keep.update({k: v.detach().cpu().clone() for k, v in trainer.state.actor.state_dict().items()})
     a = trainer.config.agent
     for k in ("critic_loss", "q_mean", "actor_loss", "eval_return_mean"):
         check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"), f"{k} not finite: {row.get(k)}")
@@ -2606,6 +2639,396 @@ def her_pointmass_phase(Trainer, TrainConfig, card: str, log_dir: str):
     return launches
 
 
+SERVE_MAX_BATCH = 64                 # the serve CLI's default: buckets 1, 2, 4, ..., 64
+SERVE_CHECK_ROWS = 256               # card_vs_cpu observations per policy
+SERVE_LOAD_S = 4.0                   # each closed-loop profile
+SERVE_PROFILES = ((1, 1), (4, 16), (16, 16))   # (connections, requests in flight each)
+SERVE_RELOAD_CLIENTS = 4             # pipelined clients through the hot reload
+# Card against the CPU, float32 with TF32 off (resolve_device): cuBLAS and
+# the CPU's GEMM sum the same float32 products in other orders, a few ulps
+# of each hidden unit, carried through three 256-wide layers and a tanh
+# (slope <= 1) and mapped onto bounds at most 3 wide: within 1e-5.
+SERVE_TOL = 1e-5
+
+
+def cpu_actions(bundle, obs, params=None):
+    """The port's CPU forward of a bundle (normalize, actor, clip, affine)
+    through a CPU batcher, for ``obs`` [N, obs_dim]."""
+    import numpy as np
+
+    from d4pg_tpu_torch.serve import DynamicBatcher
+
+    b = DynamicBatcher(bundle.config, params if params is not None else bundle.actor_params,
+                       max_batch=SERVE_MAX_BATCH, queue_limit=max(len(obs), SERVE_MAX_BATCH),
+                       action_low=bundle.action_low, action_high=bundle.action_high,
+                       obs_norm_stats=bundle.obs_norm, device="cpu")
+    b.start()
+    try:
+        futs = [b.submit(o) for o in obs]
+        return np.stack([f.result(120) for f in futs])
+    finally:
+        b.stop()
+
+
+def process_cpu_s(pid: int) -> float:
+    """User plus system CPU seconds of process ``pid`` so far (Linux)."""
+    import os
+
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def closed_loop(port: int, conns: int, window: int, obs, duration_s: float,
+                server_pid: int | None = None) -> dict:
+    """``conns`` pipelined connections, each keeping ``window`` requests in
+    flight, every completion sending the next (the JAX ``bench.py
+    bench_serve`` closed loop): requests/s, sheds and client-measured
+    latency percentiles; from the server's healthz before and after, the
+    mean rows a batch and each stage's mean ms a batch over this profile
+    alone; and the CPU seconds a second of this process (the clients) and
+    of the server's, when it runs in another process."""
+    import threading
+
+    import numpy as np
+
+    from d4pg_tpu_torch.serve import PolicyClient
+    from d4pg_tpu_torch.serve.client import ConnectionClosed
+
+    lats, counts = [], {"done": 0, "shed": 0}
+    lock, stop = threading.Lock(), threading.Event()
+    idle = threading.Semaphore(0)  # released once per drained chain
+    clients = [PolicyClient("127.0.0.1", port, timeout=60) for _ in range(conns)]
+
+    def send_next(c):
+        t0 = time.perf_counter()
+        fut = c.act_async(obs)
+
+        def done(f, t0=t0):
+            exc = f.exception()
+            with lock:
+                if exc is None:
+                    counts["done"] += 1
+                    lats.append(time.perf_counter() - t0)
+                else:
+                    counts["shed"] += 1
+            if stop.is_set() or isinstance(exc, ConnectionClosed):
+                idle.release()
+            else:
+                send_next(c)
+
+        fut.add_done_callback(done)
+
+    def health():
+        with PolicyClient("127.0.0.1", port, timeout=60) as c:
+            h = c.healthz()
+        return h["batches_total"], h["replies_ok"], h["stage_ms"]
+
+    h0 = health()
+    try:
+        cpu0 = (time.process_time(), server_pid and process_cpu_s(server_pid))
+        t_start = time.perf_counter()
+        for c in clients:
+            for _ in range(window):
+                send_next(c)
+        time.sleep(duration_s)
+        stop.set()
+        for _ in range(conns * window):
+            check(idle.acquire(timeout=60), f"serve load ({conns}, {window}): a chain never drained")
+        dt = time.perf_counter() - t_start
+        cpu1 = (time.process_time(), server_pid and process_cpu_s(server_pid))
+    finally:
+        for c in clients:
+            c.close()
+    h1 = health()
+    batches = h1[0] - h0[0]
+    # healthz gives each stage's mean ms a call over the server's life, and
+    # every stage runs once a batch: this profile's own mean is the
+    # difference of the totals over the difference of the batches
+    stage_ms = {k: (v * h1[0] - h0[2].get(k, 0.0) * h0[0]) / max(batches, 1)
+                for k, v in h1[2].items()}
+    p50, p95, p99 = (float(v) * 1e3 for v in np.percentile(np.asarray(lats), (50, 95, 99)))
+    return {"conns": conns, "window": window, "requests_per_s": counts["done"] / dt,
+            "completed": counts["done"], "shed": counts["shed"],
+            "p50_ms": p50, "p95_ms": p95, "p99_ms": p99,
+            "mean_rows_per_batch": (h1[1] - h0[1]) / max(batches, 1), "stage_ms": stage_ms,
+            "client_process_cpu_s_per_s": (cpu1[0] - cpu0[0]) / dt,
+            "server_process_cpu_s_per_s": (cpu1[1] - cpu0[1]) / dt if server_pid else None}
+
+
+def graph_replay_ms(graph, n: int = 100) -> float:
+    """ms per replay of one captured graph, ``n`` replays back to back
+    between CUDA events (the device time, plus any gap the host's
+    launches leave)."""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+@contextlib.contextmanager
+def serve_process(bundle_dir: str, *flags: str):
+    """``python -m d4pg_tpu_torch.serve --bundle DIR --port 0 [flags]`` as a
+    subprocess on the card. Yields its port, pid, listening line and
+    seconds to that line; on leaving the block, SIGTERM: it must print its
+    "drained" line and exit 0 (both added to the yielded dict)."""
+    import queue
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "d4pg_tpu_torch.serve", "--bundle", bundle_dir,
+                             "--port", "0", *flags], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        first = lines.get(timeout=300)
+        check(first.startswith("[serve] listening on "), f"serve cli: first line {first!r}")
+        info = {"flags": list(flags), "listening": first.strip(),
+                "startup_s": time.perf_counter() - t0,
+                "port": int(first.split()[3].rsplit(":", 1)[1]), "pid": proc.pid}
+        yield info
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=30)
+        rest = []
+        while not lines.empty():
+            rest.append(lines.get())
+        drained = [ln.strip() for ln in rest if ln.startswith("[serve] drained:")]
+        check(rc == 0 and drained, f"serve cli {flags}: exit {rc}, output {rest[-10:]}")
+        info.update(exit_code=rc, drained=drained[0])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def serve_phase(card: str, run_dir: str, tmp: str, run_actor: dict) -> dict:
+    """Serving on the card: the host_fused run exported through the CLI's
+    ``--export-bundle`` (the default policy, Pendulum at 3x256) and a
+    seeded HalfCheetah-width bundle with non-identity bounds and obs-norm
+    stats ("cheetah"), both resident in one ``PolicyServer`` with
+    ``max_batch`` 64 and ``debug_guards`` (every batch after warmup under
+    set_sync_debug_mode("error"); at drain, no parameter rebound after
+    capture). The checks of the ``serve`` line: 7 captures per policy and
+    no parameter rebound by a hot reload under 4 pipelined clients;
+    replays == batches; the card against the port's CPU forward on 256
+    observations per policy over the socket; the replay times per bucket;
+    the CLI subprocess without guards, which takes the closed-loop load;
+    the saturated profile also under guards, in the CLI and in this
+    process; no hand kernel launched."""
+    import collections
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.models.actor import Actor
+    from d4pg_tpu_torch.serve import PolicyClient, PolicyServer, export_bundle, load_bundle
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    default_dir, cheetah_dir = f"{tmp}/bundle_default", f"{tmp}/bundle_cheetah"
+
+    # export: the CLI, on this machine, from the run's best_actor.npz
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "d4pg_tpu_torch.train", "--log-dir", run_dir,
+                          "--export-bundle", default_dir], capture_output=True, text=True,
+                         timeout=300)
+    export_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"serve: --export-bundle exited {out.returncode}: {out.stderr[-2000:]}")
+    default = load_bundle(default_dir)
+    export_source = default.meta.get("source")
+    check(default.actor_params.keys() == run_actor.keys()
+          and all(torch.equal(default.actor_params[k], run_actor[k]) for k in run_actor),
+          "serve: the exported bundle's leaves are not the run's actor")
+    ccfg = D4PGConfig(obs_dim=17, action_dim=6)
+    cheetah_actor = Actor(17, 6, ccfg.hidden_sizes,
+                          generator=torch.Generator().manual_seed(SEED + 17))
+    stats = {"count": 1000.0, "mean": rng.normal(size=17).tolist(),
+             "m2": (1000.0 * rng.uniform(0.25, 4.0, 17)).tolist()}
+    export_bundle(cheetah_dir, ccfg, cheetah_actor, action_low=-1.0 - rng.uniform(0, 1, 6),
+                  action_high=1.0 + rng.uniform(0, 1, 6), obs_norm_state=stats,
+                  meta={"source": "chip_smoke seeded"})
+    cheetah = load_bundle(cheetah_dir)
+
+    srv = PolicyServer(default, policies={"cheetah": cheetah}, port=0, max_batch=SERVE_MAX_BATCH,
+                       watch_bundle=True, poll_interval_s=3600.0, debug_guards=True,
+                       device="cuda")
+    t0 = time.perf_counter()
+    srv.start()
+    start_s = time.perf_counter() - t0
+    batchers = srv.policies
+    drained = False
+    try:
+        captures = {pid: b.compile_count for pid, b in batchers.items()}
+        check(all(c == len(b.buckets) == 7 for c, b in zip(captures.values(), batchers.values())),
+              f"serve: captures {captures}, expected 7 per policy")
+
+        # card_vs_cpu over the socket: v1 ACT for the default, ACT2 for cheetah
+        card_vs_cpu = {}
+        for pid, bundle in (("default", default), ("cheetah", cheetah)):
+            obs = (rng.normal(size=(SERVE_CHECK_ROWS, bundle.obs_dim)) * 2).astype(np.float32)
+            with PolicyClient("127.0.0.1", srv.port, timeout=60) as c:
+                futs = [c.act_async(o, policy_id=None if pid == "default" else pid) for o in obs]
+                got = np.stack([f.result(60) for f in futs])
+            err = float(np.abs(got - cpu_actions(bundle, obs)).max())
+            check(err <= SERVE_TOL, f"serve card_vs_cpu {pid}: max_abs_err {err}")
+            card_vs_cpu[pid] = {"rows": SERVE_CHECK_ROWS, "max_abs_err": err,
+                                "tolerance": SERVE_TOL}
+
+        # hot_reload: re-export the default policy with other params while 4
+        # pipelined clients keep traffic going, then check_reload()
+        new_actor = Actor(3, 1, default.config.hidden_sizes,
+                          generator=torch.Generator().manual_seed(SEED + 29))
+        new_params = new_actor.state_dict()
+        obs_r = rng.normal(size=(SERVE_RELOAD_CLIENTS, 3)).astype(np.float32)
+        ref_old, ref_new = cpu_actions(default, obs_r), cpu_actions(default, obs_r, new_params)
+        swapped, stop = threading.Event(), threading.Event()
+        records = [[] for _ in range(SERVE_RELOAD_CLIENTS)]
+        errors = []
+
+        def traffic(i):
+            try:
+                with PolicyClient("127.0.0.1", srv.port, timeout=60) as c:
+                    inflight = collections.deque()
+                    while not stop.is_set():
+                        while len(inflight) < 4:
+                            inflight.append((swapped.is_set(), c.act_async(obs_r[i])))
+                        after, f = inflight.popleft()
+                        records[i].append((after, f.result(60)))
+                    for after, f in inflight:
+                        records[i].append((after, f.result(60)))
+            except Exception as e:  # reported by the check below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=traffic, args=(i,)) for i in range(SERVE_RELOAD_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        export_bundle(default_dir, default.config, new_actor, meta={"source": "chip_smoke reload"})
+        bumped = time.time() + 2
+        os.utime(os.path.join(default_dir, "bundle.json"), (bumped, bumped))
+        t0 = time.perf_counter()
+        reloaded = srv.check_reload()
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        swapped.set()
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        check(reloaded and not errors and not any(t.is_alive() for t in threads),
+              f"serve hot_reload: reloaded={reloaded}, errors {errors[:3]}")
+        tally = {"old": 0, "new": 0, "after_swap": 0}
+        for i, recs in enumerate(records):
+            for after, a in recs:
+                is_new = float(np.abs(a - ref_new[i]).max()) <= SERVE_TOL
+                is_old = float(np.abs(a - ref_old[i]).max()) <= SERVE_TOL
+                check(is_new or is_old, f"serve hot_reload: reply {a} is neither forward")
+                check(is_new or not after, f"serve hot_reload: reply {a} after the swap is old")
+                tally["new" if is_new else "old"] += 1
+                tally["after_swap"] += after
+        check(tally["old"] and tally["after_swap"],
+              f"serve hot_reload: no traffic on one side of the swap {tally}")
+        recaptures = {pid: b.compile_count for pid, b in batchers.items()}
+        rebound = {pid: b.rebound_params() for pid, b in batchers.items()}
+        check(recaptures == captures and not any(rebound.values()),
+              f"serve hot_reload: captures {captures} -> {recaptures}, rebound {rebound}")
+        check(srv.stats.params_reloads == 1
+              and batchers["cheetah"].stats.params_reloads == 0,
+              f"serve hot_reload: params_reloads {srv.stats.params_reloads}")
+        default = load_bundle(default_dir)
+
+        # the saturated profile on this guarded server, clients in its
+        # process: one of the three setups the saturated rate is compared in
+        obs_l = rng.normal(size=3).astype(np.float32)
+        in_process = closed_loop(srv.port, *SERVE_PROFILES[-1], obs_l, SERVE_LOAD_S)
+        for pid, b in batchers.items():
+            b.check_alive()  # no batch raised under the sync guard
+    finally:
+        srv.drain()  # debug_guards: raises if a parameter was rebound
+        drained = True
+    check(drained and torch.cuda.get_sync_debug_mode() == 0, "serve: sync debug mode left on")
+    replays = {pid: {"replays": b.replays, "batches_total": b.stats.batches_total}
+               for pid, b in batchers.items()}
+    check(all(r["replays"] == r["batches_total"] > 0 for r in replays.values()),
+          f"serve: replays {replays}")
+
+    # replay_ms: each bucket's forward, 100 in one CUDA graph (its device
+    # time), its own captured graph replayed back to back, and the eager
+    # forward's call time
+    replay_ms = {}
+    with torch.no_grad():
+        for pid, b in batchers.items():
+            replay_ms[pid] = {
+                size: {"device_ms": device_ms(lambda p=prog: b._body(p.static_in)),
+                       "replay_back_to_back_ms": graph_replay_ms(prog.graph),
+                       "eager_call_ms": call_ms(lambda p=prog: b._body(p.static_in))}
+                for size, prog in b._programs.items()}
+
+    # cli and load: the serve CLI as users run it (no guards, its own
+    # process), one request against the CPU forward, then every
+    # closed-loop profile from this process
+    obs_c = rng.normal(size=3).astype(np.float32)
+    load = []
+    with serve_process(default_dir) as cli:
+        with PolicyClient("127.0.0.1", cli["port"], timeout=60) as c:
+            action = c.act(obs_c)
+        cli["max_abs_err"] = float(np.abs(action - cpu_actions(default, obs_c[None])[0]).max())
+        check(cli["max_abs_err"] <= SERVE_TOL, f"serve cli: action {action} off the CPU forward")
+        for conns, window in SERVE_PROFILES:
+            load.append(closed_loop(cli["port"], conns, window, obs_l, SERVE_LOAD_S,
+                                    server_pid=cli["pid"]))
+    # the saturated profile once more on the CLI under --debug-guards: with
+    # the in-process run above, it parts the guard's cost from the cost of
+    # sharing the server's process with the clients
+    with serve_process(default_dir, "--debug-guards") as guarded_cli:
+        cli_guarded = closed_loop(guarded_cli["port"], *SERVE_PROFILES[-1], obs_l, SERVE_LOAD_S,
+                                  server_pid=guarded_cli["pid"])
+    saturated_by_setup = {"cli": load[-1], "cli_debug_guards": cli_guarded,
+                          "in_process_debug_guards": in_process}
+    for setup, row in [*(("cli", r) for r in load), *saturated_by_setup.items()]:
+        check(row["shed"] == 0, f"serve load {setup} {row['conns'], row['window']}: "
+                                f"{row['shed']} sheds")
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()), f"serve: hand kernels launched {launches}")
+    single, saturated = load[0]["requests_per_s"], load[-1]["requests_per_s"]
+    emit({
+        "phase": "serve", "card": card,
+        "policies": {pid: {"obs_dim": b.config.obs_dim, "action_dim": b.config.action_dim,
+                           "hidden": list(b.config.hidden_sizes), "buckets": list(b.buckets)}
+                     for pid, b in batchers.items()},
+        "export": {"source": export_source, "leaves_torch_equal_to_run": True,
+                   "cli_s": export_s},
+        "start_s": start_s, "captures": captures, "replays": replays,
+        "card_vs_cpu": card_vs_cpu,
+        "hot_reload": {"reloaded": reloaded, "check_reload_ms": reload_ms, "replies": tally,
+                       "captures_after": recaptures, "rebound_params": rebound,
+                       "params_reloads": srv.stats.params_reloads},
+        "sync_guard": {"debug_guards": True, "batches_under_guard":
+                       sum(r["batches_total"] for r in replays.values()), "raised": 0},
+        "load": load, "batched_over_single": saturated / single,
+        "stage_ms": load[-1]["stage_ms"],
+        "saturated_by_setup": saturated_by_setup,
+        "replay_ms": replay_ms, "cli": cli, "cli_debug_guards": guarded_cli,
+        "kernel_launches": launches,
+        "phase_s": time.perf_counter() - t_phase, "ok": True,
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2659,8 +3082,10 @@ def main() -> int:
     check_sync_guard()
     native_tree_phase()
     paths = {}
+    run_actor = {}
     with tempfile.TemporaryDirectory() as tmp:
-        paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card, f"{tmp}/fused")
+        paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card,
+                                        f"{tmp}/fused", keep=run_actor)
         paths["host_projection"] = slice_run(
             Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card, f"{tmp}/projection")
         paths["host_async_k1"] = async_run(
@@ -2691,6 +3116,7 @@ def main() -> int:
             paths[f"heads_device_{head}"] = heads_device_run(
                 Trainer, TrainConfig, head, card, f"{tmp}/heads_{head}")
         paths["her_pointmass"] = her_pointmass_phase(Trainer, TrainConfig, card, f"{tmp}/her")
+        paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

@@ -1,0 +1,175 @@
+"""``python -m d4pg_tpu_torch.serve``: run a policy server from a bundle.
+
+The flags are those of ``python -m d4pg_tpu.serve`` under the same names,
+plus ``--device {cuda,cpu}`` (default cuda: with no card and no
+``--device cpu`` the server raises before it loads anything). A flag whose
+feature is not ported yet raises ``NotImplementedError`` naming the
+ROADMAP item (:data:`UNPORTED_FLAGS`).
+
+Installs SIGTERM/SIGINT handlers that trigger the graceful drain: stop
+accepting, answer everything admitted, then exit 0 — so an orchestrator's
+preemption notice never drops admitted requests. A second signal
+hard-kills (the handler restores the default disposition after the
+first).
+
+Examples:
+    python -m d4pg_tpu_torch.train --env pendulum --log-dir runs/p1 \
+        --export-bundle runs/p1/bundle
+    python -m d4pg_tpu_torch.serve --bundle runs/p1/bundle --port 7431
+    python -m d4pg_tpu_torch.serve --bundle runs/p1/bundle \
+        --policy cheetah=runs/hc/bundle --debug-guards
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from d4pg_tpu_torch.utils.signals import install_graceful_signals
+
+UNPORTED_FLAGS = {
+    "--chaos": "fault injection (ROADMAP A11 (e))",
+    "--mirror-fraction": "the flywheel's mirror tap (ROADMAP A11 (e))",
+    "--mirror-ingest": "the flywheel's mirror tap (ROADMAP A11 (e))",
+    "--mirror-spool": "the flywheel's mirror tap (ROADMAP A11 (e))",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m d4pg_tpu_torch.serve",
+                                description="Serve a policy bundle on PyTorch/CUDA")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default) captures one CUDA graph a bucket; cpu "
+                        "runs the forward on the CPU")
+    p.add_argument("--bundle", required=True,
+                   help="bundle directory from --export-bundle (the DEFAULT "
+                        "policy: v1 clients with no policy-id field land here)")
+    p.add_argument("--policy", action="append", default=[], metavar="NAME=DIR",
+                   help="additional resident policy (repeatable): NAME is the "
+                        "ACT2 policy_id, DIR its bundle. Each policy gets its "
+                        "own batcher, stream, graphs and hot-reload watch")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7431,
+                   help="0 = ephemeral (printed on startup)")
+    p.add_argument("--max-batch", type=int, default=64,
+                   help="batch window cap; also the largest bucket")
+    p.add_argument("--max-wait-us", type=int, default=2000,
+                   help="batching window: max microseconds a batch waits "
+                        "for more requests after its first")
+    p.add_argument("--queue-limit", type=int, default=256,
+                   help="bounded request queue; past it requests shed with "
+                        "an explicit 'overloaded' reply")
+    p.add_argument("--default-deadline-ms", type=float, default=0.0,
+                   help="deadline applied to requests that carry none "
+                        "(0 = unbounded)")
+    p.add_argument("--watch-run", default=None,
+                   help="training run dir to hot-reload best_actor.npz "
+                        "from when its best_eval.json changes")
+    p.add_argument("--no-watch-bundle", dest="watch_bundle", action="store_false",
+                   help="disable hot-reloading the bundle dir on re-export")
+    p.add_argument("--poll-interval", type=float, default=2.0,
+                   help="hot-reload poll seconds")
+    p.add_argument("--log-dir", default=None,
+                   help="append serve metrics rows (metrics.jsonl) here")
+    p.add_argument("--metrics-interval", type=float, default=30.0)
+    p.add_argument("--replica-id", type=int, default=None,
+                   help="fleet identity: stamped into healthz and every "
+                        "metrics.jsonl row")
+    p.add_argument("--io-read-stall-s", type=float, default=30.0,
+                   help="event loop: evict a connection whose partial "
+                        "frame makes no completion progress for this long "
+                        "(the slowloris bound)")
+    p.add_argument("--io-write-stall-s", type=float, default=10.0,
+                   help="event loop: evict a connection that drains none "
+                        "of its buffered replies for this long (the "
+                        "zero-window bound)")
+    p.add_argument("--debug-guards", action="store_true",
+                   help="every batch after warmup dispatches under "
+                        "torch.cuda.set_sync_debug_mode('error') (a host sync "
+                        "raises), and drain checks that every CUDA graph "
+                        "still reads the parameters hot reload writes "
+                        "into. The staging "
+                        "ledger, the lock witness and the flow ledger of the "
+                        "JAX server's guards are ROADMAP A11 (b)")
+    return p
+
+
+def refuse_unported(argv) -> None:
+    """Raise ``NotImplementedError`` for a flag of :data:`UNPORTED_FLAGS`."""
+    for arg in argv:
+        what = UNPORTED_FLAGS.get(arg.split("=", 1)[0])
+        if what is not None:
+            raise NotImplementedError(f"{arg}: {what} is not ported to d4pg_tpu_torch yet")
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    refuse_unported(argv)
+    args = build_parser().parse_args(argv)
+    from d4pg_tpu_torch import resolve_device
+    from d4pg_tpu_torch.serve.bundle import load_bundle
+    from d4pg_tpu_torch.serve.server import PolicyServer
+
+    device = resolve_device(args.device)  # no card and no --device cpu: raises
+    bundle = load_bundle(args.bundle)
+    policies = {}
+    for spec in args.policy:
+        name, sep, path = spec.partition("=")
+        if not sep or not name or not path:
+            raise SystemExit(f"--policy wants NAME=DIR, got {spec!r}")
+        if name in policies:
+            raise SystemExit(f"--policy {name!r} given twice")
+        policies[name] = load_bundle(path)
+    server = PolicyServer(
+        bundle,
+        policies=policies or None,
+        host=args.host,
+        port=args.port,
+        max_batch=args.max_batch,
+        max_wait_us=args.max_wait_us,
+        queue_limit=args.queue_limit,
+        default_deadline_ms=args.default_deadline_ms,
+        watch_run=args.watch_run,
+        watch_bundle=args.watch_bundle,
+        poll_interval_s=args.poll_interval,
+        log_dir=args.log_dir,
+        metrics_interval_s=args.metrics_interval,
+        debug_guards=args.debug_guards,
+        replica_id=args.replica_id,
+        io_read_stall_s=args.io_read_stall_s,
+        io_write_stall_s=args.io_write_stall_s,
+        device=device,
+    )
+
+    install_graceful_signals(
+        server.request_shutdown,
+        "[serve] {sig}: draining (second signal hard-kills)",
+    )
+
+    server.start()
+    rid = f"replica_id={args.replica_id} " if args.replica_id is not None else ""
+    print(
+        f"[serve] listening on {server.host}:{server.port} {rid}"
+        f"obs_dim={bundle.obs_dim} action_dim={bundle.action_dim} "
+        f"buckets={list(server.batcher.buckets)} "
+        f"policies={sorted(server.policies)} "
+        f"source={bundle.meta.get('source', '?')}",
+        flush=True,
+    )
+    server.serve_until_shutdown()
+    snap = server.healthz()
+    # aggregate across every resident policy (top-level counters are the
+    # DEFAULT policy's)
+    served = sum(r["replies_ok"] for r in snap["policies"].values())
+    shed = snap["shed_total"] + sum(
+        r["shed_total"] for pid, r in snap["policies"].items() if pid != "default"
+    )
+    print(
+        f"[serve] drained: {served} served, {shed} shed, p99={snap.get('p99_ms')} ms",
+        flush=True,
+    )
+    sys.exit(0)
+
+
+if __name__ == "__main__":
+    main()

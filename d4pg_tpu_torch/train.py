@@ -39,6 +39,8 @@ Examples:
         --num-mixtures 5 --replay-placement device --p-replay --steps-per-dispatch 8
     python -m d4pg_tpu_torch.train --env pointmass_goal --her --n-step 1
         # hindsight relabeling, one single-env episode at a time
+    python -m d4pg_tpu_torch.train --env pendulum --log-dir runs/p1 \
+        --export-bundle runs/p1/bundle   # package for d4pg_tpu_torch.serve
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -79,7 +81,6 @@ UNPORTED_FLAGS = {
     "--coordinator": "multi-host training (ROADMAP A7)",
     "--num-processes": "multi-host training (ROADMAP A7)",
     "--process-id": "multi-host training (ROADMAP A7)",
-    "--export-bundle": "serving bundles (ROADMAP A8)",
     "--chaos": "fault injection (ROADMAP A11 (e))",
     "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
     "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
@@ -238,6 +239,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--export-bundle", default=None, metavar="DIR",
+                   help="instead of training: package this run's champion "
+                        "actor (checkpoints/best_actor.npz, else the newest "
+                        "checkpoint's state.pt) + config + action bounds + "
+                        "obs-norm stats into a serving bundle at DIR for "
+                        "python -m d4pg_tpu_torch.serve, then exit (needs "
+                        "no card)")
     return p
 
 
@@ -343,11 +351,96 @@ def install_preemption_handlers(stop_callback) -> None:
     )
 
 
+def export_bundle_from_run(cfg: TrainConfig, bundle_dir: str) -> str:
+    """Package a trained run into a serving bundle (``--export-bundle``).
+
+    Prefers the keep-best champion (``checkpoints/best_actor.npz``, the
+    policy ``best_eval.json`` attests); falls back to the actor of the
+    newest checkpoint step (``state.pt``, loaded on the CPU). Every env of
+    the port acts in the canonical (−1, 1) box, so the bundle's bounds are
+    that box. Reads and writes files only: no card is needed.
+    """
+    import json
+    import os
+
+    import torch
+
+    from d4pg_tpu_torch.config import apply_env_preset
+    from d4pg_tpu_torch.runtime.checkpoint import (
+        STATE_FILE,
+        CheckpointManager,
+        load_trainer_meta,
+    )
+    from d4pg_tpu_torch.serve.bundle import build_actor, export_bundle
+    from d4pg_tpu_torch.weights import load_best_actor
+
+    # the env's dims and support before the actor is built, as the trainer
+    # reconciles them: a HalfCheetah run's actor is 17 -> 6
+    agent_cfg = apply_env_preset(cfg).agent
+    actor = build_actor(agent_cfg)
+    ckpt_dir = os.path.join(cfg.log_dir, "checkpoints")
+    meta = load_trainer_meta(cfg.log_dir)
+    provenance = {
+        "env": cfg.env,
+        "log_dir": os.path.abspath(cfg.log_dir),
+        "env_steps": meta.get("env_steps"),
+    }
+    obs_norm_state = meta.get("obs_norm")
+    if os.path.exists(os.path.join(ckpt_dir, "best_actor.npz")):
+        load_best_actor(cfg.log_dir, actor)
+        provenance["source"] = "best_actor.npz"
+        best_json = os.path.join(cfg.log_dir, "best_eval.json")
+        if os.path.exists(best_json):
+            try:
+                with open(best_json) as f:
+                    provenance["best_eval"] = json.load(f)
+            except (OSError, ValueError):
+                pass
+        # Pair the champion with the normalizer statistics captured WHEN it
+        # was scored (best_obs_norm.json, beside best_actor.npz), not the
+        # later trainer_meta.json ones.
+        best_norm = os.path.join(ckpt_dir, "best_obs_norm.json")
+        if os.path.exists(best_norm):
+            with open(best_norm) as f:
+                obs_norm_state = json.load(f)
+    else:
+        step = CheckpointManager(ckpt_dir).latest_step() if os.path.isdir(ckpt_dir) else None
+        if step is None:
+            raise SystemExit(
+                f"--export-bundle: no best_actor.npz and no checkpoint "
+                f"under {ckpt_dir} — train (and checkpoint) first"
+            )
+        saved = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        actor.load_state_dict(saved["actor"])
+        provenance["source"] = f"state:{step}"
+        provenance["grad_steps"] = step
+    out = export_bundle(
+        bundle_dir,
+        agent_cfg,
+        actor,
+        obs_norm_state=obs_norm_state,
+        meta=provenance,
+        prioritized=cfg.prioritized,
+    )
+    print(
+        f"[export-bundle] wrote {out} "
+        f"(source={provenance['source']}, obs_dim={agent_cfg.obs_dim}, "
+        f"action_dim={agent_cfg.action_dim}, "
+        f"obs_norm={'yes' if obs_norm_state else 'no'})",
+        flush=True,
+    )
+    return out
+
+
 def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if args.export_bundle:
+        export_bundle_from_run(cfg, args.export_bundle)
+        return {}
     if args.on_device:
         return _main_on_device(cfg, args.device)
     from d4pg_tpu_torch.runtime.trainer import Trainer

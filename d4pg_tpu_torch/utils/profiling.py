@@ -11,8 +11,9 @@ The port's counterpart of ``d4pg_tpu/utils/profiling.py``, on torch:
   line up with device work on that trace; on a CUDA build it is also an
   NVTX range, which Nsight Systems shows;
 - :class:`StageTimers` keeps cumulative host-clock seconds and call
-  counts per data-plane stage, and opens the same range (``host/<name>``)
-  around each stage.
+  counts per data-plane stage, and opens the same range (``host/<name>``
+  for the learner, ``serve/<name>`` for the serving batcher) around each
+  stage.
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ class StageTimers:
     """Cumulative per-stage wall-time counters for the host data plane.
 
     ``stage(name)`` adds the enclosed host-clock time to the named counter
-    and opens the range ``host/<name>`` (``host/sample``, ...) on the
-    profiler trace. Thread-safe: the learner loop and the priority
+    and opens the range ``<annotate_prefix><name>`` (``host/sample``,
+    ``serve/device_infer``, ...) on the profiler trace. Thread-safe: the learner loop and the priority
     write-back thread report into one set of counters, so a row shows the
     TOTAL host time of a stage over every thread. Any name is accepted; :attr:`STAGES` lists the ones the
     trainer uses.
@@ -91,9 +92,8 @@ class StageTimers:
         "checkpoint_restore",  # resume (its ring flush also counts as ingest_chunk)
     )
 
-    RANGE_PREFIX = "host/"
-
-    def __init__(self):
+    def __init__(self, annotate_prefix: str = "host/"):
+        self._prefix = annotate_prefix
         self._nvtx = torch.cuda.is_available()
         self._lock = threading.Lock()
         self._acc: dict[str, float] = {}
@@ -103,7 +103,7 @@ class StageTimers:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            with _range(self.RANGE_PREFIX + name, self._nvtx):
+            with _range(self._prefix + name, self._nvtx):
                 yield
         finally:
             dt = time.perf_counter() - t0

@@ -71,7 +71,8 @@ def test_every_reference_flag_is_accepted_or_refused_by_name():
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             refuse_unported([opt])
-    for opt in ("--checkpoint-interval", "--resume", "--snapshot-replay", "--max-rss-gb"):
+    for opt in ("--checkpoint-interval", "--resume", "--snapshot-replay", "--max-rss-gb",
+                "--export-bundle"):
         assert opt in ours
     with pytest.raises(NotImplementedError, match="B3"):
         refuse_unported(["--device-tree-backend=pallas"])

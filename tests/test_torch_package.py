@@ -30,6 +30,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import d4pg_tpu_torch.runtime.on_device, d4pg_tpu_torch.envs.planar\n"
         "import d4pg_tpu_torch.envs.locomotion, d4pg_tpu_torch.envs.pointmass_goal\n"
         "import d4pg_tpu_torch.tools.extract_planar\n"
+        "import d4pg_tpu_torch.serve.server, d4pg_tpu_torch.serve.client\n"
+        "import d4pg_tpu_torch.serve.__main__, d4pg_tpu_torch.netio\n"
+        "import d4pg_tpu_torch.utils.retry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -143,7 +146,7 @@ def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
     [("tp", 2, "A7"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
      ("publish_interval", 5, "A5"), ("pool_start_method", "fork", "A5"),
      ("league_generation", 3, "A11"), ("variant_id", 1, "A11"),
-     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("export_bundle", "bundle", "A8")],
+     ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("chaos", "kill@3", "A11")],
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
     """A flag of the unported table raises naming its ROADMAP item before

@@ -108,3 +108,20 @@ def test_profile_trace_on_the_cpu_holds_the_host_ranges_of_every_thread(tmp_path
     assert {"host/sample", "host/prefetch", "host/priority_writeback"} <= names
     with profile_trace(None):  # no directory: no trace, no error
         pass
+
+
+def test_the_range_prefix_is_a_constructor_argument(tmp_path):
+    """The serving batcher's timers open ``serve/<name>`` ranges; the
+    default stays ``host/`` for every learner caller."""
+    serve = StageTimers(annotate_prefix="serve/")
+    with profile_trace(str(tmp_path)):
+        with serve.stage("device_infer"):
+            pass
+        with StageTimers().stage("sample"):
+            pass
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+    assert {"serve/device_infer", "host/sample"} <= names
+    assert serve.scalars()["stage_device_infer_calls"] == 1.0
