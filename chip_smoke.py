@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports nothing of JAX or of ``d4pg_tpu``. Phases, each printing one
-JSON line:
+JSON line (with ``at_s``, the seconds since the script started):
 
 1. ``env``: torch/CUDA versions, the card (``nvidia-smi``), and the nvcc
    build of every ``d4pg_tpu_torch/csrc/*.cu`` (one process each, all at
@@ -204,6 +204,21 @@ JSON line:
    ``transfer_dtype="bfloat16"`` (the staged observations bf16 on the
    wire); exact launches and finite metrics on both.
 
+22a. ``spatial_step_parity`` (twice, Humanoid and Ant, after
+   ``on_device_hopper_twin``): one control step of the 3D engine (10 or 20
+   substeps) for 64 seeded states, most in ground contact, on the card
+   against the same step on the CPU: q, v, obs and reward within the
+   stated tolerances, the root quaternions unit within 1e-6, terminated
+   and truncated equal; the rows in contact, the card's wall ms of one
+   control step for the 64 envs, the kernels one step launches (and a
+   substep's share) and their device ms; every hand-kernel counter 0.
+22b. ``on_device_humanoid``: the README's on-device Humanoid recipe
+   (``--env humanoid --on-device --num-envs 64 --rmsize 524288 --n-step 3
+   --v-min 0 --v-max 1500 --noise-decay-steps 2000000
+   --noise-scale-final 0.1``; K = 2048) at the default widths, one warmup
+   segment, ONE train iteration and one eval episode, with
+   ``on_device_halfcheetah``'s checks and measurements.
+
 25. ``heads_step_parity`` (after ``stacked_step_parity``): one full-width
    ``train_step`` with the scalar head and the MoG head (M = 5) on the card
    against the CPU, single and REDQ (E = 10, M = 2, one subset fed to
@@ -295,9 +310,14 @@ PREEMPT_AT = 16              # grad steps before the third trainer is preempted
 K = 8                        # grad steps per megastep dispatch
 TREE_L = 2**20               # device tree leaves at the 1M-row replay
 SEED = 0
+START = time.perf_counter()  # the script's start, for each phase line's ``at_s``
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries ``at_s``, the
+    seconds since the script started, so a run's time splits by phase."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1965,7 +1985,8 @@ PLANAR_TIMED = 20             # timed control steps on the card
 # card's and the CPU's cos, sin, sums and LU solve
 PLANAR_Q_ATOL, PLANAR_QD_ATOL, PLANAR_R_ATOL = 1e-5, 5e-4, 1e-4
 # train iterations a phase; pendulum_bf16 is bf16_wire's on-device leg
-ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1, "hopper_twin": 1, "pendulum_bf16": 1}
+ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1, "hopper_twin": 1, "pendulum_bf16": 1,
+                   "humanoid": 1}
 
 
 def planar_step_parity(card: str) -> dict:
@@ -2032,6 +2053,121 @@ def planar_step_parity(card: str) -> dict:
     return out
 
 
+SPATIAL_ENVS = 64              # spatial_step_parity's batch (the Humanoid recipe's envs)
+SPATIAL_SETTLE = 15           # CPU control steps before the compared one
+SPATIAL_TIMED = 20            # timed control steps on the card
+# spatial_step_parity's tolerances: tests/test_torch_spatial_envs.py's for
+# v, obs and reward (10 or 20 substeps of stiff penalty contacts, where
+# each float32 engine lies ~1e-3 from a float64 run on a deep contact
+# row); q atol 5e-5, not the test's 1e-5, because on Ant's contact rows
+# each float32 engine lies up to 7.9e-6 from a float64 run
+# (tests/test_torch_spatial.py), and the card's sin, cos, sums and LU
+# solve are another float32 engine (1.46e-05 measured on the H100)
+SPATIAL_Q_ATOL, SPATIAL_V_ATOL, SPATIAL_R_ATOL = 5e-5, 5e-3, 1e-3
+SPATIAL_QUAT_ATOL = 1e-6      # |root quaternion| - 1 after the step
+
+
+def spatial_step_parity(card: str, env_name: str) -> dict:
+    """One Humanoid or Ant control step (10 or 20 substeps of the 3D
+    engine) of 64 seeded states on the card against the same step on the
+    CPU. The states come from a seeded reset and ``SPATIAL_SETTLE`` CPU
+    steps under seeded random actions (rows that terminate are reset, as
+    the rollout resets them), so most rows touch the ground. q, v, obs and
+    reward within the stated tolerances, the root quaternions unit,
+    terminated and truncated equal (and the rows whose state blows up the
+    same on both); the rows in contact at the start and at any substep of
+    the step; the card's wall ms of one control step for the 64 envs
+    (median of ``SPATIAL_TIMED`` synchronized steps), the kernels one step
+    launches and their device ms (a ``torch.profiler`` trace). No hand
+    kernel launches in this phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d4pg_tpu_torch.envs import EnvState, make_env
+    from d4pg_tpu_torch.envs import spatial
+
+    reset_counts()
+    env = make_env(env_name)
+    gen = torch.Generator().manual_seed(SEED)
+    state, obs = env.reset(SPATIAL_ENVS, gen)
+    for _ in range(SPATIAL_SETTLE):
+        a = 2.0 * torch.rand((SPATIAL_ENVS, env.action_dim), generator=gen) - 1.0
+        state, obs, _, term, trunc = env.step(state, a)
+        state, obs = env.reset_where(state, obs, torch.maximum(term, trunc), gen)
+    action = 2.4 * torch.rand((SPATIAL_ENVS, env.action_dim), generator=gen) - 1.2
+    # rows in ground contact at the start, and at any substep of the step
+    radius = torch.as_tensor(env.model.con_radius, dtype=torch.float32)
+    q, v = state.physics[:, :env.nq], state.physics[:, env.nq:]
+    ctrl = action.clamp(-1.0, 1.0) * torch.as_tensor(env.model.ctrl_hi, dtype=torch.float32)
+    touched = []
+    for _ in range(env.n_substeps):
+        touched.append(((radius - spatial.contact_points(env.model, q)[..., 2]) > 0).any(-1))
+        q, v = spatial.step_physics(env.model, q, v, ctrl, 1, env.substep_dt)
+    contact_rows = int(touched[0].sum())
+    contact_rows_in_step = int(torch.stack(touched).any(0).sum())
+    cpu = env.step(state, action)
+    dev_state = EnvState(state.physics.cuda(), state.t.cuda())
+    card_out = env.step(dev_state, action.cuda())
+    nq = env.nq
+    # a row whose state blows up (a non-finite value or |v| >= 1e4, the
+    # envs' guard; it happens in the JAX package too) must blow up on both
+    # devices, where the guard terminates it with reward 0; the others are
+    # compared
+    def sane(physics):
+        return torch.isfinite(physics).all(-1) & (physics[:, nq:].abs().amax(-1) < 1e4)
+
+    finite = sane(cpu[0].physics)
+    same_blowups = torch.equal(sane(card_out[0].physics.cpu()), finite)
+    card_phys = card_out[0].physics.cpu()[finite]
+    cpu_phys = cpu[0].physics[finite]
+    err = {
+        "q": (card_phys[:, :nq] - cpu_phys[:, :nq]).abs().max().item(),
+        "v": (card_phys[:, nq:] - cpu_phys[:, nq:]).abs().max().item(),
+        "obs": (card_out[1].cpu()[finite] - cpu[1][finite]).abs().max().item(),
+        "reward": (card_out[2].cpu() - cpu[2]).abs().max().item(),
+    }
+    quat_err = (torch.linalg.vector_norm(card_phys[:, 3:7], dim=-1) - 1.0).abs().max().item()
+    flags_equal = same_blowups and all(
+        torch.equal(c.cpu(), h) for c, h in zip(card_out[3:], cpu[3:]))
+    times = []
+    for i in range(SPATIAL_TIMED + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_state = env.step(dev_state, action.cuda())[0]
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        env.step(dev_state, action.cuda())
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        step_k = [e for e in trace_events(prof, f"{tmp}/step.json") if e.get("cat") == "kernel"]
+    launches = read_counts()
+    phase = f"spatial_step_parity_{env_name}"
+    check(err["q"] <= SPATIAL_Q_ATOL and err["v"] <= SPATIAL_V_ATOL and err["obs"] <= SPATIAL_V_ATOL
+          and err["reward"] <= SPATIAL_R_ATOL and quat_err <= SPATIAL_QUAT_ATOL and flags_equal,
+          f"{phase}: card vs CPU {err}, quaternion norm error {quat_err}, flags equal {flags_equal}")
+    check(not any(launches.values()), f"{phase}: hand kernels launched {launches}")
+    out = {"phase": "spatial_step_parity", "env": env_name, "card": card, "envs": SPATIAL_ENVS,
+           "nq": env.nq, "nv": env.nv, "substeps": env.n_substeps, "contact_rows": contact_rows,
+           "contact_rows_in_step": contact_rows_in_step, "terminated_rows": int(cpu[3].sum()),
+           "nonfinite_rows": int((~finite).sum()), "max_abs_err": err,
+           "quat_norm_max_abs_err": quat_err,
+           "tolerance": {"q": SPATIAL_Q_ATOL, "v_and_obs": SPATIAL_V_ATOL,
+                         "reward": SPATIAL_R_ATOL, "quat_norm": SPATIAL_QUAT_ATOL},
+           "terminated_truncated_equal": flags_equal,
+           "control_step_wall_ms_median": statistics.median(times),
+           "control_step_wall_ms_min": min(times),
+           "kernels_per_control_step": len(step_k),
+           "kernels_per_substep": len(step_k) / env.n_substeps,
+           # the kernels of one control step run one after another on one
+           # stream: their summed durations are its device time
+           "control_step_device_ms": sum(e["dur"] for e in step_k) / 1e3,
+           "launches": launches, "ok": True}
+    emit(out)
+    return out
+
+
 def on_device_config(TrainConfig, env_name: str, log_dir: str):
     """The on-device phases' configurations. Pendulum: the default width
     (3x256, 51 atoms, B = 256, 16 envs x 32 steps: K = 512), n-step 3, PER,
@@ -2043,7 +2179,11 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     [0, 500], ``twin_critic``: K = 2048), one warmup segment, one train
     iteration, one eval episode. Pendulum bf16 (``bf16_wire``'s on-device
     leg): Pendulum's configuration with ``compute_dtype`` and
-    ``ring_dtype`` bfloat16, one train iteration. Depth is the only cut."""
+    ``ring_dtype`` bfloat16, one train iteration. Humanoid: the README's
+    on-device recipe (``runs/humanoid_ondevice_v1500/NOTES.md``: 64 envs, a
+    2^19-row ring, n-step 3, PER, [0, 1500], noise 1.0 -> 0.1 over 2M env
+    steps; K = 2048), one warmup segment, one train iteration, one eval
+    episode of the env's full 1000 steps. Depth is the only cut."""
     from d4pg_tpu_torch.agent.state import D4PGConfig
     from d4pg_tpu_torch.models.critic import DistConfig
 
@@ -2066,6 +2206,14 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
                            eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
                            agent=D4PGConfig(twin_critic=True, noise_decay_steps=2_000_000,
                                             noise_scale_final=0.15),
+                           log_dir=log_dir, seed=SEED, debug_guards=True)
+    if env_name == "humanoid":
+        k = 64 * 32
+        return TrainConfig(env="humanoid", num_envs=64, n_step=3, replay_capacity=524_288,
+                           total_steps=ON_DEVICE_ITERS[env_name] * k,
+                           eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
+                           agent=D4PGConfig(dist=DistConfig(v_min=0.0, v_max=1500.0),
+                                            noise_decay_steps=2_000_000, noise_scale_final=0.1),
                            log_dir=log_dir, seed=SEED, debug_guards=True)
     k = 128 * 32
     return TrainConfig(env="halfcheetah", num_envs=128, n_step=5, replay_capacity=1_048_576,
@@ -3107,6 +3255,10 @@ def main() -> int:
         for env_name in ("pendulum", "halfcheetah", "hopper_twin"):
             paths[f"on_device_{env_name}"] = on_device_phase(
                 TrainConfig, env_name, card, f"{tmp}/on_device_{env_name}")
+        for env_name in ("humanoid", "ant"):
+            spatial_step_parity(card, env_name)
+        paths["on_device_humanoid"] = on_device_phase(
+            TrainConfig, "humanoid", card, f"{tmp}/on_device_humanoid")
         paths["large_batch"] = large_batch_phase(Trainer, TrainConfig, card, f"{tmp}/large_batch")
         # bf16_wire: the bf16 ring on the device, then the bf16 host wire
         paths["on_device_pendulum_bf16"] = on_device_phase(

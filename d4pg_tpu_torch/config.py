@@ -120,6 +120,10 @@ ENV_PRESETS = {
     "halfcheetah": dict(v_min=0.0, v_max=1000.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
     "hopper": dict(v_min=0.0, v_max=500.0, obs_dim=11, action_dim=3, max_episode_steps=1000),
     "walker2d": dict(v_min=0.0, v_max=500.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
+    # the 3D envs on the spatial engine (envs/spatial.py); humanoid's
+    # support is the JAX package's widened [0, 1500]
+    "humanoid": dict(v_min=0.0, v_max=1500.0, obs_dim=45, action_dim=17, max_episode_steps=1000),
+    "ant": dict(v_min=0.0, v_max=1000.0, obs_dim=27, action_dim=8, max_episode_steps=1000),
 }
 
 
@@ -144,7 +148,8 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
     if preset is None:
         raise NotImplementedError(
             f"env {config.env!r} is not ported to d4pg_tpu_torch yet (ROADMAP "
-            f"A9); available: {sorted(ENV_PRESETS)}"
+            f"A9: on-device envs; A5 (d): gym ids through the host env "
+            f"adapters); available: {sorted(ENV_PRESETS)}"
         )
     dist = config.agent.dist
     defaults = DistConfig()

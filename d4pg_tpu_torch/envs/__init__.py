@@ -1,10 +1,11 @@
 """Batched torch environments on the device: Pendulum, the goal point
-mass and the planar locomotion tasks (ROADMAP A9 lists the rest)."""
+mass, the planar locomotion tasks and Humanoid and Ant on the 3D engine
+(ROADMAP A9 lists the rest)."""
 
 from typing import Optional
 
 from d4pg_tpu_torch.envs.api import Env, EnvState
-from d4pg_tpu_torch.envs.locomotion import HalfCheetah, Hopper, Walker2d
+from d4pg_tpu_torch.envs.locomotion import Ant, HalfCheetah, Hopper, Humanoid, Walker2d
 from d4pg_tpu_torch.envs.pendulum import Pendulum
 from d4pg_tpu_torch.envs.pointmass_goal import PointMassGoal
 
@@ -14,6 +15,8 @@ ENVS = {
     "halfcheetah": HalfCheetah,
     "hopper": Hopper,
     "walker2d": Walker2d,
+    "humanoid": Humanoid,
+    "ant": Ant,
 }
 
 
@@ -34,7 +37,8 @@ def make_env(name: str, max_episode_steps: Optional[int] = None, action_repeat: 
     if name not in ENVS:
         raise NotImplementedError(
             f"env {name!r} is not ported to d4pg_tpu_torch yet (ROADMAP A9: "
-            f"on-device envs; A5: host/gym envs); available: {sorted(ENVS)}"
+            f"on-device envs; A5 (d): gym ids through the host env adapters); "
+            f"available: {sorted(ENVS)}"
         )
     _reject_action_repeat(name, action_repeat)
     env = ENVS[name]()
@@ -44,6 +48,6 @@ def make_env(name: str, max_episode_steps: Optional[int] = None, action_repeat: 
 
 
 __all__ = [
-    "ENVS", "Env", "EnvState", "HalfCheetah", "Hopper", "Pendulum", "PointMassGoal",
-    "Walker2d", "make_env",
+    "ENVS", "Ant", "Env", "EnvState", "HalfCheetah", "Hopper", "Humanoid", "Pendulum",
+    "PointMassGoal", "Walker2d", "make_env",
 ]

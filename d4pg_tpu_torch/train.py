@@ -35,6 +35,10 @@ Examples:
         # the large-batch recipe (B = 2048, K = 4) with a REDQ ensemble
     python -m d4pg_tpu_torch.train --env hopper --on-device --num-envs 64 \
         --n-step 3 --twin-critic     # twin critics, the preset's [0, 500]
+    python -m d4pg_tpu_torch.train --env humanoid --on-device --num-envs 64 \
+        --rmsize 524288 --n-step 3 --v-min 0 --v-max 1500 \
+        --noise-decay-steps 2000000 --noise-scale-final 0.1
+        # Humanoid on the 3D spatial engine, fully on the card
     python -m d4pg_tpu_torch.train --env pendulum --critic-head mixture_gaussian \
         --num-mixtures 5 --replay-placement device --p-replay --steps-per-dispatch 8
     python -m d4pg_tpu_torch.train --env pointmass_goal --her --n-step 1
@@ -98,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) runs the CUDA kernels; cpu runs their "
                         "plain PyTorch versions")
     p.add_argument("--env", default="pendulum",
-                   help="pendulum, pointmass_goal, halfcheetah, hopper, walker2d")
+                   help="pendulum, pointmass_goal, halfcheetah, hopper, walker2d, "
+                        "humanoid, ant")
     p.add_argument("--rmsize", "--replay-capacity", dest="replay_capacity",
                    type=int, default=None, help="replay capacity (default 1M)")
     p.add_argument("--tau", type=float, default=0.001)

@@ -66,7 +66,7 @@ def test_pendulum_reset_distribution_and_obs():
 def test_make_env_refuses_unported_envs():
     assert isinstance(make_env("pendulum"), Pendulum)
     with pytest.raises(NotImplementedError, match="A9"):
-        make_env("humanoid")
+        make_env("pixel_pendulum")
 
 
 def test_pointmass_goal_step_matches_reference():
