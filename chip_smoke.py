@@ -169,8 +169,8 @@ JSON line (with ``at_s``, the seconds since the script started):
 19. ``on_device_halfcheetah``: the same at the README's HalfCheetah
    command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
    PER, default widths; K = 4096): one warmup segment, ONE train
-   iteration and one eval episode (the depth cuts), the same checks and
-   measurements.
+   iteration and one eval episode of 250 steps, not 1000 (the depth
+   cuts), the same checks and measurements.
 20. ``stacked_kernel`` (right after ``tree_kernel``): B1f and B1b over E
    stacked critics in one launch, logits [E, B, A] against the members'
    shared target [B, A], at E in {2, 10} x B in {1, 7, 256, 2048} x A in
@@ -216,8 +216,8 @@ JSON line (with ``at_s``, the seconds since the script started):
    (``--env humanoid --on-device --num-envs 64 --rmsize 524288 --n-step 3
    --v-min 0 --v-max 1500 --noise-decay-steps 2000000
    --noise-scale-final 0.1``; K = 2048) at the default widths, one warmup
-   segment, ONE train iteration and one eval episode, with
-   ``on_device_halfcheetah``'s checks and measurements.
+   segment, ONE train iteration and one eval episode of 250 steps (not
+   1000), with ``on_device_halfcheetah``'s checks and measurements.
 
 25. ``heads_step_parity`` (after ``stacked_step_parity``): one full-width
    ``train_step`` with the scalar head and the MoG head (M = 5) on the card
@@ -263,6 +263,26 @@ JSON line (with ``at_s``, the seconds since the script started):
    ``--debug-guards`` and on the in-process guarded server, parts the
    guard's cost from that of sharing the server's process. No hand
    kernel launched (the ``serve`` entry of every ``launches_by_path``).
+
+29. ``pixel_step_parity``: the pixel path (ROADMAP A10 (c)) at the
+   ``pixel_pendulum`` preset's full width (48x48x2 frames, the 4x32 conv
+   encoder with embedding 50, 3x256, 51 atoms, B = 256) on the card
+   against the CPU from the same weights, batch and DrQ shift offsets:
+   one encoder forward, one ``train_step`` (losses, priorities, every
+   updated parameter; B1f and B1b once on the card), the render of 64
+   states and the uint8 encode and decode, each error beside its stated
+   tolerance; the card's eager call ms of the encoder and of a step.
+30. ``host_pixel``: the ``Trainer`` on ``--env pixel_pendulum`` (host
+   placement, the uint8 replay at 100 000 rows, PER on the native tree,
+   K = 4, 200 grad steps under the sync guard), one line per wire:
+   ``float32`` (``OBS_U8_DECODE``) and ``uint8`` (``OBS_U8_RAW``, one byte
+   an observation element on the wire): grad and env steps/s,
+   ``steady_state``, the bytes a dispatch copies, the buffer's dtype, B1f
+   = B1b = 200 (``host_pixel_float32`` / ``host_pixel_uint8`` in every
+   ``launches_by_path``). Then ``on_device_pixel_pendulum`` (phase 18's
+   harness): ``--on-device`` with the uint8 ring at 99 840 rows, K = 512,
+   B1f = B1b = K. The ``serve`` line also serves a seeded pixel bundle
+   (its graphs capture the conv encoder) against CPU actions.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -1984,9 +2004,14 @@ PLANAR_TIMED = 20             # timed control steps on the card
 # substeps of stiff penalty contacts amplify the ulp differences of the
 # card's and the CPU's cos, sin, sums and LU solve
 PLANAR_Q_ATOL, PLANAR_QD_ATOL, PLANAR_R_ATOL = 1e-5, 5e-4, 1e-4
+# the eval episode's length in on_device_halfcheetah and on_device_humanoid:
+# a depth cut of the envs' 1000 steps (the evals took 70-73 % of those
+# phases, PERF.md section 5); their training rolls 64-128 steps an env,
+# which no limit of 250 truncates
+ON_DEVICE_EVAL_STEPS = 250
 # train iterations a phase; pendulum_bf16 is bf16_wire's on-device leg
 ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1, "hopper_twin": 1, "pendulum_bf16": 1,
-                   "humanoid": 1}
+                   "humanoid": 1, "pixel_pendulum": 1}
 
 
 def planar_step_parity(card: str) -> dict:
@@ -2174,7 +2199,8 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     one warmup segment, 2 train iterations. HalfCheetah: the README's
     command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
     PER, default widths: K = 4096), one warmup segment, one train
-    iteration, one eval episode. Hopper twin: the twin arm of
+    iteration, one eval episode of ON_DEVICE_EVAL_STEPS (250) steps.
+    Hopper twin: the twin arm of
     ``runs/hopper_ondevice_tpu_r3/NOTES.md`` (64 envs, n-step 3, PER,
     [0, 500], ``twin_critic``: K = 2048), one warmup segment, one train
     iteration, one eval episode. Pendulum bf16 (``bf16_wire``'s on-device
@@ -2183,7 +2209,13 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     on-device recipe (``runs/humanoid_ondevice_v1500/NOTES.md``: 64 envs, a
     2^19-row ring, n-step 3, PER, [0, 1500], noise 1.0 -> 0.1 over 2M env
     steps; K = 2048), one warmup segment, one train iteration, one eval
-    episode of the env's full 1000 steps. Depth is the only cut."""
+    episode of ON_DEVICE_EVAL_STEPS (250) steps, not the env's 1000.
+    Pixel pendulum: the preset's
+    width (48x48x2 frames through the conv encoder, 3x256, B = 256) with
+    the uint8 ring at the preset's 100 000 rows, rounded down to a multiple
+    of 16 envs x 32 steps as the JAX ``run_on_device`` rounds (99 840
+    rows, 0.92 GB of obs and next_obs), n-step 3, PER: K = 512, one warmup segment, one
+    train iteration, one eval of 10 episodes. Depth is the only cut."""
     from d4pg_tpu_torch.agent.state import D4PGConfig
     from d4pg_tpu_torch.models.critic import DistConfig
 
@@ -2196,6 +2228,12 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
                            log_dir=log_dir, seed=SEED, debug_guards=True,
                            ring_dtype="bfloat16" if bf16 else "auto",
                            agent=D4PGConfig(compute_dtype="bfloat16" if bf16 else "float32"))
+    if env_name == "pixel_pendulum":
+        k = 16 * 32
+        return TrainConfig(env="pixel_pendulum", num_envs=16, n_step=3, warmup_steps=k,
+                           total_steps=ON_DEVICE_ITERS[env_name] * k,
+                           eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=10,
+                           log_dir=log_dir, seed=SEED, debug_guards=True)
     if env_name == "hopper_twin":
         # runs/hopper_ondevice_tpu_r3/NOTES.md's twin arm: 64 envs, PER,
         # C51 over the preset's [0, 500], n-step 3, noise 1.0 -> 0.15 over
@@ -2210,6 +2248,7 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     if env_name == "humanoid":
         k = 64 * 32
         return TrainConfig(env="humanoid", num_envs=64, n_step=3, replay_capacity=524_288,
+                           max_episode_steps=ON_DEVICE_EVAL_STEPS,
                            total_steps=ON_DEVICE_ITERS[env_name] * k,
                            eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
                            agent=D4PGConfig(dist=DistConfig(v_min=0.0, v_max=1500.0),
@@ -2217,6 +2256,7 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
                            log_dir=log_dir, seed=SEED, debug_guards=True)
     k = 128 * 32
     return TrainConfig(env="halfcheetah", num_envs=128, n_step=5, replay_capacity=1_048_576,
+                       max_episode_steps=ON_DEVICE_EVAL_STEPS,
                        total_steps=ON_DEVICE_ITERS["halfcheetah"] * k,
                        eval_interval=ON_DEVICE_ITERS["halfcheetah"] * k, eval_episodes=1,
                        agent=D4PGConfig(dist=DistConfig(v_min=-100.0, v_max=1500.0)),
@@ -2286,7 +2326,8 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
     b1f_traced = sum(1 for e in events if e.get("cat") == "kernel"
                      and "fused_loss_fwd_kernel" in e.get("name", ""))
     a = run.config.agent
-    ring_dtype = torch.bfloat16 if run.config.ring_dtype == "bfloat16" else torch.float32
+    ring_dtype = (torch.uint8 if a.pixel_shape else
+                  torch.bfloat16 if run.config.ring_dtype == "bfloat16" else torch.float32)
     check(run.carry.replay.obs.dtype == run.carry.replay.next_obs.dtype == ring_dtype,
           f"{phase}: ring obs dtype {run.carry.replay.obs.dtype}, expected {ring_dtype}")
     out = {
@@ -2294,6 +2335,8 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
         "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
                   "twin_critic": a.twin_critic, "compute_dtype": a.compute_dtype,
                   "ring_obs_dtype": str(ring_dtype),
+                  "ring_obs_bytes": run.carry.replay.obs.nbytes + run.carry.replay.next_obs.nbytes,
+                  "pixel_shape": list(a.pixel_shape) if a.pixel_shape else None,
                   "support": [a.dist.v_min, a.dist.v_max], "batch": run.config.batch_size,
                   "num_envs": run.config.num_envs, "segment_len": 32, "n_step": a.n_step,
                   "prioritized": run.config.prioritized, "replay_capacity": run.capacity,
@@ -3011,8 +3054,17 @@ def serve_phase(card: str, run_dir: str, tmp: str, run_actor: dict) -> dict:
                   action_high=1.0 + rng.uniform(0, 1, 6), obs_norm_state=stats,
                   meta={"source": "chip_smoke seeded"})
     cheetah = load_bundle(cheetah_dir)
+    # a seeded pixel_pendulum bundle at the preset's width: 48x48x2 frames
+    # through the conv encoder, 3x256; its graphs capture the encoder
+    pixel_dir = f"{tmp}/bundle_pixel"
+    pcfg = D4PGConfig(obs_dim=PIXEL_OBS, action_dim=1, pixel_shape=PIXEL_SHAPE)
+    pixel_actor = Actor(PIXEL_OBS, 1, pcfg.hidden_sizes, pixel_shape=PIXEL_SHAPE,
+                        generator=torch.Generator().manual_seed(SEED + 48))
+    export_bundle(pixel_dir, pcfg, pixel_actor, meta={"source": "chip_smoke seeded"})
+    pixel = load_bundle(pixel_dir)
 
-    srv = PolicyServer(default, policies={"cheetah": cheetah}, port=0, max_batch=SERVE_MAX_BATCH,
+    srv = PolicyServer(default, policies={"cheetah": cheetah, "pixel": pixel}, port=0,
+                       max_batch=SERVE_MAX_BATCH,
                        watch_bundle=True, poll_interval_s=3600.0, debug_guards=True,
                        device="cuda")
     t0 = time.perf_counter()
@@ -3025,17 +3077,20 @@ def serve_phase(card: str, run_dir: str, tmp: str, run_actor: dict) -> dict:
         check(all(c == len(b.buckets) == 7 for c, b in zip(captures.values(), batchers.values())),
               f"serve: captures {captures}, expected 7 per policy")
 
-        # card_vs_cpu over the socket: v1 ACT for the default, ACT2 for cheetah
+        # card_vs_cpu over the socket: v1 ACT for the default, ACT2 for
+        # cheetah and a handful of frames for pixel
         card_vs_cpu = {}
-        for pid, bundle in (("default", default), ("cheetah", cheetah)):
-            obs = (rng.normal(size=(SERVE_CHECK_ROWS, bundle.obs_dim)) * 2).astype(np.float32)
+        for pid, bundle in (("default", default), ("cheetah", cheetah), ("pixel", pixel)):
+            if pid == "pixel":
+                obs = pixel_frames(rng, PIXEL_SERVE_ROWS)
+            else:
+                obs = (rng.normal(size=(SERVE_CHECK_ROWS, bundle.obs_dim)) * 2).astype(np.float32)
             with PolicyClient("127.0.0.1", srv.port, timeout=60) as c:
                 futs = [c.act_async(o, policy_id=None if pid == "default" else pid) for o in obs]
                 got = np.stack([f.result(60) for f in futs])
             err = float(np.abs(got - cpu_actions(bundle, obs)).max())
             check(err <= SERVE_TOL, f"serve card_vs_cpu {pid}: max_abs_err {err}")
-            card_vs_cpu[pid] = {"rows": SERVE_CHECK_ROWS, "max_abs_err": err,
-                                "tolerance": SERVE_TOL}
+            card_vs_cpu[pid] = {"rows": len(obs), "max_abs_err": err, "tolerance": SERVE_TOL}
 
         # hot_reload: re-export the default policy with other params while 4
         # pipelined clients keep traffic going, then check_reload()
@@ -3095,7 +3150,8 @@ def serve_phase(card: str, run_dir: str, tmp: str, run_actor: dict) -> dict:
         check(recaptures == captures and not any(rebound.values()),
               f"serve hot_reload: captures {captures} -> {recaptures}, rebound {rebound}")
         check(srv.stats.params_reloads == 1
-              and batchers["cheetah"].stats.params_reloads == 0,
+              and batchers["cheetah"].stats.params_reloads == 0
+              and batchers["pixel"].stats.params_reloads == 0,
               f"serve hot_reload: params_reloads {srv.stats.params_reloads}")
         default = load_bundle(default_dir)
 
@@ -3156,7 +3212,9 @@ def serve_phase(card: str, run_dir: str, tmp: str, run_actor: dict) -> dict:
     emit({
         "phase": "serve", "card": card,
         "policies": {pid: {"obs_dim": b.config.obs_dim, "action_dim": b.config.action_dim,
-                           "hidden": list(b.config.hidden_sizes), "buckets": list(b.buckets)}
+                           "hidden": list(b.config.hidden_sizes), "buckets": list(b.buckets),
+                           "pixel_shape": list(b.config.pixel_shape) if b.config.pixel_shape
+                           else None}
                      for pid, b in batchers.items()},
         "export": {"source": export_source, "leaves_torch_equal_to_run": True,
                    "cli_s": export_s},
@@ -3176,6 +3234,181 @@ def serve_phase(card: str, run_dir: str, tmp: str, run_actor: dict) -> dict:
     })
     return launches
 
+
+# ------------------------------------------------------------------ pixels
+PIXEL_SHAPE = (48, 48, 2)            # the pixel_pendulum preset's frames
+PIXEL_OBS = 48 * 48 * 2
+# grad steps of each host_pixel leg: at K = 4 one collection (16 envs x 32
+# steps, budgeted one env step a grad step) falls in every 512, so the leg
+# has a collection and an env-steps rate
+PIXEL_STEPS = 512
+PIXEL_K = 4                          # host_pixel's grad steps a dispatch
+PIXEL_RENDER_STATES = 64
+# pixel_step_parity's tolerances, tests/test_torch_pixels.py's: the
+# encoder's float32 products summed in another order (1e-5 on its tanh
+# output), the render's float32 distance an ulp apart (1e-5); the step's
+# loss and priorities as step_parity's; every parameter after one Adam
+# step within 2 lr + 1e-6 (Adam's first step moves a coordinate by at most
+# lr, and a gradient within float32 noise of 0, a dead ReLU's, may take
+# the other sign on the other device)
+PIXEL_ENC_ATOL = 1e-5
+PIXEL_RENDER_ATOL = 1e-5
+PIXEL_SERVE_ROWS = 16                # the pixel policy's card_vs_cpu requests
+
+
+def pixel_frames(rng, n: int):
+    """n flattened 48x48x2 frames of quantized [0, 1] values."""
+    import numpy as np
+
+    return (rng.integers(0, 256, size=(n, PIXEL_OBS)) / 255.0).astype(np.float32)
+
+
+def pixel_step_parity(cfg_cls, create_train_state, train_step, card: str) -> None:
+    """The pixel path at the preset's full width (48x48x2 frames, the 4x32
+    conv encoder with embedding 50, 3x256 MLPs, 51 atoms, B = 256) on the
+    card against the CPU, from the same weights (one seed), the same seeded
+    batch and the same DrQ shift offsets: one encoder forward, one
+    ``train_step`` (critic and actor loss, priorities, every updated
+    parameter of the four networks; B1f and B1b once each on the card), the
+    render of 64 seeded states, and the uint8 encode and decode
+    (``torch.equal``). Also the card's eager call time of the encoder
+    forward and of one train step (CUDA events, median)."""
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent.d4pg import decode_obs, encode_obs
+    from d4pg_tpu_torch.envs.pixel_pendulum import render_arm
+    from d4pg_tpu_torch.models.critic import DistConfig
+    from d4pg_tpu_torch.ops.augment import draw_offsets
+
+    agent = cfg_cls(obs_dim=PIXEL_OBS, pixel_shape=PIXEL_SHAPE, n_step=3,
+                    dist=DistConfig(v_min=-300.0, v_max=0.0))
+    B = 256
+    rng = np.random.default_rng(SEED + 14)
+    batch = step_batch(rng, B)
+    batch["obs"], batch["next_obs"] = pixel_frames(rng, B), pixel_frames(rng, B)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    shift = (draw_offsets(B, agent.augment_pad, gen), draw_offsets(B, agent.augment_pad, gen))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(agent, SEED, dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            emb = state.actor.PixelEncoder_0(tb["obs"]).cpu()
+        reset_counts()
+        _, metrics, pri = train_step(agent, state, tb, shift=tuple(o.to(dev) for o in shift))
+        launches = read_counts()
+        params = {f"{net}.{name}": p.detach().cpu() for net in
+                  ("actor", "critic", "target_actor", "target_critic")
+                  for name, p in getattr(state, net).named_parameters()}
+        out[dev] = dict(emb=emb, metrics={k: float(v) for k, v in metrics.items()},
+                        pri=pri.cpu().numpy(), params=params, launches=launches, state=state,
+                        batch=tb)
+    c, h = out["cuda"], out["cpu"]
+    enc_err = float((c["emb"] - h["emb"]).abs().max())
+    check(enc_err <= PIXEL_ENC_ATOL, f"pixel_step_parity: encoder max_abs_err {enc_err}")
+    check(all(np.isfinite(v) for v in c["metrics"].values()), f"non-finite {c['metrics']}")
+    pri_err = float(np.abs(c["pri"] - h["pri"]).max())
+    check(np.allclose(c["pri"], h["pri"], rtol=1e-4, atol=1e-4),
+          f"pixel_step_parity: priorities differ by {pri_err:.3e}")
+    mc, mh = c["metrics"], h["metrics"]
+    loss_err = abs(mc["critic_loss"] - mh["critic_loss"])
+    check(loss_err <= 1e-4 * abs(mh["critic_loss"]) + 1e-5,
+          f"pixel_step_parity: critic_loss {mc['critic_loss']} vs {mh['critic_loss']}")
+    check(abs(mc["q_mean"] - mh["q_mean"]) <= 0.3, f"q_mean {mc['q_mean']} vs {mh['q_mean']}")
+    param_tol = 2 * agent.lr_critic + 1e-6
+    param_err = {k: float((c["params"][k] - h["params"][k]).abs().max()) for k in h["params"]}
+    worst = max(param_err, key=param_err.get)
+    check(param_err[worst] <= param_tol,
+          f"pixel_step_parity: {worst} differs by {param_err[worst]} > {param_tol}")
+    expect = dict(fused_fwd=1, fused_bwd=1, project=0, tree_count=0, fused_step=0)
+    check(c["launches"] == expect, f"pixel_step_parity: launches {c['launches']}")
+
+    theta = torch.from_numpy(rng.uniform(-4, 4, PIXEL_RENDER_STATES).astype(np.float32))
+    render_err = float((render_arm(theta.cuda(), 48).cpu() - render_arm(theta, 48)).abs().max())
+    check(render_err <= PIXEL_RENDER_ATOL, f"pixel_step_parity: render max_abs_err {render_err}")
+    edges = torch.from_numpy(pixel_frames(rng, 64))
+    edges[:, ::3] = (torch.randint(0, 255, edges[:, ::3].shape, generator=gen) + 0.5) / 255.0
+    u8 = encode_obs(edges.cuda())
+    encode_equal = torch.equal(u8.cpu(), encode_obs(edges))
+    decode_equal = torch.equal(decode_obs(u8).cpu(), decode_obs(u8.cpu()))
+    check(encode_equal and decode_equal,
+          f"pixel_step_parity: uint8 encode equal {encode_equal}, decode equal {decode_equal}")
+
+    st, tb = c["state"], c["batch"]
+    with torch.no_grad():
+        encoder_ms = call_ms(lambda: st.actor.PixelEncoder_0(tb["obs"]), n=50)
+    step_ms = call_ms(lambda: train_step(agent, st, tb), n=20, warmup=3)
+    emit({"phase": "pixel_step_parity", "card": card,
+          "width": {"pixel_shape": list(PIXEL_SHAPE), "convs": "4 x 3x3x32, stride 2 then 1",
+                    "embed": agent.encoder_embed_dim, "hidden": list(agent.hidden_sizes),
+                    "atoms": agent.dist.num_atoms, "batch": B, "augment_pad": agent.augment_pad},
+          "encoder_max_abs_err": enc_err, "encoder_tolerance": PIXEL_ENC_ATOL,
+          "priority_max_abs_err": pri_err, "critic_loss_abs_err": loss_err,
+          "cuda": mc, "cpu": mh,
+          "param_max_abs_err": param_err[worst], "param_worst": worst,
+          "param_tolerance": param_tol,
+          "render_max_abs_err": render_err, "render_tolerance": PIXEL_RENDER_ATOL,
+          "render_states": PIXEL_RENDER_STATES,
+          "uint8_encode_torch_equal": encode_equal, "uint8_decode_torch_equal": decode_equal,
+          "launches": c["launches"],
+          "encoder_forward_call_ms": encoder_ms, "train_step_call_ms": step_ms, "ok": True})
+
+
+def host_pixel_run(Trainer, TrainConfig, wire: str, card: str, log_dir: str) -> dict:
+    """``host_pixel``: the ``Trainer`` on ``--env pixel_pendulum`` at the
+    preset's full width (48x48x2 frames, the conv encoder, 3x256, B = 256,
+    the uint8 replay at the preset's 100 000 rows, 16 envs x 32 steps),
+    host placement, PER on the native tree, K = 4, 200 grad steps under
+    the sync guard after the first dispatch, on one wire: ``float32``
+    (``OBS_U8_DECODE``: the gather decodes the bytes on the host) or
+    ``uint8`` (``OBS_U8_RAW``: the bytes cross, the card divides them by
+    255). B1f and B1b once a grad step, the rest 0; the buffer uint8; the
+    bytes one dispatch copies to the card, the staged dtypes; the
+    ``steady_state`` wall and device ms a step and the idle share."""
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.replay import native
+
+    n = PIXEL_STEPS
+    cfg = TrainConfig(env="pixel_pendulum", total_steps=n, eval_interval=n, eval_episodes=10,
+                      log_dir=log_dir, seed=SEED, tree_backend="native",
+                      steps_per_dispatch=PIXEL_K, transfer_dtype=wire, debug_guards=True)
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    label = f"host_pixel {wire}"
+    trainer, row, launches, wall, busy, stages = device_learner_run(Trainer, cfg, label, expect)
+    buf = trainer.buffer
+    mode = {native.OBS_F32: "OBS_F32", native.OBS_U8_DECODE: "OBS_U8_DECODE",
+            native.OBS_U8_RAW: "OBS_U8_RAW"}[buf._native_obs_mode()]
+    _, staged, ready = trainer._sample_staged(PIXEL_K)
+    trainer._h2d.consume(staged, ready)
+    torch.cuda.synchronize()
+    shipped = {k: v.numel() * v.element_size() for k, v in staged.items()}
+    obs_bytes = staged["obs"].element_size()
+    want_bytes = 1 if wire == "uint8" else 4
+    check(buf.obs.dtype == np.uint8 and buf.next_obs.dtype == np.uint8 and buf.tree_backend == "native",
+          f"{label}: buffer obs {buf.obs.dtype}, backend {buf.tree_backend}")
+    check(obs_bytes == want_bytes and staged["obs"].shape == (PIXEL_K, 256, PIXEL_OBS),
+          f"{label}: staged obs {staged['obs'].dtype} {tuple(staged['obs'].shape)}")
+    check(mode == ("OBS_U8_RAW" if wire == "uint8" else "OBS_U8_DECODE"), f"{label}: {mode}")
+    emit({"phase": "host_pixel", "leg": wire, "card": card,
+          "width": {"pixel_shape": list(PIXEL_SHAPE), "hidden": list(cfg.agent.hidden_sizes),
+                    "batch": trainer.config.batch_size, "num_envs": trainer.config.num_envs,
+                    "replay_capacity": buf.capacity, "steps_per_dispatch": PIXEL_K},
+          "buffer_obs_dtype": str(buf.obs.dtype), "native_obs_mode": mode,
+          "replay_obs_bytes": int(buf.obs.nbytes + buf.next_obs.nbytes),
+          "staged_dtypes": {k: str(v.dtype) for k, v in staged.items()},
+          "obs_bytes_per_element_on_the_wire": obs_bytes,
+          "bytes_per_dispatch": sum(shipped.values()), "bytes_per_dispatch_by_field": shipped,
+          "grad_steps": n, "env_steps": trainer.env_steps,
+          "wall_s_incl_warmup_and_eval": wall,
+          "grad_steps_per_sec": row["grad_steps_per_sec"],
+          "env_steps_per_sec": row["env_steps_per_sec"],
+          "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+          "eval_return_mean": row["eval_return_mean"], "launches": launches,
+          "stage_ms_per_step": stage_ms_per_step(stages, n), "steady_state": busy, "ok": True})
+    return launches
 
 def main() -> int:
     import torch
@@ -3227,6 +3460,7 @@ def main() -> int:
     step_parity(D4PGConfig, create_train_state, train_step)
     stacked_step_parity(D4PGConfig, create_train_state, train_step)
     heads_step_parity(D4PGConfig, create_train_state, train_step)
+    pixel_step_parity(D4PGConfig, create_train_state, train_step, card)
     check_sync_guard()
     native_tree_phase()
     paths = {}
@@ -3268,6 +3502,11 @@ def main() -> int:
             paths[f"heads_device_{head}"] = heads_device_run(
                 Trainer, TrainConfig, head, card, f"{tmp}/heads_{head}")
         paths["her_pointmass"] = her_pointmass_phase(Trainer, TrainConfig, card, f"{tmp}/her")
+        for wire in ("float32", "uint8"):
+            paths[f"host_pixel_{wire}"] = host_pixel_run(
+                Trainer, TrainConfig, wire, card, f"{tmp}/pixel_{wire}")
+        paths["on_device_pixel_pendulum"] = on_device_phase(
+            TrainConfig, "pixel_pendulum", card, f"{tmp}/on_device_pixel_pendulum")
         paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
 
     def per_path(counter):

@@ -23,7 +23,10 @@ distribution, every member regresses it (one fused-loss launch over the
 E×B rows, the JAX package's vmap), the loss is the members' sum and the
 priorities their mean. The member is chosen by :func:`_critic_value`, the
 head's E[Z], so the stacks take every head. Under ``compute_dtype="bfloat16"`` the networks
-compute in bfloat16 on float32 master weights.
+compute in bfloat16 on float32 master weights. With pixels (``pixel_shape``)
+both networks conv-encode the flattened frames, and the step first shifts
+``obs`` and ``next_obs`` by DrQ's random ±``augment_pad`` offsets
+(``ops/augment.py``), drawn from ``TrainState.augment_gen``.
 
 :func:`gather_batches` and :func:`fused_train_scan` are the megastep's
 inner loop (``runtime/megastep.py``): K batches gathered from the device
@@ -63,6 +66,7 @@ from d4pg_tpu_torch.ops import (
     polyak_update,
     project,
 )
+from d4pg_tpu_torch.ops.augment import draw_offsets, random_shift
 from d4pg_tpu_torch.ops.cuda_fused_step import fused_categorical_loss_descent
 from d4pg_tpu_torch.ops.mog import mog_bellman_targets, mog_cross_entropy
 
@@ -90,15 +94,17 @@ def build_networks(
     generators drawn from it)."""
     check_supported(config)
     dtype = compute_dtype_of(config)
+    pixels = dict(pixel_shape=tuple(config.pixel_shape) if config.pixel_shape else None,
+                  encoder_embed_dim=config.encoder_embed_dim)
     actor = Actor(
         config.obs_dim, config.action_dim, tuple(config.hidden_sizes), generator=generator,
-        compute_dtype=dtype,
+        compute_dtype=dtype, **pixels,
     )
 
     def critic(gen):
         return Critic(
             config.obs_dim, config.action_dim, config.dist, tuple(config.hidden_sizes),
-            generator=gen, compute_dtype=dtype,
+            generator=gen, compute_dtype=dtype, **pixels,
         )
 
     n_stack = stacked_critics(config)
@@ -124,7 +130,9 @@ def create_train_state(
     """Initialise the networks (on the CPU, from ``seed``), move them to
     ``device`` (default: the CUDA card) and hard-copy the targets. With a
     REDQ ensemble the state also gets the device generator of its target
-    subsets, seeded from a draw of the same seed stream."""
+    subsets, seeded from a draw of the same seed stream, and with pixels
+    (and ``augment_pad`` > 0) the device generator of the DrQ shift
+    offsets, seeded from the next draw."""
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(int(seed))
     actor, critic = build_networks(config, gen)
@@ -136,8 +144,18 @@ def create_train_state(
     if config.critic_ensemble:
         subset_seed = int(torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64))
         subset_gen = torch.Generator(dev).manual_seed(subset_seed)
+    augment_gen = None
+    if shifts(config):
+        augment_seed = int(torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64))
+        augment_gen = torch.Generator(dev).manual_seed(augment_seed)
     return TrainState(actor, critic, target_actor, target_critic, actor_opt, critic_opt,
-                      stack=stack_of(config), subset_gen=subset_gen, head=head_of(config))
+                      stack=stack_of(config), subset_gen=subset_gen, head=head_of(config),
+                      augment_gen=augment_gen)
+
+
+def shifts(config: D4PGConfig) -> bool:
+    """Whether the train step applies the DrQ random shift."""
+    return bool(config.pixel_shape) and config.augment_pad > 0
 
 
 @torch.no_grad()
@@ -317,7 +335,7 @@ def _target_head(config, support, state, next_obs, subset):
 
 def train_step(
     config: D4PGConfig, state: TrainState, batch: Mapping[str, torch.Tensor],
-    descent=None, subset: torch.Tensor | None = None,
+    descent=None, subset: torch.Tensor | None = None, shift=None,
 ):
     """One full D4PG SGD step, in place on ``state``.
 
@@ -357,6 +375,16 @@ def train_step(
         subset = draw_subset(config, state)
     support = support_of(config)
     weights = batch.get("weights")
+    if shifts(config):
+        # DrQ: obs and next_obs each shifted by their own draw, before the
+        # target forward (the JAX step's two keys split from state.key)
+        if shift is None:
+            b, pad = batch["obs"].shape[0], config.augment_pad
+            shift = (draw_offsets(b, pad, state.augment_gen),
+                     draw_offsets(b, pad, state.augment_gen))
+        shape = tuple(config.pixel_shape)
+        batch = dict(batch, obs=random_shift(batch["obs"], shift[0], shape),
+                     next_obs=random_shift(batch["next_obs"], shift[1], shape))
 
     # ---- target: Z_target(s', μ_target(s')) ----
     # Under bfloat16 each target layer casts its float32 Polyak master to
@@ -426,29 +454,53 @@ def train_step(
 BATCH_FIELDS = ("obs", "action", "reward", "next_obs", "discount")
 
 
-def gather_batches(store, idx: torch.Tensor) -> dict:
+def gather_batches(store, idx: torch.Tensor, decode: bool = True) -> dict:
     """[K, B] batches from a columnar store (the device ring) in ONE gather
     per field. No ``weights`` key: the uniform megastep trains without one
     (IS weights identically 1) and the PER megastep adds its own. A field
     stored as bfloat16 (the on-device ring's observations under
-    ``ring_dtype="bfloat16"``) is decoded to float32."""
+    ``ring_dtype="bfloat16"``) or as uint8 (a pixel ring's) is decoded to
+    float32 (:func:`decode_obs`); with ``decode=False`` it stays as stored,
+    and :func:`fused_train_scan` decodes one step's rows at a time (a
+    pixel ring's [K, B] float32 block would be 4x the bytes: 19 GB at
+    K = 2048, B = 256 of 48x48x2 frames)."""
     flat = idx.reshape(-1).long()
-    return {
+    out = {
         k: getattr(store, k).index_select(0, flat).reshape(
-            idx.shape + getattr(store, k).shape[1:]
-        ).float()
+            idx.shape + getattr(store, k).shape[1:])
         for k in BATCH_FIELDS
     }
+    return {k: decode_obs(v) for k, v in out.items()} if decode else out
+
+
+def encode_obs(x: torch.Tensor) -> torch.Tensor:
+    """Pixel observations in [0, 1] as stored bytes: ``clip(rint(x·255),
+    0, 255)`` in float32 (``torch.round`` rounds half to even, as
+    ``np.rint`` and ``jnp.round`` do), then uint8."""
+    return (x.float() * 255.0).round().clamp(0.0, 255.0).to(torch.uint8)
+
+
+def decode_obs(x: torch.Tensor) -> torch.Tensor:
+    """A stored observation block back to float32: uint8 bytes divided by
+    255 (a true division, as the JAX decode and the host gather do;
+    ``x · (1/255)`` differs in the last bit), bfloat16 widened, float32 as
+    it is. The divisor is a 0-d tensor on ``x``'s device: ATen's CUDA
+    kernels divide by a Python scalar through its float32 reciprocal."""
+    if x.dtype == torch.uint8:
+        return x.float() / torch.full((), 255.0, device=x.device)
+    return x.float()
 
 
 def fused_train_scan(config: D4PGConfig, state: TrainState, batches: dict):
     """``train_step`` over pre-gathered [K, B] batches, a Python loop over K
-    (the JAX ``lax.scan``), in place on ``state``. Returns (state, metrics
-    dict of [K] tensors, priorities [K, B])."""
+    (the JAX ``lax.scan``), in place on ``state``; fields still in their
+    stored dtype are decoded a step at a time (:func:`decode_obs`).
+    Returns (state, metrics dict of [K] tensors, priorities [K, B])."""
     k = batches["reward"].shape[0]
     step_metrics, priorities = [], []
     for t in range(k):
-        _, m, pri = train_step(config, state, {key: v[t] for key, v in batches.items()})
+        batch = {key: decode_obs(v[t]) for key, v in batches.items()}
+        _, m, pri = train_step(config, state, batch)
         step_metrics.append(m)
         priorities.append(pri)
     metrics = {key: torch.stack([m[key] for m in step_metrics]) for key in step_metrics[0]}

@@ -3,9 +3,9 @@
 
 ``D4PGConfig`` keeps the reference's field names and defaults for what
 the port carries, except ``projection_backend``, whose ladder the port
-names in its own words (see the field). Of the options it does not carry
-yet it keeps the one a user sets (pixels); :func:`check_supported`
-refuses any value but the default.
+names in its own words (see the field). :func:`check_supported` refuses
+an unknown head, critic stack, compute dtype or projection, and a
+``pixel_shape`` that does not match ``obs_dim``.
 
 The JAX ``TrainState`` is an immutable pytree; here it is a small class
 that owns the four networks and the two optimizers, updated in place by
@@ -24,7 +24,15 @@ class D4PGConfig:
     obs_dim: int = 3
     action_dim: int = 1
     hidden_sizes: tuple = (256, 256, 256)
-    pixel_shape: tuple | None = None  # not ported: must stay None
+    # (H, W, C) of a pixel env's frames, which travel flattened as obs_dim
+    # = H·W·C floats in [0, 1]; the actor and the critic conv-encode them
+    # (models/encoders.py) into encoder_embed_dim features. None: flat obs.
+    pixel_shape: tuple | None = None
+    encoder_embed_dim: int = 50
+    # DrQ random shift of the pixel batches inside the train step
+    # (ops/augment.py): each of obs and next_obs shifted by up to
+    # ±augment_pad pixels, edges replicated. 0 disables.
+    augment_pad: int = 4
     dist: DistConfig = field(default_factory=DistConfig)
     gamma: float = 0.99
     n_step: int = 1
@@ -104,14 +112,16 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_supported(config: D4PGConfig) -> None:
-    """Raise ``NotImplementedError`` for an option this slice of the port
-    does not carry, naming the ROADMAP item it waits for, and
-    ``ValueError`` for an unknown head, an illegal critic stack or compute
-    dtype."""
+    """Raise ``ValueError`` for an unknown head, an illegal critic stack,
+    compute dtype or projection backend, or a ``pixel_shape`` that is not
+    (H, W, C) with H·W·C = ``obs_dim``."""
     if config.pixel_shape:
-        raise NotImplementedError(
-            "pixel observations (ROADMAP A10) are not ported to d4pg_tpu_torch yet"
-        )
+        shape = tuple(config.pixel_shape)
+        if len(shape) != 3 or shape[0] * shape[1] * shape[2] != config.obs_dim:
+            raise ValueError(
+                f"pixel_shape {shape} must be (H, W, C) with H*W*C == obs_dim "
+                f"({config.obs_dim})"
+            )
     if config.dist.kind not in HEAD_KINDS:
         raise ValueError(f"unknown critic head kind: {config.dist.kind}")
     stacked_critics(config)
@@ -138,12 +148,13 @@ class TrainState:
     which the checkpoint also carries: a MoG head of M = 17 is as wide as
     the 51-atom categorical one, so the ``out`` layer's shape cannot tell
     them apart. ``subset_gen`` is the device generator of the REDQ target
-    subsets (``None`` without an ensemble), the JAX ``TrainState.key``'s
-    one use here: it is checkpointed, so a resumed run continues its
-    stream."""
+    subsets (``None`` without an ensemble) and ``augment_gen`` the device
+    generator of the DrQ shift offsets (``None`` without pixels or with
+    ``augment_pad`` 0): the two uses the JAX ``TrainState.key`` has here.
+    Both are checkpointed, so a resumed run continues their streams."""
 
     def __init__(self, actor, critic, target_actor, target_critic, actor_opt, critic_opt,
-                 stack=None, subset_gen=None, head=None):
+                 stack=None, subset_gen=None, head=None, augment_gen=None):
         self.actor = actor
         self.critic = critic
         self.target_actor = target_actor
@@ -152,6 +163,7 @@ class TrainState:
         self.critic_opt = critic_opt
         self.stack = dict(stack or STACK_DEFAULTS)
         self.subset_gen = subset_gen
+        self.augment_gen = augment_gen
         self.head = dict(head or HEAD_DEFAULTS)
         self.step = 0
 

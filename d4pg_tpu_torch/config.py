@@ -104,7 +104,9 @@ class TrainConfig:
     # Host placement: the observations' host-to-device wire format.
     # "bfloat16" casts obs and next_obs to bfloat16 on the host (round to
     # nearest even), copies half the bytes and casts them back to float32
-    # on the device. "uint8" (pixel rows) waits for ROADMAP A10.
+    # on the device. "uint8" (pixel envs only) ships the replay's stored
+    # bytes, a quarter of float32's, and divides them by 255 on the device
+    # as the dispatch's first op.
     transfer_dtype: str = "float32"
 
 
@@ -115,6 +117,13 @@ PLACEMENTS = ("host", "device", "hybrid")
 ENV_PRESETS = {
     "pendulum": dict(v_min=-300.0, v_max=0.0, obs_dim=3, action_dim=1, max_episode_steps=200),
     "pointmass_goal": dict(v_min=-50.0, v_max=0.0, obs_dim=6, action_dim=2, max_episode_steps=50),
+    # the pixel env: a flattened 48x48x2 render. replay_capacity caps the
+    # default 1M rows: at 4608 bytes an observation (uint8 storage) 100k
+    # transitions hold ~0.92 GB of obs and next_obs; 1M would hold ~9 GB
+    "pixel_pendulum": dict(
+        v_min=-300.0, v_max=0.0, obs_dim=48 * 48 * 2, action_dim=1,
+        max_episode_steps=200, pixel_shape=(48, 48, 2), replay_capacity=100_000,
+    ),
     # the planar locomotion envs (envs/locomotion.py), trained fully on the
     # device with --on-device
     "halfcheetah": dict(v_min=0.0, v_max=1000.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
@@ -139,8 +148,9 @@ def cli_support(env: str, v_min: Optional[float], v_max: Optional[float]) -> tup
 
 
 def apply_env_preset(config: TrainConfig) -> TrainConfig:
-    """Fill obs/action dims, the episode limit and the replay capacity from
-    the env preset. The support follows the JAX trainer's
+    """Fill obs/action dims, the pixel shape, the episode limit and the
+    replay capacity from the env preset (the preset's cap, e.g.
+    ``pixel_pendulum``'s 100 000 rows, unless the config names one). The support follows the JAX trainer's
     ``_reconcile_config``: a support equal to the ``DistConfig`` defaults
     is swapped for the preset's, for the categorical head only; any other
     support (an explicit one, or the CLI's resolved one) is kept."""
@@ -161,12 +171,14 @@ def apply_env_preset(config: TrainConfig) -> TrainConfig:
         action_dim=preset["action_dim"],
         dist=dist,
         n_step=config.n_step,
+        pixel_shape=preset.get("pixel_shape", config.agent.pixel_shape),
     )
     return dataclasses.replace(
         config,
         agent=agent,
         max_episode_steps=config.max_episode_steps or preset["max_episode_steps"],
-        replay_capacity=config.replay_capacity or DEFAULT_REPLAY_CAPACITY,
+        replay_capacity=config.replay_capacity
+        or preset.get("replay_capacity", DEFAULT_REPLAY_CAPACITY),
     )
 
 
@@ -205,17 +217,17 @@ def apply_batch_scale(config: TrainConfig) -> TrainConfig:
 
 
 RING_DTYPES = ("auto", "float32", "bfloat16")
-TRANSFER_DTYPES = ("float32", "bfloat16")
+TRANSFER_DTYPES = ("float32", "bfloat16", "uint8")
 
 
 def check_wire_dtypes(config: TrainConfig) -> None:
-    """Refuse a ring or transfer dtype the port does not carry: ``uint8``
-    (the pixel rows' wire format) names ROADMAP A10, anything else unknown
-    is a ``ValueError``."""
-    if config.transfer_dtype == "uint8":
-        raise NotImplementedError(
-            "transfer_dtype='uint8' ships the pixel replay's stored bytes; pixel "
-            "observations (ROADMAP A10) are not ported to d4pg_tpu_torch yet"
+    """Refuse an unknown ring or transfer dtype, and the uint8 wire for a
+    flat env (the JAX ``uint8_wire_requires_pixel`` gap, in its words).
+    Call it after :func:`apply_env_preset`, which sets ``pixel_shape``."""
+    if config.transfer_dtype == "uint8" and not config.agent.pixel_shape:
+        raise ValueError(
+            "uint8_wire_requires_pixel: --transfer-dtype uint8 requires a pixel env "
+            "(uint8-quantized replay); use bfloat16 for flat observations"
         )
     if config.transfer_dtype not in TRANSFER_DTYPES:
         raise ValueError(
@@ -265,6 +277,15 @@ def check_placement(config: TrainConfig) -> None:
             "hybrid_requires_per: replay_placement=hybrid is the PER mode "
             "(host sum-tree indices + on-device gather); use "
             "replay_placement=device for uniform replay"
+        )
+    if config.replay_placement != "host" and config.agent.pixel_shape:
+        # the reference's device_ring_f32_only gap, in its words, then the
+        # ROADMAP item that carries pixels
+        raise ValueError(
+            "device_ring_f32_only: replay_placement=device/hybrid mirrors f32 rows "
+            "into HBM; pixel (uint8-quantized) buffers are host-path only for now "
+            "(refused as the JAX package refuses it; pixels are ROADMAP A10 (c): "
+            "use the host placement or --on-device)"
         )
     if config.tree_backend not in TREE_BACKENDS:
         raise ValueError(

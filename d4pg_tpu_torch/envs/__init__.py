@@ -1,16 +1,19 @@
-"""Batched torch environments on the device: Pendulum, the goal point
-mass, the planar locomotion tasks and Humanoid and Ant on the 3D engine
-(ROADMAP A9 lists the rest)."""
+"""Batched torch environments on the device: Pendulum and its pixel
+variant, the goal point mass, the planar locomotion tasks and Humanoid
+and Ant on the 3D engine (ROADMAP A5 (d) lists the host envs still to
+come)."""
 
 from typing import Optional
 
 from d4pg_tpu_torch.envs.api import Env, EnvState
 from d4pg_tpu_torch.envs.locomotion import Ant, HalfCheetah, Hopper, Humanoid, Walker2d
 from d4pg_tpu_torch.envs.pendulum import Pendulum
+from d4pg_tpu_torch.envs.pixel_pendulum import PixelPendulum
 from d4pg_tpu_torch.envs.pointmass_goal import PointMassGoal
 
 ENVS = {
     "pendulum": Pendulum,
+    "pixel_pendulum": PixelPendulum,
     "pointmass_goal": PointMassGoal,
     "halfcheetah": HalfCheetah,
     "hopper": Hopper,
@@ -49,5 +52,5 @@ def make_env(name: str, max_episode_steps: Optional[int] = None, action_repeat: 
 
 __all__ = [
     "ENVS", "Ant", "Env", "EnvState", "HalfCheetah", "Hopper", "Humanoid", "Pendulum",
-    "PointMassGoal", "Walker2d", "make_env",
+    "PixelPendulum", "PointMassGoal", "Walker2d", "make_env",
 ]

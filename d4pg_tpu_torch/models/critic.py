@@ -20,6 +20,12 @@ package's critic pytree stacked along its first axis: kernels [E, in, out]
 and biases [E, out] in the Flax layout. Its forward runs every member in
 one batched product a layer, obs and action shared across members as under
 ``vmap`` with unbatched inputs.
+
+With ``pixel_shape`` each critic conv-encodes the flattened observations
+before its first layer (``PixelEncoder_0``, as the actor does); a
+:class:`StackedCritic` stacks its members' encoders too (the JAX package
+stacks E whole critics) and runs them one member after the other,
+feeding their [E, B, embed] embeddings to the batched trunk.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from d4pg_tpu_torch.models.encoders import PixelEncoder, StackedPixelEncoder
 from d4pg_tpu_torch.models.init import dense, fanin_uniform_, small_uniform_
 
 
@@ -96,11 +103,18 @@ class Critic(nn.Module):
         final_init_scale: float = 3e-4,
         generator: torch.Generator | None = None,
         compute_dtype: torch.dtype = torch.float32,
+        pixel_shape: Sequence[int] | None = None,
+        encoder_embed_dim: int = 50,
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.num_hidden = len(hidden_sizes)
+        self.pixels = bool(pixel_shape)
         width = obs_dim
+        if self.pixels:
+            self.PixelEncoder_0 = PixelEncoder(
+                pixel_shape, encoder_embed_dim, generator, compute_dtype)
+            width = encoder_embed_dim
         for i, h in enumerate(hidden_sizes):
             # The action joins after the first, state-only layer.
             self.add_module(f"hidden_{i}", nn.Linear(width + (action_dim if i == 1 else 0), h))
@@ -118,6 +132,8 @@ class Critic(nn.Module):
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.pixels:
+            obs = self.PixelEncoder_0(obs)
         x = torch.relu(dense(self.hidden_0, obs, dt))
         x = torch.cat([x, action.to(dt)], dim=-1)
         for i in range(1, self.num_hidden):
@@ -162,6 +178,9 @@ class StackedCritic(nn.Module):
         self.num_members = len(members)
         self.num_hidden = first.num_hidden
         self.compute_dtype = first.compute_dtype
+        self.pixels = first.pixels
+        if self.pixels:
+            self.PixelEncoder_0 = StackedPixelEncoder([m.PixelEncoder_0 for m in members])
         names = [f"hidden_{i}" for i in range(self.num_hidden)] + ["out"]
         for name in names:
             layers = [m.get_submodule(name) for m in members]
@@ -174,6 +193,8 @@ class StackedCritic(nn.Module):
         self, obs: torch.Tensor, action: torch.Tensor, member: int | None = None
     ) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.pixels:  # [E, B, embed], or member's [B, embed]
+            obs = self.PixelEncoder_0(obs, member)
         x = torch.relu(self.hidden_0(obs, dt, member))
         a = action.to(dt)
         x = torch.cat([x, a.expand(x.shape[:-1] + a.shape[-1:])], dim=-1)

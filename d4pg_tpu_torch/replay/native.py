@@ -150,9 +150,9 @@ def _vp(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-# obs_mode values of st_sample_gather (must match csrc/sumtree.cpp). The
-# port stores float32 rows only, so it passes OBS_F32; the uint8 modes wait
-# for the pixel path and the uint8 wire format.
+# obs_mode values of st_sample_gather (must match csrc/sumtree.cpp): a
+# float32 buffer passes OBS_F32; a pixel buffer (uint8 rows) OBS_U8_DECODE,
+# or OBS_U8_RAW for the uint8 wire (PrioritizedReplayBuffer._native_obs_mode).
 OBS_F32 = 0        # float32 rows copied as-is
 OBS_U8_DECODE = 1  # uint8 rows decoded to float32/255 at gather time
 OBS_U8_RAW = 2     # uint8 rows copied raw (uint8 wire format)

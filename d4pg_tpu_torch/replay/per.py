@@ -58,8 +58,11 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         beta_steps: int = 100_000,
         eps: float = 1e-6,
         tree_backend: str = "auto",
+        obs_dtype=np.float32,
+        decode_on_sample: bool = True,
     ):
-        super().__init__(capacity, obs_dim, action_dim)
+        super().__init__(capacity, obs_dim, action_dim, obs_dtype=obs_dtype,
+                         decode_on_sample=decode_on_sample)
         if alpha < 0:
             raise ValueError(f"alpha must be >= 0, got {alpha}")
         if tree_backend not in TREE_BACKENDS:
@@ -177,16 +180,20 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         entry = self._staging.get(n)
         if entry is None:
             obs_dim, act_dim = self.obs.shape[1], self.action.shape[1]
+            # the staged observations' dtype: the stored bytes for the
+            # uint8 wire, else float32 (decoded when stored as uint8)
+            raw = self._quantized and not self._decode_on_sample
+            obs_dtype = np.uint8 if raw else np.float32
 
             def mk():
                 slot = {
                     "idx": np.empty(n, np.int64),
                     "gen": np.empty(n, np.int64),
                     "weights": np.empty(n, np.float32),
-                    "obs": np.empty((n, obs_dim), np.float32),
+                    "obs": np.empty((n, obs_dim), obs_dtype),
                     "action": np.empty((n, act_dim), np.float32),
                     "reward": np.empty(n, np.float32),
-                    "next_obs": np.empty((n, obs_dim), np.float32),
+                    "next_obs": np.empty((n, obs_dim), obs_dtype),
                     "discount": np.empty(n, np.float32),
                 }
                 if self._use_native:
@@ -194,7 +201,7 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
                     slot["_call"] = native.SampleGatherCall(
                         self._sum, self._min, self.obs, self.action, self.reward,
-                        self.next_obs, self.discount, self._gen, native.OBS_F32,
+                        self.next_obs, self.discount, self._gen, self._native_obs_mode(),
                         dict(slot),
                     )
                 return slot
@@ -204,6 +211,15 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         slot = entry["slots"][entry["next"]]
         entry["next"] = (entry["next"] + 1) % self.STAGING_SLOTS
         return slot
+
+    def _native_obs_mode(self) -> int:
+        """``st_sample_gather``'s obs mode: float32 rows, uint8 rows decoded
+        to float32/255, or uint8 rows copied raw (the uint8 wire)."""
+        from d4pg_tpu_torch.replay import native
+
+        if not self._quantized:
+            return native.OBS_F32
+        return native.OBS_U8_DECODE if self._decode_on_sample else native.OBS_U8_RAW
 
     def sample_block(
         self, batch_size: int, k: int, rng: np.random.Generator, step: int = 0

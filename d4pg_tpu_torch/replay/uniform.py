@@ -5,7 +5,11 @@ learner uses: columnar float32 storage, O(1) vectorized batched writes,
 gather-based sampling, per-slot write generations, the monotone
 ``total_added`` counter the device-ring mirror diffs against, and
 ``.npz`` snapshots in the JAX package's layout (either package restores
-the other's). uint8 pixel storage waits for ROADMAP A10.
+the other's), and the uint8 storage of pixel observations
+(``obs_dtype=np.uint8``): ``clip(rint(x·255), 0, 255)`` in float32 at
+the write (``np.rint`` rounds half to even), decoded as ``/255`` in
+float32 at the sample, or kept as bytes for the uint8 wire
+(``decode_on_sample=False``).
 
 One re-entrant lock (``_lock``, a ``threading.RLock`` made once here)
 guards every write, gather, snapshot copy and restore, so the priority write-back
@@ -39,12 +43,21 @@ class Transition(NamedTuple):
 class ReplayBuffer:
     """Columnar ring buffer; thread-safe (see the module docstring)."""
 
-    def __init__(self, capacity: int, obs_dim: int, action_dim: int):
+    def __init__(self, capacity: int, obs_dim: int, action_dim: int,
+                 obs_dtype=np.float32, decode_on_sample: bool = True):
+        """``obs_dtype=np.uint8`` stores observations in [0, 1] as bytes
+        (pixel envs: a quarter of float32's memory).
+        ``decode_on_sample=False`` (uint8 storage only) returns sampled
+        observations as their stored bytes, for the uint8 wire; the
+        consumer divides them by 255."""
         self.capacity = int(capacity)
-        self.obs = np.zeros((capacity, obs_dim), np.float32)
+        self.obs_dtype = np.dtype(obs_dtype)
+        self._quantized = self.obs_dtype == np.uint8
+        self._decode_on_sample = bool(decode_on_sample)
+        self.obs = np.zeros((capacity, obs_dim), self.obs_dtype)
         self.action = np.zeros((capacity, action_dim), np.float32)
         self.reward = np.zeros((capacity,), np.float32)
-        self.next_obs = np.zeros((capacity, obs_dim), np.float32)
+        self.next_obs = np.zeros((capacity, obs_dim), self.obs_dtype)
         self.discount = np.zeros((capacity,), np.float32)
         # Per-slot write generation, bumped on every overwrite, so a
         # priority write-back for a slot recycled since it was sampled is
@@ -62,6 +75,17 @@ class ReplayBuffer:
         # add_batch / gather / _snapshot_arrays of this class inside.
         self._lock = threading.RLock()
 
+    def _encode_obs(self, obs) -> np.ndarray:
+        obs = np.atleast_2d(np.asarray(obs, np.float32))
+        if self._quantized:
+            return np.clip(np.rint(obs * 255.0), 0.0, 255.0).astype(np.uint8)
+        return obs
+
+    def _decode_obs(self, stored: np.ndarray) -> np.ndarray:
+        if self._quantized and self._decode_on_sample:
+            return stored.astype(np.float32) / 255.0
+        return stored
+
     def __len__(self) -> int:
         return self._size
 
@@ -72,14 +96,14 @@ class ReplayBuffer:
 
     def add_batch(self, t: Transition) -> np.ndarray:
         """Insert a batch of transitions; returns the slot indices written."""
-        obs = np.atleast_2d(np.asarray(t.obs, np.float32))
+        obs = self._encode_obs(t.obs)
         n = obs.shape[0]
         with self._lock:
             idx = (self._pos + np.arange(n)) % self.capacity
             self.obs[idx] = obs
             self.action[idx] = np.atleast_2d(np.asarray(t.action, np.float32))
             self.reward[idx] = np.asarray(t.reward, np.float32).reshape(n)
-            self.next_obs[idx] = np.atleast_2d(np.asarray(t.next_obs, np.float32))
+            self.next_obs[idx] = self._encode_obs(t.next_obs)
             self.discount[idx] = np.asarray(t.discount, np.float32).reshape(n)
             self._gen[idx] += 1
             self._pos = int((self._pos + n) % self.capacity)
@@ -104,10 +128,10 @@ class ReplayBuffer:
     def gather(self, idx: np.ndarray) -> Mapping[str, np.ndarray]:
         with self._lock:  # never a torn row
             return {
-                "obs": self.obs[idx],
+                "obs": self._decode_obs(self.obs[idx]),
                 "action": self.action[idx],
                 "reward": self.reward[idx],
-                "next_obs": self.next_obs[idx],
+                "next_obs": self._decode_obs(self.next_obs[idx]),
                 "discount": self.discount[idx],
             }
 

@@ -7,11 +7,12 @@ the step, the four networks' ``state_dict``s and both Adam
 ``state_dict``s (``exp_avg``, ``exp_avg_sq`` and ``step``: optax's ``mu``,
 ``nu`` and ``count``), so ``--resume`` continues the same optimisation.
 The trainers' generators are not saved: they re-seed them from ``--seed``
-on every start, as the JAX trainer re-derives its megastep key. The one
-generator saved is a REDQ ensemble's target-subset generator
-(``TrainState.subset_gen``), the use the JAX ``TrainState.key`` has here:
-the JAX checkpoint carries that key, so a resumed run continues its subset
-stream. The state's critic configuration (``TrainState.stack``: twin,
+on every start, as the JAX trainer re-derives its megastep key. The two
+generators saved are a REDQ ensemble's target-subset generator
+(``TrainState.subset_gen``) and a pixel run's DrQ shift generator
+(``TrainState.augment_gen``), the uses the JAX ``TrainState.key`` has
+here: the JAX checkpoint carries that key, so a resumed run continues
+both streams. The state's critic configuration (``TrainState.stack``: twin,
 ensemble width, compute dtype) and its critic head (``TrainState.head``:
 kind and mixture width) are saved too, and a restore into a state built
 for another one raises :class:`StackMismatch` naming the field.
@@ -63,12 +64,15 @@ class StackMismatch(ValueError):
 def state_dict_of(state: TrainState) -> dict:
     """Everything one checkpoint saves: the step, every network's and every
     optimizer's ``state_dict``, the critic configuration and, with a REDQ
-    ensemble, the subset generator's state."""
+    ensemble, the subset generator's state, with pixels the shift
+    generator's."""
     out = {"step": int(state.step), "stack": dict(state.stack), "head": dict(state.head)}
     for name in NETWORKS + OPTIMIZERS:
         out[name] = getattr(state, name).state_dict()
     if state.subset_gen is not None:
         out["subset_gen"] = state.subset_gen.get_state()
+    if state.augment_gen is not None:
+        out["augment_gen"] = state.augment_gen.get_state()
     return out
 
 
@@ -122,6 +126,8 @@ def load_state_into(state: TrainState, saved: dict) -> TrainState:
     if state.subset_gen is not None and "subset_gen" in saved:
         # map_location moved the saved ByteTensor; set_state takes it on the host
         state.subset_gen.set_state(saved["subset_gen"].cpu())
+    if state.augment_gen is not None and "augment_gen" in saved:
+        state.augment_gen.set_state(saved["augment_gen"].cpu())
     state.step = int(saved["step"])
     return state
 

@@ -9,7 +9,9 @@ One train iteration:
      make_segment_collector`);
   2. appends them to a columnar ring of device tensors (:class:`DeviceReplay`;
      with ``ring_dtype="bfloat16"`` the observations are stored as
-     bfloat16, half the bytes, and decoded to float32 at the gather);
+     bfloat16, half the bytes, and a pixel env's as uint8
+     (``clip(round(x·255), 0, 255)``), a quarter; both are decoded to
+     float32 at the gather);
   3. draws [K, B] indices (uniform, or proportional to the ring's
      priorities by ``cumsum`` + ``searchsorted`` with IS weights) and runs
      K grad steps (:func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan`,
@@ -38,7 +40,7 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.agent import create_train_state
-from d4pg_tpu_torch.agent.d4pg import fused_train_scan, gather_batches, make_noise
+from d4pg_tpu_torch.agent.d4pg import encode_obs, fused_train_scan, gather_batches, make_noise
 from d4pg_tpu_torch.agent.state import D4PGConfig, TrainState, check_supported
 from d4pg_tpu_torch.config import (
     TrainConfig,
@@ -73,7 +75,7 @@ class DeviceReplay:
     read only with PER); ``max_priority`` is the running max of raw
     priorities, a 0-d device tensor. ``pos`` and ``size`` are host ints."""
 
-    obs: torch.Tensor        # [C, O] float32, or bfloat16 (ring_dtype)
+    obs: torch.Tensor        # [C, O] float32, or bfloat16 (ring_dtype), or uint8 (pixels)
     action: torch.Tensor     # [C, A]
     reward: torch.Tensor     # [C]
     next_obs: torch.Tensor   # [C, O] as obs
@@ -90,8 +92,10 @@ def device_replay_init(
 ) -> DeviceReplay:
     """An empty ring. ``obs_dtype`` bfloat16 stores the observations at
     half the bytes (the JAX ``_encode_obs``): ``_append``'s copy rounds
-    them to nearest even, and :func:`~d4pg_tpu_torch.agent.d4pg.
-    gather_batches` decodes them to float32."""
+    them to nearest even. uint8 stores a pixel env's [0, 1] observations
+    as bytes, quantized by :func:`~d4pg_tpu_torch.agent.d4pg.encode_obs`.
+    :func:`~d4pg_tpu_torch.agent.d4pg.gather_batches` decodes both to
+    float32."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -110,7 +114,8 @@ def _append(replay: DeviceReplay, batch: dict, count: int, alpha: float) -> Devi
     p = replay.pos
     cap = replay.obs.shape[0]
     for k in ("obs", "action", "reward", "next_obs", "discount"):
-        getattr(replay, k)[p:p + count].copy_(batch[k])
+        dst = getattr(replay, k)[p:p + count]
+        dst.copy_(encode_obs(batch[k]) if dst.dtype == torch.uint8 else batch[k])
     replay.priority[p:p + count].copy_((replay.max_priority**alpha).expand(count))
     replay.pos = (p + count) % cap
     replay.size = min(replay.size + count, cap)
@@ -204,19 +209,17 @@ def make_on_device_trainer(
     ``noise_fns`` replaces the exploration noise process (init, sample,
     reset) of :func:`~d4pg_tpu_torch.agent.d4pg.make_noise`. ``obs_bf16``
     stores the ring's observations as bfloat16 (``--ring-dtype
-    bfloat16``). ``mesh`` and ``obs_uint8`` are the JAX package's
-    data-parallel and pixel rings, which are not ported.
+    bfloat16``), ``obs_uint8`` as uint8 bytes (a pixel env's [0, 1]
+    frames); the two are exclusive. ``mesh`` is
+    the JAX package's data-parallel ring, which is not ported.
     """
     if mesh is not None:
         raise NotImplementedError(
             "the data-parallel on-device loop (mesh, --dp) is not ported to "
             "d4pg_tpu_torch yet (ROADMAP A7)"
         )
-    if obs_uint8:
-        raise NotImplementedError(
-            "the uint8 pixel ring (obs_uint8) is not ported to d4pg_tpu_torch "
-            "yet (ROADMAP A10)"
-        )
+    if obs_uint8 and obs_bf16:
+        raise ValueError("obs_uint8 and obs_bf16 are mutually exclusive")
     n_new = num_envs * segment_len
     if replay_capacity % n_new != 0:
         raise ValueError(
@@ -233,7 +236,7 @@ def make_on_device_trainer(
         env_states, obs = env.reset(num_envs, reset_gen, device)
         replay = device_replay_init(
             replay_capacity, config.obs_dim, config.action_dim, device,
-            obs_dtype=torch.bfloat16 if obs_bf16 else torch.float32,
+            obs_dtype=torch.uint8 if obs_uint8 else torch.bfloat16 if obs_bf16 else torch.float32,
         )
         return Carry(
             state, env_states, obs, noise_fns[0](), replay,
@@ -259,14 +262,16 @@ def make_on_device_trainer(
             u = draws if draws is not None else torch.rand(
                 (K, B), generator=carry.train_gen, device=device)
             idx, weights = per_draw(config, replay.priority, replay.size, u, state.step)
-            batches = gather_batches(replay, idx)
+            # a pixel ring's rows stay uint8 until their step decodes them
+            batches = gather_batches(replay, idx, decode=False)
             batches["weights"] = weights
             _, metrics, new_pri = fused_train_scan(config, state, batches)
             per_write_back(config, replay, idx, new_pri)
         else:
             idx = draws if draws is not None else torch.randint(
                 0, replay.size, (K, B), generator=carry.train_gen, device=device)
-            _, metrics, _ = fused_train_scan(config, state, gather_batches(replay, idx))
+            _, metrics, _ = fused_train_scan(config, state,
+                                             gather_batches(replay, idx, decode=False))
         metrics = {k: v.mean() for k, v in metrics.items()}
         # A TRAIN-time diagnostic, not an evaluation return: the segment's
         # exploration reward over the episode boundaries it saw (at least 1)
@@ -300,8 +305,8 @@ class OnDeviceRun:
                 "does not support it"
             )
         self.device = resolve_device(device)
-        check_wire_dtypes(config)
         config = apply_batch_scale(apply_env_preset(config))
+        check_wire_dtypes(config)
         check_supported(config.agent)
         check_placement(config)
         check_on_device(config)
@@ -323,7 +328,10 @@ class OnDeviceRun:
             agent, self.env, num_envs=config.num_envs, segment_len=SEGMENT_LEN,
             replay_capacity=capacity, batch_size=config.batch_size,
             train_steps_per_iter=self.K, prioritized=config.prioritized, device=self.device,
-            obs_bf16=config.ring_dtype == "bfloat16",
+            # a pixel env's ring stores uint8 whatever --ring-dtype says,
+            # as the JAX package's run_on_device does
+            obs_uint8=bool(agent.pixel_shape),
+            obs_bf16=config.ring_dtype == "bfloat16" and not agent.pixel_shape,
         )
         state = create_train_state(agent, config.seed, self.device)
         self.ckpt = CheckpointManager(os.path.join(config.log_dir, "checkpoints"))

@@ -15,7 +15,10 @@ steps. With ``replay_placement="host"``:
   device; K = 1 keeps the flat [B] batch. With ``transfer_dtype=
   "bfloat16"`` the observations are cast to bfloat16 on the host (round to
   nearest even), cross at half the bytes and are cast back to float32 on
-  the device before the step;
+  the device before the step. A pixel env's observations are stored as
+  uint8 (``clip(rint(x·255), 0, 255)``) and decoded (/255) at the sample,
+  or with ``transfer_dtype="uint8"`` cross as those bytes and are divided
+  by 255 on the device as the dispatch's first op;
 - :func:`~d4pg_tpu_torch.agent.d4pg.train_step` (K = 1) or
   :func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan` (K > 1);
 - the PER priority write-back with a one-dispatch lag: dispatch N's
@@ -131,7 +134,7 @@ from d4pg_tpu_torch.agent import (
     noisy_explore,
     train_step,
 )
-from d4pg_tpu_torch.agent.d4pg import fused_train_scan
+from d4pg_tpu_torch.agent.d4pg import decode_obs, fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
 from d4pg_tpu_torch.config import (
     TrainConfig,
@@ -205,8 +208,8 @@ class Trainer:
         scaled values (and ``batch_scale`` itself, as the JAX trainer's
         config does)."""
         self.device = resolve_device(device)
-        check_wire_dtypes(config)
         config = apply_batch_scale(apply_env_preset(config))
+        check_wire_dtypes(config)
         check_supported(config.agent)
         check_placement(config)
         config = apply_declared_actions(config)
@@ -217,19 +220,26 @@ class Trainer:
         obs_dim, act_dim = agent_cfg.obs_dim, agent_cfg.action_dim
         self.on_device = config.replay_placement == "device"
         self.hybrid = config.replay_placement == "hybrid"
+        # pixel observations are stored as uint8 (a quarter of the host
+        # memory); with the uint8 wire the sampled rows stay bytes until
+        # the device divides them by 255
+        storage = dict(
+            obs_dtype=np.uint8 if agent_cfg.pixel_shape else np.float32,
+            decode_on_sample=config.transfer_dtype != "uint8",
+        )
         if self.on_device:
             # the write-side source of truth: a plain host ring, no host
             # trees (with PER the priorities live in the device tree)
-            self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim)
+            self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim, **storage)
         elif config.prioritized:
             self.buffer = PrioritizedReplayBuffer(
                 config.replay_capacity, obs_dim, act_dim,
                 alpha=agent_cfg.per_alpha, beta0=agent_cfg.per_beta0,
                 beta_steps=agent_cfg.per_beta_steps, eps=agent_cfg.per_eps,
-                tree_backend=config.tree_backend,
+                tree_backend=config.tree_backend, **storage,
             )
         else:
-            self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim)
+            self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim, **storage)
 
         self.state = create_train_state(agent_cfg, config.seed, self.device)
         # Host sampling draws from numpy; acting, resets and eval from
@@ -833,8 +843,9 @@ class Trainer:
             indices, dev_batch, ready = self._sample_staged(k)
         self._h2d.consume(dev_batch, ready)
         with self.timers.stage("train_dispatch"), self._dispatch_guard():
-            # the bfloat16 wire's observations back to float32, on the device
-            dev_batch = {key: v.float() if key in WIRE_FIELDS else v
+            # the bfloat16 or uint8 wire's observations back to float32, on
+            # the device
+            dev_batch = {key: decode_obs(v) if key in WIRE_FIELDS else v
                          for key, v in dev_batch.items()}
             if k == 1:
                 _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)

@@ -73,6 +73,16 @@ class _Request:
         self.t_submit = t_submit
 
 
+@contextlib.contextmanager
+def _cudnn_benchmark_off():
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
 def default_buckets(max_batch: int) -> tuple:
     """Powers of two up to ``max_batch``, always ending exactly at it."""
     out = []
@@ -273,10 +283,16 @@ class DynamicBatcher:
     def warmup(self) -> None:
         """Build every bucket's program up front, so no live request pays a
         capture. On the card each is a CUDA graph captured on this
-        batcher's stream after a few eager forwards there; a failed
-        capture raises."""
+        batcher's stream after a few eager forwards there (which also pick
+        and load a pixel actor's cuDNN convolutions); a failed capture
+        raises. cuDNN's autotuner stays off throughout, so the capture
+        records the algorithms the eager forwards ran."""
         if self._programs:
             return
+        with _cudnn_benchmark_off():
+            self._build_programs()
+
+    def _build_programs(self) -> None:
         obs_dim, action_dim = self.config.obs_dim, self.config.action_dim
         for b in self.buckets:
             static_in = torch.zeros(b, obs_dim, device=self.device)

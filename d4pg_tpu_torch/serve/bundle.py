@@ -61,11 +61,10 @@ JAX_AGENT_FIELDS = (
     "per_alpha", "per_beta0", "per_beta_steps", "per_eps", "priority_kind", "compute_dtype",
     "projection_backend", "twin_critic", "critic_ensemble", "ensemble_min_targets",
 )
-# Fields of the JAX schema the port's ``D4PGConfig`` does not carry, with
-# the JAX defaults: the pixel encoder's two (pixels are ROADMAP A10 (c))
-# and ``prioritized`` (a run option of the port's ``TrainConfig``). None
-# of them shapes the actor.
-JAX_ONLY_DEFAULTS = {"encoder_embed_dim": 50, "augment_pad": 4, "prioritized": True}
+# The field of the JAX schema the port's ``D4PGConfig`` does not carry,
+# with its JAX default: ``prioritized``, a run option of the port's
+# ``TrainConfig``. It does not shape the actor.
+JAX_ONLY_DEFAULTS = {"prioritized": True}
 # The projection ladder in each package's words. The JAX ``"xla"`` rung has
 # no port; the serving path never reads the field, and it reads as the
 # port's default.
@@ -75,8 +74,7 @@ _PROJECTION_FROM_JAX = {"pallas_fused": "fused", "pallas": "projection", "xla": 
 
 def config_to_json(config: D4PGConfig, prioritized: bool = True) -> dict:
     """The JAX package's ``config_to_json``: its ``D4PGConfig`` as a dict,
-    in its field order. ``prioritized`` comes from the run's config; the
-    pixel encoder's fields take their JAX defaults."""
+    in its field order. ``prioritized`` comes from the run's config."""
     mine = dataclasses.asdict(config)
     extra = dict(JAX_ONLY_DEFAULTS, prioritized=bool(prioritized))
     out = {}
@@ -90,8 +88,8 @@ def config_to_json(config: D4PGConfig, prioritized: bool = True) -> dict:
 def config_from_json(d: dict) -> D4PGConfig:
     """Rebuild the agent config from the JAX schema. Unknown keys are a hard
     error: a bundle written by a newer schema must fail loudly, not
-    silently drop a field that changes the network. A pixel bundle is
-    refused."""
+    silently drop a field that changes the network. A pixel bundle's
+    ``pixel_shape`` comes back as a tuple."""
     d = dict(d)
     dist_d = d.pop("dist", None)
     known = {f.name for f in dataclasses.fields(D4PGConfig)} | set(JAX_ONLY_DEFAULTS)
@@ -102,10 +100,7 @@ def config_from_json(d: dict) -> D4PGConfig:
             "re-export with this code or upgrade it"
         )
     if d.get("pixel_shape") is not None:
-        raise NotImplementedError(
-            f"bundle has pixel_shape {d['pixel_shape']}: pixel observations "
-            "(ROADMAP A10 (c)) are not ported to d4pg_tpu_torch yet"
-        )
+        d["pixel_shape"] = tuple(d["pixel_shape"])
     for name in JAX_ONLY_DEFAULTS:
         d.pop(name, None)
     if "hidden_sizes" in d:
@@ -141,11 +136,12 @@ class PolicyBundle:
 def build_actor(config: D4PGConfig, device="cpu") -> Actor:
     """An uninitialised actor of the bundle's shapes and compute dtype on
     ``device`` (no parameter draw: it is built on the meta device, then
-    given storage)."""
+    given storage), with its conv encoder for a pixel bundle."""
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
     with torch.device("meta"):
         actor = Actor(config.obs_dim, config.action_dim, tuple(config.hidden_sizes),
-                      compute_dtype=dtype)
+                      compute_dtype=dtype, pixel_shape=config.pixel_shape,
+                      encoder_embed_dim=config.encoder_embed_dim)
     return actor.to_empty(device=device).requires_grad_(False)
 
 

@@ -43,6 +43,10 @@ Examples:
         --num-mixtures 5 --replay-placement device --p-replay --steps-per-dispatch 8
     python -m d4pg_tpu_torch.train --env pointmass_goal --her --n-step 1
         # hindsight relabeling, one single-env episode at a time
+    python -m d4pg_tpu_torch.train --env pixel_pendulum --on-device --num-envs 64 \
+        --noise-decay-steps 100000 --noise-scale-final 0.15
+        # 48x48x2 frames through the conv encoder with the DrQ shift, a
+        # uint8 ring; on the host placement add --transfer-dtype uint8
     python -m d4pg_tpu_torch.train --env pendulum --log-dir runs/p1 \
         --export-bundle runs/p1/bundle   # package for d4pg_tpu_torch.serve
 
@@ -64,7 +68,7 @@ from d4pg_tpu_torch.models.critic import DistConfig
 # Flags of the JAX CLI (``train.py:build_parser``) whose feature the port
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
-    "--obs-norm": "observation normalization (ROADMAP A10)",
+    "--obs-norm": "observation normalization (ROADMAP A10 (d))",
     "--async-collect": "asynchronous collection, which needs the host actor pool (ROADMAP A5 (d))",
     "--dp": "data parallelism (ROADMAP A7)",
     "--fleet-listen": "the collection fleet (ROADMAP A11)",
@@ -102,10 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) runs the CUDA kernels; cpu runs their "
                         "plain PyTorch versions")
     p.add_argument("--env", default="pendulum",
-                   help="pendulum, pointmass_goal, halfcheetah, hopper, walker2d, "
-                        "humanoid, ant")
+                   help="pendulum, pixel_pendulum, pointmass_goal, halfcheetah, hopper, "
+                        "walker2d, humanoid, ant")
     p.add_argument("--rmsize", "--replay-capacity", dest="replay_capacity",
-                   type=int, default=None, help="replay capacity (default 1M)")
+                   type=int, default=None,
+                   help="replay capacity (default 1M; the pixel_pendulum preset's "
+                        "100k unless given)")
     p.add_argument("--tau", type=float, default=0.001)
     p.add_argument("--bsize", "--batch-size", dest="batch_size", type=int, default=256)
     p.add_argument("--gamma", type=float, default=0.99)
@@ -239,8 +245,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transfer-dtype", choices=["float32", "bfloat16", "uint8"],
                    default="float32",
                    help="host placement: the observations' host->device wire "
-                        "format; bfloat16 halves their bytes (uint8, the "
-                        "pixel rows', is not ported: ROADMAP A10)")
+                        "format; bfloat16 halves their bytes, uint8 (pixel "
+                        "envs) ships the replay's stored bytes")
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)

@@ -4,7 +4,9 @@ A Flax ``nn.Dense`` stores ``kernel`` as ``[in, out]`` and computes
 ``x @ kernel + bias``; ``nn.Linear`` stores ``weight`` as ``[out, in]`` and
 computes ``x @ weight.T + bias``. So a kernel is transposed and a bias is
 copied. The layers carry the same names on both sides (``hidden_<i>`` and
-``out``), so a Flax tree maps onto a ``state_dict`` by name. A stacked
+``out``), so a Flax tree maps onto a ``state_dict`` by name. A pixel
+network's ``PixelEncoder_0`` subtree maps the same way, its conv kernels
+HWIO ↔ OIHW and its LayerNorm ``scale`` ↔ ``weight``. A stacked
 critic's tree (twin, REDQ: every leaf with a leading [E] axis, kernels
 [E, in, out]) maps onto a :class:`~d4pg_tpu_torch.models.StackedCritic`,
 which keeps the Flax layout: its ``kernel`` and ``bias`` are copied as
@@ -34,18 +36,45 @@ def _layers(params: Mapping) -> Mapping:
     return params["params"] if "params" in params else params
 
 
+def _leaf_to_torch(path: str, kind: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    """One Flax leaf of the layer at ``path`` → (the ``state_dict`` name of
+    its tensor, the tensor's values). Single layers take torch layouts;
+    a stacked layer (one more leading axis) keeps the Flax layout."""
+    layer = path.rsplit(".", 1)[-1]
+    if kind == "kernel":
+        if layer.startswith("Conv_"):
+            if arr.ndim == 4:  # HWIO -> OIHW
+                return "weight", arr.transpose(3, 2, 0, 1)
+            return "kernel", arr                    # [E, 3, 3, I, O]
+        if arr.ndim == 2:  # [in, out] -> [out, in]
+            return "weight", arr.T
+        return "kernel", arr                        # [E, in, out]
+    if kind == "scale":  # LayerNorm
+        return ("weight" if arr.ndim == 1 else "scale"), arr
+    return kind, arr
+
+
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """One Flax Dense-stack param tree → an ``nn.Module`` ``state_dict``:
-    ``weight`` [out, in] per layer, or, for a stacked tree ([E, in, out]
-    kernels), ``kernel`` and ``bias`` as they are."""
+    """A Flax param tree (nested: an actor's or critic's ``hidden_<i>`` /
+    ``out`` Dense layers, and with pixels the ``PixelEncoder_0`` subtree of
+    ``Conv_<i>``, ``Dense_0`` and ``LayerNorm_0``) → an ``nn.Module``
+    ``state_dict``: Dense kernels [in, out] → ``weight`` [out, in], conv
+    kernels HWIO → ``weight`` OIHW, LayerNorm ``scale`` → ``weight``; a
+    stacked tree's leaves (a leading [E] axis) keep the Flax layout under
+    ``kernel`` / ``bias`` / ``scale``."""
     sd = {}
-    for name, layer in _layers(params).items():
-        kernel = np.asarray(layer["kernel"], np.float32)
-        if kernel.ndim == 3:
-            sd[f"{name}.kernel"] = torch.from_numpy(np.array(kernel, order="C"))
-        else:
-            sd[f"{name}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
-        sd[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
+
+    def walk(tree: Mapping, prefix: str) -> None:
+        for name, node in tree.items():
+            path = f"{prefix}{name}"
+            if any(isinstance(v, Mapping) for v in node.values()):
+                walk(node, path + ".")
+                continue
+            for kind, leaf in node.items():
+                key, arr = _leaf_to_torch(path, kind, np.asarray(leaf, np.float32))
+                sd[f"{path}.{key}"] = torch.from_numpy(np.array(arr, order="C"))
+
+    walk(_layers(params), "")
     return sd
 
 
@@ -79,18 +108,23 @@ def load_jax_params(
 
 
 def state_dict_to_flax(module: torch.nn.Module) -> dict:
-    """A port module → its Flax variables ``{"params": {layer: {"bias",
-    "kernel"}}}`` as float32 numpy arrays; ``weight`` s transposed back to
-    ``[in, out]``, a stacked critic's ``kernel`` s as they are."""
-    layers: dict = {}
+    """A port module → its Flax variables ``{"params": {...}}`` as float32
+    numpy arrays, nested as the Flax tree (``PixelEncoder_0/Conv_0/kernel``):
+    the inverse of :func:`flax_to_state_dict` (a ``weight`` is a Dense
+    kernel transposed back, a conv kernel permuted back to HWIO, or a
+    LayerNorm ``scale``, by its rank)."""
+    tree: dict = {}
     for key, t in module.state_dict().items():
-        name, kind = key.rsplit(".", 1)
+        *path, kind = key.split(".")
         arr = t.detach().float().cpu().numpy()
-        if kind == "weight":
-            layers.setdefault(name, {})["kernel"] = np.array(arr.T, order="C")
-        else:
-            layers.setdefault(name, {})[kind] = np.array(arr)
-    return {"params": layers}
+        if kind == "weight":  # LayerNorm [D], Dense [out, in] or conv OIHW
+            kind = "scale" if arr.ndim == 1 else "kernel"
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[kind] = np.array(arr, order="C")
+    return {"params": tree}
 
 
 def to_jax_params(state) -> tuple[dict, dict]:

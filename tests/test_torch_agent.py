@@ -182,10 +182,26 @@ def test_train_state_targets_start_as_copies_and_only_polyak_moves_them():
      dict(pixel_shape=(8, 8, 1)), dict(dist=DistConfig(kind="scalar"), pixel_shape=(8, 8, 1))],
 )
 def test_unported_agent_options_raise(change):
-    """Pixels are the one agent option still refused, under every head
-    (the scalar and MoG heads are ported: ``tests/test_torch_heads.py``)."""
-    with pytest.raises(NotImplementedError):
-        create_train_state(dataclasses.replace(D4PGConfig(hidden_sizes=(8,)), **change), device="cpu")
+    """Pixels were the last agent option the port refused; they are
+    ported now (ROADMAP A10 (c)), so each of these configurations builds
+    under its head and stack and takes one finite step with the DrQ shift
+    (``tests/test_torch_pixels.py`` holds the step against the JAX
+    package). A ``pixel_shape`` that does not multiply out to ``obs_dim``
+    is the one refusal left, a ``ValueError``."""
+    cfg = dataclasses.replace(D4PGConfig(hidden_sizes=(8,), obs_dim=64), **change)
+    st = create_train_state(cfg, device="cpu")
+    assert st.augment_gen is not None
+    rng = np.random.default_rng(0)
+    batch = {
+        "obs": torch.from_numpy(rng.uniform(size=(4, 64)).astype(np.float32)),
+        "action": torch.zeros(4, 1), "reward": torch.ones(4),
+        "next_obs": torch.from_numpy(rng.uniform(size=(4, 64)).astype(np.float32)),
+        "discount": torch.full((4,), 0.9),
+    }
+    _, metrics, pri = train_step(cfg, st, batch)
+    assert pri.shape == (4,) and all(torch.isfinite(v) for v in metrics.values())
+    with pytest.raises(ValueError, match="H\\*W\\*C == obs_dim"):
+        create_train_state(dataclasses.replace(cfg, obs_dim=63), device="cpu")
 
 
 def test_act_adds_scaled_clipped_noise_and_act_deterministic_is_greedy():

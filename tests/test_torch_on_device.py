@@ -98,7 +98,10 @@ def test_capacity_must_be_a_multiple_of_the_segment_block():
     assert str(e.value) == msg
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A7"), (dict(obs_uint8=True), "A10"),
+# the uint8 ring is ported (A10 (c), tests/test_torch_pixel_loop.py); on a
+# mesh it is refused with the mesh
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A7"),
+                                     (dict(mesh=object(), obs_uint8=True), "A7"),
                                      (dict(mesh=object(), obs_bf16=True), "A7")],
                          ids=["mesh", "uint8", "bf16"])
 def test_unported_rings_are_refused_naming_the_roadmap_item(kw, item):

@@ -208,9 +208,14 @@ def test_config_json_unknown_field_and_pixels_are_refused():
     with pytest.raises(ValueError) as err:
         config_from_json(d)
     assert str(err.value) == str(jerr.value)
-    pix = dataclasses.asdict(JConfig(obs_dim=8 * 8 * 3, pixel_shape=(8, 8, 3)))
-    with pytest.raises(NotImplementedError, match=r"A10 \(c\)"):
-        config_from_json(pix)
+    # pixels are ported (A10 (c)): a JAX pixel config comes across with its
+    # encoder fields, and goes back as the JAX schema
+    pix = dataclasses.asdict(JConfig(obs_dim=8 * 8 * 3, pixel_shape=(8, 8, 3),
+                                     encoder_embed_dim=20, augment_pad=2))
+    got = config_from_json(pix)
+    assert (got.pixel_shape, got.encoder_embed_dim, got.augment_pad) == ((8, 8, 3), 20, 2)
+    back = config_to_json(got)
+    assert back["pixel_shape"] == (8, 8, 3) and back["encoder_embed_dim"] == 20
 
 
 @pytest.mark.parametrize("hidden", [(32, 32), (256, 256, 256)], ids=["narrow", "3x256"])
@@ -272,11 +277,12 @@ def test_bundle_validation_raises(tmp_path):
         json.dump(doc, f)
     with pytest.raises(ValueError, match="config/params mismatch"):
         load_bundle(d)
-    # a pixel bundle names its ROADMAP item
+    # a pixel config (ported, A10 (c)) over a flat actor's params: its
+    # encoder's leaves are missing
     doc["agent"] = dataclasses.asdict(JConfig(obs_dim=48, pixel_shape=(4, 4, 3)))
     with open(os.path.join(d, "bundle.json"), "w") as f:
         json.dump(doc, f)
-    with pytest.raises(NotImplementedError, match=r"A10 \(c\)"):
+    with pytest.raises(ValueError, match="config/params mismatch"):
         load_bundle(d)
 
 

@@ -473,7 +473,8 @@ def test_bf16_wire_round_trip_matches_ml_dtypes(tmp_path):
 def test_wire_and_ring_dtype_refusals():
     from d4pg_tpu_torch.config import check_wire_dtypes
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    # the uint8 wire needs a pixel env (the JAX uint8_wire_requires_pixel gap)
+    with pytest.raises(ValueError, match="uint8_wire_requires_pixel"):
         check_wire_dtypes(TrainConfig(transfer_dtype="uint8"))
     with pytest.raises(ValueError, match="transfer_dtype"):
         check_wire_dtypes(TrainConfig(transfer_dtype="float16"))
