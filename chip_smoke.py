@@ -283,6 +283,23 @@ JSON line (with ``at_s``, the seconds since the script started):
    harness): ``--on-device`` with the uint8 ring at 99 840 rows, K = 512,
    B1f = B1b = K. The ``serve`` line also serves a seeded pixel bundle
    (its graphs capture the conv encoder) against CPU actions.
+31. ``host_pool_pixel`` (after ``on_device_pixel_pendulum``): the host
+   actor pool (ROADMAP A5 (d)) of 16 ``pixel_pendulum_host`` workers
+   started with ``spawn`` feeding the pixel learner at full width (the
+   uint8 PER buffer at 100 000 rows on the native tree, K = 4,
+   ``debug_guards``), each leg a ``Trainer`` built with
+   ``actor_env="pixel_pendulum_host"`` that makes and drives its own pool:
+   leg 1 (the warmup, 256 grad steps, synchronous collection acting on
+   the CPU copy that ``actor_device=auto`` picks, one worker SIGKILLed) and
+   leg 2 (256 more, the collector thread acting on the card against
+   publications every 10 grad steps), each ending with a greedy eval of
+   10 episodes through its eval pool. B1f = B1b = 512; each leg's rows
+   against the rows its pool steps give (count, and 64 sampled rows field
+   by field); the kill's masked row, dropped window and one restart; no
+   worker alive after ``close()``; torch-free spawned children (under
+   this script and under the train CLI); an OU noise reset on the acting
+   stream while the default stream is busy; each leg's rates and
+   pool-step ms (act and pipe round trip).
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -3410,6 +3427,307 @@ def host_pixel_run(Trainer, TrainConfig, wire: str, card: str, log_dir: str) -> 
           "stage_ms_per_step": stage_ms_per_step(stages, n), "steady_state": busy, "ok": True})
     return launches
 
+POOL_ENVS = 16                       # host_pool_pixel's workers
+POOL_LEG_STEPS = 256                 # grad steps of each of its two legs
+POOL_KILL_AT = 4                     # leg 1's pool step, after the warmup, whose worker is dead
+POOL_KILLED = 3                      # the worker it kills
+POOL_SAMPLED_ROWS = 64               # stored rows held against the steps the workers returned
+POOL_RETURN_RTOL = 1e-6              # a stored n-step return (float32) against its float64 sum
+
+
+def _quantized(frame) -> bytes:
+    """The bytes a uint8 replay stores for a [0, 1] frame: rint(frame·255)."""
+    import numpy as np
+
+    return np.clip(np.rint(np.asarray(frame, np.float32) * 255.0), 0, 255).astype(np.uint8).tobytes()
+
+
+class PoolRecord:
+    """What a pool-fed ``Trainer``'s collector saw, one pool step at a time
+    (its ``on_step`` hook), and the replay rows those steps must give,
+    derived here apart from the writer: each stepped row's (obs, action,
+    reward) joins its actor's window; a full window of n emits its front
+    with next_obs the step's (pre-reset) next observation; an episode end
+    flushes the window with the same next_obs, discount 0 on termination,
+    else γ^m; a dropped window emits nothing. ``kill_at``: the SIGKILL of
+    worker ``POOL_KILLED`` goes out after pool step ``kill_at - 1``, so
+    step ``kill_at`` finds it dead."""
+
+    def __init__(self, trainer):
+        agent = trainer.config.agent
+        self.trainer, self.n, self.gamma = trainer, agent.n_step, agent.gamma
+        self.windows = [[] for _ in range(trainer.config.num_envs)]
+        self.rows: dict = {}  # (obs bytes, next_obs bytes) -> [(action, return, discount)]
+        self.emitted = 0
+        self.steps: list = []
+        self.kill_at = None
+        trainer.collector.on_step = self
+
+    def __call__(self, s) -> None:
+        import os
+        import signal
+
+        import numpy as np
+
+        for i in s["dropped"]:
+            self.windows[i] = []
+        for i in np.flatnonzero(s["stepped"]):
+            w = self.windows[i]
+            w.append((_quantized(s["obs"][i]), s["actions"][i].copy(), float(s["rewards"][i])))
+            nxt, term = _quantized(s["next_obs"][i]), bool(s["terminated"][i])
+            if len(w) == self.n:
+                self._emit(w, nxt, term)
+            if term or s["truncated"][i]:
+                while w:
+                    self._emit(w, nxt, term)
+        self.steps.append({"stepped": s["stepped"].copy(), "dropped": list(s["dropped"]),
+                           "grad_steps": self.trainer.grad_steps})
+        if self.kill_at is not None and len(self.steps) == self.kill_at - 1:
+            os.kill(self.trainer.pool.pids[POOL_KILLED], signal.SIGKILL)
+
+    def _emit(self, w: list, next_obs: bytes, terminal: bool) -> None:
+        ret = 0.0
+        for k, (_, _, r) in enumerate(w):
+            ret += self.gamma ** k * r
+        discount = 0.0 if terminal else self.gamma ** len(w)
+        obs, action, _ = w.pop(0)
+        self.rows.setdefault((obs, next_obs), []).append((action, ret, discount))
+        self.emitted += 1
+
+    def stored_rows_agree(self, buf, rng) -> bool:
+        """Whether ``POOL_SAMPLED_ROWS`` rows drawn from ``buf`` each equal a
+        row these steps give: obs and next_obs byte for byte, the action
+        exactly, the discount as float32, the return within
+        ``POOL_RETURN_RTOL``."""
+        import numpy as np
+
+        def agrees(r, action, ret, discount):
+            return (np.array_equal(buf.action[r], action)
+                    and abs(float(buf.reward[r]) - ret) <= POOL_RETURN_RTOL * max(1.0, abs(ret))
+                    and buf.discount[r] == np.float32(discount))
+
+        return all(
+            any(agrees(r, *row) for row in
+                self.rows.get((buf.obs[r].tobytes(), buf.next_obs[r].tobytes()), ()))
+            for r in rng.integers(0, len(buf), POOL_SAMPLED_ROWS))
+
+
+def host_pool_leg(Trainer, TrainConfig, leg: int, log_dir: str, **changes) -> dict:
+    """One leg of ``host_pool_pixel``: a ``Trainer`` for the ``pixel_pendulum``
+    preset whose pool of ``POOL_ENVS`` workers runs ``pixel_pendulum_host``
+    (``actor_env``), its warmup and ``POOL_LEG_STEPS`` grad steps, ending
+    with a greedy eval of 10 episodes through its eval pool. Leg 1 SIGKILLs
+    a worker at its ``POOL_KILL_AT``-th pool step after the warmup. Returns
+    the leg's numbers and what its checks read."""
+    import numpy as np
+    import torch
+
+    cfg = TrainConfig(env="pixel_pendulum", total_steps=POOL_LEG_STEPS,
+                      eval_interval=10 * POOL_LEG_STEPS, eval_episodes=10, log_dir=log_dir,
+                      seed=SEED, tree_backend="native", steps_per_dispatch=PIXEL_K,
+                      debug_guards=True, num_envs=POOL_ENVS, **changes)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda", actor_env="pixel_pendulum_host")
+    pool = trainer.pool
+    setup_s = time.perf_counter() - t0
+    record = PoolRecord(trainer)
+    pids = list(pool.pids)
+    try:
+        if leg == 1:
+            trainer.warmup()
+            record.kill_at = len(record.steps) + POOL_KILL_AT
+        t1 = time.perf_counter()
+        row = trainer.train(POOL_LEG_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        times = list(trainer.collector.step_times)  # leg 1's include the warmup's
+        pids += pool.pids + trainer._eval_pool.pids
+    finally:
+        trainer.close()
+    buf = trainer.buffer
+    during = sum(int(s["stepped"].sum()) for s in record.steps
+                 if 0 < s["grad_steps"] < POOL_LEG_STEPS)
+    out = {
+        "leg": leg, "actor_device": trainer.collector.acting.device.type,
+        "collect": "async" if cfg.async_collect else "sync",
+        "publish_interval": trainer.config.publish_interval,
+        "trainer_setup_s": setup_s, "grad_steps": POOL_LEG_STEPS,
+        "env_steps": trainer.env_steps, "env_steps_while_training": during,
+        "wall_s_incl_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "env_steps_per_sec": row["env_steps_per_sec"],
+        "critic_loss": row["critic_loss"], "actor_loss": row["actor_loss"],
+        "eval_return_mean": row["eval_return_mean"],
+        "eval_return_std": row["eval_return_std"],
+        "pool_step_ms": {
+            "median": 1e3 * statistics.median(a + p for a, p in times),
+            "act_median": 1e3 * statistics.median(a for a, _ in times),
+            "pipe_round_trip_median": 1e3 * statistics.median(p for _, p in times),
+            "pool_steps": len(times)},
+        "rows": {"inserted": int(buf.total_added), "predicted": record.emitted,
+                 "sampled": POOL_SAMPLED_ROWS,
+                 "sampled_agree": record.stored_rows_agree(buf, np.random.default_rng(SEED + leg))},
+        "width": {"pixel_shape": list(trainer.config.agent.pixel_shape),
+                  "hidden": list(trainer.config.agent.hidden_sizes),
+                  "batch": trainer.config.batch_size, "n_step": trainer.config.agent.n_step,
+                  "replay_capacity": buf.capacity, "buffer_obs_dtype": str(buf.obs.dtype),
+                  "tree_backend": buf.tree_backend, "steps_per_dispatch": PIXEL_K},
+        "restarts_total": pool.restarts_total, "failures_total": pool.failures_total,
+        "events": [e["event"] for e in pool.events],
+        "pids": [p for p in pids if p is not None],
+    }
+    if record.kill_at is not None:
+        kill = record.steps[record.kill_at - 1]
+        out["sigkill"] = {"worker": POOL_KILLED, "at_pool_step": record.kill_at,
+                          "row_masked": not bool(kill["stepped"][POOL_KILLED]),
+                          "dropped": kill["dropped"]}
+    return out
+
+
+def ou_reset_on_card() -> dict:
+    """``HostActing``'s per-row OU noise reset on the card while the default
+    stream (the learner's) is still busy: the done rows must read the reset
+    state (x = 0) and the others keep theirs. The fresh state is made on
+    the acting stream, so no row reads a tensor that the busy stream has
+    yet to write."""
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent import D4PGConfig
+    from d4pg_tpu_torch.models.actor import Actor
+    from d4pg_tpu_torch.runtime.collect import HostActing
+
+    dev = torch.device("cuda")
+    cfg = D4PGConfig(obs_dim=3, action_dim=1, hidden_sizes=(8,), noise_kind="ou")
+    acting = HostActing(cfg, POOL_ENVS, dev, torch.Generator(dev).manual_seed(SEED))
+    actor = Actor(3, 1, (8,), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    for _ in range(4):
+        acting.explore(actor, np.zeros((POOL_ENVS, 3), np.float32), 1.0, wait_caller=True)
+    # a reset of no row loads the reset's kernels (a first load waits on the device)
+    acting.reset_noise(np.zeros(POOL_ENVS, bool))
+    before = acting.noise.x.cpu().numpy()
+    done = np.arange(POOL_ENVS) % 2 == 0
+    a = torch.randn(8192, 8192, device=dev) * 1e-2
+    b = torch.empty_like(a)
+    torch.matmul(a, a, out=b)  # cuBLAS and the allocator set up before the clock
+    torch.cuda.synchronize()
+    default = torch.cuda.current_stream(dev)
+    for _ in range(32):  # some 0.5 s of float32 matmuls on the default stream
+        torch.matmul(a, a, out=b)
+    busy_before = not default.query()
+    acting.reset_noise(done)
+    acting.stream.synchronize()
+    busy_after = not default.query()
+    after = acting.noise.x.cpu().numpy()
+    torch.cuda.synchronize()
+    ok = bool((before != 0).all() and (after[done] == 0).all()
+              and np.array_equal(after[~done], before[~done]))
+    check(ok, f"ou_reset_on_card: x before {before.ravel()}, after {after.ravel()}")
+    return {"rows": POOL_ENVS, "reset_rows": int(done.sum()),
+            "default_stream_busy_before_reset": busy_before,
+            "default_stream_busy_after_reset": busy_after, "ok": ok}
+
+
+def host_pool_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``host_pool_pixel``: the host actor pool (ROADMAP A5 (d)) of 16
+    ``pixel_pendulum_host`` workers started with ``spawn``, feeding the
+    learner at the ``pixel_pendulum`` preset's full width (48x48x2 frames,
+    the conv encoder, 3x256, B = 256, n-step 3, the 100 000-row uint8 PER
+    buffer on the native tree, K = 4, ``debug_guards``): each leg is a
+    ``Trainer`` built with ``actor_env="pixel_pendulum_host"``, so its own
+    pool, writer, collector, warmup, budgeted collection, collector thread,
+    publications, dispatches and eval pool run (:func:`host_pool_leg`).
+    Leg 1: the 1000 env-step warmup at noise 3.0, then 256 grad steps with
+    synchronous collection acting where ``actor_device="auto"`` puts it on
+    the card (the CPU), one worker SIGKILLed at its 4th pool step. Leg 2:
+    256 more with the collector thread acting on the card
+    (``actor_device=default``) against publications every 10 grad steps.
+    Checks: B1f = B1b = grad steps, the rest 0; finite losses and eval
+    returns; each leg's rows inserted equal to the rows its pool steps give
+    (:class:`PoolRecord`), and 64 sampled rows equal to such rows (the
+    uint8 bytes of obs and next_obs, the action, return and discount);
+    env steps collected between leg 2's first and last grad step; the
+    killed worker's row masked on that step, its window dropped, one
+    restart; no worker alive after ``close()``; a spawned probe child's
+    modules hold no torch; an OU noise reset on the acting stream while the
+    default stream is busy (:func:`ou_reset_on_card`). Prints each leg's grad and env steps/s, the pool
+    step's wall ms (median, act and pipe round trip) and the spawned
+    child's start seconds."""
+    import os
+
+    import numpy as np
+
+    from d4pg_tpu_torch.runtime.actor_pool import TRAIN_MAIN_PROBE, probe_child
+
+    child = probe_child("spawn")
+    check(child["modules"] == [], f"host_pool_pixel: a spawned child loaded {child['modules']}")
+    # a worker spawned under `python -m d4pg_tpu_torch.train` re-imports that module first
+    run = subprocess.run([sys.executable, "-c", TRAIN_MAIN_PROBE], capture_output=True,
+                         text=True, timeout=300, check=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    train_child = json.loads(run.stdout.strip().splitlines()[-1])
+    check(train_child["modules"] == [],
+          f"host_pool_pixel: a child spawned under the train CLI loaded {train_child['modules']}")
+    ou_reset = ou_reset_on_card()
+    reset_counts()
+    legs = [host_pool_leg(Trainer, TrainConfig, 1, f"{log_dir}/leg1"),
+            host_pool_leg(Trainer, TrainConfig, 2, f"{log_dir}/leg2", actor_device="default",
+                          async_collect=True, publish_interval=10)]
+    launches = read_counts()
+    deadline = time.monotonic() + 15
+    alive = [p for leg in legs for p in leg.pop("pids")]
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.1)
+    n = 2 * POOL_LEG_STEPS
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"host_pool_pixel: launches {launches}, expected {expect}")
+    for leg in legs:
+        name = f"host_pool_pixel leg {leg['leg']}"
+        for key in ("critic_loss", "actor_loss", "eval_return_mean"):
+            check(np.isfinite(leg[key]), f"{name}: {key} {leg[key]}")
+        rows = leg["rows"]
+        check(rows["inserted"] == rows["predicted"],
+              f"{name}: {rows['inserted']} rows inserted, its pool steps give {rows['predicted']}")
+        width = leg["width"]
+        check(width["buffer_obs_dtype"] == "uint8" and rows["sampled_agree"],
+              f"{name}: sampled rows are not rows of the workers' steps ({width})")
+        check(width["pixel_shape"] == list(PIXEL_SHAPE) and width["hidden"] == [256] * 3
+              and width["batch"] == 256 and width["replay_capacity"] == 100_000,
+              f"{name}: not the pixel_pendulum preset's full width: {width}")
+    one, two = legs
+    check(one["actor_device"] == "cpu" and two["actor_device"] == "cuda",
+          f"host_pool_pixel: acting on {one['actor_device']} and {two['actor_device']}")
+    check(two["env_steps_while_training"] > 0,
+          f"host_pool_pixel: leg 2 collected nothing while it trained: {two}")
+    kill = one["sigkill"]
+    check(kill["row_masked"] and kill["dropped"] == [POOL_KILLED]
+          and one["restarts_total"] == 1 and one["failures_total"] == 1,
+          f"host_pool_pixel: after the SIGKILL: {kill}, restarts {one['restarts_total']}, "
+          f"failures {one['failures_total']}, events {one['events']}")
+    check(not alive, f"host_pool_pixel: workers alive after close(): {alive}")
+    out = {"phase": "host_pool_pixel", "card": card,
+           "pool": {"actor_env": "pixel_pendulum_host", "workers": POOL_ENVS,
+                    "start_method": "spawn"},
+           "spawned_child": child, "spawned_child_under_train_cli": train_child,
+           "legs": legs, "ou_reset_on_card": ou_reset, "workers_alive_after_close": alive,
+           "launches": launches, "ok": True}
+    emit(out)
+    return launches
+
+
+def _pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie counts as gone)."""
+    import os
+
+    try:
+        os.kill(pid, 0)
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except (ProcessLookupError, FileNotFoundError):
+        return False
+
+
 def main() -> int:
     import torch
 
@@ -3507,6 +3825,8 @@ def main() -> int:
                 Trainer, TrainConfig, wire, card, f"{tmp}/pixel_{wire}")
         paths["on_device_pixel_pendulum"] = on_device_phase(
             TrainConfig, "pixel_pendulum", card, f"{tmp}/on_device_pixel_pendulum")
+        paths["host_pool_pixel"] = host_pool_pixel_phase(
+            Trainer, TrainConfig, card, f"{tmp}/host_pool_pixel")
         paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
 
     def per_path(counter):

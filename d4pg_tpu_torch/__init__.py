@@ -7,11 +7,13 @@ the CUDA card; :func:`resolve_device` raises when there is no card and the
 caller did not ask for the CPU explicitly, so a run never drifts onto the
 CPU by accident. The CPU path exists for the tests, which hold the port's
 plain-PyTorch kernels against the JAX package.
+
+Importing the package loads no torch: :func:`resolve_device` imports it
+when called, so a host actor-pool worker that imports
+``d4pg_tpu_torch.runtime.actor_pool`` stays free of it.
 """
 
 from __future__ import annotations
-
-import torch
 
 __all__ = ["resolve_device"]
 
@@ -28,6 +30,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     does (``allow_bf16_reduced_precision_reduction`` False): the bf16
     compute path rounds each product once, to bfloat16.
     """
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

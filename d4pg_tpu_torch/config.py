@@ -27,6 +27,12 @@ class TrainConfig:
     # --on-device, as in the JAX package.
     her: bool = False
     her_k: int = 4
+    # Running observation normalization at the data boundary
+    # (ops/obs_norm.py): clip((x−μ)/σ, ±5) on sampled batches and on the
+    # acting and eval forwards, its Welford statistics folded once per
+    # OBSERVED env step at collection time (never per sampled batch).
+    # Host state-feature envs (gymnasium, dmc:) on the host placement only.
+    obs_norm: bool = False
     total_steps: int = 100_000         # learner grad steps
     warmup_steps: int = 1_000          # env steps before learning
     env_steps_per_train_step: float = 1.0
@@ -108,6 +114,30 @@ class TrainConfig:
     # bytes, a quarter of float32's, and divides them by 255 on the device
     # as the dispatch's first op.
     transfer_dtype: str = "float32"
+    # Host envs (gymnasium ids, dmc: ids): collection through the host
+    # actor pool (runtime/actor_pool.py) when num_envs > 1, in a background
+    # thread against published actor copies with async_collect (a single
+    # env then gets a pool of 1), the copy refreshed every
+    # publish_interval grad steps.
+    async_collect: bool = False
+    publish_interval: int = 10
+    # Pool worker start method: "spawn" children import numpy and the env
+    # adapter only, never torch or CUDA; a "fork" child inherits the
+    # parent's CUDA context and must never touch it (workers use numpy).
+    pool_start_method: str = "spawn"
+    # A worker that misses this monotonic per-step reply deadline is hung:
+    # killed and restarted under jittered exponential backoff, and
+    # quarantined (masked out for good) after pool_max_worker_failures
+    # consecutive failures.
+    pool_step_timeout_s: float = 60.0
+    pool_max_worker_failures: int = 3
+    # Where host-env collection and eval forwards run: "cpu" a CPU copy of
+    # the actor refreshed at each publication, "default" the learner's
+    # device, "auto" the CPU whenever the learner is on the card.
+    actor_device: str = "auto"
+    # Host-env evals on a thread of their own, scoring a copy of the
+    # published params, so an eval crossing costs the learner no grad step.
+    concurrent_eval: bool = True
 
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
@@ -133,7 +163,15 @@ ENV_PRESETS = {
     # support is the JAX package's widened [0, 1500]
     "humanoid": dict(v_min=0.0, v_max=1500.0, obs_dim=45, action_dim=17, max_episode_steps=1000),
     "ant": dict(v_min=0.0, v_max=1000.0, obs_dim=27, action_dim=8, max_episode_steps=1000),
+    # gymnasium ids, stepped on the host (envs/gym_adapter.py); their dims
+    # come from the env itself (apply_env_preset with the built env)
+    "Pendulum-v1": dict(v_min=-300.0, v_max=0.0, obs_dim=3, action_dim=1, max_episode_steps=200),
+    "HalfCheetah-v4": dict(v_min=0.0, v_max=1000.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
+    "HalfCheetah-v5": dict(v_min=0.0, v_max=1000.0, obs_dim=17, action_dim=6, max_episode_steps=1000),
+    "Humanoid-v4": dict(v_min=0.0, v_max=1500.0, obs_dim=376, action_dim=17, max_episode_steps=1000),
+    "Humanoid-v5": dict(v_min=0.0, v_max=1500.0, obs_dim=348, action_dim=17, max_episode_steps=1000),
 }
+ACTOR_DEVICES = ("auto", "cpu", "default")
 
 
 def cli_support(env: str, v_min: Optional[float], v_max: Optional[float]) -> tuple:
@@ -147,38 +185,57 @@ def cli_support(env: str, v_min: Optional[float], v_max: Optional[float]) -> tup
     return (lo if v_min is None else v_min), (hi if v_max is None else v_max)
 
 
-def apply_env_preset(config: TrainConfig) -> TrainConfig:
+def apply_env_preset(config: TrainConfig, env=None) -> TrainConfig:
     """Fill obs/action dims, the pixel shape, the episode limit and the
-    replay capacity from the env preset (the preset's cap, e.g.
-    ``pixel_pendulum``'s 100 000 rows, unless the config names one). The support follows the JAX trainer's
-    ``_reconcile_config``: a support equal to the ``DistConfig`` defaults
-    is swapped for the preset's, for the categorical head only; any other
+    replay capacity, as the JAX trainer's ``_reconcile_config`` does.
+
+    With ``env`` (a host env: a gymnasium or ``dmc:`` adapter) the dims
+    and pixel shape come from the env, the episode limit from the config,
+    else the env, else 1000 (pool workers must truncate for noise resets
+    and HER flushes to fire). Without it they come from the env preset
+    (a torch env's, or a gym id's), which must exist. The replay capacity
+    is the config's, else the preset's cap (e.g. ``pixel_pendulum``'s
+    100 000 rows), else 1M. The support: a support equal to the
+    ``DistConfig`` defaults is swapped, for the categorical head only, for
+    the preset's, else the env's ``v_min``/``v_max``, else kept; any other
     support (an explicit one, or the CLI's resolved one) is kept."""
     preset = ENV_PRESETS.get(config.env)
-    if preset is None:
-        raise NotImplementedError(
-            f"env {config.env!r} is not ported to d4pg_tpu_torch yet (ROADMAP "
-            f"A9: on-device envs; A5 (d): gym ids through the host env "
-            f"adapters); available: {sorted(ENV_PRESETS)}"
-        )
+    if env is None:
+        if preset is None:
+            raise NotImplementedError(
+                f"env {config.env!r} has no preset; a host env (gymnasium or "
+                f"dmc: id) takes its dims from the built env "
+                f"(apply_env_preset(config, env)); presets: {sorted(ENV_PRESETS)}"
+            )
+        obs_dim, action_dim = preset["obs_dim"], preset["action_dim"]
+        pixel_shape = preset.get("pixel_shape", config.agent.pixel_shape)
+        max_steps = config.max_episode_steps or preset["max_episode_steps"]
+    else:
+        obs_dim, action_dim = env.observation_dim, env.action_dim
+        pixel_shape = (tuple(env.pixel_shape) if hasattr(env, "pixel_shape")
+                       else config.agent.pixel_shape)
+        max_steps = (config.max_episode_steps
+                     or getattr(env, "max_episode_steps", None) or 1000)
     dist = config.agent.dist
     defaults = DistConfig()
     if dist.kind == "categorical" and (dist.v_min, dist.v_max) == (defaults.v_min, defaults.v_max):
-        dist = dataclasses.replace(dist, v_min=preset["v_min"], v_max=preset["v_max"])
+        source = preset if preset else {"v_min": getattr(env, "v_min", defaults.v_min),
+                                        "v_max": getattr(env, "v_max", defaults.v_max)}
+        dist = dataclasses.replace(dist, v_min=source["v_min"], v_max=source["v_max"])
     agent = dataclasses.replace(
         config.agent,
-        obs_dim=preset["obs_dim"],
-        action_dim=preset["action_dim"],
+        obs_dim=obs_dim,
+        action_dim=action_dim,
         dist=dist,
         n_step=config.n_step,
-        pixel_shape=preset.get("pixel_shape", config.agent.pixel_shape),
+        pixel_shape=pixel_shape,
     )
     return dataclasses.replace(
         config,
         agent=agent,
-        max_episode_steps=config.max_episode_steps or preset["max_episode_steps"],
+        max_episode_steps=max_steps,
         replay_capacity=config.replay_capacity
-        or preset.get("replay_capacity", DEFAULT_REPLAY_CAPACITY),
+        or (preset or {}).get("replay_capacity", DEFAULT_REPLAY_CAPACITY),
     )
 
 
@@ -287,6 +344,17 @@ def check_placement(config: TrainConfig) -> None:
             "(refused as the JAX package refuses it; pixels are ROADMAP A10 (c): "
             "use the host placement or --on-device)"
         )
+    if config.obs_norm and config.replay_placement != "host":
+        # the reference's obs_norm_host_sampling gap, in its words
+        raise ValueError(
+            "obs_norm_host_sampling: --obs-norm normalizes sampled batches on the host; "
+            "it is incompatible with a device-resident ring "
+            "(rows are gathered in-kernel)"
+        )
+    if config.actor_device not in ACTOR_DEVICES:
+        raise ValueError(
+            f"actor_device must be auto|cpu|default, got {config.actor_device!r}"
+        )
     if config.tree_backend not in TREE_BACKENDS:
         raise ValueError(
             f"tree_backend must be one of {TREE_BACKENDS}, got {config.tree_backend!r}"
@@ -316,10 +384,43 @@ def check_on_device(config: TrainConfig) -> None:
     """Refuse what ``--on-device`` cannot honour, as
     ``d4pg_tpu/replay/source.py`` refuses it (its ``on_device_*`` gaps; the
     others concern flags the port refuses by name)."""
+    if config.obs_norm:
+        raise ValueError(
+            "on_device_obs_norm: --obs-norm is a host data-boundary feature; the on-device "
+            "path keeps observations inside jit (the flag would be "
+            "silently ignored)"
+        )
     if config.replay_placement != "host":
         raise ValueError(
             "on_device_placement: --replay-placement configures the HOST "
             "trainer's data plane; --on-device already keeps "
             "rollout+replay+learn in one XLA program (the flag would be "
             "silently ignored)"
+        )
+
+
+def check_collection(config: TrainConfig, host_env: bool, env=None) -> None:
+    """Refuse what the env's kind cannot collect, as the JAX package refuses
+    it (``replay/source.py``'s ``obs_norm_flat_envs_only`` gap and the
+    trainer's pool and async refusals, in their words). ``host_env``: the
+    env is stepped on the host (a gymnasium or ``dmc:`` adapter), not a
+    batched torch env. Call it after :func:`apply_env_preset`."""
+    if config.obs_norm and (config.agent.pixel_shape or not host_env):
+        raise ValueError(
+            "obs_norm_flat_envs_only: --obs-norm supports host state-feature envs only "
+            "(pure-JAX envs act inside jit; pixel obs are uint8 "
+            "frames the conv encoder already scales)"
+        )
+    if config.async_collect and not host_env:
+        raise ValueError(
+            "async_collect needs the host actor pool (a gymnasium env id); "
+            "pure-JAX envs collect on-device in the learner stream"
+        )
+    if host_env and getattr(env, "pixels", False) and (config.num_envs > 1 or config.async_collect):
+        # pool workers each open an EGL context; concurrent cross-process
+        # EGL rendering deadlocks on a software GL stack
+        raise ValueError(
+            "pixel dm_control envs cannot use pooled/async "
+            "collection (concurrent EGL contexts deadlock): run "
+            "with --num-envs 1 and without --async-collect"
         )

@@ -1,5 +1,5 @@
-"""The learner loop (counterpart of the pure-env sync path of
-``d4pg_tpu/runtime/trainer.py``), with replay on the host or on the device.
+"""The learner loop (counterpart of ``d4pg_tpu/runtime/trainer.py``'s
+single-process modes), with replay on the host or on the device.
 
 One loop, on one device, in dispatches of K = ``steps_per_dispatch`` grad
 steps. With ``replay_placement="host"``:
@@ -88,8 +88,35 @@ reset), the trajectory fetched to the host once, cut to its live prefix
 buffer, which the ring mirrors on the device and hybrid placements. The
 warmup collects whole episodes at noise scale 3.0; the loop collects one
 each time the collect budget reaches ``max_episode_steps``; ``env_steps``
-counts the live steps. A host goal env (its own episodes, or the actor
-pool's with ``num_envs > 1``) waits for ROADMAP A5 (d).
+counts the live steps. A host goal env collects its own episodes step by
+step through its goal view (``_her_collect_episode_host``), or, with
+``num_envs > 1`` or ``async_collect``, through the actor pool's goal views
+with one hindsight writer an actor (a dropped actor's writer is rebuilt).
+
+Host envs (gymnasium ids, ``dmc:`` ids; the JAX trainer's host and pool
+modes): the env is built first and gives the config its dims and support
+(``config.apply_env_preset(config, env)``). With ``num_envs == 1`` the
+loop steps it itself through an n-step writer; otherwise the host actor
+pool (``runtime/actor_pool.py``) steps N worker processes and a
+:class:`~d4pg_tpu_torch.runtime.collect.PoolCollector` makes each pool step
+(one batched act, the supervised step, the dropped windows, one N-wide
+writer call, the per-row noise reset). Acting runs on ``actor_device``
+("auto": the CPU whenever the learner is on the card, on a CPU copy of
+the actor refreshed at most once a grad step). ``async_collect`` moves the
+pool's collection onto a collector thread (a single env gets a pool of
+1), paced from both sides at ``env_steps_per_train_step`` with per-process
+counters, acting on a publication of the actor (a real copy, refreshed
+every ``publish_interval`` grad steps; on the card cloned on the
+learner's stream and read after its event), with its own generator. Evals
+run greedy episodes on the host: through an eval pool (seed + 977 777)
+when the trainer has a pool and ``eval_episodes > 1``, else on a dedicated
+eval env; with ``concurrent_eval`` (the default) on an evaluator thread
+that scores a publication, so an eval crossing costs no grad step.
+``obs_norm`` folds the observations the policy acts on into a
+:class:`~d4pg_tpu_torch.ops.obs_norm.RunningObsNorm` once per env step,
+normalizes sampled batches on the host and the acting and eval forwards,
+and is saved in the trainer meta and beside ``best_actor.npz``
+(``best_obs_norm.json``).
 
 Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
 the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
@@ -141,10 +168,13 @@ from d4pg_tpu_torch.config import (
     apply_batch_scale,
     apply_declared_actions,
     apply_env_preset,
+    check_collection,
     check_placement,
     check_wire_dtypes,
 )
-from d4pg_tpu_torch.envs import PointMassGoal, make_env
+from d4pg_tpu_torch.envs import ENVS, make_env
+from d4pg_tpu_torch.envs.pointmass_goal import PointMassGoal
+from d4pg_tpu_torch.ops.obs_norm import RunningObsNorm
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -155,8 +185,9 @@ from d4pg_tpu_torch.replay import (
 from d4pg_tpu_torch.replay.device_per import DevicePerSync
 from d4pg_tpu_torch.replay.device_ring import DeviceRingSync, device_ring_init
 from d4pg_tpu_torch.replay.her import HindsightWriter
-from d4pg_tpu_torch.replay.nstep_writer import NStepWriter
+from d4pg_tpu_torch.replay.nstep_writer import BatchedNStepWriter, NStepWriter
 from d4pg_tpu_torch.runtime import megastep
+from d4pg_tpu_torch.runtime.actor_pool import HostActorPool
 from d4pg_tpu_torch.runtime.checkpoint import (
     CheckpointManager,
     best_eval_path,
@@ -165,7 +196,13 @@ from d4pg_tpu_torch.runtime.checkpoint import (
     save_trainer_meta,
     trainer_meta_path,
 )
-from d4pg_tpu_torch.runtime.collect import make_segment_collector
+from d4pg_tpu_torch.runtime.collect import (
+    ActorCopy,
+    HostActing,
+    PoolCollector,
+    make_segment_collector,
+    publish_actor,
+)
 from d4pg_tpu_torch.runtime.evaluator import evaluate
 from d4pg_tpu_torch.runtime.metrics import MetricsLogger, StageTimers, interval_crossed
 from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
@@ -175,6 +212,8 @@ from d4pg_tpu_torch.weights import best_actor_path, save_best_actor
 SEGMENT_LEN = 32  # env steps per env per collect (the JAX sync trainer's)
 WIRE_FIELDS = ("obs", "next_obs")  # what --transfer-dtype narrows on the wire
 WB_JOIN_S = 60.0  # how long stopping or draining the write-back thread may take
+COLLECTOR_JOIN_S = 30.0  # how long stopping the async collector may take
+EVAL_POOL_SEED = 977_777  # the eval pool's seed offset (the JAX trainer's)
 
 
 # The fields of one HER rollout step, in the order they are fetched.
@@ -202,20 +241,52 @@ def _rss_gb() -> float:
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig, device=None):
+    def __init__(self, config: TrainConfig, device=None, actor_env: Optional[str] = None):
         """``config`` as the user gives it: the env preset and then
         ``batch_scale`` are applied here, so ``self.config`` holds the
         scaled values (and ``batch_scale`` itself, as the JAX trainer's
-        config does)."""
+        config does).
+
+        ``actor_env`` names a host env that the host collection (one env,
+        or the actor pool) and the host evaluation step in place of
+        ``config.env``, whose preset stays the learner's: the JAX fleet's
+        pairing of a ``pixel_pendulum`` learner with actors that run its
+        twin ``pixel_pendulum_host``. Its dims must be the preset's."""
         self.device = resolve_device(device)
-        config = apply_batch_scale(apply_env_preset(config))
+        if config.env == "pixel_pendulum_host":
+            raise ValueError(
+                "pixel_pendulum_host is a host actor env (a pool worker's twin of "
+                "pixel_pendulum, with no preset and no goal views); the JAX Trainer "
+                "does not train on it either: train --env pixel_pendulum"
+            )
+        # a host env (gymnasium id, dmc: id) is stepped on the host: built
+        # first, it gives the config its dims (the JAX _reconcile_config)
+        self.host_env = config.env not in ENVS or actor_env is not None
+        self.actor_env = actor_env or config.env
+        if actor_env is not None:
+            config = apply_env_preset(config)
+            self.env = make_env(actor_env, config.max_episode_steps, config.action_repeat)
+            dims = (self.env.observation_dim, self.env.action_dim)
+            if dims != (config.agent.obs_dim, config.agent.action_dim):
+                raise ValueError(
+                    f"actor_env {actor_env!r} has (obs_dim, action_dim) {dims}; "
+                    f"{config.env!r}'s preset has "
+                    f"{(config.agent.obs_dim, config.agent.action_dim)}"
+                )
+        elif self.host_env:
+            self.env = make_env(config.env, config.max_episode_steps, config.action_repeat)
+            config = apply_env_preset(config, self.env)
+        else:
+            config = apply_env_preset(config)
+            self.env = make_env(config.env, config.max_episode_steps, config.action_repeat)
+        config = apply_batch_scale(config)
         check_wire_dtypes(config)
         check_supported(config.agent)
         check_placement(config)
+        check_collection(config, self.host_env, self.env)
         config = apply_declared_actions(config)
         self.config = config
         agent_cfg = config.agent
-        self.env = make_env(config.env, config.max_episode_steps, config.action_repeat)
 
         obs_dim, act_dim = agent_cfg.obs_dim, agent_cfg.action_dim
         self.on_device = config.replay_placement == "device"
@@ -248,17 +319,20 @@ class Trainer:
         self._collect_gen = torch.Generator(self.device).manual_seed(config.seed + 1)
         self._eval_gen = torch.Generator(self.device).manual_seed(config.seed + 2)
 
-        noise_fns = make_noise(agent_cfg, (config.num_envs,), self.device)
-        self._collect = make_segment_collector(
-            agent_cfg, self.env, config.num_envs, SEGMENT_LEN, noise_fns
-        )
-        self.env_states, self.obs = self.env.reset(
-            config.num_envs, self._collect_gen, self.device
-        )
-        self.noise_states = noise_fns[0]()
         self.her_writer = None
-        if config.her:
-            self._setup_her()
+        self.her_writers = None
+        if not self.host_env:
+            noise_fns = make_noise(agent_cfg, (config.num_envs,), self.device)
+            self._collect = make_segment_collector(
+                agent_cfg, self.env, config.num_envs, SEGMENT_LEN, noise_fns
+            )
+            self.env_states, self.obs = self.env.reset(
+                config.num_envs, self._collect_gen, self.device
+            )
+            self.noise_states = noise_fns[0]()
+            if config.her:
+                self._setup_her()
+        self._init_host_state()
 
         self._ring = self._ring_sync = self._dev_per = self._megastep = None
         self._dispatches = 0
@@ -320,6 +394,71 @@ class Trainer:
         if config.resume and self.ckpt.latest_step() is not None:
             with self.timers.stage("checkpoint_restore"):
                 self._resume()
+        # Per-process counters for async pacing: the checkpoint-restored
+        # global ones would make a resumed learner wait for ratio x (all
+        # past steps) of fresh collection, or its collector collect nothing.
+        self._learner_steps = 0
+        self._env_steps_origin = self.env_steps
+        if self.host_env:
+            # after the resume, as in the JAX trainer
+            if config.her:
+                self._setup_her()
+            elif config.num_envs > 1 or config.async_collect:
+                self._setup_pool_collect()
+            else:
+                self._setup_host_collect()
+
+    def _init_host_state(self) -> None:
+        """The host-env collection, publication and evaluation state (inert
+        for a torch env)."""
+        cfg = self.config
+        self.obs_norm = RunningObsNorm(cfg.agent.obs_dim) if cfg.obs_norm else None
+        # Where host-env collection and eval forwards run: "auto" is the CPU
+        # whenever the learner is on the card.
+        cpu = torch.device("cpu")
+        if cfg.actor_device == "cpu" or (cfg.actor_device == "auto" and self.device.type == "cuda"):
+            self._act_device = cpu
+        else:
+            self._act_device = self.device
+        # the collection's own stream: a background collector never races
+        # the learner thread on a generator
+        self._act_gen = torch.Generator(self._act_device).manual_seed(cfg.seed + 5)
+        # sync acting on the CPU while the learner is on the card: a CPU
+        # copy refreshed at most once a grad step (made at first use)
+        self._sync_copy: Optional[ActorCopy] = None
+        self.pool: Optional[HostActorPool] = None
+        self.collector: Optional[PoolCollector] = None
+        self.batched_writer = None
+        self._eval_pool: Optional[HostActorPool] = None
+        self._eval_env = None
+        self._eval_acting: Optional[HostActing] = None
+        # --async-collect: the published actor copy, the collector thread
+        self._actor_pub = None
+        self._pub_version = 0
+        self._collector_copy: Optional[ActorCopy] = None
+        self._stop_collect = threading.Event()
+        self._collector: Optional[threading.Thread] = None
+        self._collector_error: Optional[BaseException] = None
+        # --concurrent-eval: the evaluator thread scores published copies
+        self._eval_copy: Optional[ActorCopy] = None
+        self._eval_thread: Optional[threading.Thread] = None
+        self._eval_req = None  # latest pending (publication, step, scalars, env_steps, norm)
+        self._eval_req_lock = threading.Lock()
+        self._eval_pending = threading.Event()
+        self._eval_idle = threading.Event()
+        self._eval_idle.set()
+        self._eval_stop = threading.Event()
+        self._eval_error: Optional[BaseException] = None
+        # set when the evaluator outlived its shutdown join: close() then
+        # leaves the eval pool, env and metrics to it rather than closing
+        # them under a worker still stepping them
+        self._eval_leaked = False
+        self._last_eval_row: dict = {}
+        self._last_eval_ev: dict = {}
+
+    @property
+    def has_pool(self) -> bool:
+        return self.pool is not None
 
     # ------------------------------------------------------------ checkpoints
     def _replay_snapshot_path(self) -> str:
@@ -344,6 +483,21 @@ class Trainer:
         # would re-explore at full scale
         self.env_steps = int(meta.get("env_steps", 0))
         self.ewma_return = meta.get("ewma_return")
+        # a flag/meta mismatch is an error both ways: a net trained on
+        # normalized observations sees inputs far off its trained scale
+        if self.obs_norm is not None:
+            if "obs_norm" not in meta:
+                raise ValueError(
+                    "--obs-norm resume: checkpoint has no saved "
+                    "normalizer statistics (was the run trained "
+                    "without --obs-norm?)"
+                )
+            self.obs_norm.load_state_dict(meta["obs_norm"])
+        elif "obs_norm" in meta:
+            raise ValueError(
+                "checkpoint was trained WITH --obs-norm; resuming "
+                "without it would feed the nets un-normalized inputs"
+            )
         best_json = best_eval_path(cfg.log_dir)
         if os.path.exists(best_actor_path(cfg.log_dir)) and os.path.exists(best_json):
             try:
@@ -396,7 +550,8 @@ class Trainer:
         cfg = self.config
         with self.timers.stage("checkpoint_save"):
             self.ckpt.save(self.grad_steps, self.state)
-            save_trainer_meta(cfg.log_dir, self.env_steps, self.ewma_return)
+            extra = {"obs_norm": self.obs_norm.state_dict()} if self.obs_norm is not None else None
+            save_trainer_meta(cfg.log_dir, self.env_steps, self.ewma_return, extra=extra)
             side = [trainer_meta_path(cfg.log_dir)]
             if cfg.snapshot_replay:
                 # in-flight async write-backs land first, or the snapshot
@@ -456,21 +611,27 @@ class Trainer:
         )
 
     def _setup_her(self) -> None:
-        """The hindsight writer and the single-env rollout of a pure goal
-        env. A host goal env (``is_goal_env``: the gymnasium adapters)
-        waits for the host env adapters and the actor pool."""
+        """The hindsight writer(s). A pure goal env (``pointmass_goal``)
+        rolls its single-env episodes on the device; a host goal env
+        (``is_goal_env``: a goal-dict gymnasium adapter) collects through
+        the host actor pool's goal views with one hindsight writer an actor
+        when ``num_envs > 1`` or ``async_collect``, else its own episodes
+        on the host."""
         cfg = self.config
         env = self.env
-        if getattr(env, "is_goal_env", False):
-            what = (
-                f"--her with num_envs={cfg.num_envs} collects through the host actor "
-                "pool's goal views" if cfg.num_envs > 1
-                else "--her on a host goal env collects its episodes on the host"
-            )
-            raise NotImplementedError(
-                f"{what}; the host env adapters and the actor pool (ROADMAP A5 (d)) "
-                "are not ported to d4pg_tpu_torch yet"
-            )
+        if self.host_env:
+            if not (hasattr(env, "compute_reward") and getattr(env, "is_goal_env", False)):
+                raise ValueError(f"--her needs a goal env, got {cfg.env}")
+            self._her_reward_fn = env.compute_reward
+            if cfg.num_envs > 1 or cfg.async_collect:
+                self.her_writers = [self._make_her_writer(env.compute_reward)
+                                    for _ in range(cfg.num_envs)]
+                self._setup_pool_collect()
+                return
+            self.her_writer = self._make_her_writer(env.compute_reward)
+            self._her_acting = HostActing(cfg.agent, 1, self._act_device, self._act_gen)
+            self.her_episodes = 0
+            return
         if not isinstance(env, PointMassGoal):
             raise ValueError(f"--her needs a goal env, got {cfg.env}")
 
@@ -519,6 +680,8 @@ class Trainer:
     def _her_collect_episode(self, noise_scale: Optional[float] = None) -> float:
         """One exploratory episode through the hindsight writer; returns its
         reward sum. Only the live prefix is written and counted."""
+        if self.host_env:
+            return self._her_collect_episode_host(noise_scale)
         scale = self._noise_scale() if noise_scale is None else noise_scale
         with self.timers.stage("env_step"):
             traj = self._her_rollout(scale)
@@ -540,6 +703,191 @@ class Trainer:
         self.her_episodes += 1
         return float(traj["reward"][:T].sum())
 
+    def _her_collect_episode_host(self, noise_scale: Optional[float] = None) -> float:
+        """One exploratory episode of a host goal env through the hindsight
+        writer, step by step with the adapter's goal view
+        (``last_goal_obs``); returns its reward sum."""
+        env = self.env
+        scale = self._noise_scale() if noise_scale is None else noise_scale
+        obs = env.reset()
+        ep_return, term = 0.0, False
+        actor, wait = self._acting_actor()
+        for _ in range(self.config.max_episode_steps):
+            with self.timers.stage("env_step"):
+                g0 = env.last_goal_obs
+                a = self._her_acting.explore(actor, self._ingest_obs(obs)[None], scale, wait)[0]
+                obs2, r, term, trunc, _ = env.step(a)
+                g1 = env.last_goal_obs
+            with self.timers.stage("replay_insert"):
+                self.her_writer.add(
+                    observation=np.ravel(g0["observation"]),
+                    achieved_goal=np.ravel(g0["achieved_goal"]),
+                    desired_goal=np.ravel(g0["desired_goal"]),
+                    action=a,
+                    reward=float(r),
+                    next_observation=np.ravel(g1["observation"]),
+                    next_achieved_goal=np.ravel(g1["achieved_goal"]),
+                    terminated=bool(term),
+                )
+            ep_return += float(r)
+            self.env_steps += 1
+            obs = obs2
+            if term or trunc:
+                break
+        with self.timers.stage("replay_insert"):
+            self.her_writer.end_episode(truncated=not term)
+        self._her_acting.reset_noise(np.ones(1, bool))
+        self.her_episodes += 1
+        return ep_return
+
+    # ------------------------------------------------------ host collection
+    def _ingest_obs(self, x: np.ndarray) -> np.ndarray:
+        """The collection-side view: fold the observed observations into the
+        running statistics (once per env step, the distribution the stats
+        should track), then return the normalized copy the policy acts on.
+        Identity without ``obs_norm``."""
+        if self.obs_norm is None:
+            return x
+        self.obs_norm.update(x)
+        return self.obs_norm.normalize(x)
+
+    def _norm_obs(self, x: np.ndarray) -> np.ndarray:
+        """The read-only normalizer view for eval forwards."""
+        return x if self.obs_norm is None else self.obs_norm.normalize(x)
+
+    def _acting_actor(self):
+        """(actor, wait_caller) that sync host collection and inline eval act
+        with: the live actor on the learner's device (the acting stream
+        waits for the learner's enqueued work), or a CPU copy of it
+        refreshed at most once a grad step."""
+        if self._act_device == self.device:
+            return self.state.actor, True
+        if self._sync_copy is None:
+            self._sync_copy = ActorCopy(self.state.actor, self._act_device)
+        if self._sync_copy.version != self.grad_steps:
+            self._sync_copy.load(publish_actor(self.state.actor, self._act_device, self.grad_steps))
+        return self._sync_copy.module, False
+
+    def _setup_host_collect(self) -> None:
+        """One host env stepped by the loop itself, through an n-step
+        writer (the JAX trainer's single-env host path)."""
+        cfg = self.config
+        self.writers = [NStepWriter(self.buffer, cfg.n_step, cfg.agent.gamma)]
+        self._host_obs = self.env.reset(seed=cfg.seed)
+        self._host_acting = HostActing(cfg.agent, 1, self._act_device, self._act_gen)
+
+    def _host_collect_steps(self, num_steps: int, noise_scale: Optional[float] = None) -> None:
+        w = self.writers[0]
+        scale = self._noise_scale() if noise_scale is None else noise_scale
+        actor, wait = self._acting_actor()
+        for _ in range(num_steps):
+            with self.timers.stage("env_step"):
+                a = self._host_acting.explore(
+                    actor, self._ingest_obs(self._host_obs)[None], scale, wait)[0]
+                obs2, r, term, trunc, _ = self.env.step(a)
+            with self.timers.stage("replay_insert"):
+                w.add(self._host_obs, a, r, obs2, terminated=term, truncated=trunc)
+            if term or trunc:
+                self._host_obs = self.env.reset()
+                self._host_acting.reset_noise(np.ones(1, bool))
+            else:
+                self._host_obs = obs2
+            self.env_steps += 1
+
+    def _setup_pool_collect(self) -> None:
+        """The host actor pool: N env worker processes, one batched act per
+        pool step (:class:`~d4pg_tpu_torch.runtime.collect.PoolCollector`),
+        one N-wide n-step writer (or one hindsight writer an actor); the
+        pool reset at the seed."""
+        cfg = self.config
+        self.pool = HostActorPool(
+            self.actor_env, cfg.num_envs, cfg.max_episode_steps, seed=cfg.seed,
+            start_method=cfg.pool_start_method, action_repeat=cfg.action_repeat,
+            step_timeout_s=cfg.pool_step_timeout_s,
+            max_worker_failures=cfg.pool_max_worker_failures,
+        )
+        if self.her_writers is None:
+            self.batched_writer = BatchedNStepWriter(
+                self.buffer, cfg.num_envs, cfg.n_step, cfg.agent.gamma)
+        self.collector = PoolCollector(
+            cfg.agent, self.pool, HostActing(cfg.agent, cfg.num_envs, self._act_device, self._act_gen),
+            writer=self.batched_writer, her_writers=self.her_writers,
+            make_her_writer=lambda: self._make_her_writer(self._her_reward_fn),
+            ingest=self._ingest_obs, timers=self.timers,
+        )
+        self.collector.reset(seed=cfg.seed)
+
+    def _pool_collect_steps(self, num_steps: int, noise_scale: Optional[float] = None) -> None:
+        """Collect about ``num_steps`` env steps across the pool (rounded up
+        to whole pool steps of N envs), with the published copy under
+        ``async_collect``, else the acting actor."""
+        scale = self._noise_scale() if noise_scale is None else noise_scale
+        N = self.config.num_envs
+        if self._actor_pub is not None:
+            actor = self._collector_copy.load(self._actor_pub, self.collector.acting.stream)
+            wait = False
+        else:
+            actor, wait = self._acting_actor()
+        for _ in range(max(1, -(-num_steps // N))):
+            self.env_steps += self.collector.step(actor, scale, wait)
+
+    # ------------------------------------------------------- async collection
+    def _publish_params(self) -> None:
+        """A real copy of the actor for the collector thread: Adam updates
+        the live actor in place, so the collector never reads it."""
+        self._pub_version += 1
+        self._actor_pub = publish_actor(self.state.actor, self._act_device, self._pub_version)
+
+    def _collector_loop(self) -> None:
+        cfg = self.config
+        ratio = cfg.env_steps_per_train_step
+        slack = max(cfg.num_envs * 4, 64)
+        try:
+            while not self._stop_collect.is_set():
+                target = self._effective_warmup() + ratio * self._learner_steps + slack
+                fresh = self.env_steps - self._env_steps_origin
+                if fresh >= target and len(self.buffer) >= cfg.batch_size:
+                    time.sleep(0.002)
+                    continue
+                noise = 3.0 if self.env_steps < self._effective_warmup() else None
+                self._pool_collect_steps(cfg.num_envs, noise_scale=noise)
+        except BaseException as e:  # surfaced by the learner's pacing loop
+            self._collector_error = e
+            raise
+
+    def _check_collector_alive(self) -> None:
+        if self._collector is not None and not self._collector.is_alive():
+            raise RuntimeError(
+                "async collector thread died; training cannot make progress"
+            ) from self._collector_error
+
+    def _start_collector(self) -> None:
+        if not self.has_pool:
+            raise ValueError(
+                "async_collect needs the host actor pool (a gymnasium env id); "
+                "pure-JAX envs collect on-device in the learner stream"
+            )
+        if self._collector is not None and self._collector.is_alive():
+            raise RuntimeError(
+                "a collector thread is already running; call _stop_collector() "
+                "(train() does this even on error) before starting another"
+            )
+        self._stop_collect.clear()
+        self._collector_error = None
+        if self._collector_copy is None:
+            self._collector_copy = ActorCopy(self.state.actor, self._act_device)
+        self._publish_params()
+        self._collector = threading.Thread(
+            target=self._collector_loop, name="collector", daemon=True
+        )
+        self._collector.start()
+
+    def _stop_collector(self) -> None:
+        self._stop_collect.set()
+        if self._collector is not None:
+            self._collector.join(timeout=COLLECTOR_JOIN_S)
+            self._collector = None
+
     # ------------------------------------------------------------ collection
     def _collect_once(self, noise_scale: Optional[float] = None) -> None:
         """One collection: a segment of every env into replay, or with HER
@@ -559,12 +907,57 @@ class Trainer:
         self.env_steps += self.config.num_envs * SEGMENT_LEN
 
     def warmup(self) -> None:
-        """Pre-fill replay with high-noise exploration."""
+        """Pre-fill replay with high-noise exploration. The env-step count
+        alone is not enough: hindsight writers flush only at episode ends,
+        so collection goes on until the buffer can serve a batch."""
         cfg = self.config
         while self.env_steps < self._effective_warmup() or len(self.buffer) < cfg.batch_size:
             if self._preempt_requested.is_set():
                 return  # the train loop's first check checkpoints
-            self._collect_once(noise_scale=3.0)
+            if self.has_pool:  # the pool handles HER itself
+                self._pool_collect_steps(cfg.num_envs * 8, noise_scale=3.0)
+            elif self.host_env and not cfg.her:
+                self._host_collect_steps(64, noise_scale=3.0)
+            else:
+                self._collect_once(noise_scale=3.0)
+
+    def _collect_budgeted(self, budget: float) -> float:
+        """Synchronous collection for ``budget`` env steps' worth in whole
+        units (a pool step of N envs, a HER episode, a device segment, or
+        single host env steps); returns the budget left."""
+        cfg = self.config
+        if self.has_pool:
+            while budget >= cfg.num_envs:
+                self._pool_collect_steps(cfg.num_envs)
+                budget -= cfg.num_envs
+        elif self.host_env and not cfg.her:
+            n = int(budget)
+            if n > 0:
+                self._host_collect_steps(n)
+                budget -= n
+        else:
+            # HER: one episode a collection, budgeted at its full length
+            per_collect = cfg.max_episode_steps if cfg.her else cfg.num_envs * SEGMENT_LEN
+            while budget >= per_collect:
+                self._collect_once()
+                budget -= per_collect
+        return budget
+
+    def _wait_for_collector(self) -> bool:
+        """``async_collect`` pacing: wait until the collector has held the
+        env:train ratio (against the per-process counters, so chunked and
+        resumed legs keep collecting) and the buffer can serve a batch.
+        False when a preemption interrupted the wait."""
+        cfg = self.config
+        while (
+            self.env_steps - self._env_steps_origin
+            < self._effective_warmup() + cfg.env_steps_per_train_step * self._learner_steps
+        ) or len(self.buffer) < cfg.batch_size:
+            self._check_collector_alive()
+            if self._preempt_requested.is_set():
+                return False
+            time.sleep(0.001)
+        return True
 
     # ---------------------------------------------------------------- batches
     def _sample_staged(self, k: int, ahead: bool = False):
@@ -595,6 +988,13 @@ class Trainer:
                 samples = [self.buffer.sample(cfg.batch_size, self._rng) for _ in range(k)]
                 block = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
                 indices = None
+            if self.obs_norm is not None:
+                # normalize ONLY: the statistics fold at collection time
+                # (_ingest_obs), once per observed env step; normalize
+                # returns fresh arrays, so staging slots stay untouched
+                block = dict(block)
+                block["obs"] = self.obs_norm.normalize(block["obs"])
+                block["next_obs"] = self.obs_norm.normalize(block["next_obs"])
         if cfg.transfer_dtype == "bfloat16":
             block = {
                 key: torch.from_numpy(v).to(torch.bfloat16) if key in WIRE_FIELDS else v
@@ -881,11 +1281,12 @@ class Trainer:
             total = -(-total // K) * K
             print(f"total_steps rounded up to {total} (multiple of steps_per_dispatch={K})",
                   flush=True)
-        self.warmup()
+        if cfg.async_collect:
+            self._start_collector()  # the collector pays the warmup
+        else:
+            self.warmup()
         t_start = time.monotonic()
         env_steps_start = self.env_steps
-        # HER: one episode a collection, budgeted at its full length
-        per_collect = cfg.max_episode_steps if cfg.her else cfg.num_envs * SEGMENT_LEN
         collect_budget = 0.0
         last: dict = {}
         done = 0
@@ -906,13 +1307,18 @@ class Trainer:
                     if tracing and done >= max(60, 10 + K):
                         trace.close()
                         tracing, profiled = False, True
-                    collect_budget += cfg.env_steps_per_train_step * K
-                    while collect_budget >= per_collect:
-                        self._collect_once()
-                        collect_budget -= per_collect
+                    if cfg.async_collect:
+                        if not self._wait_for_collector():
+                            continue  # the loop top checkpoints and stops
+                    else:
+                        collect_budget = self._collect_budgeted(
+                            collect_budget + cfg.env_steps_per_train_step * K)
                     metrics = self._dispatch_once(prefetch_next=done + K < total)
                     done += K
                     self.grad_steps += K
+                    self._learner_steps += K
+                    if cfg.async_collect and interval_crossed(done - K, done, cfg.publish_interval):
+                        self._publish_params()
                     eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
                     if eval_crossed or done >= total:
                         last = self._periodic(metrics, t_start, done, env_steps_start)
@@ -937,9 +1343,16 @@ class Trainer:
             # a batch staged for a dispatch that never ran (a preemption,
             # an error) is dropped; its rows got no write-back
             self._staged = None
+            self._stop_collector()
         # The host tree's lagged write-back lands after the loop, so after a
         # preemption checkpoint too (as in the JAX trainer).
         self._flush_write_back()
+        if self.host_env and cfg.concurrent_eval:
+            # the final crossing's eval may still be in flight; its row must
+            # exist before train() returns
+            self._drain_eval()
+            if self._last_eval_row:
+                last = self._last_eval_row
         return last
 
     def _periodic(self, metrics, t_start, grad_steps_done, env_steps_start) -> dict:
@@ -955,9 +1368,34 @@ class Trainer:
                 "env_steps": self.env_steps,
             }
         )
-        ev = evaluate(
-            cfg.agent, self.env, self.state.actor, self._eval_gen, cfg.eval_episodes
-        )
+        if self.has_pool:
+            # the supervisor's counters ride every row
+            scalars["pool_worker_failures"] = float(self.pool.failures_total)
+            scalars["pool_worker_restarts"] = float(self.pool.restarts_total)
+            scalars["pool_workers_quarantined"] = float(self.pool.num_quarantined())
+        if self._ckpt_fallbacks:
+            scalars["checkpoint_fallbacks"] = float(self._ckpt_fallbacks)
+        if not self.host_env:
+            ev = evaluate(
+                cfg.agent, self.env, self.state.actor, self._eval_gen, cfg.eval_episodes
+            )
+            return self._apply_eval(self.grad_steps, scalars, ev, actor=self.state.actor)
+        if cfg.concurrent_eval:
+            # the evaluator thread logs the row when its eval completes;
+            # return the latest finished eval's scalars meanwhile
+            self._request_eval(scalars)
+            return {**scalars, **self._last_eval_ev}
+        actor, _ = self._acting_actor()
+        return self._apply_eval(self.grad_steps, scalars, self._host_eval(), actor=actor)
+
+    def _apply_eval(self, step: int, scalars: dict, ev: dict, actor=None,
+                    env_steps: Optional[int] = None, norm_state=None) -> dict:
+        """EWMA, keep-best, the metrics row and the console line for one
+        completed eval, at the step it was requested. ``actor`` is the
+        module the eval scored (the live actor inline, the evaluator
+        thread's copy under ``concurrent_eval``), what keep-best saves;
+        ``env_steps`` and ``norm_state`` were captured at the request."""
+        cfg = self.config
         if self.ewma_return is None:
             self.ewma_return = ev["eval_return_mean"]
         else:
@@ -965,30 +1403,243 @@ class Trainer:
                 (1 - cfg.ewma_alpha) * self.ewma_return
                 + cfg.ewma_alpha * ev["eval_return_mean"]
             )
-        if self._best_eval is None or ev["eval_return_mean"] > self._best_eval:
+        if actor is not None and (self._best_eval is None or ev["eval_return_mean"] > self._best_eval):
             self._best_eval = ev["eval_return_mean"]
-            self._save_best(self.grad_steps, self._best_eval)
-        if self._ckpt_fallbacks:
-            scalars["checkpoint_fallbacks"] = float(self._ckpt_fallbacks)
+            if norm_state is None and self.obs_norm is not None:
+                # inline: the statistics now are those of the scored actor
+                norm_state = self.obs_norm.state_dict()
+            self._save_best(step, self._best_eval, actor,
+                            self.env_steps if env_steps is None else env_steps, norm_state)
+        scalars = dict(scalars)
         scalars.update(ev)
-        scalars["best_eval_return"] = self._best_eval
+        if self._best_eval is not None:
+            scalars["best_eval_return"] = self._best_eval
         scalars["avg_test_reward_ewma"] = self.ewma_return
-        self.metrics.log(self.grad_steps, scalars, timers=self.timers)
+        self.metrics.log(step, scalars, timers=self.timers)
         print(
-            f"[step {self.grad_steps}] "
+            f"[step {step}] "
             + " ".join(f"{k}={v:.3f}" for k, v in scalars.items() if k != "replay_size"),
             flush=True,
         )
+        self._last_eval_ev = {**ev, "avg_test_reward_ewma": self.ewma_return}
+        self._last_eval_row = scalars
         return scalars
 
-    def _save_best(self, step: int, score: float) -> None:
-        """The champion actor, then its score: params first, JSON second,
-        so the JSON never claims params that were not saved."""
-        save_best_actor(self.config.log_dir, self.state.actor)
-        save_best_eval(self.config.log_dir, step, score, self.env_steps)
+    def _save_best(self, step: int, score: float, actor, env_steps: int, norm_state=None) -> None:
+        """The champion actor, its normalizer statistics (as of the scored
+        copy, ``best_obs_norm.json``), then its score: params first, JSON
+        last, so the JSON never claims params that were not saved."""
+        save_best_actor(self.config.log_dir, actor)
+        if norm_state is not None:
+            path = os.path.join(self.config.log_dir, "checkpoints", "best_obs_norm.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(norm_state, f)
+            os.replace(path + ".tmp", path)
+        save_best_eval(self.config.log_dir, step, score, env_steps)
+
+    # ------------------------------------------------------------- host eval
+    def _eval_forwards(self) -> HostActing:
+        """The eval's greedy forwards (on a stream of their own on the card)."""
+        if self._eval_acting is None:
+            self._eval_acting = HostActing(self.config.agent, 1, self._act_device)
+        return self._eval_acting
+
+    def _host_eval(self, pub=None) -> dict:
+        """Greedy eval episodes of a host env: through the eval pool (all
+        episodes in parallel) when the trainer has a pool and
+        ``eval_episodes > 1`` (never for a pixel ``dmc_pixels:`` env),
+        else one by one on a dedicated eval env. ``pub`` (the evaluator
+        thread's request) is a publication it scores with its own copy;
+        without it the acting actor is scored."""
+        cfg = self.config
+        if pub is None:
+            actor, wait = self._acting_actor()
+        else:
+            actor, wait = self._eval_copy.load(pub, self._eval_forwards().stream), False
+        if self.has_pool and cfg.eval_episodes > 1 and not getattr(self.env, "pixels", False):
+            return self._pool_eval(actor, wait)
+        if self._eval_env is None:
+            self._eval_env = make_env(self.actor_env, cfg.max_episode_steps, cfg.action_repeat)
+        env, acting = self._eval_env, self._eval_forwards()
+        rets, succ, any_reported = [], 0, False
+        info = {}
+        for _ in range(cfg.eval_episodes):
+            obs = env.reset()
+            ep_ret = 0.0
+            for _ in range(cfg.max_episode_steps):
+                a = acting.greedy(actor, self._norm_obs(obs)[None], wait)[0]
+                obs, r, term, trunc, info = env.step(a)
+                ep_ret += r
+                if term or trunc:
+                    break
+            # success only where the env reports is_success
+            if isinstance(info, dict) and "is_success" in info:
+                any_reported = True
+                succ += int(bool(info["is_success"]))
+            rets.append(ep_ret)
+        out = {"eval_return_mean": float(np.mean(rets)), "eval_return_std": float(np.std(rets))}
+        if any_reported:
+            out["success_rate"] = succ / cfg.eval_episodes
+        return out
+
+    def _pool_eval(self, actor, wait: bool = False) -> dict:
+        """Every eval episode in parallel through a dedicated eval pool
+        (seed + 977 777), one batched greedy act an env step. A worker that
+        fails mid-episode is restarted by the pool's supervisor, but its
+        episode is torn: it is excluded from the stats."""
+        cfg = self.config
+        n = cfg.eval_episodes
+        if self._eval_pool is None:
+            self._eval_pool = HostActorPool(
+                self.actor_env, n, cfg.max_episode_steps, seed=cfg.seed + EVAL_POOL_SEED,
+                start_method=cfg.pool_start_method, action_repeat=cfg.action_repeat,
+            )
+        acting = self._eval_forwards()
+        obs = self._eval_pool.reset_all()
+        alive = np.ones(n, bool)
+        valid = np.ones(n, bool)
+        rets = np.zeros(n, np.float64)
+        ep_success = np.zeros(n, bool)
+        any_reported = False
+        for _ in range(cfg.max_episode_steps):
+            a = acting.greedy(actor, self._norm_obs(obs), wait)
+            _, r, term, trunc, pol_obs, s, s_rep = self._eval_pool.step(a)
+            self._eval_pool.take_dropped()  # no writers here; keep it drained
+            failed_now = alive & ~self._eval_pool.stepped_mask
+            if failed_now.any():
+                valid &= ~failed_now
+                alive &= ~failed_now
+                print(
+                    f"[eval] dropped {int(failed_now.sum())} episode(s): "
+                    "eval worker failed mid-episode (restarted; torn "
+                    "returns excluded from the stats)", flush=True,
+                )
+                if not alive.any():
+                    break
+            rets += r * alive
+            # final-step semantics: an episode's success is is_success at
+            # its last step, only where the env reports it
+            done_now = (term | trunc) & alive
+            ep_success = np.where(done_now, s & s_rep, ep_success)
+            any_reported |= bool((done_now & s_rep & valid).any())
+            alive &= ~(term | trunc)
+            obs = pol_obs
+            if not alive.any():
+                break
+        if not valid.any():
+            raise RuntimeError(
+                "every eval episode was lost to eval-pool worker failures; "
+                "no return to report"
+            )
+        out = {"eval_return_mean": float(rets[valid].mean()),
+               "eval_return_std": float(rets[valid].std())}
+        if any_reported:
+            out["success_rate"] = float(ep_success[valid].mean())
+        return out
+
+    # ------------------------------------------------------ concurrent eval
+    def _eval_worker(self) -> None:
+        try:
+            while True:
+                # bounded wait: a stop that forgets the wake parks this
+                # thread one tick, not forever
+                while not self._eval_pending.wait(0.5):
+                    if self._eval_stop.is_set():
+                        return
+                if self._eval_stop.is_set():
+                    return
+                with self._eval_req_lock:
+                    req, self._eval_req = self._eval_req, None
+                    self._eval_pending.clear()
+                if req is None:
+                    continue
+                pub, step, scalars, env_steps, norm_state = req
+                ev = self._host_eval(pub)
+                # the copy scored is what keep-best saves; the normalizer
+                # snapshot is the one taken with it
+                self._apply_eval(step, scalars, ev, actor=self._eval_copy.module,
+                                 env_steps=env_steps, norm_state=norm_state)
+                with self._eval_req_lock:
+                    if self._eval_req is None:
+                        self._eval_idle.set()
+        except BaseException as e:
+            self._eval_error = e
+            self._eval_idle.set()  # never leave the end-of-train drain hanging
+            raise
+
+    def _request_eval(self, scalars: dict) -> None:
+        """Hand the evaluator thread a copy of the actor and this crossing's
+        train scalars. A request still waiting is REPLACED (latest params
+        win); the replaced crossing still logs its train-scalars row."""
+        if self._eval_error is not None:
+            raise RuntimeError("evaluator thread died") from self._eval_error
+        if self._eval_copy is None:
+            self._eval_copy = ActorCopy(self.state.actor, self._act_device)
+        if self._eval_thread is None or not self._eval_thread.is_alive():
+            self._eval_stop.clear()
+            self._eval_thread = threading.Thread(
+                target=self._eval_worker, name="evaluator", daemon=True
+            )
+            self._eval_thread.start()
+        self._pub_version += 1
+        pub = publish_actor(self.state.actor, self._act_device, self._pub_version)
+        norm_state = self.obs_norm.state_dict() if self.obs_norm is not None else None
+        with self._eval_req_lock:
+            replaced = self._eval_req
+            self._eval_idle.clear()
+            # env_steps and the statistics captured HERE, on the learner
+            # thread, with the copy
+            self._eval_req = (pub, self.grad_steps, scalars, self.env_steps, norm_state)
+            self._eval_pending.set()
+        if replaced is not None:
+            _, r_step, r_scalars, _, _ = replaced
+            self.metrics.log(r_step, r_scalars, timers=self.timers)
+
+    def _drain_eval(self, timeout: float = 600.0) -> None:
+        """Wait for the evals in flight and pending (end of ``train()``)."""
+        # the error first: a worker that died on the final request leaves a
+        # dead thread, which the early return below would swallow
+        if self._eval_error is not None:
+            raise RuntimeError("evaluator thread died") from self._eval_error
+        if self._eval_thread is None or not self._eval_thread.is_alive():
+            return
+        if not self._eval_idle.wait(timeout):
+            print(f"[evaluator] eval still running after {timeout:.0f} s", flush=True)
+        if self._eval_error is not None:
+            raise RuntimeError("evaluator thread died") from self._eval_error
+
+    def _stop_eval_thread(self) -> None:
+        if self._eval_thread is not None:
+            self._eval_stop.set()
+            self._eval_pending.set()  # wake the wait()
+            self._eval_thread.join(timeout=60)
+            if self._eval_thread.is_alive():
+                # closing the eval pool or env under a worker still stepping
+                # them would crash it: leave them to it
+                self._eval_leaked = True
+                print(
+                    "[evaluator] still running after 60 s shutdown join; "
+                    "leaking eval pool/env rather than closing them mid-step",
+                    flush=True,
+                )
+            self._eval_thread = None
 
     def close(self) -> None:
-        self.metrics.close()
+        """Stop the collector and the evaluator, then close the metrics, the
+        pools (no worker outlives it) and the envs."""
+        self._stop_collector()
+        self._stop_eval_thread()
+        if not self._eval_leaked:
+            self.metrics.close()
+        if self.pool is not None:
+            self.pool.close()
+        if not self._eval_leaked:
+            if self._eval_pool is not None:
+                self._eval_pool.close()
+            if self._eval_env is not None and hasattr(self._eval_env, "close"):
+                self._eval_env.close()
+        if self.host_env and hasattr(self.env, "close"):
+            self.env.close()
 
 
 @contextlib.contextmanager

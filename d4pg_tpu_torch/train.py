@@ -49,6 +49,9 @@ Examples:
         # uint8 ring; on the host placement add --transfer-dtype uint8
     python -m d4pg_tpu_torch.train --env pendulum --log-dir runs/p1 \
         --export-bundle runs/p1/bundle   # package for d4pg_tpu_torch.serve
+    python -m d4pg_tpu_torch.train --env HalfCheetah-v4 --num-envs 4 \
+        --async-collect --obs-norm     # the host actor pool over gymnasium
+    python -m d4pg_tpu_torch.train --env dmc:cartpole:swingup --num-envs 8
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -61,26 +64,15 @@ import argparse
 import dataclasses
 import sys
 
-from d4pg_tpu_torch.agent.state import D4PGConfig
-from d4pg_tpu_torch.config import TrainConfig, cli_support
-from d4pg_tpu_torch.models.critic import DistConfig
+# The module imports no torch at its top: the host actor pool's spawned
+# workers re-import the ``-m`` main module (as ``__mp_main__``), and must
+# stay free of torch. The config classes are imported where they are used.
 
 # Flags of the JAX CLI (``train.py:build_parser``) whose feature the port
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
-    "--obs-norm": "observation normalization (ROADMAP A10 (d))",
-    "--async-collect": "asynchronous collection, which needs the host actor pool (ROADMAP A5 (d))",
     "--dp": "data parallelism (ROADMAP A7)",
     "--fleet-listen": "the collection fleet (ROADMAP A11)",
-    "--publish-interval": "asynchronous collection, which needs the host actor pool "
-                          "(ROADMAP A5 (d))",
-    "--concurrent-eval": "the concurrent evaluator thread, which scores host-pool envs "
-                         "(ROADMAP A5 (d))",
-    "--no-concurrent-eval": "the concurrent evaluator thread, which scores host-pool envs "
-                            "(ROADMAP A5 (d))",
-    "--pool-start-method": "the host actor pool (ROADMAP A5 (d))",
-    "--pool-step-timeout": "the host actor pool (ROADMAP A5 (d))",
-    "--actor-device": "the host actor pool (ROADMAP A5 (d))",
     "--device-tree-backend": "a choice of device PER descent: the port has one, "
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
     "--tp": "tensor parallelism (ROADMAP A7)",
@@ -107,7 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain PyTorch versions")
     p.add_argument("--env", default="pendulum",
                    help="pendulum, pixel_pendulum, pointmass_goal, halfcheetah, hopper, "
-                        "walker2d, humanoid, ant")
+                        "walker2d, humanoid, ant (torch envs on the device), or a "
+                        "gymnasium id (Pendulum-v1, HalfCheetah-v4, ...) or "
+                        "dmc:<domain>:<task> stepped on the host")
     p.add_argument("--rmsize", "--replay-capacity", dest="replay_capacity",
                    type=int, default=None,
                    help="replay capacity (default 1M; the pixel_pendulum preset's "
@@ -142,7 +136,41 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-eps", type=float, default=0.0)
     p.add_argument("--action-l2", type=float, default=0.0)
     p.add_argument("--num-envs", type=int, default=16,
-                   help="batched exploration envs on the device")
+                   help="batched exploration envs on the device, or the host "
+                        "actor pool's size for gymnasium and dmc: envs")
+    p.add_argument("--obs-norm", action="store_true",
+                   help="running observation normalization at the data "
+                        "boundary: clip((x-mean)/std, +-5), Welford stats "
+                        "folded once per observed env step at collection "
+                        "(never per sampled batch), applied to sampled "
+                        "batches and to the acting and eval forwards "
+                        "(host state-feature envs only)")
+    p.add_argument("--async-collect", action="store_true",
+                   help="decouple actors from the learner: the host actor pool "
+                        "collects in a background thread against published "
+                        "actor copies (a single env gets a pool of 1)")
+    p.add_argument("--publish-interval", type=int, default=10,
+                   help="grad steps between actor-param publications (async)")
+    p.add_argument("--pool-start-method", choices=["spawn", "fork", "forkserver"],
+                   default="spawn",
+                   help="actor-pool worker start method; spawn keeps children "
+                        "free of torch and CUDA, fork starts faster (a forked "
+                        "child uses numpy only, never the parent's CUDA context)")
+    p.add_argument("--pool-step-timeout", dest="pool_step_timeout_s",
+                   type=float, default=60.0,
+                   help="supervised actor pool: seconds a worker may take "
+                        "to answer one step before it is declared hung and "
+                        "restarted (monotonic deadline)")
+    p.add_argument("--actor-device", choices=["auto", "cpu", "default"],
+                   default="auto",
+                   help="where host-env collection and eval forwards run: cpu "
+                        "(a CPU copy of the actor), default (the learner's "
+                        "device), auto = cpu whenever the learner is on the card")
+    p.add_argument("--concurrent-eval", dest="concurrent_eval",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="host-env eval runs in a dedicated thread on a "
+                        "published param copy, so eval crossings cost zero "
+                        "grad steps")
     p.add_argument("--her", action="store_true",
                    help="hindsight relabeling on a goal env (pointmass_goal): "
                         "whole single-env episodes, each stored with --her-k "
@@ -268,10 +296,14 @@ def refuse_unported(argv) -> None:
             raise NotImplementedError(f"{arg}: {what} is not ported to d4pg_tpu_torch yet")
 
 
-def config_from_args(args: argparse.Namespace) -> TrainConfig:
+def config_from_args(args: argparse.Namespace):
     """The flags as a ``TrainConfig``. The support is resolved as the JAX
     CLI resolves it: the env preset's, then each explicit ``--v-min`` /
     ``--v-max`` on its own; the trainers keep it."""
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.config import TrainConfig, cli_support
+    from d4pg_tpu_torch.models.critic import DistConfig
+
     v_min, v_max = cli_support(args.env, args.v_min, args.v_max)
     dist = DistConfig(
         kind=args.critic_head,
@@ -346,6 +378,13 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         batch_scale=args.batch_scale,
         ring_dtype=args.ring_dtype,
         transfer_dtype=args.transfer_dtype,
+        obs_norm=args.obs_norm,
+        async_collect=args.async_collect,
+        publish_interval=args.publish_interval,
+        pool_start_method=args.pool_start_method,
+        pool_step_timeout_s=args.pool_step_timeout_s,
+        actor_device=args.actor_device,
+        concurrent_eval=args.concurrent_eval,
     )
 
 
@@ -362,14 +401,16 @@ def install_preemption_handlers(stop_callback) -> None:
     )
 
 
-def export_bundle_from_run(cfg: TrainConfig, bundle_dir: str) -> str:
+def export_bundle_from_run(cfg, bundle_dir: str) -> str:
     """Package a trained run into a serving bundle (``--export-bundle``).
 
     Prefers the keep-best champion (``checkpoints/best_actor.npz``, the
     policy ``best_eval.json`` attests); falls back to the actor of the
-    newest checkpoint step (``state.pt``, loaded on the CPU). Every env of
-    the port acts in the canonical (−1, 1) box, so the bundle's bounds are
-    that box. Reads and writes files only: no card is needed.
+    newest checkpoint step (``state.pt``, loaded on the CPU). A host env
+    (gymnasium, ``dmc:``) is built here when it can be, for its dims and
+    its action bounds (its ``NormalizeAction`` box); every torch env acts
+    in the canonical (−1, 1) box, the bounds then. Reads and writes files
+    only: no card is needed.
     """
     import json
     import os
@@ -377,6 +418,7 @@ def export_bundle_from_run(cfg: TrainConfig, bundle_dir: str) -> str:
     import torch
 
     from d4pg_tpu_torch.config import apply_env_preset
+    from d4pg_tpu_torch.envs import ENVS, make_env
     from d4pg_tpu_torch.runtime.checkpoint import (
         STATE_FILE,
         CheckpointManager,
@@ -387,7 +429,20 @@ def export_bundle_from_run(cfg: TrainConfig, bundle_dir: str) -> str:
 
     # the env's dims and support before the actor is built, as the trainer
     # reconciles them: a HalfCheetah run's actor is 17 -> 6
-    agent_cfg = apply_env_preset(cfg).agent
+    env = low = high = None
+    if cfg.env not in ENVS:
+        try:
+            env = make_env(cfg.env, cfg.max_episode_steps, cfg.action_repeat)
+        except Exception as e:  # an env this machine cannot build: the preset
+            print(f"[export-bundle] could not construct env {cfg.env!r} ({e}); "
+                  "using preset dims and canonical (-1,1) action bounds", flush=True)
+    if env is not None:
+        norm = getattr(env, "_normalize", None)
+        if norm is not None:
+            low, high = norm.low, norm.high
+    agent_cfg = apply_env_preset(cfg, env).agent
+    if env is not None and hasattr(env, "close"):
+        env.close()
     actor = build_actor(agent_cfg)
     ckpt_dir = os.path.join(cfg.log_dir, "checkpoints")
     meta = load_trainer_meta(cfg.log_dir)
@@ -414,6 +469,12 @@ def export_bundle_from_run(cfg: TrainConfig, bundle_dir: str) -> str:
         if os.path.exists(best_norm):
             with open(best_norm) as f:
                 obs_norm_state = json.load(f)
+        elif cfg.obs_norm:
+            print(
+                "[export-bundle] warning: no best_obs_norm.json next to "
+                "best_actor.npz; using trainer_meta.json statistics, which "
+                "may postdate the champion params", flush=True,
+            )
     else:
         step = CheckpointManager(ckpt_dir).latest_step() if os.path.isdir(ckpt_dir) else None
         if step is None:
@@ -426,10 +487,18 @@ def export_bundle_from_run(cfg: TrainConfig, bundle_dir: str) -> str:
         actor.load_state_dict(saved["actor"])
         provenance["source"] = f"state:{step}"
         provenance["grad_steps"] = step
+    if cfg.obs_norm and obs_norm_state is None:
+        raise SystemExit(
+            "--export-bundle: run is flagged --obs-norm but neither "
+            "best_obs_norm.json nor trainer_meta.json carries normalizer "
+            "statistics; export would serve the net un-normalized inputs"
+        )
     out = export_bundle(
         bundle_dir,
         agent_cfg,
         actor,
+        action_low=low,
+        action_high=high,
         obs_norm_state=obs_norm_state,
         meta=provenance,
         prioritized=cfg.prioritized,
@@ -471,7 +540,7 @@ def main(argv=None) -> dict:
     return final
 
 
-def _main_on_device(cfg: TrainConfig, device: str) -> dict:
+def _main_on_device(cfg, device: str) -> dict:
     """``--on-device``: validate, then the on-device loop with the
     preemption handlers setting its stop event (exit 75 when it stopped
     for a ``--resume`` restart)."""

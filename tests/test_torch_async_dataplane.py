@@ -313,9 +313,14 @@ def test_cli_device_ingest_prefetch(tmp_path):
 @pytest.mark.parametrize("flag", ["--async-collect", "--publish-interval=5", "--concurrent-eval",
                                   "--no-concurrent-eval"])
 def test_host_pool_flags_are_refused_naming_a5_d(flag):
-    from d4pg_tpu_torch.train import refuse_unported
+    """The host actor pool's flags (ROADMAP A5 (d), ported) parse into the
+    config as the JAX CLI parses them, and are no longer refused."""
+    from d4pg_tpu_torch.train import UNPORTED_FLAGS, build_parser, config_from_args, refuse_unported
 
-    with pytest.raises(NotImplementedError, match=r"host actor pool|host-pool envs"):
-        refuse_unported([flag])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A5 \(d\)"):
-        refuse_unported([flag])
+    refuse_unported([flag])  # raises nothing
+    assert flag.split("=")[0] not in UNPORTED_FLAGS
+    cfg = config_from_args(build_parser().parse_args([flag]))
+    want = {"--async-collect": ("async_collect", True), "--publish-interval=5": ("publish_interval", 5),
+            "--concurrent-eval": ("concurrent_eval", True),
+            "--no-concurrent-eval": ("concurrent_eval", False)}[flag]
+    assert getattr(cfg, want[0]) == want[1]

@@ -12,7 +12,15 @@
   trainer's ``_reconcile_config(config_from_args(argv), env)``, one-sided
   ``--v-min`` / ``--v-max`` included, for every head;
 - ``--critic-head``, ``--num-mixtures``, ``--her`` and ``--her-k`` map into
-  the config as the JAX CLI maps them.
+  the config as the JAX CLI maps them, and so do the host actor pool's and
+  obs-norm's eight flags (``--obs-norm``, ``--async-collect``,
+  ``--publish-interval``, ``--concurrent-eval`` / ``--no-concurrent-eval``,
+  ``--pool-start-method``, ``--pool-step-timeout``, ``--actor-device``);
+- gymnasium and ``dmc:`` ids train through the CLI on one env and on the
+  pool, sync and ``--async-collect``;
+- ``--export-bundle`` of an ``--obs-norm`` run writes the statistics of
+  ``best_obs_norm.json`` and the env's action box, which the JAX
+  ``load_bundle`` reads and normalizes with identically.
 """
 
 import dataclasses
@@ -21,6 +29,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import train as jtrain
@@ -76,6 +85,85 @@ def test_every_reference_flag_is_accepted_or_refused_by_name():
         assert opt in ours
     with pytest.raises(NotImplementedError, match="B3"):
         refuse_unported(["--device-tree-backend=pallas"])
+    # the host actor pool's and obs-norm's flags (A5 (d), A10 (d)) parse
+    for opt in HOST_POOL_FLAGS:
+        assert opt in ours and opt not in UNPORTED_FLAGS, opt
+
+
+HOST_POOL_FLAGS = ("--obs-norm", "--async-collect", "--publish-interval", "--concurrent-eval",
+                   "--no-concurrent-eval", "--pool-start-method", "--pool-step-timeout",
+                   "--actor-device")
+
+
+def test_host_pool_flags_map_as_the_reference_maps_them():
+    from d4pg_tpu_torch.train import config_from_args
+
+    argv = ["--env", "Pendulum-v1", "--num-envs", "4", "--obs-norm", "--async-collect",
+            "--publish-interval", "7", "--no-concurrent-eval", "--pool-start-method", "fork",
+            "--pool-step-timeout", "12.5", "--actor-device", "cpu"]
+    ours = config_from_args(build_parser().parse_args(argv))
+    ref = jtrain.config_from_args(jtrain.build_parser().parse_args(argv))
+    for f in ("env", "num_envs", "obs_norm", "async_collect", "publish_interval",
+              "concurrent_eval", "pool_start_method", "pool_step_timeout_s", "actor_device",
+              "pool_max_worker_failures"):
+        assert getattr(ours, f) == getattr(ref, f), f
+    assert (ours.obs_norm, ours.publish_interval, ours.pool_step_timeout_s) == (True, 7, 12.5)
+    plain, jplain = (config_from_args(build_parser().parse_args([])),
+                     jtrain.config_from_args(jtrain.build_parser().parse_args([])))
+    for f in ("obs_norm", "async_collect", "publish_interval", "concurrent_eval",
+              "pool_start_method", "pool_step_timeout_s", "actor_device"):
+        assert getattr(plain, f) == getattr(jplain, f), f
+
+
+@pytest.mark.parametrize(
+    "env,flags",
+    [("Pendulum-v1", ["--num-envs", "1"]),
+     ("Pendulum-v1", ["--num-envs", "2", "--async-collect", "--obs-norm"]),
+     ("HalfCheetah-v4", ["--num-envs", "2"]),
+     ("Humanoid-v4", ["--num-envs", "1", "--async-collect"]),
+     ("dmc:cartpole:swingup", ["--num-envs", "2", "--async-collect", "--no-concurrent-eval"]),
+     ("dmc:cartpole:swingup", ["--num-envs", "1", "--obs-norm"])],
+    ids=["pendulum_1", "pendulum_2_async_obs_norm", "halfcheetah_2", "humanoid_1_async",
+         "dmc_2_async", "dmc_1_obs_norm"],
+)
+def test_host_envs_train_through_the_cli(env, flags, tmp_path):
+    from d4pg_tpu_torch.train import main
+
+    out = main(["--device", "cpu", "--env", env, *flags, "--pool-start-method", "fork",
+                "--hidden-sizes", "8", "--bsize", "8", "--warmup", "40", "--rmsize", "1024",
+                "--total-steps", "6", "--eval-interval", "3", "--eval-episodes", "2",
+                "--max-steps", "20", "--log-dir", str(tmp_path)])
+    assert all(np.isfinite(v) for v in out.values()) and out["env_steps"] >= 40
+    with open(tmp_path / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows] == [3, 6]
+    assert check_metrics_jsonl(str(tmp_path / "metrics.jsonl")) == []
+
+
+def test_export_bundle_of_an_obs_norm_run_reads_and_normalizes_as_the_jax_bundle(tmp_path):
+    from d4pg_tpu.ops.obs_norm import RunningObsNorm as JRunningObsNorm
+    from d4pg_tpu.serve.bundle import load_bundle
+    from d4pg_tpu_torch.ops.obs_norm import RunningObsNorm
+    from d4pg_tpu_torch.train import main
+
+    argv = ["--env", "Pendulum-v1", "--obs-norm", "--hidden-sizes", "8",
+            "--log-dir", str(tmp_path / "run")]
+    main(["--device", "cpu", *argv, "--num-envs", "2", "--pool-start-method", "fork",
+          "--bsize", "8", "--warmup", "40", "--rmsize", "1024", "--total-steps", "4",
+          "--eval-interval", "4", "--eval-episodes", "1", "--max-steps", "20"])
+    main([*argv, "--export-bundle", str(tmp_path / "bundle")])
+    b = load_bundle(str(tmp_path / "bundle"))
+    with open(tmp_path / "run" / "checkpoints" / "best_obs_norm.json") as f:
+        best = json.load(f)
+    assert b.obs_norm == best and best["count"] > 0
+    np.testing.assert_array_equal(b.action_low, [-2.0]) and np.testing.assert_array_equal(
+        b.action_high, [2.0])
+    ref, ours = JRunningObsNorm(3), RunningObsNorm(3)
+    ref.load_state_dict(b.obs_norm)
+    ours.load_state_dict(best)
+    x = np.random.default_rng(0).normal(size=(32, 3)).astype(np.float32) * 3
+    np.testing.assert_array_equal(ref.normalize(x), ours.normalize(x))
+    assert b.config.obs_dim == 3 and b.config.action_dim == 1
 
 
 def _run(args):

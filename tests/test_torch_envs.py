@@ -64,12 +64,18 @@ def test_pendulum_reset_distribution_and_obs():
 
 
 def test_make_env_refuses_unported_envs():
-    """A gym id waits for the host env adapters (ROADMAP A5 (d));
-    ``pixel_pendulum`` is ported (A10 (c))."""
+    """A short name builds its torch env; any other name falls through to
+    the host env adapters (ROADMAP A5 (d), ported), as the JAX ``make_env``
+    does, and a name gymnasium does not know is refused by gymnasium."""
+    from d4pg_tpu_torch.envs.gym_adapter import GymAdapter
+
     assert isinstance(make_env("pendulum"), Pendulum)
     assert make_env("pixel_pendulum").pixel_shape == (48, 48, 2)
-    with pytest.raises(NotImplementedError, match=r"A5 \(d\)"):
-        make_env("Pendulum-v1")
+    env = make_env("Pendulum-v1")
+    assert isinstance(env, GymAdapter) and env.observation_dim == 3
+    env.close()
+    with pytest.raises(Exception, match="no_such_env"):
+        make_env("no_such_env-v0")
 
 
 def test_pointmass_goal_step_matches_reference():

@@ -12,13 +12,13 @@
 - one HER episode at ``random_eps > 0`` replaces whole action vectors;
 - ``--her`` with ``--on-device`` writes the same rows as without it (the
   JAX on-device loop never reads the flag);
-- the host goal-env and actor-pool refusals naming ROADMAP A5 (d);
+- the host goal-env paths of ROADMAP A5 (d) (the pool's hindsight writers,
+  the single-env host episodes) build, and non-goal envs are refused;
 - the new paths (HER, both heads) raise with no card unless the CPU is
   asked for.
 """
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -186,16 +186,27 @@ def test_her_on_device_writes_the_same_rows_as_without_it(tmp_path):
 
 
 def test_host_goal_env_and_pool_refusals_name_a5d(tmp_path):
-    t = Trainer(dataclasses.replace(_her_cfg(tmp_path), her=False), device="cpu")
-    t.close()
-    t.env = types.SimpleNamespace(is_goal_env=True, compute_reward=lambda ag, dg: -1.0)
-    for num_envs, what in ((4, "actor pool's goal views"), (1, "host goal env")):
-        t.config = dataclasses.replace(t.config, her=True, num_envs=num_envs)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A5 \(d\)") as e:
-            t._setup_her()
-        assert what in str(e.value)
+    """The host goal-env paths that waited for ROADMAP A5 (d) now build: the
+    actor pool with one hindsight writer an actor (``num_envs`` 2) and the
+    single-env host episodes (``num_envs`` 1); ``--her`` on an env with no
+    goal views is still refused, torch env or host env."""
+    for num_envs in (2, 1):
+        cfg = dataclasses.replace(_her_cfg(tmp_path / str(num_envs)), env="toy_goal_env:ToyGoal-v0",
+                                  num_envs=num_envs, pool_start_method="fork")
+        t = Trainer(cfg, device="cpu")
+        try:
+            if num_envs > 1:
+                assert t.has_pool and len(t.her_writers) == 2 and t.her_writer is None
+            else:
+                assert not t.has_pool and t.her_writer is not None
+            assert t.config.agent.obs_dim == 4 and t.config.max_episode_steps == 25
+        finally:
+            t.close()
     with pytest.raises(ValueError, match="--her needs a goal env, got pendulum"):
         Trainer(dataclasses.replace(_her_cfg(tmp_path), env="pendulum"), device="cpu")
+    with pytest.raises(ValueError, match="--her needs a goal env, got Pendulum-v1"):
+        Trainer(dataclasses.replace(_her_cfg(tmp_path), env="Pendulum-v1", num_envs=1),
+                device="cpu")
 
 
 @pytest.mark.parametrize(

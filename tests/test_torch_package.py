@@ -143,8 +143,8 @@ def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize(
     "field,value,item",
-    [("tp", 2, "A7"), ("obs_norm", True, "A10"), ("async_collect", True, "A5"),
-     ("publish_interval", 5, "A5"), ("pool_start_method", "fork", "A5"),
+    [("tp", 2, "A7"), ("dp_hogwild", True, "A7"), ("num_processes", 2, "A7"),
+     ("process_id", 1, "A7"), ("fleet_publish_interval", 5, "A11"),
      ("league_generation", 3, "A11"), ("variant_id", 1, "A11"),
      ("dp", 2, "A7"), ("fleet_listen", 0, "A11"), ("chaos", "kill@3", "A11")],
 )
@@ -169,16 +169,18 @@ def test_cli_refuses_unknown_flags(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", ["--obs-norm", "--concurrent-eval", "--chaos=kill@3", "--dp-hogwild",
-             "--actor-device=cpu", "--transfer-dtype=uint8", "--dp=2"],
+    "flag", ["--obs-norm", "--fleet-listen=0", "--chaos=kill@3", "--dp-hogwild",
+             "--tp=2", "--transfer-dtype=uint8", "--dp=2"],
 )
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    """Each flag is refused on the default (flat) env: the unported ones
-    naming their ROADMAP item; the uint8 wire, ported with pixels (A10
-    (c)), by the JAX package's ``uint8_wire_requires_pixel`` gap."""
+    """Each flag is refused on the default (flat, torch) env: the unported
+    ones naming their ROADMAP item; the uint8 wire, ported with pixels
+    (A10 (c)), by the JAX package's ``uint8_wire_requires_pixel`` gap, and
+    ``--obs-norm``, ported for host envs (A10 (d)), by its
+    ``obs_norm_flat_envs_only`` gap."""
     from d4pg_tpu_torch.train import main
 
-    exc = ValueError if flag == "--transfer-dtype=uint8" else NotImplementedError
+    exc = ValueError if flag in ("--transfer-dtype=uint8", "--obs-norm") else NotImplementedError
     with pytest.raises(exc):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag])
 

@@ -274,11 +274,19 @@ def test_make_env_and_presets():
     assert cli_support("humanoid", -10.0, 2000.0) == (-10.0, 2000.0)
     with pytest.raises(ValueError, match="--action-repeat is only supported"):
         make_env("humanoid", action_repeat=2)
+    # the gym ids build the host adapters (ROADMAP A5 (d)), whose dims the
+    # config takes from the env; an id with no preset needs the env
+    from d4pg_tpu_torch.envs.gym_adapter import GymAdapter
+
     for gym_id in ("Humanoid-v5", "Ant-v5"):
-        with pytest.raises(NotImplementedError, match=r"A5 \(d\)"):
-            make_env(gym_id)
-        with pytest.raises(NotImplementedError, match=r"A5 \(d\)"):
-            apply_env_preset(TrainConfig(env=gym_id))
+        env = make_env(gym_id)
+        assert isinstance(env, GymAdapter)
+        a = apply_env_preset(TrainConfig(env=gym_id), env).agent
+        assert (a.obs_dim, a.action_dim) == (env.observation_dim, env.action_dim)
+        env.close()
+    assert apply_env_preset(TrainConfig(env="Humanoid-v5")).agent.obs_dim == 348
+    with pytest.raises(NotImplementedError, match="no preset"):
+        apply_env_preset(TrainConfig(env="Ant-v5"))
 
 
 @pytest.mark.parametrize("argv", [
