@@ -301,6 +301,24 @@ JSON line (with ``at_s``, the seconds since the script started):
    stream while the default stream is busy; each leg's rates and
    pool-step ms (act and pipe round trip).
 
+32. Data parallelism (ROADMAP A7 (a)), after ``host_pool_pixel``, each
+   line with its grad steps/s, one grad step's combine ms (gather plus
+   fixed-order sum, CUDA events), the backend and the card:
+   ``dp_lanes``: the ``Trainer`` with ``--replay-placement device
+   --p-replay --dp 2`` in one process, both lanes on ``cuda:0``, 200 grad
+   steps under the sync guard; B3 = 50 (twice a dispatch), B1f = B1b =
+   400, B2 = B4 = 0; each lane's B3 on its 2^19-leaf subtree against the
+   plain version. ``dp_ranks``: two ranks spawned over gloo on ``cuda:0``,
+   one lane each, driving the sharded device-PER megastep on one seeded
+   stream dealt by the striped layout (``d4pg_tpu_torch/tools/
+   dp_ranks.py``), 4 dispatches interleaved with ingest: state, ring rows,
+   subtrees and max priority ``torch.equal`` to one process with two
+   lanes; then the train CLI as two processes (64 grad steps: both exit
+   0, checkpoint steps under process 0's directory only, process 1's
+   metrics under ``worker1/``). ``dp_host``: ``--dp 2`` and
+   ``--dp-hogwild`` on the host placement, K = 8, 200 grad steps each,
+   B1f = B1b = 400.
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
@@ -1009,7 +1027,7 @@ def tree_kernel_phase(cp, cuda_tree, cfs, dper, make_support, floor: float):
     # pass 1's store_offsets holds more than one piece of chunk sums and
     # reloads them; at 2^21 + 5000 its pieces are also ragged and unaligned.
     # TREE_L comes last: B4 below runs on its leaves.
-    for L in (64, 1000, 1024, 4096, 2 * TREE_L, 2 * TREE_L + 5000, TREE_L):
+    for L in (64, 1000, 1024, 4096, TREE_L // 2, 2 * TREE_L, 2 * TREE_L + 5000, TREE_L):
         leaves = integer_leaves(L, gen, device)
         for n in (K * 256, 256):
             pre = exact_prefixes(leaves, n, gen)
@@ -1509,7 +1527,8 @@ def resume_phase(Trainer, TrainConfig, card: str, log_dir: str):
         c = copy.deepcopy(learner_of(leg1))
         g = torch.Generator(device="cuda")
         g.set_state(gen_state)
-        leg1._megastep(*c, g)
+        state, ring, tree = c
+        leg1._megastep(state, ring, [tree], g)
         copies.append(c)
     torch.cuda.synchronize()
     repeat = compare_learners(*copies)
@@ -2592,14 +2611,17 @@ def large_batch_phase(Trainer, TrainConfig, card: str, log_dir: str):
     import torch
 
     from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.config import apply_batch_scale
 
     n = LARGE_BATCH_STEPS
-    cfg = TrainConfig(
+    # the CLI's --batch-scale 8: scaled where the CLI scales it, before the
+    # Trainer, which takes the config as given
+    cfg = apply_batch_scale(TrainConfig(
         env="pendulum", prioritized=True, replay_placement="device", fused_descent=True,
         ingest_prefetch=True, steps_per_dispatch=32, batch_scale=8, total_steps=n,
         eval_interval=n, eval_episodes=10, log_dir=log_dir, seed=SEED, debug_guards=True,
         agent=D4PGConfig(compute_dtype="bfloat16", critic_ensemble=10, ensemble_min_targets=2),
-    )
+    ))
     trainer = Trainer(cfg, device="cuda")
     c = trainer.config
     check((c.batch_size, c.steps_per_dispatch, c.warmup_steps) == (2048, 4, 8000),
@@ -3716,6 +3738,282 @@ def host_pool_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict
     return launches
 
 
+# ------------------------------------------------------------ data parallelism
+DP_LANES = 2                          # lanes (--dp) of every dp phase
+DP_STEPS = 200                        # grad steps of dp_lanes and of each dp_host run
+DP_RANK_ROUNDS = (4096, 1024, 1024, 1024)   # rows written before each dp_ranks dispatch
+DP_CLI_STEPS = 64                     # grad steps of the two-process CLI run
+DP_EVAL_EPISODES = 2
+COMBINE_REPS = 50                     # timed combines (one grad step's) per line
+DP_TIMEOUT_S = 300
+
+
+def dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card: str, log_dir: str) -> dict:
+    """(a) The ``Trainer`` on ``--replay-placement device --p-replay --dp 2``
+    in one process, both lanes on ``cuda:0``: 200 grad steps (25
+    dispatches of K = 8, B = 256 as 128 a lane, a 1M-row ring striped as
+    2 x 500 000 rows with a 2^19-leaf subtree a lane), every dispatch after
+    the first under the sync guard. Exact launches (B3 once a lane a
+    dispatch, B1f and B1b once a lane a grad step, B2 = B4 = 0), finite
+    metrics, the lanes' max_priority equal and off 1.0; then each lane's
+    B3 on its own leaves against the plain version (valid under a float64
+    cumsum within ``chain_length(2^19)``), and one grad step's combine
+    timed on the card."""
+    import torch
+
+    from d4pg_tpu_torch.tools import dp_ranks
+
+    n = DP_STEPS
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
+        eval_episodes=DP_EVAL_EPISODES, log_dir=log_dir, seed=SEED, replay_placement="device",
+        prioritized=True, steps_per_dispatch=K, debug_guards=True, dp=DP_LANES,
+    )
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        dispatched = trainer._dispatches
+        combine = dp_ranks.combine_ms(trainer._megastep.sync, trainer.state, trainer.device,
+                                      COMBINE_REPS)
+    finally:
+        trainer.close()
+    c = trainer.config
+    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0,
+                  tree_count=DP_LANES * n // K, fused_step=0)
+    check(launches == expect, f"dp_lanes: launch counts {launches}, expected {expect}")
+    check(dispatched == n // K and trainer.grad_steps == n,
+          f"dp_lanes: {dispatched} dispatches for {trainer.grad_steps} grad steps")
+    for key in FINITE_KEYS:
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"dp_lanes: {key} not finite: {row.get(key)}")
+    trees = trainer._dev_per.trees
+    mps = [float(t.max_priority) for t in trees]
+    check(len(set(mps)) == 1 and mps[0] > 1.0, f"dp_lanes: lane max priorities {mps}")
+    gen = torch.Generator(trainer.device).manual_seed(SEED + 16)
+    b3 = []
+    b_local = c.batch_size // DP_LANES
+    for d, tree in enumerate(trees):
+        half = tree.sums.shape[0] // 2
+        leaves = tree.sums[half:]
+        L = leaves.numel()
+        check(L == TREE_L // 2, f"dp_lanes: lane {d} has {L} leaves, not 2^19")
+        chain = cuda_tree.chain_length(L)
+        u = torch.rand((K, b_local), generator=gen, device=trainer.device)
+        pre = dper.stratified_prefixes(u, K, b_local, tree.sums[1])
+        idx, _ = cuda_tree.find_prefix(leaves, pre)
+        plain = cuda_tree.find_prefix_plain(leaves, pre)
+        ok = valid_under_f64(leaves, pre, idx, chain)
+        check(bool(ok.all()), f"dp_lanes: lane {d} B3 L=2^19: {int((~ok).sum())} invalid draws")
+        b3.append({"lane": d, "L": L, "filled": int((leaves > 0).sum()), "chain": chain,
+                   "draws_differing_from_plain": int((idx != plain).sum()),
+                   "max_index_distance": int((idx.long() - plain.long()).abs().max())})
+    emit({
+        "phase": "dp_lanes", "card": card, "lanes": DP_LANES, "processes": 1,
+        "backend": None, "devices": [str(trainer.mesh.lane_device(d)) for d in range(DP_LANES)],
+        "width": {"hidden": list(c.agent.hidden_sizes), "atoms": c.agent.dist.num_atoms,
+                  "batch": c.batch_size, "batch_per_lane": b_local, "n_step": c.agent.n_step,
+                  "replay_capacity": c.replay_capacity, "lane_tree_leaves": TREE_L // 2,
+                  "steps_per_dispatch": K},
+        "grad_steps": n, "dispatches": n // K,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "combine_ms_per_grad_step": combine,
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
+        "max_priority": mps[0], "launches": launches, "b3_lanes": b3, "ok": True,
+    })
+    return launches
+
+
+def dp_ranks_phase(TrainConfig, card: str, log_dir: str) -> dict:
+    """(b) Two ranks spawned over gloo on ``cuda:0``, one lane each, drive
+    the sharded device-PER megastep directly (``tools/dp_ranks.py``) on
+    one seeded stream dealt by the striped layout: 4 dispatches of K = 8
+    interleaved with ingest, under the sync guard, at full width with the
+    1M-row replay; the train state, each lane's ring rows and subtree and
+    max_priority ``torch.equal`` to the one-process 2-lane run of the same
+    code. Then the train CLI as two processes (``--dp 2 --num-processes 2
+    --coordinator 127.0.0.1:PORT``), 64 grad steps with checkpoints and
+    the replay snapshot: both exit 0, finite metrics on both, checkpoint
+    steps under process 0's directory only, process 1's metrics under
+    ``worker1/``."""
+    import json as json_
+    import os
+
+    from d4pg_tpu_torch.config import apply_env_preset
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+    from d4pg_tpu_torch.tools import dp_ranks
+
+    c = apply_env_preset(TrainConfig(env="pendulum"))
+    kw = dict(agent_cfg=c.agent, capacity=c.replay_capacity, rounds=list(DP_RANK_ROUNDS), k=K,
+              batch=c.batch_size, seed=SEED, guard=True, combine_reps=COMBINE_REPS)
+    t0 = time.perf_counter()
+    one = dp_ranks.run_lanes(make_mesh(DP_LANES, device="cuda", num_processes=1,
+                                       process_index=0), **kw)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = dp_ranks.spawn_ranks(DP_LANES, DP_LANES, "cuda", timeout_s=DP_TIMEOUT_S, **kw)
+    ranks_s = time.perf_counter() - t0
+    eq = dp_ranks.compare(one, ranks)
+    check(all(eq.values()), f"dp_ranks: two ranks differ from two lanes: {eq}")
+    d = len(DP_RANK_ROUNDS)
+    want_one = dict(fused_fwd=DP_LANES * d * K, fused_bwd=DP_LANES * d * K, project=0,
+                    tree_count=DP_LANES * d, fused_step=0)
+    check(one["launches"] == want_one, f"dp_ranks: one-process launches {one['launches']}")
+    want_rank = {k: v // DP_LANES for k, v in want_one.items()}
+    for r in ranks:
+        check(r["launches"] == want_rank, f"dp_ranks: rank launches {r['launches']}")
+    for key, v in one["metrics"].items():
+        check(bool(v.isfinite()), f"dp_ranks: {key} not finite: {float(v)}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in want_one}
+
+    # the CLI as users run it, two processes on the one card
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = os.path.join(log_dir, "cli")
+    port = dp_ranks.free_port()
+    argv = [sys.executable, "-m", "d4pg_tpu_torch.train", "--replay-placement", "device",
+            "--p-replay", "--steps-per-dispatch", str(K), "--dp", str(DP_LANES),
+            "--num-processes", str(DP_LANES), "--coordinator", f"127.0.0.1:{port}",
+            "--total-steps", str(DP_CLI_STEPS), "--eval-interval", str(DP_CLI_STEPS),
+            "--eval-episodes", str(DP_EVAL_EPISODES), "--checkpoint-interval",
+            str(DP_CLI_STEPS // 2), "--snapshot-replay", "--debug-guards", "--log-dir", run]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--process-id", str(i)], cwd=root, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for i in range(DP_LANES)]
+    try:
+        outs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * DP_LANES, f"dp_ranks CLI: exit codes {codes}: "
+          + " | ".join(o[-1500:] for o in outs))
+    lines = [next((ln for ln in o.splitlines() if ln.startswith("[distributed]")), None)
+             for o in outs]
+    check(all(lines), "dp_ranks CLI: no [distributed] line")
+    dirs = [run] + [os.path.join(run, f"worker{i}") for i in range(1, DP_LANES)]
+    rows = []
+    for d_ in dirs:
+        with open(os.path.join(d_, "metrics.jsonl")) as f:
+            got = [json_.loads(line) for line in f]
+        check([r_["step"] for r_ in got] == [DP_CLI_STEPS], f"dp_ranks CLI: rows of {d_}")
+        for key in FINITE_KEYS:
+            v = got[-1].get(key)
+            check(v is not None and v == v and abs(v) != float("inf"),
+                  f"dp_ranks CLI: {key} not finite in {d_}: {v}")
+        rows.append(got[-1])
+    ckpt = sorted(x for x in os.listdir(os.path.join(run, "checkpoints")) if x.isdigit())
+    check(ckpt == sorted([str(DP_CLI_STEPS // 2), str(DP_CLI_STEPS)]),
+          f"dp_ranks CLI: checkpoint steps {ckpt}")
+    for d_ in dirs[1:]:
+        ck = os.path.join(d_, "checkpoints")
+        stray = [x for x in os.listdir(ck) if x.isdigit()] if os.path.isdir(ck) else []
+        check(not stray, f"dp_ranks CLI: checkpoint steps under {d_}: {stray}")
+    emit({
+        "phase": "dp_ranks", "card": card, "lanes": DP_LANES, "processes": DP_LANES,
+        "backend": lines[0].split("'backend': ")[1].split(",")[0].strip("'} "),
+        "distributed_lines": lines,
+        "width": {"hidden": list(c.agent.hidden_sizes), "atoms": c.agent.dist.num_atoms,
+                  "batch": c.batch_size, "batch_per_lane": c.batch_size // DP_LANES,
+                  "replay_capacity": c.replay_capacity, "lane_tree_leaves": TREE_L // 2,
+                  "steps_per_dispatch": K},
+        "rounds": list(DP_RANK_ROUNDS), "dispatches": d, "grad_steps": d * K,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first, "
+                      "lifted inside each collective",
+        "torch_equal": eq,
+        "one_process_s": one_s, "ranks_s_incl_spawn": ranks_s,
+        "rank_wall_s": [r["wall_s"] for r in ranks],
+        # over dispatches 2-4 and the ingest between them (the first
+        # dispatch loads the kernels and the lanes' state)
+        "grad_steps_per_sec_one_process_lanes": (d - 1) * K / one["steady_s"],
+        "grad_steps_per_sec_ranks": [(d - 1) * K / r["steady_s"] for r in ranks],
+        "combine_ms_per_grad_step": {"one_process": one["combine_ms"],
+                                     "ranks": [r["combine_ms"] for r in ranks]},
+        "launches": launches, "launches_one_process": one["launches"],
+        "metrics": {k: float(v) for k, v in one["metrics"].items()},
+        "cli": {"exit_codes": codes, "wall_s": cli_s, "grad_steps": DP_CLI_STEPS,
+                "checkpoint_steps": ckpt,
+                "grad_steps_per_sec": [r_["grad_steps_per_sec"] for r_ in rows],
+                "critic_loss": [r_["critic_loss"] for r_ in rows]},
+        "ok": True,
+    })
+    return launches
+
+
+def dp_host_run(Trainer, TrainConfig, mode: str, card: str, log_dir: str) -> dict:
+    """(c) The host placement with ``--dp 2 --steps-per-dispatch 8`` (the
+    lanes' gradients combined every step) or ``--dp-hogwild`` (each lane
+    steps its own copy through the dispatch, then one fixed-order mean of
+    every float tensor), 200 grad steps at full width on the native tree,
+    every dispatch after the first under the sync guard. B1f = B1b = 400
+    (one a lane a step), the rest 0; finite metrics; the combine's ms a
+    grad step on the card."""
+    import torch
+
+    from d4pg_tpu_torch.tools import dp_ranks
+
+    n = DP_STEPS
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
+        eval_episodes=DP_EVAL_EPISODES, log_dir=log_dir, seed=SEED, replay_placement="host",
+        prioritized=True, tree_backend="native", steps_per_dispatch=K, debug_guards=True,
+        dp=DP_LANES, dp_hogwild=mode == "dp_hogwild",
+    )
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stages = trainer.timers.scalars()
+        fused = trainer._dp_fused
+        if mode == "dp_hogwild":
+            # one resync a dispatch (the copies are equal after it, so
+            # another leaves them as they are), a K-th of it a grad step
+            combine = call_ms(fused._resync, n=COMBINE_REPS, warmup=3) / K
+        else:
+            combine = dp_ranks.combine_ms(fused.sync, trainer.state, trainer.device,
+                                          COMBINE_REPS)
+    finally:
+        trainer.close()
+    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0, tree_count=0,
+                  fused_step=0)
+    check(launches == expect, f"{mode}: launch counts {launches}, expected {expect}")
+    check(stages["stage_train_dispatch_calls"] == n // K and trainer.grad_steps == n,
+          f"{mode}: {stages['stage_train_dispatch_calls']} dispatches for "
+          f"{trainer.grad_steps} grad steps")
+    for key in FINITE_KEYS:
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"{mode}: {key} not finite: {row.get(key)}")
+    emit({
+        "phase": "dp_host", "mode": mode, "card": card, "lanes": DP_LANES, "processes": 1,
+        "backend": None, "tree_backend": trainer.buffer.tree_backend,
+        "width": {"hidden": list(trainer.config.agent.hidden_sizes),
+                  "batch": trainer.config.batch_size, "steps_per_dispatch": K},
+        "grad_steps": n, "dispatches": n // K,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "combine_ms_per_grad_step": combine,
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
+        "launches": launches, "stage_ms_per_step": stage_ms_per_step(stages, n), "ok": True,
+    })
+    return launches
+
+
 def _pid_alive(pid: int) -> bool:
     """Whether ``pid`` runs (a zombie counts as gone)."""
     import os
@@ -3827,6 +4125,12 @@ def main() -> int:
             TrainConfig, "pixel_pendulum", card, f"{tmp}/on_device_pixel_pendulum")
         paths["host_pool_pixel"] = host_pool_pixel_phase(
             Trainer, TrainConfig, card, f"{tmp}/host_pool_pixel")
+        paths["dp_lanes"] = dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card,
+                                           f"{tmp}/dp_lanes")
+        paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card, f"{tmp}/dp_ranks")
+        for mode in ("dp", "dp_hogwild"):
+            paths[f"dp_host_{mode}"] = dp_host_run(Trainer, TrainConfig, mode, card,
+                                                   f"{tmp}/{mode}")
         paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
 
     def per_path(counter):

@@ -335,7 +335,7 @@ def _target_head(config, support, state, next_obs, subset):
 
 def train_step(
     config: D4PGConfig, state: TrainState, batch: Mapping[str, torch.Tensor],
-    descent=None, subset: torch.Tensor | None = None, shift=None,
+    descent=None, subset: torch.Tensor | None = None, shift=None, sync_fn=None,
 ):
     """One full D4PG SGD step, in place on ``state``.
 
@@ -355,6 +355,16 @@ def train_step(
         subset (int64, on the state's device), in place of the draw from
         ``state.subset_gen`` (which then does not advance). The tests feed
         the subset that the JAX package drew.
+      sync_fn: the data-parallel seam (the JAX step's ``sync_fn``): a
+        ``[L, n] -> [n]`` combine of the L local lanes' flat rows over
+        every lane (``parallel/dp.py:LaneSync``). ``batch`` is then a
+        sequence of L lane batches; each lane's critic and actor gradients
+        are flattened into a row, the combine gives the mean that both
+        Adam steps apply, and the metrics are combined the same way. The
+        REDQ subset and the DrQ shift are drawn once for the step and
+        shared by the lanes (the JAX lanes split one replicated key).
+        ``priorities`` is the lanes' concatenated in lane order. Not with
+        ``descent``. ``None`` leaves the step as it is.
 
     Returns:
       (state, metrics dict of 0-d tensors, priorities [B]) — the metrics and
@@ -370,74 +380,102 @@ def train_step(
             f"with projection_backend='fused' (got kind={config.dist.kind!r}, "
             f"backend={config.projection_backend!r})"
         )
-    n_stack = stacked_critics(config)
+    if sync_fn is not None and descent is not None:
+        raise ValueError("descent= (the fused-descent tier) is single-device: no sync_fn")
     if config.critic_ensemble and subset is None:
         subset = draw_subset(config, state)
     support = support_of(config)
-    weights = batch.get("weights")
-    if shifts(config):
-        # DrQ: obs and next_obs each shifted by their own draw, before the
-        # target forward (the JAX step's two keys split from state.key)
-        if shift is None:
-            b, pad = batch["obs"].shape[0], config.augment_pad
-            shift = (draw_offsets(b, pad, state.augment_gen),
-                     draw_offsets(b, pad, state.augment_gen))
-        shape = tuple(config.pixel_shape)
-        batch = dict(batch, obs=random_shift(batch["obs"], shift[0], shape),
-                     next_obs=random_shift(batch["next_obs"], shift[1], shape))
-
-    # ---- target: Z_target(s', μ_target(s')) ----
-    # Under bfloat16 each target layer casts its float32 Polyak master to
-    # bfloat16 as it runs, the values of the JAX step's bf16 copy of the
-    # target params.
-    with torch.no_grad():
-        target_head = _target_head(config, support, state, batch["next_obs"], subset)
+    if sync_fn is not None:
+        lanes = [batch] if isinstance(batch, Mapping) else list(batch)
+        return _lanes_train_step(config, support, state, _shifted(config, state, lanes, shift),
+                                 subset, sync_fn)
+    (batch,) = _shifted(config, state, [batch], shift)
 
     # ---- critic: every stacked member regresses the same target ----
-    pred = state.critic(batch["obs"], batch["action"])           # [B, H] or [E, B, H]
-    loss, per_sample, next_idx = _critic_terms(
-        config, support, pred, target_head, batch, descent
-    )
-    weighted = loss if weights is None else weights * loss
-    if n_stack:
-        # the members' losses summed (their gradients are independent),
-        # the priorities their mean
-        critic_loss = weighted.mean(dim=-1).sum()
-        priorities = per_sample.mean(dim=0).detach()
-    else:
-        critic_loss = weighted.mean()
-        priorities = per_sample.detach()
+    critic_loss, priorities, next_idx = _critic_loss(config, support, state, batch, subset,
+                                                     descent)
     state.critic_opt.zero_grad(set_to_none=True)
     critic_loss.backward()
     state.critic_opt.step()
 
     # ---- actor: maximise E[Q(s, μ(s))] against the UPDATED critic ----
-    # (critic 0 under twin critics; the mean over members AND batch under
-    # REDQ)
-    a = state.actor(batch["obs"])
-    head = state.critic(batch["obs"], a, member=0) if config.twin_critic else state.critic(
-        batch["obs"], a
-    )
-    q_mean = _critic_value(config, support, head).mean()
-    actor_loss = -q_mean
-    if config.action_l2:
-        actor_loss = actor_loss + config.action_l2 * a.square().mean()
+    actor_loss, q_mean = _actor_loss(config, support, state, batch["obs"])
     state.actor_opt.zero_grad(set_to_none=True)
     # inputs= keeps the critic's .grad untouched by the actor loss
     actor_loss.backward(inputs=list(state.actor.parameters()))
     state.actor_opt.step()
 
-    # ---- Polyak target updates (in place) ----
+    _polyak(config, state)
+    metrics = _step_metrics(config, critic_loss.detach(), actor_loss.detach(), priorities,
+                            q_mean.detach())
+    if descent is not None:
+        return state, metrics, priorities, next_idx
+    return state, metrics, priorities
+
+
+def _shifted(config, state, batches: list, shift) -> list:
+    """DrQ: each batch's obs and next_obs shifted by their own draw, before
+    the target forward (the JAX step's two keys split from state.key); one
+    draw of ``batches[0]``'s rows serves every lane. Unchanged without
+    pixels."""
+    if not shifts(config):
+        return batches
+    if shift is None:
+        b, pad = batches[0]["obs"].shape[0], config.augment_pad
+        shift = (draw_offsets(b, pad, state.augment_gen),
+                 draw_offsets(b, pad, state.augment_gen))
+    shape = tuple(config.pixel_shape)
+    return [dict(b, obs=random_shift(b["obs"], shift[0], shape),
+                 next_obs=random_shift(b["next_obs"], shift[1], shape)) for b in batches]
+
+
+def _critic_loss(config, support, state, batch, subset, descent):
+    """(critic loss, priorities [B] detached, next_idx) of one batch: the
+    target head, every stacked member's loss against it weighted by the IS
+    weights, the members' losses summed (their gradients are independent)
+    and their priorities averaged."""
+    # Under bfloat16 each target layer casts its float32 Polyak master to
+    # bfloat16 as it runs, the values of the JAX step's bf16 copy of the
+    # target params.
+    with torch.no_grad():
+        target_head = _target_head(config, support, state, batch["next_obs"], subset)
+    pred = state.critic(batch["obs"], batch["action"])           # [B, H] or [E, B, H]
+    loss, per_sample, next_idx = _critic_terms(
+        config, support, pred, target_head, batch, descent
+    )
+    weights = batch.get("weights")
+    weighted = loss if weights is None else weights * loss
+    if stacked_critics(config):
+        return weighted.mean(dim=-1).sum(), per_sample.mean(dim=0).detach(), next_idx
+    return weighted.mean(), per_sample.detach(), next_idx
+
+
+def _actor_loss(config, support, state, obs):
+    """(actor loss, q_mean): −E[Q(s, μ(s))] (critic 0 under twin critics;
+    the mean over members AND batch under REDQ) plus ``action_l2``."""
+    a = state.actor(obs)
+    head = state.critic(obs, a, member=0) if config.twin_critic else state.critic(obs, a)
+    q_mean = _critic_value(config, support, head).mean()
+    actor_loss = -q_mean
+    if config.action_l2:
+        actor_loss = actor_loss + config.action_l2 * a.square().mean()
+    return actor_loss, q_mean
+
+
+def _polyak(config, state) -> None:
+    """Polyak target updates (in place) and the step count."""
     polyak_update(state.target_actor, state.actor, config.tau)
     polyak_update(state.target_critic, state.critic, config.tau)
     state.step += 1
 
-    q_mean = q_mean.detach()
-    critic_loss = critic_loss.detach()
+
+def _step_metrics(config, critic_loss, actor_loss, priorities, q_mean) -> dict:
+    """The step's metrics from its detached losses, priorities and q_mean."""
+    n_stack = stacked_critics(config)
     metrics = {
         # per critic: comparable with a single-critic run
         "critic_loss": critic_loss / n_stack if n_stack else critic_loss,
-        "actor_loss": actor_loss.detach(),
+        "actor_loss": actor_loss,
         "priority_mean": priorities.mean(),
         "q_mean": q_mean,
     }
@@ -446,9 +484,56 @@ def train_step(
         metrics["q_support_frac"] = (q_mean - config.dist.v_min) / (
             config.dist.v_max - config.dist.v_min
         )
-    if descent is not None:
-        return state, metrics, priorities, next_idx
-    return state, metrics, priorities
+    return metrics
+
+
+def _flat_grads(loss: torch.Tensor, params: list) -> torch.Tensor:
+    """d loss / d params as one flat row (zeros for an unused parameter)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                      for p, g in zip(params, grads)])
+
+
+def _set_grads(params: list, flat: torch.Tensor) -> None:
+    """Give each parameter its slice of ``flat`` as its gradient."""
+    offset = 0
+    for p in params:
+        p.grad = flat[offset: offset + p.numel()].view_as(p)
+        offset += p.numel()
+
+
+def _lanes_train_step(config, support, state, lanes, subset, sync_fn):
+    """:func:`train_step`'s body over L lane batches: each lane's critic
+    and actor gradients flattened into a row, ``sync_fn`` combining the
+    rows (and then the lanes' metrics) before each Adam step."""
+    critic_params = list(state.critic.parameters())
+    rows, critic_losses, priorities = [], [], []
+    for lb in lanes:
+        loss, pri, _ = _critic_loss(config, support, state, lb, subset, None)
+        rows.append(_flat_grads(loss, critic_params))
+        critic_losses.append(loss.detach())
+        priorities.append(pri)
+    state.critic_opt.zero_grad(set_to_none=True)
+    _set_grads(critic_params, sync_fn(torch.stack(rows)))
+    state.critic_opt.step()
+
+    actor_params = list(state.actor.parameters())
+    rows, actor_losses, q_means = [], [], []
+    for lb in lanes:
+        loss, q_mean = _actor_loss(config, support, state, lb["obs"])
+        rows.append(_flat_grads(loss, actor_params))
+        actor_losses.append(loss.detach())
+        q_means.append(q_mean.detach())
+    state.actor_opt.zero_grad(set_to_none=True)
+    _set_grads(actor_params, sync_fn(torch.stack(rows)))
+    state.actor_opt.step()
+
+    _polyak(config, state)
+    per_lane = [_step_metrics(config, *m)
+                for m in zip(critic_losses, actor_losses, priorities, q_means)]
+    keys = list(per_lane[0])
+    mean = sync_fn(torch.stack([torch.stack([m[k] for k in keys]) for m in per_lane]))
+    return state, dict(zip(keys, mean.unbind(0))), torch.cat(priorities)
 
 
 BATCH_FIELDS = ("obs", "action", "reward", "next_obs", "discount")
@@ -491,16 +576,23 @@ def decode_obs(x: torch.Tensor) -> torch.Tensor:
     return x.float()
 
 
-def fused_train_scan(config: D4PGConfig, state: TrainState, batches: dict):
+def fused_train_scan(config: D4PGConfig, state: TrainState, batches, sync_fn=None):
     """``train_step`` over pre-gathered [K, B] batches, a Python loop over K
     (the JAX ``lax.scan``), in place on ``state``; fields still in their
     stored dtype are decoded a step at a time (:func:`decode_obs`).
+    With ``sync_fn`` (``train_step``'s data-parallel seam) ``batches`` is
+    a sequence of lane batches [K, b] and each step runs every lane.
     Returns (state, metrics dict of [K] tensors, priorities [K, B])."""
-    k = batches["reward"].shape[0]
+    lanes = None if sync_fn is None else (
+        [batches] if isinstance(batches, Mapping) else list(batches))
+    k = (batches if lanes is None else lanes[0])["reward"].shape[0]
     step_metrics, priorities = [], []
     for t in range(k):
-        batch = {key: decode_obs(v[t]) for key, v in batches.items()}
-        _, m, pri = train_step(config, state, batch)
+        if lanes is None:
+            batch = {key: decode_obs(v[t]) for key, v in batches.items()}
+        else:
+            batch = [{key: decode_obs(v[t]) for key, v in lb.items()} for lb in lanes]
+        _, m, pri = train_step(config, state, batch, sync_fn=sync_fn)
         step_metrics.append(m)
         priorities.append(pri)
     metrics = {key: torch.stack([m[key] for m in step_metrics]) for key in step_metrics[0]}

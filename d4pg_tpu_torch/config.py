@@ -139,6 +139,22 @@ class TrainConfig:
     # published params, so an eval crossing costs the learner no grad step.
     concurrent_eval: bool = True
 
+    # Data parallelism (parallel/): dp lanes (None = one device), their
+    # gradients combined by a fixed-order mean every grad step. Processes
+    # of one run (torch.distributed) each own dp/num_processes contiguous
+    # lanes and, on the device placement, a replay_capacity/num_processes
+    # host buffer; secondary processes log under log_dir/workerN and read
+    # and write the shared checkpoint files through run_root (None =
+    # log_dir), where process 0 is the one writer.
+    dp: Optional[int] = None
+    num_processes: int = 1
+    run_root: Optional[str] = None
+    # Host placement: each lane runs the K steps of a dispatch on its own
+    # copy of the state with no sync, then one fixed-order mean of every
+    # float tensor resyncs the copies (staleness bounded by K).
+    dp_hogwild: bool = False
+    tp: int = 1
+
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
 PLACEMENTS = ("host", "device", "hybrid")
@@ -315,7 +331,81 @@ def apply_declared_actions(config: TrainConfig) -> TrainConfig:
             flush=True,
         )
         config = dataclasses.replace(config, ingest_prefetch=False)
+    elif config.ingest_prefetch and config.dp:
+        print(
+            "[replay] --ingest-prefetch double-buffers the single-device ring "
+            f"ingest; the --dp {config.dp} ring ships each lane's rows in its own "
+            "flush; ignoring it",
+            flush=True,
+        )
+        config = dataclasses.replace(config, ingest_prefetch=False)
     return config
+
+
+def dp_gaps(config: TrainConfig) -> list:
+    """The data-parallel and multi-process verdicts of
+    ``d4pg_tpu/replay/source.py:negotiate``, as (code, message) pairs in
+    its words and order."""
+    gaps = []
+    placement, dp = config.replay_placement, int(config.dp or 0)
+    procs = int(config.num_processes or 1)
+    capacity = config.replay_capacity
+    if placement != "host" and dp:
+        if placement == "hybrid":
+            gaps.append(("hybrid_single_device",
+                         "replay_placement=hybrid is single-device: the host sum-tree's "
+                         "[K, B] index blocks are global, so shard-local gathers can't "
+                         "serve them; use --replay-placement device for the sharded "
+                         "(uniform) megastep"))
+        if config.tp != 1:
+            gaps.append(("sharded_megastep_dp_only",
+                         "the sharded megastep mesh is dp-only (tp=1); tensor parallelism "
+                         "composes via the host-path GSPMD step (--replay-placement host "
+                         "--tp N)"))
+        if config.dp_hogwild:
+            gaps.append(("dp_hogwild_host_only",
+                         "--dp-hogwild is a host-path DP mode; the sharded megastep syncs "
+                         "gradients every step"))
+        if config.batch_size % dp:
+            gaps.append(("batch_not_divisible",
+                         f"--batch-size {config.batch_size} must be divisible by --dp {dp} "
+                         "(each shard draws batch/dp rows)"))
+        if capacity and capacity % dp:
+            gaps.append(("capacity_not_divisible",
+                         f"replay capacity {capacity} must be divisible by --dp {dp} (each "
+                         "shard owns capacity/dp ring rows)"))
+    if procs > 1:
+        if placement != "device":
+            gaps.append(("multihost_device_placement_only",
+                         "--num-processes > 1 requires --replay-placement device: per-host "
+                         "replay shards ride the sharded ring's striped layout (host/hybrid "
+                         "keep a single global host buffer no process owns)"))
+        if not dp:
+            gaps.append(("multihost_requires_dp",
+                         "--num-processes > 1 requires --dp: the multi-host mesh IS the "
+                         "dp-sharded megastep mesh spanning processes"))
+        elif dp % procs:
+            gaps.append(("multihost_dp_not_divisible",
+                         f"--dp {dp} must be divisible by --num-processes {procs} (each "
+                         "process owns dp/num_processes contiguous mesh shards)"))
+        if capacity and capacity % procs:
+            gaps.append(("multihost_capacity_not_divisible",
+                         f"replay capacity {capacity} must be divisible by --num-processes "
+                         f"{procs} (each process owns a capacity/num_processes local "
+                         "shard)"))
+    if config.fused_descent and dp:
+        gaps.append(("fused_descent_single_device",
+                     "--fused-descent is single-device: the sharded megastep keeps "
+                     "separate per-shard descent programs (drop the flag or --dp)"))
+    if config.dp_hogwild:
+        if not dp:
+            gaps.append(("dp_hogwild_requires_dp",
+                         "--dp-hogwild is a DP mode: it requires --dp"))
+        elif placement == "host" and config.steps_per_dispatch <= 1:
+            gaps.append(("dp_hogwild_needs_fused_window",
+                         "--dp-hogwild needs --steps-per-dispatch > 1: the dispatch window "
+                         "IS the staleness bound (K local steps between param resyncs)"))
+    return gaps
 
 
 def check_placement(config: TrainConfig) -> None:
@@ -336,13 +426,12 @@ def check_placement(config: TrainConfig) -> None:
             "replay_placement=device for uniform replay"
         )
     if config.replay_placement != "host" and config.agent.pixel_shape:
-        # the reference's device_ring_f32_only gap, in its words, then the
-        # ROADMAP item that carries pixels
+        # the reference's device_ring_f32_only gap, in its words
         raise ValueError(
             "device_ring_f32_only: replay_placement=device/hybrid mirrors f32 rows "
             "into HBM; pixel (uint8-quantized) buffers are host-path only for now "
-            "(refused as the JAX package refuses it; pixels are ROADMAP A10 (c): "
-            "use the host placement or --on-device)"
+            "(refused as the JAX package refuses it: use the host placement or "
+            "--on-device)"
         )
     if config.obs_norm and config.replay_placement != "host":
         # the reference's obs_norm_host_sampling gap, in its words
@@ -378,6 +467,20 @@ def check_placement(config: TrainConfig) -> None:
                 "fused_descent fuses the device PER tree descent into the fused "
                 f"loss kernel; it requires {', '.join(missing)}"
             )
+    gaps = dp_gaps(config)
+    if gaps:
+        raise ValueError("; ".join(f"{code}: {message}" for code, message in gaps))
+    check_tp(config.tp)
+
+
+def check_tp(tp: int) -> None:
+    """Refuse ``tp > 1``: tensor parallelism is not ported (the one
+    refusal, for ``check_placement`` and ``parallel.mesh.make_mesh``)."""
+    if tp != 1:
+        raise NotImplementedError(
+            f"--tp {tp}: tensor parallelism (ROADMAP A7 (b)) is not ported to "
+            "d4pg_tpu_torch yet"
+        )
 
 
 def check_on_device(config: TrainConfig) -> None:
@@ -389,6 +492,11 @@ def check_on_device(config: TrainConfig) -> None:
             "on_device_obs_norm: --obs-norm is a host data-boundary feature; the on-device "
             "path keeps observations inside jit (the flag would be "
             "silently ignored)"
+        )
+    if config.dp or config.num_processes > 1:
+        raise NotImplementedError(
+            "the data-parallel on-device loop (--on-device with --dp or "
+            "--num-processes) is not ported to d4pg_tpu_torch yet (ROADMAP A7 (c))"
         )
     if config.replay_placement != "host":
         raise ValueError(

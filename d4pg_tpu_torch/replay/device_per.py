@@ -1,7 +1,8 @@
 """Device-resident PER: the priority sum tree lives on the card.
 
-Counterpart of ``d4pg_tpu/replay/device_per.py`` for one lane (the sharded
-lanes wait for ROADMAP A7), with the ``device_per.npz`` checkpoint sidecar
+Counterpart of ``d4pg_tpu/replay/device_per.py``: one tree, or with
+``--dp`` one subtree a lane over its striped ring rows
+(``DevicePerSync(mesh=)``), with the ``device_per.npz`` checkpoint sidecar
 (:meth:`DevicePerSync.snapshot_host` / :meth:`DevicePerSync.restore_host`).
 The tree is the host trees' flat layout (``replay/segment_tree.py``): ``sums``
 is ``[2L]`` float32 with the root at index 1 and the α-exponentiated leaf
@@ -192,13 +193,16 @@ def beta_at(step: int, beta0: float, beta_steps: int) -> float:
 
 def importance_weights(
     p_leaf: torch.Tensor, total: torch.Tensor, min_ratio: torch.Tensor,
-    n_filled: torch.Tensor, beta: float,
+    n_filled: torch.Tensor, beta: float, n_shards: int = 1,
 ) -> torch.Tensor:
     """Max-normalized IS weights ``(N·p)^{−β} / (N·min_ratio)^{−β}`` with
-    ``p = p_leaf / total`` and N the fill count (the host formula term for
-    term)."""
+    N the GLOBAL fill count and ``p = p_leaf / (D·total)`` the probability
+    of drawing the row: each of D lanes draws ``batch/D`` rows from its own
+    mass ``total`` (the JAX shard-stratified scheme), ``min_ratio`` the
+    smallest such probability over all lanes. At D = 1 the host formula
+    term for term."""
     n = n_filled.to(torch.float32)
-    w = (p_leaf / total * n) ** (-beta)
+    w = (p_leaf / (total if n_shards == 1 else n_shards * total) * n) ** (-beta)
     max_w = (min_ratio * n) ** (-beta)
     return w / max_w
 
@@ -225,42 +229,90 @@ def tree_ingest_lane_body(
 
 
 class DevicePerSync:
-    """The trainer-side holder of the device tree. It rides the ring
-    sync's ``tree_hook``: every slot chunk the ring ingest ships is seeded
-    into the tree at ``max_priority**α`` from the same device slot tensor,
-    so a ring row and its priority leaf never desynchronize. The megastep
-    updates ``self.tree`` in place."""
+    """The trainer-side holder of the device PER trees: one subtree a lane
+    of this process over the lane's ``capacity/dp`` striped ring rows
+    (``--dp`` passes the ``mesh``), on the lane's device, in lane order
+    (``self.trees``); without a mesh the one lane holds the whole
+    capacity on ``device``. It rides the ring sync's ``tree_hook``: every
+    slot chunk the ring ingest ships is seeded into its lane's subtree at
+    ``max_priority**α`` from the same device slot tensor, so a ring row
+    and its priority leaf never desynchronize. The megastep updates the
+    trees in place; every lane keeps the same ``max_priority``."""
 
-    def __init__(self, capacity: int, alpha: float, device=None, max_priority: float = 1.0):
+    def __init__(self, capacity: int, alpha: float, device=None, max_priority: float = 1.0,
+                 mesh=None):
         self.capacity = int(capacity)
         self.alpha = float(alpha)
-        self.tree = device_per_init(self.capacity, max_priority, device)
+        if mesh is None:
+            self.n_shards, self.lanes = 1, [0]
+            self.lane_devices = [resolve_device(device)]
+        else:
+            self.n_shards, self.lanes = mesh.dp, list(mesh.local_lanes)
+            self.lane_devices = [mesh.lane_device(d) for d in self.lanes]
+        if self.capacity % self.n_shards:
+            raise ValueError(f"device PER tree: capacity {self.capacity} not "
+                             f"divisible by dp={self.n_shards}")
+        self.local_capacity = self.capacity // self.n_shards
+        self.trees = [device_per_init(self.local_capacity, max_priority, dev)
+                      for dev in self.lane_devices]
+
+    @property
+    def tree(self) -> DevicePerTree:
+        """The one tree of a single-lane holder (the single-device megasteps
+        and the fused-descent tier descend one tree)."""
+        if len(self.trees) != 1:
+            raise ValueError(f"{len(self.trees)} lane subtrees: read .trees")
+        return self.trees[0]
 
     def on_chunk(self, slots: torch.Tensor) -> None:
-        """The ring sync's tree_hook target: seed this chunk's rows."""
-        tree_ingest_lane_body(
-            self.alpha, self.capacity, self.tree.sums, self.tree.max_priority, slots
-        )
+        """The single-device ring sync's tree_hook target: seed this
+        chunk's rows."""
+        self.on_lane_chunk(0, slots)
+
+    def on_lane_chunk(self, j: int, rows: torch.Tensor) -> None:
+        """The sharded ring sync's tree_hook target: seed local lane ``j``'s
+        ``rows``."""
+        t = self.trees[j]
+        tree_ingest_lane_body(self.alpha, self.local_capacity, t.sums, t.max_priority, rows)
 
     # ------------------------------------------------- snapshot / restore
     def snapshot_host(self) -> tuple[np.ndarray, float]:
-        """The α-exponentiated leaf priorities in slot order (``[capacity]``
-        float32) and the pre-α max priority: the checkpoint's priority
-        sidecar. Reads the device (one copy of the leaves, one of the
-        scalar), so it runs per checkpoint, never per step."""
-        half = self.tree.sums.shape[0] // 2
-        leaves = self.tree.sums[half: half + self.capacity].cpu().numpy()
-        return leaves, float(self.tree.max_priority.cpu())
+        """The α-exponentiated leaf priorities in GLOBAL slot order
+        (``[capacity]`` float32) and the pre-α max priority: the
+        checkpoint's priority sidecar, the one a single-device run would
+        write whatever the lanes. Reads the device (one copy of each lane's
+        leaves, one of the scalar) and, with lanes in several processes,
+        gathers them (a collective), so it runs per checkpoint, never per
+        step."""
+        from d4pg_tpu_torch.parallel.distributed import gather_global
+        from d4pg_tpu_torch.replay.device_ring import striped_perm
+
+        half = self.trees[0].sums.shape[0] // 2
+        local = np.stack([t.sums[half: half + self.local_capacity].cpu().numpy()
+                          for t in self.trees])
+        lanes = gather_global(local)
+        out = np.empty(self.capacity, np.float32)
+        out[striped_perm(self.capacity, self.n_shards).reshape(-1)] = lanes.reshape(-1)
+        return out, float(self.trees[0].max_priority.cpu())
 
     def restore_host(self, pa_host: np.ndarray, max_priority: float) -> None:
-        """Rebuild the tree from snapshotted α-exponentiated priorities
-        (zeros stay zero-mass) on the tree's device. The level sums are the
-        device repair's float32 pairwise adds, so the rebuilt tree equals
-        the snapshotted one bit for bit. Replaces ``self.tree``: readers
-        take ``self.tree`` at each use and hold no older tensor."""
-        self.tree = tree_from_priorities(
-            pa_host, self.capacity, max_priority, device=self.tree.sums.device
-        )
+        """Rebuild each local lane's subtree from its striped slots of the
+        global-order α-exponentiated priorities ``pa_host`` (zeros stay
+        zero-mass), on the lane's device. The level sums are the device
+        repair's float32 pairwise adds, so a rebuilt tree equals the
+        snapshotted one bit for bit. Replaces ``self.trees``: readers take
+        it at each use and hold no older tensor."""
+        from d4pg_tpu_torch.replay.device_ring import striped_perm
+
+        pa_host = np.asarray(pa_host, np.float32)
+        if pa_host.shape != (self.capacity,):
+            raise ValueError(
+                f"device PER tree: priorities shape {pa_host.shape} != ({self.capacity},)")
+        perm = striped_perm(self.capacity, self.n_shards)
+        self.trees = [
+            tree_from_priorities(pa_host[perm[d]], self.local_capacity, max_priority, device=dev)
+            for d, dev in zip(self.lanes, self.lane_devices)
+        ]
 
 
 def tree_from_priorities(

@@ -19,8 +19,18 @@ host-to-device batch copy per grad step.
 
 Chunks are exactly as long as the rows they carry: eager PyTorch has no
 per-shape compile, so the fixed-shape padding the JAX ingest needs is not
-used, and no pad row or pad slot exists to land. The sharded and
-multi-host syncs wait for ROADMAP A7.
+used, and no pad row or pad slot exists to land.
+
+Data parallelism (``--dp``, ``parallel/``) stripes the ring over the
+lanes (:func:`striped_perm`): host slot ``j`` lives on lane ``j % dp`` at
+row ``j // dp``, so every lane fills evenly from the first rows. Each lane
+holds a :class:`DeviceRing` of ``capacity/dp`` rows on its device whose
+``size`` is the GLOBAL fill count. :class:`ShardedDeviceRingSync` deals a
+host buffer to this process's lanes; :class:`MultihostRingSync` does it
+for a process that owns ``capacity/P`` of the rows in a buffer of its own,
+agreeing the global fill count with the other processes at each flush,
+and assembles (and deals back) a snapshot in global slot order, so a
+checkpoint does not depend on the topology that wrote it.
 """
 
 from __future__ import annotations
@@ -32,6 +42,11 @@ import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
+from d4pg_tpu_torch.parallel.distributed import (
+    gather_global,
+    host_allgather_i64,
+    local_shard_span,
+)
 from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
 
 FIELDS = ("obs", "action", "reward", "next_obs", "discount")
@@ -195,3 +210,183 @@ class DeviceRingSync:
             self._ingest(ring, dev_chunk, ready, new_size, nbytes)
         self._synced = total
         return ring
+
+
+# --------------------------------------------------------- striped lanes
+def striped_perm(capacity: int, n_shards: int) -> np.ndarray:
+    """``[n_shards, capacity // n_shards]`` host slots per lane: lane ``d``
+    row ``i`` holds host slot ``i * n_shards + d`` (the JAX layout)."""
+    cl = capacity // n_shards
+    return np.arange(cl)[None, :] * n_shards + np.arange(n_shards)[:, None]
+
+
+
+def striped_lanes(buffer, n_shards: int, device=None) -> list:
+    """The lane view of a host buffer: one :class:`DeviceRing` a lane with
+    the rows :func:`striped_perm` deals it and the global fill count (the
+    tests' construction of the JAX oracle's ring lanes)."""
+    device = resolve_device(device)
+    perm = striped_perm(int(buffer.capacity), n_shards)
+    size = min(buffer.total_added, int(buffer.capacity))
+    return [
+        DeviceRing(**{k: torch.from_numpy(np.ascontiguousarray(getattr(buffer, k)[perm[d]]))
+                      .to(device) for k in FIELDS},
+                   size=torch.tensor(size, dtype=torch.int32, device=device))
+        for d in range(n_shards)
+    ]
+
+
+def lane_rings_init(capacity: int, obs_dim: int, action_dim: int, mesh) -> list:
+    """Zero rings of ``capacity / dp`` rows for this process's lanes, each
+    on its lane's device."""
+    if capacity % mesh.dp:
+        raise ValueError(f"sharded ring: capacity {capacity} not divisible by dp={mesh.dp}")
+    return [device_ring_init(capacity // mesh.dp, obs_dim, action_dim, mesh.lane_device(d))
+            for d in mesh.local_lanes]
+
+
+class ShardedDeviceRingSync:
+    """Mirrors a host buffer into this process's lane rings, striped.
+
+    Single process (every lane local): the buffer is the whole replay and
+    host slot ``j`` goes to lane ``j % dp``, row ``j // dp``. Each flush
+    ships the pending rows of every lane, in write order, in chunks of at
+    most ``chunk_cap / dp`` rows, and calls ``tree_hook(j, rows)`` with the
+    local lane index and the lane rows it wrote (``DevicePerSync.
+    on_lane_chunk`` seeds the same rows of that lane's subtree). Every
+    lane's ``size`` is the global fill count.
+
+    The layout algebra (the JAX ``MultihostRingSync``'s): process ``p``
+    owns lanes ``[p·L, (p+1)·L)`` and a buffer of ``capacity/P`` rows, its
+    local slot ``m`` going to local lane ``m % L``, row ``m // L``; with
+    P = 1 that is the deal above.
+    """
+
+    def __init__(self, buffer, mesh, chunk_cap: int = 4096):
+        self._buffer = buffer
+        self.mesh = mesh
+        self.n_shards = mesh.dp
+        self.n_processes = mesh.num_processes
+        lo, hi = local_shard_span(mesh)
+        self.shard_lo, self.local_shards = lo, hi - lo
+        self.host_capacity = int(buffer.capacity)
+        self.capacity = self.host_capacity * self.n_processes
+        if self.capacity % self.n_shards:
+            raise ValueError(
+                f"sharded ring: capacity {self.capacity} not divisible by dp={self.n_shards}")
+        self.local_capacity = self.capacity // self.n_shards
+        self.chunk_local = int(min(max(1, chunk_cap // self.n_shards), self.local_capacity))
+        self._synced = 0
+        self._size = 0
+        self.tree_hook = None
+        self.bytes_ingested = 0
+        self.chunks_ingested = 0
+
+    def pending(self) -> int:
+        return min(self._buffer.total_added - self._synced, self.host_capacity)
+
+    def _fill_count(self, total: int) -> int:
+        return min(total, self.capacity)
+
+    def _ingest(self, ring: DeviceRing, j: int, rows: np.ndarray, new_size: int) -> None:
+        chunk = dict(self._buffer.gather(rows * self.local_shards + j))  # locked
+        chunk["slots"] = rows.astype(np.int64)
+        nbytes = sum(v.nbytes for v in chunk.values())
+        dev = to_device(chunk, ring.obs.device)
+        ingest_body(ring, dev, dev["slots"], new_size)
+        if self.tree_hook is not None:
+            self.tree_hook(j, dev["slots"])
+        self.bytes_ingested += nbytes
+        self.chunks_ingested += 1
+
+    def flush(self, rings: list) -> list:
+        """Mirror all pending host writes into ``rings`` (this process's
+        lanes), IN PLACE; returns ``rings``."""
+        total = self._buffer.total_added
+        new_size = self._fill_count(total)  # collective on MultihostRingSync
+        n_pending = min(total - self._synced, self.host_capacity)
+        L = self.local_shards
+        if n_pending > 0:
+            pend = (total - n_pending + np.arange(n_pending)) % self.host_capacity
+            for j, ring in enumerate(rings):
+                rows = pend[pend % L == j] // L  # this lane's rows, in write order
+                for lo in range(0, len(rows), self.chunk_local):
+                    self._ingest(ring, j, rows[lo: lo + self.chunk_local], new_size)
+        if new_size != self._size:
+            for ring in rings:
+                ring.size.fill_(new_size)
+            self._size = new_size
+        self._synced = total
+        return rings
+
+
+class MultihostRingSync(ShardedDeviceRingSync):
+    """The sharded sync of a process that is one of several: its buffer
+    holds ``capacity/P`` rows, fed by its own collection. Every flush is a
+    collective: the processes agree the global fill count from their
+    write cursors (:meth:`_gapless_total`, one :func:`host_allgather_i64`),
+    so every process must flush equally often."""
+
+    def _fill_count(self, total: int) -> int:
+        totals = host_allgather_i64([total])[:, 0]
+        return min(self._gapless_total(totals), self.capacity)
+
+    def _gapless_total(self, totals: np.ndarray) -> int:
+        """The largest global write count ``T`` whose first ``T``
+        interleaved writes have all landed, from each process's local
+        ``total_added``: process ``p``'s lane ``p·L + s`` has received
+        ``ceil((t_p − s)/L)`` writes, and the gapless prefix ends at the
+        first lane still short, ``min_d(writes_d·D + d)``. Exact under the
+        lock-step deal; never counts a row some process has not written."""
+        D, L = self.n_shards, self.local_shards
+        best = None
+        for p in range(self.n_processes):
+            t = int(totals[p])
+            for s in range(L):
+                d = p * L + s
+                cand = max(-(-(t - s) // L), 0) * D + d
+                best = cand if best is None else min(best, cand)
+        return int(best)
+
+    def gather_snapshot(self, rings: list) -> dict:
+        """The GLOBAL ring in the ``ReplayBuffer.snapshot`` layout (rows
+        ``[0, size)`` in global slot order, ``pos``, ``size``), so any
+        topology restores it. A collective: every process calls it, after
+        a flush; process 0 writes the file."""
+        T = self._gapless_total(host_allgather_i64([self._buffer.total_added])[:, 0])
+        size = min(T, self.capacity)
+        perm = striped_perm(self.capacity, self.n_shards).reshape(-1)
+        out = {}
+        for name in FIELDS:
+            lanes = gather_global(np.stack([getattr(r, name).cpu().numpy() for r in rings]))
+            host = np.empty((self.capacity,) + lanes.shape[2:], lanes.dtype)
+            host[perm] = lanes.reshape((self.capacity,) + lanes.shape[2:])
+            out[name] = host[:size]
+        out["pos"] = np.asarray(T % self.capacity)
+        out["size"] = np.asarray(size)
+        return out
+
+    def deal_snapshot(self, data) -> int:
+        """Restore this process's share of a GLOBAL snapshot into its local
+        buffer; returns its row count. Global total ``T`` puts ``t_p =
+        (T//D)·L + clip(T%D − p·L, 0, L)`` writes on process ``p``, and its
+        local slot ``m`` reads global slot ``(m//L)·D + p·L + m%L``. No
+        collective; the next flush re-mirrors the restored rows."""
+        size = int(np.asarray(data["size"]).item())
+        pos = int(np.asarray(data["pos"]).item())
+        T = pos + self.capacity if size == self.capacity else size
+        D, L, base = self.n_shards, self.local_shards, self.shard_lo
+        t_p = (T // D) * L + int(np.clip(T % D - base, 0, L))
+        n_local = min(t_p, self.host_capacity)
+        m = np.arange(n_local)
+        j = (m // L) * D + base + (m % L)
+        local = {name: np.asarray(data[name])[j] for name in FIELDS}
+        local["pos"] = np.asarray(t_p % self.host_capacity)
+        local["size"] = np.asarray(n_local)
+        buf = self._buffer
+        with buf._lock:
+            buf._restore_arrays(local)
+            buf._total_added = t_p  # the exact cursor, as every process derives it
+        self._synced = 0
+        self._size = 0
+        return n_local

@@ -1,7 +1,6 @@
 """The megastep: K grad steps per dispatch over the device-resident ring.
 
-Counterpart of ``d4pg_tpu/runtime/megastep.py`` on one device (the
-sharded megasteps wait for ROADMAP A7). One dispatch draws its [K, B]
+Counterpart of ``d4pg_tpu/runtime/megastep.py``. One dispatch draws its [K, B]
 indices on the device (or, on the ``hybrid`` placement, takes them from
 the host tree), gathers the K batches from the device ring in one op per
 field, runs K ``train_step``s and, with device PER, writes the priorities
@@ -33,6 +32,18 @@ Four bodies, one per tier:
   copy of the dispatch); the rows come from the device ring, and the
   [K, B] priorities go back to the host tree (the only copy back).
 
+The sharded bodies (``--dp`` on the device placement) run the same
+dispatch over the lanes of a ``parallel.mesh.Mesh``: each lane draws
+``batch/dp`` rows a step from its own striped ring and (PER) its own
+subtree, with its own generator, seeded from ``(seed, lane)``
+(:func:`lane_generators`, the JAX ``fold_in(key, shard)``); the lanes'
+gradients and metrics meet in ``parallel/dp.py``'s fixed-order mean,
+and the PER weight ratio and the max priority in an exact min and max
+over the lanes. B3 runs once per lane per dispatch, B1f and B1b once per
+lane per grad step. In one process the lanes run one after another, which
+is the JAX package's single-device vmap oracle; split over processes they
+give the same bits. The fused-descent tier stays single-device.
+
 Every other body takes an explicit ``idx`` / ``prefixes`` for tests that
 feed the JAX package's draws; by default it draws from the ``torch.Generator``
 it is given.
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 from functools import partial
 
+import numpy as np
 import torch
 
 from d4pg_tpu_torch.agent.d4pg import fused_train_scan, gather_batches, train_step
@@ -195,3 +207,132 @@ def make_megastep_hybrid(config: D4PGConfig):
     """``(state, ring, idx, weights) -> (metrics, priorities)``; K and B
     come from the index block's shape."""
     return partial(megastep_hybrid_body, config)
+
+
+# ------------------------------------------------------------ sharded (dp)
+def lane_generators(seed: int, mesh) -> list:
+    """One device generator for each of this process's lanes, seeded from
+    ``(seed, global lane index)``: a lane draws the same stream whichever
+    process runs it."""
+    return [
+        torch.Generator(mesh.lane_device(d)).manual_seed(
+            int(np.random.SeedSequence([seed, d]).generate_state(1, np.uint64)[0]))
+        for d in mesh.local_lanes
+    ]
+
+
+def _lane_fill(ring: DeviceRing, d: int, n_shards: int) -> torch.Tensor:
+    """Lane ``d``'s mirrored rows, ``ceil((size − d)/D)`` from the global
+    fill count on the device (striping lands host slot j on lane j % D)."""
+    return (ring.size - d + n_shards - 1) // n_shards
+
+
+def sharded_megastep_uniform_body(
+    config: D4PGConfig, k: int, b_local: int, mesh, sync,
+    state: TrainState, rings: list, generators: list, idx: list | None = None,
+) -> dict:
+    """K grad steps on lane-local uniform draws: lane d draws [k, b_local]
+    rows from its ``size // D`` fully mirrored rows (every lane has that
+    many once ``size >= D``), no IS weights."""
+    batches = []
+    for j, ring in enumerate(rings):
+        lane_idx = idx[j] if idx is not None else draw_uniform_indices(
+            generators[j], k, b_local, ring.size // mesh.dp)
+        batches.append(gather_batches(ring, lane_idx))
+    _, metrics, _ = fused_train_scan(config, state, batches, sync_fn=sync)
+    return _mean(metrics)
+
+
+def sharded_megastep_device_per_body(
+    config: D4PGConfig, k: int, b_local: int, mesh, sync,
+    state: TrainState, rings: list, trees: list, generators: list,
+    prefixes: list | None = None,
+) -> dict:
+    """K grad steps on PER draws from every lane's subtree: each lane's
+    stratified prefixes over its own mass, one B3 descent of its [k,
+    b_local] block, the IS weights of the two-level scheme normalized by
+    the smallest draw probability over ALL lanes (an exact min), K train
+    steps over the lanes, then each lane's last-wins write-back and the
+    max priority over all lanes (an exact max) into every lane's tree."""
+    D = mesh.dp
+    draws, ratios = [], []
+    for j, d in enumerate(mesh.local_lanes):
+        sums = trees[j].sums
+        gen = None if generators is None else generators[j]
+        pre = _draw_prefixes(gen, k, b_local, sums[1], None if prefixes is None else prefixes[j])
+        idx, p_leaf, total = dper.lane_draw(sums, pre, _lane_fill(rings[j], d, D))
+        draws.append((idx, p_leaf, total))
+        ratios.append(dper.lane_min_leaf(sums) / (D * total))
+    min_ratio = sync.min(torch.stack(ratios))
+    beta = dper.beta_at(state.step, config.per_beta0, config.per_beta_steps)
+    batches = []
+    for ring, (idx, p_leaf, total) in zip(rings, draws):
+        lane = gather_batches(ring, idx)
+        lane["weights"] = dper.importance_weights(p_leaf, total, min_ratio, ring.size, beta,
+                                                  n_shards=D)
+        batches.append(lane)
+    _, metrics, priorities = fused_train_scan(config, state, batches, sync_fn=sync)
+    peaks = []
+    for j, (ring, (idx, _, _)) in enumerate(zip(rings, draws)):
+        pri = priorities[:, j * b_local: (j + 1) * b_local]
+        _, mp = dper.write_back_lane(trees[j].sums, idx, pri, config.per_alpha, config.per_eps,
+                                     capacity=ring.obs.shape[0])
+        peaks.append(mp)
+    mp = sync.max(torch.stack(peaks))
+    for tree in trees:
+        tree.max_priority.copy_(torch.maximum(tree.max_priority, mp))
+    return _mean(metrics)
+
+
+def _check_sharded(mesh, batch: int) -> int:
+    if batch % mesh.dp:
+        raise ValueError(f"sharded megastep: batch {batch} not divisible by dp={mesh.dp}")
+    return batch // mesh.dp
+
+
+def make_megastep_uniform_sharded(config: D4PGConfig, k: int, batch: int, mesh):
+    """``(state, rings, trees, generators) -> metrics`` over this
+    process's lanes (``rings`` and ``generators`` in lane order; ``trees``
+    unused), ``batch`` the global batch. ``.sync`` is its combine."""
+    from d4pg_tpu_torch.parallel.dp import LaneSync
+
+    sync = LaneSync(mesh)
+    body = partial(sharded_megastep_uniform_body, config, k, _check_sharded(mesh, batch), mesh,
+                   sync)
+
+    def run(state, rings, trees, generators, idx=None):
+        return body(state, rings, generators, idx)
+
+    run.sync = sync
+    return run
+
+
+def make_megastep_device_per_sharded(config: D4PGConfig, k: int, batch: int, mesh):
+    """``(state, rings, trees, generators) -> metrics``, the device-PER
+    tier over this process's lanes. ``.sync`` is its combine."""
+    from d4pg_tpu_torch.parallel.dp import LaneSync
+
+    sync = LaneSync(mesh)
+    run = partial(sharded_megastep_device_per_body, config, k, _check_sharded(mesh, batch), mesh,
+                  sync)
+    run.sync = sync
+    return run
+
+
+def _oracle_mesh(n_shards: int, device):
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_shards, device=device, num_processes=1, process_index=0)
+
+
+def make_megastep_uniform_oracle(config: D4PGConfig, k: int, batch: int, n_shards: int,
+                                 device=None):
+    """The sharded uniform megastep with all ``n_shards`` lanes in this
+    process: the lane loop IS the one-process oracle."""
+    return make_megastep_uniform_sharded(config, k, batch, _oracle_mesh(n_shards, device))
+
+
+def make_megastep_device_per_oracle(config: D4PGConfig, k: int, batch: int, n_shards: int,
+                                    device=None):
+    """The sharded device-PER megastep with all ``n_shards`` lanes here."""
+    return make_megastep_device_per_sharded(config, k, batch, _oracle_mesh(n_shards, device))

@@ -44,7 +44,6 @@ from d4pg_tpu_torch.agent.d4pg import encode_obs, fused_train_scan, gather_batch
 from d4pg_tpu_torch.agent.state import D4PGConfig, TrainState, check_supported
 from d4pg_tpu_torch.config import (
     TrainConfig,
-    apply_batch_scale,
     apply_env_preset,
     check_on_device,
     check_placement,
@@ -216,7 +215,7 @@ def make_on_device_trainer(
     if mesh is not None:
         raise NotImplementedError(
             "the data-parallel on-device loop (mesh, --dp) is not ported to "
-            "d4pg_tpu_torch yet (ROADMAP A7)"
+            "d4pg_tpu_torch yet (ROADMAP A7 (c))"
         )
     if obs_uint8 and obs_bf16:
         raise ValueError("obs_uint8 and obs_bf16 are mutually exclusive")
@@ -305,7 +304,7 @@ class OnDeviceRun:
                 "does not support it"
             )
         self.device = resolve_device(device)
-        config = apply_batch_scale(apply_env_preset(config))
+        config = apply_env_preset(config)
         check_wire_dtypes(config)
         check_supported(config.agent)
         check_placement(config)

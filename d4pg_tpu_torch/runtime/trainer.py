@@ -1,7 +1,8 @@
-"""The learner loop (counterpart of ``d4pg_tpu/runtime/trainer.py``'s
-single-process modes), with replay on the host or on the device.
+"""The learner loop (counterpart of ``d4pg_tpu/runtime/trainer.py``),
+with replay on the host or on the device, on one device or over
+data-parallel lanes and processes.
 
-One loop, on one device, in dispatches of K = ``steps_per_dispatch`` grad
+One loop in dispatches of K = ``steps_per_dispatch`` grad
 steps. With ``replay_placement="host"``:
 
 - warmup: collect at noise scale 3.0 until ``warmup_steps`` env steps are
@@ -118,6 +119,23 @@ normalizes sampled batches on the host and the acting and eval forwards,
 and is saved in the trainer meta and beside ``best_actor.npz``
 (``best_obs_norm.json``).
 
+Data parallelism (``dp``; the JAX trainer's dp wiring): ``dp`` lanes laid
+out by ``parallel.mesh.make_mesh``, one process's lanes on one device.
+On the host placement each dispatch splits the sampled rows over the
+lanes (``parallel/dp.py``: the gradients combined by a fixed-order mean
+every step, or with ``dp_hogwild`` every float tensor of each lane's own
+copy once a dispatch). On the device placement the ring is striped over
+the lanes, each with its PER subtree and generator, and one sharded
+megastep (``runtime/megastep.py``) runs them. A process of several
+(``num_processes``, after ``parallel.initialize_distributed``) owns
+``replay_capacity / P`` host rows and its contiguous lanes, salts its
+collection seeds with ``1_000_003 · process_index``, and agrees the fill
+count at each flush; the checkpoint files live under ``run_root`` (else
+``log_dir``), written by process 0 alone after every process has joined
+the save's gathers (the replay snapshot and the PER sidecar in global
+slot order, so any topology restores them; a process of several deals
+itself its rows). The state is replicated, so process 0 saves its copy.
+
 Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
 the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
 leg (``utils/profiling.py``). Under ``debug_guards`` every host dispatch
@@ -148,6 +166,7 @@ import queue
 import threading
 import time
 import zipfile
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -165,7 +184,6 @@ from d4pg_tpu_torch.agent.d4pg import decode_obs, fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
 from d4pg_tpu_torch.config import (
     TrainConfig,
-    apply_batch_scale,
     apply_declared_actions,
     apply_env_preset,
     check_collection,
@@ -175,6 +193,13 @@ from d4pg_tpu_torch.config import (
 from d4pg_tpu_torch.envs import ENVS, make_env
 from d4pg_tpu_torch.envs.pointmass_goal import PointMassGoal
 from d4pg_tpu_torch.ops.obs_norm import RunningObsNorm
+from d4pg_tpu_torch.parallel.distributed import process_count, process_index
+from d4pg_tpu_torch.parallel.dp import (
+    make_dp_fused_train_step,
+    make_dp_train_step,
+    make_hogwild_dp_train_step,
+)
+from d4pg_tpu_torch.parallel.mesh import check_one_device, make_mesh
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -183,7 +208,13 @@ from d4pg_tpu_torch.replay import (
     noise_scale_schedule,
 )
 from d4pg_tpu_torch.replay.device_per import DevicePerSync
-from d4pg_tpu_torch.replay.device_ring import DeviceRingSync, device_ring_init
+from d4pg_tpu_torch.replay.device_ring import (
+    DeviceRingSync,
+    MultihostRingSync,
+    ShardedDeviceRingSync,
+    device_ring_init,
+    lane_rings_init,
+)
 from d4pg_tpu_torch.replay.her import HindsightWriter
 from d4pg_tpu_torch.replay.nstep_writer import BatchedNStepWriter, NStepWriter
 from d4pg_tpu_torch.runtime import megastep
@@ -214,6 +245,7 @@ WIRE_FIELDS = ("obs", "next_obs")  # what --transfer-dtype narrows on the wire
 WB_JOIN_S = 60.0  # how long stopping or draining the write-back thread may take
 COLLECTOR_JOIN_S = 30.0  # how long stopping the async collector may take
 EVAL_POOL_SEED = 977_777  # the eval pool's seed offset (the JAX trainer's)
+PROCESS_SEED = 1_000_003  # a process's collection-seed offset (the JAX trainer's)
 
 
 # The fields of one HER rollout step, in the order they are fetched.
@@ -242,10 +274,9 @@ def _rss_gb() -> float:
 
 class Trainer:
     def __init__(self, config: TrainConfig, device=None, actor_env: Optional[str] = None):
-        """``config`` as the user gives it: the env preset and then
-        ``batch_scale`` are applied here, so ``self.config`` holds the
-        scaled values (and ``batch_scale`` itself, as the JAX trainer's
-        config does).
+        """``config`` as the user gives it: the env preset is applied
+        here; ``batch_scale`` is not (the CLI applies it, as the JAX CLI
+        does: ``config.apply_batch_scale``), so the batch is the config's.
 
         ``actor_env`` names a host env that the host collection (one env,
         or the actor pool) and the host evaluation step in place of
@@ -279,7 +310,6 @@ class Trainer:
         else:
             config = apply_env_preset(config)
             self.env = make_env(config.env, config.max_episode_steps, config.action_repeat)
-        config = apply_batch_scale(config)
         check_wire_dtypes(config)
         check_supported(config.agent)
         check_placement(config)
@@ -287,6 +317,24 @@ class Trainer:
         config = apply_declared_actions(config)
         self.config = config
         agent_cfg = config.agent
+
+        # Data parallelism: the lane layout and this process's place in it
+        # (parallel/). Each process owns capacity/P rows of the replay and
+        # salts its collection seeds with its index; the train state and
+        # the lanes' draws are seeded alike everywhere.
+        self._procs, self._proc_idx = process_count(), process_index()
+        if config.num_processes != self._procs:
+            raise ValueError(
+                f"num_processes={config.num_processes}, but the process group has "
+                f"{self._procs}: call parallel.initialize_distributed before the Trainer"
+            )
+        self.mesh = None
+        if config.dp:
+            self.mesh = make_mesh(config.dp, config.tp, device=self.device)
+            self.device = check_one_device(self.mesh)
+        self._shared_dir = config.run_root or config.log_dir
+        self._collect_seed = config.seed + PROCESS_SEED * self._proc_idx
+        host_capacity = config.replay_capacity // self._procs
 
         obs_dim, act_dim = agent_cfg.obs_dim, agent_cfg.action_dim
         self.on_device = config.replay_placement == "device"
@@ -301,7 +349,7 @@ class Trainer:
         if self.on_device:
             # the write-side source of truth: a plain host ring, no host
             # trees (with PER the priorities live in the device tree)
-            self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim, **storage)
+            self.buffer = ReplayBuffer(host_capacity, obs_dim, act_dim, **storage)
         elif config.prioritized:
             self.buffer = PrioritizedReplayBuffer(
                 config.replay_capacity, obs_dim, act_dim,
@@ -315,8 +363,8 @@ class Trainer:
         self.state = create_train_state(agent_cfg, config.seed, self.device)
         # Host sampling draws from numpy; acting, resets and eval from
         # torch generators on the device. Each stream has its own seed.
-        self._rng = np.random.default_rng(config.seed)
-        self._collect_gen = torch.Generator(self.device).manual_seed(config.seed + 1)
+        self._rng = np.random.default_rng(self._collect_seed)
+        self._collect_gen = torch.Generator(self.device).manual_seed(self._collect_seed + 1)
         self._eval_gen = torch.Generator(self.device).manual_seed(config.seed + 2)
 
         self.her_writer = None
@@ -355,26 +403,22 @@ class Trainer:
         self._wb_idle.set()
         self._wb_idle_lock = threading.Lock()
         self.writebacks_applied = 0  # dispatches whose priorities reached the tree
-        if self.on_device or self.hybrid:
+        # the host placement's --dp steps: the batch's rows split over the
+        # lanes, gradients combined every step (or every K with hogwild)
+        self._dp_step = self._dp_fused = None
+        if self.mesh is not None and config.replay_placement == "host":
+            self._dp_step = make_dp_train_step(agent_cfg, self.mesh)
+            fused = make_hogwild_dp_train_step if config.dp_hogwild else make_dp_fused_train_step
+            self._dp_fused = fused(agent_cfg, self.mesh)
+        if self.mesh is not None and self.on_device:
+            self._init_sharded_megastep()
+        elif self.on_device or self.hybrid:
             self._ring = device_ring_init(config.replay_capacity, obs_dim, act_dim, self.device)
             self._ring_sync = DeviceRingSync(self.buffer)
-        if self.hybrid:
-            self._megastep = megastep.make_megastep_hybrid(agent_cfg)
-        elif self.on_device:
-            K, B = config.steps_per_dispatch, config.batch_size
-            if config.prioritized:
-                self._dev_per = DevicePerSync(
-                    config.replay_capacity, agent_cfg.per_alpha, device=self.device
-                )
-                self._ring_sync.tree_hook = self._dev_per.on_chunk
-                if config.fused_descent:
-                    self._megastep = megastep.make_megastep_device_per_fused(agent_cfg, K, B)
-                else:
-                    self._megastep = megastep.make_megastep_device_per(agent_cfg, K, B)
+            if self.hybrid:
+                self._megastep = megastep.make_megastep_hybrid(agent_cfg)
             else:
-                self._megastep = megastep.make_megastep_uniform(agent_cfg, K, B)
-            # the megastep's draws come from their own device generator
-            self._megastep_gen = torch.Generator(self.device).manual_seed(config.seed + 3)
+                self._init_megastep()
 
         self.env_steps = 0
         self.grad_steps = 0
@@ -384,7 +428,9 @@ class Trainer:
         for name in StageTimers.STAGES:  # every row carries every stage
             self.timers.ensure(name)
         self.metrics = MetricsLogger(config.log_dir)
-        self.ckpt = CheckpointManager(os.path.join(config.log_dir, "checkpoints"))
+        # the shared files (checkpoints, trainer meta, replay snapshot, PER
+        # sidecar) live under run_root; process 0 alone writes them
+        self.ckpt = CheckpointManager(os.path.join(self._shared_dir, "checkpoints"))
         self.preempted = False
         # Signal handlers only set this event (signal- and thread-safe);
         # the train and warmup loops act on it at their next iteration.
@@ -408,6 +454,45 @@ class Trainer:
             else:
                 self._setup_host_collect()
 
+    def _init_megastep(self) -> None:
+        """The single-device megastep of the device placement, its device
+        PER tree and its generator."""
+        cfg, agent_cfg = self.config, self.config.agent
+        K, B = cfg.steps_per_dispatch, cfg.batch_size
+        if cfg.prioritized:
+            self._dev_per = DevicePerSync(cfg.replay_capacity, agent_cfg.per_alpha,
+                                          device=self.device)
+            self._ring_sync.tree_hook = self._dev_per.on_chunk
+            if cfg.fused_descent:
+                mega = megastep.make_megastep_device_per_fused(agent_cfg, K, B)
+            else:
+                mega = megastep.make_megastep_device_per(agent_cfg, K, B)
+            # the one lane's tree (the sharded megasteps take every lane's)
+            self._megastep = lambda state, ring, trees, gen: mega(state, ring, trees[0], gen)
+        else:
+            self._megastep = megastep.make_megastep_uniform(agent_cfg, K, B)
+        # the megastep's draws come from their own device generator
+        self._megastep_gen = torch.Generator(self.device).manual_seed(cfg.seed + 3)
+
+    def _init_sharded_megastep(self) -> None:
+        """The sharded megastep of ``--dp`` on the device placement: this
+        process's lanes, each with its striped ring, (PER) its subtree and
+        its generator; the ring sync of a single process or of one of
+        several."""
+        cfg, agent_cfg = self.config, self.config.agent
+        K, B = cfg.steps_per_dispatch, cfg.batch_size
+        self._ring = lane_rings_init(cfg.replay_capacity, agent_cfg.obs_dim, agent_cfg.action_dim,
+                                     self.mesh)
+        sync_cls = MultihostRingSync if self._procs > 1 else ShardedDeviceRingSync
+        self._ring_sync = sync_cls(self.buffer, self.mesh)
+        if cfg.prioritized:
+            self._dev_per = DevicePerSync(cfg.replay_capacity, agent_cfg.per_alpha, mesh=self.mesh)
+            self._ring_sync.tree_hook = self._dev_per.on_lane_chunk
+            self._megastep = megastep.make_megastep_device_per_sharded(agent_cfg, K, B, self.mesh)
+        else:
+            self._megastep = megastep.make_megastep_uniform_sharded(agent_cfg, K, B, self.mesh)
+        self._megastep_gen = megastep.lane_generators(cfg.seed + 3, self.mesh)
+
     def _init_host_state(self) -> None:
         """The host-env collection, publication and evaluation state (inert
         for a torch env)."""
@@ -422,7 +507,7 @@ class Trainer:
             self._act_device = self.device
         # the collection's own stream: a background collector never races
         # the learner thread on a generator
-        self._act_gen = torch.Generator(self._act_device).manual_seed(cfg.seed + 5)
+        self._act_gen = torch.Generator(self._act_device).manual_seed(self._collect_seed + 5)
         # sync acting on the CPU while the learner is on the card: a CPU
         # copy refreshed at most once a grad step (made at first use)
         self._sync_copy: Optional[ActorCopy] = None
@@ -462,10 +547,10 @@ class Trainer:
 
     # ------------------------------------------------------------ checkpoints
     def _replay_snapshot_path(self) -> str:
-        return os.path.join(self.config.log_dir, "checkpoints", "replay.npz")
+        return os.path.join(self._shared_dir, "checkpoints", "replay.npz")
 
     def _device_per_snapshot_path(self) -> str:
-        return os.path.join(self.config.log_dir, "checkpoints", "device_per.npz")
+        return os.path.join(self._shared_dir, "checkpoints", "device_per.npz")
 
     def _resume(self) -> None:
         """Restore the newest intact checkpoint in place, with the trainer
@@ -478,7 +563,7 @@ class Trainer:
             print(f"[checkpoint] fallback: {fb}")
         print(f"[checkpoint] resumed from step {restored_step}", flush=True)
         self.grad_steps = self.state.step
-        meta = load_trainer_meta(cfg.log_dir)
+        meta = load_trainer_meta(self._shared_dir)
         # env_steps drives the noise schedule: without it a resumed run
         # would re-explore at full scale
         self.env_steps = int(meta.get("env_steps", 0))
@@ -508,7 +593,13 @@ class Trainer:
         snap = self._replay_snapshot_path()
         if cfg.snapshot_replay and os.path.exists(snap):
             try:
-                n = self.buffer.restore(snap)
+                if self._procs > 1:
+                    # the snapshot holds the GLOBAL ring in global slot
+                    # order: this process takes the rows of its lanes
+                    with np.load(snap, allow_pickle=False) as z:
+                        n = self._ring_sync.deal_snapshot(z)
+                else:
+                    n = self.buffer.restore(snap)
                 self._replay_restored = True
                 print(f"restored replay snapshot: {n} transitions")
             except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
@@ -549,24 +640,46 @@ class Trainer:
         :meth:`_dispatch_guard`."""
         cfg = self.config
         with self.timers.stage("checkpoint_save"):
+            ring_snap = per_snap = None
+            if self._procs > 1:
+                # every collective of the save first, on every process in
+                # one order (the flush, the ring's and the tree's gathers);
+                # then process 0 alone writes
+                if cfg.snapshot_replay:
+                    with self.timers.stage("ingest_chunk"):
+                        self._ring_sync.flush(self._ring)
+                    ring_snap = self._ring_sync.gather_snapshot(self._ring)
+                    if self._dev_per is not None:
+                        per_snap = self._dev_per.snapshot_host()
+                if self._proc_idx != 0:
+                    return
             self.ckpt.save(self.grad_steps, self.state)
             extra = {"obs_norm": self.obs_norm.state_dict()} if self.obs_norm is not None else None
-            save_trainer_meta(cfg.log_dir, self.env_steps, self.ewma_return, extra=extra)
-            side = [trainer_meta_path(cfg.log_dir)]
+            save_trainer_meta(self._shared_dir, self.env_steps, self.ewma_return, extra=extra)
+            side = [trainer_meta_path(self._shared_dir)]
             if cfg.snapshot_replay:
                 # in-flight async write-backs land first, or the snapshot
                 # freezes priorities the flusher was about to overwrite
                 self._drain_writeback()
-                self.buffer.snapshot(self._replay_snapshot_path())
+                if ring_snap is not None:
+                    path = self._replay_snapshot_path()
+                    with open(path + ".tmp", "wb") as f:
+                        np.savez(f, **ring_snap)
+                    os.replace(path + ".tmp", path)
+                else:
+                    self.buffer.snapshot(self._replay_snapshot_path())
                 side.append(self._replay_snapshot_path())
                 if self._dev_per is not None:
-                    # Rows the ring has not mirrored yet (all of them after
-                    # a preemption during the warmup) have no leaves in the
-                    # tree; flush them first so the sidecar names every row
-                    # of replay.npz, as the JAX multi-process save does.
-                    with self.timers.stage("ingest_chunk"):
-                        self._ring_sync.flush(self._ring)
-                    pa, mp = self._dev_per.snapshot_host()
+                    if per_snap is None:
+                        # Rows the ring has not mirrored yet (all of them
+                        # after a preemption during the warmup) have no
+                        # leaves in the tree; flush them first so the
+                        # sidecar names every row of replay.npz, as the JAX
+                        # multi-process save does.
+                        with self.timers.stage("ingest_chunk"):
+                            self._ring_sync.flush(self._ring)
+                        per_snap = self._dev_per.snapshot_host()
+                    pa, mp = per_snap
                     dp_path = self._device_per_snapshot_path()
                     tmp = dp_path + ".tmp"
                     with open(tmp, "wb") as f:  # a file object: savez appends no suffix
@@ -644,7 +757,7 @@ class Trainer:
         )
         self._her_noise = init()
         # the rollout's own stream: resets, actions' noise and the mixture
-        self._her_gen = torch.Generator(self.device).manual_seed(cfg.seed + 4)
+        self._her_gen = torch.Generator(self.device).manual_seed(self._collect_seed + 4)
         self.her_episodes = 0
 
     @torch.no_grad()
@@ -773,7 +886,7 @@ class Trainer:
         writer (the JAX trainer's single-env host path)."""
         cfg = self.config
         self.writers = [NStepWriter(self.buffer, cfg.n_step, cfg.agent.gamma)]
-        self._host_obs = self.env.reset(seed=cfg.seed)
+        self._host_obs = self.env.reset(seed=self._collect_seed)
         self._host_acting = HostActing(cfg.agent, 1, self._act_device, self._act_gen)
 
     def _host_collect_steps(self, num_steps: int, noise_scale: Optional[float] = None) -> None:
@@ -801,7 +914,7 @@ class Trainer:
         pool reset at the seed."""
         cfg = self.config
         self.pool = HostActorPool(
-            self.actor_env, cfg.num_envs, cfg.max_episode_steps, seed=cfg.seed,
+            self.actor_env, cfg.num_envs, cfg.max_episode_steps, seed=self._collect_seed,
             start_method=cfg.pool_start_method, action_repeat=cfg.action_repeat,
             step_timeout_s=cfg.pool_step_timeout_s,
             max_worker_failures=cfg.pool_max_worker_failures,
@@ -815,7 +928,7 @@ class Trainer:
             make_her_writer=lambda: self._make_her_writer(self._her_reward_fn),
             ingest=self._ingest_obs, timers=self.timers,
         )
-        self.collector.reset(seed=cfg.seed)
+        self.collector.reset(seed=self._collect_seed)
 
     def _pool_collect_steps(self, num_steps: int, noise_scale: Optional[float] = None) -> None:
         """Collect about ``num_steps`` env steps across the pool (rounded up
@@ -1193,9 +1306,9 @@ class Trainer:
         after the dispatch, outside the guard (explicit staging)."""
         with self.timers.stage("ingest_chunk"):
             self._ring_sync.flush(self._ring)
-        tree = self._dev_per.tree if self._dev_per is not None else None
+        trees = None if self._dev_per is None else self._dev_per.trees
         with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
-            metrics = self._megastep(self.state, self._ring, tree, self._megastep_gen)
+            metrics = self._megastep(self.state, self._ring, trees, self._megastep_gen)
         self._dispatches += 1
         if self.config.ingest_prefetch:
             with self.timers.stage("ingest_stage"):
@@ -1247,10 +1360,13 @@ class Trainer:
             # the device
             dev_batch = {key: decode_obs(v) if key in WIRE_FIELDS else v
                          for key, v in dev_batch.items()}
-            if k == 1:
+            if k == 1 and self._dp_step is not None:
+                _, metrics, priorities = self._dp_step(self.state, dev_batch)
+            elif k == 1:
                 _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
             else:
-                _, metrics_k, priorities = fused_train_scan(cfg.agent, self.state, dev_batch)
+                scan = self._dp_fused or partial(fused_train_scan, cfg.agent)
+                _, metrics_k, priorities = scan(self.state, dev_batch)
                 metrics = {key: v.mean() for key, v in metrics_k.items()}
         self._dispatches += 1
         if prefetch_next:

@@ -52,6 +52,13 @@ Examples:
     python -m d4pg_tpu_torch.train --env HalfCheetah-v4 --num-envs 4 \
         --async-collect --obs-norm     # the host actor pool over gymnasium
     python -m d4pg_tpu_torch.train --env dmc:cartpole:swingup --num-envs 8
+    python -m d4pg_tpu_torch.train --env pendulum --replay-placement device \
+        --p-replay --steps-per-dispatch 8 --dp 2   # two lanes in one process
+    python -m d4pg_tpu_torch.train --env pendulum --replay-placement device \
+        --p-replay --steps-per-dispatch 8 --dp 2 --num-processes 2 \
+        --process-id 0 --coordinator 127.0.0.1:29500 --log-dir runs/dp
+        # and the same with --process-id 1: one lane a process; process 1
+        # logs under runs/dp/worker1, checkpoints are process 0's
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 # The module imports no torch at its top: the host actor pool's spawned
@@ -71,16 +79,9 @@ import sys
 # Flags of the JAX CLI (``train.py:build_parser``) whose feature the port
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
-    "--dp": "data parallelism (ROADMAP A7)",
     "--fleet-listen": "the collection fleet (ROADMAP A11)",
     "--device-tree-backend": "a choice of device PER descent: the port has one, "
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
-    "--tp": "tensor parallelism (ROADMAP A7)",
-    "--dp-hogwild": "asynchronous data parallelism (ROADMAP A7)",
-    "--distributed": "multi-host training (ROADMAP A7)",
-    "--coordinator": "multi-host training (ROADMAP A7)",
-    "--num-processes": "multi-host training (ROADMAP A7)",
-    "--process-id": "multi-host training (ROADMAP A7)",
     "--chaos": "fault injection (ROADMAP A11 (e))",
     "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
     "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
@@ -275,6 +276,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host placement: the observations' host->device wire "
                         "format; bfloat16 halves their bytes, uint8 (pixel "
                         "envs) ships the replay's stored bytes")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel lanes (None = one device): the batch's rows "
+                        "split over the lanes, their gradients combined by a "
+                        "fixed-order mean every grad step")
+    p.add_argument("--dp-hogwild", action="store_true",
+                   help="host placement: each lane runs the K = --steps-per-dispatch "
+                        "steps of a dispatch on its own copy of the state, then one "
+                        "fixed-order mean of every float tensor resyncs the copies")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: only 1 (tp > 1 is ROADMAP A7 (b))")
+    # multi-process bring-up (torch.distributed): every process runs the
+    # same command with its own --process-id; env-var fallbacks let a
+    # launcher template one command line
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group from a launcher's variables "
+                        "(env://: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
+    p.add_argument("--coordinator", default=os.environ.get("D4PG_COORDINATOR"),
+                   help="HOST:PORT of process 0's rendezvous (tcp://), for an "
+                        "explicit cluster (env D4PG_COORDINATOR)")
+    p.add_argument("--num-processes", type=int,
+                   default=int(os.environ.get("D4PG_NUM_PROCESSES", "0")) or None,
+                   help="total process count (env D4PG_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int,
+                   default=int(os.environ["D4PG_PROCESS_ID"])
+                   if os.environ.get("D4PG_PROCESS_ID") is not None else None,
+                   help="this process's rank (env D4PG_PROCESS_ID)")
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)
@@ -299,9 +326,12 @@ def refuse_unported(argv) -> None:
 def config_from_args(args: argparse.Namespace):
     """The flags as a ``TrainConfig``. The support is resolved as the JAX
     CLI resolves it: the env preset's, then each explicit ``--v-min`` /
-    ``--v-max`` on its own; the trainers keep it."""
+    ``--v-max`` on its own; the trainers keep it. ``--batch-scale`` is
+    applied here, as the JAX CLI applies it after the env preset (which
+    the trainers apply: a host env's preset needs the built env, and it
+    sets none of the knobs the scale moves)."""
     from d4pg_tpu_torch.agent.state import D4PGConfig
-    from d4pg_tpu_torch.config import TrainConfig, cli_support
+    from d4pg_tpu_torch.config import TrainConfig, apply_batch_scale, cli_support
     from d4pg_tpu_torch.models.critic import DistConfig
 
     v_min, v_max = cli_support(args.env, args.v_min, args.v_max)
@@ -343,7 +373,7 @@ def config_from_args(args: argparse.Namespace):
         f"runs/torch_{args.env}_{'PER' if args.prioritized else 'UNI'}"
         f"{'_HER' if args.her else ''}_n{args.n_step}_{args.num_envs}env"
     )
-    return TrainConfig(
+    return apply_batch_scale(TrainConfig(
         env=args.env,
         max_episode_steps=args.max_episode_steps,
         action_repeat=args.action_repeat,
@@ -385,7 +415,11 @@ def config_from_args(args: argparse.Namespace):
         pool_step_timeout_s=args.pool_step_timeout_s,
         actor_device=args.actor_device,
         concurrent_eval=args.concurrent_eval,
-    )
+        dp=args.dp,
+        dp_hogwild=args.dp_hogwild,
+        tp=args.tp,
+        num_processes=args.num_processes or 1,
+    ))
 
 
 def install_preemption_handlers(stop_callback) -> None:
@@ -513,6 +547,27 @@ def export_bundle_from_run(cfg, bundle_dir: str) -> str:
     return out
 
 
+def bring_up(args, cfg):
+    """Join the process group when the flags ask for several processes
+    (before the Trainer is built) and print the ``[distributed]`` line.
+    Returns the config with the process count, and for a secondary
+    process its log dir ``log_dir/worker{i}`` with ``run_root`` the shared
+    ``log_dir`` (the JAX CLI's layout)."""
+    if not (args.distributed or args.coordinator or (args.num_processes or 0) > 1):
+        return cfg
+    from d4pg_tpu_torch.parallel.distributed import initialize_distributed
+
+    info = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                  autodetect=args.distributed, device=args.device, dp=args.dp)
+    print(f"[distributed] {info}", flush=True)
+    cfg = dataclasses.replace(cfg, num_processes=info["process_count"])
+    if info["process_index"] != 0:
+        cfg = dataclasses.replace(
+            cfg, run_root=cfg.log_dir,
+            log_dir=os.path.join(cfg.log_dir, f"worker{info['process_index']}"))
+    return cfg
+
+
 def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     refuse_unported(argv)
@@ -523,15 +578,20 @@ def main(argv=None) -> dict:
         return {}
     if args.on_device:
         return _main_on_device(cfg, args.device)
+    from d4pg_tpu_torch.parallel.distributed import shutdown
     from d4pg_tpu_torch.runtime.trainer import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
-    print(f"config: {trainer.config}", flush=True)
-    install_preemption_handlers(trainer.request_preemption)
+    cfg = bring_up(args, cfg)
     try:
-        final = trainer.train()
+        trainer = Trainer(cfg, device=args.device)
+        print(f"config: {trainer.config}", flush=True)
+        install_preemption_handlers(trainer.request_preemption)
+        try:
+            final = trainer.train()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        shutdown()
     print(f"done: {final}", flush=True)
     if trainer.preempted:
         # EX_TEMPFAIL: "checkpointed, restart me with --resume"; a

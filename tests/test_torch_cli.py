@@ -11,6 +11,10 @@
 - the critic support the port's ``Trainer`` ends with equals the JAX
   trainer's ``_reconcile_config(config_from_args(argv), env)``, one-sided
   ``--v-min`` / ``--v-max`` included, for every head;
+- data parallelism's flags (``--dp``, ``--dp-hogwild``, ``--tp``,
+  ``--distributed``, ``--coordinator``, ``--num-processes``,
+  ``--process-id``) parse as the JAX CLI parses them; ``--tp 2`` and the
+  on-device loop under ``--dp`` are refused naming ROADMAP A7 (b) and (c);
 - ``--critic-head``, ``--num-mixtures``, ``--her`` and ``--her-k`` map into
   the config as the JAX CLI maps them, and so do the host actor pool's and
   obs-norm's eight flags (``--obs-norm``, ``--async-collect``,
@@ -85,9 +89,37 @@ def test_every_reference_flag_is_accepted_or_refused_by_name():
         assert opt in ours
     with pytest.raises(NotImplementedError, match="B3"):
         refuse_unported(["--device-tree-backend=pallas"])
-    # the host actor pool's and obs-norm's flags (A5 (d), A10 (d)) parse
-    for opt in HOST_POOL_FLAGS:
+    # the host actor pool's and obs-norm's flags (A5 (d), A10 (d)) parse,
+    # and data parallelism's (A7 (a))
+    for opt in HOST_POOL_FLAGS + DP_FLAGS:
         assert opt in ours and opt not in UNPORTED_FLAGS, opt
+
+
+DP_FLAGS = ("--dp", "--dp-hogwild", "--tp", "--distributed", "--coordinator",
+            "--num-processes", "--process-id")
+
+
+def test_data_parallel_flags_map_as_the_reference_maps_them(tmp_path):
+    from d4pg_tpu_torch.train import config_from_args, main
+
+    argv = ["--dp", "4", "--dp-hogwild", "--steps-per-dispatch", "8", "--tp", "1",
+            "--coordinator", "127.0.0.1:29500", "--num-processes", "2", "--process-id", "1"]
+    ours, ref = build_parser().parse_args(argv), jtrain.build_parser().parse_args(argv)
+    for f in ("dp", "dp_hogwild", "tp", "coordinator", "num_processes", "process_id",
+              "distributed"):
+        assert getattr(ours, f) == getattr(ref, f), f
+    cfg, jcfg = config_from_args(ours), jtrain.config_from_args(ref)
+    for f in ("dp", "dp_hogwild", "tp"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    plain = build_parser().parse_args([])
+    assert (plain.dp, plain.tp, plain.num_processes, plain.process_id) == (None, 1, None, None)
+    with pytest.raises(NotImplementedError, match=r"tensor parallelism \(ROADMAP A7 \(b\)\)"):
+        main(["--device", "cpu", "--tp", "2", "--log-dir", str(tmp_path / "tp")])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A7 \(c\)"):
+        main(["--device", "cpu", "--on-device", "--dp", "2", "--log-dir", str(tmp_path / "od")])
+    with pytest.raises(ValueError, match="needs a coordinator"):
+        main(["--device", "cpu", "--num-processes", "2", "--process-id", "0",
+              "--log-dir", str(tmp_path / "np")])
 
 
 HOST_POOL_FLAGS = ("--obs-norm", "--async-collect", "--publish-interval", "--concurrent-eval",

@@ -150,15 +150,30 @@ def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
     """A flag of the unported table raises naming its ROADMAP item before
-    any run."""
+    any run. The data-parallel flags ported with A7 (a) are refused before
+    any run where the port still lacks the feature (``--tp 2``: A7 (b);
+    ``--dp`` and ``--num-processes`` on the on-device loop: A7 (c)), or by
+    the gap the JAX CLI names for the same incomplete request."""
     from d4pg_tpu_torch.train import UNPORTED_FLAGS, main
 
     flag = "--" + field.replace("_", "-")
-    assert flag in UNPORTED_FLAGS
+    extra, exc, match = A7_REFUSALS.get(field, ([], NotImplementedError, item))
+    if field not in A7_REFUSALS:
+        assert flag in UNPORTED_FLAGS
     arg = flag if value is True else f"{flag}={value}"
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", arg])
+    with pytest.raises(exc, match=match):
+        main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", arg, *extra])
     assert not (tmp_path / "metrics.jsonl").exists()
+
+
+# the A7 flags of the case above: (further flags, error, its words)
+A7_REFUSALS = {
+    "tp": ([], NotImplementedError, r"A7 \(b\)"),
+    "dp": (["--on-device"], NotImplementedError, r"A7 \(c\)"),
+    "num_processes": (["--on-device"], NotImplementedError, r"A7 \(c\)"),
+    "dp_hogwild": ([], ValueError, "dp_hogwild_requires_dp"),
+    "process_id": (["--coordinator=127.0.0.1:1"], ValueError, "needs --num-processes"),
+}
 
 
 def test_cli_refuses_unknown_flags(tmp_path):
@@ -177,12 +192,17 @@ def test_cli_refuses_unported_flags(flag, tmp_path):
     ones naming their ROADMAP item; the uint8 wire, ported with pixels
     (A10 (c)), by the JAX package's ``uint8_wire_requires_pixel`` gap, and
     ``--obs-norm``, ported for host envs (A10 (d)), by its
-    ``obs_norm_flat_envs_only`` gap."""
+    ``obs_norm_flat_envs_only`` gap. Of the data-parallel flags (A7 (a))
+    ``--dp-hogwild`` alone is refused by its ``dp_hogwild_requires_dp``
+    gap, ``--tp=2`` names A7 (b) and ``--dp=2`` on the on-device loop A7
+    (c)."""
     from d4pg_tpu_torch.train import main
 
-    exc = ValueError if flag in ("--transfer-dtype=uint8", "--obs-norm") else NotImplementedError
+    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild")
+    exc = ValueError if flag in gaps else NotImplementedError
+    extra = ["--on-device"] if flag == "--dp=2" else []
     with pytest.raises(exc):
-        main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag])
+        main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag, *extra])
 
 
 def test_package_docstring_names_the_device_rule():
