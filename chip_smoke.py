@@ -4014,6 +4014,399 @@ def dp_host_run(Trainer, TrainConfig, mode: str, card: str, log_dir: str) -> dic
     return launches
 
 
+TP = 2                                # tp lanes of every tp phase
+TP_STEPS = 96                         # grad steps of tp_host (12 dispatches of K = 8)
+TP_MEMBERS_E, TP_MEMBERS_B = 10, 2048  # tp_members: the large_batch recipe's REDQ
+TP_TIMED_STEPS = 10                   # timed steps of each tp_members arm
+OD_DP_ENVS = 8                        # on_device_dp's envs (4 a lane): K = 256 a train iteration
+OD_DP_ITERS = 2
+BF16_REL = 6 * 2.0**-7                # the bfloat16 tolerance of tests/test_torch_stacked.py
+LEG_DISPATCHES, LEG_K = 2, 4          # the tp gloo leg's depth
+LEG_OD = dict(num_envs=8, capacity=4096, k=64, iterations=1)   # the on-device gloo leg's
+
+
+def _close_params(a, b, lr: float) -> float:
+    """Max |a - b| over two whole states' networks, checked within 10·lr
+    (one or a few Adam steps: a near-zero gradient coordinate may take the
+    other sign and move its weight by 2·lr)."""
+    worst = 0.0
+    for net in ("actor", "critic", "target_actor", "target_critic"):
+        for (name, x), y in zip(getattr(a, net).named_parameters(),
+                                getattr(b, net).parameters()):
+            d = float((x.detach().float().cpu() - y.detach().float().cpu()).abs().max())
+            check(d <= 10 * lr, f"{net}.{name} differs by {d:.3e} > 10·lr")
+            worst = max(worst, d)
+    return worst
+
+
+def _replicas_equal(tps) -> int:
+    """Every replicated leaf (and its Adam moments) torch.equal on every tp
+    lane; returns how many leaves were checked."""
+    from d4pg_tpu_torch.parallel.partition import tp_dim
+
+    n = 0
+    for net, opt in ((tps.actor, tps.actor_opt), (tps.critic, tps.critic_opt),
+                     (tps.target_actor, None), (tps.target_critic, None)):
+        for name, spec in net.specs.items():
+            if tp_dim(spec) is not None:
+                continue
+            lanes = net.lane_params(name)
+            check(all(torch_equal(lanes[0], q) for q in lanes[1:]),
+                  f"replicated {name} differs across tp lanes")
+            if opt is not None and opt.state.get(lanes[0]):
+                check(all(torch_equal(opt.state[lanes[0]][k], opt.state[q][k])
+                          for q in lanes[1:] for k in ("exp_avg", "exp_avg_sq")),
+                      f"replicated {name}'s Adam moments differ across tp lanes")
+            n += 1
+    return n
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def tp_host_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``tp_host``: (1) one TP step of ``--dp 2 --tp 2`` on a 256-row
+    batch at the pendulum preset's full width (3x256, 51 atoms) on the
+    card, against the unsharded single-device step on the card from the
+    same weights: priorities rtol 1e-4 / atol 1e-5 and critic_loss within
+    1e-4 relative (before any update), q_mean within 0.3, every parameter
+    within 10·lr (after one Adam step); each tp lane holds only its
+    shards (hidden_0 128 of 256 columns) and every replicated leaf is
+    torch.equal across the tp lanes. (2) The ``Trainer`` with ``--dp 2
+    --tp 2 --steps-per-dispatch 8`` on the host placement (native tree),
+    96 grad steps, every dispatch after the first under the sync guard:
+    B1f = B1b = 1 a dp lane a grad step (192), the rest 0; finite metrics;
+    the replicated leaves still equal."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent import create_train_state, train_step
+    from d4pg_tpu_torch.config import apply_env_preset
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+    from d4pg_tpu_torch.parallel.partition import auto_parallel_train_step
+
+    agent = apply_env_preset(TrainConfig(env="pendulum")).agent
+    B = 256
+    batch = {k: torch.from_numpy(v).cuda() for k, v in step_batch(np.random.default_rng(SEED + 17), B).items()}
+    whole = create_train_state(agent, SEED, "cuda")
+    mesh = make_mesh(DP_LANES, TP, device="cuda", num_processes=1, process_index=0)
+    step = auto_parallel_train_step(agent, mesh)
+    tps = step.shard(copy.deepcopy(whole))
+    check(tps.critic.lane_params("hidden_0.weight")[1].shape[0] == 128,
+          "tp_host: hidden_0's shard is not 128 of 256 columns")
+    reset_counts()
+    _, tm, tpri = step(tps, batch)
+    one_launch = read_counts()
+    _, wm, wpri = train_step(agent, whole, batch)
+    tm = {k: float(v) for k, v in tm.items()}
+    wm = {k: float(v) for k, v in wm.items()}
+    tpri, wpri = tpri.cpu().numpy(), wpri.cpu().numpy()
+    pri_err = float(np.abs(tpri - wpri).max())
+    check(np.allclose(tpri, wpri, rtol=1e-4, atol=1e-5), f"tp_host: priorities differ by {pri_err:.3e}")
+    check(abs(tm["critic_loss"] - wm["critic_loss"]) <= 1e-4 * abs(wm["critic_loss"]) + 1e-5,
+          f"tp_host: critic_loss {tm['critic_loss']} vs {wm['critic_loss']}")
+    check(abs(tm["q_mean"] - wm["q_mean"]) <= 0.3, f"tp_host: q_mean {tm['q_mean']} vs {wm['q_mean']}")
+    param_err = _close_params(tps.whole(), whole, agent.lr_critic)
+    n_rep = _replicas_equal(tps)
+    check(one_launch["fused_fwd"] == DP_LANES and one_launch["fused_bwd"] == DP_LANES,
+          f"tp_host: one TP step launched {one_launch}")
+
+    n = TP_STEPS
+    cfg = TrainConfig(
+        env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
+        eval_episodes=DP_EVAL_EPISODES, log_dir=log_dir, seed=SEED, replay_placement="host",
+        prioritized=True, tree_backend="native", steps_per_dispatch=K, debug_guards=True,
+        dp=DP_LANES, tp=TP,
+    )
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        check(getattr(trainer.state, "tp", None) == TP, "tp_host: the trainer's state is not sharded")
+        reset_counts()
+        t0 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stages = trainer.timers.scalars()
+        n_rep_run = _replicas_equal(trainer.state)
+        combine = call_ms(lambda: [trainer._dp_fused.sync(torch.zeros(DP_LANES, k_, device="cuda"))
+                                   for k_ in trainer.state.critic.lane_numels()
+                                   + trainer.state.actor.lane_numels() + [5]],
+                          n=COMBINE_REPS, warmup=3)
+    finally:
+        trainer.close()
+    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0, tree_count=0,
+                  fused_step=0)
+    check(launches == expect, f"tp_host: launch counts {launches}, expected {expect}")
+    check(stages["stage_train_dispatch_calls"] == n // K and trainer.grad_steps == n,
+          f"tp_host: {stages['stage_train_dispatch_calls']} dispatches for "
+          f"{trainer.grad_steps} grad steps")
+    for key in FINITE_KEYS:
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"tp_host: {key} not finite: {row.get(key)}")
+    emit({
+        "phase": "tp_host", "card": card, "dp": DP_LANES, "tp": TP, "processes": 1,
+        "width": {"hidden": list(agent.hidden_sizes), "atoms": agent.dist.num_atoms,
+                  "batch": cfg.batch_size, "batch_per_dp_lane": cfg.batch_size // DP_LANES,
+                  "steps_per_dispatch": K},
+        "kinds": {"actor": trainer.state.actor.kinds, "critic": trainer.state.critic.kinds},
+        "step_vs_unsharded": {"priority_max_abs_err": pri_err, "param_max_abs_err": param_err,
+                              "tp": tm, "unsharded": wm, "launches": one_launch,
+                              "replicated_leaves_equal": n_rep},
+        "grad_steps": n, "dispatches": n // K,
+        "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+        "wall_s_incl_warmup_and_eval": wall,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "combine_ms_per_grad_step": combine,
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
+        "replicated_leaves_equal_after_run": n_rep_run,
+        "launches": launches, "stage_ms_per_step": stage_ms_per_step(stages, n), "ok": True,
+    })
+    return launches
+
+
+def tp_members_phase(card: str) -> dict:
+    """``tp_members``: ``auto_parallel_train_step(ensemble_axis="tp")`` on
+    the large_batch recipe's critic (REDQ, E = 10, M = 2, bfloat16
+    compute, B = 2048) over (dp 1, tp 2): each tp lane holds 5 whole
+    members. One step against the unsharded stacked step on the card, the
+    same subset fed to both: priorities and critic_loss within BF16_REL
+    (6·2^-7) relative, every parameter within 10·lr; B1f = B1b = 2 (one
+    stacked launch a tp lane, 5 members each). Then each arm's ms a grad
+    step (median of 10, CUDA events)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent import create_train_state, train_step
+    from d4pg_tpu_torch.agent.d4pg import draw_subset
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.models.critic import DistConfig
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+    from d4pg_tpu_torch.parallel.partition import auto_parallel_train_step, shard_batch
+
+    agent = D4PGConfig(dist=DistConfig(v_min=-300.0, v_max=0.0), n_step=3,
+                       compute_dtype="bfloat16", critic_ensemble=TP_MEMBERS_E,
+                       ensemble_min_targets=2)
+    B = TP_MEMBERS_B
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in step_batch(np.random.default_rng(SEED + 18), B).items()}
+    whole = create_train_state(agent, SEED, "cuda")
+    mesh = make_mesh(1, TP, device="cuda", num_processes=1, process_index=0)
+    step = auto_parallel_train_step(agent, mesh, ensemble_axis="tp")
+    tps = step.shard(copy.deepcopy(whole))
+    check(tps.critic.member_parts == [TP_MEMBERS_E // TP] * TP,
+          f"tp_members: member blocks {tps.critic.member_parts}")
+    subset = draw_subset(agent, whole)
+    lanes = shard_batch(batch, mesh)
+    reset_counts()
+    _, tm, tpri = train_step(agent, tps, lanes, subset=subset, sync_fn=step.sync)
+    launches = read_counts()
+    _, wm, wpri = train_step(agent, whole, batch, subset=subset)
+    tm = {k: float(v) for k, v in tm.items()}
+    wm = {k: float(v) for k, v in wm.items()}
+    tpri, wpri = tpri.cpu().numpy(), wpri.cpu().numpy()
+    pri_err = float(np.abs(tpri - wpri).max())
+    check(np.allclose(tpri, wpri, rtol=BF16_REL, atol=0), f"tp_members: priorities differ by {pri_err:.3e}")
+    check(abs(tm["critic_loss"] - wm["critic_loss"]) <= BF16_REL * abs(wm["critic_loss"]),
+          f"tp_members: critic_loss {tm['critic_loss']} vs {wm['critic_loss']}")
+    param_err = _close_params(tps.whole(), whole, agent.lr_critic)
+    n_rep = _replicas_equal(tps)
+    expect = dict(fused_fwd=TP, fused_bwd=TP, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"tp_members: launch counts {launches}, expected {expect}")
+
+    def timed(fn) -> float:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(TP_TIMED_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    tp_ms = timed(lambda: train_step(agent, tps, lanes, subset=subset, sync_fn=step.sync))
+    whole_ms = timed(lambda: train_step(agent, whole, batch, subset=subset))
+    emit({
+        "phase": "tp_members", "card": card, "dp": 1, "tp": TP, "members": TP_MEMBERS_E,
+        "members_per_tp_lane": TP_MEMBERS_E // TP, "batch": B, "compute_dtype": "bfloat16",
+        "kinds": tps.critic.kinds, "subset": subset.tolist(),
+        "priority_max_abs_err": pri_err, "param_max_abs_err": param_err,
+        "tp": tm, "unsharded": wm, "replicated_leaves_equal": n_rep, "launches": launches,
+        "ms_per_grad_step": {"tp_members": tp_ms, "unsharded": whole_ms},
+        "ok": True,
+    })
+    return launches
+
+
+def on_device_dp_phase(TrainConfig, card: str, log_dir: str) -> dict:
+    """``on_device_dp``: (1) one iteration of the on-device loop on two
+    lanes (pendulum at 3x256, 4 envs and B = 64 over the lanes, K = 4) on
+    the card against the same on the CPU, the rollout noise and the PER
+    draws fed to both from one NumPy stream: each lane's ring rows within
+    rtol 1e-4 / atol 1e-4 (a Pendulum step and an actor forward on each
+    device, n-step sums), priorities rtol 1e-3, metrics rtol 1e-3, every
+    parameter within 10·lr. (2) ``OnDeviceRun`` with ``--on-device --dp
+    2`` (8 envs, 4 a lane: K = 256 an iteration, B = 256 as 128 a lane),
+    one warmup segment and two train iterations, every iteration after
+    the first under the sync guard: B1f = B1b = 1 a lane a grad step
+    (1024), the rest 0; finite metrics; replay_size the lanes' sum."""
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent import create_train_state
+    from d4pg_tpu_torch.agent.d4pg import make_noise
+    from d4pg_tpu_torch.config import apply_env_preset
+    from d4pg_tpu_torch.envs import make_env
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+    from d4pg_tpu_torch.runtime.on_device import OnDeviceRun, make_on_device_trainer
+
+    agent = apply_env_preset(TrainConfig(env="pendulum")).agent
+    n_env, seg, k, b = 4, 32, 4, 64
+    rng = np.random.default_rng(SEED + 19)
+    noise = [[rng.normal(0, 0.3, (n_env // DP_LANES, 1)).astype(np.float32)
+              for _ in range(2 * seg)] for _ in range(DP_LANES)]
+    draws = [torch.from_numpy(rng.uniform(size=(k, b // DP_LANES)).astype(np.float32))
+             for _ in range(DP_LANES)]
+    out = {}
+    for side, dev in (("card", "cuda"), ("host", "cpu")):
+        def fed(blocks, dev=dev):
+            steps = [torch.from_numpy(x).to(dev) for x in blocks]
+            init, _, reset = make_noise(agent, (n_env // DP_LANES,), dev)
+            return init, (lambda state, gen, shape: (steps.pop(0), state)), reset
+
+        mesh = make_mesh(DP_LANES, device=dev, num_processes=1, process_index=0)
+        init_fn, warm, it = make_on_device_trainer(
+            agent, make_env("pendulum"), num_envs=n_env, replay_capacity=512, batch_size=b,
+            train_steps_per_iter=k, device=dev, mesh=mesh, noise_fns=[fed(x) for x in noise])
+        carry = init_fn(create_train_state(agent, SEED, dev), SEED)
+        if side == "host":  # the card's reset states, so both roll the same envs
+            carry = carry._replace(env_states=[type(e)(*(t.cpu() for t in e))
+                                               for e in out["card"][2]],
+                                   obs=[o.cpu() for o in out["card"][3]])
+        env0, obs0 = carry.env_states, carry.obs
+        carry, m = it(warm(carry, 3.0), 1.0, draws=[d.to(dev) for d in draws])
+        out[side] = (carry, {key: float(v) for key, v in m.items()}, env0, obs0)
+    (cc, cm, _, _), (hc, hm, _, _) = out["card"], out["host"]
+    row_err = 0.0
+    for lane in range(DP_LANES):
+        for f in ("obs", "action", "reward", "next_obs", "discount"):
+            x, y = getattr(cc.replay[lane], f).cpu(), getattr(hc.replay[lane], f)
+            check(torch.allclose(x, y, rtol=1e-4, atol=1e-4), f"on_device_dp: lane {lane} {f}")
+            row_err = max(row_err, float((x - y).abs().max()))
+        check(torch.allclose(cc.replay[lane].priority.cpu(), hc.replay[lane].priority, rtol=1e-3),
+              f"on_device_dp: lane {lane} priorities")
+    for key in hm:
+        check(abs(cm[key] - hm[key]) <= 1e-3 * abs(hm[key]) + 1e-6,
+              f"on_device_dp: {key} {cm[key]} (card) vs {hm[key]} (CPU)")
+    param_err = _close_params(cc.state, hc.state, agent.lr_critic)
+
+    k_run = OD_DP_ENVS * SEGMENT_LEN_OD
+    cfg = TrainConfig(env="pendulum", num_envs=OD_DP_ENVS, n_step=3, warmup_steps=k_run,
+                      total_steps=OD_DP_ITERS * k_run, eval_interval=OD_DP_ITERS * k_run,
+                      eval_episodes=DP_EVAL_EPISODES, log_dir=log_dir, seed=SEED,
+                      debug_guards=True, dp=DP_LANES)
+    run = OnDeviceRun(cfg, device="cuda")
+    check(run.mesh is not None and run.mesh.dp == DP_LANES, "on_device_dp: no mesh")
+    reset_counts()
+    t0 = time.perf_counter()
+    row = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n = OD_DP_ITERS * run.K
+    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0, tree_count=0,
+                  fused_step=0)
+    check(launches == expect, f"on_device_dp: launch counts {launches}, expected {expect}")
+    check(run.guarded_iterations == OD_DP_ITERS - 1,
+          f"on_device_dp: {run.guarded_iterations} guarded iterations")
+    sizes = [r.size for r in run.carry.replay]
+    check(row["replay_size"] == sum(sizes) == run.rows_appended,
+          f"on_device_dp: replay_size {row['replay_size']}, lanes {sizes}, "
+          f"appended {run.rows_appended}")
+    mps = [float(r.max_priority) for r in run.carry.replay]
+    check(len(set(mps)) == 1 and mps[0] > 1.0, f"on_device_dp: lane max priorities {mps}")
+    for key in FINITE_KEYS:
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"on_device_dp: {key} not finite: {row.get(key)}")
+    emit({
+        "phase": "on_device_dp", "card": card, "dp": DP_LANES, "processes": 1,
+        "card_vs_cpu": {"envs": n_env, "k": k, "batch": b, "ring_row_max_abs_err": row_err,
+                        "param_max_abs_err": param_err, "cuda": cm, "cpu": hm},
+        "width": {"hidden": list(cfg.agent.hidden_sizes), "atoms": agent.dist.num_atoms,
+                  "batch": cfg.batch_size, "batch_per_lane": cfg.batch_size // DP_LANES,
+                  "envs": OD_DP_ENVS, "envs_per_lane": OD_DP_ENVS // DP_LANES,
+                  "replay_capacity": run.capacity},
+        "k_per_iteration": run.K, "iterations": OD_DP_ITERS, "grad_steps": n,
+        "wall_s_incl_warmup_and_eval": wall, "warmup_s": run.warmup_s, "eval_s": run.eval_s,
+        "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "env_steps_per_sec": row["env_steps_per_sec"],
+        "replay_size": row["replay_size"], "lane_sizes": sizes, "max_priority": mps[0],
+        "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
+        "eval_return_mean": row["eval_return_mean"], "launches": launches, "ok": True,
+    })
+    return launches
+
+
+SEGMENT_LEN_OD = 32                   # the on-device loop's segment length
+
+
+def tp_gloo_legs_phase(TrainConfig, card: str) -> None:
+    """The two gloo legs of ``tools/dp_ranks.py`` on ``cuda:0``: ``--dp 2
+    --tp 2`` (the TP step, 2 dispatches of K = 4 at the pendulum preset's
+    width, B = 256) and ``--on-device --dp 2`` (8 envs, one warmup
+    segment and one iteration of K = 64), both run by one pair of spawned
+    ranks, one dp lane each, each leg ``torch.equal`` to one process with
+    both lanes."""
+    from d4pg_tpu_torch.config import apply_env_preset
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+    from d4pg_tpu_torch.tools import dp_ranks
+
+    c = apply_env_preset(TrainConfig(env="pendulum"))
+    legs = {
+        "tp": (TP, dict(agent_cfg=c.agent, dispatches=LEG_DISPATCHES, k=LEG_K,
+                        batch=c.batch_size, seed=SEED)),
+        "on_device": (1, dict(agent_cfg=c.agent, env_name="pendulum", batch=c.batch_size,
+                              seed=SEED, **LEG_OD)),
+    }
+    ones, one_s = {}, {}
+    for leg, (tp, kw) in legs.items():
+        t0 = time.perf_counter()
+        ones[leg] = dp_ranks.LEGS[leg](make_mesh(DP_LANES, tp, device="cuda", num_processes=1,
+                                                 process_index=0), **kw)
+        one_s[leg] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # one pair of ranks runs both legs: a rank's start (imports, the card,
+    # the process group) costs more than either leg
+    by_leg = dp_ranks.spawn_legs(DP_LANES, DP_LANES, "cuda",
+                                 [(leg, tp, kw) for leg, (tp, kw) in legs.items()],
+                                 timeout_s=DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    for leg, ranks in zip(legs, by_leg):
+        one = ones[leg]
+        tp = legs[leg][0]
+        eq = dp_ranks.compare_leg(one, ranks)
+        check(all(eq.values()), f"{leg} gloo leg: two ranks differ from one process: {eq}")
+        backends = [r["backend"] for r in ranks]
+        check(backends == ["gloo"] * DP_LANES, f"{leg} gloo leg: backends {backends}")
+        emit({"phase": f"gloo_leg_{leg}", "card": card, "dp": DP_LANES, "tp": tp,
+              "ranks": DP_LANES, "backends": backends, "torch_equal": eq,
+              "one_process_s": one_s[leg], "rank_leg_s": [r["wall_s"] for r in ranks],
+              "ranks_s_both_legs_incl_spawn": ranks_s,
+              "launches_one_process": one["launches"],
+              "launches_ranks": [r["launches"] for r in ranks], "ok": True})
+
+
 def _pid_alive(pid: int) -> bool:
     """Whether ``pid`` runs (a zombie counts as gone)."""
     import os
@@ -4131,6 +4524,10 @@ def main() -> int:
         for mode in ("dp", "dp_hogwild"):
             paths[f"dp_host_{mode}"] = dp_host_run(Trainer, TrainConfig, mode, card,
                                                    f"{tmp}/{mode}")
+        paths["tp_host"] = tp_host_phase(Trainer, TrainConfig, card, f"{tmp}/tp_host")
+        paths["tp_members"] = tp_members_phase(card)
+        paths["on_device_dp"] = on_device_dp_phase(TrainConfig, card, f"{tmp}/on_device_dp")
+        tp_gloo_legs_phase(TrainConfig, card)
         paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
 
     def per_path(counter):

@@ -382,6 +382,12 @@ def train_step(
         )
     if sync_fn is not None and descent is not None:
         raise ValueError("descent= (the fused-descent tier) is single-device: no sync_fn")
+    if sync_fn is None and getattr(state, "tp", None):
+        # a tp-sharded state always takes the lanes' path (its replicated
+        # leaves' gradients are tied there), here as one dp lane
+        if descent is not None:
+            raise ValueError("descent= (the fused-descent tier) is single-device: no tp state")
+        sync_fn = _one_lane
     if config.critic_ensemble and subset is None:
         subset = draw_subset(config, state)
     support = support_of(config)
@@ -440,9 +446,17 @@ def _critic_loss(config, support, state, batch, subset, descent):
     with torch.no_grad():
         target_head = _target_head(config, support, state, batch["next_obs"], subset)
     pred = state.critic(batch["obs"], batch["action"])           # [B, H] or [E, B, H]
-    loss, per_sample, next_idx = _critic_terms(
-        config, support, pred, target_head, batch, descent
-    )
+    parts = getattr(state.critic, "member_parts", None)
+    if parts is None:
+        loss, per_sample, next_idx = _critic_terms(
+            config, support, pred, target_head, batch, descent
+        )
+    else:
+        # member-parallel tp lanes: each lane's E/tp members in one launch
+        terms = [_critic_terms(config, support, p, target_head, batch, None)
+                 for p in pred.split(parts)]
+        loss, per_sample = (torch.cat([t[i] for t in terms]) for i in (0, 1))
+        next_idx = None
     weights = batch.get("weights")
     weighted = loss if weights is None else weights * loss
     if stacked_critics(config):
@@ -487,11 +501,29 @@ def _step_metrics(config, critic_loss, actor_loss, priorities, q_mean) -> dict:
     return metrics
 
 
-def _flat_grads(loss: torch.Tensor, params: list) -> torch.Tensor:
-    """d loss / d params as one flat row (zeros for an unused parameter)."""
+def _flat_grads(loss: torch.Tensor, params: list, sources: list | None = None) -> torch.Tensor:
+    """d loss / d params as one flat row (zeros for an unused parameter).
+    ``sources`` (a tp network's ``grad_sources``) gives parameter ``i`` the
+    gradient of parameter ``sources[i]``: a replicated leaf's copies all
+    take lane 0's."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    if sources is not None:
+        grads = [grads[s] for s in sources]
     return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                       for p, g in zip(params, grads)])
+
+
+def _one_lane(rows: torch.Tensor) -> torch.Tensor:
+    return rows[0]
+
+
+def _combine(sync_fn, rows: torch.Tensor, net) -> torch.Tensor:
+    """``sync_fn`` over the lanes' gradient rows of ``net``: once for a
+    whole network, once per tp index over that index's shard columns for
+    a tp network."""
+    if not hasattr(net, "lane_numels"):
+        return sync_fn(rows)
+    return torch.cat([sync_fn(part) for part in rows.split(net.lane_numels(), dim=1)])
 
 
 def _set_grads(params: list, flat: torch.Tensor) -> None:
@@ -502,30 +534,36 @@ def _set_grads(params: list, flat: torch.Tensor) -> None:
         offset += p.numel()
 
 
+def _grad_sources(net):
+    return net.grad_sources() if hasattr(net, "grad_sources") else None
+
+
 def _lanes_train_step(config, support, state, lanes, subset, sync_fn):
     """:func:`train_step`'s body over L lane batches: each lane's critic
     and actor gradients flattened into a row, ``sync_fn`` combining the
     rows (and then the lanes' metrics) before each Adam step."""
     critic_params = list(state.critic.parameters())
+    critic_ties = _grad_sources(state.critic)
     rows, critic_losses, priorities = [], [], []
     for lb in lanes:
         loss, pri, _ = _critic_loss(config, support, state, lb, subset, None)
-        rows.append(_flat_grads(loss, critic_params))
+        rows.append(_flat_grads(loss, critic_params, critic_ties))
         critic_losses.append(loss.detach())
         priorities.append(pri)
     state.critic_opt.zero_grad(set_to_none=True)
-    _set_grads(critic_params, sync_fn(torch.stack(rows)))
+    _set_grads(critic_params, _combine(sync_fn, torch.stack(rows), state.critic))
     state.critic_opt.step()
 
     actor_params = list(state.actor.parameters())
+    actor_ties = _grad_sources(state.actor)
     rows, actor_losses, q_means = [], [], []
     for lb in lanes:
         loss, q_mean = _actor_loss(config, support, state, lb["obs"])
-        rows.append(_flat_grads(loss, actor_params))
+        rows.append(_flat_grads(loss, actor_params, actor_ties))
         actor_losses.append(loss.detach())
         q_means.append(q_mean.detach())
     state.actor_opt.zero_grad(set_to_none=True)
-    _set_grads(actor_params, sync_fn(torch.stack(rows)))
+    _set_grads(actor_params, _combine(sync_fn, torch.stack(rows), state.actor))
     state.actor_opt.step()
 
     _polyak(config, state)

@@ -470,17 +470,6 @@ def check_placement(config: TrainConfig) -> None:
     gaps = dp_gaps(config)
     if gaps:
         raise ValueError("; ".join(f"{code}: {message}" for code, message in gaps))
-    check_tp(config.tp)
-
-
-def check_tp(tp: int) -> None:
-    """Refuse ``tp > 1``: tensor parallelism is not ported (the one
-    refusal, for ``check_placement`` and ``parallel.mesh.make_mesh``)."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"--tp {tp}: tensor parallelism (ROADMAP A7 (b)) is not ported to "
-            "d4pg_tpu_torch yet"
-        )
 
 
 def check_on_device(config: TrainConfig) -> None:
@@ -492,11 +481,6 @@ def check_on_device(config: TrainConfig) -> None:
             "on_device_obs_norm: --obs-norm is a host data-boundary feature; the on-device "
             "path keeps observations inside jit (the flag would be "
             "silently ignored)"
-        )
-    if config.dp or config.num_processes > 1:
-        raise NotImplementedError(
-            "the data-parallel on-device loop (--on-device with --dp or "
-            "--num-processes) is not ported to d4pg_tpu_torch yet (ROADMAP A7 (c))"
         )
     if config.replay_placement != "host":
         raise ValueError(

@@ -86,8 +86,9 @@ def initialize_distributed(
 ) -> dict:
     """Join the process group (a no-op for a single process) and return a
     summary for the ``[distributed]`` line. Call it before the
-    ``Trainer`` is built. ``dp`` (the global lane count) places each rank
-    on its first lane's card, which it makes the current device."""
+    ``Trainer`` is built. ``dp`` (the global dp lane count) places each
+    rank on its first lane's card, which it makes the current device (its
+    tp lanes share it)."""
     d = torch.distributed
     if coordinator_address is not None or (num_processes or 0) > 1:
         if coordinator_address is None:

@@ -1,17 +1,26 @@
 """The lane layout (counterpart of ``d4pg_tpu/parallel/mesh.py``).
 
-A lane is the port's counterpart of one device on the JAX ``dp`` mesh
-axis: it owns ``batch/dp`` rows of every grad step and, on the device
-placement, ``capacity/dp`` ring rows and their priority subtree. ``dp``
-lanes are split over ``num_processes`` ranks, one rank per process:
-process ``p`` owns the contiguous lanes ``[p·dp/P, (p+1)·dp/P)`` (the
-JAX ``local_shard_span`` invariant) and runs them one after another, in
-lane order. Lane ``d`` sits on ``cuda:(d % torch.cuda.device_count())``
-(the CPU for a CPU run), so on a one-card machine every lane shares
-``cuda:0``.
+A lane is the port's counterpart of one device on the JAX ``("dp",
+"tp")`` mesh. ``make_mesh(dp, tp)`` lays ``dp × tp`` lanes out in the
+JAX grid's row-major order: lane ``(d, t)`` is grid entry ``d·tp + t``.
+A dp lane (a row of the grid) owns ``batch/dp`` rows of every grad step
+and, on the device placement, ``capacity/dp`` ring rows and their
+priority subtree; its ``tp`` lanes hold the tensor-parallel shards of
+the train state (``parallel/partition.py``, ``parallel/tp.py``). The dp
+rows are split over ``num_processes`` ranks, one rank per process:
+process ``p`` owns the contiguous dp lanes ``[p·dp/P, (p+1)·dp/P)``
+(the JAX ``local_shard_span`` invariant) with all their tp lanes, so a
+tp combine never crosses ranks, and runs them one after another, in lane
+order. dp lane ``d`` and all its tp lanes sit on ``cuda:(d %
+torch.cuda.device_count())`` (the CPU for a CPU run): the tp lanes of a
+process share its card (one process's lanes on several cards are ROADMAP
+A7 (d)), so on a one-card machine every lane shares ``cuda:0``.
+``devices[d]`` is dp lane ``d``'s device, ``grid`` every lane's.
 
-The only cross-lane arithmetic is ``parallel/dp.py``'s fixed-order mean,
-so the numbers do not depend on how the lanes are split into processes.
+The only cross-lane arithmetic is ``parallel/dp.py``'s fixed-order mean
+over the dp lanes and ``parallel/tp.py``'s fixed-order sum over the tp
+lanes, so the numbers do not depend on how the lanes are split into
+processes.
 """
 
 from __future__ import annotations
@@ -22,14 +31,24 @@ import torch
 
 @dataclass(frozen=True)
 class Mesh:
-    """``dp`` lanes over ``num_processes`` ranks; ``process_index`` is this
-    process's rank and ``devices[d]`` lane ``d``'s device."""
+    """``dp × tp`` lanes over ``num_processes`` ranks; ``process_index``
+    is this process's rank and ``devices[d]`` dp lane ``d``'s device."""
 
     dp: int
     tp: int
     num_processes: int
     process_index: int
     devices: tuple
+
+    @property
+    def grid(self) -> tuple:
+        """Every lane's device, row-major: lane ``(d, t)`` at ``d·tp + t``."""
+        return tuple(dev for dev in self.devices for _ in range(self.tp))
+
+    @property
+    def shape(self) -> dict:
+        """The mesh axes' sizes, as the JAX ``Mesh.shape``."""
+        return {"dp": self.dp, "tp": self.tp}
 
     @property
     def lanes_per_process(self) -> int:
@@ -62,17 +81,18 @@ def make_mesh(
     num_processes: int | None = None,
     process_index: int | None = None,
 ) -> Mesh:
-    """The lane layout of a ``dp``-way data-parallel run. ``dp=None`` gives
-    a lane to every card of every process (one per process on the CPU).
+    """The lane layout of a ``dp × tp`` run. ``dp=None`` gives a dp lane
+    to every card of every process (one per process on the CPU).
     The rank count and index default to the process group's
     (``parallel/distributed.py``), 1 and 0 without one. ``device`` is the
-    device type the lanes run on (default: the CUDA card). ``tp > 1``
-    raises: tensor parallelism is not ported."""
+    device type the lanes run on (default: the CUDA card). A layout in
+    which a process would hold part of a dp row's tp lanes raises
+    ``tp_group_spans_ranks``."""
     from d4pg_tpu_torch import resolve_device
-    from d4pg_tpu_torch.config import check_tp
     from d4pg_tpu_torch.parallel import distributed
 
-    check_tp(tp)
+    if tp < 1:
+        raise ValueError(f"mesh needs tp >= 1, got {tp}")
     kind = resolve_device(device).type
     cards = torch.cuda.device_count() if kind == "cuda" else 1
     if num_processes is None:
@@ -83,6 +103,12 @@ def make_mesh(
         dp = num_processes * cards
     if dp < 1:
         raise ValueError(f"mesh needs dp >= 1, got {dp}")
+    if dp % num_processes and (dp * tp) % num_processes == 0:
+        raise ValueError(
+            f"tp_group_spans_ranks: {dp}x{tp} lanes over {num_processes} processes would "
+            "split a dp row's tp lanes between ranks; each process must own whole dp "
+            "rows (--dp divisible by --num-processes), so a tp combine never crosses ranks"
+        )
     if dp % num_processes:
         raise ValueError(
             f"--dp {dp} must be divisible by --num-processes {num_processes} "

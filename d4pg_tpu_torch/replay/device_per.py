@@ -33,6 +33,7 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.ops import cuda_tree
+from d4pg_tpu_torch.parallel.partition import dp_fields, tree_partition_specs
 
 
 @dataclass
@@ -288,12 +289,25 @@ class DevicePerSync:
         from d4pg_tpu_torch.replay.device_ring import striped_perm
 
         half = self.trees[0].sums.shape[0] // 2
+        specs = self.partition_specs()
+        if dp_fields(specs) != ("sums",):
+            raise ValueError(f"device PER tree: lanes laid out as {specs}, the sync shards sums")
         local = np.stack([t.sums[half: half + self.local_capacity].cpu().numpy()
                           for t in self.trees])
         lanes = gather_global(local)
         out = np.empty(self.capacity, np.float32)
         out[striped_perm(self.capacity, self.n_shards).reshape(-1)] = lanes.reshape(-1)
         return out, float(self.trees[0].max_priority.cpu())
+
+    def partition_specs(self) -> dict:
+        """``PER_TREE_RULES`` over the global view of the lanes' trees
+        (``sums`` [S, 2L], ``max_priority``): ``sums`` over "dp", one
+        subtree a lane, ``max_priority`` replicated (every lane keeps the
+        same value)."""
+        view = {"sums": torch.empty((self.n_shards,) + tuple(self.trees[0].sums.shape),
+                                    device="meta"),
+                "max_priority": self.trees[0].max_priority}
+        return tree_partition_specs(view)
 
     def restore_host(self, pa_host: np.ndarray, max_priority: float) -> None:
         """Rebuild each local lane's subtree from its striped slots of the

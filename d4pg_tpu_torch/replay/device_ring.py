@@ -35,8 +35,9 @@ checkpoint does not depend on the topology that wrote it.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,9 +48,22 @@ from d4pg_tpu_torch.parallel.distributed import (
     host_allgather_i64,
     local_shard_span,
 )
+from d4pg_tpu_torch.parallel.partition import dp_fields, ring_partition_specs
 from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
 
 FIELDS = ("obs", "action", "reward", "next_obs", "discount")
+
+
+def lane_fields(ring) -> tuple:
+    """The fields of a ring (a :class:`DeviceRing`, or a mapping of its
+    fields: a host buffer's arrays, a snapshot) that
+    ``parallel/partition.py``'s ``RING_RULES`` shard over "dp": the rows
+    the striped layout deals to the lanes. The fill count replicates."""
+    if not isinstance(ring, Mapping):
+        ring = {f.name: getattr(ring, f.name) for f in dataclasses.fields(ring)}
+    sharded = dp_fields(ring_partition_specs(
+        {k: v for k, v in ring.items() if k in FIELDS + ("size",)}))
+    return tuple(k for k in FIELDS if k in sharded)
 
 
 @dataclass
@@ -228,9 +242,10 @@ def striped_lanes(buffer, n_shards: int, device=None) -> list:
     device = resolve_device(device)
     perm = striped_perm(int(buffer.capacity), n_shards)
     size = min(buffer.total_added, int(buffer.capacity))
+    rows = lane_fields({k: getattr(buffer, k) for k in FIELDS})
     return [
         DeviceRing(**{k: torch.from_numpy(np.ascontiguousarray(getattr(buffer, k)[perm[d]]))
-                      .to(device) for k in FIELDS},
+                      .to(device) for k in rows},
                    size=torch.tensor(size, dtype=torch.int32, device=device))
         for d in range(n_shards)
     ]
@@ -357,7 +372,7 @@ class MultihostRingSync(ShardedDeviceRingSync):
         size = min(T, self.capacity)
         perm = striped_perm(self.capacity, self.n_shards).reshape(-1)
         out = {}
-        for name in FIELDS:
+        for name in lane_fields(rings[0]):
             lanes = gather_global(np.stack([getattr(r, name).cpu().numpy() for r in rings]))
             host = np.empty((self.capacity,) + lanes.shape[2:], lanes.dtype)
             host[perm] = lanes.reshape((self.capacity,) + lanes.shape[2:])
@@ -380,7 +395,7 @@ class MultihostRingSync(ShardedDeviceRingSync):
         n_local = min(t_p, self.host_capacity)
         m = np.arange(n_local)
         j = (m // L) * D + base + (m % L)
-        local = {name: np.asarray(data[name])[j] for name in FIELDS}
+        local = {name: np.asarray(data[name])[j] for name in lane_fields(data)}
         local["pos"] = np.asarray(t_p % self.host_capacity)
         local["size"] = np.asarray(n_local)
         buf = self._buffer

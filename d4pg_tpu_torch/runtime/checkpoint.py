@@ -65,7 +65,10 @@ def state_dict_of(state: TrainState) -> dict:
     """Everything one checkpoint saves: the step, every network's and every
     optimizer's ``state_dict``, the critic configuration and, with a REDQ
     ensemble, the subset generator's state, with pixels the shift
-    generator's."""
+    generator's. A tp-sharded state is saved whole (its gather fns), in
+    the same layout, so any tp restores it."""
+    if hasattr(state, "whole"):
+        state = state.whole()
     out = {"step": int(state.step), "stack": dict(state.stack), "head": dict(state.head)}
     for name in NETWORKS + OPTIMIZERS:
         out[name] = getattr(state, name).state_dict()
@@ -115,7 +118,14 @@ def load_state_into(state: TrainState, saved: dict) -> TrainState:
     """Load a :func:`state_dict_of` dict IN PLACE: the live modules and
     optimizers keep their identity (the optimizers keep their parameter
     references). Raises :class:`StackMismatch` before touching anything if
-    the critic configurations differ."""
+    the critic configurations differ. A tp-sharded state loads the whole
+    arrays into its gathered copy and is re-sharded from it (the shard
+    fns)."""
+    if hasattr(state, "load_whole"):
+        check_stack(state, saved)
+        whole = load_state_into(state.whole(), saved)
+        state.load_whole(whole)
+        return state
     check_stack(state, saved)
     for name in NETWORKS:
         getattr(state, name).load_state_dict(saved[name])

@@ -29,7 +29,8 @@ def evaluate(
     (default: the env's episode limit); returns the mean and (population)
     standard deviation of their returns."""
     T = max_steps or env.max_episode_steps
-    device = actor.out.weight.device
+    head = getattr(actor, "out", None)  # a tp actor holds its layers in its lanes
+    device = head.weight.device if head is not None else next(actor.parameters()).device
     state, obs = env.reset(num_episodes, generator, device)
     ret = torch.zeros(num_episodes, device=device)
     done = torch.zeros(num_episodes, device=device)

@@ -24,6 +24,20 @@ PyTorch, and the host keeps ``pos`` and ``size`` of the ring as integers:
 they advance by exactly ``num_envs·segment_len`` a segment, so no
 iteration reads anything back from the device. :func:`run_on_device`
 reads the metrics only at an eval.
+
+With a ``mesh`` (``--dp D``; the JAX package's ``shard_map`` over "dp")
+``num_envs``, ``replay_capacity`` and ``batch_size`` are global and each
+dp lane owns ``1/D`` of each: its envs, its ring (PER draws from the
+lane's own priorities, the distributed-PER approximation) and its batch
+shard, with its own generators seeded from ``(seed, stream, lane)``
+(the JAX ``fold_in`` of the lane index). The K grad steps run over the
+lanes (:func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan` with
+``parallel/dp.py:LaneSync``: one fixed-order gradient mean a step),
+``max_priority`` is the exact max over the lanes after the write-back,
+and the proxy metric their fixed-order mean. The lanes of one process
+run one after another; over several ranks the same sync gathers across
+them. The carry then holds one env state, observation block, noise
+state, ring and generator pair a local lane, in lists.
 """
 
 from __future__ import annotations
@@ -51,6 +65,8 @@ from d4pg_tpu_torch.config import (
 )
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.envs.api import EnvState
+from d4pg_tpu_torch.parallel.dp import LaneSync
+from d4pg_tpu_torch.parallel.mesh import check_one_device, make_mesh
 from d4pg_tpu_torch.replay import noise_scale_schedule
 from d4pg_tpu_torch.runtime.checkpoint import (
     CheckpointManager,
@@ -159,7 +175,8 @@ def per_write_back(
 class Carry(NamedTuple):
     """Everything one iteration reads and updates: the learner state, the
     envs, their observations and noise states, the ring and the two device
-    generators (collection, train draws)."""
+    generators (collection, train draws). With a mesh every field but
+    ``state`` is a list, one entry a local lane."""
 
     state: TrainState
     env_states: EnvState
@@ -203,80 +220,136 @@ def make_on_device_trainer(
       holds 0-d device tensors (their K-step means and
       ``train_reward_per_episode_boundary``). ``draws`` replaces the train
       generator's draws: [K, B] uniform numbers in [0, 1) with PER, [K, B]
-      indices without.
+      indices without (with a mesh, one such block a local lane, of the
+      lane's B/D rows).
 
     ``noise_fns`` replaces the exploration noise process (init, sample,
-    reset) of :func:`~d4pg_tpu_torch.agent.d4pg.make_noise`. ``obs_bf16``
-    stores the ring's observations as bfloat16 (``--ring-dtype
-    bfloat16``), ``obs_uint8`` as uint8 bytes (a pixel env's [0, 1]
-    frames); the two are exclusive. ``mesh`` is
-    the JAX package's data-parallel ring, which is not ported.
+    reset) of :func:`~d4pg_tpu_torch.agent.d4pg.make_noise` (with a mesh,
+    a list of one a local lane). ``obs_bf16`` stores the ring's
+    observations as bfloat16 (``--ring-dtype bfloat16``), ``obs_uint8``
+    as uint8 bytes (a pixel env's [0, 1] frames); the two are exclusive.
+    ``mesh`` (``parallel/mesh.py``) splits the loop over its dp lanes (see
+    the module docstring); ``num_envs``, ``replay_capacity`` and
+    ``batch_size`` are then global and must divide by ``mesh.dp``.
     """
+    D = 1
     if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel on-device loop (mesh, --dp) is not ported to "
-            "d4pg_tpu_torch yet (ROADMAP A7 (c))"
-        )
+        D = mesh.dp
+        for name, val in (("num_envs", num_envs), ("replay_capacity", replay_capacity),
+                          ("batch_size", batch_size)):
+            if val % D != 0:
+                raise ValueError(f"{name} ({val}) must be divisible by mesh axis 'dp' size {D}")
+        num_envs //= D
+        replay_capacity //= D
+        batch_size //= D
+        device = check_one_device(mesh)
     if obs_uint8 and obs_bf16:
         raise ValueError("obs_uint8 and obs_bf16 are mutually exclusive")
     n_new = num_envs * segment_len
     if replay_capacity % n_new != 0:
         raise ValueError(
-            f"replay_capacity ({replay_capacity}) must be a multiple of "
-            f"num_envs*segment_len ({n_new})"
+            f"replay_capacity ({replay_capacity * D}) must be a multiple of "
+            f"num_envs*segment_len ({n_new * D}"
+            + (f" — both are per-device ÷{D})" if D > 1 else ")")
         )
     device = resolve_device(device)
-    noise_fns = noise_fns or make_noise(config, (num_envs,), device)
-    collect = make_segment_collector(config, env, num_envs, segment_len, noise_fns)
+    lanes = list(mesh.local_lanes) if mesh is not None else [None]
+    if not isinstance(noise_fns, list):
+        noise_fns = [noise_fns or make_noise(config, (num_envs,), device)] * len(lanes)
+    collects = [make_segment_collector(config, env, num_envs, segment_len, fns)
+                for fns in noise_fns]
+    sync = LaneSync(mesh) if mesh is not None else None
     K, B = train_steps_per_iter, batch_size
+    obs_dtype = torch.uint8 if obs_uint8 else torch.bfloat16 if obs_bf16 else torch.float32
+
+    def _seed(seed: int, stream: int, lane) -> int:
+        return leg_seed(seed, stream) if lane is None else leg_seed(seed, stream, lane)
+
+    def _gen(seed, stream, lane):
+        return torch.Generator(device).manual_seed(_seed(seed, stream, lane))
 
     def init_fn(state: TrainState, seed: int) -> Carry:
-        reset_gen = torch.Generator(device).manual_seed(leg_seed(seed, 0))
-        env_states, obs = env.reset(num_envs, reset_gen, device)
-        replay = device_replay_init(
-            replay_capacity, config.obs_dim, config.action_dim, device,
-            obs_dtype=torch.uint8 if obs_uint8 else torch.bfloat16 if obs_bf16 else torch.float32,
-        )
-        return Carry(
-            state, env_states, obs, noise_fns[0](), replay,
-            torch.Generator(device).manual_seed(leg_seed(seed, 1)),
-            torch.Generator(device).manual_seed(leg_seed(seed, 2)),
-        )
+        per_lane = []
+        for j, lane in enumerate(lanes):
+            env_states, obs = env.reset(num_envs, _gen(seed, 0, lane), device)
+            replay = device_replay_init(replay_capacity, config.obs_dim, config.action_dim,
+                                        device, obs_dtype=obs_dtype)
+            per_lane.append((env_states, obs, noise_fns[j][0](), replay,
+                             _gen(seed, 1, lane), _gen(seed, 2, lane)))
+        if mesh is None:
+            return Carry(state, *per_lane[0])
+        return Carry(state, *(list(f) for f in zip(*per_lane)))
+
+    def _lane_items(carry: Carry) -> list:
+        items = carry[1:]
+        return [items] if mesh is None else list(zip(*items))
+
+    def _pack(carry: Carry, items: list) -> Carry:
+        if mesh is None:
+            return Carry(carry.state, *items[0])
+        return Carry(carry.state, *(list(f) for f in zip(*items)))
 
     def _collect(carry: Carry, noise_scale: float):
-        env_states, obs, noise_states, flat, traj = collect(
-            carry.state.actor, carry.env_states, carry.obs, carry.noise_states,
-            carry.collect_gen, noise_scale,
-        )
-        _append(carry.replay, flat, n_new, config.per_alpha)
-        return carry._replace(env_states=env_states, obs=obs, noise_states=noise_states), traj
+        items, trajs = [], []
+        for j, (env_states, obs, noise_states, replay, cgen, tgen) in enumerate(
+                _lane_items(carry)):
+            env_states, obs, noise_states, flat, traj = collects[j](
+                carry.state.actor, env_states, obs, noise_states, cgen, noise_scale)
+            _append(replay, flat, n_new, config.per_alpha)
+            items.append((env_states, obs, noise_states, replay, cgen, tgen))
+            trajs.append(traj)
+        return _pack(carry, items), trajs
 
     def warmup_fn(carry: Carry, noise_scale: float) -> Carry:
         return _collect(carry, noise_scale)[0]
 
-    def iterate_fn(carry: Carry, noise_scale: float, draws: Optional[torch.Tensor] = None):
-        carry, traj = _collect(carry, noise_scale)
-        state, replay = carry.state, carry.replay
+    def _draw(state, replay: DeviceReplay, gen, lane_draws):
         if prioritized:
-            u = draws if draws is not None else torch.rand(
-                (K, B), generator=carry.train_gen, device=device)
+            u = lane_draws if lane_draws is not None else torch.rand(
+                (K, B), generator=gen, device=device)
             idx, weights = per_draw(config, replay.priority, replay.size, u, state.step)
             # a pixel ring's rows stay uint8 until their step decodes them
             batches = gather_batches(replay, idx, decode=False)
             batches["weights"] = weights
-            _, metrics, new_pri = fused_train_scan(config, state, batches)
-            per_write_back(config, replay, idx, new_pri)
         else:
-            idx = draws if draws is not None else torch.randint(
-                0, replay.size, (K, B), generator=carry.train_gen, device=device)
-            _, metrics, _ = fused_train_scan(config, state,
-                                             gather_batches(replay, idx, decode=False))
-        metrics = {k: v.mean() for k, v in metrics.items()}
+            idx = lane_draws if lane_draws is not None else torch.randint(
+                0, replay.size, (K, B), generator=gen, device=device)
+            batches = gather_batches(replay, idx, decode=False)
+        return idx, batches
+
+    def _proxy(traj) -> torch.Tensor:
         # A TRAIN-time diagnostic, not an evaluation return: the segment's
         # exploration reward over the episode boundaries it saw (at least 1)
-        metrics["train_reward_per_episode_boundary"] = traj.reward.sum() / torch.clamp_min(
-            torch.maximum(traj.terminated, traj.truncated).sum(), 1.0
-        )
+        return traj.reward.sum() / torch.clamp_min(
+            torch.maximum(traj.terminated, traj.truncated).sum(), 1.0)
+
+    def iterate_fn(carry: Carry, noise_scale: float, draws=None):
+        carry, trajs = _collect(carry, noise_scale)
+        state = carry.state
+        items = _lane_items(carry)
+        replays = [it[3] for it in items]
+        if draws is not None and mesh is None:
+            draws = [draws]
+        drawn = [_draw(state, it[3], it[5], None if draws is None else draws[j])
+                 for j, it in enumerate(items)]
+        if mesh is None:
+            _, metrics, new_pri = fused_train_scan(config, state, drawn[0][1])
+            new_pri = [new_pri]
+        else:
+            _, metrics, new_pri = fused_train_scan(config, state, [b for _, b in drawn],
+                                                   sync_fn=sync)
+            new_pri = new_pri.split(B, dim=1)  # the lanes' columns, in lane order
+        if prioritized:
+            for replay, (idx, _), pri in zip(replays, drawn, new_pri):
+                per_write_back(config, replay, idx, pri)
+            if mesh is not None:
+                top = sync.max(torch.stack([r.max_priority for r in replays]))
+                for replay in replays:
+                    replay.max_priority = top
+        metrics = {k: v.mean() for k, v in metrics.items()}
+        proxies = torch.stack([_proxy(t) for t in trajs])
+        metrics["train_reward_per_episode_boundary"] = (
+            proxies[0] if mesh is None else sync(proxies[:, None])[0])
         return carry, metrics
 
     return init_fn, warmup_fn, iterate_fn
@@ -294,7 +367,10 @@ class OnDeviceRun:
     generators are seeded from ``(seed, grad_steps)`` on every start, so a
     resumed leg draws a stream of its own. With ``debug_guards`` on the
     card every iteration after the first runs under
-    ``torch.cuda.set_sync_debug_mode("error")``.
+    ``torch.cuda.set_sync_debug_mode("error")``. With ``dp`` the loop runs
+    on ``dp`` lanes of this process (``replay_size`` is the global fill,
+    a lane's times ``dp``); several processes are refused as the JAX CLI
+    refuses them (``multihost_device_placement_only``).
     """
 
     def __init__(self, config: TrainConfig, device=None, preempt_event=None):
@@ -323,10 +399,17 @@ class OnDeviceRun:
                 flush=True,
             )
         self.capacity = capacity
+        # --dp: the loop's dp lanes (tp is ignored here, as in the JAX
+        # run_on_device, which builds make_mesh(dp, tp=1))
+        self.mesh = None
+        if config.dp:
+            self.mesh = make_mesh(config.dp, 1, device=self.device)
+            self.device = check_one_device(self.mesh)
         self.init_fn, self.warmup_fn, self.iterate_fn = make_on_device_trainer(
             agent, self.env, num_envs=config.num_envs, segment_len=SEGMENT_LEN,
             replay_capacity=capacity, batch_size=config.batch_size,
             train_steps_per_iter=self.K, prioritized=config.prioritized, device=self.device,
+            mesh=self.mesh,
             # a pixel env's ring stores uint8 whatever --ring-dtype says,
             # as the JAX package's run_on_device does
             obs_uint8=bool(agent.pixel_shape),
@@ -370,6 +453,13 @@ class OnDeviceRun:
         self.warmup_s = 0.0          # host seconds in the warmup segments
         self.eval_s = 0.0            # host seconds in the evals
         self.last: dict = {}
+
+    def replay_size(self) -> int:
+        """The global fill: a lane's ring size (every lane's is the same)
+        times the dp lanes, as the JAX ``run_on_device`` reports it."""
+        if self.mesh is None:
+            return self.carry.replay.size
+        return self.carry.replay[0].size * self.mesh.dp
 
     def _noise_scale(self) -> float:
         agent = self.config.agent
@@ -422,7 +512,7 @@ class OnDeviceRun:
             noise_scale=self._noise_scale(),
             grad_steps_per_sec=grad_steps_done / dt,
             env_steps_per_sec=env_steps_done / dt,
-            replay_size=self.carry.replay.size,
+            replay_size=self.replay_size(),
             env_steps=self.env_steps,
         )
         self.logger.log(self.grad_steps, scalars)

@@ -124,7 +124,13 @@ out by ``parallel.mesh.make_mesh``, one process's lanes on one device.
 On the host placement each dispatch splits the sampled rows over the
 lanes (``parallel/dp.py``: the gradients combined by a fixed-order mean
 every step, or with ``dp_hogwild`` every float tensor of each lane's own
-copy once a dispatch). On the device placement the ring is striped over
+copy once a dispatch). With ``tp`` > 1 there (``--dp D --tp N``) the
+state is sharded over each dp lane's ``tp`` lanes
+(``parallel/partition.py:shard_train_state``) and the same steps run the
+Megatron forward of ``parallel/tp.py`` over them, the gradients combined
+per tp index; without ``dp``, ``tp`` has no effect, as in the JAX
+trainer, and the device placement refuses it
+(``sharded_megastep_dp_only``). On the device placement the ring is striped over
 the lanes, each with its PER subtree and generator, and one sharded
 megastep (``runtime/megastep.py``) runs them. A process of several
 (``num_processes``, after ``parallel.initialize_distributed``) owns
@@ -200,6 +206,7 @@ from d4pg_tpu_torch.parallel.dp import (
     make_hogwild_dp_train_step,
 )
 from d4pg_tpu_torch.parallel.mesh import check_one_device, make_mesh
+from d4pg_tpu_torch.parallel.partition import shard_train_state, stack_axes_for
 from d4pg_tpu_torch.replay import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -361,6 +368,11 @@ class Trainer:
             self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim, **storage)
 
         self.state = create_train_state(agent_cfg, config.seed, self.device)
+        if self.mesh is not None and config.tp > 1:
+            # --tp N with --dp on the host placement: the state sharded
+            # over each dp lane's tp lanes, stepped by the TP step
+            self.state = shard_train_state(self.state, self.mesh,
+                                           stack_axes=stack_axes_for(agent_cfg))
         # Host sampling draws from numpy; acting, resets and eval from
         # torch generators on the device. Each stream has its own seed.
         self._rng = np.random.default_rng(self._collect_seed)

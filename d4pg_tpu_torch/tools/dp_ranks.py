@@ -18,6 +18,15 @@ own) and collects their results;
 one-process side. ``chip_smoke.py``'s ``dp_ranks`` phase and
 ``tests/test_torch_sharded_megastep.py`` use both.
 
+Two more legs run the same way (``spawn_ranks(..., leg=)``), each held
+``torch.equal`` to one process with the same lanes: ``leg="tp"``
+(:func:`run_tp_lanes`, ``--dp D --tp N`` on the host placement: the TP
+step of ``parallel/partition.py`` over K-step dispatches of a seeded
+batch stream, each rank taking its dp lanes' rows) and
+``leg="on_device"`` (:func:`run_on_device_lanes`, ``--on-device --dp D``:
+the on-device loop of ``runtime/on_device.py`` on the mesh, each lane
+with its own envs, ring and generators).
+
 Run from the command line on a machine with at least two cards, it holds
 the NCCL path to the same bits: ``python -m d4pg_tpu_torch.tools.dp_ranks``
 runs the one-process lanes all on ``cuda:0``, then two ranks, one card
@@ -25,7 +34,8 @@ each, at the default width (``pendulum``'s preset, B = 256,
 K = 8, the 1M-row replay), and prints one JSON line: the backend every
 rank chose, the ``torch.equal`` verdicts, the combine's ms a grad step
 and the card's name and power limit. It exits 1 unless every rank chose
-NCCL and every verdict holds.
+NCCL and every verdict holds. ``--tp 2`` runs the tp leg instead (a
+rank's tp lanes share its card) and ``--on-device`` the on-device leg.
 """
 
 from __future__ import annotations
@@ -109,7 +119,6 @@ def run_lanes(mesh, agent_cfg, capacity: int, rounds: list, k: int, batch: int,
     ``guard`` runs every dispatch after the first under
     ``set_sync_debug_mode("error")`` (the collectives lift it)."""
     from d4pg_tpu_torch.agent import create_train_state
-    from d4pg_tpu_torch.ops import cuda_fused_step, cuda_projection, cuda_tree
     from d4pg_tpu_torch.parallel.dp import float_tensors
     from d4pg_tpu_torch.replay import ReplayBuffer, Transition
     from d4pg_tpu_torch.replay.device_per import DevicePerSync
@@ -133,9 +142,7 @@ def run_lanes(mesh, agent_cfg, capacity: int, rounds: list, k: int, batch: int,
     gens = megastep.lane_generators(seed + 3, mesh)
     mega = megastep.make_megastep_device_per_sharded(agent_cfg, k, batch, mesh)
     stream = row_stream(seed + 1, sum(rounds), obs_dim, act_dim)
-    counters = (cuda_projection.LAUNCHES, cuda_tree.LAUNCHES, cuda_fused_step.LAUNCHES)
-    for c in counters:
-        c.update(dict.fromkeys(c, 0))
+    counters = _kernel_counters()
     first = 0
     t_steady = None
     for i, n in enumerate(rounds):
@@ -173,36 +180,135 @@ def run_lanes(mesh, agent_cfg, capacity: int, rounds: list, k: int, batch: int,
     }
 
 
-def _rank_main(rank: int, world: int, port: int, out: str, kwargs: dict) -> None:
+def _kernel_counters() -> tuple:
+    from d4pg_tpu_torch.ops import cuda_fused_step, cuda_projection, cuda_tree
+
+    counters = (cuda_projection.LAUNCHES, cuda_tree.LAUNCHES, cuda_fused_step.LAUNCHES)
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    return counters
+
+
+def batch_stream(seed: int, n: int, k: int, batch: int, obs_dim: int, action_dim: int) -> list:
+    """``n`` dispatches of [K, B] batches (with IS weights), seeded."""
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        rows = row_stream(int(r.integers(2**31)), k * batch, obs_dim, action_dim)
+        b = {key: v.reshape((k, batch) + v.shape[1:]) for key, v in rows.items()}
+        b["weights"] = r.uniform(0.2, 1.0, (k, batch)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def run_tp_lanes(mesh, agent_cfg, dispatches: int, k: int, batch: int, seed: int = 0) -> dict:
+    """``--dp D --tp N`` on the host placement without the trainer: a
+    state sharded over ``mesh.tp``, ``dispatches`` K-step TP dispatches of
+    :func:`batch_stream`, this process taking its dp lanes' rows of each
+    batch. Returns the state gathered whole, the last metrics and the
+    priorities of this process's rows, as CPU tensors, and the kernels'
+    launch counts."""
+    from d4pg_tpu_torch.agent import create_train_state
+    from d4pg_tpu_torch.parallel.dp import float_tensors, make_dp_fused_train_step
+    from d4pg_tpu_torch.parallel.partition import shard_train_state, stack_axes_for
+
+    device = mesh.device
+    state = shard_train_state(create_train_state(agent_cfg, seed, device), mesh,
+                              stack_axes=stack_axes_for(agent_cfg))
+    step = make_dp_fused_train_step(agent_cfg, mesh)
+    lo, n = mesh.local_lanes[0] * (batch // mesh.dp), len(mesh.local_lanes) * (batch // mesh.dp)
+    counters = _kernel_counters()
+    priorities = []
+    for b in batch_stream(seed + 1, dispatches, k, batch, agent_cfg.obs_dim,
+                          agent_cfg.action_dim):
+        mine = {key: torch.from_numpy(np.ascontiguousarray(v[:, lo: lo + n])).to(device)
+                for key, v in b.items()}
+        _, metrics, pri = step(state, mine)
+        priorities.append(pri.cpu())
+    _sync(device)
+    return {
+        "launches": {key: v for c in counters for key, v in c.items()},
+        "lanes": list(mesh.local_lanes),
+        "state": [t.detach().cpu().clone() for t in float_tensors(state.whole())],
+        "shards": [t.detach().cpu().clone() for t in float_tensors(state)],
+        "step": state.step,
+        "metrics": {key: v.cpu() for key, v in metrics.items()},
+        "priorities": torch.cat(priorities, dim=0),  # [dispatches·K, rows]
+        "combines": step.sync.calls,
+    }
+
+
+def run_on_device_lanes(mesh, agent_cfg, env_name: str, num_envs: int, capacity: int,
+                        batch: int, k: int, iterations: int, seed: int = 0,
+                        prioritized: bool = True) -> dict:
+    """``--on-device --dp D`` without ``OnDeviceRun``: the on-device loop
+    on ``mesh`` (this process's lanes), one warmup segment and
+    ``iterations`` train iterations. Returns the state, each local lane's
+    ring and the last metrics as CPU tensors, and the kernels' launch
+    counts."""
+    from d4pg_tpu_torch.agent import create_train_state
+    from d4pg_tpu_torch.envs import make_env
+    from d4pg_tpu_torch.parallel.dp import float_tensors
+    from d4pg_tpu_torch.runtime.on_device import make_on_device_trainer
+
+    device = mesh.device
+    init_fn, warmup_fn, iterate_fn = make_on_device_trainer(
+        agent_cfg, make_env(env_name), num_envs=num_envs, replay_capacity=capacity,
+        batch_size=batch, train_steps_per_iter=k, prioritized=prioritized, device=device,
+        mesh=mesh)
+    carry = warmup_fn(init_fn(create_train_state(agent_cfg, seed, device), seed + 1), 3.0)
+    counters = _kernel_counters()
+    for _ in range(iterations):
+        carry, metrics = iterate_fn(carry, 1.0)
+    _sync(device)
+    ring_keys = ("obs", "action", "reward", "next_obs", "discount", "priority", "max_priority")
+    return {
+        "launches": {key: v for c in counters for key, v in c.items()},
+        "lanes": list(mesh.local_lanes),
+        "state": [t.detach().cpu().clone() for t in float_tensors(carry.state)],
+        "step": carry.state.step,
+        "rings": [{f: getattr(r, f).cpu().clone() for f in ring_keys} for r in carry.replay],
+        "sizes": [r.size for r in carry.replay],
+        "metrics": {key: v.cpu() for key, v in metrics.items()},
+    }
+
+
+LEGS = {"megastep": run_lanes, "tp": run_tp_lanes, "on_device": run_on_device_lanes}
+
+
+def _rank_main(rank: int, world: int, port: int, out: str, job: dict) -> None:
     from d4pg_tpu_torch.parallel.distributed import backend, initialize_distributed, shutdown
     from d4pg_tpu_torch.parallel.mesh import make_mesh
 
     torch.set_num_threads(1)
-    device = kwargs.pop("device")
-    initialize_distributed(f"127.0.0.1:{port}", world, rank, device=device,
-                           dp=kwargs["dp"], timeout_s=kwargs.pop("timeout_s"))
+    device, dp = job["device"], job["dp"]
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, device=device, dp=dp,
+                           timeout_s=job["timeout_s"])
     try:
-        mesh = make_mesh(kwargs.pop("dp"), device=device)
-        t0 = time.perf_counter()
-        result = run_lanes(mesh, **kwargs)
-        result["wall_s"] = time.perf_counter() - t0
-        result["backend"] = backend()
-        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+        results = []
+        for leg, tp, kwargs in job["legs"]:
+            mesh = make_mesh(dp, tp, device=device)
+            t0 = time.perf_counter()
+            result = LEGS[leg](mesh, **kwargs)
+            result["wall_s"] = time.perf_counter() - t0
+            result["backend"] = backend()
+            results.append(result)
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
     finally:
         shutdown()
 
 
-def spawn_ranks(world: int, dp: int, device: str, timeout_s: float = 120.0, **kwargs) -> list:
-    """:func:`run_lanes` in ``world`` spawned ranks over gloo (or NCCL when
-    each rank has a card of its own); their results in rank order. Raises
-    if a rank fails or the ranks outlive ``timeout_s``; every rank is gone
-    when it returns."""
+def spawn_legs(world: int, dp: int, device: str, legs: list, timeout_s: float = 120.0) -> list:
+    """``legs`` (``(leg, tp, kwargs)`` each, a name of :data:`LEGS` on a
+    ``dp × tp`` mesh) run one after another in ``world`` spawned ranks
+    over gloo (or NCCL when each rank has a card of its own); for each leg
+    its ranks' results in rank order. Raises if a rank fails or the ranks
+    outlive ``timeout_s``; every rank is gone when it returns."""
     ctx = torch.multiprocessing.get_context("spawn")
     port = free_port()
+    job = dict(device=device, dp=dp, timeout_s=timeout_s, legs=list(legs))
     with tempfile.TemporaryDirectory() as out:
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, port, out,
-                                   dict(kwargs, dp=dp, device=device, timeout_s=timeout_s)))
+        procs = [ctx.Process(target=_rank_main, args=(r, world, port, out, job))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -218,8 +324,41 @@ def spawn_ranks(world: int, dp: int, device: str, timeout_s: float = 120.0, **kw
         codes = [p.exitcode for p in procs]
         if codes != [0] * world:
             raise RuntimeError(f"dp ranks exited with {codes}")
-        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-                for r in range(world)]
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    return [[r[i] for r in ranks] for i in range(len(job["legs"]))]
+
+
+def spawn_ranks(world: int, dp: int, device: str, timeout_s: float = 120.0,
+                leg: str = "megastep", tp: int = 1, **kwargs) -> list:
+    """:func:`run_lanes` (or the ``leg`` of :data:`LEGS`, on a ``dp × tp``
+    mesh) in ``world`` spawned ranks (:func:`spawn_legs`); their results
+    in rank order."""
+    return spawn_legs(world, dp, device, [(leg, tp, kwargs)], timeout_s)[0]
+
+
+def compare_leg(one: dict, ranks: list) -> dict:
+    """:func:`compare` for the ``tp`` and ``on_device`` legs: the whole
+    state (and the tp shards), the step, the metrics, each rank's
+    priorities against its rows of the one process's, and each lane's
+    ring; returns ``{what: bool}``."""
+    eq = {"state": all(len(one["state"]) == len(r["state"]) and all(
+              torch.equal(a, b) for a, b in zip(one["state"], r["state"])) for r in ranks),
+          "step": all(one["step"] == r["step"] for r in ranks),
+          "metrics": all(torch.equal(one["metrics"][key], r["metrics"][key])
+                         for r in ranks for key in one["metrics"])}
+    if "shards" in one:
+        eq["shards"] = all(torch.equal(a, b) for r in ranks
+                           for a, b in zip(one["shards"], r["shards"]))
+        cols = one["priorities"].shape[1] // len(one["lanes"])
+        eq["priorities"] = all(torch.equal(
+            one["priorities"][:, r["lanes"][0] * cols: (r["lanes"][-1] + 1) * cols],
+            r["priorities"]) for r in ranks)
+    if "rings" in one:
+        eq["rings"] = all(torch.equal(one["rings"][lane][f], r["rings"][j][f])
+                          for r in ranks for j, lane in enumerate(r["lanes"])
+                          for f in one["rings"][lane])
+    return eq
 
 
 def compare(one: dict, ranks: list) -> dict:
@@ -243,7 +382,8 @@ RANKS = 2
 ROUNDS = (4096, 1024, 1024, 1024)   # chip_smoke.py's DP_RANK_ROUNDS
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import dataclasses
     import json
     import subprocess
@@ -251,33 +391,51 @@ def main() -> int:
     from d4pg_tpu_torch.config import TrainConfig, apply_env_preset
     from d4pg_tpu_torch.parallel.mesh import make_mesh
 
+    p = argparse.ArgumentParser(description="two ranks against one process, one card a rank")
+    p.add_argument("--tp", type=int, default=1,
+                   help="run the --dp 2 --tp N leg (the host TP step) instead of the megastep")
+    p.add_argument("--on-device", action="store_true",
+                   help="run the --on-device --dp 2 leg instead of the megastep")
+    args = p.parse_args(argv)
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if cards < RANKS:
         print(f"needs {RANKS} CUDA cards, found {cards}")
         return 2
     c = apply_env_preset(TrainConfig(env="pendulum"))
-    kw = dict(agent_cfg=c.agent, capacity=c.replay_capacity, rounds=list(ROUNDS), k=8,
-              batch=c.batch_size, seed=0, guard=True, combine_reps=50)
+    leg = "on_device" if args.on_device else "tp" if args.tp > 1 else "megastep"
+    if leg == "megastep":
+        kw = dict(agent_cfg=c.agent, capacity=c.replay_capacity, rounds=list(ROUNDS), k=8,
+                  batch=c.batch_size, seed=0, guard=True, combine_reps=50)
+    elif leg == "tp":
+        kw = dict(agent_cfg=c.agent, dispatches=4, k=8, batch=c.batch_size, seed=0)
+    else:
+        kw = dict(agent_cfg=c.agent, env_name="pendulum", num_envs=64, capacity=65536,
+                  batch=c.batch_size, k=64, iterations=3, seed=0)
+    tp = args.tp if leg == "tp" else 1
     # the oracle: every lane in this process, all on cuda:0
-    mesh = make_mesh(RANKS, device="cuda", num_processes=1, process_index=0)
-    one = run_lanes(dataclasses.replace(mesh, devices=(torch.device("cuda", 0),) * RANKS), **kw)
-    ranks = spawn_ranks(RANKS, RANKS, "cuda", timeout_s=300.0, **kw)
-    eq = compare(one, ranks)
+    mesh = make_mesh(RANKS, tp, device="cuda", num_processes=1, process_index=0)
+    mesh = dataclasses.replace(mesh, devices=(torch.device("cuda", 0),) * RANKS)
+    one = LEGS[leg](mesh, **kw)
+    ranks = spawn_ranks(RANKS, RANKS, "cuda", timeout_s=300.0, leg=leg, tp=tp, **kw)
+    eq = compare(one, ranks) if leg == "megastep" else compare_leg(one, ranks)
     backends = [r["backend"] for r in ranks]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()
     ok = all(eq.values()) and backends == ["nccl"] * RANKS
-    print(json.dumps({
-        "ok": ok, "cards": cards, "backends": backends,
+    out = {
+        "ok": ok, "leg": leg, "tp": tp, "cards": cards, "backends": backends,
         "rank_devices": [f"cuda:{r['lanes'][0] % cards}" for r in ranks],
         "torch_equal": eq, "launches_one_process": one["launches"],
-        "launches_ranks": [r["launches"] for r in ranks],
-        "grad_steps_per_sec_one_process": (len(ROUNDS) - 1) * 8 / one["steady_s"],
-        "grad_steps_per_sec_ranks": [(len(ROUNDS) - 1) * 8 / r["steady_s"] for r in ranks],
-        "combine_ms_per_grad_step": {"one_process": one["combine_ms"],
-                                     "ranks": [r["combine_ms"] for r in ranks]},
-        "nvidia_smi": smi,
-    }))
+        "launches_ranks": [r["launches"] for r in ranks], "nvidia_smi": smi,
+    }
+    if leg == "megastep":
+        out.update({
+            "grad_steps_per_sec_one_process": (len(ROUNDS) - 1) * 8 / one["steady_s"],
+            "grad_steps_per_sec_ranks": [(len(ROUNDS) - 1) * 8 / r["steady_s"] for r in ranks],
+            "combine_ms_per_grad_step": {"one_process": one["combine_ms"],
+                                         "ranks": [r["combine_ms"] for r in ranks]},
+        })
+    print(json.dumps(out))
     return 0 if ok else 1
 
 

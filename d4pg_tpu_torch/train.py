@@ -59,6 +59,10 @@ Examples:
         --process-id 0 --coordinator 127.0.0.1:29500 --log-dir runs/dp
         # and the same with --process-id 1: one lane a process; process 1
         # logs under runs/dp/worker1, checkpoints are process 0's
+    python -m d4pg_tpu_torch.train --env pendulum --dp 2 --tp 2
+        # host placement: two dp lanes, each with its state on two tp lanes
+    python -m d4pg_tpu_torch.train --env pendulum --on-device --dp 2
+        # the on-device loop on two lanes: envs, ring and batch split
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -285,7 +289,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "steps of a dispatch on its own copy of the state, then one "
                         "fixed-order mean of every float tensor resyncs the copies")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism: only 1 (tp > 1 is ROADMAP A7 (b))")
+                   help="tensor parallelism: with --dp on the host placement, "
+                        "each dp lane's train state sharded over N tp lanes "
+                        "(the Megatron step); no effect without --dp")
     # multi-process bring-up (torch.distributed): every process runs the
     # same command with its own --process-id; env-var fallbacks let a
     # launcher template one command line
@@ -576,12 +582,16 @@ def main(argv=None) -> dict:
     if args.export_bundle:
         export_bundle_from_run(cfg, args.export_bundle)
         return {}
-    if args.on_device:
-        return _main_on_device(cfg, args.device)
     from d4pg_tpu_torch.parallel.distributed import shutdown
-    from d4pg_tpu_torch.runtime.trainer import Trainer
 
     cfg = bring_up(args, cfg)
+    if args.on_device:
+        try:
+            return _main_on_device(cfg, args.device)
+        finally:
+            shutdown()
+    from d4pg_tpu_torch.runtime.trainer import Trainer
+
     try:
         trainer = Trainer(cfg, device=args.device)
         print(f"config: {trainer.config}", flush=True)

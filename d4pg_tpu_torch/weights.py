@@ -156,7 +156,10 @@ def best_actor_path(log_dir: str) -> str:
 
 def save_best_actor(log_dir: str, actor: torch.nn.Module) -> None:
     """Write ``checkpoints/best_actor.npz`` in the JAX leaf layout,
-    atomically (tmp file, then rename)."""
+    atomically (tmp file, then rename). A tp-sharded actor is gathered
+    whole first."""
+    if hasattr(actor, "gather_module"):
+        actor = actor.gather_module()
     path = best_actor_path(log_dir)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     leaves = flax_leaves(state_dict_to_flax(actor))

@@ -13,8 +13,9 @@
   ``--v-min`` / ``--v-max`` included, for every head;
 - data parallelism's flags (``--dp``, ``--dp-hogwild``, ``--tp``,
   ``--distributed``, ``--coordinator``, ``--num-processes``,
-  ``--process-id``) parse as the JAX CLI parses them; ``--tp 2`` and the
-  on-device loop under ``--dp`` are refused naming ROADMAP A7 (b) and (c);
+  ``--process-id``) parse as the JAX CLI parses them; ``--tp 2 --dp 2``
+  on the device placement and the on-device loop under ``--dp`` with an
+  indivisible env count are refused in the JAX package's words;
 - ``--critic-head``, ``--num-mixtures``, ``--her`` and ``--her-k`` map into
   the config as the JAX CLI maps them, and so do the host actor pool's and
   obs-norm's eight flags (``--obs-norm``, ``--async-collect``,
@@ -113,10 +114,12 @@ def test_data_parallel_flags_map_as_the_reference_maps_them(tmp_path):
         assert getattr(cfg, f) == getattr(jcfg, f), f
     plain = build_parser().parse_args([])
     assert (plain.dp, plain.tp, plain.num_processes, plain.process_id) == (None, 1, None, None)
-    with pytest.raises(NotImplementedError, match=r"tensor parallelism \(ROADMAP A7 \(b\)\)"):
-        main(["--device", "cpu", "--tp", "2", "--log-dir", str(tmp_path / "tp")])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7 \(c\)"):
-        main(["--device", "cpu", "--on-device", "--dp", "2", "--log-dir", str(tmp_path / "od")])
+    with pytest.raises(ValueError, match="sharded_megastep_dp_only"):
+        main(["--device", "cpu", "--tp", "2", "--dp", "2", "--replay-placement", "device",
+              "--p-replay", "--log-dir", str(tmp_path / "tp")])
+    with pytest.raises(ValueError, match=r"num_envs \(3\) must be divisible by mesh axis"):
+        main(["--device", "cpu", "--on-device", "--dp", "2", "--num-envs", "3",
+              "--log-dir", str(tmp_path / "od")])
     with pytest.raises(ValueError, match="needs a coordinator"):
         main(["--device", "cpu", "--num-processes", "2", "--process-id", "0",
               "--log-dir", str(tmp_path / "np")])

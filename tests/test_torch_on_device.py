@@ -98,17 +98,29 @@ def test_capacity_must_be_a_multiple_of_the_segment_block():
     assert str(e.value) == msg
 
 
-# the uint8 ring is ported (A10 (c), tests/test_torch_pixel_loop.py); on a
-# mesh it is refused with the mesh
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A7"),
-                                     (dict(mesh=object(), obs_uint8=True), "A7"),
-                                     (dict(mesh=object(), obs_bf16=True), "A7")],
+# the uint8 and bf16 rings are ported (A10 (c)) and so is the mesh (A7 (c),
+# tests/test_torch_on_device_mesh.py): what a mesh still refuses is a share
+# its dp lanes cannot split evenly, in the JAX package's words
+@pytest.mark.parametrize("kw,item", [(dict(dp=3), "num_envs"),
+                                     (dict(dp=2, obs_uint8=True, batch_size=3), "batch_size"),
+                                     (dict(dp=2, obs_bf16=True, replay_capacity=36),
+                                      "replay_capacity")],
                          ids=["mesh", "uint8", "bf16"])
 def test_unported_rings_are_refused_naming_the_roadmap_item(kw, item):
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match=item):
-        od.make_on_device_trainer(tcfg, Pendulum(), num_envs=N_ENVS, segment_len=SEG,
-                                  replay_capacity=CAP, device="cpu", **kw)
+    from d4pg_tpu.parallel import make_mesh as j_make_mesh
+    from d4pg_tpu_torch.parallel.mesh import make_mesh
+
+    jcfg, tcfg = _configs()
+    kw = dict(dict(num_envs=N_ENVS, segment_len=SEG, replay_capacity=CAP), **kw)
+    dp = kw.pop("dp")
+    with pytest.raises(ValueError, match=item) as je:
+        jod.make_on_device_trainer(jcfg, JPendulum(), mesh=j_make_mesh(dp=dp),
+                                   **{k: v for k, v in kw.items() if k != "obs_uint8"})
+    with pytest.raises(ValueError, match=item) as e:
+        od.make_on_device_trainer(tcfg, Pendulum(), device="cpu",
+                                  mesh=make_mesh(dp, device="cpu", num_processes=1,
+                                                 process_index=0), **kw)
+    assert str(e.value) == str(je.value)
 
 
 def test_obs_norm_is_refused_with_the_reference_message():

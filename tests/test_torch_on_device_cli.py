@@ -2,8 +2,8 @@
 Pendulum and HalfCheetah at narrow widths, the checkpoint and ``--resume``
 pair, the exits 75 of SIGTERM and of the RSS watchdog, and the refusals
 (``--replay-placement`` other than host with the JAX CLI's message,
-``--dp`` naming its ROADMAP item, and a ``--critic-head`` neither package
-has)."""
+``--dp 3`` over 2 envs with the JAX mesh's divisibility error, and a
+``--critic-head`` neither package has)."""
 
 import json
 import math
@@ -130,7 +130,7 @@ def test_action_repeat_other_than_one_is_refused_on_both_loops(tmp_path):
 @pytest.mark.parametrize("flags,expect", [
     (["--replay-placement", "device"], "on_device_placement: --replay-placement configures the HOST "
                                        "trainer's data plane"),
-    (["--dp", "2"], "ROADMAP A7"),
+    (["--dp", "3"], "num_envs (2) must be divisible by mesh axis 'dp' size 3"),
     (["--critic-head", "quantile"], "invalid choice: 'quantile'"),
 ], ids=["placement", "dp", "critic_head"])
 def test_cli_on_device_refusals(flags, expect, tmp_path):

@@ -150,10 +150,12 @@ def test_on_device_entry_points_default_to_the_card(monkeypatch, tmp_path):
 )
 def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item, tmp_path):
     """A flag of the unported table raises naming its ROADMAP item before
-    any run. The data-parallel flags ported with A7 (a) are refused before
-    any run where the port still lacks the feature (``--tp 2``: A7 (b);
-    ``--dp`` and ``--num-processes`` on the on-device loop: A7 (c)), or by
-    the gap the JAX CLI names for the same incomplete request."""
+    any run. The data-parallel flags (ported with A7 (a)-(c)) are refused
+    before any run by the gap or error the JAX CLI names for the same
+    request: ``--tp 2`` with ``--dp 2`` on the device placement
+    (``sharded_megastep_dp_only``), ``--dp 2`` on the on-device loop over
+    3 envs (the mesh's divisibility error), ``--num-processes 2`` without
+    a coordinator."""
     from d4pg_tpu_torch.train import UNPORTED_FLAGS, main
 
     flag = "--" + field.replace("_", "-")
@@ -168,9 +170,11 @@ def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item
 
 # the A7 flags of the case above: (further flags, error, its words)
 A7_REFUSALS = {
-    "tp": ([], NotImplementedError, r"A7 \(b\)"),
-    "dp": (["--on-device"], NotImplementedError, r"A7 \(c\)"),
-    "num_processes": (["--on-device"], NotImplementedError, r"A7 \(c\)"),
+    "tp": (["--dp=2", "--replay-placement=device", "--p-replay"], ValueError,
+           "sharded_megastep_dp_only"),
+    "dp": (["--on-device", "--num-envs=3"], ValueError,
+           r"num_envs \(3\) must be divisible by mesh axis 'dp' size 2"),
+    "num_processes": (["--on-device"], ValueError, "needs a coordinator"),
     "dp_hogwild": ([], ValueError, "dp_hogwild_requires_dp"),
     "process_id": (["--coordinator=127.0.0.1:1"], ValueError, "needs --num-processes"),
 }
@@ -192,15 +196,17 @@ def test_cli_refuses_unported_flags(flag, tmp_path):
     ones naming their ROADMAP item; the uint8 wire, ported with pixels
     (A10 (c)), by the JAX package's ``uint8_wire_requires_pixel`` gap, and
     ``--obs-norm``, ported for host envs (A10 (d)), by its
-    ``obs_norm_flat_envs_only`` gap. Of the data-parallel flags (A7 (a))
-    ``--dp-hogwild`` alone is refused by its ``dp_hogwild_requires_dp``
-    gap, ``--tp=2`` names A7 (b) and ``--dp=2`` on the on-device loop A7
-    (c)."""
+    ``obs_norm_flat_envs_only`` gap. The data-parallel flags (A7 (a)-(c))
+    are refused by the gaps the JAX CLI names: ``--dp-hogwild`` alone by
+    ``dp_hogwild_requires_dp``, ``--tp=2`` with ``--dp=2`` on the device
+    placement by ``sharded_megastep_dp_only``, and ``--dp=2`` on the
+    on-device loop over 3 envs by the mesh's divisibility error."""
     from d4pg_tpu_torch.train import main
 
-    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild")
+    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild", "--tp=2", "--dp=2")
     exc = ValueError if flag in gaps else NotImplementedError
-    extra = ["--on-device"] if flag == "--dp=2" else []
+    extra = {"--dp=2": ["--on-device", "--num-envs=3"],
+             "--tp=2": ["--dp=2", "--replay-placement=device", "--p-replay"]}.get(flag, [])
     with pytest.raises(exc):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag, *extra])
 

@@ -345,8 +345,10 @@ def test_mesh_lanes_owners_and_devices():
     assert distributed.local_shard_span(m) == (2, 4)
     assert all(d == torch.device("cpu") for d in m.devices)
     assert make_mesh(device="cpu").dp == 1
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7 \(b\)"):
-        make_mesh(2, tp=2, device="cpu")
+    tp = make_mesh(2, tp=2, device="cpu")
+    assert (tp.shape, tp.grid) == ({"dp": 2, "tp": 2}, (torch.device("cpu"),) * 4)
+    with pytest.raises(ValueError, match="tp_group_spans_ranks"):
+        make_mesh(1, tp=2, device="cpu", num_processes=2, process_index=0)
     with pytest.raises(ValueError, match="divisible by --num-processes"):
         make_mesh(3, device="cpu", num_processes=2, process_index=0)
 
@@ -423,5 +425,12 @@ def test_dp_configs_the_reference_passes_pass():
         kw = dict(dict(batch_size=256, replay_capacity=4096), **kw)
         assert negotiate(from_train_config(JTrainConfig(**kw))).ok
         check_placement(TrainConfig(**kw))
-    with pytest.raises(NotImplementedError, match=r"tensor parallelism \(ROADMAP A7 \(b\)\)"):
-        check_placement(TrainConfig(tp=2))
+    for kw in (dict(tp=2), dict(dp=2, tp=2), dict(dp=2, tp=2, steps_per_dispatch=8,
+                                                   dp_hogwild=True)):
+        assert negotiate(from_train_config(JTrainConfig(**kw))).ok
+        check_placement(TrainConfig(**kw))  # tensor parallelism is ported (A7 (b))
+    kw = dict(dp=2, tp=2, replay_placement="device", prioritized=True)
+    assert not negotiate(from_train_config(JTrainConfig(**kw))).ok
+    with pytest.raises(ValueError, match="sharded_megastep_dp_only: the sharded megastep "
+                                         r"mesh is dp-only \(tp=1\)"):
+        check_placement(TrainConfig(**kw))
