@@ -274,11 +274,11 @@ JSON line (with ``at_s``, the seconds since the script started):
    tolerance; the card's eager call ms of the encoder and of a step.
 30. ``host_pixel``: the ``Trainer`` on ``--env pixel_pendulum`` (host
    placement, the uint8 replay at 100 000 rows, PER on the native tree,
-   K = 4, 200 grad steps under the sync guard), one line per wire:
+   K = 4, 512 grad steps under the guards), one line per wire:
    ``float32`` (``OBS_U8_DECODE``) and ``uint8`` (``OBS_U8_RAW``, one byte
    an observation element on the wire): grad and env steps/s,
    ``steady_state``, the bytes a dispatch copies, the buffer's dtype, B1f
-   = B1b = 200 (``host_pixel_float32`` / ``host_pixel_uint8`` in every
+   = B1b = 512 (``host_pixel_float32`` / ``host_pixel_uint8`` in every
    ``launches_by_path``). Then ``on_device_pixel_pendulum`` (phase 18's
    harness): ``--on-device`` with the uint8 ring at 99 840 rows, K = 512,
    B1f = B1b = K. The ``serve`` line also serves a seeded pixel bundle
@@ -318,6 +318,28 @@ JSON line (with ``at_s``, the seconds since the script started):
    metrics under ``worker1/``). ``dp_host``: ``--dp 2`` and
    ``--dp-hogwild`` on the host placement, K = 8, 200 grad steps each,
    B1f = B1b = 400.
+
+33. The guards and fault injection (ROADMAP A11 (b), (e1)). Since they
+   landed, every ``debug_guards`` dispatch after the first on the card
+   runs under the zero-transfer budget ``no_transfers`` (its operands
+   checked once on entry, none on the host, beside the sync guard), and
+   the ``debug_guards`` trainers' PER and pool slots under a staging
+   ledger.
+   ``guards_device`` (after the device slices): the fused-descent device
+   placement, K = 8, 64 grad steps, 7 of its 8 dispatches counted under
+   ``no_transfers``, B3 = 8, B4 = B1b = 64; a megastep handed the ring's
+   fill count as a 0-d CPU tensor raises ``TransferGuardError``, and the
+   batcher's flip forced onto a slot whose H2D copy is still queued raises
+   ``StagingReuseError`` on the card. ``guards_chaos_pool`` (after
+   ``host_pool_pixel``): its pool of 16 spawned workers at the same width
+   under ``debug_guards``, the flusher and the chaos plan
+   ``GUARDS_POOL_PLAN`` with the lock witness armed: every grad step
+   taken, failures and restarts, ``chaos_injections`` in the rows, the
+   ledger and the witness clean, then a resume leg that falls back one
+   checkpoint. ``serve_guards_chaos`` (after ``serve``): the serve CLI on
+   the default 3x256 bundle under ``--debug-guards --chaos
+   SERVE_CHAOS_PLAN``: a live client answered throughout, the attackers
+   evicted or shed, the drain's identity, ledger and witness clean.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -1178,11 +1200,11 @@ def check_sync_guard() -> None:
     wait must not raise."""
     import torch
 
-    from d4pg_tpu_torch.runtime.trainer import _sync_debug_error
+    from d4pg_tpu_torch.analysis.transfer import sync_debug_error
 
     def raises(fn) -> bool:
         try:
-            with _sync_debug_error():
+            with sync_debug_error():
                 fn()
         except RuntimeError:
             return True
@@ -1637,8 +1659,8 @@ def guard_counter(trainer) -> list:
     guarded = []
     orig = trainer._dispatch_guard
 
-    def counting():
-        cm = orig()
+    def counting(*operands):
+        cm = orig(*operands)
         if not isinstance(cm, contextlib.nullcontext):
             guarded.append(1)
         return cm
@@ -2316,7 +2338,7 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
     from torch.profiler import ProfilerActivity, profile
 
     from d4pg_tpu_torch.runtime.on_device import OnDeviceRun
-    from d4pg_tpu_torch.runtime.trainer import _sync_debug_error
+    from d4pg_tpu_torch.analysis.transfer import sync_debug_error
 
     phase = f"on_device_{env_name}"
     iters = ON_DEVICE_ITERS[env_name]
@@ -2351,7 +2373,7 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         i0 = time.perf_counter()
-        with _sync_debug_error():
+        with sync_debug_error():
             run.carry, _ = run.iterate_fn(run.carry, scale)
         torch.cuda.synchronize()
         iteration_ms = (time.perf_counter() - i0) * 1e3
@@ -3004,11 +3026,12 @@ def graph_replay_ms(graph, n: int = 100) -> float:
 
 
 @contextlib.contextmanager
-def serve_process(bundle_dir: str, *flags: str):
+def serve_process(bundle_dir: str, *flags: str, preexec_fn=None):
     """``python -m d4pg_tpu_torch.serve --bundle DIR --port 0 [flags]`` as a
     subprocess on the card. Yields its port, pid, listening line and
     seconds to that line; on leaving the block, SIGTERM: it must print its
-    "drained" line and exit 0 (both added to the yielded dict)."""
+    "drained" line and exit 0 (both added to the yielded dict, with every
+    line it printed after the first, ``output``)."""
     import queue
     import signal
     import threading
@@ -3016,7 +3039,7 @@ def serve_process(bundle_dir: str, *flags: str):
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "d4pg_tpu_torch.serve", "--bundle", bundle_dir,
                              "--port", "0", *flags], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True, preexec_fn=preexec_fn)
     lines: queue.Queue = queue.Queue()
     reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
     reader.start()
@@ -3026,7 +3049,16 @@ def serve_process(bundle_dir: str, *flags: str):
         info = {"flags": list(flags), "listening": first.strip(),
                 "startup_s": time.perf_counter() - t0,
                 "port": int(first.split()[3].rsplit(":", 1)[1]), "pid": proc.pid}
-        yield info
+        try:
+            yield info
+        except BaseException:
+            # the server's own account of what went wrong, before it dies
+            proc.kill()
+            proc.wait(timeout=60)
+            reader.join(timeout=30)
+            while not lines.empty():
+                print(f"[serve cli {' '.join(flags)}] {lines.get().rstrip()}", file=sys.stderr)
+            raise
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         reader.join(timeout=30)
@@ -3035,7 +3067,7 @@ def serve_process(bundle_dir: str, *flags: str):
             rest.append(lines.get())
         drained = [ln.strip() for ln in rest if ln.startswith("[serve] drained:")]
         check(rc == 0 and drained, f"serve cli {flags}: exit {rc}, output {rest[-10:]}")
-        info.update(exit_code=rc, drained=drained[0])
+        info.update(exit_code=rc, drained=drained[0], output=[ln.rstrip() for ln in rest])
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -3398,8 +3430,8 @@ def host_pixel_run(Trainer, TrainConfig, wire: str, card: str, log_dir: str) -> 
     """``host_pixel``: the ``Trainer`` on ``--env pixel_pendulum`` at the
     preset's full width (48x48x2 frames, the conv encoder, 3x256, B = 256,
     the uint8 replay at the preset's 100 000 rows, 16 envs x 32 steps),
-    host placement, PER on the native tree, K = 4, 200 grad steps under
-    the sync guard after the first dispatch, on one wire: ``float32``
+    host placement, PER on the native tree, K = 4, 512 grad steps under
+    the guards after the first dispatch, on one wire: ``float32``
     (``OBS_U8_DECODE``: the gather decodes the bytes on the host) or
     ``uint8`` (``OBS_U8_RAW``: the bytes cross, the card divides them by
     255). B1f and B1b once a grad step, the rest 0; the buffer uint8; the
@@ -3736,6 +3768,410 @@ def host_pool_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict
            "launches": launches, "ok": True}
     emit(out)
     return launches
+
+
+# ------------------------------------------------------------- guards and chaos
+GUARDS_POOL_STEPS = 64               # guards_chaos_pool's first leg: checkpoints at 32 and 64
+GUARDS_RESUME_STEPS = 16             # its resume leg
+# the JAX acceptance gate's plan (tests/test_chaos.py) and a truncation of
+# the newest committed checkpoint (the 2nd save), so the resume must fall back
+GUARDS_POOL_PLAN = "seed=3;env_raise@5#0;worker_kill@9#1;wb_stall@1:0.2;ckpt_truncate@2"
+GUARDS_DEVICE_STEPS = 64             # guards_device: 8 dispatches of K = 8
+FLIP_SLEEP_CYCLES = 1_000_000_000    # ~0.5 s of torch.cuda._sleep ahead of the forced flip
+# sock_reset and the three connection attacks. The zero-window attacker
+# gets up to 30 s: the server's loopback send buffer (1 MiB on the card's
+# machine, up to 4 MiB here) absorbs its unread HEALTHZ replies before the
+# write-progress clock can start (the JAX soak gives it 8 s against a 2 s
+# stall bound). fd_exhaust hoards at the 40th accept, not the 5th: at the
+# 5th, the zero-window attacker's own connection (dialled at the 3rd) can
+# still be waiting in the backlog, is shed, and never floods. It holds the
+# table 2 s, not 150 ms: one pass of the loop over the attacker's HEALTHZ
+# flood can outlast 150 ms, and the release then runs before any accept
+SERVE_CHAOS_PLAN = "sock_reset@5;slowloris@2:4;zero_window@3:30000;fd_exhaust@40:2000"
+SERVE_CHAOS_MIN_S = 2.0              # the attack window: at least this long,
+SERVE_CHAOS_MAX_S = 30.0             # at most this long, until every attacker is dealt with
+SERVE_CHAOS_BIN_S = 0.5              # the live client must be answered in every bin
+SERVE_CHAOS_NOFILE = 4096            # the server's soft fd limit (fd_exhaust hoards to it)
+SERVE_CHAOS_HELD = 64                # churn connections kept open through the attacks
+SERVE_CHAOS_BURST = 8                # the first churn round's connections
+
+
+def guards_chaos_pool_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``guards_chaos_pool``: the pool of ``host_pool_pixel`` (16 spawned
+    ``pixel_pendulum_host`` workers feeding the ``pixel_pendulum`` preset's
+    full width, K = 4, the native uint8 PER buffer) under ``debug_guards``,
+    the flusher thread (``async_priority_writeback``) and the chaos plan
+    ``GUARDS_POOL_PLAN``, with the lock witness armed first: worker 0's env
+    raises at its 5th step, worker 1 is SIGKILLed at the pool's 9th, the
+    flusher stalls 0.2 s at its first wake, and the second checkpoint (of
+    64 grad steps saved at 32 and 64) is truncated after its manifest.
+    Checks: every budgeted grad step taken, the critic loss finite, at
+    least 2 worker failures and 1 restart, ``chaos_injections`` in the
+    metrics rows (2 in the final row: worker_kill and wb_stall; the final
+    save's ckpt_truncate fires after it, 3 in all; the env faults fire
+    inside the workers), the ledger with 0 trips and 0 holds after
+    ``close()``, the witness with 0 contradictions against the port's
+    committed graph, B1f = B1b = grad steps; then a ``resume`` leg whose
+    verified restore falls back one step (``checkpoint_fallbacks`` 1, from
+    64 to 32) and takes 16 more grad steps."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.analysis import lockwitness
+
+    lockwitness.reset()
+    lockwitness.enable()
+    try:
+        cfg = TrainConfig(env="pixel_pendulum", total_steps=GUARDS_POOL_STEPS,
+                          eval_interval=GUARDS_POOL_STEPS, eval_episodes=1, log_dir=log_dir,
+                          seed=SEED, tree_backend="native", steps_per_dispatch=PIXEL_K,
+                          num_envs=POOL_ENVS, debug_guards=True, async_priority_writeback=True,
+                          checkpoint_interval=GUARDS_POOL_STEPS // 2, chaos=GUARDS_POOL_PLAN)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda", actor_env="pixel_pendulum_host")
+        setup_s = time.perf_counter() - t0
+        pids = list(trainer.pool.pids)
+        try:
+            reset_counts()
+            t1 = time.perf_counter()
+            row = trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = read_counts()
+            pids += trainer.pool.pids
+        finally:
+            trainer.close()
+        pool = trainer.pool
+        ledger = trainer._ledger.stats()
+        witness = lockwitness.check_against_committed(where="guards_chaos_pool")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = trainer.ckpt.all_steps()
+        # the resume leg: the newest step is torn, the verified restore
+        # falls back to the older one and the run goes on from there
+        t2 = time.perf_counter()
+        resumed = Trainer(dataclasses.replace(cfg, resume=True, chaos=None),
+                          device="cuda", actor_env="pixel_pendulum_host")
+        pids += resumed.pool.pids
+        try:
+            restored_at, fallbacks = resumed.grad_steps, resumed._ckpt_fallbacks
+            reset_counts()
+            row2 = resumed.train(GUARDS_RESUME_STEPS)
+            torch.cuda.synchronize()
+            launches_resumed = read_counts()
+        finally:
+            resumed.close()
+        resume_s = time.perf_counter() - t2
+        resumed_ledger = resumed._ledger.stats()
+        witness_resumed = lockwitness.check_against_committed(where="guards_chaos_pool resume")
+    finally:
+        lockwitness.reset()
+    deadline = time.monotonic() + 15
+    alive = [p for p in pids if p is not None]
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.1)
+    n = GUARDS_POOL_STEPS
+    check(trainer.grad_steps == n and np.isfinite(row["critic_loss"]),
+          f"guards_chaos_pool: {trainer.grad_steps} grad steps, critic loss {row['critic_loss']}")
+    check(pool.failures_total >= 2 and pool.restarts_total >= 1,
+          f"guards_chaos_pool: failures {pool.failures_total}, restarts {pool.restarts_total}, "
+          f"events {[e['event'] for e in pool.events]}")
+    injections = trainer._chaos.injections_total
+    # the last row is logged at the final eval, before the final save's
+    # ckpt_truncate fires: it counts worker_kill and wb_stall
+    check(injections == 3 and any(r.get("chaos_injections") == 2 for r in rows),
+          f"guards_chaos_pool: {injections} injections, rows {[r.get('chaos_injections') for r in rows]}")
+    check(ledger["trips"] == 0 and ledger["active_holds"] == 0 and ledger["writes"] > 0,
+          f"guards_chaos_pool: ledger {ledger}")
+    check(witness is not None and witness["contradictions"] == 0,
+          f"guards_chaos_pool: lock witness {witness}")
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    check(launches == expect, f"guards_chaos_pool: launches {launches}, expected {expect}")
+    check(steps == [n // 2, n], f"guards_chaos_pool: committed steps {steps}")
+    check(fallbacks == 1 and restored_at == n // 2 and row2.get("checkpoint_fallbacks") == 1.0
+          and resumed.grad_steps == n // 2 + GUARDS_RESUME_STEPS
+          and np.isfinite(row2["critic_loss"]),
+          f"guards_chaos_pool resume: restored at {restored_at}, {fallbacks} fallbacks, "
+          f"grad steps {resumed.grad_steps}, row {row2}")
+    m = GUARDS_RESUME_STEPS
+    expect2 = dict(fused_fwd=m, fused_bwd=m, project=0, tree_count=0, fused_step=0)
+    check(launches_resumed == expect2,
+          f"guards_chaos_pool resume: launches {launches_resumed}, expected {expect2}")
+    check(resumed_ledger["trips"] == 0 and resumed_ledger["active_holds"] == 0,
+          f"guards_chaos_pool resume: ledger {resumed_ledger}")
+    check(not alive, f"guards_chaos_pool: workers alive after close(): {alive}")
+    emit({"phase": "guards_chaos_pool", "card": card, "plan": GUARDS_POOL_PLAN,
+          "pool": {"actor_env": "pixel_pendulum_host", "workers": POOL_ENVS,
+                   "start_method": "spawn", "failures_total": pool.failures_total,
+                   "restarts_total": pool.restarts_total,
+                   "events": [e["event"] for e in pool.events]},
+          "grad_steps": n, "trainer_setup_s": setup_s, "wall_s_incl_warmup_and_eval": wall,
+          "grad_steps_per_sec": row["grad_steps_per_sec"], "critic_loss": row["critic_loss"],
+          "chaos_injections": injections, "chaos_injections_in_rows":
+              sorted({r["chaos_injections"] for r in rows if "chaos_injections" in r}),
+          "ledger": ledger, "lock_witness": witness, "checkpoint_steps": steps,
+          "launches": launches,
+          "resume": {"restored_at": restored_at, "checkpoint_fallbacks": fallbacks,
+                     "grad_steps": resumed.grad_steps, "critic_loss": row2["critic_loss"],
+                     "wall_s_incl_setup": resume_s, "ledger": resumed_ledger,
+                     "lock_witness": witness_resumed, "launches": launches_resumed},
+          "workers_alive_after_close": alive, "ok": True})
+    return launches
+
+
+def forced_flip_on_card() -> dict:
+    """The batcher's seeded fault on the card: a 3x256 Pendulum batcher
+    under its guards with a staging ledger, its rotation pinned to slot 0
+    (``_test_force_flip``) and its stream held by ~0.5 s of
+    ``torch.cuda._sleep``, so the first batch's non-blocking H2D copy out
+    of slot 0 has not run when the second batch is assembled into slot 0:
+    that write must raise ``StagingReuseError`` (the race the two slots
+    exist for, which only the card has), the slot's event still pending."""
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.analysis import StagingLedger, StagingReuseError
+    from d4pg_tpu_torch.models.actor import Actor
+    from d4pg_tpu_torch.serve.batcher import DynamicBatcher
+
+    cfg = D4PGConfig(obs_dim=3, action_dim=1)
+    actor = Actor(3, 1, cfg.hidden_sizes, generator=torch.Generator().manual_seed(SEED))
+    led = StagingLedger("serve")
+    b = DynamicBatcher(cfg, actor.state_dict(), max_batch=SERVE_MAX_BATCH, max_wait_us=0,
+                       guard_sync=True, device="cuda", ledger=led)
+    b.start()
+    try:
+        b.submit(np.zeros(3, np.float32)).result(timeout=60)  # a clean batch first
+        clean = dict(led.stats())
+        b._test_force_flip = 0
+        with torch.cuda.stream(b._stream):
+            torch.cuda._sleep(FLIP_SLEEP_CYCLES)
+        first = b.submit(np.zeros(3, np.float32))
+        time.sleep(0.05)  # the first batch assembled and enqueued behind the sleep
+        event_pending = not b._programs[1].events[0].query()
+        second = b.submit(np.ones(3, np.float32))
+        exc = second.exception(timeout=60)
+        first.result(timeout=60)
+    finally:
+        try:
+            b.stop(timeout=30)
+        except RuntimeError:
+            pass  # the device thread died on the trip, as seeded
+    ok = isinstance(exc, StagingReuseError) and event_pending and led.stats()["trips"] == 1
+    check(ok and clean == {"writes": 1, "trips": 0, "active_holds": 0},
+          f"forced flip: {exc!r}, event pending {event_pending}, ledger {led.stats()}, "
+          f"after the clean batch {clean}")
+    return {"raised": type(exc).__name__, "message": str(exc)[:160],
+            "event_pending_at_the_write": event_pending, "ledger": led.stats(), "ok": ok}
+
+
+def guards_device_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``guards_device``: the device placement (``--p-replay
+    --fused-descent``, K = 8, the 1M-row ring and 2^20-leaf tree at full
+    width) under ``debug_guards``, 64 grad steps: every dispatch after the
+    first runs under the zero-transfer budget ``no_transfers`` (counted
+    here: the operand check and the sync guard), with exact B3/B4
+    launches. Then two seeded faults that must raise on the card: one
+    megastep handed the ring with its fill count as a 0-d CPU tensor
+    (which PyTorch would pass to a CUDA op silently) raises
+    ``TransferGuardError`` at the guard's entry, and the batcher's forced
+    flip raises ``StagingReuseError`` (:func:`forced_flip_on_card`)."""
+    import dataclasses
+
+    import torch
+
+    from d4pg_tpu_torch.analysis import TransferGuardError
+    from d4pg_tpu_torch.runtime import trainer as trainer_mod
+
+    n = GUARDS_DEVICE_STEPS
+    cfg = TrainConfig(env="pendulum", total_steps=n, warmup_steps=1000, eval_interval=n,
+                      eval_episodes=1, log_dir=log_dir, seed=SEED, replay_placement="device",
+                      prioritized=True, fused_descent=True, steps_per_dispatch=K,
+                      debug_guards=True)
+    zero_budget = []
+    real = trainer_mod.no_transfers
+
+    def counting(*args, **kw):
+        zero_budget.append(1)
+        return real(*args, **kw)
+
+    trainer_mod.no_transfers = counting
+    try:
+        trainer = Trainer(cfg, device="cuda")
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            row = trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            guarded = len(zero_budget)
+            bad = dataclasses.replace(trainer._ring, size=trainer._ring.size.cpu())
+            raised = None
+            try:
+                with trainer._dispatch_guard(trainer.state, bad, trainer._dev_per.trees):
+                    trainer._megastep(trainer.state, bad, trainer._dev_per.trees,
+                                      trainer._megastep_gen)
+            except TransferGuardError as e:
+                raised = str(e)
+            torch.cuda.synchronize()
+        finally:
+            trainer.close()
+    finally:
+        trainer_mod.no_transfers = real
+    dispatches = n // K
+    expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches, fused_step=n)
+    check(launches == expect, f"guards_device: launches {launches}, expected {expect}")
+    check(guarded == dispatches - 1 and trainer._dispatches == dispatches,
+          f"guards_device: {guarded} of {trainer._dispatches} dispatches under no_transfers")
+    for key in FINITE_KEYS:
+        check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
+              f"guards_device: {key} not finite: {row.get(key)}")
+    check(raised is not None and "implicit host-to-device" in raised and "cpu int32[]" in raised,
+          f"guards_device: the 0-d CPU operand did not raise the transfer guard: {raised}")
+    flip = forced_flip_on_card()
+    emit({"phase": "guards_device", "card": card, "grad_steps": n, "dispatches": dispatches,
+          "dispatches_under_no_transfers": guarded,
+          "sync_guard": "set_sync_debug_mode('error') on every dispatch after the first",
+          "wall_s_incl_warmup_and_eval": wall, "grad_steps_per_sec": row["grad_steps_per_sec"],
+          "critic_loss": row["critic_loss"], "launches": launches,
+          "cpu_operand_fault": {"raised": "TransferGuardError", "message": raised[:200]},
+          "forced_flip": flip, "ok": True})
+    return launches
+
+
+def serve_guards_chaos_phase(card: str, bundle_dir: str) -> dict:
+    """``serve_guards_chaos``: the serve CLI on the card with the default
+    3x256 bundle of ``serve_phase``, ``--debug-guards``, ``--chaos
+    SERVE_CHAOS_PLAN`` and 0.5 s stall bounds (its soft fd limit set to
+    ``SERVE_CHAOS_NOFILE``, the table fd_exhaust fills). A live client acts
+    continuously throughout (its 5th frame is the one sock_reset resets;
+    it reconnects), while fresh connections tick the accept sites: a
+    first burst of ``SERVE_CHAOS_BURST``, then pairs, the last
+    ``SERVE_CHAOS_HELD`` kept open (so no close frees an fd while the 40th
+    accept's hoard holds the table, and the accepts after it are shed),
+    healthz read every ``SERVE_CHAOS_BIN_S``, until both attackers are
+    evicted and a connection was shed (at least ``SERVE_CHAOS_MIN_S``, at
+    most ``SERVE_CHAOS_MAX_S``). Checks: the live client answered in every
+    bin; 4 injections in healthz; the slowloris attacker evicted on read
+    stall, the zero-window one on write stall, a connection shed
+    ``fd_exhausted``; at the drain (SIGTERM, rc 0) the ``serve-stats``
+    identity balanced, the batcher ledger with 0 trips and no hold, and
+    the lock witness with 0 contradictions. The launches are the server
+    process's own counts, set to 0 after its start and printed at its
+    drain; it runs no hand kernel (it serves through CUDA graphs)."""
+    import collections
+    import resource
+    import threading
+
+    import numpy as np
+
+    from d4pg_tpu_torch.serve import PolicyClient
+
+    def limit_fds():
+        resource.setrlimit(resource.RLIMIT_NOFILE, (
+            SERVE_CHAOS_NOFILE, resource.getrlimit(resource.RLIMIT_NOFILE)[1]))
+
+    def attacked(h) -> bool:
+        net = h.get("netio", {})
+        return (net.get("evicted_read_stall", 0) >= 1 and net.get("evicted_write_stall", 0) >= 1
+                and net.get("accept_shed", 0) >= 1)
+
+    obs = np.zeros(3, np.float32)
+    live = {"bins": collections.Counter(), "reconnects": 0, "errors": {}}
+    churn = {"rounds": 0, "answered": 0, "failed": 0, "healthz_reads": 0}
+    stop = threading.Event()
+    flags = ("--debug-guards", "--chaos", SERVE_CHAOS_PLAN, "--io-read-stall-s", "0.5",
+             "--io-write-stall-s", "0.5")
+    with serve_process(bundle_dir, *flags, preexec_fn=limit_fds) as cli:
+        port = cli["port"]
+        t_start = time.monotonic()
+
+        def live_client():
+            while not stop.is_set():
+                try:
+                    with PolicyClient("127.0.0.1", port, timeout=30) as c:
+                        while not stop.is_set():
+                            c.act(obs)
+                            live["bins"][int((time.monotonic() - t_start) / SERVE_CHAOS_BIN_S)] += 1
+                except Exception as e:  # a reset, a shed or a fault: reconnect, note it
+                    live["reconnects"] += 1
+                    live["errors"][type(e).__name__] = str(e)[:160]
+
+        thread = threading.Thread(target=live_client, name="live-client", daemon=True)
+        thread.start()
+        while live["reconnects"] == 0 and time.monotonic() - t_start < SERVE_CHAOS_MAX_S:
+            time.sleep(0.005)  # the live client's 5th frame is reset first
+        held, burst, health, t_health = collections.deque(), SERVE_CHAOS_BURST, {}, 0.0
+        while True:
+            now = time.monotonic() - t_start
+            if now > SERVE_CHAOS_MAX_S or (now > SERVE_CHAOS_MIN_S and attacked(health)):
+                break
+            churn["rounds"] += 1
+            pair = []
+            try:
+                for _ in range(burst):
+                    pair.append(PolicyClient("127.0.0.1", port, timeout=30))
+                for _ in range(3):
+                    for c in pair:
+                        c.act(obs)
+                        churn["answered"] += 1
+                if now - t_health > SERVE_CHAOS_BIN_S:
+                    health, t_health = pair[0].healthz(), now
+                    churn["healthz_reads"] += 1
+            except (OSError, RuntimeError):
+                churn["failed"] += 1
+            held.extend(pair)
+            while len(held) > SERVE_CHAOS_HELD:
+                held.popleft().close()
+            burst = 2
+        window = time.monotonic() - t_start
+        for c in held:
+            c.close()
+        stop.set()
+        thread.join(timeout=60)
+        with PolicyClient("127.0.0.1", port, timeout=30) as c:
+            health = c.healthz()
+    out = cli["output"]
+    verdicts = [json.loads(ln.split("[flow-verdict] ", 1)[1]) for ln in out
+                if ln.startswith("[flow-verdict] ")]
+    witness = [ln for ln in out if ln.startswith("[lockwitness]")]
+    ledger = [json.loads(ln.split("[serve] staging ledger: ", 1)[1]) for ln in out
+              if ln.startswith("[serve] staging ledger: ")]
+    counted = [json.loads(ln.split("[serve] kernel launches: ", 1)[1]) for ln in out
+               if ln.startswith("[serve] kernel launches: ")]
+    net = health["netio"]
+    # the server's own account of each injection and eviction
+    events = [ln for ln in out if ln.startswith(("[chaos]", "[netio]"))]
+    bins = [live["bins"][k] for k in range(int(window / SERVE_CHAOS_BIN_S))]
+    check(bins and min(bins) > 0, f"serve_guards_chaos: the live client went unanswered: {live}")
+    check(health.get("chaos_injections") == 4, f"serve_guards_chaos: healthz {health}")
+    check(attacked(health), f"serve_guards_chaos: attackers not evicted/shed in {window:.1f} s: "
+                            f"{net}, churn {churn}, server events {events}")
+    check(len(verdicts) == 1 and verdicts[0]["ok"], f"serve_guards_chaos: flow verdicts {verdicts}")
+    check(len(witness) == 1 and " 0 contradictions" in witness[0],
+          f"serve_guards_chaos: lock witness {witness}")
+    check(len(ledger) == 1 and ledger[0]["trips"] == 0 and ledger[0]["active_holds"] == 0
+          and ledger[0]["writes"] > 0, f"serve_guards_chaos: ledger {ledger}")
+    none = {k: 0 for k in read_counts()}
+    check(len(counted) == 1 and counted[0] == none,
+          f"serve_guards_chaos: the server's launches {counted}, expected {none}")
+    emit({"phase": "serve_guards_chaos", "card": card, "plan": SERVE_CHAOS_PLAN,
+          "window_s": window, "live_client": {"answered_per_bin": bins,
+                                              "reconnects": live["reconnects"],
+                                              "errors": live["errors"]},
+          "churn": churn, "chaos_injections": health["chaos_injections"],
+          "netio": {k: net[k] for k in ("evicted_read_stall", "evicted_write_stall",
+                                        "accept_shed", "conns_total", "frames_in")},
+          "server_events": events, "flow_verdict": verdicts[0], "lock_witness": witness[0],
+          "ledger": ledger[0], "launches": counted[0], "drained": cli["drained"],
+          "startup_s": cli["startup_s"], "ok": True})
+    return counted[0]
 
 
 # ------------------------------------------------------------ data parallelism
@@ -4487,6 +4923,8 @@ def main() -> int:
         prefetch_first_step(Trainer, TrainConfig, card, tmp)
         for tier in DEVICE_STEPS:
             paths[f"device_{tier}"] = device_slice_run(Trainer, TrainConfig, tier, card, f"{tmp}/{tier}")
+        paths["guards_device"] = guards_device_phase(Trainer, TrainConfig, card,
+                                                     f"{tmp}/guards_device")
         paths.update(ingest_prefetch_pair(Trainer, TrainConfig, card, tmp))
         ingest_stage_phase(card, tmp)
         paths["hybrid_slice"] = host_data_plane_run(Trainer, TrainConfig, "hybrid", card, f"{tmp}/hybrid")
@@ -4518,6 +4956,8 @@ def main() -> int:
             TrainConfig, "pixel_pendulum", card, f"{tmp}/on_device_pixel_pendulum")
         paths["host_pool_pixel"] = host_pool_pixel_phase(
             Trainer, TrainConfig, card, f"{tmp}/host_pool_pixel")
+        paths["guards_chaos_pool"] = guards_chaos_pool_phase(
+            Trainer, TrainConfig, card, f"{tmp}/guards_chaos_pool")
         paths["dp_lanes"] = dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card,
                                            f"{tmp}/dp_lanes")
         paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card, f"{tmp}/dp_ranks")
@@ -4529,6 +4969,7 @@ def main() -> int:
         paths["on_device_dp"] = on_device_dp_phase(TrainConfig, card, f"{tmp}/on_device_dp")
         tp_gloo_legs_phase(TrainConfig, card)
         paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
+        paths["serve_guards_chaos"] = serve_guards_chaos_phase(card, f"{tmp}/bundle_default")
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

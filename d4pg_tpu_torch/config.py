@@ -83,10 +83,17 @@ class TrainConfig:
     # flush's first chunk and start its copy (DeviceRingSync.stage), so the
     # copy overlaps the dispatch. Ignored, with a printed line, elsewhere.
     ingest_prefetch: bool = False
-    # Run every host, megastep and hybrid dispatch after the first under
-    # torch.cuda.set_sync_debug_mode("error"): a host synchronisation in
-    # the steady-state loop raises.
+    # Runtime guards (analysis/): on the card every host, megastep and
+    # hybrid dispatch after the first runs under the zero-transfer budget
+    # (a CPU tensor among its operands, checked on entry, or a host sync
+    # inside it raises), and a staging ledger polices the
+    # PER sample_block slots and the pool's reply slots. The CLI also arms
+    # the lock witness and the flow ledger.
     debug_guards: bool = False
+    # Chaos harness (chaos.py): a seeded deterministic fault plan, e.g.
+    # "seed=3;env_raise@5#0;worker_kill@9#1;wb_stall@1:0.2". Faults fire
+    # at per-site event counts, so a chaos run replays exactly.
+    chaos: Optional[str] = None
     # Host and hybrid placements with PER: a background thread applies the
     # priority write-backs (drain and batch: each wake takes every dispatch
     # queued since the last one and waits once, for the newest copy), so
@@ -488,6 +495,26 @@ def check_on_device(config: TrainConfig) -> None:
             "trainer's data plane; --on-device already keeps "
             "rollout+replay+learn in one XLA program (the flag would be "
             "silently ignored)"
+        )
+
+
+def check_chaos(config: TrainConfig) -> None:
+    """Parse the chaos plan (``ValueError`` with the parser's words on a
+    malformed spec) and refuse ``host_kill`` with several processes: it
+    kills one process of the run, and only a supervisor that relaunches
+    them all with ``--resume`` makes that a recovery (the JAX package's
+    multi-host supervisor); the port has none yet (ROADMAP A11 (f))."""
+    if not config.chaos:
+        return
+    from d4pg_tpu_torch.chaos import ChaosPlan
+
+    plan = ChaosPlan.parse(config.chaos)
+    if config.num_processes > 1 and any(e.site == "host_kill" for e in plan.entries):
+        raise ValueError(
+            "host_kill_needs_supervisor: chaos host_kill with --num-processes "
+            f"{config.num_processes} kills one process of the run, and the port has "
+            "no supervisor that relaunches the processes with --resume yet "
+            "(ROADMAP A11 (f)); run it with one process"
         )
 
 

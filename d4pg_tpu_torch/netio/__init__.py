@@ -32,9 +32,10 @@ Robustness contract:
   loop; if even the reserve cannot reopen, accepting pauses briefly
   rather than spinning.
 
-The loop uses the stdlib and the protocol module only. The chaos
-attackers of the JAX package's ``netio/attack.py`` come with the fault
-injection of ROADMAP A11 (e).
+The loop uses the stdlib, the protocol module and the lock witness's
+named locks only. :mod:`d4pg_tpu_torch.netio.attack` holds the chaos
+attackers (slowloris, zero-window, fd exhaustion) that the policy server
+launches on its own loop at accept under ``--chaos``.
 """
 
 from d4pg_tpu_torch.netio.loop import Connection, FrameLoop

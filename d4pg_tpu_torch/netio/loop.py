@@ -28,6 +28,7 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
+from d4pg_tpu_torch.analysis import lockwitness
 from d4pg_tpu_torch.serve import protocol
 
 __all__ = ["Connection", "FrameLoop"]
@@ -85,7 +86,7 @@ class Connection:
         self.sock = sock
         self.addr = addr
         self.assembler = protocol.FrameAssembler()
-        self._lock = threading.Lock()
+        self._lock = lockwitness.named_lock("Connection._lock")
         self._out: deque = deque()      # encoded frames awaiting the kernel
         self._out_bytes = 0             # total queued (watermark input)
         self._out_off = 0               # sent bytes of the head frame
@@ -188,7 +189,7 @@ class FrameLoop:
         self._stopping = threading.Event()
         self._flush_deadline: Optional[float] = None
         # cross-thread → loop marshalling
-        self._cb_lock = threading.Lock()
+        self._cb_lock = lockwitness.named_lock("FrameLoop._cb_lock")
         self._callbacks: deque = deque()
         self._waker_r, self._waker_w = socket.socketpair()
         self._waker_r.setblocking(False)

@@ -24,17 +24,19 @@ Every collective here is a copy (``all_gather``), never a reduction, so
 the lanes' arithmetic is the callers' (``parallel/dp.py``'s fixed-order
 mean, exact min and max) and is the same in one process as in several.
 Under ``torch.cuda.set_sync_debug_mode("error")`` (``--debug-guards``) a
-collective on the multi-rank path runs with the guard lifted: gloo syncs
-the host by design, so the guard covers the lanes' compute only.
+collective on the multi-rank path runs with the guard lifted
+(``analysis/transfer.py:explicit_transfer``): gloo syncs the host and
+copies through it by design, so the guard covers the lanes' compute only.
 """
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 
 import numpy as np
 import torch
+
+from d4pg_tpu_torch.analysis.transfer import explicit_transfer
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -135,21 +137,6 @@ def shutdown() -> None:
     _GROUP.update(backend=None, lanes=None)
 
 
-@contextlib.contextmanager
-def _unguarded():
-    """Lift ``set_sync_debug_mode`` around a collective (gloo syncs the
-    host by design); the caller's mode is restored after it."""
-    if not torch.cuda.is_available():
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
 def all_gather_lanes(rows: torch.Tensor) -> torch.Tensor:
     """``[L, ...]`` rows of this rank's lanes → ``[P·L, ...]`` rows of
     every lane, in lane order, on ``rows``' device. Exact (a copy). The
@@ -159,7 +146,7 @@ def all_gather_lanes(rows: torch.Tensor) -> torch.Tensor:
         return rows
     d = torch.distributed
     rows = rows.contiguous()
-    with _unguarded():
+    with explicit_transfer():
         if _GROUP["backend"] == "nccl":
             out = torch.empty((world,) + tuple(rows.shape), dtype=rows.dtype, device=rows.device)
             d.all_gather_into_tensor(out, rows, group=_GROUP["lanes"])

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from d4pg_tpu_torch.analysis.ledger import NULL_LEDGER
 from d4pg_tpu_torch.replay.schedules import linear_schedule
 from d4pg_tpu_torch.replay.segment_tree import MinTree, SumTree
 from d4pg_tpu_torch.replay.uniform import ReplayBuffer, Transition
@@ -95,6 +96,9 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         # sample_block staging: STAGING_SLOTS preallocated buffer sets per
         # draw size, handed out round-robin (see _staging_slot)
         self._staging: dict = {}
+        # Staging ledger (debug_guards): generation-tags the rotation, so
+        # a slot rewritten while its consumer still holds it raises here
+        self._ledger = NULL_LEDGER
 
     @property
     def tree_backend(self) -> str:
@@ -173,10 +177,10 @@ class PrioritizedReplayBuffer(ReplayBuffer):
     # calls of the same size.
     STAGING_SLOTS = 3
 
-    def _staging_slot(self, n: int) -> dict:
-        """The next staging buffer set for an n-row draw (allocated once per
-        size, then reused round-robin), with its native call's pointers
-        marshalled once."""
+    def _staging_slot(self, n: int) -> tuple[dict, int]:
+        """(slot, its position): the next staging buffer set for an n-row
+        draw (allocated once per size, then reused round-robin), with its
+        native call's pointers marshalled once."""
         entry = self._staging.get(n)
         if entry is None:
             obs_dim, act_dim = self.obs.shape[1], self.action.shape[1]
@@ -206,11 +210,27 @@ class PrioritizedReplayBuffer(ReplayBuffer):
                     )
                 return slot
 
-            entry = {"slots": [mk() for _ in range(self.STAGING_SLOTS)], "next": 0}
+            entry = {
+                "slots": [mk() for _ in range(self.STAGING_SLOTS)],
+                "next": 0,
+                # the ledger group precomputed: no per-call f-string
+                "group": f"per.sample_block[n={n}]",
+            }
             self._staging[n] = entry
-        slot = entry["slots"][entry["next"]]
-        entry["next"] = (entry["next"] + 1) % self.STAGING_SLOTS
-        return slot
+        pos = entry["next"]
+        # declared to the ledger BEFORE the fill: trips here, at the reuse
+        # site, if a consumer still holds this slot
+        self._ledger.write(entry["group"], pos)
+        slot = entry["slots"][pos]
+        entry["next"] = (pos + 1) % self.STAGING_SLOTS
+        return slot, pos
+
+    def set_ledger(self, ledger) -> None:
+        """Attach a :class:`~d4pg_tpu_torch.analysis.ledger.StagingLedger`
+        (``debug_guards``): :meth:`sample_block` then hands its caller a
+        hold on the slot (``_staging_hold``), to release once nothing
+        reads the block's views any more."""
+        self._ledger = ledger if ledger is not None else NULL_LEDGER
 
     def _native_obs_mode(self) -> int:
         """``st_sample_gather``'s obs mode: float32 rows, uint8 rows decoded
@@ -241,7 +261,7 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         serialized by the caller (one slot per call, not per thread).
         """
         n = batch_size * k
-        st = self._staging_slot(n)
+        st, slot_pos = self._staging_slot(n)
         if self._use_native:
             with self._lock:
                 prefixes = self._prefixes(self._sum.sum(), n, rng)
@@ -259,6 +279,10 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         out = {key: block(st[key]) for key in ("obs", "action", "reward", "next_obs", "discount")}
         out["weights"] = block(st["weights"])
         out["indices"] = SampledIndices(block(st["idx"]).copy(), block(st["gen"]).copy())
+        if self._ledger is not NULL_LEDGER:
+            # The consumer's claim on this slot; the key is absent with
+            # guards off, so the block is the same as without them.
+            out["_staging_hold"] = self._ledger.hold(self._staging[n]["group"], slot_pos)
         return out
 
     def sample_block_indices(

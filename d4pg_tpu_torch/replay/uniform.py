@@ -11,7 +11,7 @@ the write (``np.rint`` rounds half to even), decoded as ``/255`` in
 float32 at the sample, or kept as bytes for the uint8 wire
 (``decode_on_sample=False``).
 
-One re-entrant lock (``_lock``, a ``threading.RLock`` made once here)
+One re-entrant lock (``_lock``, ``lockwitness.named_rlock``, made once here)
 guards every write, gather, snapshot copy and restore, so the priority write-back
 thread never reads a torn row; the prioritized subclass takes the same
 lock around its trees and calls back into these methods while it holds
@@ -24,10 +24,11 @@ so the learner's projection needs no gamma/n plumbing.
 from __future__ import annotations
 
 import os
-import threading
 from typing import Mapping, NamedTuple
 
 import numpy as np
+
+from d4pg_tpu_torch.analysis import lockwitness
 
 
 class Transition(NamedTuple):
@@ -73,7 +74,7 @@ class ReplayBuffer:
         self._total_added = 0
         # Re-entrant: the PER subclass holds it around its trees and calls
         # add_batch / gather / _snapshot_arrays of this class inside.
-        self._lock = threading.RLock()
+        self._lock = lockwitness.named_rlock("ReplayBuffer._lock")
 
     def _encode_obs(self, obs) -> np.ndarray:
         obs = np.atleast_2d(np.asarray(obs, np.float32))

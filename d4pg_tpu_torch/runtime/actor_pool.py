@@ -29,8 +29,13 @@ in-flight n-step window is torn mid-episode, so the caller drains
 polls its pipe with a timeout and exits when the parent is gone, so a
 crashed learner never strands N env processes.
 
-The JAX pool's staging-ledger holds on the reply slots (ROADMAP A11 (b))
-and its chaos fault injection (A11 (e)) are not carried.
+**Guards and faults** (the JAX pool's): with a
+:class:`~d4pg_tpu_torch.analysis.ledger.StagingLedger` (``debug_guards``)
+each reply slot handed out is held for the one step the caller retains
+it, and a rewrite while held raises; with a
+:class:`~d4pg_tpu_torch.chaos.ChaosInjector` the plan's ``env_raise`` /
+``env_hang`` entries ship into their workers at spawn and ``worker_kill``
+ticks here once per pool step.
 
 Protocol (pipe messages, parent → child):
     ("reset", seed)      → child replies flat obs [obs_dim]
@@ -56,6 +61,7 @@ from typing import Optional
 
 import numpy as np
 
+from d4pg_tpu_torch.analysis.ledger import NULL_LEDGER
 from d4pg_tpu_torch.utils.retry import Backoff
 
 # Per-worker supervision states.
@@ -72,6 +78,7 @@ def _worker(
     max_episode_steps: Optional[int],
     base_seed: int,
     action_repeat: int = 1,
+    chaos_steps: tuple = (),
 ):
     # Child-process entry: owns exactly one host env. Import here so the
     # parent's module import stays light; make_host_env is the shared
@@ -81,6 +88,7 @@ def _worker(
 
     env = make_host_env(env_id, max_episode_steps, action_repeat=action_repeat)
     episode = 0
+    steps = 0
     # Orphan detection: if the parent dies (kill -9, OOM) this child must
     # exit instead of blocking in conn.recv() forever and leaking the env.
     parent = mp.parent_process()
@@ -111,6 +119,17 @@ def _worker(
                 episode += 1
                 conn.send(env.reset(seed=seed))
             elif cmd in ("step", "step_goal"):
+                steps += 1
+                # Chaos faults scheduled for THIS worker (plain tuples from
+                # ChaosPlan.worker_entries), counted in its own steps:
+                # env_raise proves crash recovery, env_hang the parent's
+                # step deadline.
+                for site, at, arg in chaos_steps:
+                    if at == steps:
+                        if site == "env_raise":
+                            raise RuntimeError(f"[chaos] env_raise at worker step {steps}")
+                        if site == "env_hang":
+                            time.sleep(arg if arg is not None else 3600.0)
                 with_goals = cmd == "step_goal"
                 g0 = goal_view() if with_goals else None
                 obs2, r, term, trunc, info = env.step(msg[1])
@@ -208,6 +227,8 @@ class HostActorPool:
         action_repeat: int = 1,
         step_timeout_s: float = 60.0,
         max_worker_failures: int = 3,
+        ledger=None,
+        chaos=None,
     ):
         assert num_actors >= 1
         self.num_actors = num_actors
@@ -221,6 +242,11 @@ class HostActorPool:
         self.restart_timeout_s = max(step_timeout_s, 30.0)
         self.max_worker_failures = max_worker_failures
         self._ctx = mp.get_context(start_method)
+        self._chaos = chaos  # ChaosInjector or None
+        if chaos is not None:
+            chaos.plan = chaos.plan.resolve_actors(num_actors)
+            # re-key the injector's site tables on the resolved plan
+            chaos.__post_init__()
         self._conns: list = [None] * num_actors
         self._procs: list = [None] * num_actors
         self._state = [_ACTIVE] * num_actors
@@ -229,7 +255,7 @@ class HostActorPool:
         self._restart_count = [0] * num_actors
         self._reset_deadline = [0.0] * num_actors
         # Seeded per-worker backoff: jitter decorrelates mass restarts but
-        # stays deterministic under a fixed pool seed.
+        # stays deterministic under a fixed pool seed (the chaos contract).
         self._backoffs = [
             Backoff(
                 base_s=0.05,
@@ -241,7 +267,7 @@ class HostActorPool:
             for i in range(num_actors)
         ]
         for i in range(num_actors):
-            self._spawn(i)
+            self._spawn(i, fresh=True)
         self._closed = False
         # Supervision surface the caller reads after each step()/step_goal():
         # stepped_mask[i] ⇔ row i is a REAL env transition this call (valid
@@ -271,6 +297,16 @@ class HostActorPool:
         # pool step. Retention beyond one step would need a copy.
         self._reply_slots = None
         self._reply_next = 0
+        # Staging ledger (debug_guards): each handed-out reply slot is held
+        # for the one step the caller retains it. The caller's last read of
+        # step n's slot is step n+1's writer call (it inserts the
+        # observations it acted on, step n's pol_obs, after step n+1's
+        # replies landed), so the hold from two steps ago, whose slot this
+        # step rewrites, is released at entry: the caller handing over new
+        # actions has finished with it. Single-buffering the replies trips
+        # the ledger at the overwrite. NULL_LEDGER when guards are off.
+        self._ledger = ledger if ledger is not None else NULL_LEDGER
+        self._reply_holds: deque = deque()
 
     # --------------------------------------------------------- worker spawn
     def _worker_seed(self, i: int) -> int:
@@ -283,8 +319,14 @@ class HostActorPool:
             + 7_919 * self._restart_count[i]
         )
 
-    def _spawn(self, i: int) -> None:
+    def _spawn(self, i: int, fresh: bool) -> None:
         parent, child = self._ctx.Pipe()
+        # Chaos env faults ship only with the ORIGINAL spawn: a restarted
+        # worker's step counter restarts at 0 and must not re-fire the
+        # same entry forever.
+        chaos_steps = ()
+        if fresh and self._chaos is not None:
+            chaos_steps = self._chaos.plan.worker_entries(i)
         p = self._ctx.Process(
             target=_worker,
             args=(
@@ -293,6 +335,7 @@ class HostActorPool:
                 self.max_episode_steps,
                 self._worker_seed(i),
                 self.action_repeat,
+                chaos_steps,
             ),
             daemon=True,
             name=f"pool-worker-{i}",
@@ -351,15 +394,21 @@ class HostActorPool:
             )
 
     def _maintain(self) -> None:
-        """Once per pool step: respawn workers whose backoff expired, and
-        harvest restart reset handshakes."""
+        """Once per pool step: fire scheduled chaos kills, respawn workers
+        whose backoff expired, and harvest restart reset handshakes."""
+        if self._chaos is not None:
+            e = self._chaos.tick("worker_kill")
+            if e is not None:
+                p = self._procs[e.actor]
+                if p is not None and p.is_alive():
+                    p.kill()  # detection and restart are the supervisor's job
         now = time.monotonic()
         for i in range(self.num_actors):
             st = self._state[i]
             if st == _BACKOFF and now >= self._restart_at[i]:
                 self._restart_count[i] += 1
                 self.restarts_total += 1
-                self._spawn(i)
+                self._spawn(i, fresh=False)
                 try:
                     self._conns[i].send(("reset", None))
                 except OSError:
@@ -487,9 +536,11 @@ class HostActorPool:
                 )
 
             self._reply_slots = (mk(), mk())
-        slot = self._reply_slots[self._reply_next]
+        pos = self._reply_next
+        self._ledger.write("pool.reply", pos)
+        slot = self._reply_slots[pos]
         self._reply_next ^= 1
-        return slot
+        return slot, pos
 
     def _recv_replies(self) -> None:
         """Deadline-bounded gather of this step's replies from every ACTIVE
@@ -536,6 +587,10 @@ class HostActorPool:
                 f"(>= {self.max_worker_failures} consecutive failures each); "
                 "collection cannot make progress"
             )
+        # New actions mean the caller is done with the slot of two steps
+        # ago: release its hold before _reply_slot rewrites it.
+        while len(self._reply_holds) >= 2:
+            self._reply_holds.popleft().release()
         for i in range(self.num_actors):
             if self._state[i] != _ACTIVE:
                 continue
@@ -544,7 +599,8 @@ class HostActorPool:
             except (BrokenPipeError, OSError):
                 self._fail_worker(i, "pipe broken at send")
         self._recv_replies()
-        obs2, rews, terms, truncs, pol_obs, succ, succ_rep = self._reply_slot(self._obs_dim)
+        (obs2, rews, terms, truncs, pol_obs, succ, succ_rep), slot_pos = (
+            self._reply_slot(self._obs_dim))
         g_prev: list = [None] * self.num_actors if with_goals else []
         g_next: list = [None] * self.num_actors if with_goals else []
         stepped = self._stepped
@@ -590,6 +646,7 @@ class HostActorPool:
                 # row above); its next actions include a valid one for it.
                 self._state[i] = _ACTIVE
         out = (obs2, rews, terms, truncs, pol_obs, succ, succ_rep)
+        self._reply_holds.append(self._ledger.hold("pool.reply", slot_pos, holder=cmd))
         return out + (g_prev, g_next) if with_goals else out
 
     # -------------------------------------------------------------- teardown
@@ -597,6 +654,10 @@ class HostActorPool:
         if self._closed:
             return
         self._closed = True
+        # Nothing reads the reply slots once the pool is down: release the
+        # (up to two) holds in flight, so a guarded run ends with none.
+        while self._reply_holds:
+            self._reply_holds.popleft().release()
         for c in self._conns:
             if c is None:
                 continue

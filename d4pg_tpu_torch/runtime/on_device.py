@@ -56,6 +56,7 @@ from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.agent import create_train_state
 from d4pg_tpu_torch.agent.d4pg import encode_obs, fused_train_scan, gather_batches, make_noise
 from d4pg_tpu_torch.agent.state import D4PGConfig, TrainState, check_supported
+from d4pg_tpu_torch.analysis.transfer import sync_debug_error
 from d4pg_tpu_torch.config import (
     TrainConfig,
     apply_env_preset,
@@ -80,7 +81,7 @@ from d4pg_tpu_torch.runtime.checkpoint import (
 from d4pg_tpu_torch.runtime.collect import make_segment_collector
 from d4pg_tpu_torch.runtime.evaluator import evaluate
 from d4pg_tpu_torch.runtime.metrics import MetricsLogger, interval_crossed
-from d4pg_tpu_torch.runtime.trainer import SEGMENT_LEN, _rss_gb, _sync_debug_error
+from d4pg_tpu_torch.runtime.trainer import SEGMENT_LEN, _rss_gb
 
 
 @dataclasses.dataclass
@@ -468,7 +469,7 @@ class OnDeviceRun:
     def _guard(self):
         if self.config.debug_guards and self.device.type == "cuda" and self.iterations:
             self.guarded_iterations += 1
-            return _sync_debug_error()
+            return sync_debug_error()
         return contextlib.nullcontext()
 
     def _save(self) -> None:

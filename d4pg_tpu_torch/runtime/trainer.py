@@ -37,7 +37,8 @@ rows into the device ring (``ingest_chunk``; with PER the flush's
 megastep dispatch of K grad steps (``megastep_dispatch``) whose draws,
 IS weights and priority write-back stay on the device. ``total_steps`` is
 rounded up to whole dispatches. Under ``debug_guards`` every dispatch
-after the first runs under ``torch.cuda.set_sync_debug_mode("error")``.
+after the first runs under ``torch.cuda.set_sync_debug_mode("error")``
+and the zero-transfer budget (see Guards below).
 
 With ``replay_placement="hybrid"`` (PER only; the JAX trainer's hybrid
 branch of ``_megastep_dispatch_once``) the host
@@ -144,8 +145,21 @@ itself its rows). The state is replicated, so process 0 saves its copy.
 
 Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
 the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
-leg (``utils/profiling.py``). Under ``debug_guards`` every host dispatch
-after the first runs under the sync guard too.
+leg (``utils/profiling.py``).
+
+Guards (``debug_guards``, the JAX trainer's; ``analysis/``): on the card
+every dispatch after the first runs under the zero-transfer budget
+``no_transfers``: its operands (state, batch, ring, trees) are checked
+once on entry, none on the host, and it runs under
+``torch.cuda.set_sync_debug_mode("error")``. A
+:class:`~d4pg_tpu_torch.analysis.ledger.StagingLedger` polices PER ``sample_block``'s staging slots and the
+actor pool's reply slots, and ``close()`` checks the lock witness's
+observed nesting against the port's committed graph last (a no-op unless
+the CLI armed it). Chaos (``chaos``, :mod:`d4pg_tpu_torch.chaos`): the
+flusher ticks ``wb_stall`` at each wake, a checkpoint ``ckpt_truncate``
+after its manifest, a megastep or hybrid dispatch ``host_kill``, the pool
+``worker_kill`` and its workers ``env_raise`` / ``env_hang``; every
+metrics row carries ``chaos_injections``.
 
 Checkpoints (the JAX trainer's single-process contract,
 ``runtime/checkpoint.py``): at every ``checkpoint_interval`` crossing of
@@ -172,6 +186,7 @@ import queue
 import threading
 import time
 import zipfile
+from collections import deque
 from functools import partial
 from typing import Optional
 
@@ -188,10 +203,15 @@ from d4pg_tpu_torch.agent import (
 )
 from d4pg_tpu_torch.agent.d4pg import decode_obs, fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
+from d4pg_tpu_torch.analysis import lockwitness
+from d4pg_tpu_torch.analysis.ledger import StagingLedger
+from d4pg_tpu_torch.analysis.transfer import no_transfers, sync_debug_error
+from d4pg_tpu_torch.chaos import ChaosInjector, ChaosPlan, truncate_checkpoint_step
 from d4pg_tpu_torch.config import (
     TrainConfig,
     apply_declared_actions,
     apply_env_preset,
+    check_chaos,
     check_collection,
     check_placement,
     check_wire_dtypes,
@@ -321,9 +341,18 @@ class Trainer:
         check_supported(config.agent)
         check_placement(config)
         check_collection(config, self.host_env, self.env)
+        check_chaos(config)
         config = apply_declared_actions(config)
         self.config = config
         agent_cfg = config.agent
+        # The chaos plan (seeded, deterministic): the trainer owns wb_stall,
+        # ckpt_truncate and host_kill; the pool owns worker_kill and ships
+        # env_raise / env_hang into its workers.
+        self._chaos = ChaosInjector(ChaosPlan.parse(config.chaos)) if config.chaos else None
+        # The staging ledger (debug_guards) on PER sample_block's slots and
+        # the pool's reply slots; FIFO holds, one a sampled PER block.
+        self._ledger = StagingLedger("trainer") if config.debug_guards else None
+        self._staging_holds: deque = deque()
 
         # Data parallelism: the lane layout and this process's place in it
         # (parallel/). Each process owns capacity/P rows of the replay and
@@ -364,6 +393,7 @@ class Trainer:
                 beta_steps=agent_cfg.per_beta_steps, eps=agent_cfg.per_eps,
                 tree_backend=config.tree_backend, **storage,
             )
+            self.buffer.set_ledger(self._ledger)
         else:
             self.buffer = ReplayBuffer(config.replay_capacity, obs_dim, act_dim, **storage)
 
@@ -413,7 +443,7 @@ class Trainer:
         self._wb_error: Optional[BaseException] = None
         self._wb_idle = threading.Event()
         self._wb_idle.set()
-        self._wb_idle_lock = threading.Lock()
+        self._wb_idle_lock = lockwitness.named_lock("Trainer._wb_idle_lock")
         self.writebacks_applied = 0  # dispatches whose priorities reached the tree
         # the host placement's --dp steps: the batch's rows split over the
         # lanes, gradients combined every step (or every K with hogwild)
@@ -540,7 +570,7 @@ class Trainer:
         self._eval_copy: Optional[ActorCopy] = None
         self._eval_thread: Optional[threading.Thread] = None
         self._eval_req = None  # latest pending (publication, step, scalars, env_steps, norm)
-        self._eval_req_lock = threading.Lock()
+        self._eval_req_lock = lockwitness.named_lock("Trainer._eval_req_lock")
         self._eval_pending = threading.Event()
         self._eval_idle = threading.Event()
         self._eval_idle.set()
@@ -699,6 +729,12 @@ class Trainer:
                     os.replace(tmp, dp_path)
                     side.append(dp_path)
             self.ckpt.write_manifest(self.grad_steps, side_files=side)
+            if self._chaos is not None and self._chaos.tick("ckpt_truncate") is not None:
+                # corrupt the COMMITTED step: a resume's verify-on-restore
+                # must catch what the manifest attests against
+                step_dir = self.ckpt.step_dir(self.grad_steps)
+                if step_dir is not None:
+                    truncate_checkpoint_step(step_dir)
 
     def request_preemption(self) -> None:
         """Ask the trainer to checkpoint and stop at the next loop boundary
@@ -930,6 +966,7 @@ class Trainer:
             start_method=cfg.pool_start_method, action_repeat=cfg.action_repeat,
             step_timeout_s=cfg.pool_step_timeout_s,
             max_worker_failures=cfg.pool_max_worker_failures,
+            ledger=self._ledger, chaos=self._chaos,
         )
         if self.her_writers is None:
             self.batched_writer = BatchedNStepWriter(
@@ -1103,6 +1140,11 @@ class Trainer:
             if cfg.prioritized:
                 block = self.buffer.sample_block(cfg.batch_size, k, self._rng, step=self.grad_steps)
                 indices = block.pop("indices")
+                hold = block.pop("_staging_hold", None)
+                if hold is not None:
+                    # released once the dispatch that reads this block has
+                    # run (_release_staging_holds)
+                    self._staging_holds.append(hold)
                 if k == 1:
                     indices = SampledIndices(indices.idx[0], indices.gen[0])
                     block = {key: v[0] for key, v in block.items()}
@@ -1132,8 +1174,12 @@ class Trainer:
             # before they return, and on the CPU the dispatch that reads the
             # views runs before the slot comes round again: with --prefetch
             # one batch is in flight, sampled after one dispatch and read by
-            # the next. Pinning the slots themselves would have to honour
-            # the rotation.
+            # the next. The indices are fresh copies, so the lagged and the
+            # flusher's write-backs never read the slot. Pinning the slots
+            # themselves would have to honour the rotation. Under
+            # debug_guards the ledger holds the slot until the dispatch
+            # that reads the block has run: the last reader on the CPU, and
+            # later than pin_memory, the last one on the card.
             if ahead:
                 dev_batch, ready = self._h2d.put(block)
             else:
@@ -1149,6 +1195,12 @@ class Trainer:
         done = torch.cuda.Event()
         done.record()
         return host, done
+
+    def _release_staging_holds(self, n: int = 1) -> None:
+        """Release the oldest ``n`` staging-ledger holds (FIFO: blocks are
+        sampled and dispatched in one order). No-op with guards off."""
+        for _ in range(min(n, len(self._staging_holds))):
+            self._staging_holds.popleft().release()
 
     def _write_back(self, pending) -> None:
         indices, (host, done) = pending
@@ -1200,6 +1252,12 @@ class Trainer:
             while True:
                 # sentinel-terminated: _stop_writeback always puts None
                 item = self._wb_queue.get()
+                if self._chaos is not None:
+                    # chaos wb_stall: a slow flusher must only slow the
+                    # write-backs, never trip a guard or drop an update
+                    e = self._chaos.tick("wb_stall")
+                    if e is not None:
+                        time.sleep(e.arg if e.arg is not None else 0.5)
                 stop = item is None
                 items = [] if stop else [item]
                 while True:
@@ -1302,24 +1360,41 @@ class Trainer:
         self._stop_writeback()
 
     # ------------------------------------------------------------------ train
-    def _dispatch_guard(self):
-        """``set_sync_debug_mode("error")`` around a steady-state host,
-        megastep or hybrid dispatch under ``debug_guards`` (the first
-        dispatch builds and loads the kernels, which may synchronise). The
-        operands must already be on the device."""
+    def _dispatch_guard(self, *operands):
+        """The guards of a steady-state dispatch under ``debug_guards`` on
+        the card (the first dispatch builds and loads the kernels, which may
+        synchronise): the zero-transfer budget ``no_transfers``, which
+        checks the dispatch's operands once on entry (none may lie on the
+        host) and runs it under ``set_sync_debug_mode("error")``."""
         if not (self.config.debug_guards and self.device.type == "cuda" and self._dispatches):
             return contextlib.nullcontext()
-        return _sync_debug_error()
+        return no_transfers(*operands)
+
+    def _tick_host_kill(self) -> None:
+        """Chaos ``host_kill@N[:victim]``: SIGKILL this process at its Nth
+        megastep or hybrid dispatch when it is the victim (default 0).
+        ``check_chaos`` refuses it with several processes."""
+        if self._chaos is None:
+            return
+        e = self._chaos.tick("host_kill")
+        if e is not None and self._proc_idx == int(e.arg or 0):
+            import signal
+
+            print(f"[chaos] host_kill: SIGKILL process {self._proc_idx} "
+                  f"at grad step {self.grad_steps}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
 
     def _megastep_dispatch_once(self) -> dict:
         """Flush new rows into the device ring (and tree), then one megastep
         dispatch of K grad steps; returns its K-step mean metrics. With
         ``ingest_prefetch`` the next flush's first chunk is staged right
         after the dispatch, outside the guard (explicit staging)."""
+        self._tick_host_kill()
         with self.timers.stage("ingest_chunk"):
             self._ring_sync.flush(self._ring)
         trees = None if self._dev_per is None else self._dev_per.trees
-        with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
+        with self.timers.stage("megastep_dispatch"), \
+                self._dispatch_guard(self.state, self._ring, trees):
             metrics = self._megastep(self.state, self._ring, trees, self._megastep_gen)
         self._dispatches += 1
         if self.config.ingest_prefetch:
@@ -1333,6 +1408,7 @@ class Trainer:
         weights' copy to the device, the megastep, then the write-back of
         its [K, B] priorities. Returns its K-step mean metrics."""
         cfg = self.config
+        self._tick_host_kill()
         with self.timers.stage("sample"):
             # BEFORE the flush: every row that carries tree mass now is
             # mirrored by the time the megastep gathers it
@@ -1345,7 +1421,8 @@ class Trainer:
             # the dispatch's only host-to-device copy, explicit staging
             # outside the guard
             dev = to_device({"idx": idx.astype(np.int32), "weights": weights}, self.device)
-        with self.timers.stage("megastep_dispatch"), self._dispatch_guard():
+        with self.timers.stage("megastep_dispatch"), \
+                self._dispatch_guard(self.state, self._ring, dev):
             metrics, priorities = self._megastep(self.state, self._ring, dev["idx"], dev["weights"])
         self._dispatches += 1
         self._hand_off(SampledIndices(idx, gen), priorities)
@@ -1367,7 +1444,7 @@ class Trainer:
         else:
             indices, dev_batch, ready = self._sample_staged(k)
         self._h2d.consume(dev_batch, ready)
-        with self.timers.stage("train_dispatch"), self._dispatch_guard():
+        with self.timers.stage("train_dispatch"), self._dispatch_guard(self.state, dev_batch):
             # the bfloat16 or uint8 wire's observations back to float32, on
             # the device
             dev_batch = {key: decode_obs(v) if key in WIRE_FIELDS else v
@@ -1381,6 +1458,7 @@ class Trainer:
                 _, metrics_k, priorities = scan(self.state, dev_batch)
                 metrics = {key: v.mean() for key, v in metrics_k.items()}
         self._dispatches += 1
+        self._release_staging_holds(1)  # the dispatch has read its block
         if prefetch_next:
             with annotate("host/prefetch"):
                 self._staged = self._sample_staged(k, ahead=True)
@@ -1469,8 +1547,10 @@ class Trainer:
                             break
         finally:
             # a batch staged for a dispatch that never ran (a preemption,
-            # an error) is dropped; its rows got no write-back
+            # an error) is dropped; its rows got no write-back, and nothing
+            # reads its slot any more
             self._staged = None
+            self._release_staging_holds(len(self._staging_holds))
             self._stop_collector()
         # The host tree's lagged write-back lands after the loop, so after a
         # preemption checkpoint too (as in the JAX trainer).
@@ -1503,6 +1583,8 @@ class Trainer:
             scalars["pool_workers_quarantined"] = float(self.pool.num_quarantined())
         if self._ckpt_fallbacks:
             scalars["checkpoint_fallbacks"] = float(self._ckpt_fallbacks)
+        if self._chaos is not None:
+            scalars["chaos_injections"] = float(self._chaos.injections_total)
         if not self.host_env:
             ev = evaluate(
                 cfg.agent, self.env, self.state.actor, self._eval_gen, cfg.eval_episodes
@@ -1754,7 +1836,10 @@ class Trainer:
 
     def close(self) -> None:
         """Stop the collector and the evaluator, then close the metrics, the
-        pools (no worker outlives it) and the envs."""
+        pools (no worker outlives it) and the envs. Under ``debug_guards``
+        the lock witness is checked LAST: a contradiction fails the close
+        loudly without leaking the teardown above (pool workers, metrics,
+        envs)."""
         self._stop_collector()
         self._stop_eval_thread()
         if not self._eval_leaked:
@@ -1768,13 +1853,5 @@ class Trainer:
                 self._eval_env.close()
         if self.host_env and hasattr(self.env, "close"):
             self.env.close()
-
-
-@contextlib.contextmanager
-def _sync_debug_error():
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        if self.config.debug_guards:
+            lockwitness.check_against_committed(where="trainer close")

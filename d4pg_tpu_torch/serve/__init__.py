@@ -13,8 +13,13 @@ port's counterpart of ``d4pg_tpu/serve``).
 - :mod:`~d4pg_tpu_torch.serve.protocol` — the length-prefixed binary frames;
 - :mod:`~d4pg_tpu_torch.serve.stats`    — p50/p95/p99, batch/queue histograms.
 
-Run it: ``python -m d4pg_tpu_torch.serve --bundle <dir>``. The router and
-the autoscaler of the JAX package come with ROADMAP A11 (e).
+Run it: ``python -m d4pg_tpu_torch.serve --bundle <dir>``;
+``--debug-guards`` arms the staging ledger, the transfer and sync guards,
+the lock witness and the ``serve-stats`` flow identity
+(``d4pg_tpu_torch/analysis``), and ``--chaos`` the serving fault sites
+(``sock_reset`` and the connection attacks of ``netio/attack.py``). The
+router and the autoscaler of the JAX package come with ROADMAP A11 (e4),
+the mirror tap with A11 (e3).
 
 The names below load their module on first use, so importing the
 protocol or the client does not build the batcher's machinery.

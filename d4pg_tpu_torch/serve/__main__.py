@@ -23,12 +23,12 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from d4pg_tpu_torch.utils.signals import install_graceful_signals
 
 UNPORTED_FLAGS = {
-    "--chaos": "fault injection (ROADMAP A11 (e))",
     "--mirror-fraction": "the flywheel's mirror tap (ROADMAP A11 (e))",
     "--mirror-ingest": "the flywheel's mirror tap (ROADMAP A11 (e))",
     "--mirror-spool": "the flywheel's mirror tap (ROADMAP A11 (e))",
@@ -83,14 +83,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="event loop: evict a connection that drains none "
                         "of its buffered replies for this long (the "
                         "zero-window bound)")
+    p.add_argument("--chaos", default=None, metavar="PLAN",
+                   help="deterministic fault injection (d4pg_tpu_torch/chaos.py): "
+                        "e.g. 'sock_reset@5' force-resets the serving "
+                        "connection at its 5th frame; 'slowloris@N:bps' / "
+                        "'zero_window@N:ms' / 'fd_exhaust@N:ms' launch "
+                        "connection-level attacks at the Nth accept (the "
+                        "netio deadlines must evict them)")
     p.add_argument("--debug-guards", action="store_true",
-                   help="every batch after warmup dispatches under "
-                        "torch.cuda.set_sync_debug_mode('error') (a host sync "
-                        "raises), and drain checks that every CUDA graph "
-                        "still reads the parameters hot reload writes "
-                        "into. The staging "
-                        "ledger, the lock witness and the flow ledger of the "
-                        "JAX server's guards are ROADMAP A11 (b)")
+                   help="runtime guards (d4pg_tpu_torch/analysis): on the card "
+                        "every batch after warmup dispatches under "
+                        "torch.cuda.set_sync_debug_mode('error'), a staging "
+                        "ledger polices the batcher's input slots, and drain "
+                        "checks that every CUDA graph still reads the "
+                        "parameters hot reload writes into, the lock witness against the "
+                        "port's lock graph and the serve-stats identity")
     return p
 
 
@@ -102,10 +109,30 @@ def refuse_unported(argv) -> None:
             raise NotImplementedError(f"{arg}: {what} is not ported to d4pg_tpu_torch yet")
 
 
+def _kernel_modules() -> tuple:
+    """The modules of the port's hand kernels, each with its ``LAUNCHES``
+    counter and ``reset_launch_counts``."""
+    from d4pg_tpu_torch.ops import cuda_fused_step, cuda_projection, cuda_tree
+
+    return (cuda_projection, cuda_tree, cuda_fused_step)
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
+    if args.debug_guards:
+        # Armed BEFORE anything builds its locks (the named helpers wrap
+        # only when enabled); drain checks both.
+        from d4pg_tpu_torch.analysis import flowledger, lockwitness
+
+        lockwitness.enable()
+        flowledger.enable()
+    chaos = None
+    if args.chaos:
+        from d4pg_tpu_torch.chaos import ChaosInjector, ChaosPlan
+
+        chaos = ChaosInjector(ChaosPlan.parse(args.chaos))
     from d4pg_tpu_torch import resolve_device
     from d4pg_tpu_torch.serve.bundle import load_bundle
     from d4pg_tpu_torch.serve.server import PolicyServer
@@ -135,6 +162,7 @@ def main(argv=None) -> None:
         log_dir=args.log_dir,
         metrics_interval_s=args.metrics_interval,
         debug_guards=args.debug_guards,
+        chaos=chaos,
         replica_id=args.replica_id,
         io_read_stall_s=args.io_read_stall_s,
         io_write_stall_s=args.io_write_stall_s,
@@ -147,6 +175,11 @@ def main(argv=None) -> None:
     )
 
     server.start()
+    # the hand kernels' launch counters, from 0 for the serving window
+    # (printed at drain: the server runs none of them, its forward is a
+    # CUDA graph)
+    for mod in _kernel_modules():
+        mod.reset_launch_counts()
     rid = f"replica_id={args.replica_id} " if args.replica_id is not None else ""
     print(
         f"[serve] listening on {server.host}:{server.port} {rid}"
@@ -157,6 +190,10 @@ def main(argv=None) -> None:
         flush=True,
     )
     server.serve_until_shutdown()
+    if server.ledger is not None:
+        print(f"[serve] staging ledger: {json.dumps(server.ledger.stats())}", flush=True)
+    launches = {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
+    print(f"[serve] kernel launches: {json.dumps(launches)}", flush=True)
     snap = server.healthz()
     # aggregate across every resident policy (top-level counters are the
     # DEFAULT policy's)

@@ -27,6 +27,14 @@ Load shedding is explicit and immediate: a full queue rejects the request
 with ``queue_full`` (the caller replies ``OVERLOADED``), and requests whose
 deadline expired while queued are dropped at assembly time with
 ``deadline``.
+
+Guards (``guard_sync``, the server's ``debug_guards``): on the card every
+batch dispatches under ``set_sync_debug_mode("error")``
+(``analysis/transfer.py:sync_guard``). A batch's one transfer in is the
+input slot's explicit copy into the captured graph's static input, and
+the replay takes no operand, so there is no operand to check; with a
+``ledger`` every input slot is written and held through a
+:class:`~d4pg_tpu_torch.analysis.ledger.StagingLedger` (see ``_infer``).
 """
 
 from __future__ import annotations
@@ -43,6 +51,9 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.agent.state import D4PGConfig
+from d4pg_tpu_torch.analysis import lockwitness
+from d4pg_tpu_torch.analysis.ledger import NULL_LEDGER
+from d4pg_tpu_torch.analysis.transfer import sync_guard
 from d4pg_tpu_torch.serve.bundle import build_actor
 from d4pg_tpu_torch.serve.stats import ServeStats
 from d4pg_tpu_torch.utils.profiling import StageTimers
@@ -94,31 +105,6 @@ def default_buckets(max_batch: int) -> tuple:
     return tuple(sorted(set(out)))
 
 
-# torch.cuda.set_sync_debug_mode is process-wide, and every resident
-# policy's device thread enters the guard: the mode stays "error" until the
-# last thread inside leaves.
-_GUARD_LOCK = threading.Lock()
-_GUARD_DEPTH = 0
-
-
-@contextlib.contextmanager
-def sync_guard():
-    """Run the block under ``torch.cuda.set_sync_debug_mode("error")``: a
-    host synchronisation inside it raises."""
-    global _GUARD_DEPTH
-    with _GUARD_LOCK:
-        _GUARD_DEPTH += 1
-        if _GUARD_DEPTH == 1:
-            torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        with _GUARD_LOCK:
-            _GUARD_DEPTH -= 1
-            if _GUARD_DEPTH == 0:
-                torch.cuda.set_sync_debug_mode(0)
-
-
 class _Bucket:
     """One bucket's program: the static input and output on the device,
     the captured graph (None on the CPU), and two host slots each way
@@ -159,6 +145,7 @@ class DynamicBatcher:
         guard_sync: bool = False,
         name: str = "serve",
         device=None,
+        ledger=None,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -213,7 +200,7 @@ class DynamicBatcher:
         self._shapes = {k: tuple(v.shape) for k, v in self._serving.items()}
         self._captured_ptrs: dict = {}  # name -> data_ptr, set at warmup
         self._pending_params = None
-        self._params_lock = threading.Lock()
+        self._params_lock = lockwitness.named_lock("DynamicBatcher._params_lock")
 
         self._guard_sync = bool(guard_sync)
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -237,9 +224,18 @@ class DynamicBatcher:
         # batch N's D2H, so neither is overwritten early.
         self._staging_flip = {b: 0 for b in self.buckets}
         self._inflight = threading.Semaphore(2)
+        # Staging ledger (debug_guards): generation-tags the two input
+        # slots a bucket; a write into a slot whose batch's H2D copy the
+        # reply thread has not seen complete raises at the overwrite. The
+        # group names are made once, not per batch.
+        self._ledger = ledger if ledger is not None else NULL_LEDGER
+        self._staging_group = {b: f"{name}.staging[{b}]" for b in self.buckets}
+        # Test hook (the ledger's seeded fault): pin the rotation to one
+        # slot, the early-reuse bug class the two slots exist to prevent.
+        self._test_force_flip: Optional[int] = None
 
         self._queue: deque[_Request] = deque()
-        self._cond = threading.Condition()
+        self._cond = lockwitness.named_condition("DynamicBatcher._cond")
         self._draining = False
         self._stopped = False
         self._thread: Optional[threading.Thread] = None
@@ -251,7 +247,7 @@ class DynamicBatcher:
         # the whole fan-out. The device thread hands over the batch's
         # output slot and event; the reply thread waits for it.
         self._reply_q: deque = deque()
-        self._reply_cond = threading.Condition()
+        self._reply_cond = lockwitness.named_condition("DynamicBatcher._reply_cond")
         self._reply_thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------ lifecycle
@@ -544,7 +540,13 @@ class DynamicBatcher:
         """Enqueue one batch: new params if any, the input slot's H2D copy
         into the static input, the replay, the D2H copy into the output
         slot, then the slot's event — all on this batcher's stream. On the
-        CPU the same steps run synchronously and the event is None."""
+        CPU the same steps run synchronously and the event is None.
+
+        On the card the input slot is read by the ``non_blocking`` copy
+        some time after this returns: its ledger hold is released only by
+        the reply thread, once the slot's event (recorded after that copy
+        and the output copy) has completed. This is the one hold whose
+        race exists only on the GPU."""
         prog = self._programs[bucket]
         self._replays += 1
         if not self._cuda:
@@ -594,14 +596,23 @@ class DynamicBatcher:
                         ) from self._thread_error
                 with self.timers.stage("assemble"):
                     flip = self._staging_flip[bucket]
+                    if self._test_force_flip is not None:
+                        flip = self._test_force_flip
                     self._staging_flip[bucket] = 1 - flip
+                    self._ledger.write(self._staging_group[bucket], flip)
                     staging = self._programs[bucket].in_slots[flip].numpy()
                     for i, req in enumerate(live):
                         staging[i] = req.obs
                 with self.timers.stage("device_infer"), guard():
                     event = self._infer(bucket, flip)
+                # the holder formatted only for a real ledger: guards-off
+                # batches pay no per-batch f-string
+                hold = self._ledger.hold(
+                    self._staging_group[bucket], flip,
+                    holder=f"dispatch(n={n})" if self._ledger is not NULL_LEDGER else None,
+                )
                 with self._reply_cond:
-                    self._reply_q.append((live, bucket, flip, event))
+                    self._reply_q.append((live, bucket, flip, event, hold))
                     self._reply_cond.notify()
                 live = []  # resolved (or failed) by the reply thread now
                 self.stats.observe_batch(n, bucket)
@@ -643,10 +654,13 @@ class DynamicBatcher:
                     item = self._reply_q.popleft()
                 if item is None:
                     return
-                live, bucket, flip, event = item
+                live, bucket, flip, event, hold = item
                 with self.timers.stage("reply"):
                     if event is not None:
-                        event.synchronize()  # the D2H copy into the slot landed
+                        # the D2H copy into the output slot landed, and the
+                        # H2D copy out of the input slot before it
+                        event.synchronize()
+                    hold.release()
                     actions = self._programs[bucket].out_slots[flip].numpy()
                     # per-row copies: the futures outlive the slot, which
                     # the device thread reuses once the permit is back

@@ -28,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 
+from d4pg_tpu_torch.analysis import lockwitness
 from d4pg_tpu_torch.serve import protocol
 from d4pg_tpu_torch.serve.protocol import ProtocolError
 from d4pg_tpu_torch.utils.retry import Backoff
@@ -89,10 +90,10 @@ class PolicyClient:
         self._retry_rng = random.Random(retry_seed)
         # Serializes _reconnect against concurrent act() retries; never
         # held while blocking on a reply (only during dial/teardown).
-        self._conn_lock = threading.Lock()
-        self._send_lock = threading.Lock()
+        self._conn_lock = lockwitness.named_lock("PolicyClient._conn_lock")
+        self._send_lock = lockwitness.named_lock("PolicyClient._send_lock")
         self._pending: dict[int, Future] = {}
-        self._pending_lock = threading.Lock()
+        self._pending_lock = lockwitness.named_lock("PolicyClient._pending_lock")
         self._next_id = 0
         self._closed = False
         self._connect()

@@ -27,8 +27,17 @@ recaptures and in-flight batches finish on the params they started with.
 
 Graceful drain (SIGTERM path, wired in ``__main__``): stop accepting,
 shed new submissions with ``draining``, answer everything queued, then
-close. The chaos sites and the mirror tap of the JAX server come with
-ROADMAP A11 (e); its healthz then adds ``chaos_injections`` and
+close. Under ``debug_guards`` the drain then checks, last, that no
+captured parameter was rebound, the lock witness against the port's lock
+graph and each policy's ``serve-stats`` flow identity (the latter two
+no-ops unless the CLI armed them).
+
+Chaos (a :class:`~d4pg_tpu_torch.chaos.ChaosInjector`, the JAX server's
+sites): ``sock_reset`` ticks per received frame and resets the
+connection; ``slowloris``, ``zero_window`` and ``fd_exhaust`` tick per
+accepted connection and launch an attacker on the server's own loop
+(``netio/attack.py``); healthz carries ``chaos_injections``. The mirror
+tap of the JAX server comes with ROADMAP A11 (e3); its healthz then adds
 ``mirror``.
 """
 
@@ -43,6 +52,9 @@ from typing import Optional
 import numpy as np
 
 from d4pg_tpu_torch import netio
+from d4pg_tpu_torch.analysis import flowledger, lockwitness
+from d4pg_tpu_torch.analysis.ledger import StagingLedger
+from d4pg_tpu_torch.netio import attack as netio_attack
 from d4pg_tpu_torch.serve import protocol
 from d4pg_tpu_torch.serve.batcher import DynamicBatcher, ShedError
 from d4pg_tpu_torch.serve.bundle import PolicyBundle, bundle_mtime, load_bundle, params_from_leaves
@@ -129,6 +141,7 @@ class PolicyServer:
         log_dir: Optional[str] = None,
         metrics_interval_s: float = 30.0,
         debug_guards: bool = False,
+        chaos=None,
         replica_id: Optional[int] = None,
         policies: Optional[dict] = None,
         io_read_stall_s: float = netio.loop.DEFAULT_READ_STALL_S,
@@ -146,12 +159,14 @@ class PolicyServer:
             default_deadline_ms / 1e3 if default_deadline_ms else None
         )
         # --debug-guards: every batch after warmup dispatches under
-        # set_sync_debug_mode("error") (the JAX transfer guard's
-        # counterpart), and drain() checks that every policy's graphs
-        # still read the parameters hot reload writes into (the
-        # recompile sentinel's counterpart: a graph is never rebuilt, so
-        # what can go wrong is its binding).
+        # set_sync_debug_mode("error"), a staging ledger polices every
+        # batcher's input slots (its groups scoped by the batcher's name),
+        # and drain() checks that every
+        # policy's graphs still read the parameters hot reload writes into
+        # (the recompile sentinel's counterpart: a graph is never rebuilt,
+        # so what can go wrong is its binding).
         self.debug_guards = bool(debug_guards)
+        self.ledger = StagingLedger("serve") if debug_guards else None
 
         def _mk_batcher(pid: str, b: PolicyBundle):
             return DynamicBatcher(
@@ -166,6 +181,7 @@ class PolicyServer:
                 guard_sync=debug_guards,
                 name="serve" if pid == protocol.DEFAULT_POLICY else f"serve[{pid}]",
                 device=device,
+                ledger=self.ledger,
             )
 
         # N resident policies behind one front-end: ``bundle`` is the
@@ -185,6 +201,8 @@ class PolicyServer:
         self._default = self._policies[protocol.DEFAULT_POLICY]
         self.batcher = self._default.batcher
         self.stats = self.batcher.stats
+        # the chaos plan's serving sites (ChaosInjector or None)
+        self._chaos = chaos
         self._watch_run = watch_run
         self._poll_interval_s = poll_interval_s
         self._best_mtime = self._stat_best() if watch_run else None
@@ -222,6 +240,7 @@ class PolicyServer:
         self._loop.serve(
             self._listen_sock,
             on_frame=self._serve_conn,
+            on_open=self._on_conn_open,
             on_protocol_error=self._on_protocol_error,
         )
         self._loop.start()
@@ -287,6 +306,13 @@ class PolicyServer:
                     "serve drain: parameters rebound after capture, the "
                     f"graphs serve stale weights (policy: names): {rebound}"
                 )
+            # the runtime lock order against the port's committed graph
+            lockwitness.check_against_committed(where="serve drain")
+        # every admitted request resolved as exactly one of ok / shed
+        # (inflight 0 once the batchers drained); no-op unless armed
+        for pid, p in self._policies.items():
+            flowledger.check("serve-stats", p.batcher.stats.snapshot(),
+                             where=f"serve drain ({pid})")
 
     # ------------------------------------------------------------- hot reload
     def _stat_best(self) -> Optional[float]:
@@ -404,6 +430,13 @@ class PolicyServer:
             )
 
     # ------------------------------------------------------------ connections
+    def _on_conn_open(self, conn: netio.Connection) -> None:
+        # The connection-level chaos sites fire at accept: each launches an
+        # attacker driven by this server's own loop against its own
+        # listener, so the evictions are proven on live traffic.
+        if self._chaos is not None:
+            netio_attack.tick_attacks(self._chaos, self._loop, self.host, self.port)
+
     def _on_protocol_error(self, conn: netio.Connection, exc) -> None:
         # Framing is per-connection state: after a malformed frame the
         # stream is unrecoverable, so this is a connection-fatal ERROR
@@ -437,6 +470,11 @@ class PolicyServer:
         ``Connection.send``. Raising :class:`ProtocolError` routes to
         ``_on_protocol_error`` (connection-fatal)."""
         reply = self._reply
+        if self._chaos is not None and self._chaos.tick("sock_reset") is not None:
+            # abortive close (an RST): the peer, and any reply in flight,
+            # sees a reset; every other connection keeps being served
+            conn.abort()
+            return
         if msg_type == protocol.HEALTHZ:
             reply(conn, protocol.HEALTHZ_OK, req_id, json.dumps(self.healthz()).encode())
             return
@@ -541,4 +579,6 @@ class PolicyServer:
         }
         # the event loop's connection census and eviction books
         snap["netio"] = self._loop.stats()
+        if self._chaos is not None:
+            snap["chaos_injections"] = self._chaos.injections_total
         return snap

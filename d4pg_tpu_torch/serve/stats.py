@@ -15,10 +15,11 @@ happens only at snapshot time over a bounded reservoir.
 
 from __future__ import annotations
 
-import threading
 import time
 
 import numpy as np
+
+from d4pg_tpu_torch.analysis import lockwitness
 
 
 class LatencyReservoir:
@@ -33,7 +34,7 @@ class LatencyReservoir:
     def __init__(self, size: int = 8192):
         self._buf = np.zeros(size, np.float64)
         self._n = 0          # total ever recorded
-        self._lock = threading.Lock()
+        self._lock = lockwitness.named_lock("LatencyReservoir._lock")
 
     def add(self, seconds: float) -> None:
         with self._lock:
@@ -63,7 +64,7 @@ class Histogram:
     def __init__(self, edges):
         self.edges = tuple(int(e) for e in edges)
         self._counts = [0] * (len(self.edges) + 1)
-        self._lock = threading.Lock()
+        self._lock = lockwitness.named_lock("Histogram._lock")
 
     def add(self, value: int) -> None:
         i = 0
@@ -95,7 +96,7 @@ class ServeStats:
         self.latency = LatencyReservoir()
         self.batch_hist = Histogram(batch_edges)
         self.queue_hist = Histogram(queue_edges)
-        self._lock = threading.Lock()
+        self._lock = lockwitness.named_lock("ServeStats._lock")
         self._t0 = time.monotonic()
         self.requests_total = 0
         self.replies_ok = 0

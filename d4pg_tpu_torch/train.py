@@ -83,17 +83,16 @@ import sys
 # Flags of the JAX CLI (``train.py:build_parser``) whose feature the port
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
-    "--fleet-listen": "the collection fleet (ROADMAP A11)",
+    "--fleet-listen": "the collection fleet (ROADMAP A11 (e2))",
     "--device-tree-backend": "a choice of device PER descent: the port has one, "
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
-    "--chaos": "fault injection (ROADMAP A11 (e))",
-    "--fleet-host": "the collection fleet (ROADMAP A11 (e))",
-    "--fleet-bundle": "the collection fleet (ROADMAP A11 (e))",
-    "--fleet-publish-interval": "the collection fleet (ROADMAP A11 (e))",
-    "--fleet-max-gen-lag": "the collection fleet (ROADMAP A11 (e))",
-    "--fleet-wire-dtype": "the collection fleet (ROADMAP A11 (e))",
-    "--variant-id": "league training (ROADMAP A11 (e))",
-    "--league-generation": "league training (ROADMAP A11 (e))",
+    "--fleet-host": "the collection fleet (ROADMAP A11 (e2))",
+    "--fleet-bundle": "the collection fleet (ROADMAP A11 (e2))",
+    "--fleet-publish-interval": "the collection fleet (ROADMAP A11 (e2))",
+    "--fleet-max-gen-lag": "the collection fleet (ROADMAP A11 (e2))",
+    "--fleet-wire-dtype": "the collection fleet (ROADMAP A11 (e2))",
+    "--variant-id": "league training (ROADMAP A11 (e5))",
+    "--league-generation": "league training (ROADMAP A11 (e5))",
 }
 
 
@@ -208,8 +207,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(CUDA kernel B4); needs --replay-placement device, "
                         "--p-replay and --projection fused")
     p.add_argument("--debug-guards", action="store_true",
-                   help="run every host, megastep and hybrid dispatch after "
-                        "the first under torch.cuda.set_sync_debug_mode('error')")
+                   help="runtime guards (d4pg_tpu_torch/analysis): on the card "
+                        "every host, megastep and hybrid dispatch after the first "
+                        "under the zero-transfer budget (no CPU tensor operand, "
+                        "no host sync inside), a "
+                        "staging ledger on the PER and pool staging slots, and "
+                        "the lock witness checked against the port's lock graph "
+                        "at close; a trip raises")
+    p.add_argument("--chaos", default=None, metavar="PLAN",
+                   help="deterministic fault injection (d4pg_tpu_torch/chaos.py): "
+                        "';'-separated site@count[:arg][#actor] entries, e.g. "
+                        "'seed=7;env_raise@40;worker_kill@12#1;ckpt_truncate@1;"
+                        "wb_stall@3:0.5'; host_kill is refused with "
+                        "--num-processes > 1 (no relaunching supervisor yet)")
     p.add_argument("--prefetch", action="store_true",
                    help="double-buffered replay->device pipeline: batch N+1 "
                         "is host-sampled and its copy to the device started "
@@ -337,7 +347,7 @@ def config_from_args(args: argparse.Namespace):
     the trainers apply: a host env's preset needs the built env, and it
     sets none of the knobs the scale moves)."""
     from d4pg_tpu_torch.agent.state import D4PGConfig
-    from d4pg_tpu_torch.config import TrainConfig, apply_batch_scale, cli_support
+    from d4pg_tpu_torch.config import TrainConfig, apply_batch_scale, check_chaos, cli_support
     from d4pg_tpu_torch.models.critic import DistConfig
 
     v_min, v_max = cli_support(args.env, args.v_min, args.v_max)
@@ -379,7 +389,7 @@ def config_from_args(args: argparse.Namespace):
         f"runs/torch_{args.env}_{'PER' if args.prioritized else 'UNI'}"
         f"{'_HER' if args.her else ''}_n{args.n_step}_{args.num_envs}env"
     )
-    return apply_batch_scale(TrainConfig(
+    cfg = apply_batch_scale(TrainConfig(
         env=args.env,
         max_episode_steps=args.max_episode_steps,
         action_repeat=args.action_repeat,
@@ -425,7 +435,10 @@ def config_from_args(args: argparse.Namespace):
         dp_hogwild=args.dp_hogwild,
         tp=args.tp,
         num_processes=args.num_processes or 1,
+        chaos=args.chaos,
     ))
+    check_chaos(cfg)  # before any process group forms
+    return cfg
 
 
 def install_preemption_handlers(stop_callback) -> None:
@@ -579,6 +592,15 @@ def main(argv=None) -> dict:
     refuse_unported(argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if args.debug_guards:
+        # Arm the lock witness BEFORE any guarded component builds its
+        # locks (the named helpers wrap only when enabled); Trainer.close
+        # checks the recorded nesting against the port's committed graph.
+        # The flow ledger rides the same flag.
+        from d4pg_tpu_torch.analysis import flowledger, lockwitness
+
+        lockwitness.enable()
+        flowledger.enable()
     if args.export_bundle:
         export_bundle_from_run(cfg, args.export_bundle)
         return {}

@@ -19,10 +19,11 @@ The port's counterpart of ``d4pg_tpu/utils/profiling.py``, on torch:
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 
 import torch
+
+from d4pg_tpu_torch.analysis import lockwitness
 
 
 @contextlib.contextmanager
@@ -48,14 +49,17 @@ def profile_trace(log_dir: str | None):
     """Capture a ``torch.profiler`` trace of the CPU activity of every
     thread and (with a card) the CUDA activity inside the block, written
     into ``log_dir`` as ``<host>_<pid>.<ms>.pt.trace.json`` when the block
-    ends (no-op when ``log_dir`` is None)."""
+    ends (no-op when ``log_dir`` is None). With a card the device is
+    synchronised before the trace stops, so a kernel of the block's
+    launches still running at the end of the block is not dropped."""
     if not log_dir:
         yield
         return
     from torch._C._profiler import _ExperimentalConfig
 
+    cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
         activities=activities,
@@ -65,6 +69,8 @@ def profile_trace(log_dir: str | None):
         experimental_config=_ExperimentalConfig(profile_all_threads=True),
     ):
         yield
+        if cuda:
+            torch.cuda.synchronize()
 
 
 class StageTimers:
@@ -95,7 +101,7 @@ class StageTimers:
     def __init__(self, annotate_prefix: str = "host/"):
         self._prefix = annotate_prefix
         self._nvtx = torch.cuda.is_available()
-        self._lock = threading.Lock()
+        self._lock = lockwitness.named_lock("StageTimers._lock")
         self._acc: dict[str, float] = {}
         self._n: dict[str, int] = {}
 

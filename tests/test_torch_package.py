@@ -33,6 +33,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import d4pg_tpu_torch.serve.server, d4pg_tpu_torch.serve.client\n"
         "import d4pg_tpu_torch.serve.__main__, d4pg_tpu_torch.netio\n"
         "import d4pg_tpu_torch.utils.retry\n"
+        "import d4pg_tpu_torch.chaos, d4pg_tpu_torch.netio.attack\n"
+        "import d4pg_tpu_torch.analysis.transfer, d4pg_tpu_torch.analysis.flowledger\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -155,7 +157,8 @@ def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item
     request: ``--tp 2`` with ``--dp 2`` on the device placement
     (``sharded_megastep_dp_only``), ``--dp 2`` on the on-device loop over
     3 envs (the mesh's divisibility error), ``--num-processes 2`` without
-    a coordinator."""
+    a coordinator. ``--chaos`` (ported with A11 (e1)) refuses the plan
+    ``kill@3`` with the chaos parser's own ``ValueError``."""
     from d4pg_tpu_torch.train import UNPORTED_FLAGS, main
 
     flag = "--" + field.replace("_", "-")
@@ -168,8 +171,9 @@ def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item
     assert not (tmp_path / "metrics.jsonl").exists()
 
 
-# the A7 flags of the case above: (further flags, error, its words)
+# the A7 flags and --chaos of the case above: (further flags, error, its words)
 A7_REFUSALS = {
+    "chaos": ([], ValueError, r"bad chaos entry 'kill@3': unknown site 'kill'"),
     "tp": (["--dp=2", "--replay-placement=device", "--p-replay"], ValueError,
            "sharded_megastep_dp_only"),
     "dp": (["--on-device", "--num-envs=3"], ValueError,
@@ -188,7 +192,7 @@ def test_cli_refuses_unknown_flags(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", ["--obs-norm", "--fleet-listen=0", "--chaos=kill@3", "--dp-hogwild",
+    "flag", ["--obs-norm", "--fleet-listen=0", "--chaos=host_kill@2:1", "--dp-hogwild",
              "--tp=2", "--transfer-dtype=uint8", "--dp=2"],
 )
 def test_cli_refuses_unported_flags(flag, tmp_path):
@@ -200,14 +204,20 @@ def test_cli_refuses_unported_flags(flag, tmp_path):
     are refused by the gaps the JAX CLI names: ``--dp-hogwild`` alone by
     ``dp_hogwild_requires_dp``, ``--tp=2`` with ``--dp=2`` on the device
     placement by ``sharded_megastep_dp_only``, and ``--dp=2`` on the
-    on-device loop over 3 envs by the mesh's divisibility error."""
+    on-device loop over 3 envs by the mesh's divisibility error. ``--chaos``
+    (A11 (e1)) takes ``host_kill`` only in a run of one process: with
+    ``--num-processes 2`` it is refused by name before any process group
+    forms (``host_kill_needs_supervisor``)."""
     from d4pg_tpu_torch.train import main
 
-    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild", "--tp=2", "--dp=2")
+    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild", "--tp=2", "--dp=2",
+            "--chaos=host_kill@2:1")
     exc = ValueError if flag in gaps else NotImplementedError
     extra = {"--dp=2": ["--on-device", "--num-envs=3"],
-             "--tp=2": ["--dp=2", "--replay-placement=device", "--p-replay"]}.get(flag, [])
-    with pytest.raises(exc):
+             "--tp=2": ["--dp=2", "--replay-placement=device", "--p-replay"],
+             "--chaos=host_kill@2:1": ["--num-processes=2"]}.get(flag, [])
+    match = "host_kill_needs_supervisor" if flag.startswith("--chaos") else None
+    with pytest.raises(exc, match=match):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag, *extra])
 
 

@@ -544,7 +544,8 @@ def test_serve_cli_raises_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--bundle", str(tmp_path), "--port", "0"])
-    with pytest.raises(NotImplementedError, match=r"A11 \(e\)"):
+    # --chaos is ported (ROADMAP A11 (e1)): parsed, then the device rule
+    with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--bundle", str(tmp_path), "--chaos", "sock_reset@3"])
 
 
