@@ -169,7 +169,7 @@ JSON line (with ``at_s``, the seconds since the script started):
 19. ``on_device_halfcheetah``: the same at the README's HalfCheetah
    command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
    PER, default widths; K = 4096): one warmup segment, ONE train
-   iteration and one eval episode of 250 steps, not 1000 (the depth
+   iteration and one eval episode of 100 steps, not 1000 (the depth
    cuts), the same checks and measurements.
 20. ``stacked_kernel`` (right after ``tree_kernel``): B1f and B1b over E
    stacked critics in one launch, logits [E, B, A] against the members'
@@ -188,8 +188,8 @@ JSON line (with ``at_s``, the seconds since the script started):
 22. ``on_device_hopper_twin``: the twin arm of
    ``runs/hopper_ondevice_tpu_r3/NOTES.md`` (``--env hopper --on-device
    --num-envs 64 --twin-critic``, n-step 3, PER, [0, 500]; K = 2048), one
-   warmup segment, ONE train iteration and one eval episode, with
-   ``on_device_halfcheetah``'s checks and measurements.
+   warmup segment, ONE train iteration and one eval episode of at most
+   100 steps, with ``on_device_halfcheetah``'s checks and measurements.
 23. ``large_batch``: the large-batch recipe of ``docs/data_plane.md``
    (device placement, PER, fused descent, ``--compute-dtype bfloat16
    --steps-per-dispatch 32 --batch-scale 8 --ingest-prefetch``: B = 2048,
@@ -216,7 +216,7 @@ JSON line (with ``at_s``, the seconds since the script started):
    (``--env humanoid --on-device --num-envs 64 --rmsize 524288 --n-step 3
    --v-min 0 --v-max 1500 --noise-decay-steps 2000000
    --noise-scale-final 0.1``; K = 2048) at the default widths, one warmup
-   segment, ONE train iteration and one eval episode of 250 steps (not
+   segment, ONE train iteration and one eval episode of 100 steps (not
    1000), with ``on_device_halfcheetah``'s checks and measurements.
 
 25. ``heads_step_parity`` (after ``stacked_step_parity``): one full-width
@@ -340,6 +340,35 @@ JSON line (with ``at_s``, the seconds since the script started):
    the default 3x256 bundle under ``--debug-guards --chaos
    SERVE_CHAOS_PLAN``: a live client answered throughout, the attackers
    evicted or shed, the drain's identity, ledger and witness clean.
+
+34. The collection fleet (ROADMAP A11 (e2)), after ``guards_chaos_pool``.
+   ``fleet_pixel``: a fleet-only ``Trainer`` (``num_envs=0``,
+   ``fleet_listen=0``) at the ``pixel_pendulum`` preset's full width
+   (host placement, the uint8 PER replay on the native tree, K = 4, the
+   uint8 wire, ``debug_guards``, the lock witness and flow ledger armed),
+   its bundle published every ``FLEET_PUBLISH`` grad steps with
+   ``fleet_max_gen_lag=1``, fed by two ``python -m
+   d4pg_tpu_torch.fleet.actor --env pixel_pendulum_host`` processes on
+   the u8 wire, each started through ``FLEET_ACTOR_WRAPPER`` (which
+   reports any import of torch and the frames' send-to-ack times). The
+   main leg (128 grad steps): B1f = B1b = 128; both actors hot-swapped
+   to generation >= 2 (the second polls every 2 s, so its windows go
+   stale: counted by both sides, never written); rows in replay =
+   windows ingested = windows acked; each actor's ``fleet-actor`` and the
+   ingest's ``fleet-ingest`` identity balanced at the drain; no torch in
+   either actor; a sampled block's uint8 rows decoded on the card
+   ``torch.equal`` to the host's decode. The chaos leg (32 grad steps):
+   the learner under ``partition@7``, one actor under
+   ``pixel_truncate@4;reconnect_flap@2``; the torn frame a protocol
+   error with nothing of it in replay, the books still balanced.
+   ``fleet_device``: the fused-descent device learner (K = 8, 1M-row
+   ring, ``debug_guards``) fed by an in-process ``FleetLink`` sender of
+   seeded windows on the f32 wire: B3 = 8, B4 = B1b = 64; the ring's rows
+   ``torch.equal`` to the host buffer's; fresh rows' tree leaves at
+   ``max_priority**alpha`` before their first draw, at the warmup and
+   after training. Each line prints grad steps/s, windows ingested/s,
+   the actors' env steps/s, the send-to-ack p50 and p99 and its seconds.
+   ``launches_by_path`` gains ``fleet_pixel`` and ``fleet_device``.
 
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
@@ -2062,11 +2091,13 @@ PLANAR_TIMED = 20             # timed control steps on the card
 # substeps of stiff penalty contacts amplify the ulp differences of the
 # card's and the CPU's cos, sin, sums and LU solve
 PLANAR_Q_ATOL, PLANAR_QD_ATOL, PLANAR_R_ATOL = 1e-5, 5e-4, 1e-4
-# the eval episode's length in on_device_halfcheetah and on_device_humanoid:
-# a depth cut of the envs' 1000 steps (the evals took 70-73 % of those
-# phases, PERF.md section 5); their training rolls 64-128 steps an env,
-# which no limit of 250 truncates
-ON_DEVICE_EVAL_STEPS = 250
+# the eval episode's length in on_device_halfcheetah, on_device_humanoid
+# and (since the fleet phases came) on_device_hopper_twin: a depth cut of
+# the envs' 1000 steps (the evals took 70-73 % of those phases, PERF.md
+# section 5; cut again from 250 when the fleet phases came, the script
+# having passed 840 s); their training rolls 64-128 steps an env, which
+# no limit of 100 truncates
+ON_DEVICE_EVAL_STEPS = 100
 # train iterations a phase; pendulum_bf16 is bf16_wire's on-device leg
 ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1, "hopper_twin": 1, "pendulum_bf16": 1,
                    "humanoid": 1, "pixel_pendulum": 1}
@@ -2257,17 +2288,18 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     one warmup segment, 2 train iterations. HalfCheetah: the README's
     command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
     PER, default widths: K = 4096), one warmup segment, one train
-    iteration, one eval episode of ON_DEVICE_EVAL_STEPS (250) steps.
+    iteration, one eval episode of ON_DEVICE_EVAL_STEPS (100) steps.
     Hopper twin: the twin arm of
     ``runs/hopper_ondevice_tpu_r3/NOTES.md`` (64 envs, n-step 3, PER,
     [0, 500], ``twin_critic``: K = 2048), one warmup segment, one train
-    iteration, one eval episode. Pendulum bf16 (``bf16_wire``'s on-device
+    iteration, one eval episode of at most ON_DEVICE_EVAL_STEPS steps.
+    Pendulum bf16 (``bf16_wire``'s on-device
     leg): Pendulum's configuration with ``compute_dtype`` and
     ``ring_dtype`` bfloat16, one train iteration. Humanoid: the README's
     on-device recipe (``runs/humanoid_ondevice_v1500/NOTES.md``: 64 envs, a
     2^19-row ring, n-step 3, PER, [0, 1500], noise 1.0 -> 0.1 over 2M env
     steps; K = 2048), one warmup segment, one train iteration, one eval
-    episode of ON_DEVICE_EVAL_STEPS (250) steps, not the env's 1000.
+    episode of ON_DEVICE_EVAL_STEPS (100) steps, not the env's 1000.
     Pixel pendulum: the preset's
     width (48x48x2 frames through the conv encoder, 3x256, B = 256) with
     the uint8 ring at the preset's 100 000 rows, rounded down to a multiple
@@ -2298,6 +2330,7 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
         # 2M env steps, lr 1e-4, tau 1e-3, --twin-critic; K = 2048
         k = 64 * 32
         return TrainConfig(env="hopper", num_envs=64, n_step=3,
+                           max_episode_steps=ON_DEVICE_EVAL_STEPS,
                            total_steps=ON_DEVICE_ITERS[env_name] * k,
                            eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
                            agent=D4PGConfig(twin_critic=True, noise_decay_steps=2_000_000,
@@ -2893,7 +2926,7 @@ def her_pointmass_phase(Trainer, TrainConfig, card: str, log_dir: str):
 
 SERVE_MAX_BATCH = 64                 # the serve CLI's default: buckets 1, 2, 4, ..., 64
 SERVE_CHECK_ROWS = 256               # card_vs_cpu observations per policy
-SERVE_LOAD_S = 4.0                   # each closed-loop profile
+SERVE_LOAD_S = 2.0                   # each closed-loop profile (4 s until the fleet phases came)
 SERVE_PROFILES = ((1, 1), (4, 16), (16, 16))   # (connections, requests in flight each)
 SERVE_RELOAD_CLIENTS = 4             # pipelined clients through the hot reload
 # Card against the CPU, float32 with TF32 off (resolve_device): cuBLAS and
@@ -3920,6 +3953,442 @@ def guards_chaos_pool_phase(Trainer, TrainConfig, card: str, log_dir: str) -> di
                      "wall_s_incl_setup": resume_s, "ledger": resumed_ledger,
                      "lock_witness": witness_resumed, "launches": launches_resumed},
           "workers_alive_after_close": alive, "ok": True})
+    return launches
+
+
+# --------------------------------------------------------- the collection fleet
+FLEET_PIXEL_STEPS = 128              # fleet_pixel's grad steps (32 dispatches of K = 4)
+FLEET_PIXEL_WARMUP = 512             # its warmup, in ingested windows
+FLEET_PUBLISH = 16                   # grad steps between bundle publications
+FLEET_ACTOR_ENVS = 4                 # envs in each actor process
+FLEET_POLLS = (0.1, 2.0)             # the two actors' bundle polls, s: the second lags
+FLEET_CHAOS_STEPS = 32               # the chaos leg's grad steps
+FLEET_CHAOS_WARMUP = 256
+FLEET_LEARNER_CHAOS = "partition@7"
+FLEET_ACTOR_CHAOS = "pixel_truncate@4;reconnect_flap@2"
+FLEET_DEVICE_STEPS = 64              # fleet_device: 8 megastep dispatches of K = 8
+FLEET_DEVICE_FRAME = 256             # windows in each of the in-process sender's frames
+FLEET_DEVICE_FRAMES = 16             # frames it sends while the learner trains
+FLEET_DEADLINE_S = 60.0              # any wait of a fleet phase gives up after this
+
+# An actor process as users start it (``python -m d4pg_tpu_torch.fleet.actor``),
+# run through this wrapper: a meta-path finder records every attempt to import
+# torch, and the frames' send-to-ack times are taken around FleetLink's send
+# and the actor's ack callback (acks come back in send order on a connection;
+# a disconnect clears the frames in flight). At exit it prints one JSON line.
+FLEET_ACTOR_WRAPPER = r"""
+import json, sys, time
+from collections import deque
+
+class TorchWatch:
+    seen = []
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "torch":
+            self.seen.append(name)
+        return None
+
+sys.meta_path.insert(0, TorchWatch())
+from d4pg_tpu_torch.fleet import actor as A
+
+sent, lat = deque(), []
+send = A.FleetLink.send_windows
+ack = A.FleetActor._on_ack
+
+def send_windows(self, tag, cols, truncate=False):
+    sent.append(time.perf_counter())
+    return send(self, tag, cols, truncate)
+
+def on_ack(self, kind, n):
+    if kind == "dropped":
+        sent.clear()
+    elif sent:
+        lat.append(time.perf_counter() - sent.popleft())
+    ack(self, kind, n)
+
+A.FleetLink.send_windows = send_windows
+A.FleetActor._on_ack = on_ack
+t0 = time.perf_counter()
+rc = A.main(sys.argv[1:])
+lat.sort()
+q = lambda p: 1e3 * lat[min(len(lat) - 1, int(p * len(lat)))] if lat else None
+print("[fleet-wrapper] " + json.dumps({
+    "rc": rc, "wall_s": time.perf_counter() - t0,
+    "torch_imports": TorchWatch.seen,
+    "torch_modules": sorted(m for m in sys.modules if m.split(".")[0] == "torch"),
+    "acks_timed": len(lat), "send_to_ack_ms_p50": q(0.5), "send_to_ack_ms_p99": q(0.99)}),
+    flush=True)
+sys.exit(rc)
+"""
+
+
+class _FleetActorProc:
+    """One actor process (through :data:`FLEET_ACTOR_WRAPPER`) with its
+    output gathered by a thread."""
+
+    def __init__(self, port: int, bundle: str, seed: int, poll_s: float, chaos=None):
+        import os
+        import threading
+
+        args = ["--connect", f"127.0.0.1:{port}", "--bundle", bundle,
+                "--env", "pixel_pendulum_host", "--num-envs", str(FLEET_ACTOR_ENVS),
+                "--seed", str(seed), "--batch-windows", "16", "--poll-interval", str(poll_s),
+                "--stats-interval", "1000", "--debug-guards"]
+        if chaos:
+            args += ["--chaos", chaos]
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen([sys.executable, "-c", FLEET_ACTOR_WRAPPER, *args],
+                                     cwd=root, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     env=dict(os.environ, PYTHONPATH=root))
+        self.lines: list = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def generations(self) -> list:
+        import re
+
+        return [int(m.group(1)) for line in list(self.lines)
+                for m in [re.search(r"hot-swapped bundle generation=(\d+)", line)] if m]
+
+    def stop(self) -> dict:
+        """SIGTERM, the drain, the exit; returns what the process reported."""
+        import ast
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=FLEET_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._reader.join(10)
+        out = {"rc": rc, "generations": self.generations(),
+               "chaos_injected": [ln for ln in self.lines if ln.startswith("[chaos] inject")]}
+        for line in self.lines:
+            if line.startswith("[fleet-actor] drained: "):
+                out["stats"] = ast.literal_eval(line.split(": ", 1)[1])
+            elif line.startswith("[fleet-wrapper] "):
+                out["wrapper"] = json.loads(line.split(" ", 1)[1])
+            elif line.startswith("[flow-verdict] "):
+                out["verdict"] = json.loads(line.split(" ", 1)[1])
+        check("stats" in out and "wrapper" in out and "verdict" in out,
+              f"fleet actor: no drain report (rc {rc}): {self.lines[-20:]}")
+        return out
+
+
+def _fleet_wait(pred, what: str, timeout: float = FLEET_DEADLINE_S) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"fleet: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def fleet_pixel_leg(Trainer, TrainConfig, leg: str, log_dir: str, steps: int, warmup: int,
+                    learner_chaos=None, actor_chaos=None) -> dict:
+    """One ``fleet_pixel`` leg: the fleet-only pixel learner on the card
+    (host placement, PER on the native tree, the uint8 replay at its
+    100 000 rows, K = 4, the uint8 wire, ``debug_guards``), its bundle
+    published every ``FLEET_PUBLISH`` grad steps, fed by two actor
+    processes; after ``train()``, both actors hot-swapped to generation
+    >= 2 are SIGTERMed and drained, then the learner closes (its ingest
+    checks the ``fleet-ingest`` identity). Returns the leg's record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.agent.d4pg import decode_obs
+    from d4pg_tpu_torch.analysis import flowledger
+
+    cfg = TrainConfig(env="pixel_pendulum", num_envs=0, fleet_listen=0, fleet_host="127.0.0.1",
+                      fleet_bundle=os.path.join(log_dir, "bundle"),
+                      fleet_publish_interval=FLEET_PUBLISH, fleet_max_gen_lag=1,
+                      total_steps=steps, warmup_steps=warmup, eval_interval=steps,
+                      eval_episodes=1, log_dir=log_dir, seed=SEED, tree_backend="native",
+                      steps_per_dispatch=PIXEL_K, transfer_dtype="uint8", debug_guards=True,
+                      chaos=learner_chaos)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    actors = []
+    try:
+        port = trainer._fleet.port
+        actors = [_FleetActorProc(port, cfg.fleet_bundle, seed=i + 1, poll_s=FLEET_POLLS[i],
+                                  chaos=actor_chaos if i == 0 else None) for i in range(2)]
+        t_actors = time.perf_counter()
+        reset_counts()
+        t1 = time.perf_counter()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        launches = read_counts()
+        # one sampled block: its uint8 rows decoded on the card against the
+        # host's decode of the same rows
+        indices, staged, ready = trainer._sample_staged(PIXEL_K)
+        trainer._h2d.consume(staged, ready)
+        idx = np.asarray(indices.idx).reshape(-1)
+        card_obs = decode_obs(staged["obs"]).reshape(len(idx), -1).cpu()
+        host = trainer.buffer.obs[idx].astype(np.float32) / np.float32(255.0)
+        decode_equal = bool(torch.equal(card_obs, torch.from_numpy(host)))
+        trainer._release_staging_holds(1)  # the block is read
+        _fleet_wait(lambda: all(max(a.generations() or [0]) >= 2 for a in actors),
+                    "both actors to hot-swap to generation 2")
+        t_stop = time.perf_counter()
+        reports = [a.stop() for a in actors]
+        acked = sum(r["stats"]["windows_acked"] for r in reports)
+        _fleet_wait(lambda: trainer._fleet.counters()["windows_ingested"] == acked,
+                    "the acked windows to land")
+        counters = trainer._fleet.counters()
+        rows_in_replay = len(trainer.buffer)
+    finally:
+        for a in actors:
+            if a.proc.poll() is None:
+                a.proc.kill()
+                a.proc.wait()
+        trainer.close()  # the ingest drains and checks its identity
+    leg_s = time.perf_counter() - t0
+    ledger = trainer._ledger.stats()
+    n = steps
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    name = f"fleet_pixel {leg}"
+    check(trainer.grad_steps == n and np.isfinite(row["critic_loss"]),
+          f"{name}: {trainer.grad_steps} grad steps, critic loss {row.get('critic_loss')}")
+    check(launches == expect, f"{name}: launches {launches}, expected {expect}")
+    check(decode_equal, f"{name}: the card's decode of a sampled block is not the host's")
+    check(rows_in_replay == counters["windows_ingested"] == acked,
+          f"{name}: {rows_in_replay} rows in replay, {counters['windows_ingested']} ingested, "
+          f"{acked} acked")
+    stale = sum(r["stats"]["windows_stale"] for r in reports)
+    check(stale == counters["windows_dropped_stale_gen"],
+          f"{name}: actors counted {stale} stale, the ingest dropped "
+          f"{counters['windows_dropped_stale_gen']}")
+    for i, r in enumerate(reports):
+        check(r["rc"] == 0 and r["verdict"]["family"] == "fleet-actor" and r["verdict"]["ok"],
+              f"{name}: actor {i} exit {r['rc']}, verdict {r.get('verdict')}")
+        check(max(r["generations"]) >= 2, f"{name}: actor {i} swapped to {r['generations']}")
+        check(not r["wrapper"]["torch_imports"] and not r["wrapper"]["torch_modules"],
+              f"{name}: actor {i} loaded torch: {r['wrapper']}")
+    check(ledger["trips"] == 0 and ledger["active_holds"] == 0 and ledger["writes"] > 0,
+          f"{name}: ledger {ledger}")
+    check(flowledger.enabled(), f"{name}: the flow ledger was not armed")
+    return {
+        "leg": leg, "grad_steps": n, "warmup_windows": warmup, "train_s": train_s,
+        "seconds": leg_s, "grad_steps_per_sec": row["grad_steps_per_sec"],
+        "critic_loss": row["critic_loss"], "eval_return_mean": row.get("eval_return_mean"),
+        # from the actors' start to their SIGTERM (the drain's windows too)
+        "windows_ingested_per_sec": counters["windows_ingested"] / (t_stop - t_actors),
+        "ingest": counters, "rows_in_replay": rows_in_replay,
+        "card_decode_torch_equal": decode_equal, "launches": launches, "ledger": ledger,
+        "learner_chaos": learner_chaos,
+        "chaos_injections": 0 if trainer._chaos is None else trainer._chaos.injections_total,
+        "actors": [{"poll_s": FLEET_POLLS[i], "chaos": actor_chaos if i == 0 else None,
+                    "env_steps_per_sec": r["stats"]["env_steps"] / r["wrapper"]["wall_s"],
+                    "generations": r["generations"], "chaos_injected": r["chaos_injected"],
+                    "stats": r["stats"], "verdict_ok": r["verdict"]["ok"],
+                    "torch_modules": r["wrapper"]["torch_modules"],
+                    "torch_imports": r["wrapper"]["torch_imports"],
+                    "acks_timed": r["wrapper"]["acks_timed"],
+                    "send_to_ack_ms_p50": r["wrapper"]["send_to_ack_ms_p50"],
+                    "send_to_ack_ms_p99": r["wrapper"]["send_to_ack_ms_p99"]}
+                   for i, r in enumerate(reports)],
+    }
+
+
+def fleet_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``fleet_pixel``: the collection fleet (ROADMAP A11 (e2)) feeding the
+    ``pixel_pendulum`` preset's full width (48x48x2 frames, the conv
+    encoder, 3x256, B = 256, n-step 3) on the card: a fleet-only
+    ``Trainer`` (``num_envs=0``, ``fleet_listen=0``, its bundle published
+    every ``FLEET_PUBLISH`` grad steps, ``fleet_max_gen_lag=1``) fed by two
+    ``python -m d4pg_tpu_torch.fleet.actor --env pixel_pendulum_host``
+    processes on the u8 wire, with the lock witness and the flow ledger
+    armed. Main leg: ``FLEET_PIXEL_STEPS`` grad steps after
+    ``FLEET_PIXEL_WARMUP`` ingested windows; B1f = B1b = grad steps, the
+    rest 0; both actors hot-swapped to generation >= 2 (the second polls
+    slowly, so its windows go stale); the actors' stale count equal to
+    the ingest's drops, and the rows in replay equal to the windows
+    ingested and to the windows acked; the ``fleet-actor`` identity of
+    each actor and the ``fleet-ingest`` one balanced at the drain; no
+    torch in either actor; a sampled block's uint8 rows decoded on the
+    card ``torch.equal`` to the host's decode. Chaos leg: the learner
+    under ``FLEET_LEARNER_CHAOS``, one actor under ``FLEET_ACTOR_CHAOS``:
+    the torn frame dies whole (a protocol error, nothing of it in
+    replay), the partition and the flap reconnect, the books and the
+    identities still balance, every grad step is taken."""
+    from d4pg_tpu_torch.analysis import flowledger, lockwitness
+
+    t0 = time.perf_counter()
+    lockwitness.reset()
+    lockwitness.enable()
+    flowledger.enable()
+    try:
+        main = fleet_pixel_leg(Trainer, TrainConfig, "main", f"{log_dir}/main",
+                               FLEET_PIXEL_STEPS, FLEET_PIXEL_WARMUP)
+        chaos_leg = fleet_pixel_leg(Trainer, TrainConfig, "chaos", f"{log_dir}/chaos",
+                                    FLEET_CHAOS_STEPS, FLEET_CHAOS_WARMUP,
+                                    learner_chaos=FLEET_LEARNER_CHAOS,
+                                    actor_chaos=FLEET_ACTOR_CHAOS)
+        witness = lockwitness.check_against_committed(where="fleet_pixel")
+    finally:
+        lockwitness.reset()
+        flowledger.reset()
+    stale = main["ingest"]["windows_dropped_stale_gen"]
+    check(stale > 0, f"fleet_pixel: no stale window was counted ({main['ingest']})")
+    check(witness is not None and witness["contradictions"] == 0,
+          f"fleet_pixel: lock witness {witness}")
+    chaos_actor = chaos_leg["actors"][0]
+    check(chaos_leg["chaos_injections"] == 1 and len(chaos_actor["chaos_injected"]) == 2,
+          f"fleet_pixel chaos: learner injections {chaos_leg['chaos_injections']}, actor "
+          f"{chaos_actor['chaos_injected']}")
+    check(chaos_leg["ingest"]["protocol_errors"] >= 1
+          and chaos_actor["stats"]["windows_dropped_reconnect"] > 0
+          and chaos_actor["stats"]["reconnects"] >= 2,
+          f"fleet_pixel chaos: the torn frame and the flap: {chaos_leg['ingest']}, "
+          f"{chaos_actor['stats']}")
+    out = {"phase": "fleet_pixel", "card": card,
+           "width": {"pixel_shape": list(PIXEL_SHAPE), "hidden": [256] * 3, "batch": 256,
+                     "replay_capacity": 100_000, "steps_per_dispatch": PIXEL_K,
+                     "actor_env": "pixel_pendulum_host", "actors": 2,
+                     "envs_per_actor": FLEET_ACTOR_ENVS, "publish_interval": FLEET_PUBLISH},
+           "main": main, "chaos": chaos_leg, "lock_witness": witness,
+           "seconds": time.perf_counter() - t0, "ok": True}
+    emit(out)
+    return main["launches"]
+
+
+def fleet_device_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``fleet_device``: a fleet-only learner on the device placement (the
+    1M-row ring and 2^20-leaf tree, PER, K = 8, the fused descent,
+    ``debug_guards``) at the default width on Pendulum's dims, fed by an
+    in-process sender: the port's ``FleetLink`` in a thread with seeded
+    synthetic windows on the f32 wire (harness code, not a feature). The
+    warmup's 1024 windows land and are flushed first: their tree leaves
+    sit at ``max_priority**alpha`` (1.0) before any draw. Then
+    ``FLEET_DEVICE_STEPS`` grad steps while the sender streams
+    ``FLEET_DEVICE_FRAMES`` more frames: B3 once a dispatch, B4 and B1b
+    once a grad step, B1f and B2 none. After the sender stopped, the ring's
+    rows are ``torch.equal`` to the host buffer's; then one more frame's
+    fresh rows, flushed, sit at the moved ``max_priority**alpha`` before
+    their first draw. Prints grad steps/s, windows ingested/s and the
+    sender's send-to-ack median and p99."""
+    import threading
+    from collections import deque
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.analysis import flowledger
+    from d4pg_tpu_torch.fleet.actor import FleetLink
+
+    t0 = time.perf_counter()
+    flowledger.enable()
+    cfg = TrainConfig(env="pendulum", num_envs=0, fleet_listen=0, fleet_host="127.0.0.1",
+                      replay_placement="device", prioritized=True, steps_per_dispatch=K,
+                      fused_descent=True, total_steps=FLEET_DEVICE_STEPS,
+                      eval_interval=FLEET_DEVICE_STEPS, eval_episodes=1, log_dir=log_dir,
+                      seed=SEED, debug_guards=True)
+    rng = np.random.default_rng(SEED)
+    sent, lat = deque(), []
+
+    def on_ack(kind, n):
+        if kind == "accepted" and sent:
+            lat.append(time.perf_counter() - sent.popleft())
+
+    def frame():
+        n = FLEET_DEVICE_FRAME
+        obs = rng.standard_normal((n, 3)).astype(np.float32)
+        return (0, 0, False), {
+            "obs": obs, "action": rng.uniform(-1, 1, (n, 1)).astype(np.float32),
+            "reward": rng.uniform(-16, 0, n).astype(np.float32),
+            "next_obs": (obs + 0.1 * rng.standard_normal((n, 3))).astype(np.float32),
+            "discount": np.where(rng.random(n) < 0.05, 0.0, 0.99**3).astype(np.float32)}
+
+    def send(link, frames: int) -> None:
+        for _ in range(frames):
+            check(link.acquire_credit(FLEET_DEADLINE_S), "fleet_device: no credit")
+            sent.append(time.perf_counter())
+            link.send_windows(*frame())
+            time.sleep(0.005)
+
+    trainer = Trainer(cfg, device="cuda")
+    link = None
+    try:
+        ingest = trainer._fleet
+        link = FleetLink("127.0.0.1", ingest.port,
+                         dict(actor_id="chip-smoke-sender", env="pendulum", obs_dim=3,
+                              action_dim=1, n_step=trainer.config.n_step,
+                              gamma=trainer.config.agent.gamma, generation=0,
+                              caps=dict(obs_modes=["f32"])),
+                         on_ack=on_ack)
+        send(link, 1024 // FLEET_DEVICE_FRAME)
+        _fleet_wait(lambda: ingest.counters()["windows_ingested"] == 1024, "the warmup windows")
+        trainer._ring_sync.flush(trainer._ring)
+        tree = trainer._dev_per.tree
+        half = tree.sums.shape[0] // 2
+        seeded = tree.sums[half:half + 1024]
+        warm_leaves_ok = bool(torch.all(seeded == tree.max_priority ** trainer._dev_per.alpha))
+        sender = threading.Thread(target=send, args=(link, FLEET_DEVICE_FRAMES), daemon=True)
+        reset_counts()
+        t1 = time.perf_counter()
+        sender.start()
+        row = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        launches = read_counts()
+        sender.join(FLEET_DEADLINE_S)
+        total = 1024 + FLEET_DEVICE_FRAMES * FLEET_DEVICE_FRAME
+        _fleet_wait(lambda: ingest.counters()["windows_ingested"] == total, "the sent windows")
+        trainer._ring_sync.flush(trainer._ring)
+        n = len(trainer.buffer)
+        ring_equal = all(
+            torch.equal(getattr(trainer._ring, k)[:n].cpu(),
+                        torch.from_numpy(getattr(trainer.buffer, k)[:n]))
+            for k in ("obs", "action", "reward", "next_obs", "discount"))
+        # fresh rows: seeded at the moved max priority before their first draw
+        send(link, 1)
+        _fleet_wait(lambda: ingest.counters()["windows_ingested"] == total + FLEET_DEVICE_FRAME,
+                    "the fresh frame")
+        trainer._ring_sync.flush(trainer._ring)
+        tree = trainer._dev_per.tree
+        max_priority = float(tree.max_priority)
+        fresh = tree.sums[half + total:half + total + FLEET_DEVICE_FRAME]
+        fresh_leaves_ok = bool(torch.all(fresh == tree.max_priority ** trainer._dev_per.alpha))
+        counters = ingest.counters()
+    finally:
+        if link is not None:
+            link.close()
+        trainer.close()
+        flowledger.reset()
+    lat.sort()
+    n_steps = FLEET_DEVICE_STEPS
+    expect = dict(fused_fwd=0, fused_bwd=n_steps, project=0, tree_count=n_steps // K,
+                  fused_step=n_steps)
+    check(trainer.grad_steps == n_steps and np.isfinite(row["critic_loss"]),
+          f"fleet_device: {trainer.grad_steps} grad steps, critic loss {row.get('critic_loss')}")
+    check(launches == expect, f"fleet_device: launches {launches}, expected {expect}")
+    check(ring_equal, "fleet_device: the ring's rows are not the host buffer's")
+    check(warm_leaves_ok and fresh_leaves_ok and max_priority > 1.0,
+          f"fleet_device: fresh leaves at max priority: warmup {warm_leaves_ok}, after training "
+          f"{fresh_leaves_ok} (max_priority {max_priority})")
+    emit({"phase": "fleet_device", "card": card,
+          "width": {"hidden": list(trainer.config.agent.hidden_sizes), "batch": 256,
+                    "replay_capacity": trainer.buffer.capacity, "steps_per_dispatch": K,
+                    "wire": "f32", "frame_windows": FLEET_DEVICE_FRAME},
+          "grad_steps": n_steps, "train_s": train_s,
+          "grad_steps_per_sec": row["grad_steps_per_sec"], "critic_loss": row["critic_loss"],
+          "windows_ingested": counters["windows_ingested"],
+          "windows_ingested_per_sec": FLEET_DEVICE_FRAMES * FLEET_DEVICE_FRAME / train_s,
+          "send_to_ack_ms_p50": 1e3 * lat[len(lat) // 2],
+          "send_to_ack_ms_p99": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+          "acks_timed": len(lat), "ring_rows_torch_equal": ring_equal,
+          "fresh_leaves_at_max_priority": {"warmup": warm_leaves_ok, "after_training":
+                                           fresh_leaves_ok, "max_priority": max_priority},
+          "ingest": counters, "launches": launches,
+          "seconds": time.perf_counter() - t0, "ok": True})
     return launches
 
 
@@ -4958,6 +5427,9 @@ def main() -> int:
             Trainer, TrainConfig, card, f"{tmp}/host_pool_pixel")
         paths["guards_chaos_pool"] = guards_chaos_pool_phase(
             Trainer, TrainConfig, card, f"{tmp}/guards_chaos_pool")
+        paths["fleet_pixel"] = fleet_pixel_phase(Trainer, TrainConfig, card, f"{tmp}/fleet_pixel")
+        paths["fleet_device"] = fleet_device_phase(Trainer, TrainConfig, card,
+                                                   f"{tmp}/fleet_device")
         paths["dp_lanes"] = dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card,
                                            f"{tmp}/dp_lanes")
         paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card, f"{tmp}/dp_ranks")

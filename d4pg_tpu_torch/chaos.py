@@ -26,12 +26,19 @@ Where the port ticks them (the JAX package's sites):
   has a supervisor that relaunches the processes (ROADMAP A11 (f));
 - ``sock_reset``: the policy server, per received frame;
 - ``slowloris`` / ``zero_window`` / ``fd_exhaust``: the policy server,
-  per accepted connection (``netio/attack.py``).
+  per accepted connection (``netio/attack.py``);
+- ``partition``: the learner's fleet ingest, per frame of a connection
+  (``fleet/ingest.py``);
+- ``reconnect_flap`` (per connect), ``slow_link`` and ``pixel_truncate``
+  (per frame sent), ``stale_bundle`` and ``stale_stats`` (per bundle
+  swap) and ``her_actor_kill`` (per env step): a fleet actor host
+  (``fleet/actor.py``, ``--chaos`` on ``python -m
+  d4pg_tpu_torch.fleet.actor``).
 
-The sites of modules not ported yet (the collection fleet, the router
-and autoscaler, the flywheel, the league: ROADMAP A11 (e2)-(e5)) parse
-and never tick, as on a JAX run without those planes. The on-device loop
-has no site, in either package.
+The sites of modules not ported yet (the router and autoscaler, the
+flywheel, the league: ROADMAP A11 (e3)-(e5)) parse and never tick, as on
+a JAX run without those planes. The on-device loop has no site, in
+either package.
 
 Spec syntax (entries separated by ``;`` or ``,``)::
 
@@ -267,10 +274,10 @@ KNOWN_SITES = WORKER_SITES + (
     "ckpt_truncate",
     "wb_stall",
     "sock_reset",
-    # fleet sites (d4pg_tpu/fleet): partition ticks in the learner's
-    # ingest reader (server-side abortive close mid-stream); the other
-    # three tick inside the fleet actor CLI's own injector (--chaos on
-    # python -m d4pg_tpu.fleet.actor).
+    # fleet sites (fleet/): partition ticks in the learner's ingest
+    # reader (server-side abortive close mid-stream); the other three
+    # tick inside the fleet actor CLI's own injector (--chaos on
+    # python -m d4pg_tpu_torch.fleet.actor).
     "partition",
     "reconnect_flap",
     "stale_bundle",

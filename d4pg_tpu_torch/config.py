@@ -162,6 +162,33 @@ class TrainConfig:
     dp_hogwild: bool = False
     tp: int = 1
 
+    # The collection fleet (fleet/): with fleet_listen set, the trainer
+    # runs an experience-ingest server on that port (0 = ephemeral,
+    # printed at startup; a process of several listens on port + its
+    # index) and remote actor hosts (python -m d4pg_tpu_torch.fleet.actor)
+    # stream complete n-step windows into replay, beside local collection
+    # or, with num_envs == 0, instead of it (the learner then paces on the
+    # ingested windows).
+    fleet_listen: Optional[int] = None
+    # The ingest's bind address: 0.0.0.0 so remote hosts reach it;
+    # 127.0.0.1 for a fleet on one machine.
+    fleet_host: str = "0.0.0.0"
+    # Weight distribution: the trainer re-exports the acting bundle here
+    # (params first, json last, each atomic) every fleet_publish_interval
+    # grad steps and bumps its generation; the ingest drops windows older
+    # than generation − fleet_max_gen_lag.
+    fleet_bundle: Optional[str] = None
+    fleet_publish_interval: int = 200
+    fleet_max_gen_lag: int = 1
+    # The wire of flat observation rows: "auto" = float32 (the local
+    # path's bytes; pixel envs always stream the uint8 replay's bytes),
+    # "bfloat16" halves them with a declared bf16 round. Negotiated with
+    # each actor at HELLO (replay/source.py:negotiate_fleet).
+    fleet_wire_dtype: str = "auto"
+    # The ingest's bounded admission queue (frames): past it a frame is
+    # answered OVERLOADED queue_full.
+    fleet_queue_limit: int = 64
+
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
 PLACEMENTS = ("host", "device", "hybrid")
@@ -543,3 +570,15 @@ def check_collection(config: TrainConfig, host_env: bool, env=None) -> None:
             "collection (concurrent EGL contexts deadlock): run "
             "with --num-envs 1 and without --async-collect"
         )
+
+
+def check_fleet(config: TrainConfig, on_device: bool = False) -> None:
+    """Refuse what the experience source cannot honour: the fleet's gaps
+    and ``no_collection_source`` (``--num-envs 0`` with no
+    ``--fleet-listen``), from ``replay/source.py`` where each code lives
+    once."""
+    from d4pg_tpu_torch.replay.source import from_train_config, negotiate_source
+
+    verdict = negotiate_source(from_train_config(config, on_device=on_device))
+    if not verdict.ok:
+        raise ValueError("; ".join(f"{g.code}: {g.message}" for g in verdict.gaps))

@@ -35,9 +35,11 @@ Robustness contract:
 The loop uses the stdlib, the protocol module and the lock witness's
 named locks only. :mod:`d4pg_tpu_torch.netio.attack` holds the chaos
 attackers (slowloris, zero-window, fd exhaustion) that the policy server
-launches on its own loop at accept under ``--chaos``.
+launches on its own loop at accept under ``--chaos``;
+:func:`configure_reply_timeout` is the write deadline of the endpoints
+that reply from threads (the fleet ingest's connection readers).
 """
 
-from d4pg_tpu_torch.netio.loop import Connection, FrameLoop
+from d4pg_tpu_torch.netio.loop import Connection, FrameLoop, configure_reply_timeout
 
-__all__ = ["Connection", "FrameLoop"]
+__all__ = ["Connection", "FrameLoop", "configure_reply_timeout"]

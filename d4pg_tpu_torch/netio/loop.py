@@ -23,6 +23,7 @@ import heapq
 import os
 import selectors
 import socket
+import struct
 import threading
 import time
 from collections import deque
@@ -31,7 +32,7 @@ from typing import Callable, Optional
 from d4pg_tpu_torch.analysis import lockwitness
 from d4pg_tpu_torch.serve import protocol
 
-__all__ = ["Connection", "FrameLoop"]
+__all__ = ["Connection", "FrameLoop", "configure_reply_timeout"]
 
 #: Write-progress deadline default: a peer that drains nothing for this
 #: long forfeits the connection.
@@ -52,6 +53,23 @@ _EXHAUSTION_ERRNOS = tuple(
     getattr(errno, n) for n in ("EMFILE", "ENFILE", "ENOBUFS", "ENOMEM")
     if hasattr(errno, n)
 )
+
+
+def configure_reply_timeout(sock, timeout_s: float = DEFAULT_WRITE_STALL_S) -> None:
+    """The write deadline of an endpoint that replies from a thread (the
+    fleet ingest's readers): ``SO_SNDTIMEO`` bounds every blocking reply
+    write, so a peer that stops reading makes the write time out (and the
+    thread close the connection) instead of wedging the thread for good.
+    The loop's front ends have the write-progress deadline instead."""
+    try:
+        sock.setsockopt(
+            socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+            struct.pack("ll", int(timeout_s), 0),
+        )
+    except OSError:
+        # best effort: not every stack has it, and the deadline bounds a
+        # fault, it does not make the replies right
+        pass
 
 
 class Connection:

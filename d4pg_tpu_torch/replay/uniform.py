@@ -77,6 +77,10 @@ class ReplayBuffer:
         self._lock = lockwitness.named_rlock("ReplayBuffer._lock")
 
     def _encode_obs(self, obs) -> np.ndarray:
+        if self._quantized and np.asarray(obs).dtype == np.uint8:
+            # already the stored bytes: the fleet's u8 wire, whose rows
+            # were quantized by this same rule on the actor
+            return np.atleast_2d(np.asarray(obs))
         obs = np.atleast_2d(np.asarray(obs, np.float32))
         if self._quantized:
             return np.clip(np.rint(obs * 255.0), 0.0, 255.0).astype(np.uint8)

@@ -120,6 +120,24 @@ normalizes sampled batches on the host and the acting and eval forwards,
 and is saved in the trainer meta and beside ``best_actor.npz``
 (``best_obs_norm.json``).
 
+The collection fleet (``fleet_listen``, the JAX trainer's fleet wiring):
+after the resume, an
+:class:`~d4pg_tpu_torch.fleet.ingest.IngestServer` runs in front of
+``self.buffer`` (on ``fleet_listen`` + the process's index) and remote
+actor hosts (``python -m d4pg_tpu_torch.fleet.actor``) stream complete
+n-step windows into it, its writer thread calling ``add_batch`` as local
+collection does (the device and hybrid rings mirror those rows as any
+others). Beside local collection, or with ``num_envs == 0`` instead of
+it: the warmup and the loop then pace on the ingested windows, which are
+the run's ``env_steps``, with the ingest's ``check_alive`` and a
+heartbeat line after 30 s without a window. With ``fleet_bundle`` the
+acting bundle is exported there (``serve/bundle.export_bundle``) at the
+start and at every ``fleet_publish_interval`` crossing, each time with
+the next generation, which the ingest's stale drop follows;
+``fleet_generation`` is saved in the trainer meta and restored by a
+resume. Every metrics row carries the ingest's counters as ``fleet_*``,
+and ``close()`` drains it.
+
 Data parallelism (``dp``; the JAX trainer's dp wiring): ``dp`` lanes laid
 out by ``parallel.mesh.make_mesh``, one process's lanes on one device.
 On the host placement each dispatch splits the sampled rows over the
@@ -213,6 +231,7 @@ from d4pg_tpu_torch.config import (
     apply_env_preset,
     check_chaos,
     check_collection,
+    check_fleet,
     check_placement,
     check_wire_dtypes,
 )
@@ -342,8 +361,11 @@ class Trainer:
         check_placement(config)
         check_collection(config, self.host_env, self.env)
         check_chaos(config)
+        check_fleet(config)
         config = apply_declared_actions(config)
         self.config = config
+        # --fleet-listen with --num-envs 0: the fleet is the only collector
+        self._fleet_only = config.fleet_listen is not None and config.num_envs == 0
         agent_cfg = config.agent
         # The chaos plan (seeded, deterministic): the trainer owns wb_stall,
         # ckpt_truncate and host_kill; the pool owns worker_kill and ships
@@ -411,7 +433,7 @@ class Trainer:
 
         self.her_writer = None
         self.her_writers = None
-        if not self.host_env:
+        if not self.host_env and not self._fleet_only:
             noise_fns = make_noise(agent_cfg, (config.num_envs,), self.device)
             self._collect = make_segment_collector(
                 agent_cfg, self.env, config.num_envs, SEGMENT_LEN, noise_fns
@@ -479,6 +501,8 @@ class Trainer:
         self._preempt_requested = threading.Event()
         self._replay_restored = False
         self._ckpt_fallbacks = 0
+        # the fleet's bundle generation, restored with the trainer meta
+        self._fleet_gen = 0
         if config.resume and self.ckpt.latest_step() is not None:
             with self.timers.stage("checkpoint_restore"):
                 self._resume()
@@ -487,7 +511,10 @@ class Trainer:
         # past steps) of fresh collection, or its collector collect nothing.
         self._learner_steps = 0
         self._env_steps_origin = self.env_steps
-        if self.host_env:
+        self._fleet = None
+        if config.fleet_listen is not None:
+            self._start_fleet()
+        if self.host_env and not self._fleet_only:
             # after the resume, as in the JAX trainer
             if config.her:
                 self._setup_her()
@@ -610,6 +637,9 @@ class Trainer:
         # would re-explore at full scale
         self.env_steps = int(meta.get("env_steps", 0))
         self.ewma_return = meta.get("ewma_return")
+        # restarting at 0 would fall below the generations connected actors
+        # hold and disarm the ingest's stale drop until it caught up
+        self._fleet_gen = int(meta.get("fleet_generation", 0))
         # a flag/meta mismatch is an error both ways: a net trained on
         # normalized observations sees inputs far off its trained scale
         if self.obs_norm is not None:
@@ -696,7 +726,9 @@ class Trainer:
                 if self._proc_idx != 0:
                     return
             self.ckpt.save(self.grad_steps, self.state)
-            extra = {"obs_norm": self.obs_norm.state_dict()} if self.obs_norm is not None else None
+            extra = {"obs_norm": self.obs_norm.state_dict()} if self.obs_norm is not None else {}
+            if self._fleet is not None:
+                extra["fleet_generation"] = self._fleet_gen
             save_trainer_meta(self._shared_dir, self.env_steps, self.ewma_return, extra=extra)
             side = [trainer_meta_path(self._shared_dir)]
             if cfg.snapshot_replay:
@@ -1000,6 +1032,116 @@ class Trainer:
         self._pub_version += 1
         self._actor_pub = publish_actor(self.state.actor, self._act_device, self._pub_version)
 
+    # ----------------------------------------------------------------- fleet
+    def _start_fleet(self) -> None:
+        """The experience-ingest server in front of ``self.buffer`` (after
+        the resume, so the first bundle published carries the restored
+        params): on ``fleet_listen`` + this process's index (an explicit
+        0 stays 0, ephemeral on every process), its capabilities the
+        replay's, its obs-norm fold the run's normalizer."""
+        from d4pg_tpu_torch.fleet.ingest import IngestServer
+        from d4pg_tpu_torch.replay.source import from_train_config, learner_fleet_caps
+
+        cfg = self.config
+        agent_cfg = cfg.agent
+        self._fleet = IngestServer(
+            self.buffer,
+            obs_dim=agent_cfg.obs_dim,
+            action_dim=agent_cfg.action_dim,
+            n_step=cfg.n_step,
+            gamma=agent_cfg.gamma,
+            host=cfg.fleet_host,
+            port=cfg.fleet_listen + self._proc_idx if cfg.fleet_listen else cfg.fleet_listen,
+            queue_limit=cfg.fleet_queue_limit,
+            max_gen_lag=cfg.fleet_max_gen_lag,
+            caps=learner_fleet_caps(from_train_config(cfg)),
+            obs_norm=self.obs_norm,
+            ledger=self._ledger,
+            chaos=self._chaos,
+        ).start()
+        print(f"[fleet] ingest listening on :{self._fleet.port}", flush=True)
+        self._fleet_stall_mark = -1  # the first check records the baseline
+        self._fleet_stall_t = time.monotonic()
+        if cfg.fleet_bundle:
+            self._fleet_publish()
+
+    def _fleet_publish(self) -> None:
+        """Export the acting bundle for the fleet's actors and move the
+        ingest to the current generation: the fleet's weight distribution.
+        The export (params first, json last, each atomic) is the sync:
+        actors poll ``bundle.json``'s mtime and swap, and windows made
+        under bundles older than ``generation − fleet_max_gen_lag`` are
+        dropped at the ingest."""
+        from d4pg_tpu_torch.serve.bundle import export_bundle
+
+        cfg = self.config
+        norm = getattr(self.env, "_normalize", None)
+        export_bundle(
+            cfg.fleet_bundle,
+            cfg.agent,
+            self.state.actor,
+            action_low=None if norm is None else norm.low,
+            action_high=None if norm is None else norm.high,
+            # the statistics ride the bundle, tagged by meta.stats_generation
+            obs_norm_state=None if self.obs_norm is None else self.obs_norm.state_dict(),
+            meta={
+                "generation": self._fleet_gen,
+                "stats_generation": self._fleet_gen,
+                "env": cfg.env,
+                "grad_steps": self.grad_steps,
+                "log_dir": os.path.abspath(cfg.log_dir),
+                "source": "fleet_publish",
+            },
+            prioritized=cfg.prioritized,
+        )
+        if self._fleet is not None:
+            self._fleet.set_generation(self._fleet_gen)
+        print(f"[fleet] published bundle generation {self._fleet_gen} -> {cfg.fleet_bundle}",
+              flush=True)
+
+    def _fleet_env_steps(self) -> int:
+        """Fleet-only: the ingested windows are the env-step count (one a
+        step in steady state, a burst at each episode's tail; close enough
+        for the pacing and the noise schedule)."""
+        self.env_steps = self._env_steps_origin + self._fleet.counters()["windows_ingested"]
+        return self.env_steps
+
+    def _fleet_stall_check(self) -> None:
+        """A heartbeat while the fleet-only learner waits: it outlives actor
+        churn, so a starved wait never raises, but when no window arrived
+        for 30 s it says so, with the live connection count."""
+        c = self._fleet.counters()
+        now = time.monotonic()
+        if c["windows_ingested"] != self._fleet_stall_mark:
+            self._fleet_stall_mark = c["windows_ingested"]
+            self._fleet_stall_t = now
+        elif now - self._fleet_stall_t >= 30.0:
+            print(
+                "[fleet] WARNING: no windows ingested for "
+                f"{now - self._fleet_stall_t:.0f}s "
+                f"({c['connections']} live actor connections) — the "
+                "learner is paced by remote actors and will wait",
+                flush=True,
+            )
+            self._fleet_stall_t = now  # once an interval
+
+    def _wait_for_fleet(self) -> bool:
+        """Fleet-only pacing, as ``_wait_for_collector`` paces on the
+        collector: until the ingested windows hold the env:train ratio and
+        the buffer can serve a batch. A dead ingest thread raises; False
+        when a preemption interrupted the wait."""
+        cfg = self.config
+        while (
+            self._fleet_env_steps() - self._env_steps_origin
+            < self._effective_warmup() + cfg.env_steps_per_train_step * self._learner_steps
+        ) or len(self.buffer) < cfg.batch_size:
+            self._fleet.check_alive()
+            self._fleet_stall_check()
+            if self._preempt_requested.is_set():
+                return False
+            time.sleep(0.002)
+        return True
+
     def _collector_loop(self) -> None:
         cfg = self.config
         ratio = cfg.env_steps_per_train_step
@@ -1076,7 +1218,13 @@ class Trainer:
         while self.env_steps < self._effective_warmup() or len(self.buffer) < cfg.batch_size:
             if self._preempt_requested.is_set():
                 return  # the train loop's first check checkpoints
-            if self.has_pool:  # the pool handles HER itself
+            if self._fleet_only:
+                # the remote hosts pay the warmup
+                self._fleet.check_alive()
+                self._fleet_env_steps()
+                self._fleet_stall_check()
+                time.sleep(0.01)
+            elif self.has_pool:  # the pool handles HER itself
                 self._pool_collect_steps(cfg.num_envs * 8, noise_scale=3.0)
             elif self.host_env and not cfg.her:
                 self._host_collect_steps(64, noise_scale=3.0)
@@ -1516,6 +1664,9 @@ class Trainer:
                     if cfg.async_collect:
                         if not self._wait_for_collector():
                             continue  # the loop top checkpoints and stops
+                    elif self._fleet_only:
+                        if not self._wait_for_fleet():
+                            continue
                     else:
                         collect_budget = self._collect_budgeted(
                             collect_budget + cfg.env_steps_per_train_step * K)
@@ -1525,6 +1676,12 @@ class Trainer:
                     self._learner_steps += K
                     if cfg.async_collect and interval_crossed(done - K, done, cfg.publish_interval):
                         self._publish_params()
+                    if (self._fleet is not None and cfg.fleet_bundle
+                            and interval_crossed(done - K, done, cfg.fleet_publish_interval)):
+                        # the fleet's weights: re-export and bump the
+                        # generation, so stale windows age out at the ingest
+                        self._fleet_gen += 1
+                        self._fleet_publish()
                     eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
                     if eval_crossed or done >= total:
                         last = self._periodic(metrics, t_start, done, env_steps_start)
@@ -1585,6 +1742,17 @@ class Trainer:
             scalars["checkpoint_fallbacks"] = float(self._ckpt_fallbacks)
         if self._chaos is not None:
             scalars["chaos_injections"] = float(self._chaos.injections_total)
+        if self._fleet is not None:
+            # the fleet's books in every row; fleet-only, env_steps is the
+            # ingested windows. check_alive here covers the mixed mode,
+            # where no pacing loop asks the ingest
+            self._fleet.check_alive()
+            counters = self._fleet.counters()  # one snapshot for the row
+            if self._fleet_only:
+                self.env_steps = self._env_steps_origin + counters["windows_ingested"]
+                scalars["env_steps"] = float(self.env_steps)
+            for k, v in counters.items():
+                scalars[f"fleet_{k}"] = float(v)
         if not self.host_env:
             ev = evaluate(
                 cfg.agent, self.env, self.state.actor, self._eval_gen, cfg.eval_episodes
@@ -1842,6 +2010,11 @@ class Trainer:
         envs)."""
         self._stop_collector()
         self._stop_eval_thread()
+        if self._fleet is not None:
+            # the drain: frames admitted to the queue land in replay (and
+            # release their ledger holds) before the teardown
+            self._fleet.close()
+            self._fleet = None
         if not self._eval_leaked:
             self.metrics.close()
         if self.pool is not None:

@@ -54,8 +54,9 @@ Message types and payloads:
 - ``FEEDBACK_OK``  ← empty. Ack; a server with no mirror tap still acks.
 
 ``HELLO`` / ``HELLO_OK`` / ``WINDOWS`` / ``WINDOWS2`` / ``WINDOWS_OK`` are
-the experience-ingest service's types (the collection fleet, ROADMAP
-A11 (e), not ported yet); their numbers stay reserved in the one id space.
+the experience-ingest service's types (the collection fleet,
+``d4pg_tpu_torch/fleet``; their payload codecs are ``fleet/wire.py``),
+in the one id space.
 
 ``read_frame`` returns ``None`` on clean EOF (peer closed between frames)
 and raises :class:`ProtocolError` on anything malformed — oversized
@@ -94,7 +95,7 @@ OVERLOADED = 3
 ERROR = 4
 HEALTHZ = 5
 HEALTHZ_OK = 6
-HELLO = 7         # fleet actor handshake (reserved: ROADMAP A11 (e))
+HELLO = 7         # fleet actor handshake (fleet/wire.py)
 HELLO_OK = 8
 WINDOWS = 9       # batch of complete n-step windows
 WINDOWS_OK = 10
@@ -332,6 +333,27 @@ def write_frame(sock, msg_type: int, req_id: int, payload: bytes = b"") -> None:
     # healthz reply from the reader thread) can never interleave a frame —
     # callers still hold a per-connection send lock for ordering.
     sock.sendall(encode_frame(msg_type, req_id, payload))
+
+
+def write_truncated_frame(
+    sock, msg_type: int, req_id: int, payload: bytes, keep: int
+) -> None:
+    """Chaos only (``pixel_truncate``): send a header that declares the
+    whole payload, then only its first ``keep`` bytes, as a peer that dies
+    in the middle of ``sendall`` would. The receiver's ``read_frame`` must
+    raise :class:`ProtocolError` (EOF mid-frame) and drop the frame whole.
+    It lives here because this module owns the header layout."""
+    keep = max(0, min(int(keep), len(payload)))
+    sock.sendall(
+        HEADER.pack(
+            MAGIC,
+            _FRAME_MIN_VERSION.get(msg_type, 1),
+            msg_type,
+            req_id,
+            len(payload),
+        )
+        + payload[:keep]
+    )
 
 
 # ----------------------------------------------------------- ACT payloads

@@ -63,6 +63,11 @@ Examples:
         # host placement: two dp lanes, each with its state on two tp lanes
     python -m d4pg_tpu_torch.train --env pendulum --on-device --dp 2
         # the on-device loop on two lanes: envs, ring and batch split
+    python -m d4pg_tpu_torch.train --env pixel_pendulum --num-envs 0 \
+        --fleet-listen 7470 --fleet-bundle runs/fleet/bundle
+        # a fleet-only learner; its actors run
+        # python -m d4pg_tpu_torch.fleet.actor --connect HOST:7470 \
+        #     --bundle runs/fleet/bundle --env pixel_pendulum_host
 
 ``--on-device`` runs :func:`d4pg_tpu_torch.runtime.on_device.run_on_device`
 (the JAX CLI's ``--on-device``) after the same validation plus its own
@@ -83,14 +88,8 @@ import sys
 # Flags of the JAX CLI (``train.py:build_parser``) whose feature the port
 # does not carry yet, each with the ROADMAP item that brings it.
 UNPORTED_FLAGS = {
-    "--fleet-listen": "the collection fleet (ROADMAP A11 (e2))",
     "--device-tree-backend": "a choice of device PER descent: the port has one, "
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
-    "--fleet-host": "the collection fleet (ROADMAP A11 (e2))",
-    "--fleet-bundle": "the collection fleet (ROADMAP A11 (e2))",
-    "--fleet-publish-interval": "the collection fleet (ROADMAP A11 (e2))",
-    "--fleet-max-gen-lag": "the collection fleet (ROADMAP A11 (e2))",
-    "--fleet-wire-dtype": "the collection fleet (ROADMAP A11 (e2))",
     "--variant-id": "league training (ROADMAP A11 (e5))",
     "--league-generation": "league training (ROADMAP A11 (e5))",
 }
@@ -318,6 +317,34 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(os.environ["D4PG_PROCESS_ID"])
                    if os.environ.get("D4PG_PROCESS_ID") is not None else None,
                    help="this process's rank (env D4PG_PROCESS_ID)")
+    # the collection fleet (d4pg_tpu_torch/fleet)
+    p.add_argument("--fleet-listen", type=int, default=None, metavar="PORT",
+                   help="run the experience-ingest server on PORT (0 = "
+                        "ephemeral, printed at startup): remote actor hosts "
+                        "(python -m d4pg_tpu_torch.fleet.actor) stream n-step "
+                        "windows into replay, beside local collection or, "
+                        "with --num-envs 0, instead of it")
+    p.add_argument("--fleet-host", default="0.0.0.0", metavar="ADDR",
+                   help="ingest bind address (default 0.0.0.0 so remote "
+                        "actor hosts can reach it; 127.0.0.1 = loopback-"
+                        "only fleet)")
+    p.add_argument("--fleet-bundle", default=None, metavar="DIR",
+                   help="publish the acting bundle here for fleet actors "
+                        "(atomic re-export every --fleet-publish-interval "
+                        "grad steps, bumping the bundle generation; actors "
+                        "hot-swap on the bundle.json mtime)")
+    p.add_argument("--fleet-publish-interval", type=int, default=200,
+                   help="grad steps between fleet bundle publications")
+    p.add_argument("--fleet-max-gen-lag", type=int, default=1,
+                   help="ingest drops windows produced under a bundle (or "
+                        "obs-norm stats) generation older than current "
+                        "minus this lag")
+    p.add_argument("--fleet-wire-dtype", choices=["auto", "float32", "bfloat16"],
+                   default="auto",
+                   help="fleet ingest wire encoding for flat observation "
+                        "rows: auto/float32 = byte-identical f32; bfloat16 "
+                        "halves wire bytes with a declared bf16 round "
+                        "(pixel envs always negotiate u8-quantized rows)")
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)
@@ -436,6 +463,12 @@ def config_from_args(args: argparse.Namespace):
         tp=args.tp,
         num_processes=args.num_processes or 1,
         chaos=args.chaos,
+        fleet_listen=args.fleet_listen,
+        fleet_host=args.fleet_host,
+        fleet_bundle=args.fleet_bundle,
+        fleet_publish_interval=args.fleet_publish_interval,
+        fleet_max_gen_lag=args.fleet_max_gen_lag,
+        fleet_wire_dtype=args.fleet_wire_dtype,
     ))
     check_chaos(cfg)  # before any process group forms
     return cfg
@@ -604,8 +637,15 @@ def main(argv=None) -> dict:
     if args.export_bundle:
         export_bundle_from_run(cfg, args.export_bundle)
         return {}
+    from d4pg_tpu_torch.config import check_fleet
     from d4pg_tpu_torch.parallel.distributed import shutdown
 
+    try:
+        # the experience source before any env, process group or learner
+        # (no_collection_source: --num-envs 0 with nothing else collecting)
+        check_fleet(cfg, on_device=args.on_device)
+    except ValueError as e:
+        raise SystemExit(str(e))
     cfg = bring_up(args, cfg)
     if args.on_device:
         try:

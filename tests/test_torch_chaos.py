@@ -366,3 +366,162 @@ def test_serve_cli_under_attack_keeps_serving_and_drains_clean(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=30)
+
+
+# --------------------------------------------------------------- fleet sites
+# The seven sites of the collection fleet tick in the port's fleet modules
+# where they tick in the JAX package's: each scenario runs on both packages
+# (the actor, the ingest and the injector of one package) and must leave
+# the same observations.
+FLEET_SITES = ("partition", "reconnect_flap", "slow_link", "pixel_truncate", "stale_bundle",
+               "stale_stats", "her_actor_kill")
+
+
+def _fleet_pkg(jax_side: bool):
+    if jax_side:
+        from d4pg_tpu.fleet import actor, ingest, wire
+        from d4pg_tpu.replay.uniform import ReplayBuffer
+        from d4pg_tpu.serve import protocol
+        return dict(actor=actor, ingest=ingest, wire=wire, buf=ReplayBuffer, protocol=protocol,
+                    chaos=jchaos, jax=True)
+    from d4pg_tpu_torch.fleet import actor, ingest, wire
+    from d4pg_tpu_torch.replay.uniform import ReplayBuffer
+    from d4pg_tpu_torch.serve import protocol
+    return dict(actor=actor, ingest=ingest, wire=wire, buf=ReplayBuffer, protocol=protocol,
+                chaos=chaos, jax=False)
+
+
+def _fleet_bundle(path, generation=0, obs_norm=False, seed=0):
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.models.actor import Actor
+    from d4pg_tpu_torch.serve.bundle import export_bundle
+
+    cfg = D4PGConfig(obs_dim=3, action_dim=1, hidden_sizes=(8, 8), n_step=3)
+    actor = Actor(3, 1, (8, 8), generator=torch.Generator().manual_seed(seed))
+    stats = {"count": 10.0 + generation, "mean": [0.1, 0.2, 0.3], "m2": [5.0, 6.0, 7.0]} \
+        if obs_norm else None
+    export_bundle(str(path), cfg, actor, obs_norm_state=stats,
+                  meta={"generation": generation, "stats_generation": generation,
+                        "env": "Pendulum-v1"})
+    # a distinct mtime for every export, however fast they follow each other
+    meta = os.path.join(str(path), "bundle.json")
+    os.utime(meta, ns=(time.time_ns(), time.time_ns() + generation * 10**9))
+
+
+def _until(pred, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def _fleet_scenario(site, pkg, tmp_path, monkeypatch):
+    """Run ``site``'s scenario on one package; returns what it observed."""
+    inj = pkg["chaos"].ChaosInjector(pkg["chaos"].ChaosPlan.parse(
+        {"partition": "partition@2", "slow_link": "slow_link@1:50",
+         "her_actor_kill": "her_actor_kill@5"}.get(site, f"{site}@1")))
+    buf = pkg["buf"](256, 3, 1)
+    srv = pkg["ingest"].IngestServer(
+        buf, obs_dim=3, action_dim=1, n_step=3, gamma=0.99,
+        chaos=inj if site == "partition" else None,
+        caps=dict(obs_mode="f32", her=False, obs_norm=site == "stale_stats")).start()
+    _fleet_bundle(tmp_path, obs_norm=site == "stale_stats")
+    actor = pkg["actor"].FleetActor(connect=f"127.0.0.1:{srv.port}", bundle_dir=str(tmp_path),
+                                    num_envs=1, seed=3, batch_windows=4,
+                                    chaos=None if site == "partition" else inj)
+    seen = {}
+    try:
+        if site == "partition":
+            proto, wire_ = pkg["protocol"], pkg["wire"]
+            import socket as _socket
+
+            s = _socket.create_connection(("127.0.0.1", srv.port), timeout=5)
+            proto.write_frame(s, proto.HELLO, 1, wire_.encode_hello(
+                actor_id="t", env="e", obs_dim=3, action_dim=1, n_step=3, gamma=0.99,
+                generation=0))
+            proto.read_frame(s)
+            cols = {"obs": np.ones((3, 3), np.float32), "action": np.ones((3, 1), np.float32),
+                    "reward": np.ones(3, np.float32), "next_obs": np.ones((3, 3), np.float32),
+                    "discount": np.ones(3, np.float32)}
+            for req in (2, 3):
+                proto.write_frame(s, proto.WINDOWS, req, wire_.encode_windows(0, **cols))
+                try:
+                    frame = proto.read_frame(s)
+                    seen[f"reply_{req}"] = None if frame is None else frame[0]
+                except (OSError, proto.ProtocolError):
+                    seen[f"reply_{req}"] = "reset"
+            s.close()
+            _until(lambda: srv.counters()["connections"] == 0)
+        elif site == "reconnect_flap":
+            seen["first"] = actor._ensure_link()
+            seen["after_flap"] = dict(actor.stats())
+            actor._retry_at = 0.0
+            seen["second"] = actor._ensure_link()
+        elif site in ("slow_link", "pixel_truncate"):
+            for _ in range(8):
+                actor._step_envs()
+            t0 = time.monotonic()
+            seen["sent"] = actor._flush_once()
+            seen["stalled"] = time.monotonic() - t0 >= 0.05
+            if site == "pixel_truncate":
+                if not pkg["jax"]:
+                    # the torn frame dies with its connection, whole, at
+                    # once: EOF mid-frame at the server (ROADMAP C-5: the
+                    # JAX link keeps its socket open and the server waits)
+                    assert _until(lambda: srv.counters()["connections"] == 0)
+                    seen["link_dead"] = actor._link.dead is not None
+                    seen["server"] = {k: srv.counters()[k]
+                                      for k in ("protocol_errors", "windows_ingested")}
+            else:
+                _until(lambda: actor._link.inflight() == 0)
+        elif site in ("stale_bundle", "stale_stats"):
+            for generation in (1, 2):
+                _fleet_bundle(tmp_path, generation=generation, obs_norm=site == "stale_stats",
+                              seed=generation)
+                actor._maybe_reload_bundle()
+                seen[generation] = (actor.policy.generation, actor.policy.stats_generation,
+                                    actor.spool.generation, actor.spool.stats_generation)
+        elif site == "her_actor_kill":
+            class Killed(Exception):
+                pass
+
+            def fake_kill(pid, sig):
+                raise Killed(sig)
+
+            monkeypatch.setattr(os, "kill", fake_kill)
+            steps = 0
+            with pytest.raises(Killed):
+                while True:
+                    actor._step_envs()
+                    steps += 1
+            seen["steps_before_kill"] = steps
+    finally:
+        if actor._link is not None:
+            actor._link.close()
+        for env in actor.envs:
+            env.close()
+        srv.close()
+    # the readers book a closed connection on their own threads
+    _until(lambda: srv.counters()["connections"] == 0)
+    stats = actor.stats()
+    seen["actor"] = {k: v for k, v in stats.items() if k != "env_steps" or site != "slow_link"}
+    if site != "pixel_truncate":
+        seen["ingest"] = {k: v for k, v in srv.counters().items() if k != "bytes_total"}
+    seen["rows"] = len(buf)
+    seen["injections"] = inj.injections_total
+    return seen
+
+
+@pytest.mark.parametrize("site", FLEET_SITES)
+def test_fleet_sites_tick_where_the_jax_fleet_ticks_them(site, tmp_path, monkeypatch):
+    assert site in chaos.KNOWN_SITES
+    ours = _fleet_scenario(site, _fleet_pkg(False), tmp_path / "port", monkeypatch)
+    ref = _fleet_scenario(site, _fleet_pkg(True), tmp_path / "jax", monkeypatch)
+    if site == "pixel_truncate":
+        assert ours.pop("link_dead") and ours.pop("server") == {
+            "protocol_errors": 1, "windows_ingested": 0}
+        assert ours["rows"] == 0 and ours["actor"]["windows_dropped_reconnect"] > 0
+    assert ours == ref
+    assert ours["injections"] == 1

@@ -91,9 +91,18 @@ def test_every_reference_flag_is_accepted_or_refused_by_name():
     with pytest.raises(NotImplementedError, match="B3"):
         refuse_unported(["--device-tree-backend=pallas"])
     # the host actor pool's and obs-norm's flags (A5 (d), A10 (d)) parse,
-    # and data parallelism's (A7 (a))
-    for opt in HOST_POOL_FLAGS + DP_FLAGS:
+    # data parallelism's (A7 (a)) and the collection fleet's (A11 (e2))
+    for opt in HOST_POOL_FLAGS + DP_FLAGS + FLEET_FLAGS:
         assert opt in ours and opt not in UNPORTED_FLAGS, opt
+    # league training's stay refused, naming its item
+    for opt in ("--variant-id", "--league-generation"):
+        assert opt not in ours
+        with pytest.raises(NotImplementedError, match=r"A11 \(e5\)"):
+            refuse_unported([opt, "1"])
+
+
+FLEET_FLAGS = ("--fleet-listen", "--fleet-host", "--fleet-bundle", "--fleet-publish-interval",
+               "--fleet-max-gen-lag", "--fleet-wire-dtype")
 
 
 DP_FLAGS = ("--dp", "--dp-hogwild", "--tp", "--distributed", "--coordinator",

@@ -79,7 +79,10 @@ def test_committed_lock_graph_matches_the_analyzer_and_is_acyclic():
     for node in ("Trainer._wb_idle_lock", "Trainer._eval_req_lock", "ReplayBuffer._lock",
                  "DynamicBatcher._cond", "DynamicBatcher._reply_cond", "ServeStats._lock",
                  "PolicyClient._conn_lock", "StageTimers._lock", "FrameLoop._cb_lock",
-                 "Connection._lock", "StagingLedger._lock", "ChaosInjector._lock"):
+                 "Connection._lock", "StagingLedger._lock", "ChaosInjector._lock",
+                 "IngestServer._cond", "IngestServer._counters_lock",
+                 "IngestServer._conns_lock", "FleetLink._pending_lock",
+                 "FleetActor._stats_lock"):
         assert node in committed["nodes"], node
     # the JAX package's graph names the JAX package's files, never the port's
     with open(os.path.join(REPO, "benchmarks", "lock_order_graph.json")) as f:
@@ -207,6 +210,7 @@ def test_witness_off_hands_out_plain_primitives():
 # the port's table: this file is no assertion site of the JAX package's
 # identities, which tools/d4pglint's flow scan looks for in tests/.
 SERVE_FAMILY = "serve" + "-stats"
+FLEET_FAMILIES = ("fleet" + "-actor", "fleet" + "-ingest")
 
 
 def _flow_cases() -> dict:
@@ -246,8 +250,11 @@ def test_flow_identities_are_the_jax_tables():
     from d4pg_tpu_torch.analysis.flow_identities import FLOW_IDENTITIES
     from tools.d4pglint.wholeprog.config import FLOW_IDENTITIES as J
 
-    assert list(FLOW_IDENTITIES) == [SERVE_FAMILY]
-    assert FLOW_IDENTITIES[SERVE_FAMILY]["identity"] == J[SERVE_FAMILY]["identity"]
+    assert list(FLOW_IDENTITIES) == [SERVE_FAMILY, *FLEET_FAMILIES]
+    for family in FLOW_IDENTITIES:
+        assert FLOW_IDENTITIES[family]["identity"] == J[family]["identity"]
+        # the port's families name the port's classes
+        assert FLOW_IDENTITIES[family]["class"].startswith("d4pg_tpu_torch/")
     lhs = FLOW_IDENTITIES[SERVE_FAMILY]["identity"].split("==")[0].strip()
     # off: a no-op, as in the JAX ledger; a family the table lacks is skipped
     flowledger.reset()

@@ -35,6 +35,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import d4pg_tpu_torch.utils.retry\n"
         "import d4pg_tpu_torch.chaos, d4pg_tpu_torch.netio.attack\n"
         "import d4pg_tpu_torch.analysis.transfer, d4pg_tpu_torch.analysis.flowledger\n"
+        "import d4pg_tpu_torch.fleet.actor, d4pg_tpu_torch.fleet.ingest\n"
+        "import d4pg_tpu_torch.replay.source\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -158,7 +160,13 @@ def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item
     (``sharded_megastep_dp_only``), ``--dp 2`` on the on-device loop over
     3 envs (the mesh's divisibility error), ``--num-processes 2`` without
     a coordinator. ``--chaos`` (ported with A11 (e1)) refuses the plan
-    ``kill@3`` with the chaos parser's own ``ValueError``."""
+    ``kill@3`` with the chaos parser's own ``ValueError``. The fleet's
+    flags (ported with A11 (e2)) are refused by the JAX gaps of the same
+    requests, before any env or learner: ``--fleet-publish-interval``
+    with a ``--fleet-bundle`` and no ``--fleet-listen``
+    (``fleet_bundle_requires_listen``), ``--fleet-listen`` on the
+    on-device loop (``on_device_fleet``); the CLI exits with the gap's
+    words."""
     from d4pg_tpu_torch.train import UNPORTED_FLAGS, main
 
     flag = "--" + field.replace("_", "-")
@@ -171,8 +179,11 @@ def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item
     assert not (tmp_path / "metrics.jsonl").exists()
 
 
-# the A7 flags and --chaos of the case above: (further flags, error, its words)
+# the A7 flags, --chaos and the fleet flags of the case above: (further
+# flags, error, its words)
 A7_REFUSALS = {
+    "fleet_publish_interval": (["--fleet-bundle=b"], SystemExit, "fleet_bundle_requires_listen"),
+    "fleet_listen": (["--on-device"], SystemExit, "on_device_fleet"),
     "chaos": ([], ValueError, r"bad chaos entry 'kill@3': unknown site 'kill'"),
     "tp": (["--dp=2", "--replay-placement=device", "--p-replay"], ValueError,
            "sharded_megastep_dp_only"),
@@ -207,16 +218,21 @@ def test_cli_refuses_unported_flags(flag, tmp_path):
     on-device loop over 3 envs by the mesh's divisibility error. ``--chaos``
     (A11 (e1)) takes ``host_kill`` only in a run of one process: with
     ``--num-processes 2`` it is refused by name before any process group
-    forms (``host_kill_needs_supervisor``)."""
+    forms (``host_kill_needs_supervisor``). ``--fleet-listen`` (A11 (e2))
+    on the on-device loop is refused by the ``on_device_fleet`` gap: the
+    CLI exits with its words before any env or learner."""
     from d4pg_tpu_torch.train import main
 
     gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild", "--tp=2", "--dp=2",
             "--chaos=host_kill@2:1")
-    exc = ValueError if flag in gaps else NotImplementedError
+    exc = ValueError if flag in gaps else SystemExit if flag.startswith("--fleet") \
+        else NotImplementedError
     extra = {"--dp=2": ["--on-device", "--num-envs=3"],
              "--tp=2": ["--dp=2", "--replay-placement=device", "--p-replay"],
-             "--chaos=host_kill@2:1": ["--num-processes=2"]}.get(flag, [])
-    match = "host_kill_needs_supervisor" if flag.startswith("--chaos") else None
+             "--chaos=host_kill@2:1": ["--num-processes=2"],
+             "--fleet-listen=0": ["--on-device"]}.get(flag, [])
+    match = {"--chaos=host_kill@2:1": "host_kill_needs_supervisor",
+             "--fleet-listen=0": "on_device_fleet"}.get(flag)
     with pytest.raises(exc, match=match):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag, *extra])
 
