@@ -66,7 +66,7 @@ JSON line (with ``at_s``, the seconds since the script started):
 7. ``host_block``: the host placement at the same width with K = 8 grad
    steps per dispatch on the native tree (one ``sample_block`` C call and
    one [8, 256] copy to the card a dispatch, ``fused_train_scan``, the
-   [8, 256] priorities written back one dispatch later): 1000 grad steps
+   [8, 256] priorities written back one dispatch later): 512 grad steps
    after the 1000-env-step warmup. Exact launch counts (B1f and B1b once a
    grad step, B2, B3 and B4 never), finite metrics, ``max_priority`` off
    its 1.0 seed, the backend in use, ``stage_ms_per_step`` and
@@ -86,7 +86,7 @@ JSON line (with ``at_s``, the seconds since the script started):
 9. ``hybrid_slice``: ``replay_placement="hybrid"`` at the same width, K =
    8, on the native tree with ``debug_guards``: a 1M-row device ring and a
    2^20-leaf host tree; each dispatch copies only the [8, 256] indices and
-   IS weights to the card and gathers the rows from the ring. 1000 grad
+   IS weights to the card and gathers the rows from the ring. 512 grad
    steps with the checks of ``host_block``, every dispatch after the first
    under ``torch.cuda.set_sync_debug_mode("error")``, and the ring's fill
    equal to the host buffer's.
@@ -112,7 +112,7 @@ JSON line (with ``at_s``, the seconds since the script started):
    right after ``host_block``): the host placement at the same width with ``prefetch``
    (each dispatch's batch sampled and its copy started, on a copy stream
    of its own, right after the previous dispatch) and
-   ``async_priority_writeback`` (the flusher thread), 1000 grad steps.
+   ``async_priority_writeback`` (the flusher thread), 512 grad steps.
    Exact launch counts (B1f and B1b once a grad step, B2, B3, B4 never),
    exactly one applied write-back per dispatch, the flusher's thread
    stopped and its queue gone after ``train()``, ``max_priority`` off
@@ -370,6 +370,31 @@ JSON line (with ``at_s``, the seconds since the script started):
    the actors' env steps/s, the send-to-ack p50 and p99 and its seconds.
    ``launches_by_path`` gains ``fleet_pixel`` and ``fleet_device``.
 
+35. The flywheel (ROADMAP A11 (e3)), after ``fleet_device``:
+   ``flywheel_pixel``, a fleet-only ``Trainer`` at the ``pixel_pendulum``
+   preset's full width (as ``fleet_pixel``'s) fed only by mirrored serving
+   traffic: ``python -m d4pg_tpu_torch.serve`` on the card serves its
+   published bundle (hot reload, ``--max-batch 8``) with ``--mirror-
+   fraction 1.0``, ``--mirror-ingest`` the learner's ingest,
+   ``--mirror-spool``, ``--debug-guards`` and ``--chaos mirror_drop@3``,
+   while two ``python -m d4pg_tpu_torch.flywheel.sim_client --env
+   pixel_pendulum_host --noise-sigma 0.3 --max-steps 25`` processes (each
+   through ``FLYWHEEL_CLIENT_WRAPPER``, which reports any import of torch
+   and times the ACT→FEEDBACK pairs) play through it; 64 grad steps after
+   256 windows. Then a feedback client of 4 episodes after the learner
+   closed (its windows spooled in f32, dropped at the link), a fixed-seed
+   v1 evaluator and the drain. B1f = B1b = 64, the rest 0 (0 in the
+   server); every ingested window from the mirror; the ``fleet-ingest``,
+   ``serve-stats`` and ``mirror-tap`` verdicts ok; one chaos drop; the
+   tap's identity exact; every spooled frame within ``MAX_PAYLOAD`` and
+   with its log-prob column; the gate over the final generation's windows
+   passes the served bundle, refuses a planted candidate whose effective
+   sample size it computes in (0, 3] below its min_ess of 4, and refuses a
+   constant 40 sigma beyond every executed action (every weight 0; one 3
+   sigma beyond is reported); the tap's frame split of a 64-window f32
+   burst (C-6).
+   ``launches_by_path`` gains ``flywheel_pixel``.
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
@@ -388,6 +413,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
@@ -403,11 +429,12 @@ GEOMETRY_BATCHES = (1, 7, 200, 256)
 GEOMETRY_ATOMS = (2, 51, 101, 1024)
 GEOMETRY_ATOMS_B4 = (51, 101)
 
-GRAD_STEPS = 1000            # fused run
+# grad steps of the learner phases (multiples of K = 8)
+GRAD_STEPS = 512             # fused run
 GRAD_STEPS_PROJECTION = 200  # projection-only run
-DEVICE_STEPS = {"fused_descent": 1000, "separate": 200, "uniform": 200}
-HOST_BLOCK_STEPS = 1000      # host K = 8 and hybrid runs
-ASYNC_STEPS = 1000           # host_async and hybrid_async runs
+DEVICE_STEPS = {"fused_descent": 512, "separate": 200, "uniform": 200}
+HOST_BLOCK_STEPS = 512       # host K = 8 and hybrid runs
+ASYNC_STEPS = 512            # host_async and hybrid_async runs
 INGEST_PAIR_STEPS = 200      # each run of the ingest_prefetch pair
 PROFILE_STEPS = 80           # the profile phase's run (trace of [16, 64))
 RESUME_STEPS = 200           # each leg of the resume phase
@@ -1250,7 +1277,42 @@ def check_sync_guard() -> None:
     emit({"phase": "sync_guard", "raises": seen, "ok": True})
 
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device work in a Chrome trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device work, by the trace's category
+
+
+class DeviceEvent(NamedTuple):
+    start: float   # us
+    end: float     # us
+    name: str
+    cat: str       # a DEVICE_CATS entry or ``gpu_user_annotation``
+    stream: int    # the CUDA stream
+
+
+def device_events(prof) -> list:
+    """The device events of a finished ``torch.profiler`` session, read from
+    its kineto results: the Chrome trace's ``kernel``, ``gpu_memcpy``,
+    ``gpu_memset`` and ``gpu_user_annotation`` events (the last a
+    ``record_function`` range's projection on the device) with their stream,
+    without writing and parsing the JSON, which for one on-device iteration
+    is hundreds of MB (473 MB and ~20 s for Humanoid's on the H100; the same
+    374 048 events and union within 0.01 %, PERF.md section 6). A kineto
+    event carries no category in the card's torch (2.11), so it is told as
+    the trace tells it: the annotation flag, then CUPTI's ``Memcpy ...`` and
+    ``Memset ...`` names, the rest kernels."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        name = e.name()
+        cat = ("gpu_user_annotation" if e.is_user_annotation() else
+               "gpu_memcpy" if name.startswith("Memcpy ") else
+               "gpu_memset" if name.startswith("Memset ") else "kernel")
+        out.append(DeviceEvent(e.start_ns() / 1e3, e.end_ns() / 1e3, name, cat,
+                               e.device_resource_id()))
+    return out
 
 
 def union_ms(spans) -> float:
@@ -1279,8 +1341,6 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
     summed, the measure of PRs 4-7, which since the ``host/<name>`` ranges
     also counts their GPU-side projections (``gpu_user_annotation``). The
     trainer's ``prefetch`` and write-back thread run as in ``train()``."""
-    import tempfile
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1300,27 +1360,20 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
             run()
             torch.cuda.synchronize()
     steps = dispatches * k
-    events_us = sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    with tempfile.TemporaryDirectory() as tmp:
-        events = trace_events(prof, f"{tmp}/busy.json")
+    events = device_events(prof)
     by_cat, annotations = {}, {}
     for e in events:
-        cat = e.get("cat")
-        if cat in DEVICE_CATS or cat == "gpu_user_annotation":
-            by_cat[cat] = by_cat.get(cat, 0.0) + e.get("dur", 0) / 1e3 / steps
-        if cat == "gpu_user_annotation":
-            annotations[e["name"]] = annotations.get(e["name"], 0.0) + e.get("dur", 0) / 1e3 / steps
-    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
+        by_cat[e.cat] = by_cat.get(e.cat, 0.0) + (e.end - e.start) / 1e3 / steps
+        if e.cat == "gpu_user_annotation":
+            annotations[e.name] = annotations.get(e.name, 0.0) + (e.end - e.start) / 1e3 / steps
+    device = [(e.start, e.end) for e in events if e.cat in DEVICE_CATS]
     device_ms = union_ms(device) / steps if device else None
     return {
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
         "device_ms_per_step_by_category": by_cat,
-        "device_events_sum_ms_per_step": events_us / 1e3 / steps,
+        "device_events_sum_ms_per_step": sum(by_cat.values()),
         "gpu_user_annotation_ms_per_step": dict(sorted(annotations.items(), key=lambda kv: -kv[1])[:6]),
     }
 
@@ -1884,14 +1937,6 @@ def ingest_prefetch_pair(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
     return out
 
 
-def trace_events(prof, path: str) -> list:
-    """The events of a finished ``torch.profiler`` session, via its Chrome
-    trace (which carries each device event's stream)."""
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        return json.load(f)["traceEvents"]
-
-
 def ingest_stage_phase(card: str, log_dir: str) -> None:
     """``DeviceRingSync.stage`` driven directly on a 1M-row ring with the
     device tree hooked, against a twin that flushes with no stage, from the
@@ -1972,20 +2017,19 @@ def ingest_stage_phase(card: str, log_dir: str) -> None:
         stage_s = time.perf_counter() - t0
         torch.cuda.synchronize()
     check(staged and sync_a._staged is not None, "ingest_stage: nothing staged")
-    events = trace_events(prof, f"{log_dir}/ingest_stage.json")
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
-    kernel_streams = sorted({e["args"]["stream"] for e in kernels})
-    copy_streams = sorted({e["args"]["stream"] for e in h2d})
+    events = device_events(prof)
+    kernels = [e for e in events if e.cat == "kernel"]
+    h2d = [e for e in events if e.cat == "gpu_memcpy" and "HtoD" in e.name]
+    kernel_streams = sorted({e.stream for e in kernels})
+    copy_streams = sorted({e.stream for e in h2d})
     # the staged chunk is six copies (five fields and the slots); any copy
     # on a kernel stream is the dispatch's own
-    staged_copies = [e for e in h2d if e["args"]["stream"] not in kernel_streams]
+    staged_copies = [e for e in h2d if e.stream not in kernel_streams]
     check(kernels and len(staged_copies) >= 6,
           f"ingest_stage: {len(kernels)} kernels on streams {kernel_streams}; HtoD copies on "
           f"streams {copy_streams}, {len(staged_copies)} of them off the kernels' streams")
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
-    overlapped = sum(any(s < c1 and c0 < e for s, e in spans)
-                     for c0, c1 in ((c["ts"], c["ts"] + c["dur"]) for c in staged_copies))
+    overlapped = sum(any(k.start < c.end and c.start < k.end for k in kernels)
+                     for c in staged_copies)
     add(1500)
     flush_both()
     compare("round 1")
@@ -2036,6 +2080,8 @@ def profile_phase(Trainer, TrainConfig, card: str, log_dir: str) -> None:
         trainer.close()
     files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
     check(len(files) == 1, f"profile: {len(files)} trace files in {trace_dir}")
+    # the file ``profile_dir`` gives a user is a Chrome trace: it is read as
+    # that JSON (every in-script session reads :func:`device_events`)
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     # the trace runs from the first dispatch boundary at or past grad step
@@ -2110,8 +2156,6 @@ def planar_step_parity(card: str) -> dict:
     actions, so most rows touch the ground. Also the card's wall ms of one
     control step for the 128 envs (median of ``PLANAR_TIMED`` synchronized
     steps) and the kernels one step launches (a ``torch.profiler`` trace)."""
-    import tempfile
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2150,8 +2194,7 @@ def planar_step_parity(card: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         env.step(dev_state, action.cuda())
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        kernels = sum(1 for e in trace_events(prof, f"{tmp}/step.json") if e.get("cat") == "kernel")
+    kernels = sum(1 for e in device_events(prof) if e.cat == "kernel")
     check(err["q"] <= PLANAR_Q_ATOL and err["qd"] <= PLANAR_QD_ATOL and err["obs"] <= PLANAR_QD_ATOL
           and err["reward"] <= PLANAR_R_ATOL and flags_equal,
           f"planar_step_parity: card vs CPU {err}, flags equal {flags_equal}")
@@ -2254,8 +2297,7 @@ def spatial_step_parity(card: str, env_name: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         env.step(dev_state, action.cuda())
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        step_k = [e for e in trace_events(prof, f"{tmp}/step.json") if e.get("cat") == "kernel"]
+    step_k = [e for e in device_events(prof) if e.cat == "kernel"]
     launches = read_counts()
     phase = f"spatial_step_parity_{env_name}"
     check(err["q"] <= SPATIAL_Q_ATOL and err["v"] <= SPATIAL_V_ATOL and err["obs"] <= SPATIAL_V_ATOL
@@ -2276,7 +2318,7 @@ def spatial_step_parity(card: str, env_name: str) -> dict:
            "kernels_per_substep": len(step_k) / env.n_substeps,
            # the kernels of one control step run one after another on one
            # stream: their summed durations are its device time
-           "control_step_device_ms": sum(e["dur"] for e in step_k) / 1e3,
+           "control_step_device_ms": sum(e.end - e.start for e in step_k) / 1e3,
            "launches": launches, "ok": True}
     emit(out)
     return out
@@ -2363,9 +2405,8 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
     alone and one more train iteration (under the guard and a
     ``torch.profiler`` trace of the device only): their wall ms, and the
     iteration's device busy ms (the union of kernel, copy and memset
-    intervals) and idle share."""
+    intervals, read by :func:`device_events`) and idle share."""
     import math
-    import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2410,12 +2451,9 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
             run.carry, _ = run.iterate_fn(run.carry, scale)
         torch.cuda.synchronize()
         iteration_ms = (time.perf_counter() - i0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        events = trace_events(prof, f"{tmp}/iteration.json")
-    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
-    busy = union_ms(device)
-    b1f_traced = sum(1 for e in events if e.get("cat") == "kernel"
-                     and "fused_loss_fwd_kernel" in e.get("name", ""))
+    device = [e for e in device_events(prof) if e.cat in DEVICE_CATS]
+    busy = union_ms((e.start, e.end) for e in device)
+    b1f_traced = sum(1 for e in device if "fused_loss_fwd_kernel" in e.name)
     a = run.config.agent
     ring_dtype = (torch.uint8 if a.pixel_shape else
                   torch.bfloat16 if run.config.ring_dtype == "bfloat16" else torch.float32)
@@ -3463,8 +3501,8 @@ def host_pixel_run(Trainer, TrainConfig, wire: str, card: str, log_dir: str) -> 
     """``host_pixel``: the ``Trainer`` on ``--env pixel_pendulum`` at the
     preset's full width (48x48x2 frames, the conv encoder, 3x256, B = 256,
     the uint8 replay at the preset's 100 000 rows, 16 envs x 32 steps),
-    host placement, PER on the native tree, K = 4, 512 grad steps under
-    the guards after the first dispatch, on one wire: ``float32``
+    host placement, PER on the native tree, K = 4, ``PIXEL_STEPS`` grad
+    steps under the guards after the first dispatch, on one wire: ``float32``
     (``OBS_U8_DECODE``: the gather decodes the bytes on the host) or
     ``uint8`` (``OBS_U8_RAW``: the bytes cross, the card divides them by
     255). B1f and B1b once a grad step, the rest 0; the buffer uint8; the
@@ -3496,6 +3534,9 @@ def host_pixel_run(Trainer, TrainConfig, wire: str, card: str, log_dir: str) -> 
     check(obs_bytes == want_bytes and staged["obs"].shape == (PIXEL_K, 256, PIXEL_OBS),
           f"{label}: staged obs {staged['obs'].dtype} {tuple(staged['obs'].shape)}")
     check(mode == ("OBS_U8_RAW" if wire == "uint8" else "OBS_U8_DECODE"), f"{label}: {mode}")
+    check(row["env_steps_per_sec"] > 0,
+          f"{label}: no collection in the timed window ({n} grad steps, env steps/s "
+          f"{row['env_steps_per_sec']})")
     emit({"phase": "host_pixel", "leg": wire, "card": card,
           "width": {"pixel_shape": list(PIXEL_SHAPE), "hidden": list(cfg.agent.hidden_sizes),
                     "batch": trainer.config.batch_size, "num_envs": trainer.config.num_envs,
@@ -4388,6 +4429,470 @@ def fleet_device_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
           "fresh_leaves_at_max_priority": {"warmup": warm_leaves_ok, "after_training":
                                            fresh_leaves_ok, "max_priority": max_priority},
           "ingest": counters, "launches": launches,
+          "seconds": time.perf_counter() - t0, "ok": True})
+    return launches
+
+
+# ------------------------------------------------------------------ flywheel
+FLYWHEEL_STEPS = 64                  # flywheel_pixel's grad steps (16 dispatches of K = 4)
+FLYWHEEL_WARMUP = 256                # its warmup, in ingested (mirrored) windows
+FLYWHEEL_CLIENTS = 2                 # feedback clients while the learner trains
+FLYWHEEL_SIGMA = 0.3                 # their exploration noise, and the gate's sigma
+FLYWHEEL_MAX_STEPS = 25              # the feedback clients' and the evaluator's episode cap
+FLYWHEEL_FINAL_EPISODES = 4          # the feedback client after training
+FLYWHEEL_SERVE_CHAOS = "mirror_drop@3"
+FLYWHEEL_BURST = 64                  # windows queued at once in the tap's frame-split check
+# the planted gate candidates' distances from the executed actions, in
+# sigmas. FAR: (40 * 0.3)^2 / (2 * 0.3^2) = 800 > 745 + the largest
+# behaviour log-density term, so an importance weight there underflows to
+# 0. NEAR: a finite weight. The planted candidate acts NEAR on
+# FLYWHEEL_PLANTED_WINDOWS windows and FAR on the rest, so at most that
+# many weights are finite and its effective sample size lies in (0, 3],
+# below the gate's min_ess of 4, whatever the executed actions are
+FLYWHEEL_PLANTED_FAR = 40.0
+FLYWHEEL_PLANTED_NEAR = 3.0
+FLYWHEEL_PLANTED_WINDOWS = 3
+
+# A sim client as users start it (``python -m d4pg_tpu_torch.flywheel.sim_client``),
+# run through this wrapper: the meta-path finder of FLEET_ACTOR_WRAPPER records
+# every attempt to import torch; each ACT is timed, each FEEDBACK, and the pair
+# from the ACT's send to the FEEDBACK's ack (the env step between them
+# included); SIGTERM ends the episode loop (the client closes as on any exit).
+# At exit it prints one JSON line.
+FLYWHEEL_CLIENT_WRAPPER = r"""
+import json, signal, sys, time
+
+class TorchWatch:
+    seen = []
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "torch":
+            self.seen.append(name)
+        return None
+
+sys.meta_path.insert(0, TorchWatch())
+from d4pg_tpu_torch.flywheel import sim_client as S
+from d4pg_tpu_torch.serve.client import PolicyClient
+
+acts, fbs, pairs, start = [], [], [], []
+act, feedback = PolicyClient.act, PolicyClient.feedback
+
+def timed_act(self, *a, **kw):
+    t0 = time.perf_counter()
+    out = act(self, *a, **kw)
+    acts.append(time.perf_counter() - t0)
+    start[:] = [t0]
+    return out
+
+def timed_feedback(self, *a, **kw):
+    t0 = time.perf_counter()
+    out = feedback(self, *a, **kw)
+    t1 = time.perf_counter()
+    fbs.append(t1 - t0)
+    pairs.append(t1 - start[0])
+    return out
+
+def stop(signum, frame):
+    raise KeyboardInterrupt
+
+PolicyClient.act, PolicyClient.feedback = timed_act, timed_feedback
+signal.signal(signal.SIGTERM, stop)
+t0 = time.perf_counter()
+try:
+    rc = S.main(sys.argv[1:])
+except KeyboardInterrupt:
+    rc = "sigterm"
+wall = time.perf_counter() - t0
+q = lambda xs, p: 1e3 * sorted(xs)[min(len(xs) - 1, int(p * len(xs)))] if xs else None
+print("[flywheel-wrapper] " + json.dumps({
+    "rc": rc, "wall_s": wall, "steps": len(acts), "feedbacks": len(fbs),
+    "torch_imports": TorchWatch.seen,
+    "torch_modules": sorted(m for m in sys.modules if m.split(".")[0] == "torch"),
+    "act_ms_p50": q(acts, 0.5), "act_ms_p99": q(acts, 0.99),
+    "feedback_ms_p50": q(fbs, 0.5), "feedback_ms_p99": q(fbs, 0.99),
+    "pairs": pairs}), flush=True)
+sys.exit(0 if rc in (0, "sigterm") else rc)
+"""
+
+
+class _SimClientProc:
+    """One sim client process (through :data:`FLYWHEEL_CLIENT_WRAPPER`) on
+    ``pixel_pendulum_host``, its output gathered by a thread."""
+
+    def __init__(self, port: int, seed: int, episodes: int, sigma: float = FLYWHEEL_SIGMA,
+                 feedback: bool = True):
+        import os
+        import threading
+
+        args = ["--connect", f"127.0.0.1:{port}", "--env", "pixel_pendulum_host",
+                "--episodes", str(episodes), "--seed", str(seed), "--noise-sigma", str(sigma),
+                "--max-steps", str(FLYWHEEL_MAX_STEPS)]
+        if not feedback:
+            args.append("--no-feedback")
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen([sys.executable, "-c", FLYWHEEL_CLIENT_WRAPPER, *args],
+                                     cwd=root, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     env=dict(os.environ, PYTHONPATH=root))
+        self.lines: list = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def finish(self, terminate: bool = False) -> dict:
+        """SIGTERM (``terminate``) or the client's own end; returns what
+        the process reported."""
+        import signal
+
+        if terminate and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=FLEET_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._reader.join(10)
+        out = {"rc": rc, "ok_line": "SIM_CLIENT_OK" in self.lines,
+               "episodes": sum(1 for ln in self.lines if ln.startswith("[sim-client] episode "))}
+        for line in self.lines:
+            if line.startswith("[flywheel-wrapper] "):
+                out["wrapper"] = json.loads(line.split(" ", 1)[1])
+        check(rc == 0 and "wrapper" in out,
+              f"sim client: exit {rc}, no report: {self.lines[-20:]}")
+        return out
+
+
+def _flywheel_books(output: list) -> dict:
+    """The serve CLI's drain lines of a mirrored run: the tap's books, the
+    flow verdicts, the lock witness, the staging ledger, the launches and
+    the chaos injections."""
+    def after(prefix):
+        return [ln.split(prefix, 1)[1] for ln in output if ln.startswith(prefix)]
+
+    mirror = after("[serve] mirror: ")
+    return {
+        "mirror": ({k: int(v) for k, v in (kv.split("=") for kv in mirror[-1].split())}
+                   if mirror else None),
+        "verdicts": [json.loads(v) for v in after("[flow-verdict] ")],
+        "witness": [ln for ln in output if ln.startswith("[lockwitness]")],
+        "ledger": [json.loads(v) for v in after("[serve] staging ledger: ")],
+        "launches": [json.loads(v) for v in after("[serve] kernel launches: ")],
+        "chaos": [ln for ln in output if ln.startswith("[chaos] inject")],
+    }
+
+
+def _tap_identity_ok(c: dict) -> bool:
+    return c["windows_built"] == (
+        c["windows_acked"] + c["windows_stale"] + c["windows_shed"] + c["windows_dropped_chaos"]
+        + c["windows_dropped_link"] + c["windows_dropped_full"] + c["pending"])
+
+
+def tap_split_check(spool_dir: str) -> dict:
+    """C-6 on this machine: the port's tap at pixel width with no ingest
+    (f32 frames) handed ``FLYWHEEL_BURST`` windows while its sender is held
+    (a burst of traffic), so its first batch is a full 32 windows: every
+    frame fits ``MAX_PAYLOAD``, every window is spooled, the identity is
+    exact. Host code, as in the JAX package."""
+    import numpy as np
+
+    from d4pg_tpu_torch.flywheel.spool import MirrorSpool, iter_payloads
+    from d4pg_tpu_torch.flywheel.tap import MirrorTap
+    from d4pg_tpu_torch.serve.protocol import MAX_PAYLOAD
+
+    tap = MirrorTap(obs_dim=PIXEL_OBS, action_dim=1, n_step=3, gamma=0.99, fraction=1.0,
+                    spool=MirrorSpool(spool_dir))
+    rng = np.random.default_rng(SEED)
+    with tap._cond:  # the sender waits on it: the windows queue, then go at once
+        for step in range(FLYWHEEL_BURST):
+            tap.on_request("burst", rng.random(PIXEL_OBS).astype(np.float32))
+            tap.on_feedback("burst", {
+                "policy_id": "default", "reward": float(rng.standard_normal()),
+                "log_prob": -1.0, "terminated": False, "truncated": step == FLYWHEEL_BURST - 1,
+                "action": rng.uniform(-1, 1, 1).astype(np.float32),
+                "next_obs": rng.random(PIXEL_OBS).astype(np.float32)})
+    tap.close()
+    tap.check_alive()
+    c = tap.counters()
+    sizes = [len(p) for p in iter_payloads(spool_dir)]
+    check(_tap_identity_ok(c) and c["pending"] == 0 and c["windows_dropped_link"] == FLYWHEEL_BURST
+          and sizes and max(sizes) <= MAX_PAYLOAD and len(sizes) == c["spool_records"],
+          f"flywheel_pixel: the tap's frame split: {c}, frame bytes {sizes}")
+    return {"windows": FLYWHEEL_BURST, "frames": len(sizes), "max_frame_bytes": max(sizes),
+            "max_payload": MAX_PAYLOAD, "counters": c}
+
+
+def flywheel_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """``flywheel_pixel``: the flywheel (ROADMAP A11 (e3)) at the
+    ``pixel_pendulum`` preset's full width (48x48x2 frames, the conv
+    encoder, 3x256, B = 256, n-step 3, the host placement with PER on the
+    native tree and the uint8 replay, K = 4, ``debug_guards``, the lock
+    witness and the flow ledger armed). A fleet-only ``Trainer`` on the
+    card (``num_envs=0``, ``fleet_listen=0``, its bundle published every
+    ``FLEET_PUBLISH`` grad steps) has no actor and no env: it can finish
+    only on mirrored windows. ``python -m d4pg_tpu_torch.serve`` serves
+    its bundle on the card (hot reload every 0.2 s) with ``--mirror-
+    fraction 1.0 --mirror-ingest`` (the learner's ingest, u8 frames)
+    ``--mirror-spool``, ``--debug-guards`` and ``--chaos mirror_drop@3``;
+    ``FLYWHEEL_CLIENTS`` ``python -m d4pg_tpu_torch.flywheel.sim_client
+    --env pixel_pendulum_host --noise-sigma 0.3`` processes feed it while
+    the learner takes ``FLYWHEEL_STEPS`` grad steps after
+    ``FLYWHEEL_WARMUP`` windows. Then the learner closes (its ingest's
+    ``fleet-ingest`` identity), the server reloads the final bundle, one
+    more feedback client plays ``FLYWHEEL_FINAL_EPISODES`` episodes (its
+    windows are spooled in f32 and counted ``windows_dropped_link``: the
+    ingest is gone), a fixed-seed v1 evaluator (``--noise-sigma 0
+    --no-feedback``) plays one, and the server drains. Checks: B1f = B1b =
+    the grad steps, the rest 0, and 0 in the server; every ingested window
+    from the mirror, the rows in replay the windows ingested, the tap's
+    acked and stale windows the ingest's; the ``fleet-ingest``,
+    ``serve-stats`` and ``mirror-tap`` verdicts ok; ``windows_dropped_chaos
+    == 1``; the tap's identity exact; every spooled frame within
+    ``MAX_PAYLOAD`` and decoded with its log-prob column; no torch in any
+    client; the gate (``evaluate_is_gate``, sigma 0.3) over the final
+    generation's windows passes the served bundle's ``NumpyPolicy``,
+    refuses a planted candidate with finite weights on three windows only
+    (``0 < ess < min_ess``: the gate's ESS comparison) and refuses a
+    constant ``FLYWHEEL_PLANTED_FAR`` sigma beyond every executed action
+    (every weight 0: the gate's underflow branch), both harness code, not
+    a feature; a constant 3 sigma beyond is evaluated and reported, not
+    checked (the executed actions are clipped to [-1, 1]); the tap's
+    frame split (:func:`tap_split_check`). Prints grad steps/s, windows
+    mirrored/s, client steps/s, and the p50 and p99 of an ACT→FEEDBACK
+    pair."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.analysis import flowledger, lockwitness
+    from d4pg_tpu_torch.fleet import wire
+    from d4pg_tpu_torch.fleet.policy import load_numpy_policy
+    from d4pg_tpu_torch.flywheel.gate import evaluate_is_gate
+    from d4pg_tpu_torch.flywheel.spool import iter_payloads, read_windows
+    from d4pg_tpu_torch.serve import PolicyClient
+    from d4pg_tpu_torch.serve.protocol import MAX_PAYLOAD
+
+    t0 = time.perf_counter()
+    spool_dir = os.path.join(log_dir, "spool")
+    lockwitness.reset()
+    lockwitness.enable()
+    flowledger.enable()
+    cfg = TrainConfig(env="pixel_pendulum", num_envs=0, fleet_listen=0, fleet_host="127.0.0.1",
+                      fleet_bundle=os.path.join(log_dir, "bundle"),
+                      fleet_publish_interval=FLEET_PUBLISH, fleet_max_gen_lag=1,
+                      total_steps=FLYWHEEL_STEPS, warmup_steps=FLYWHEEL_WARMUP,
+                      eval_interval=FLYWHEEL_STEPS, eval_episodes=1,
+                      log_dir=os.path.join(log_dir, "run"), seed=SEED, tree_backend="native",
+                      steps_per_dispatch=PIXEL_K, transfer_dtype="uint8", debug_guards=True)
+    trainer = Trainer(cfg, device="cuda")
+    clients, learner_out = [], None
+    try:
+        flags = ("--max-batch", "8", "--poll-interval", "0.2", "--debug-guards",
+                 "--chaos", FLYWHEEL_SERVE_CHAOS, "--mirror-fraction", "1.0",
+                 "--mirror-ingest", f"127.0.0.1:{trainer._fleet.port}",
+                 "--mirror-spool", spool_dir)
+        with serve_process(cfg.fleet_bundle, *flags) as cli:
+            t_clients = time.perf_counter()
+            clients = [_SimClientProc(cli["port"], seed=i + 1, episodes=1_000_000)
+                       for i in range(FLYWHEEL_CLIENTS)]
+            reset_counts()
+            t1 = time.perf_counter()
+            row = trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+            launches = read_counts()
+            t_stop = time.perf_counter()
+            reports = [c.finish(terminate=True) for c in clients]
+            with PolicyClient("127.0.0.1", cli["port"], timeout=30) as pc:
+                # the tap's last frames acked, then their rows landed
+                _fleet_wait(lambda: (lambda m: m["pending"] == 0 and _tap_identity_ok(m))(
+                    pc.healthz()["mirror"]), "the tap to flush")
+                mirror_train = pc.healthz()["mirror"]
+                _fleet_wait(lambda: trainer._fleet.counters()["windows_ingested"]
+                            == mirror_train["windows_acked"], "the mirrored windows to land")
+                counters = trainer._fleet.counters()
+                rows_in_replay = len(trainer.buffer)
+                learner_buf = io.StringIO()
+                with contextlib.redirect_stdout(learner_buf):
+                    trainer.close()  # the ingest drains and checks fleet-ingest
+                learner_out = learner_buf.getvalue()
+                print(learner_out, end="", flush=True)
+                meta_path = os.path.join(cfg.fleet_bundle, "bundle.json")
+                with open(meta_path) as f:
+                    final_gen = int(json.load(f)["meta"]["generation"])
+                final_mtime = os.stat(meta_path).st_mtime
+                _fleet_wait(lambda: pc.healthz()["bundle_mtime"] == final_mtime,
+                            "the server to reload the final bundle")
+            final = _SimClientProc(cli["port"], seed=11,
+                                   episodes=FLYWHEEL_FINAL_EPISODES).finish()
+            evaluator = _SimClientProc(cli["port"], seed=3, episodes=1, sigma=0.0,
+                                       feedback=False).finish()
+        server_s = time.perf_counter() - t_clients
+    finally:
+        for c in clients:
+            if c.proc.poll() is None:
+                c.proc.kill()
+                c.proc.wait()
+        if learner_out is None:
+            trainer.close()
+        witness = lockwitness.check_against_committed(where="flywheel_pixel")
+        lockwitness.reset()
+        flowledger.reset()
+    books = _flywheel_books(cli["output"])
+    tap = books["mirror"]
+    name = "flywheel_pixel"
+    n = FLYWHEEL_STEPS
+    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    none = {k: 0 for k in expect}
+    check(trainer.grad_steps == n and np.isfinite(row["critic_loss"]),
+          f"{name}: {trainer.grad_steps} grad steps, critic loss {row.get('critic_loss')}")
+    check(launches == expect, f"{name}: launches {launches}, expected {expect}")
+    check(books["launches"] == [none], f"{name}: the server's launches {books['launches']}")
+    check(counters["windows_from_mirror"] == counters["windows_ingested"] > 0
+          and counters["windows_from_actors"] == 0 and rows_in_replay == counters["windows_ingested"],
+          f"{name}: ingest {counters}, {rows_in_replay} rows in replay")
+    check(mirror_train["windows_stale"] == counters["windows_dropped_stale_gen"],
+          f"{name}: the tap counted {mirror_train['windows_stale']} stale, the ingest "
+          f"{counters['windows_dropped_stale_gen']}")
+    fleet_verdicts = [json.loads(ln.split("[flow-verdict] ", 1)[1])
+                      for ln in learner_out.splitlines() if ln.startswith("[flow-verdict] ")]
+    families = {}
+    for v in fleet_verdicts + books["verdicts"]:
+        families.setdefault(v["family"], []).append(v["ok"])
+    check(set(families) == {"fleet-ingest", "serve-stats", "mirror-tap"}
+          and all(all(oks) for oks in families.values()), f"{name}: flow verdicts {families}")
+    check(tap is not None and _tap_identity_ok(tap) and tap["pending"] == 0
+          and tap["windows_dropped_chaos"] == 1 and len(books["chaos"]) == 1
+          and tap["windows_acked"] == mirror_train["windows_acked"]
+          and tap["windows_dropped_link"] > 0,
+          f"{name}: the tap's books {tap}, chaos {books['chaos']}")
+    check(len(books["witness"]) == 1 and " 0 contradictions" in books["witness"][0]
+          and witness is not None and witness["contradictions"] == 0,
+          f"{name}: lock witness server {books['witness']}, learner {witness}")
+    check(len(books["ledger"]) == 1 and books["ledger"][0]["trips"] == 0
+          and books["ledger"][0]["active_holds"] == 0, f"{name}: ledger {books['ledger']}")
+    for r in reports + [final, evaluator]:
+        check(not r["wrapper"]["torch_imports"] and not r["wrapper"]["torch_modules"],
+              f"{name}: a sim client loaded torch: {r['wrapper']}")
+    check(final["ok_line"] and evaluator["ok_line"]
+          and final["episodes"] == FLYWHEEL_FINAL_EPISODES and evaluator["episodes"] == 1,
+          f"{name}: final client {final}, evaluator {evaluator}")
+    # the spool: every frame within MAX_PAYLOAD, each decoded with its column
+    modes, sizes, per_mode = {}, [], {}
+    for p in iter_payloads(spool_dir):
+        gen, _sg, mode, _rel, cols = wire.decode_windows2(p, PIXEL_OBS, 1)
+        check("logprob" in cols, f"{name}: a spooled frame without its log-prob column")
+        modes[mode] = modes.get(mode, 0) + 1
+        per_mode.setdefault(mode, []).append(len(cols["reward"]))
+        sizes.append(len(p))
+    spooled = tap["windows_built"] - tap["windows_dropped_chaos"] - tap["windows_dropped_full"]
+    cols_all, n_all = read_windows(spool_dir, PIXEL_OBS, 1)
+    check(len(sizes) == tap["spool_records"] and max(sizes) <= MAX_PAYLOAD and n_all == spooled
+          and len(cols_all["logprob"]) == n_all,
+          f"{name}: spool frames {len(sizes)} of {tap['spool_records']}, max bytes {max(sizes)}, "
+          f"windows {n_all} of {spooled}")
+    # the gate over the final generation's windows
+    cols, n_gate = read_windows(spool_dir, PIXEL_OBS, 1, min_generation=final_gen)
+    served_policy = load_numpy_policy(cfg.fleet_bundle)
+    served = evaluate_is_gate(cols, served_policy, sigma=FLYWHEEL_SIGMA)
+
+    class Constant:
+        """A candidate acting a constant ``sigmas`` sigma beyond every
+        executed action (harness code, not a feature)."""
+
+        def __init__(self, sigmas: float):
+            self.action = max(1.0, float(cols["action"].max())) + sigmas * FLYWHEEL_SIGMA
+
+        def act(self, obs):
+            return np.full((len(obs), 1), self.action, np.float32)
+
+    class Planted:
+        """A candidate acting ``FLYWHEEL_PLANTED_NEAR`` sigma above the
+        executed action on the given windows (keyed by their observation)
+        and the FAR constant on every other one (harness code, not a
+        feature)."""
+
+        def __init__(self, rows):
+            self.near = {cols["obs"][i].tobytes(): float(cols["action"][i, 0])
+                         + FLYWHEEL_PLANTED_NEAR * FLYWHEEL_SIGMA for i in rows}
+            self.far = Constant(FLYWHEEL_PLANTED_FAR).action
+
+        def act(self, obs):
+            return np.array([[self.near.get(o.tobytes(), self.far)] for o in obs], np.float32)
+
+    # the planted candidate: finite weights on FLYWHEEL_PLANTED_WINDOWS
+    # windows whose observation no other window repeats (the first, the
+    # middle and the last such), 0 on the rest: the gate computes the
+    # effective sample size and refuses it against min_ess. The FAR
+    # constant (every weight 0) is refused by the gate's underflow branch.
+    # The constant 3 sigma beyond (the smallest far-off constant) is only
+    # reported: the clients clip executed actions to [-1, 1], and a
+    # constant beyond the clip weighs every window clipped there alike, so
+    # its effective sample size depends on how many windows sit at the clip
+    _, first, counts = np.unique(cols["obs"], axis=0, return_index=True, return_counts=True)
+    unique = np.sort(first[counts == 1])
+    rows = sorted({int(unique[0]), int(unique[len(unique) // 2]), int(unique[-1])})
+    planted = evaluate_is_gate(cols, Planted(rows), sigma=FLYWHEEL_SIGMA)
+    far = Constant(FLYWHEEL_PLANTED_FAR)
+    far_verdict = evaluate_is_gate(cols, far, sigma=FLYWHEEL_SIGMA)
+    near = Constant(FLYWHEEL_PLANTED_NEAR)
+    near_verdict = evaluate_is_gate(cols, near, sigma=FLYWHEEL_SIGMA)
+    clipped = float(np.mean(np.abs(cols["action"]) >= 1.0))
+    check(n_gate >= FLYWHEEL_FINAL_EPISODES * FLYWHEEL_MAX_STEPS and served["passed"],
+          f"{name}: the gate refused the served bundle over {n_gate} windows: {served}")
+    check(len(rows) == FLYWHEEL_PLANTED_WINDOWS and not planted["passed"]
+          and 0.0 < planted["ess"] < planted["min_ess"]
+          and planted["reason"].startswith("effective sample size ")
+          and f"< {planted['min_ess']:g}:" in planted["reason"],
+          f"{name}: the gate did not refuse the planted candidate on ESS: {planted}")
+    check(not far_verdict["passed"] and far_verdict["ess"] == 0.0
+          and far_verdict["reason"].startswith("effective sample size 0.00:"),
+          f"{name}: the gate did not refuse the far constant (all weights 0): {far_verdict}")
+    split = tap_split_check(os.path.join(log_dir, "burst_spool"))
+    pairs = sorted(p for r in reports for p in r["wrapper"]["pairs"])
+
+    def q(p):
+        return 1e3 * pairs[min(len(pairs) - 1, int(p * len(pairs)))] if pairs else None
+
+    emit({"phase": name, "card": card,
+          "width": {"pixel_shape": list(PIXEL_SHAPE), "hidden": [256] * 3, "batch": 256,
+                    "replay_capacity": 100_000, "steps_per_dispatch": PIXEL_K,
+                    "client_env": "pixel_pendulum_host", "clients": FLYWHEEL_CLIENTS,
+                    "noise_sigma": FLYWHEEL_SIGMA, "max_steps": FLYWHEEL_MAX_STEPS,
+                    "publish_interval": FLEET_PUBLISH, "serve_max_batch": 8},
+          "grad_steps": n, "warmup_windows": FLYWHEEL_WARMUP, "train_s": train_s,
+          "grad_steps_per_sec": row["grad_steps_per_sec"], "critic_loss": row["critic_loss"],
+          "eval_return_mean": row.get("eval_return_mean"),
+          # from the clients' start to their SIGTERM
+          "windows_mirrored_per_sec": counters["windows_from_mirror"] / (t_stop - t_clients),
+          "client_steps_per_sec": [r["wrapper"]["steps"] / r["wrapper"]["wall_s"]
+                                   for r in reports],
+          "act_feedback_pair_ms_p50": q(0.5), "act_feedback_pair_ms_p99": q(0.99),
+          "pairs_timed": len(pairs),
+          "clients": [{k: r["wrapper"][k] for k in ("steps", "wall_s", "act_ms_p50", "act_ms_p99",
+                                                    "feedback_ms_p50", "feedback_ms_p99")}
+                      for r in reports],
+          "ingest": counters, "rows_in_replay": rows_in_replay, "tap_at_train_end": mirror_train,
+          "tap": tap, "flow_verdicts": families, "server_chaos": books["chaos"],
+          "server_lock_witness": books["witness"][0], "server_ledger": books["ledger"][0],
+          "lock_witness": witness, "spool": {"frames_by_mode": modes, "max_frame_bytes": max(sizes),
+                                             "max_windows_a_frame": {m: max(v) for m, v in
+                                                                     per_mode.items()},
+                                             "windows": n_all},
+          "final_generation": final_gen, "gate_windows": n_gate,
+          "gate_served": served, "gate_planted": dict(planted, windows_near=rows),
+          "gate_constant_far": dict(far_verdict, action=far.action),
+          "gate_constant_3_sigma": dict(near_verdict, action=near.action),
+          "executed_actions_at_the_clip": clipped,
+          "final_client": {"episodes": final["episodes"], **{
+              k: final["wrapper"][k] for k in ("steps", "wall_s")}},
+          "evaluator": {"episodes": evaluator["episodes"], "steps": evaluator["wrapper"]["steps"]},
+          "tap_split": split, "launches": launches, "server_launches": books["launches"][0],
+          "server_startup_s": cli["startup_s"], "server_s": server_s,
           "seconds": time.perf_counter() - t0, "ok": True})
     return launches
 
@@ -5430,6 +5935,8 @@ def main() -> int:
         paths["fleet_pixel"] = fleet_pixel_phase(Trainer, TrainConfig, card, f"{tmp}/fleet_pixel")
         paths["fleet_device"] = fleet_device_phase(Trainer, TrainConfig, card,
                                                    f"{tmp}/fleet_device")
+        paths["flywheel_pixel"] = flywheel_pixel_phase(Trainer, TrainConfig, card,
+                                                       f"{tmp}/flywheel_pixel")
         paths["dp_lanes"] = dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card,
                                            f"{tmp}/dp_lanes")
         paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card, f"{tmp}/dp_ranks")

@@ -14,11 +14,15 @@ Only the families of ported modules are here:
   spool, or is still spooled;
 - ``fleet-ingest``, the learner's ingest (``fleet/ingest.py:
   IngestServer``, checked at its close): the ingested windows split
-  exactly into the collection fleet's and the mirror tap's.
+  exactly into the collection fleet's and the mirror tap's;
+- ``mirror-tap``, the flywheel's tap (``flywheel/tap.py:MirrorTap``,
+  checked at its close): every window it built was acknowledged, answered
+  stale, shed, dropped by chaos, by a missing link or by the full queue,
+  or is still pending.
 
-The JAX table's other families (``mirror-tap``, ``router``,
-``router-gate``, ``router-tenant``, ``league-tenure``) belong to modules
-not ported yet (ROADMAP A11 (e3)-(e5)) and come with them.
+The JAX table's other families (``router``, ``router-gate``,
+``router-tenant``, ``league-tenure``) belong to modules not ported yet
+(ROADMAP A11 (e4)-(e5)) and come with them.
 
 An identity is one ``==`` between sums and differences of counter names
 and numeric constants (``flowledger._evaluate``); ``per_row`` families
@@ -48,6 +52,15 @@ FLOW_IDENTITIES = {
     "fleet-ingest": {
         "class": "d4pg_tpu_torch/fleet/ingest.py::IngestServer",
         "identity": "windows_from_actors + windows_from_mirror == windows_ingested",
+        "gauges": (),
+    },
+    "mirror-tap": {
+        "class": "d4pg_tpu_torch/flywheel/tap.py::MirrorTap",
+        "identity": (
+            "windows_built == windows_acked + windows_stale + windows_shed"
+            " + windows_dropped_chaos + windows_dropped_link"
+            " + windows_dropped_full + pending"
+        ),
         "gauges": (),
     },
 }

@@ -33,11 +33,14 @@ Where the port ticks them (the JAX package's sites):
   (per frame sent), ``stale_bundle`` and ``stale_stats`` (per bundle
   swap) and ``her_actor_kill`` (per env step): a fleet actor host
   (``fleet/actor.py``, ``--chaos`` on ``python -m
-  d4pg_tpu_torch.fleet.actor``).
+  d4pg_tpu_torch.fleet.actor``);
+- ``mirror_drop``: the flywheel's mirror tap, per window its sender
+  flushes, before either sink (``flywheel/tap.py:MirrorTap._flush``,
+  ``--chaos`` on the serve CLI with ``--mirror-fraction``).
 
-The sites of modules not ported yet (the router and autoscaler, the
-flywheel, the league: ROADMAP A11 (e3)-(e5)) parse and never tick, as on
-a JAX run without those planes. The on-device loop has no site, in
+The sites of modules not ported yet (the router and autoscaler with the
+router's ``gate_stall``, the league: ROADMAP A11 (e4)-(e5)) parse and
+never tick, as on a JAX run without those planes. The on-device loop has no site, in
 either package.
 
 Spec syntax (entries separated by ``;`` or ``,``)::
@@ -325,7 +328,7 @@ KNOWN_SITES = WORKER_SITES + (
     # the spanning mesh — and SIGKILLs the process whose index matches
     # the ``:<arg>`` victim (default 0).
     "host_kill",
-    # flywheel sites (d4pg_tpu/flywheel): mirror_drop ticks in
+    # flywheel sites (d4pg_tpu_torch/flywheel): mirror_drop ticks in
     # the tap's sender once per built window, BEFORE either sink — the
     # window is lost on the data path but windows_dropped_chaos keeps
     # the tap's accounting identity exact (a drop the books can't see is

@@ -169,12 +169,14 @@ def window_row_bytes(obs_dim: int, action_dim: int,
 
 
 def max_windows_per_frame(obs_dim: int, action_dim: int, cap: int = 256,
-                          obs_mode: str = "f32") -> int:
+                          obs_mode: str = "f32", logprob: bool = False) -> int:
     """The most windows a frame holds inside ``MAX_PAYLOAD``, at most
     ``cap``: a frame is also the unit of a shed and of an ack, so a
-    frame without bound would make admission coarse."""
+    frame without bound would make admission coarse. ``logprob`` counts
+    the flywheel's log-prob column too (4 bytes a row)."""
     head = max(_WINDOWS_HEAD.size, _WINDOWS2_HEAD.size)
-    fit = (MAX_PAYLOAD - head) // window_row_bytes(obs_dim, action_dim, obs_mode)
+    row = window_row_bytes(obs_dim, action_dim, obs_mode) + (4 if logprob else 0)
+    fit = (MAX_PAYLOAD - head) // row
     if fit < 1:
         raise ValueError(
             f"one window row (obs_dim={obs_dim}, action_dim={action_dim}, "

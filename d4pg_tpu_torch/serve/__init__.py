@@ -17,9 +17,10 @@ Run it: ``python -m d4pg_tpu_torch.serve --bundle <dir>``;
 ``--debug-guards`` arms the staging ledger, the transfer and sync guards,
 the lock witness and the ``serve-stats`` flow identity
 (``d4pg_tpu_torch/analysis``), and ``--chaos`` the serving fault sites
-(``sock_reset`` and the connection attacks of ``netio/attack.py``). The
-router and the autoscaler of the JAX package come with ROADMAP A11 (e4),
-the mirror tap with A11 (e3).
+(``sock_reset`` and the connection attacks of ``netio/attack.py``);
+``--mirror-fraction``, ``--mirror-ingest`` and ``--mirror-spool`` attach
+the flywheel's mirror tap (``d4pg_tpu_torch/flywheel``). The router and
+the autoscaler of the JAX package come with ROADMAP A11 (e4).
 
 The names below load their module on first use, so importing the
 protocol or the client does not build the batcher's machinery.

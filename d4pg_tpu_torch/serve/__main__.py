@@ -2,9 +2,7 @@
 
 The flags are those of ``python -m d4pg_tpu.serve`` under the same names,
 plus ``--device {cuda,cpu}`` (default cuda: with no card and no
-``--device cpu`` the server raises before it loads anything). A flag whose
-feature is not ported yet raises ``NotImplementedError`` naming the
-ROADMAP item (:data:`UNPORTED_FLAGS`).
+``--device cpu`` the server raises before it loads anything).
 
 Installs SIGTERM/SIGINT handlers that trigger the graceful drain: stop
 accepting, answer everything admitted, then exit 0 — so an orchestrator's
@@ -18,6 +16,8 @@ Examples:
     python -m d4pg_tpu_torch.serve --bundle runs/p1/bundle --port 7431
     python -m d4pg_tpu_torch.serve --bundle runs/p1/bundle \
         --policy cheetah=runs/hc/bundle --debug-guards
+    python -m d4pg_tpu_torch.serve --bundle runs/fw/bundle --mirror-fraction 1.0 \
+        --mirror-ingest 127.0.0.1:7470 --mirror-spool runs/fw/spool
 """
 
 from __future__ import annotations
@@ -27,13 +27,6 @@ import json
 import sys
 
 from d4pg_tpu_torch.utils.signals import install_graceful_signals
-
-UNPORTED_FLAGS = {
-    "--mirror-fraction": "the flywheel's mirror tap (ROADMAP A11 (e))",
-    "--mirror-ingest": "the flywheel's mirror tap (ROADMAP A11 (e))",
-    "--mirror-spool": "the flywheel's mirror tap (ROADMAP A11 (e))",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m d4pg_tpu_torch.serve",
@@ -75,6 +68,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replica-id", type=int, default=None,
                    help="fleet identity: stamped into healthz and every "
                         "metrics.jsonl row")
+    p.add_argument("--mirror-fraction", type=float, default=0.0,
+                   help="flywheel mirror tap: fraction of served EPISODES "
+                        "(Bresenham-striped per connection) whose "
+                        "obs/action/reward traffic is mirrored into "
+                        "training windows; needs clients that echo reward "
+                        "via FEEDBACK frames (flywheel/sim_client.py)")
+    p.add_argument("--mirror-ingest", default=None, metavar="HOST:PORT",
+                   help="fleet ingest to stream mirrored WINDOWS2 frames "
+                        "to (the learner's --fleet-listen port)")
+    p.add_argument("--mirror-spool", default=None, metavar="DIR",
+                   help="on-disk spool of mirrored frames (what the "
+                        "off-policy promotion gate reads); independent of "
+                        "--mirror-ingest liveness")
     p.add_argument("--io-read-stall-s", type=float, default=30.0,
                    help="event loop: evict a connection whose partial "
                         "frame makes no completion progress for this long "
@@ -89,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "connection at its 5th frame; 'slowloris@N:bps' / "
                         "'zero_window@N:ms' / 'fd_exhaust@N:ms' launch "
                         "connection-level attacks at the Nth accept (the "
-                        "netio deadlines must evict them)")
+                        "netio deadlines must evict them); 'mirror_drop@N' "
+                        "loses the mirror tap's Nth window before both sinks")
     p.add_argument("--debug-guards", action="store_true",
                    help="runtime guards (d4pg_tpu_torch/analysis): on the card "
                         "every batch after warmup dispatches under "
@@ -97,16 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ledger polices the batcher's input slots, and drain "
                         "checks that every CUDA graph still reads the "
                         "parameters hot reload writes into, the lock witness against the "
-                        "port's lock graph and the serve-stats identity")
+                        "port's lock graph and the serve-stats identity; the "
+                        "mirror tap's close checks the mirror-tap identity")
     return p
-
-
-def refuse_unported(argv) -> None:
-    """Raise ``NotImplementedError`` for a flag of :data:`UNPORTED_FLAGS`."""
-    for arg in argv:
-        what = UNPORTED_FLAGS.get(arg.split("=", 1)[0])
-        if what is not None:
-            raise NotImplementedError(f"{arg}: {what} is not ported to d4pg_tpu_torch yet")
 
 
 def _kernel_modules() -> tuple:
@@ -119,7 +119,6 @@ def _kernel_modules() -> tuple:
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv)
     args = build_parser().parse_args(argv)
     if args.debug_guards:
         # Armed BEFORE anything builds its locks (the named helpers wrap
@@ -147,6 +146,30 @@ def main(argv=None) -> None:
         if name in policies:
             raise SystemExit(f"--policy {name!r} given twice")
         policies[name] = load_bundle(path)
+    tap = None
+    if args.mirror_fraction > 0:
+        from d4pg_tpu_torch.flywheel.spool import MirrorSpool
+        from d4pg_tpu_torch.flywheel.tap import MirrorTap
+
+        ingest_addr = None
+        if args.mirror_ingest:
+            ih, _, ip = args.mirror_ingest.rpartition(":")
+            ingest_addr = (ih, int(ip))
+        spool = MirrorSpool(args.mirror_spool) if args.mirror_spool else None
+        tap = MirrorTap(
+            obs_dim=bundle.obs_dim,
+            action_dim=bundle.action_dim,
+            n_step=bundle.config.n_step,
+            gamma=bundle.config.gamma,
+            fraction=args.mirror_fraction,
+            ingest_addr=ingest_addr,
+            spool=spool,
+            bundle_dir=args.bundle,
+            env=bundle.meta.get("env", "unknown"),
+            tap_id=f"mirror-replica-{args.replica_id}"
+            if args.replica_id is not None else "mirror-replica",
+            chaos=chaos,
+        )
     server = PolicyServer(
         bundle,
         policies=policies or None,
@@ -164,6 +187,7 @@ def main(argv=None) -> None:
         debug_guards=args.debug_guards,
         chaos=chaos,
         replica_id=args.replica_id,
+        mirror_tap=tap,
         io_read_stall_s=args.io_read_stall_s,
         io_write_stall_s=args.io_write_stall_s,
         device=device,
@@ -190,6 +214,12 @@ def main(argv=None) -> None:
         flush=True,
     )
     server.serve_until_shutdown()
+    if tap is not None:
+        # the tap drains AFTER the server: every admitted request's
+        # feedback has been acked, so the mirror books are final
+        tap.close()
+        mc = tap.counters()
+        print("[serve] mirror: " + " ".join(f"{k}={mc[k]}" for k in sorted(mc)), flush=True)
     if server.ledger is not None:
         print(f"[serve] staging ledger: {json.dumps(server.ledger.stats())}", flush=True)
     launches = {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}

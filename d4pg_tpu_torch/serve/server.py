@@ -36,9 +36,13 @@ Chaos (a :class:`~d4pg_tpu_torch.chaos.ChaosInjector`, the JAX server's
 sites): ``sock_reset`` ticks per received frame and resets the
 connection; ``slowloris``, ``zero_window`` and ``fd_exhaust`` tick per
 accepted connection and launch an attacker on the server's own loop
-(``netio/attack.py``); healthz carries ``chaos_injections``. The mirror
-tap of the JAX server comes with ROADMAP A11 (e3); its healthz then adds
-``mirror``.
+(``netio/attack.py``); healthz carries ``chaos_injections``.
+
+Flywheel (``mirror_tap=``, a :class:`~d4pg_tpu_torch.flywheel.tap.MirrorTap`
+owned by the caller, which closes it after the drain): the DEFAULT
+policy's requests and ``FEEDBACK`` frames feed it from the loop thread
+(``on_request`` / ``on_feedback``), a closed connection drops its stream
+(``on_disconnect``), and healthz carries its counters under ``mirror``.
 """
 
 from __future__ import annotations
@@ -144,6 +148,7 @@ class PolicyServer:
         chaos=None,
         replica_id: Optional[int] = None,
         policies: Optional[dict] = None,
+        mirror_tap=None,
         io_read_stall_s: float = netio.loop.DEFAULT_READ_STALL_S,
         io_write_stall_s: float = netio.loop.DEFAULT_WRITE_STALL_S,
         device=None,
@@ -203,6 +208,10 @@ class PolicyServer:
         self.stats = self.batcher.stats
         # the chaos plan's serving sites (ChaosInjector or None)
         self._chaos = chaos
+        # the flywheel's mirror tap (or None): fed the DEFAULT policy's
+        # request/feedback pairs, its counters in healthz; the caller
+        # builds and closes it
+        self._tap = mirror_tap
         self._watch_run = watch_run
         self._poll_interval_s = poll_interval_s
         self._best_mtime = self._stat_best() if watch_run else None
@@ -241,6 +250,7 @@ class PolicyServer:
             self._listen_sock,
             on_frame=self._serve_conn,
             on_open=self._on_conn_open,
+            on_close=self._on_conn_close,
             on_protocol_error=self._on_protocol_error,
         )
         self._loop.start()
@@ -437,6 +447,13 @@ class PolicyServer:
         if self._chaos is not None:
             netio_attack.tick_attacks(self._chaos, self._loop, self.host, self.port)
 
+    def _on_conn_close(self, conn: netio.Connection) -> None:
+        if self._tap is not None:
+            # the episode's boundary is the connection: a vanished
+            # client's half-built window is dropped whole, never flushed
+            # as if the episode had ended
+            self._tap.on_disconnect(id(conn))
+
     def _on_protocol_error(self, conn: netio.Connection, exc) -> None:
         # Framing is per-connection state: after a malformed frame the
         # stream is unrecoverable, so this is a connection-fatal ERROR
@@ -498,9 +515,10 @@ class PolicyServer:
                 )
                 return
         elif msg_type == protocol.FEEDBACK:
-            # Reward echo for this connection's previous ACT. Malformed
-            # frames are per-request ERRORs; a valid one is ALWAYS acked
-            # (there is no mirror tap to feed: ROADMAP A11 (e)).
+            # Reward echo for this connection's previous ACT (the
+            # flywheel's loop). Malformed frames are per-request ERRORs; a
+            # valid one is ALWAYS acked, so a client need not know whether
+            # a tap is attached.
             fb = protocol.decode_feedback(payload)
             fpol = self._policies.get(fb["policy_id"])
             if fpol is None:
@@ -520,10 +538,16 @@ class PolicyServer:
                 )
                 return
             self.stats.inc("feedback_frames")
+            if self._tap is not None and fpol is self._default:
+                self._tap.on_feedback(id(conn), fb)
             reply(conn, protocol.FEEDBACK_OK, req_id)
             return
         else:
             raise ProtocolError(f"unexpected message type {msg_type}")
+        if self._tap is not None and pol is self._default:
+            # this connection's latest request obs: its next FEEDBACK
+            # frame completes the pair
+            self._tap.on_request(id(conn), obs)
         deadline_s = deadline_us / 1e6 if deadline_us else self.default_deadline_s
         try:
             fut = pol.batcher.submit(obs, deadline_s)
@@ -574,6 +598,9 @@ class PolicyServer:
         snap["policies"] = rows
         snap["replica_id"] = self.replica_id
         snap["pid"] = os.getpid()
+        if self._tap is not None:
+            # every counter of the tap's window identity
+            snap["mirror"] = self._tap.counters()
         snap["stage_ms"] = {
             k: round(v, 4) for k, v in self.batcher.timers.summary_ms().items()
         }

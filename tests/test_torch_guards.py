@@ -82,7 +82,7 @@ def test_committed_lock_graph_matches_the_analyzer_and_is_acyclic():
                  "Connection._lock", "StagingLedger._lock", "ChaosInjector._lock",
                  "IngestServer._cond", "IngestServer._counters_lock",
                  "IngestServer._conns_lock", "FleetLink._pending_lock",
-                 "FleetActor._stats_lock"):
+                 "FleetActor._stats_lock", "MirrorTap._lock", "MirrorTap._cond"):
         assert node in committed["nodes"], node
     # the JAX package's graph names the JAX package's files, never the port's
     with open(os.path.join(REPO, "benchmarks", "lock_order_graph.json")) as f:
@@ -211,6 +211,7 @@ def test_witness_off_hands_out_plain_primitives():
 # identities, which tools/d4pglint's flow scan looks for in tests/.
 SERVE_FAMILY = "serve" + "-stats"
 FLEET_FAMILIES = ("fleet" + "-actor", "fleet" + "-ingest")
+FLYWHEEL_FAMILIES = ("mirror" + "-tap",)
 
 
 def _flow_cases() -> dict:
@@ -250,7 +251,7 @@ def test_flow_identities_are_the_jax_tables():
     from d4pg_tpu_torch.analysis.flow_identities import FLOW_IDENTITIES
     from tools.d4pglint.wholeprog.config import FLOW_IDENTITIES as J
 
-    assert list(FLOW_IDENTITIES) == [SERVE_FAMILY, *FLEET_FAMILIES]
+    assert list(FLOW_IDENTITIES) == [SERVE_FAMILY, *FLEET_FAMILIES, *FLYWHEEL_FAMILIES]
     for family in FLOW_IDENTITIES:
         assert FLOW_IDENTITIES[family]["identity"] == J[family]["identity"]
         # the port's families name the port's classes

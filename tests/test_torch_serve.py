@@ -523,18 +523,19 @@ def test_a_dead_device_thread_fails_every_pending_future():
 # ---------------------------------------------------------------------- CLI
 def test_every_jax_serve_flag_is_parsed_or_refused_by_name():
     from d4pg_tpu.serve.__main__ import build_parser as j_build_parser
-    from d4pg_tpu_torch.serve.__main__ import UNPORTED_FLAGS, build_parser, refuse_unported
+    from d4pg_tpu_torch.serve.__main__ import build_parser
 
     ours = {o for a in build_parser()._actions for o in a.option_strings}
     ref = [o for a in j_build_parser()._actions for o in a.option_strings]
     assert len(ref) > 20
-    for opt in ref:
-        if opt in ours:
-            assert opt not in UNPORTED_FLAGS, opt
-            continue
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(e\)"):
-            refuse_unported([opt])
+    # every JAX flag is parsed since the flywheel's mirror flags were ported
+    assert set(ref) <= ours, sorted(set(ref) - ours)
     assert "--device" in ours and "--debug-guards" in ours
+    mirror = {"--mirror-fraction", "--mirror-ingest", "--mirror-spool"}
+    assert mirror <= ours
+    args = build_parser().parse_args(["--bundle", "b", "--mirror-fraction", "0.5",
+                                      "--mirror-ingest", "h:1", "--mirror-spool", "s"])
+    assert (args.mirror_fraction, args.mirror_ingest, args.mirror_spool) == (0.5, "h:1", "s")
 
 
 def test_serve_cli_raises_without_a_card(monkeypatch, tmp_path):
