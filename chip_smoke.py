@@ -395,6 +395,21 @@ JSON line (with ``at_s``, the seconds since the script started):
    burst (C-6).
    ``launches_by_path`` gains ``flywheel_pixel``.
 
+36. The replicated front end (ROADMAP A11 (e4)), after
+   ``serve_guards_chaos``: ``router_serve``, two serve CLI replicas on
+   the card (``serve``'s default 3x256 bundle, a copy each) behind three
+   router CLI processes in turn. The rollout router (``--canary-bundle``,
+   ``--chaos canary_corrupt@2``): the (16, 16) closed loop through it and
+   directly against one replica, a canary promoted and the next rolled
+   back, each attested by every replica's healthz and its replies held to
+   the CPU forward. The autoscaling router (``--autoscale``, 2..3): a third
+   card replica spawned under load, admitted, answering, drained rc 0 at
+   the router's drain, no orphan. The kill router (``--chaos
+   replica_kill@40``): the survivor answers all 400 requests, the identity
+   exact in healthz and in the flow verdict, the killed process gone. The
+   replicas' own launch counts are 0; ``launches_by_path`` gains
+   ``router_serve``.
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
@@ -3003,14 +3018,15 @@ def process_cpu_s(pid: int) -> float:
 
 
 def closed_loop(port: int, conns: int, window: int, obs, duration_s: float,
-                server_pid: int | None = None) -> dict:
+                server_pid: int | None = None, server_stats: bool = True) -> dict:
     """``conns`` pipelined connections, each keeping ``window`` requests in
     flight, every completion sending the next (the JAX ``bench.py
     bench_serve`` closed loop): requests/s, sheds and client-measured
     latency percentiles; from the server's healthz before and after, the
     mean rows a batch and each stage's mean ms a batch over this profile
-    alone; and the CPU seconds a second of this process (the clients) and
-    of the server's, when it runs in another process."""
+    alone (not for a router, ``server_stats=False``: it batches nothing);
+    and the CPU seconds a second of this process (the clients) and of the
+    server's, when it runs in another process."""
     import threading
 
     import numpy as np
@@ -3043,6 +3059,8 @@ def closed_loop(port: int, conns: int, window: int, obs, duration_s: float,
         fut.add_done_callback(done)
 
     def health():
+        if not server_stats:
+            return 0, 0, {}
         with PolicyClient("127.0.0.1", port, timeout=60) as c:
             h = c.healthz()
         return h["batches_total"], h["replies_ok"], h["stage_ms"]
@@ -3071,12 +3089,14 @@ def closed_loop(port: int, conns: int, window: int, obs, duration_s: float,
     stage_ms = {k: (v * h1[0] - h0[2].get(k, 0.0) * h0[0]) / max(batches, 1)
                 for k, v in h1[2].items()}
     p50, p95, p99 = (float(v) * 1e3 for v in np.percentile(np.asarray(lats), (50, 95, 99)))
-    return {"conns": conns, "window": window, "requests_per_s": counts["done"] / dt,
-            "completed": counts["done"], "shed": counts["shed"],
-            "p50_ms": p50, "p95_ms": p95, "p99_ms": p99,
-            "mean_rows_per_batch": (h1[1] - h0[1]) / max(batches, 1), "stage_ms": stage_ms,
-            "client_process_cpu_s_per_s": (cpu1[0] - cpu0[0]) / dt,
-            "server_process_cpu_s_per_s": (cpu1[1] - cpu0[1]) / dt if server_pid else None}
+    out = {"conns": conns, "window": window, "requests_per_s": counts["done"] / dt,
+           "completed": counts["done"], "shed": counts["shed"],
+           "p50_ms": p50, "p95_ms": p95, "p99_ms": p99,
+           "client_process_cpu_s_per_s": (cpu1[0] - cpu0[0]) / dt,
+           "server_process_cpu_s_per_s": (cpu1[1] - cpu0[1]) / dt if server_pid else None}
+    if server_stats:
+        out.update(mean_rows_per_batch=(h1[1] - h0[1]) / max(batches, 1), stage_ms=stage_ms)
+    return out
 
 
 def graph_replay_ms(graph, n: int = 100) -> float:
@@ -3860,7 +3880,11 @@ FLIP_SLEEP_CYCLES = 1_000_000_000    # ~0.5 s of torch.cuda._sleep ahead of the 
 # 5th, the zero-window attacker's own connection (dialled at the 3rd) can
 # still be waiting in the backlog, is shed, and never floods. It holds the
 # table 2 s, not 150 ms: one pass of the loop over the attacker's HEALTHZ
-# flood can outlast 150 ms, and the release then runs before any accept
+# flood can outlast 150 ms, and the release then runs before any accept.
+# Any descriptor closed inside the hold (a churn close, an eviction, the
+# attackers' own sockets) used to leave a hole the next accept took, so no
+# accept met EMFILE (C-7); the hoard now retakes every such hole before
+# each accept (netio/attack.py, FrameLoop.add_pre_accept)
 SERVE_CHAOS_PLAN = "sock_reset@5;slowloris@2:4;zero_window@3:30000;fd_exhaust@40:2000"
 SERVE_CHAOS_MIN_S = 2.0              # the attack window: at least this long,
 SERVE_CHAOS_MAX_S = 30.0             # at most this long, until every attacker is dealt with
@@ -5027,8 +5051,9 @@ def serve_guards_chaos_phase(card: str, bundle_dir: str) -> dict:
     continuously throughout (its 5th frame is the one sock_reset resets;
     it reconnects), while fresh connections tick the accept sites: a
     first burst of ``SERVE_CHAOS_BURST``, then pairs, the last
-    ``SERVE_CHAOS_HELD`` kept open (so no close frees an fd while the 40th
-    accept's hoard holds the table, and the accepts after it are shed),
+    ``SERVE_CHAOS_HELD`` kept open (past that, each round closes two; the
+    40th accept's hoard retakes every descriptor such a close frees before
+    the next accept, so the accepts in its hold are shed: C-7),
     healthz read every ``SERVE_CHAOS_BIN_S``, until both attackers are
     evicted and a connection was shed (at least ``SERVE_CHAOS_MIN_S``, at
     most ``SERVE_CHAOS_MAX_S``). Checks: the live client answered in every
@@ -5146,6 +5171,395 @@ def serve_guards_chaos_phase(card: str, bundle_dir: str) -> dict:
           "ledger": ledger[0], "launches": counted[0], "drained": cli["drained"],
           "startup_s": cli["startup_s"], "ok": True})
     return counted[0]
+
+
+# ----------------------------------------------------- the replicated front end
+ROUTER_PROFILE = (16, 16)             # the closed loop through the router and direct
+ROUTER_CANARY_PLAN = "canary_corrupt@2"   # the second rollout's deploy is corrupted
+ROUTER_KILL_PLAN = "replica_kill@40"      # the 40th dispatch's replica is SIGKILLed
+ROUTER_KILL_REQUESTS = 400
+ROUTER_CHECK_ROWS = 64               # observations held against the CPU forward a leg
+ROUTER_LEG_S = 60.0                  # each rollout and the autoscaler leg: at most this long
+ROUTER_FLAGS = ("--probe-interval", "0.2", "--readmit-after", "2")
+
+
+def cli_start(argv, tag: str) -> dict:
+    """A CLI as its own session leader (setsid), its output collected by a
+    reader thread (not echoed); ``lines`` fills as it prints."""
+    import threading
+
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    cli = {"tag": tag, "proc": proc, "lines": [], "t0": time.perf_counter()}
+
+    def read():
+        for ln in proc.stdout:
+            cli["lines"].append(ln.rstrip())
+
+    threading.Thread(target=read, name=f"read-{tag}", daemon=True).start()
+    return cli
+
+
+def cli_wait(cli: dict, pred, timeout: float, what: str) -> str:
+    """The first line ``pred`` accepts, waiting up to ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for ln in list(cli["lines"]):
+            if pred(ln):
+                return ln
+        check(cli["proc"].poll() is None and time.monotonic() < deadline,
+              f"router_serve: {cli['tag']} never printed {what} (exit {cli['proc'].poll()}): "
+              f"{cli['lines'][-12:]}")
+        time.sleep(0.05)
+
+
+def cli_port(cli: dict, timeout: float = 300.0) -> int:
+    ln = cli_wait(cli, lambda x: "listening on " in x, timeout, "its port")
+    cli.setdefault("startup_s", time.perf_counter() - cli["t0"])
+    return int(ln.split("listening on ", 1)[1].split()[0].rsplit(":", 1)[1])
+
+
+def cli_stop(cli: dict, timeout: float = 120.0) -> int:
+    """SIGTERM, a bounded drain, then the group's SIGKILL (procs)."""
+    from d4pg_tpu_torch.utils import procs
+
+    rc = procs.drain_or_kill(cli["proc"], pgid=cli["proc"].pid, drain_timeout_s=timeout,
+                             label=cli["tag"])
+    time.sleep(0.2)  # the reader's last lines
+    return rc
+
+
+def replica_health(port: int) -> dict:
+    from d4pg_tpu_torch.serve import protocol
+
+    return protocol.probe_healthz("127.0.0.1", port, timeout_s=10.0)
+
+
+def router_events(cli: dict) -> list:
+    return [json.loads(ln.split("[router-event] ", 1)[1]) for ln in list(cli["lines"])
+            if ln.startswith("[router-event] ")]
+
+
+def router_serve_phase(card: str, bundle_dir: str, tmp: str) -> dict:
+    """``router_serve``: the replicated front end on the card. Two serve
+    CLI replicas (each on the card with its own copy of ``serve``'s
+    default 3x256 bundle, its own ``--replica-id``, a 0.2 s bundle poll)
+    and three router CLI processes in front of them, one leg each:
+
+    - rollout (``--canary-bundle``, ``--chaos ROUTER_CANARY_PLAN``): the
+      closed loop at ``ROUTER_PROFILE`` through the router, then directly
+      against replica 0 (requests/s, client p50/p99, the router's and the
+      replica's CPU-s/s); a new bundle in the canary dir is promoted,
+      every replica attesting its dir's ``bundle_mtime`` and the replies
+      equal to the new params' CPU forward; the next one, its deploy
+      corrupted, is rolled back: the replicas attest the promoted bundle
+      again and the replies equal its forward;
+    - autoscaler (``--autoscale --autoscale-min 2 --autoscale-max 3``,
+      ``--debug-guards``): under the closed loop it spawns a third replica
+      on the card, which is admitted and answers; at the router's drain
+      its pool drains that replica (rc 0) and no process of its group is
+      left;
+    - kill (``--chaos ROUTER_KILL_PLAN``, ``--debug-guards``): the 40th
+      dispatch's replica is SIGKILLed after the send; every request is
+      answered by the survivor; ``requests_total == replies_ok +
+      replies_overloaded + replies_error`` exactly in healthz and in the
+      ``router`` flow verdict at the drain; the killed process is gone.
+
+    Every router drains with rc 0 and its ``[router] drained`` line; the
+    guarded ones print balanced ``router``, ``router-gate`` and
+    ``router-tenant`` verdicts and 0 lock-order contradictions; the
+    surviving replica drains with rc 0. No hand kernel: the replicas serve
+    through CUDA graphs and print their own launch counts (all 0) at
+    their drain; the routers import no torch."""
+    import os
+    import shutil
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from d4pg_tpu_torch.models.actor import Actor
+    from d4pg_tpu_torch.serve import PolicyClient, export_bundle, load_bundle
+    from d4pg_tpu_torch.serve.client import Overloaded
+    from d4pg_tpu_torch.utils import procs
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    base = load_bundle(bundle_dir)
+    dirs = [f"{tmp}/router_replica{i}" for i in range(2)]
+    canary_dir = f"{tmp}/router_canary"
+    os.makedirs(canary_dir)
+    for d in dirs:
+        shutil.copytree(bundle_dir, d)
+    py = sys.executable
+    replicas = [cli_start([py, "-m", "d4pg_tpu_torch.serve", "--bundle", d, "--port", "0",
+                           "--replica-id", str(i), "--poll-interval", "0.2"], f"replica{i}")
+                for i, d in enumerate(dirs)]
+    routers, cli_lines = [], {}
+    obs_check = (rng.normal(size=(ROUTER_CHECK_ROWS, 3)) * 2).astype(np.float32)
+    obs_load = rng.normal(size=3).astype(np.float32)
+
+    def start_router(tag, *flags):
+        cli = cli_start([py, "-m", "d4pg_tpu_torch.serve.router", "--backends", backends,
+                         "--backend-bundles", ",".join(dirs), "--port", "0", *ROUTER_FLAGS,
+                         *flags], tag)
+        routers.append(cli)
+        port = cli_port(cli, 60)
+        cli_wait(cli, lambda x: x.startswith("[router] admitted 2/2"), 60, "admitted 2/2")
+        return cli, port
+
+    def through(port, obs):
+        with PolicyClient("127.0.0.1", port, timeout=60) as c:
+            futs = [c.act_async(o) for o in obs]
+            return np.stack([f.result(60) for f in futs])
+
+    def traffic(port, stop, tally):
+        """A pipelined client (window 8) until ``stop``: every reply is
+        counted, ok or shed (a rollback re-ejects for a moment)."""
+        with PolicyClient("127.0.0.1", port, timeout=60) as c:
+            while not stop.is_set():
+                for f in [c.act_async(obs_load) for _ in range(8)]:
+                    try:
+                        f.result(60)
+                        tally["ok"] += 1
+                    except Overloaded:
+                        tally["overloaded"] += 1
+
+    def attested():
+        """Each replica's healthz ``bundle_mtime`` beside its dir's."""
+        rows = []
+        for i, (rep_port, d) in enumerate(zip(rep_ports, dirs)):
+            h = replica_health(rep_port)
+            on_disk = os.stat(os.path.join(d, "bundle.json")).st_mtime
+            rows.append({"replica": i, "bundle_mtime": h["bundle_mtime"], "dir_mtime": on_disk,
+                         "status": h["status"], "params_reloads": h["params_reloads"]})
+        return rows
+
+    def rollout(cli, port, seed, want):
+        """Export a new bundle into the canary dir under traffic; wait for
+        the terminal event ``want``; the rollout's events."""
+        n0 = len(router_events(cli))
+        new_actor = Actor(3, 1, base.config.hidden_sizes,
+                          generator=torch.Generator().manual_seed(seed))
+        export_bundle(canary_dir, base.config, new_actor,
+                      action_low=base.action_low, action_high=base.action_high,
+                      meta={"source": "chip_smoke router canary"})
+        stop, tally = threading.Event(), {"ok": 0, "overloaded": 0}
+        t = threading.Thread(target=traffic, args=(port, stop, tally), daemon=True)
+        t.start()
+        t0 = time.perf_counter()
+        try:
+            deadline = time.monotonic() + ROUTER_LEG_S
+            while True:
+                ev = router_events(cli)[n0:]
+                kinds = [e["event"] for e in ev]
+                if want in kinds:
+                    break
+                check(time.monotonic() < deadline and "canary_rollback_timeout" not in kinds,
+                      f"router_serve: no {want} in {ROUTER_LEG_S} s: {kinds}")
+                time.sleep(0.05)
+            while True:  # the fleet settles: both admitted, the rollout idle
+                with PolicyClient("127.0.0.1", port, timeout=60) as c:
+                    h = c.healthz()
+                if h["admitted"] == 2 and h["canary"]["state"] == "idle":
+                    break
+                check(time.monotonic() < deadline, f"router_serve: {want}: fleet never settled "
+                                                   f"{h['replicas']}")
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        took = time.perf_counter() - t0
+        return new_actor.state_dict(), kinds, tally, took
+
+    try:
+        rep_ports = [cli_port(r) for r in replicas]
+        rep_pids = [r["proc"].pid for r in replicas]
+        backends = ",".join(f"127.0.0.1:{p}" for p in rep_ports)
+
+        # ---- leg 1: load, canary promoted, canary rolled back
+        a, a_port = start_router("router_rollout", "--canary-bundle", canary_dir,
+                                 "--canary-fraction", "0.25", "--chaos", ROUTER_CANARY_PLAN)
+        err_before = float(np.abs(through(a_port, obs_check) - cpu_actions(base, obs_check)).max())
+        check(err_before <= SERVE_TOL, f"router_serve: replies off the CPU forward {err_before}")
+        load = {"through_router": closed_loop(a_port, *ROUTER_PROFILE, obs_load, SERVE_LOAD_S,
+                                              server_pid=a["proc"].pid, server_stats=False),
+                "direct_replica0": closed_loop(rep_ports[0], *ROUTER_PROFILE, obs_load,
+                                               SERVE_LOAD_S, server_pid=rep_pids[0])}
+        for leg, row in load.items():
+            check(row["shed"] == 0, f"router_serve load {leg}: {row['shed']} sheds")
+        with PolicyClient("127.0.0.1", a_port, timeout=60) as c:
+            h = c.healthz()
+        per_replica_ok = [r["ok"] for r in h["replicas"]]
+        check(min(per_replica_ok) > 0, f"router_serve: a replica served nothing {per_replica_ok}")
+
+        promoted, kinds, tally_p, took_p = rollout(a, a_port, SEED + 31, "canary_promoted")
+        att_p = attested()
+        check(all(r["bundle_mtime"] == r["dir_mtime"] and r["status"] == "ok" for r in att_p),
+              f"router_serve: promote not attested {att_p}")
+        err_p = float(np.abs(through(a_port, obs_check)
+                             - cpu_actions(base, obs_check, promoted)).max())
+        check(err_p <= SERVE_TOL, f"router_serve: promoted replies off the new forward {err_p}")
+        _, kinds_r, tally_r, took_r = rollout(a, a_port, SEED + 37, "canary_rolled_back")
+        check("canary_rollback" in kinds_r, f"router_serve: rollback events {kinds_r}")
+        att_r = attested()
+        check(all(r["bundle_mtime"] == r["dir_mtime"] and r["status"] == "ok" for r in att_r),
+              f"router_serve: rollback not attested {att_r}")
+        err_r = float(np.abs(through(a_port, obs_check)
+                             - cpu_actions(base, obs_check, promoted)).max())
+        check(err_r <= SERVE_TOL, f"router_serve: rolled-back replies off the promoted "
+                                  f"forward {err_r}")
+        with PolicyClient("127.0.0.1", a_port, timeout=60) as c:
+            ha = c.healthz()
+        check(ha["canary_promotions"] == 1 and ha["canary_rollbacks"] == 1
+              and ha["chaos_injections"] == 1,
+              f"router_serve: promotions {ha['canary_promotions']}, rollbacks "
+              f"{ha['canary_rollbacks']}, injections {ha['chaos_injections']}")
+        check(ha["requests_total"] == ha["replies_ok"] + ha["replies_overloaded"]
+              + ha["replies_error"], f"router_serve: rollout router identity {ha}")
+        rollback = next(e for e in router_events(a) if e["event"] == "canary_rollback")
+        check(cli_stop(a) == 0 and any(ln.startswith("[router] drained:") for ln in a["lines"]),
+              f"router_serve: rollout router drain {a['lines'][-6:]}")
+
+        # ---- leg 2: the autoscaler spawns a third replica on the card
+        b, b_port = start_router(
+            "router_autoscale", "--autoscale", "--autoscale-min", "2", "--autoscale-max", "3",
+            "--autoscale-interval", "0.5", "--autoscale-samples", "2",
+            "--autoscale-cooldown", "600", "--autoscale-workdir", f"{tmp}/router_autoscale",
+            "--debug-guards")
+        stop, tally_a = threading.Event(), {"ok": 0, "overloaded": 0}
+        threads = [threading.Thread(target=traffic, args=(b_port, stop, tally_a), daemon=True)
+                   for _ in range(ROUTER_PROFILE[0] // 4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            deadline = time.monotonic() + ROUTER_LEG_S
+            while True:
+                with PolicyClient("127.0.0.1", b_port, timeout=60) as c:
+                    hb = c.healthz()
+                third = [r for r in hb["replicas"] if r["index"] == 2]
+                if third and third[0]["admitted"] and third[0]["ok"] > 0:
+                    break
+                check(time.monotonic() < deadline,
+                      f"router_serve: no third replica admitted and answering: {hb['replicas']}, "
+                      f"{b['lines'][-8:]}")
+                time.sleep(0.2)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+        scale_up_s = time.perf_counter() - t0
+        third_row = dict(third[0])
+        check(cli_stop(b) == 0, f"router_serve: autoscale router drain {b['lines'][-8:]}")
+        out_b = b["lines"]
+        spawned_drained = [ln for ln in out_b if ln.startswith("[autoscale-r1] [serve] drained")]
+        scaler_line = [ln for ln in out_b if ln.startswith("[router] autoscaler: ")]
+        check(spawned_drained and scaler_line and "'scale_ups': 1" in scaler_line[0],
+              f"router_serve: the spawned replica's drain {out_b[-12:]}")
+        check(not any("drained rc=" in ln for ln in out_b),
+              f"router_serve: the spawned replica drained with an error {out_b[-12:]}")
+        orphans = procs.reap_orphans([b["proc"].pid], label="router_autoscale")
+        check(orphans == [], f"router_serve: orphans of the autoscale router {orphans}")
+
+        # ---- leg 3: replica_kill mid-stream
+        c_cli, c_port = start_router("router_kill", "--chaos", ROUTER_KILL_PLAN,
+                                     "--debug-guards")
+        answered = {"ok": 0, "overloaded": 0, "error": 0}
+        with PolicyClient("127.0.0.1", c_port, timeout=60) as c:
+            futs = []
+            for i in range(ROUTER_KILL_REQUESTS):
+                futs.append(c.act_async(obs_load))
+                if len(futs) >= 8:
+                    f = futs.pop(0)
+                    try:
+                        f.result(60)
+                        answered["ok"] += 1
+                    except Overloaded:
+                        answered["overloaded"] += 1
+                    except Exception:
+                        answered["error"] += 1
+            for f in futs:
+                try:
+                    f.result(60)
+                    answered["ok"] += 1
+                except Overloaded:
+                    answered["overloaded"] += 1
+                except Exception:
+                    answered["error"] += 1
+            deadline = time.monotonic() + 30
+            while c.healthz()["admitted"] != 1:
+                check(time.monotonic() < deadline, "router_serve: the killed replica never ejected")
+                time.sleep(0.1)
+            hc = c.healthz()
+        killed = [i for i, r in enumerate(replicas) if r["proc"].poll() is not None]
+        check(len(killed) == 1 and replicas[killed[0]]["proc"].returncode == -signal.SIGKILL,
+              f"router_serve: killed replicas {killed}")
+        check(not procs.pid_alive(rep_pids[killed[0]]), "router_serve: the killed replica lives")
+        identity = hc["requests_total"] == (hc["replies_ok"] + hc["replies_overloaded"]
+                                            + hc["replies_error"]) == ROUTER_KILL_REQUESTS
+        check(identity and answered["ok"] == hc["replies_ok"] and hc["chaos_injections"] == 1,
+              f"router_serve: kill leg identity {answered}, healthz {hc}")
+        check(cli_stop(c_cli) == 0, f"router_serve: kill router drain {c_cli['lines'][-8:]}")
+        survivor = replicas[1 - killed[0]]
+        check(cli_stop(survivor) == 0, f"router_serve: survivor drain {survivor['lines'][-8:]}")
+    finally:
+        for cli in routers + replicas:
+            if cli["proc"].poll() is None:
+                procs.drain_or_kill(cli["proc"], pgid=cli["proc"].pid, sig=signal.SIGKILL,
+                                    drain_timeout_s=10, label=cli["tag"])
+        procs.reap_orphans([cli["proc"].pid for cli in routers + replicas], label="router_serve")
+    for cli in routers + replicas:
+        cli_lines[cli["tag"]] = cli["lines"]
+    guarded = {}
+    for cli in (b, c_cli):
+        verdicts = [json.loads(ln.split("[flow-verdict] ", 1)[1]) for ln in cli["lines"]
+                    if ln.startswith("[flow-verdict] ")]
+        witness = [ln for ln in cli["lines"] if ln.startswith("[lockwitness]")]
+        check(sorted(v["family"] for v in verdicts) == ["router", "router-gate", "router-tenant"]
+              and all(v["ok"] for v in verdicts),
+              f"router_serve: {cli['tag']} flow verdicts {verdicts}")
+        check(len(witness) == 1 and " 0 contradictions" in witness[0],
+              f"router_serve: {cli['tag']} lock witness {witness}")
+        guarded[cli["tag"]] = {"verdicts": {v["family"]: v["counters"] for v in verdicts},
+                               "lock_witness": witness[0]}
+    launches = [json.loads(ln.split("[serve] kernel launches: ", 1)[1])
+                for r in replicas for ln in r["lines"]
+                if ln.startswith("[serve] kernel launches: ")]
+    spawned = [json.loads(ln.split("[serve] kernel launches: ", 1)[1]) for ln in b["lines"]
+               if "[serve] kernel launches: " in ln]
+    none = {k: 0 for k in read_counts()}
+    check(len(launches) == 1 and all(x == none for x in launches + spawned) and spawned,
+          f"router_serve: replica launches {launches} {spawned}, expected {none}")
+    drained = {cli["tag"]: next((ln for ln in cli["lines"]
+                                 if ln.startswith(("[router] drained:", "[serve] drained:"))),
+                                None)
+               for cli in routers + replicas}
+    emit({"phase": "router_serve", "card": card,
+          "replicas": {"count": 2, "bundle": "serve's default 3x256 (Pendulum)",
+                       "startup_s": [r["startup_s"] for r in replicas],
+                       "killed": killed[0]},
+          "load": load, "per_replica_ok": per_replica_ok,
+          "router_over_direct": (load["through_router"]["requests_per_s"]
+                                 / load["direct_replica0"]["requests_per_s"]),
+          "router_cpu_s_per_s": load["through_router"]["server_process_cpu_s_per_s"],
+          "replies_vs_cpu": {"before": err_before, "promoted": err_p, "rolled_back": err_r,
+                             "rows": ROUTER_CHECK_ROWS, "tolerance": SERVE_TOL},
+          "canary_promoted": {"events": kinds, "s": took_p, "traffic": tally_p,
+                              "attested": att_p},
+          "canary_rolled_back": {"events": kinds_r, "s": took_r, "traffic": tally_r,
+                                 "reason": rollback["reason"], "attested": att_r},
+          "autoscale": {"third_replica": third_row, "scale_up_to_answer_s": scale_up_s,
+                        "traffic": tally_a, "spawned_drained": spawned_drained[0],
+                        "autoscaler": scaler_line[0], "orphans": orphans},
+          "replica_kill": {"plan": ROUTER_KILL_PLAN, "answered": answered,
+                           "healthz": {k: hc[k] for k in ("requests_total", "replies_ok",
+                                                          "replies_overloaded", "replies_error",
+                                                          "retries", "ejections")}},
+          "guarded_routers": guarded, "drained": drained, "launches": none,
+          "phase_s": time.perf_counter() - t_phase, "ok": True})
+    return none
 
 
 # ------------------------------------------------------------ data parallelism
@@ -5949,6 +6363,7 @@ def main() -> int:
         tp_gloo_legs_phase(TrainConfig, card)
         paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
         paths["serve_guards_chaos"] = serve_guards_chaos_phase(card, f"{tmp}/bundle_default")
+        paths["router_serve"] = router_serve_phase(card, f"{tmp}/bundle_default", tmp)
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}

@@ -18,11 +18,15 @@ Only the families of ported modules are here:
 - ``mirror-tap``, the flywheel's tap (``flywheel/tap.py:MirrorTap``,
   checked at its close): every window it built was acknowledged, answered
   stale, shed, dropped by chaos, by a missing link or by the full queue,
-  or is still pending.
+  or is still pending;
+- ``router``, ``router-gate`` and ``router-tenant``, the replicated front
+  end's (``serve/router.py:RouterStats``, checked at the router's drain):
+  every request the router counted was answered ok, overloaded or with an
+  error; every off-policy gate evaluation passed, blocked or stalled; and
+  both hold row by row for each (tenant, class).
 
-The JAX table's other families (``router``, ``router-gate``,
-``router-tenant``, ``league-tenure``) belong to modules not ported yet
-(ROADMAP A11 (e4)-(e5)) and come with them.
+The JAX table's other family (``league-tenure``) belongs to a module not
+ported yet (ROADMAP A11 (e5)) and comes with it.
 
 An identity is one ``==`` between sums and differences of counter names
 and numeric constants (``flowledger._evaluate``); ``per_row`` families
@@ -62,5 +66,26 @@ FLOW_IDENTITIES = {
             " + windows_dropped_full + pending"
         ),
         "gauges": (),
+    },
+    "router": {
+        "class": "d4pg_tpu_torch/serve/router.py::RouterStats",
+        "identity": (
+            "requests_total == replies_ok + replies_overloaded"
+            " + replies_error"
+        ),
+        "gauges": (),
+    },
+    "router-gate": {
+        "class": "d4pg_tpu_torch/serve/router.py::RouterStats",
+        "identity": (
+            "gate_evaluations == gate_pass + gate_block + gate_stalls"
+        ),
+        "gauges": (),
+    },
+    "router-tenant": {
+        "class": None,  # per-row: RouterStats.tenants_snapshot() rows
+        "identity": "requests == ok + overloaded + error",
+        "gauges": (),
+        "per_row": True,
     },
 }

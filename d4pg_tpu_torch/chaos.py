@@ -25,8 +25,16 @@ Where the port ticks them (the JAX package's sites):
   whenever ``num_processes`` > 1 (``config.check_chaos``) until the port
   has a supervisor that relaunches the processes (ROADMAP A11 (f));
 - ``sock_reset``: the policy server, per received frame;
-- ``slowloris`` / ``zero_window`` / ``fd_exhaust``: the policy server,
-  per accepted connection (``netio/attack.py``);
+- ``slowloris`` / ``zero_window`` / ``fd_exhaust``: the policy server and
+  the router, per accepted connection (``netio/attack.py``);
+- ``replica_kill`` (per dispatch attempt, SIGKILL of the picked replica
+  after the send), ``replica_slow``, ``tenant_flood`` and
+  ``policy_skew`` (per request), ``canary_corrupt`` (per canary deploy)
+  and ``gate_stall`` (per off-policy gate evaluation): the router
+  (``serve/router.py``, ``--chaos`` on ``python -m
+  d4pg_tpu_torch.serve.router``);
+- ``scaledown_during_canary``: the autoscaler, per control tick
+  (``serve/autoscaler.py:Autoscaler.tick``);
 - ``partition``: the learner's fleet ingest, per frame of a connection
   (``fleet/ingest.py``);
 - ``reconnect_flap`` (per connect), ``slow_link`` and ``pixel_truncate``
@@ -38,9 +46,9 @@ Where the port ticks them (the JAX package's sites):
   flushes, before either sink (``flywheel/tap.py:MirrorTap._flush``,
   ``--chaos`` on the serve CLI with ``--mirror-fraction``).
 
-The sites of modules not ported yet (the router and autoscaler with the
-router's ``gate_stall``, the league: ROADMAP A11 (e4)-(e5)) parse and
-never tick, as on a JAX run without those planes. The on-device loop has no site, in
+The league's sites (``variant_kill``, ``controller_kill``,
+``clone_corrupt``: ROADMAP A11 (e5), not ported yet) parse and never
+tick, as on a JAX run without that plane. The on-device loop has no site, in
 either package.
 
 Spec syntax (entries separated by ``;`` or ``,``)::

@@ -2,9 +2,9 @@
 port's copy of ``d4pg_tpu/netio/attack.py``, on the port's
 ``netio/loop.py``).
 
-Three ``--chaos`` sites (the policy server ticks them at every accept,
-through the loop's ``on_open``, so an attack launches while real traffic
-is in flight):
+Three ``--chaos`` sites (the policy server and the router tick them at
+every accept, through the loop's ``on_open``, so an attack launches while
+real traffic is in flight):
 
 - ``slowloris@N[:bps]`` — connect and trickle a valid frame header at
   ``bps`` bytes/second, capped one byte short of a complete frame, then
@@ -19,7 +19,10 @@ is in flight):
 - ``fd_exhaust@N[:ms]`` — hoard descriptors to EMFILE and hold them for
   ``ms``, driving the victim's listener into the reserve-fd shed path
   (``OVERLOADED fd_exhausted``) mid-accept instead of killing the
-  accept loop.
+  accept loop. Unlike the JAX hoard, which fills the table once, this
+  one retakes every descriptor freed inside the hold before each accept
+  (``FrameLoop.add_pre_accept``), so no accept of the hold finds a free
+  descriptor.
 
 Every attacker runs on the victim's OWN FrameLoop as a timer chain —
 zero threads, zero selector registrations — and self-bounds: it stops
@@ -147,13 +150,23 @@ def _start_zero_window(loop, host: str, port: int, ms: float) -> None:
 
 def _start_fd_exhaust(loop, hold_ms: float) -> None:
     hoard = []
-    try:
-        while True:
-            hoard.append(os.open(os.devnull, os.O_RDONLY))
-    except OSError:
-        pass  # EMFILE reached: the table is full
+
+    def _fill():
+        try:
+            while True:
+                hoard.append(os.open(os.devnull, os.O_RDONLY))
+        except OSError:
+            pass  # EMFILE reached: the table is full
+
+    # Filling once is not enough: any descriptor closed inside the hold (a
+    # client's close, an eviction, the attackers' own sockets, another
+    # thread) leaves a hole the next accept takes. So the hoard tops the
+    # table up again right before every accept while it holds.
+    _fill()
+    loop.add_pre_accept(_fill)
 
     def _release():
+        loop.remove_pre_accept(_fill)
         for fd in hoard:
             try:
                 os.close(fd)

@@ -220,6 +220,9 @@ class FrameLoop:
         # can still accept-reply-close instead of wedging the listener
         self._reserve_fd: Optional[int] = None
         self._accept_paused = False
+        # loop-thread callables run before every accept (the fd_exhaust
+        # attacker retakes any descriptor freed inside its hold there)
+        self._pre_accept: list = []
         self._shed_reply = protocol.encode_frame(
             protocol.OVERLOADED, 0, b"fd_exhausted"
         )
@@ -299,6 +302,17 @@ class FrameLoop:
             self._call_at(when, fn, *args)
         else:
             self.call_soon(self._call_at, when, fn, *args)
+
+    def add_pre_accept(self, fn: Callable) -> None:
+        """Run ``fn()`` on the loop thread before every accept until
+        :meth:`remove_pre_accept`. Call it on the loop thread."""
+        self._pre_accept.append(fn)
+
+    def remove_pre_accept(self, fn: Callable) -> None:
+        try:
+            self._pre_accept.remove(fn)
+        except ValueError:
+            pass
 
     def connections(self) -> list:
         """Snapshot of open connections (drain/observability)."""
@@ -433,6 +447,8 @@ class FrameLoop:
         for _ in range(_ACCEPTS_PER_TICK):
             if self._listener is None:
                 return
+            for fn in self._pre_accept:
+                fn()
             try:
                 # non-blocking listener; EWOULDBLOCK caught below
                 sock, addr = self._listener.accept()

@@ -23,9 +23,17 @@ import os
 import time
 from typing import Mapping
 
-from d4pg_tpu_torch.utils.profiling import StageTimers
-
 __all__ = ["MetricsLogger", "StageTimers", "interval_crossed"]
+
+
+def __getattr__(name):
+    # the stage timers import torch; the host-only router logs rows here
+    # without them, so the re-export loads on first use
+    if name == "StageTimers":
+        from d4pg_tpu_torch.utils.profiling import StageTimers
+
+        return StageTimers
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def interval_crossed(prev_step: int, step: int, interval: int) -> bool:

@@ -11,7 +11,12 @@ port's counterpart of ``d4pg_tpu/serve``).
   graceful drain, healthz;
 - :mod:`~d4pg_tpu_torch.serve.client`   — blocking + pipelined client;
 - :mod:`~d4pg_tpu_torch.serve.protocol` — the length-prefixed binary frames;
-- :mod:`~d4pg_tpu_torch.serve.stats`    — p50/p95/p99, batch/queue histograms.
+- :mod:`~d4pg_tpu_torch.serve.stats`    — p50/p95/p99, batch/queue histograms;
+- :mod:`~d4pg_tpu_torch.serve.router`   — replicated front-end: least-loaded
+  dispatch over replicas, healthz-driven ejection, a canary rollout per
+  policy with auto-rollback, QoS and tenant admission (torch-free);
+- :mod:`~d4pg_tpu_torch.serve.autoscaler` — healthz-driven control loop
+  that spawns and drains replicas or actor hosts (torch-free).
 
 Run it: ``python -m d4pg_tpu_torch.serve --bundle <dir>``;
 ``--debug-guards`` arms the staging ledger, the transfer and sync guards,
@@ -19,8 +24,9 @@ the lock witness and the ``serve-stats`` flow identity
 (``d4pg_tpu_torch/analysis``), and ``--chaos`` the serving fault sites
 (``sock_reset`` and the connection attacks of ``netio/attack.py``);
 ``--mirror-fraction``, ``--mirror-ingest`` and ``--mirror-spool`` attach
-the flywheel's mirror tap (``d4pg_tpu_torch/flywheel``). The router and
-the autoscaler of the JAX package come with ROADMAP A11 (e4).
+the flywheel's mirror tap (``d4pg_tpu_torch/flywheel``).
+``python -m d4pg_tpu_torch.serve.router --backends host:port,...`` fronts
+several such servers (``--autoscale`` grows and drains the fleet).
 
 The names below load their module on first use, so importing the
 protocol or the client does not build the batcher's machinery.
@@ -40,6 +46,9 @@ _EXPORTS = {
     "PolicyClient": "d4pg_tpu_torch.serve.client",
     "ServerError": "d4pg_tpu_torch.serve.client",
     "PolicyServer": "d4pg_tpu_torch.serve.server",
+    "Router": "d4pg_tpu_torch.serve.router",
+    "Autoscaler": "d4pg_tpu_torch.serve.autoscaler",
+    "ScaleSignal": "d4pg_tpu_torch.serve.autoscaler",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -82,7 +82,9 @@ def test_committed_lock_graph_matches_the_analyzer_and_is_acyclic():
                  "Connection._lock", "StagingLedger._lock", "ChaosInjector._lock",
                  "IngestServer._cond", "IngestServer._counters_lock",
                  "IngestServer._conns_lock", "FleetLink._pending_lock",
-                 "FleetActor._stats_lock", "MirrorTap._lock", "MirrorTap._cond"):
+                 "FleetActor._stats_lock", "MirrorTap._lock", "MirrorTap._cond",
+                 "RouterStats._lock", "Router._lock", "Router._events_lock",
+                 "Autoscaler._lock", "RouterReplicaPool._lock", "ActorHostPool._lock"):
         assert node in committed["nodes"], node
     # the JAX package's graph names the JAX package's files, never the port's
     with open(os.path.join(REPO, "benchmarks", "lock_order_graph.json")) as f:
@@ -212,6 +214,7 @@ def test_witness_off_hands_out_plain_primitives():
 SERVE_FAMILY = "serve" + "-stats"
 FLEET_FAMILIES = ("fleet" + "-actor", "fleet" + "-ingest")
 FLYWHEEL_FAMILIES = ("mirror" + "-tap",)
+ROUTER_FAMILIES = ("router", "router" + "-gate", "router" + "-tenant")
 
 
 def _flow_cases() -> dict:
@@ -251,11 +254,14 @@ def test_flow_identities_are_the_jax_tables():
     from d4pg_tpu_torch.analysis.flow_identities import FLOW_IDENTITIES
     from tools.d4pglint.wholeprog.config import FLOW_IDENTITIES as J
 
-    assert list(FLOW_IDENTITIES) == [SERVE_FAMILY, *FLEET_FAMILIES, *FLYWHEEL_FAMILIES]
+    assert list(FLOW_IDENTITIES) == [SERVE_FAMILY, *FLEET_FAMILIES, *FLYWHEEL_FAMILIES,
+                                     *ROUTER_FAMILIES]
     for family in FLOW_IDENTITIES:
         assert FLOW_IDENTITIES[family]["identity"] == J[family]["identity"]
-        # the port's families name the port's classes
-        assert FLOW_IDENTITIES[family]["class"].startswith("d4pg_tpu_torch/")
+        assert FLOW_IDENTITIES[family].get("per_row") == J[family].get("per_row")
+        # the port's families name the port's classes (a per-row family none)
+        cls = FLOW_IDENTITIES[family]["class"]
+        assert cls.startswith("d4pg_tpu_torch/") if J[family]["class"] else cls is None
     lhs = FLOW_IDENTITIES[SERVE_FAMILY]["identity"].split("==")[0].strip()
     # off: a no-op, as in the JAX ledger; a family the table lacks is skipped
     flowledger.reset()
