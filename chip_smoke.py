@@ -313,9 +313,8 @@ JSON line (with ``at_s``, the seconds since the script started):
    stream dealt by the striped layout (``d4pg_tpu_torch/tools/
    dp_ranks.py``), 4 dispatches interleaved with ingest: state, ring rows,
    subtrees and max priority ``torch.equal`` to one process with two
-   lanes; then the train CLI as two processes (64 grad steps: both exit
-   0, checkpoint steps under process 0's directory only, process 1's
-   metrics under ``worker1/``). ``dp_host``: ``--dp 2`` and
+   lanes (the train CLI as two processes runs in ``host_kill_relaunch``,
+   item 37). ``dp_host``: ``--dp 2`` and
    ``--dp-hogwild`` on the host placement, K = 8, 200 grad steps each,
    B1f = B1b = 400.
 
@@ -410,6 +409,27 @@ JSON line (with ``at_s``, the seconds since the script started):
    replicas' own launch counts are 0; ``launches_by_path`` gains
    ``router_serve``.
 
+37. Recovery across processes and league training (ROADMAP A11 (f),
+   (e5)), after ``dp_ranks``, both at the pendulum preset's default width
+   with the 1M-row replay. ``host_kill_relaunch``: the relaunching
+   supervisor ``d4pg_tpu_torch/tools/multihost_smoke.py`` on ``cuda:0``,
+   the train CLI as two gloo processes on the device placement; process
+   1 SIGKILLed by ``host_kill@4:1`` after the checkpoint at 16, the
+   survivor reaped by SIGKILL, no manifest past 16; both relaunched with
+   ``--resume``: resumed from 16 with the replay snapshot and the
+   device-PER sidecar, equal model metrics, each rank B1f = B1b = 16,
+   B3 = 2, B4 = 0. ``league_device``: ``python -m d4pg_tpu_torch.league``
+   over three fused-descent device learners (``--snapshot-replay
+   --debug-guards``), the controller SIGKILLed from outside once its
+   journal shows the first generation's clone observed, and its rerun
+   resuming the journal: a torn fork
+   and the clone's fallback, a perturbed clone attested under its own
+   variant id and promoted or rolled back, no quarantine, the
+   ``league-tenure`` identity on every row, no orphan; every learner
+   tenure that exited 0 or 75 printed its launch line (a trained one
+   B1b = B4 = 8 x B3 > 0, B1f = 0). ``launches_by_path`` gains
+   ``host_kill_relaunch`` and ``league_device``.
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
@@ -428,6 +448,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -463,10 +484,12 @@ START = time.perf_counter()  # the script's start, for each phase line's ``at_s`
 
 def emit(obj) -> None:
     """Print one JSON line; a phase's line also carries ``at_s``, the
-    seconds since the script started, so a run's time splits by phase."""
+    seconds since the script started, so a run's time splits by phase.
+    One write a line: two phases may run side by side."""
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - START}
-    print(json.dumps(obj), flush=True)
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -5566,7 +5589,6 @@ def router_serve_phase(card: str, bundle_dir: str, tmp: str) -> dict:
 DP_LANES = 2                          # lanes (--dp) of every dp phase
 DP_STEPS = 200                        # grad steps of dp_lanes and of each dp_host run
 DP_RANK_ROUNDS = (4096, 1024, 1024, 1024)   # rows written before each dp_ranks dispatch
-DP_CLI_STEPS = 64                     # grad steps of the two-process CLI run
 DP_EVAL_EPISODES = 2
 COMBINE_REPS = 50                     # timed combines (one grad step's) per line
 DP_TIMEOUT_S = 300
@@ -5655,21 +5677,15 @@ def dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card: str, log_dir: st
     return launches
 
 
-def dp_ranks_phase(TrainConfig, card: str, log_dir: str) -> dict:
+def dp_ranks_phase(TrainConfig, card: str) -> dict:
     """(b) Two ranks spawned over gloo on ``cuda:0``, one lane each, drive
     the sharded device-PER megastep directly (``tools/dp_ranks.py``) on
     one seeded stream dealt by the striped layout: 4 dispatches of K = 8
     interleaved with ingest, under the sync guard, at full width with the
     1M-row replay; the train state, each lane's ring rows and subtree and
     max_priority ``torch.equal`` to the one-process 2-lane run of the same
-    code. Then the train CLI as two processes (``--dp 2 --num-processes 2
-    --coordinator 127.0.0.1:PORT``), 64 grad steps with checkpoints and
-    the replay snapshot: both exit 0, finite metrics on both, checkpoint
-    steps under process 0's directory only, process 1's metrics under
-    ``worker1/``."""
-    import json as json_
-    import os
-
+    code. The train CLI as two such processes runs in
+    ``host_kill_relaunch``."""
     from d4pg_tpu_torch.config import apply_env_preset
     from d4pg_tpu_torch.parallel.mesh import make_mesh
     from d4pg_tpu_torch.tools import dp_ranks
@@ -5696,57 +5712,9 @@ def dp_ranks_phase(TrainConfig, card: str, log_dir: str) -> dict:
     for key, v in one["metrics"].items():
         check(bool(v.isfinite()), f"dp_ranks: {key} not finite: {float(v)}")
     launches = {k: sum(r["launches"][k] for r in ranks) for k in want_one}
-
-    # the CLI as users run it, two processes on the one card
-    root = os.path.dirname(os.path.abspath(__file__))
-    run = os.path.join(log_dir, "cli")
-    port = dp_ranks.free_port()
-    argv = [sys.executable, "-m", "d4pg_tpu_torch.train", "--replay-placement", "device",
-            "--p-replay", "--steps-per-dispatch", str(K), "--dp", str(DP_LANES),
-            "--num-processes", str(DP_LANES), "--coordinator", f"127.0.0.1:{port}",
-            "--total-steps", str(DP_CLI_STEPS), "--eval-interval", str(DP_CLI_STEPS),
-            "--eval-episodes", str(DP_EVAL_EPISODES), "--checkpoint-interval",
-            str(DP_CLI_STEPS // 2), "--snapshot-replay", "--debug-guards", "--log-dir", run]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(argv + ["--process-id", str(i)], cwd=root, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for i in range(DP_LANES)]
-    try:
-        outs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    cli_s = time.perf_counter() - t0
-    codes = [p.returncode for p in procs]
-    check(codes == [0] * DP_LANES, f"dp_ranks CLI: exit codes {codes}: "
-          + " | ".join(o[-1500:] for o in outs))
-    lines = [next((ln for ln in o.splitlines() if ln.startswith("[distributed]")), None)
-             for o in outs]
-    check(all(lines), "dp_ranks CLI: no [distributed] line")
-    dirs = [run] + [os.path.join(run, f"worker{i}") for i in range(1, DP_LANES)]
-    rows = []
-    for d_ in dirs:
-        with open(os.path.join(d_, "metrics.jsonl")) as f:
-            got = [json_.loads(line) for line in f]
-        check([r_["step"] for r_ in got] == [DP_CLI_STEPS], f"dp_ranks CLI: rows of {d_}")
-        for key in FINITE_KEYS:
-            v = got[-1].get(key)
-            check(v is not None and v == v and abs(v) != float("inf"),
-                  f"dp_ranks CLI: {key} not finite in {d_}: {v}")
-        rows.append(got[-1])
-    ckpt = sorted(x for x in os.listdir(os.path.join(run, "checkpoints")) if x.isdigit())
-    check(ckpt == sorted([str(DP_CLI_STEPS // 2), str(DP_CLI_STEPS)]),
-          f"dp_ranks CLI: checkpoint steps {ckpt}")
-    for d_ in dirs[1:]:
-        ck = os.path.join(d_, "checkpoints")
-        stray = [x for x in os.listdir(ck) if x.isdigit()] if os.path.isdir(ck) else []
-        check(not stray, f"dp_ranks CLI: checkpoint steps under {d_}: {stray}")
     emit({
         "phase": "dp_ranks", "card": card, "lanes": DP_LANES, "processes": DP_LANES,
-        "backend": lines[0].split("'backend': ")[1].split(",")[0].strip("'} "),
-        "distributed_lines": lines,
+        "backends": [r["backend"] for r in ranks],
         "width": {"hidden": list(c.agent.hidden_sizes), "atoms": c.agent.dist.num_atoms,
                   "batch": c.batch_size, "batch_per_lane": c.batch_size // DP_LANES,
                   "replay_capacity": c.replay_capacity, "lane_tree_leaves": TREE_L // 2,
@@ -5765,10 +5733,6 @@ def dp_ranks_phase(TrainConfig, card: str, log_dir: str) -> dict:
                                      "ranks": [r["combine_ms"] for r in ranks]},
         "launches": launches, "launches_one_process": one["launches"],
         "metrics": {k: float(v) for k, v in one["metrics"].items()},
-        "cli": {"exit_codes": codes, "wall_s": cli_s, "grad_steps": DP_CLI_STEPS,
-                "checkpoint_steps": ckpt,
-                "grad_steps_per_sec": [r_["grad_steps_per_sec"] for r_ in rows],
-                "critic_loss": [r_["critic_loss"] for r_ in rows]},
         "ok": True,
     })
     return launches
@@ -6231,6 +6195,301 @@ def tp_gloo_legs_phase(TrainConfig, card: str) -> None:
               "launches_ranks": [r["launches"] for r in ranks], "ok": True})
 
 
+# ------------------------------------- recovery across processes, league
+HK_EVAL_EPISODES = 2
+HK_TIMEOUT_S = 300
+
+
+def host_kill_relaunch_phase(card: str, log_dir: str) -> dict:
+    """``host_kill_relaunch`` (ROADMAP A11 (f)): the relaunching supervisor
+    ``d4pg_tpu_torch/tools/multihost_smoke.py`` on ``cuda:0``, the train
+    CLI as two processes over gloo (``--dp 2 --num-processes 2``, one lane
+    each) at the pendulum preset's default width with the 1M-row replay
+    (``--replay-placement device --p-replay --snapshot-replay
+    --debug-guards``, K = 8, checkpoints every 16 grad steps). Leg 1:
+    ``host_kill@4:1`` SIGKILLs process 1 at grad step 24, after the
+    checkpoint at 16; the survivor reaped by SIGKILL; no manifest past 16.
+    Leg 2: both relaunched with ``--resume`` for 16 grad steps: each
+    resumed from step 16 with the replay snapshot and the device-PER
+    sidecar, their ``done:`` lines' model metrics equal, each launch line
+    B1f = B1b = 16, B3 = 2 (one a dispatch on its lane), B2 = B4 = 0; no
+    process left. The CLI pair's layout: both ``[distributed]`` lines name
+    gloo, checkpoint steps 16 and 32 under process 0's directory only,
+    process 1's finite metrics row under ``worker1/``."""
+    import os
+
+    from d4pg_tpu_torch.tools import multihost_smoke
+
+    interval, leg2_steps = multihost_smoke.INTERVAL, multihost_smoke.LEG2_STEPS
+    check(multihost_smoke.K == K, f"host_kill_relaunch: the supervisor's K {multihost_smoke.K}")
+    t0 = time.perf_counter()
+    out = multihost_smoke.run(
+        log_dir, device="cuda", timeout_s=HK_TIMEOUT_S,
+        extra=["--eval-interval", str(10 * multihost_smoke.LEG1_STEPS),
+               "--eval-episodes", str(HK_EVAL_EPISODES)])
+    phase_s = time.perf_counter() - t0
+    leg1, leg2 = out["leg1"], out["leg2"]
+    check(leg1["committed_step"] == interval and leg1["manifest_steps"] == [interval],
+          f"host_kill_relaunch: leg 1 {leg1}")
+    want = dict(project=0, fused_fwd=leg2_steps, fused_bwd=leg2_steps,
+                tree_count=leg2_steps // K, fused_step=0)
+    for r in leg2["ranks"]:
+        check(r["launches"] == want, f"host_kill_relaunch: rank launches {r['launches']}")
+    m = leg2["model_metrics"]
+    for key in FINITE_KEYS:
+        check(key in m and m[key] == m[key] and abs(m[key]) != float("inf"),
+              f"host_kill_relaunch: {key} not finite: {m.get(key)}")
+    launches = {k: sum(r["launches"][k] for r in leg2["ranks"]) for k in want}
+    distributed = []
+    for rank in range(2):
+        with open(os.path.join(log_dir, f"leg2_p{rank}.log")) as f:
+            distributed += [ln.strip() for ln in f if ln.startswith("[distributed]")]
+    check(len(distributed) == 2 and all("'backend': 'gloo'" in ln for ln in distributed),
+          f"host_kill_relaunch: {distributed}")
+    end = interval + leg2_steps
+    ckpt = sorted(int(x) for x in os.listdir(os.path.join(log_dir, "checkpoints")) if x.isdigit())
+    worker = os.path.join(log_dir, "worker1")
+    stray = [x for x in os.listdir(os.path.join(worker, "checkpoints")) if x.isdigit()] \
+        if os.path.isdir(os.path.join(worker, "checkpoints")) else []
+    with open(os.path.join(worker, "metrics.jsonl")) as f:
+        worker_rows = [json.loads(line) for line in f]
+    check(ckpt == [interval, end] and not stray and [r["step"] for r in worker_rows] == [end]
+          and all(worker_rows[0].get(k) is not None and worker_rows[0][k] == worker_rows[0][k]
+                  and abs(worker_rows[0][k]) != float("inf") for k in FINITE_KEYS),
+          f"host_kill_relaunch: checkpoints {ckpt}, under worker1 {stray}, "
+          f"worker1 rows {worker_rows}")
+    emit({
+        "phase": "host_kill_relaunch", "card": card, "processes": 2, "lanes": 2,
+        "backend": "gloo", "width": "the pendulum preset's (3x256, 51 atoms, B = 256, "
+                                    "1M-row replay), K = 8",
+        "leg1": leg1, "leg2": {k: leg2[k] for k in ("rcs", "resumed_from", "wall_s",
+                                                    "model_metrics")},
+        "replay_rows_restored": [r["replay_rows_restored"] for r in leg2["ranks"]],
+        "grad_steps_per_sec": [r["done"]["grad_steps_per_sec"] for r in leg2["ranks"]],
+        "launches_per_rank": [r["launches"] for r in leg2["ranks"]],
+        "distributed_lines": distributed, "checkpoint_steps": ckpt,
+        "orphans_swept": out["orphans_swept"], "launches": launches, "phase_s": phase_s,
+        "ok": True,
+    })
+    return launches
+
+
+LEAGUE_GENOMES = (                    # scripts/league_smoke.sh's: the horizon separates fitness
+    "lr_actor=1e-4,max_episode_steps=50",
+    "lr_actor=1e-4,max_episode_steps=200",
+    "lr_actor=1e-3,max_episode_steps=250",
+)
+# A learner's fitness cadence (eval interval) and checkpoint interval: more
+# than two saves an eval apart, so a learner that dies at its first eval's
+# print (its controller killed, its pipe gone) leaves two intact steps, and
+# a fork torn by clone_corrupt keeps one to fall back to.
+LEAGUE_EVAL = 96
+LEAGUE_CKPT = 32
+LEAGUE_POLL_S = 0.5
+LEAGUE_TIMEOUT_S = 240
+LEAGUE_LEARNER = ("--replay-placement", "device", "--p-replay", "--fused-descent",
+                  "--snapshot-replay", "--debug-guards", "--steps-per-dispatch", str(K),
+                  "--eval-interval", str(LEAGUE_EVAL), "--eval-episodes", "1",
+                  "--checkpoint-interval", str(LEAGUE_CKPT), "--total-steps", "1000000")
+
+
+def _league_leg(league_dir: str, chaos: str, log: str, kill_in: str = ""):
+    """One run of ``python -m d4pg_tpu_torch.league`` over the card's
+    learners; returns (rc, stdout lines), its stdout also written to
+    ``log`` and its stderr beside it. With ``kill_in``, the harness SIGKILLs the controller from
+    outside as soon as its journal (``league.json``) shows the pending
+    generation's action in that phase: a kill that lands on a state, not
+    on a tick count, whatever the host's speed."""
+    import os
+    import signal
+
+    argv = [sys.executable, "-m", "d4pg_tpu_torch.league", "--dir", league_dir, "--seed", "7",
+            "--generations", "1", "--poll-interval", str(LEAGUE_POLL_S),
+            "--gen-timeout", "120", "--drain-timeout", "60", "--attest-timeout", "120",
+            "--observe-timeout", "120", "--debug-guards", "--chaos", chaos]
+    for g in LEAGUE_GENOMES:
+        argv += ["--genome", g]
+    argv += ["--", sys.executable, "-m", "d4pg_tpu_torch.train", *LEAGUE_LEARNER]
+    root = os.path.dirname(os.path.abspath(__file__))
+    journal, killed = os.path.join(league_dir, "league.json"), False
+    deadline = time.monotonic() + LEAGUE_TIMEOUT_S
+    with open(log, "w") as out, open(log + ".err", "w") as err:
+        p = subprocess.Popen(argv, cwd=root, stdout=out, stderr=err, text=True)
+        try:
+            while p.poll() is None and time.monotonic() < deadline:
+                if kill_in and not killed:
+                    try:
+                        with open(journal) as f:
+                            pending = json.load(f).get("pending")
+                    except (OSError, ValueError):
+                        pending = None
+                    if pending and pending["actions"][0]["phase"] == kill_in:
+                        os.kill(p.pid, signal.SIGKILL)
+                        killed = True
+                time.sleep(0.05)
+        finally:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    with open(log) as f:
+        stdout = f.read()
+    check(time.monotonic() < deadline, f"league_device: a leg outlived {LEAGUE_TIMEOUT_S} s: "
+          + "\n".join(stdout.splitlines()[-30:]))
+    return p.returncode, stdout.splitlines()
+
+
+def _league_tenures(lines) -> list:
+    """Each learner tenure that printed a launch line: (uid, its ``done:``
+    dict, its launches), from the controller's tagged output."""
+    import ast
+
+    from d4pg_tpu_torch.train import LAUNCHES_LINE
+
+    done, out = {}, []
+    for ln in lines:
+        if not ln.startswith("[v0"):
+            continue
+        tag, _, rest = ln.partition("] ")
+        uid = int(tag[2:])
+        if rest.startswith("done:"):
+            done[uid] = ast.literal_eval(rest[len("done:"):].strip())
+        elif rest.startswith(LAUNCHES_LINE):
+            out.append((uid, done.pop(uid, None), json.loads(rest[len(LAUNCHES_LINE):])))
+    return out
+
+
+def league_device_phase(card: str, log_dir: str) -> dict:
+    """``league_device`` (ROADMAP A11 (e5)): ``python -m
+    d4pg_tpu_torch.league`` over three learners on the card, each
+    ``python -m d4pg_tpu_torch.train --replay-placement device --p-replay
+    --fused-descent --snapshot-replay --debug-guards`` at the pendulum
+    preset's default width with the 1M-row replay (K = 8, an eval every
+    96 grad steps, a checkpoint every 32), the genomes of
+    ``scripts/league_smoke.sh`` (the episode horizon separates fitness).
+    Leg 1: one generation under ``seed=5;clone_corrupt@1`` (the fork torn),
+    the controller SIGKILLed by the harness as soon as its journal shows
+    the clone observed (the signal ``controller_kill`` sends itself, on a
+    state rather than a tick count). Leg 2: the rerun, with
+    ``clone_corrupt@1`` re-armed as the JAX soak re-arms it (the fork is
+    torn whichever side of the crash it lands on): ``journal_resumed``,
+    the generation completed once, a fork of manifest-verified steps, a
+    torn step and the clone's restore falling back, a perturbed clone
+    attested under its own variant id (its trainer meta and metrics rows),
+    promoted or rolled back; no quarantine, the ``league-tenure`` identity
+    on every row (its flow verdict and the summary), no orphan. Every
+    learner tenure that exited 0 or 75 printed its launch line: a tenure
+    that trained B1b = B4 = 8 x B3 > 0, B1f = B2 = 0; one stopped before
+    its first dispatch, all 0."""
+    import os
+
+    from d4pg_tpu_torch.utils.procs import pids_with_cmdline
+
+    os.makedirs(log_dir, exist_ok=True)
+    league = os.path.join(log_dir, "league")
+    t0 = time.perf_counter()
+    rc1, out1 = _league_leg(league, "seed=5;clone_corrupt@1", os.path.join(log_dir, "leg1.log"),
+                            kill_in="observing")
+    leg1_s = time.perf_counter() - t0
+    with open(os.path.join(league, "league.json")) as f:
+        at_kill = json.load(f)
+    pending = at_kill.get("pending")
+    landed = pending["actions"][0]["phase"] if pending else "no_pending_generation"
+    check(rc1 == -9 and landed == "observing",
+          f"league_device: leg 1 rc {rc1}, the kill landed in {landed}: " + "\n".join(out1[-30:]))
+    t1 = time.perf_counter()
+    rc2, out2 = _league_leg(league, "seed=5;clone_corrupt@1", os.path.join(log_dir, "leg2.log"))
+    leg2_s = time.perf_counter() - t1
+    check(rc2 == 0 and any('"journal_resumed"' in ln for ln in out2),
+          f"league_device: leg 2 rc {rc2}: " + "\n".join(out2[-40:]))
+    with open(os.path.join(league, "league_summary.json")) as f:
+        s = json.load(f)
+    with open(os.path.join(league, "league_events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    rows = s["variants"]
+    sick = [u for u, v in rows.items() if v["quarantined"]]
+    check(s["generations_completed"] == 1 and not sick,
+          f"league_device: generations {s['generations_completed']}, quarantined {sick}: "
+          + json.dumps({u: {k: v[k] for k in ("status", "spawned", "exited_err", "restarts")}
+                        for u, v in rows.items()})
+          + "\n" + "\n".join(json.dumps(e) for e in events[-25:])
+          + "\n" + "\n".join([ln for ln in out1 + out2
+                               if any(ln.startswith(f"[v{int(u):04d}]") for u in sick)][-40:]))
+    check(s["identity_ok"] and s["orphans_swept"] == 0, f"league_device: summary {s}")
+    bad = [u for u, v in rows.items() if v["spawned"] + v["adopted"] != v["exited_0"]
+           + v["exited_75"] + v["exited_err"] + v["killed"] + v["live"]]
+    verdicts = [json.loads(ln.split(" ", 1)[1]) for ln in out2 if ln.startswith("[flow-verdict]")]
+    tenure = [v for v in verdicts if v["family"] == "league-tenure"]
+    check(not bad and len(tenure) == 1 and tenure[0]["ok"]
+          and tenure[0]["counters"] == {"rows": len(rows), "bad_rows": 0},
+          f"league_device: league-tenure rows {bad}, verdicts {tenure}")
+    done = [e["gen"] for e in events if e["event"] == "generation_done"]
+    check(done == [1], f"league_device: generation_done events {done}")
+    forks = [e for e in events if e["event"] == "checkpoint_forked"]
+    check(forks and all(e["steps"] for e in forks), f"league_device: forks {forks}")
+    both = out1 + out2
+    check(any("[chaos] truncated" in ln for ln in both), "league_device: no fork was torn")
+    fallbacks = [ln for ln in both if "[checkpoint] fallback" in ln]
+    check(fallbacks, "league_device: no clone fell back from its torn step")
+    edge = next(e for e in s["lineage"] if e["reason"] == "clone")
+    child, parent = str(edge["child"]), str(edge["parent"])
+    check(rows[child]["genome"] != rows[parent]["genome"],
+          f"league_device: clone genome {rows[child]['genome']} unperturbed")
+    outcomes = [e for e in events if e["event"] in ("clone_promoted", "clone_rolled_back")]
+    check(outcomes, "league_device: the clone was neither promoted nor rolled back")
+    with open(os.path.join(league, f"v{int(child):04d}", "checkpoints",
+                           "trainer_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(league, f"v{int(child):04d}", "metrics.jsonl")) as f:
+        child_rows = [json.loads(line) for line in f]
+    check(meta.get("variant_id") == int(child) and child_rows
+          and all(r["variant_id"] == int(child) for r in child_rows),
+          f"league_device: the clone's attestation {meta}")
+    left = pids_with_cmdline(league)
+    check(not left, f"league_device: processes left {left}")
+    # every exit 0 / 75 printed its launch line
+    tenures = _league_tenures(out1) + _league_tenures(out2)
+    clean = {}
+    for e in events:
+        if e["event"] in ("learner_exited", "learner_killed") and e.get("rc") in (0, 75):
+            clean[e["uid"]] = clean.get(e["uid"], 0) + 1
+    printed = {}
+    for uid, _done, _l in tenures:
+        printed[uid] = printed.get(uid, 0) + 1
+    check(all(printed.get(u, 0) >= n for u, n in clean.items()),
+          f"league_device: exits 0/75 {clean}, launch lines {printed}")
+    launches = dict(project=0, fused_fwd=0, fused_bwd=0, tree_count=0, fused_step=0)
+    trained = 0
+    for uid, d, lc in tenures:
+        check(lc["fused_fwd"] == 0 and lc["project"] == 0, f"league_device: v{uid} {lc}")
+        if d:
+            check(lc["fused_bwd"] == lc["fused_step"] == K * lc["tree_count"] > 0,
+                  f"league_device: v{uid} trained with launches {lc}")
+            trained += 1
+        else:
+            check(set(lc.values()) == {0}, f"league_device: v{uid} untrained, launches {lc}")
+        for k in launches:
+            launches[k] += lc[k]
+    check(trained >= 1 and launches["fused_step"] > 0, f"league_device: tenures {tenures}")
+    emit({
+        "phase": "league_device", "card": card, "learners": len(LEAGUE_GENOMES),
+        "width": "the pendulum preset's (3x256, 51 atoms, B = 256, 1M-row replay), K = 8",
+        "genomes": list(LEAGUE_GENOMES), "kill_landed": landed, "generation_at_kill": at_kill["generation"],
+        "leg1_s": leg1_s, "leg2_s": leg2_s,
+        "events": {k: sum(e["event"] == k for e in events) for k in (
+            "learner_spawned", "learner_adopted", "learner_died_unsupervised",
+            "learner_exited", "learner_killed", "checkpoint_forked", "clone_promoted",
+            "clone_rolled_back")},
+        "forks": [{"src": e["src"], "child": e["child"], "steps": e["steps"]} for e in forks],
+        "fallbacks": [ln.split("] ", 1)[-1] for ln in fallbacks],
+        "outcomes": [{k: e.get(k) for k in ("event", "uid", "why")} for e in outcomes],
+        "lineage": s["lineage"], "promotions": s["promotions"], "rollbacks": s["rollbacks"],
+        "fitness": {u: v["fitness"] for u, v in rows.items()},
+        "tenures_printed": len(tenures), "tenures_trained": trained,
+        "launches": launches, "phase_s": leg1_s + leg2_s, "ok": True,
+    })
+    return launches
+
+
 def _pid_alive(pid: int) -> bool:
     """Whether ``pid`` runs (a zombie counts as gone)."""
     import os
@@ -6353,7 +6612,14 @@ def main() -> int:
                                                        f"{tmp}/flywheel_pixel")
         paths["dp_lanes"] = dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card,
                                            f"{tmp}/dp_lanes")
-        paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card, f"{tmp}/dp_ranks")
+        paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card)
+        # side by side: each phase drives CLI processes of its own on the
+        # card and checks them by their output and files, and neither
+        # waits on a clock that the other's load could make it miss
+        with ThreadPoolExecutor(1) as pool:
+            relaunch = pool.submit(host_kill_relaunch_phase, card, f"{tmp}/host_kill")
+            paths["league_device"] = league_device_phase(card, f"{tmp}/league_device")
+            paths["host_kill_relaunch"] = relaunch.result()
         for mode in ("dp", "dp_hogwild"):
             paths[f"dp_host_{mode}"] = dp_host_run(Trainer, TrainConfig, mode, card,
                                                    f"{tmp}/{mode}")

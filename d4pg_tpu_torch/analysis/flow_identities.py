@@ -23,10 +23,11 @@ Only the families of ported modules are here:
   end's (``serve/router.py:RouterStats``, checked at the router's drain):
   every request the router counted was answered ok, overloaded or with an
   error; every off-policy gate evaluation passed, blocked or stalled; and
-  both hold row by row for each (tenant, class).
-
-The JAX table's other family (``league-tenure``) belongs to a module not
-ported yet (ROADMAP A11 (e5)) and comes with it.
+  both hold row by row for each (tenant, class);
+- ``league-tenure``, the league controller's (``league/controller.py``,
+  checked row by row in its summary): every process tenure of a variant
+  (spawned or adopted) ended as exactly one of exit 0, exit 75, an error
+  exit or a kill, or is still live.
 
 An identity is one ``==`` between sums and differences of counter names
 and numeric constants (``flowledger._evaluate``); ``per_row`` families
@@ -85,6 +86,15 @@ FLOW_IDENTITIES = {
     "router-tenant": {
         "class": None,  # per-row: RouterStats.tenants_snapshot() rows
         "identity": "requests == ok + overloaded + error",
+        "gauges": (),
+        "per_row": True,
+    },
+    "league-tenure": {
+        "class": None,  # per-row: the league controller's per-uid dicts
+        "identity": (
+            "spawned + adopted == exited_0 + exited_75 + exited_err"
+            " + killed + live"
+        ),
         "gauges": (),
         "per_row": True,
     },

@@ -21,9 +21,9 @@ Where the port ticks them (the JAX package's sites):
   (``runtime/trainer.py:_writeback_loop``);
 - ``ckpt_truncate``: the trainer, per checkpoint, after its manifest
   committed (``Trainer._save_checkpoint``);
-- ``host_kill``: the trainer, per megastep or hybrid dispatch; refused
-  whenever ``num_processes`` > 1 (``config.check_chaos``) until the port
-  has a supervisor that relaunches the processes (ROADMAP A11 (f));
+- ``host_kill``: the trainer, per megastep or hybrid dispatch; with
+  several processes the supervisor ``tools/multihost_smoke.py`` reaps the
+  survivors and relaunches every process with ``--resume``;
 - ``sock_reset``: the policy server, per received frame;
 - ``slowloris`` / ``zero_window`` / ``fd_exhaust``: the policy server and
   the router, per accepted connection (``netio/attack.py``);
@@ -44,12 +44,13 @@ Where the port ticks them (the JAX package's sites):
   d4pg_tpu_torch.fleet.actor``);
 - ``mirror_drop``: the flywheel's mirror tap, per window its sender
   flushes, before either sink (``flywheel/tap.py:MirrorTap._flush``,
-  ``--chaos`` on the serve CLI with ``--mirror-fraction``).
+  ``--chaos`` on the serve CLI with ``--mirror-fraction``);
+- ``variant_kill`` and ``controller_kill`` (per control tick) and
+  ``clone_corrupt`` (per checkpoint fork): the league controller
+  (``league/controller.py``, ``--chaos`` on ``python -m
+  d4pg_tpu_torch.league``).
 
-The league's sites (``variant_kill``, ``controller_kill``,
-``clone_corrupt``: ROADMAP A11 (e5), not ported yet) parse and never
-tick, as on a JAX run without that plane. The on-device loop has no site, in
-either package.
+The on-device loop has no site, in either package.
 
 Spec syntax (entries separated by ``;`` or ``,``)::
 
@@ -319,7 +320,7 @@ KNOWN_SITES = WORKER_SITES + (
     "stale_stats",
     "pixel_truncate",
     "her_actor_kill",
-    # league sites (d4pg_tpu/league): variant_kill and
+    # league sites (d4pg_tpu_torch/league): variant_kill and
     # controller_kill tick once per controller supervision tick —
     # variant_kill SIGKILLs a deterministically-chosen live learner's
     # whole process group (supervisor restart under Backoff proves it),
@@ -331,10 +332,10 @@ KNOWN_SITES = WORKER_SITES + (
     "variant_kill",
     "controller_kill",
     "clone_corrupt",
-    # multi-host site (docs/multihost.md): ticks in the trainer once per
-    # megastep dispatch — deterministic and identical on every process of
-    # the spanning mesh — and SIGKILLs the process whose index matches
-    # the ``:<arg>`` victim (default 0).
+    # multi-host site: ticks in the trainer once per megastep or hybrid
+    # dispatch — deterministic and identical on every process of the
+    # run — and SIGKILLs the process whose index matches the ``:<arg>``
+    # victim (default 0); tools/multihost_smoke.py relaunches the run.
     "host_kill",
     # flywheel sites (d4pg_tpu_torch/flywheel): mirror_drop ticks in
     # the tap's sender once per built window, BEFORE either sink — the

@@ -188,6 +188,14 @@ class TrainConfig:
     # The ingest's bounded admission queue (frames): past it a frame is
     # answered OVERLOADED queue_full.
     fleet_queue_limit: int = 64
+    # League identity (league/): which population member this learner is
+    # and which league generation spawned or forked it; None = not a
+    # league run. When set: stamped onto every metrics row, written into
+    # trainer_meta.json (the controller's fork attestation: a clone that
+    # checkpoints under its own variant_id resumed and progressed) and
+    # declared in the fleet HELLO (actors assigned elsewhere are refused).
+    variant_id: Optional[int] = None
+    league_generation: int = 0
 
 
 DEFAULT_REPLAY_CAPACITY = 1_000_000
@@ -526,23 +534,15 @@ def check_on_device(config: TrainConfig) -> None:
 
 
 def check_chaos(config: TrainConfig) -> None:
-    """Parse the chaos plan (``ValueError`` with the parser's words on a
-    malformed spec) and refuse ``host_kill`` with several processes: it
-    kills one process of the run, and only a supervisor that relaunches
-    them all with ``--resume`` makes that a recovery (the JAX package's
-    multi-host supervisor); the port has none yet (ROADMAP A11 (f))."""
+    """Parse the chaos plan: ``ValueError`` with the parser's words on a
+    malformed spec. ``host_kill`` with several processes kills one process
+    of the run; the supervisor that reaps the survivors and relaunches
+    them all with ``--resume`` is ``tools/multihost_smoke.py``."""
     if not config.chaos:
         return
     from d4pg_tpu_torch.chaos import ChaosPlan
 
-    plan = ChaosPlan.parse(config.chaos)
-    if config.num_processes > 1 and any(e.site == "host_kill" for e in plan.entries):
-        raise ValueError(
-            "host_kill_needs_supervisor: chaos host_kill with --num-processes "
-            f"{config.num_processes} kills one process of the run, and the port has "
-            "no supervisor that relaunches the processes with --resume yet "
-            "(ROADMAP A11 (f)); run it with one process"
-        )
+    ChaosPlan.parse(config.chaos)
 
 
 def check_collection(config: TrainConfig, host_env: bool, env=None) -> None:

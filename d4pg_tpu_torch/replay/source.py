@@ -94,6 +94,7 @@ def from_train_config(config, *, on_device: bool = False) -> RequestedCaps:
         on_device=on_device,
         async_collect=bool(config.async_collect),
         num_envs=int(config.num_envs),
+        variant=int(config.variant_id or 0),
     )
 
 

@@ -43,16 +43,20 @@ def interval_crossed(prev_step: int, step: int, interval: int) -> bool:
 
 class MetricsLogger:
     """Appends one JSON object per :meth:`log` call to
-    ``<log_dir>/metrics.jsonl``."""
+    ``<log_dir>/metrics.jsonl``. ``static``: numeric identity columns
+    stamped onto every row after ``step`` and ``t`` (a league learner's
+    ``variant_id`` and ``league_generation``, as the JAX logger's)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, static: Mapping[str, float] = None):
         self.log_dir = log_dir
+        self._static = {k: float(v) for k, v in (static or {}).items()}
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self._t0 = time.monotonic()
 
     def log(self, step: int, scalars: Mapping[str, float], timers=None) -> None:
         rec = {"step": int(step), "t": time.monotonic() - self._t0}
+        rec.update(self._static)
         rec.update({k: float(v) for k, v in scalars.items()})
         if timers is not None:
             rec.update(timers.scalars())

@@ -491,7 +491,14 @@ class Trainer:
         self.timers = StageTimers()
         for name in StageTimers.STAGES:  # every row carries every stage
             self.timers.ensure(name)
-        self.metrics = MetricsLogger(config.log_dir)
+        # a league learner's identity on every row (absent outside leagues)
+        self.metrics = MetricsLogger(
+            config.log_dir,
+            static=None if config.variant_id is None else {
+                "variant_id": float(config.variant_id),
+                "league_generation": float(config.league_generation),
+            },
+        )
         # the shared files (checkpoints, trainer meta, replay snapshot, PER
         # sidecar) live under run_root; process 0 alone writes them
         self.ckpt = CheckpointManager(os.path.join(self._shared_dir, "checkpoints"))
@@ -729,6 +736,11 @@ class Trainer:
             extra = {"obs_norm": self.obs_norm.state_dict()} if self.obs_norm is not None else {}
             if self._fleet is not None:
                 extra["fleet_generation"] = self._fleet_gen
+            if cfg.variant_id is not None:
+                # the league controller's fork attestation: a clone that
+                # saves under its own id restored the fork and progressed
+                extra["variant_id"] = int(cfg.variant_id)
+                extra["league_generation"] = int(cfg.league_generation)
             save_trainer_meta(self._shared_dir, self.env_steps, self.ewma_return, extra=extra)
             side = [trainer_meta_path(self._shared_dir)]
             if cfg.snapshot_replay:
@@ -1520,8 +1532,9 @@ class Trainer:
 
     def _tick_host_kill(self) -> None:
         """Chaos ``host_kill@N[:victim]``: SIGKILL this process at its Nth
-        megastep or hybrid dispatch when it is the victim (default 0).
-        ``check_chaos`` refuses it with several processes."""
+        megastep or hybrid dispatch when it is the victim (default 0). The
+        survivors block or fail on their next collective; the supervisor
+        (``tools/multihost_smoke.py``) reaps them and relaunches the run."""
         if self._chaos is None:
             return
         e = self._chaos.tick("host_kill")

@@ -41,7 +41,6 @@ rank's tp lanes share its card) and ``--on-device`` the on-device leg.
 from __future__ import annotations
 
 import os
-import socket
 import statistics
 import tempfile
 import time
@@ -49,11 +48,7 @@ import time
 import numpy as np
 import torch
 
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+from d4pg_tpu_torch.utils.procs import free_port
 
 
 def row_stream(seed: int, n: int, obs_dim: int, action_dim: int) -> dict:

@@ -11,6 +11,9 @@ SIGTERM/SIGINT trigger a graceful preemption: the current dispatch
 finishes, a full checkpoint (and the replay snapshot with
 ``--snapshot-replay``) lands, and the process exits 75, the "restart me
 with --resume" contract of the JAX CLI. A second signal hard-kills.
+A training run that ends with exit 0 or 75 prints, after its ``done:``
+line, ``[train] kernel launches: {...}``: the launch counts of the hand
+kernels' wrappers in this process (the serve CLI prints the same line).
 
 Examples:
     python -m d4pg_tpu_torch.train --env pendulum --total-steps 50000
@@ -90,8 +93,6 @@ import sys
 UNPORTED_FLAGS = {
     "--device-tree-backend": "a choice of device PER descent: the port has one, "
                              "kernel B3, and takes no --device-tree-backend (ROADMAP A6)",
-    "--variant-id": "league training (ROADMAP A11 (e5))",
-    "--league-generation": "league training (ROADMAP A11 (e5))",
 }
 
 
@@ -217,8 +218,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="deterministic fault injection (d4pg_tpu_torch/chaos.py): "
                         "';'-separated site@count[:arg][#actor] entries, e.g. "
                         "'seed=7;env_raise@40;worker_kill@12#1;ckpt_truncate@1;"
-                        "wb_stall@3:0.5'; host_kill is refused with "
-                        "--num-processes > 1 (no relaunching supervisor yet)")
+                        "wb_stall@3:0.5'; host_kill@N:P SIGKILLs process P at "
+                        "its Nth megastep or hybrid dispatch (the relaunching "
+                        "supervisor: python -m d4pg_tpu_torch.tools.multihost_smoke)")
     p.add_argument("--prefetch", action="store_true",
                    help="double-buffered replay->device pipeline: batch N+1 "
                         "is host-sampled and its copy to the device started "
@@ -345,6 +347,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "rows: auto/float32 = byte-identical f32; bfloat16 "
                         "halves wire bytes with a declared bf16 round "
                         "(pixel envs always negotiate u8-quantized rows)")
+    # league membership (d4pg_tpu_torch/league): set by the controller when
+    # it spawns or forks this learner, never by hand
+    p.add_argument("--variant-id", type=int, default=None,
+                   help="league variant id this learner is: stamped onto "
+                        "every metrics.jsonl row + trainer_meta.json (the "
+                        "league controller's fork-resume attestation) and "
+                        "negotiated in the fleet HELLO (actors assigned "
+                        "elsewhere are refused)")
+    p.add_argument("--league-generation", type=int, default=0,
+                   help="league generation that spawned/forked this "
+                        "learner (rides the metrics rows next to "
+                        "--variant-id)")
     p.add_argument("--lr-actor", type=float, default=1e-4)
     p.add_argument("--lr-critic", type=float, default=1e-4)
     p.add_argument("--seed", type=int, default=0)
@@ -469,6 +483,8 @@ def config_from_args(args: argparse.Namespace):
         fleet_publish_interval=args.fleet_publish_interval,
         fleet_max_gen_lag=args.fleet_max_gen_lag,
         fleet_wire_dtype=args.fleet_wire_dtype,
+        variant_id=args.variant_id,
+        league_generation=args.league_generation,
     ))
     check_chaos(cfg)  # before any process group forms
     return cfg
@@ -599,6 +615,22 @@ def export_bundle_from_run(cfg, bundle_dir: str) -> str:
     return out
 
 
+LAUNCHES_LINE = "[train] kernel launches: "
+
+
+def print_kernel_launches() -> None:
+    """The ``[train] kernel launches: {...}`` line: every hand kernel
+    wrapper's launch count in this process, so a supervisor of CLI
+    processes can tell which kernels a run went through."""
+    import json
+
+    from d4pg_tpu_torch.ops import cuda_fused_step, cuda_projection, cuda_tree
+
+    launches = {k: v for mod in (cuda_projection, cuda_tree, cuda_fused_step)
+                for k, v in mod.LAUNCHES.items()}
+    print(LAUNCHES_LINE + json.dumps(launches), flush=True)
+
+
 def bring_up(args, cfg):
     """Join the process group when the flags ask for several processes
     (before the Trainer is built) and print the ``[distributed]`` line.
@@ -665,6 +697,7 @@ def main(argv=None) -> dict:
     finally:
         shutdown()
     print(f"done: {final}", flush=True)
+    print_kernel_launches()
     if trainer.preempted:
         # EX_TEMPFAIL: "checkpointed, restart me with --resume"; a
         # supervisor tells preemption (75) from completion (0) by it
@@ -691,6 +724,7 @@ def _main_on_device(cfg, device: str) -> dict:
     final = run_on_device(cfg, preempt_event=preempt_event, device=device)
     preempted = final.pop("_preempted", False)
     print(f"done: {final}", flush=True)
+    print_kernel_launches()
     if preempted:
         sys.exit(75)
     return final

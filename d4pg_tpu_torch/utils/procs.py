@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import os
 import signal
+import socket
 import time
 from typing import List, Optional
 
@@ -55,6 +56,31 @@ def pid_cmdline(pid: int) -> str:
             return f.read().replace(b"\0", b" ").decode(errors="replace").strip()
     except OSError:
         return ""
+
+
+def pids_with_cmdline(*fragments: str) -> List[int]:
+    """Every live PID whose cmdline (:func:`pid_cmdline`) contains each of
+    ``fragments`` (/proc scan; [] off-Linux): the zero-orphans check of a
+    harness that knows what its children ran, not their groups."""
+    try:
+        entries = os.listdir("/proc")
+    except OSError:
+        return []
+    out: List[int] = []
+    for name in entries:
+        if name.isdigit():
+            cmd = pid_cmdline(int(name))
+            if cmd and all(f in cmd for f in fragments):
+                out.append(int(name))
+    return out
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago (a coordinator's
+    or a server's, picked by the harness that starts it)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def group_pids(pgid: int) -> List[int]:

@@ -146,12 +146,21 @@ def test_truncated_step_makes_the_verified_restore_fall_back_one_step(tmp_path):
 
 
 def test_host_kill_is_refused_by_name_with_several_processes(tmp_path):
+    """``check_chaos`` accepts ``host_kill`` with two processes (its
+    supervisor, ``tools/multihost_smoke.py``, relaunches the run) as with
+    one, and refuses a malformed ``host_kill`` entry by the parser's name
+    of it, as the JAX parser does."""
     from d4pg_tpu_torch.config import check_chaos
 
-    with pytest.raises(ValueError, match="host_kill_needs_supervisor"):
-        check_chaos(_train_config(tmp_path, chaos="host_kill@2:1", num_processes=2))
-    check_chaos(_train_config(tmp_path, chaos="host_kill@2:1"))  # one process: accepted
+    check_chaos(_train_config(tmp_path, chaos="host_kill@2:1", num_processes=2))
+    check_chaos(_train_config(tmp_path, chaos="host_kill@2:1"))
     check_chaos(_train_config(tmp_path, chaos="wb_stall@1", num_processes=2))
+    for spec in ("host_kill@0:1", "host_kill@x:1"):
+        with pytest.raises(ValueError) as ours:
+            check_chaos(_train_config(tmp_path, chaos=spec, num_processes=2))
+        with pytest.raises(ValueError) as ref:
+            jchaos.ChaosPlan.parse(spec)
+        assert str(ours.value) == str(ref.value) and "host_kill" in str(ours.value)
 
 
 # ------------------------------------------------ the pool, the flusher, guards

@@ -44,7 +44,7 @@ from d4pg_tpu.models.critic import DistConfig as JDistConfig
 from d4pg_tpu_torch.agent.state import D4PGConfig
 from d4pg_tpu_torch.config import TrainConfig
 from d4pg_tpu_torch.models.critic import DistConfig
-from d4pg_tpu_torch.train import UNPORTED_FLAGS, build_parser, refuse_unported
+from d4pg_tpu_torch.train import UNPORTED_FLAGS, build_parser, config_from_args, refuse_unported
 from tools.d4pglint.schema_check import check_metrics_jsonl
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,11 +94,12 @@ def test_every_reference_flag_is_accepted_or_refused_by_name():
     # data parallelism's (A7 (a)) and the collection fleet's (A11 (e2))
     for opt in HOST_POOL_FLAGS + DP_FLAGS + FLEET_FLAGS:
         assert opt in ours and opt not in UNPORTED_FLAGS, opt
-    # league training's stay refused, naming its item
+    # and league training's (A11 (e5)), into the config
     for opt in ("--variant-id", "--league-generation"):
-        assert opt not in ours
-        with pytest.raises(NotImplementedError, match=r"A11 \(e5\)"):
-            refuse_unported([opt, "1"])
+        assert opt in ours and opt not in UNPORTED_FLAGS, opt
+    cfg = config_from_args(build_parser().parse_args(["--variant-id", "4",
+                                                      "--league-generation", "2"]))
+    assert (cfg.variant_id, cfg.league_generation) == (4, 2)
 
 
 FLEET_FLAGS = ("--fleet-listen", "--fleet-host", "--fleet-bundle", "--fleet-publish-interval",

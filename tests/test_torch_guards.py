@@ -215,6 +215,7 @@ SERVE_FAMILY = "serve" + "-stats"
 FLEET_FAMILIES = ("fleet" + "-actor", "fleet" + "-ingest")
 FLYWHEEL_FAMILIES = ("mirror" + "-tap",)
 ROUTER_FAMILIES = ("router", "router" + "-gate", "router" + "-tenant")
+LEAGUE_FAMILIES = ("league" + "-tenure",)
 
 
 def _flow_cases() -> dict:
@@ -255,7 +256,8 @@ def test_flow_identities_are_the_jax_tables():
     from tools.d4pglint.wholeprog.config import FLOW_IDENTITIES as J
 
     assert list(FLOW_IDENTITIES) == [SERVE_FAMILY, *FLEET_FAMILIES, *FLYWHEEL_FAMILIES,
-                                     *ROUTER_FAMILIES]
+                                     *ROUTER_FAMILIES, *LEAGUE_FAMILIES]
+    assert sorted(FLOW_IDENTITIES) == sorted(J)  # every JAX family is ported
     for family in FLOW_IDENTITIES:
         assert FLOW_IDENTITIES[family]["identity"] == J[family]["identity"]
         assert FLOW_IDENTITIES[family].get("per_row") == J[family].get("per_row")

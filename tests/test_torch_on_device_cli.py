@@ -110,6 +110,8 @@ def test_cli_on_device_sigterm_exits_75_with_a_checkpoint(tmp_path):
     text = "".join(lines) + rest
     assert proc.returncode == 75, text[-2000:]
     assert "[preempt] stop requested" in text
+    # the CLI's launch line at exit 75 (the kernels' plain versions on the CPU count none)
+    assert '[train] kernel launches: {"project": 0, "fused_fwd": 0' in text
     steps = [n for n in os.listdir(tmp_path / "checkpoints") if n.isdigit()]
     assert steps and all(os.path.exists(tmp_path / "checkpoints" / f"manifest_{s}.json") for s in steps)
 

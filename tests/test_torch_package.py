@@ -37,6 +37,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import d4pg_tpu_torch.analysis.transfer, d4pg_tpu_torch.analysis.flowledger\n"
         "import d4pg_tpu_torch.fleet.actor, d4pg_tpu_torch.fleet.ingest\n"
         "import d4pg_tpu_torch.replay.source\n"
+        "import d4pg_tpu_torch.league, d4pg_tpu_torch.league.controller\n"
+        "import d4pg_tpu_torch.league.__main__, d4pg_tpu_torch.tools.multihost_smoke\n"
+        "import d4pg_tpu_torch.tools.league_stub_learner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -166,18 +169,26 @@ def test_unported_train_options_raise_naming_the_roadmap_item(field, value, item
     with a ``--fleet-bundle`` and no ``--fleet-listen``
     (``fleet_bundle_requires_listen``), ``--fleet-listen`` on the
     on-device loop (``on_device_fleet``); the CLI exits with the gap's
-    words."""
-    from d4pg_tpu_torch.train import UNPORTED_FLAGS, main
+    words. League training's flags (ported with A11 (e5)) parse into the
+    config's ``variant_id`` and ``league_generation``."""
+    from d4pg_tpu_torch.train import UNPORTED_FLAGS, build_parser, config_from_args, main
 
     flag = "--" + field.replace("_", "-")
+    arg = flag if value is True else f"{flag}={value}"
+    if field in LEAGUE_FIELDS:
+        assert flag not in UNPORTED_FLAGS
+        cfg = config_from_args(build_parser().parse_args(["--log-dir", str(tmp_path), arg]))
+        assert getattr(cfg, field) == value
+        return
     extra, exc, match = A7_REFUSALS.get(field, ([], NotImplementedError, item))
     if field not in A7_REFUSALS:
         assert flag in UNPORTED_FLAGS
-    arg = flag if value is True else f"{flag}={value}"
     with pytest.raises(exc, match=match):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", arg, *extra])
     assert not (tmp_path / "metrics.jsonl").exists()
 
+
+LEAGUE_FIELDS = ("variant_id", "league_generation")
 
 # the A7 flags, --chaos and the fleet flags of the case above: (further
 # flags, error, its words)
@@ -216,23 +227,25 @@ def test_cli_refuses_unported_flags(flag, tmp_path):
     ``dp_hogwild_requires_dp``, ``--tp=2`` with ``--dp=2`` on the device
     placement by ``sharded_megastep_dp_only``, and ``--dp=2`` on the
     on-device loop over 3 envs by the mesh's divisibility error. ``--chaos``
-    (A11 (e1)) takes ``host_kill`` only in a run of one process: with
-    ``--num-processes 2`` it is refused by name before any process group
-    forms (``host_kill_needs_supervisor``). ``--fleet-listen`` (A11 (e2))
-    on the on-device loop is refused by the ``on_device_fleet`` gap: the
-    CLI exits with its words before any env or learner."""
-    from d4pg_tpu_torch.train import main
+    (A11 (e1)) takes ``host_kill`` with ``--num-processes 2`` since its
+    relaunching supervisor came (A11 (f)): the flags parse into the config.
+    ``--fleet-listen`` (A11 (e2)) on the on-device loop is refused by the
+    ``on_device_fleet`` gap: the CLI exits with its words before any env
+    or learner."""
+    from d4pg_tpu_torch.train import build_parser, config_from_args, main
 
-    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild", "--tp=2", "--dp=2",
-            "--chaos=host_kill@2:1")
+    if flag == "--chaos=host_kill@2:1":
+        cfg = config_from_args(build_parser().parse_args(
+            ["--log-dir", str(tmp_path), flag, "--num-processes=2"]))
+        assert (cfg.chaos, cfg.num_processes) == ("host_kill@2:1", 2)
+        return
+    gaps = ("--transfer-dtype=uint8", "--obs-norm", "--dp-hogwild", "--tp=2", "--dp=2")
     exc = ValueError if flag in gaps else SystemExit if flag.startswith("--fleet") \
         else NotImplementedError
     extra = {"--dp=2": ["--on-device", "--num-envs=3"],
              "--tp=2": ["--dp=2", "--replay-placement=device", "--p-replay"],
-             "--chaos=host_kill@2:1": ["--num-processes=2"],
              "--fleet-listen=0": ["--on-device"]}.get(flag, [])
-    match = {"--chaos=host_kill@2:1": "host_kill_needs_supervisor",
-             "--fleet-listen=0": "on_device_fleet"}.get(flag)
+    match = {"--fleet-listen=0": "on_device_fleet"}.get(flag)
     with pytest.raises(exc, match=match):
         main(["--device", "cpu", "--log-dir", str(tmp_path), "--hidden-sizes", "8", flag, *extra])
 
