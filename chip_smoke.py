@@ -168,9 +168,9 @@ JSON line (with ``at_s``, the seconds since the script started):
    union of kernel, copy and memset intervals) and idle share.
 19. ``on_device_halfcheetah``: the same at the README's HalfCheetah
    command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
-   PER, default widths; K = 4096): one warmup segment, ONE train
-   iteration and one eval episode of 100 steps, not 1000 (the depth
-   cuts), the same checks and measurements.
+   PER, default widths), at 4 env steps a grad step (K = 1024, not 4096):
+   one warmup segment, ONE train iteration and one eval episode of 100
+   steps, not 1000 (the depth cuts), the same checks and measurements.
 20. ``stacked_kernel`` (right after ``tree_kernel``): B1f and B1b over E
    stacked critics in one launch, logits [E, B, A] against the members'
    shared target [B, A], at E in {2, 10} x B in {1, 7, 256, 2048} x A in
@@ -187,7 +187,8 @@ JSON line (with ``at_s``, the seconds since the script started):
    each at its stated tolerance, one B1f and one B1b launch a step.
 22. ``on_device_hopper_twin``: the twin arm of
    ``runs/hopper_ondevice_tpu_r3/NOTES.md`` (``--env hopper --on-device
-   --num-envs 64 --twin-critic``, n-step 3, PER, [0, 500]; K = 2048), one
+   --num-envs 64 --twin-critic``, n-step 3, PER, [0, 500]; K = 512 at 4
+   env steps a grad step), one
    warmup segment, ONE train iteration and one eval episode of at most
    100 steps, with ``on_device_halfcheetah``'s checks and measurements.
 23. ``large_batch``: the large-batch recipe of ``docs/data_plane.md``
@@ -215,7 +216,8 @@ JSON line (with ``at_s``, the seconds since the script started):
 22b. ``on_device_humanoid``: the README's on-device Humanoid recipe
    (``--env humanoid --on-device --num-envs 64 --rmsize 524288 --n-step 3
    --v-min 0 --v-max 1500 --noise-decay-steps 2000000
-   --noise-scale-final 0.1``; K = 2048) at the default widths, one warmup
+   --noise-scale-final 0.1``; K = 512 at 4 env steps a grad step) at the
+   default widths, one warmup
    segment, ONE train iteration and one eval episode of 100 steps (not
    1000), with ``on_device_halfcheetah``'s checks and measurements.
 
@@ -280,8 +282,8 @@ JSON line (with ``at_s``, the seconds since the script started):
    ``steady_state``, the bytes a dispatch copies, the buffer's dtype, B1f
    = B1b = 512 (``host_pixel_float32`` / ``host_pixel_uint8`` in every
    ``launches_by_path``). Then ``on_device_pixel_pendulum`` (phase 18's
-   harness): ``--on-device`` with the uint8 ring at 99 840 rows, K = 512,
-   B1f = B1b = K. The ``serve`` line also serves a seeded pixel bundle
+   harness): ``--on-device`` with the uint8 ring at 99 840 rows, K = 128
+   (4 env steps a grad step), B1f = B1b = K. The ``serve`` line also serves a seeded pixel bundle
    (its graphs capture the conv encoder) against CPU actions.
 31. ``host_pool_pixel`` (after ``on_device_pixel_pendulum``): the host
    actor pool (ROADMAP A5 (d)) of 16 ``pixel_pendulum_host`` workers
@@ -430,10 +432,30 @@ JSON line (with ``at_s``, the seconds since the script started):
    B1b = B4 = 8 x B3 > 0, B1f = 0). ``launches_by_path`` gains
    ``host_kill_relaunch`` and ``league_device``.
 
+38. Compiled programs (ROADMAP A6 (e), A11 (a)), first of the learner
+   phases: ``graph_learner``, one line for each single-device path at
+   full width (host K = 1, host K = 4, device uniform, device PER, fused
+   descent, hybrid; 3x256, 51 atoms, B = 256) and one pixel host
+   dispatch (48x48x2, K = 4): two ``train()`` legs under ``debug_guards``
+   with the recompile sentinel's counts flat and the dispatch's program at
+   one specialization and one capture; ``GRAPH_COMPARED`` dispatches
+   replayed and then run as the eager body from the same state and
+   generator states (PER β annealing to 1 inside them): every state
+   tensor, generator state and output ``torch.equal``; the graph and the
+   eager dispatch timed in turns (wall and device ms a grad step, idle
+   share), the replays' B1f, B1b, B3 and B4 counted by name in the trace;
+   a planted second shape that trips the sentinel. Since PR 23 every
+   single-device learner dispatch replays a CUDA graph: the launch
+   counters hold the eager warm-up dispatch and the capture
+   (:func:`captured`), and the steady-state traces count the replays.
+   The script asks ``utils/backend_probe.py`` for the card first.
+
 Then the ``kernels`` line (all five kernels; each one's ``launches`` from
 the run of its ``main_path``, with ``launches_by_path`` for every run;
 B3's ``max_abs_err`` is the largest index distance to its plain version,
-B4's the largest ce/ov error), the card's name and power limit as
+B4's the largest ce/ov error; ``replayed_per_dispatch_by_path``: its
+launches a dispatch in the traced replays of each ``graph_learner``
+path), the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; with no CUDA device, or alone in a
 directory without the package, it exits 2 before printing any result.
@@ -512,6 +534,41 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {k: v for counter in launch_counters() for k, v in counter.items()}
+
+
+def captured(total: dict, dispatches: int, programs: int = 1) -> dict:
+    """What the launch counters read after ``dispatches`` equal dispatches
+    through compiled programs (``utils/graphs.py``), ``total`` the launches
+    those dispatches make. A wrapper counts where the host launches its
+    kernel (a program's one eager warm-up dispatch) or records it (the
+    capture); a replay runs no host code. So each of ``programs`` programs
+    leaves two dispatches' worth (one if the run made one dispatch),
+    whatever the run's length, and the traces of the replays
+    (:func:`device_busy`, ``graph_learner``) count the rest by name."""
+    return {k: v // dispatches * min(dispatches, 2) * programs for k, v in total.items()}
+
+
+# each counter's kernel, as its name reads in a trace (in an anonymous
+# namespace of its source, some templated:
+# ``void (anonymous namespace)::fused_loss_fwd_kernel<2>(...)``)
+KERNEL_NAMES = {"fused_fwd": "fused_loss_fwd_kernel", "fused_bwd": "fused_loss_bwd_kernel",
+                "project": "project_kernel", "tree_count": "count_kernel",
+                "fused_step": "fused_step_kernel"}
+
+
+def traced_launches(events) -> dict:
+    """Each counter's kernel launches in a trace's device events, by name:
+    launches a CUDA graph replay made too, which no host counter sees."""
+    import re
+
+    pats = {k: re.compile(rf"(^|::){name}(\(|<|$)") for k, name in KERNEL_NAMES.items()}
+    out = {k: 0 for k in KERNEL_NAMES}
+    for e in events:
+        if e.cat == "kernel":
+            for k, pat in pats.items():
+                if pat.search(e.name):
+                    out[k] += 1
+    return out
 
 
 def nvidia_smi() -> str:
@@ -848,6 +905,7 @@ def slice_run(Trainer, TrainConfig, projection: str, grad_steps: int, card: str,
         else {"fused_fwd": 0, "fused_bwd": 0, "project": grad_steps}
     )
     expect.update(tree_count=0, fused_step=0)
+    expect = captured(expect, grad_steps)
     check(launches == expect, f"launch counts {launches}, expected {expect}")
     emit({
         "phase": "slice",
@@ -975,13 +1033,16 @@ def host_data_plane_run(Trainer, TrainConfig, placement: str, card: str, log_dir
         wall = time.perf_counter() - t0
         launches = read_counts()
         stages = trainer.timers.scalars()
-        busy = device_busy(trainer)  # after the counts: these dispatches are extra
+        # after the counts: these dispatches are extra, replays all
+        busy = device_busy(trainer, per_dispatch=dict(fused_fwd=K, fused_bwd=K, project=0,
+                                                      tree_count=0, fused_step=0))
     finally:
         trainer.close()
     for k in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
         check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"),
               f"{placement}: {k} not finite: {row.get(k)}")
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+                      n // K)
     check(launches == expect, f"{placement}: launch counts {launches}, expected {expect}")
     dispatch_stage = "megastep_dispatch" if placement == "hybrid" else "train_dispatch"
     check(stages[f"stage_{dispatch_stage}_calls"] == n // K and trainer.grad_steps == n,
@@ -1353,6 +1414,22 @@ def device_events(prof) -> list:
     return out
 
 
+MARK_CYCLES = 1000  # a marker kernel's spin (torch.cuda._sleep)
+TRACE_TRIES = 3     # traces taken at most where one lost events
+
+
+def marked_window(events) -> list | None:
+    """The device events that start between the two marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``) of a trace, markers
+    excluded; None if the trace does not hold both."""
+    marks = sorted((e for e in events if "spin_kernel" in e.name and e.cat == "kernel"),
+                   key=lambda e: e.start)
+    if len(marks) != 2:
+        return None
+    lo, hi = marks[0].end, marks[1].start
+    return [e for e in events if lo <= e.start < hi]
+
+
 def union_ms(spans) -> float:
     """Length of the union of (start, end) intervals, in the trace's us, as ms."""
     total, reach = 0.0, None
@@ -1366,7 +1443,7 @@ def union_ms(spans) -> float:
     return total / 1e3
 
 
-def device_busy(trainer, dispatches: int = 4) -> dict:
+def device_busy(trainer, dispatches: int = 4, per_dispatch: dict | None = None) -> dict:
     """Where a steady-state dispatch's time goes: the wall time a grad step
     takes (host clock over ``dispatches`` dispatches of K steps on the
     trainer's placement, ending in a synchronize, no profiler attached), the
@@ -1378,7 +1455,18 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
     ``device_events_sum_ms_per_step``: every CUDA-side profiler event
     summed, the measure of PRs 4-7, which since the ``host/<name>`` ranges
     also counts their GPU-side projections (``gpu_user_annotation``). The
-    trainer's ``prefetch`` and write-back thread run as in ``train()``."""
+    trainer's ``prefetch`` and write-back thread run as in ``train()``.
+    ``replayed_launches``: each hand kernel's launches in the trace, by
+    name (the dispatches replay captured graphs, which no host counter
+    sees); with ``per_dispatch`` they must be that many a dispatch.
+
+    The traced dispatches run after a primer dispatch, between two marker
+    kernels on the compute stream, and only the device events that start
+    between the markers are read. A trace can lose device events (one B3
+    launch of eight, one marker of two: PR 23's runs 3 and 4): a trace
+    without both markers, or whose counts miss ``per_dispatch``, is taken
+    again, up to ``TRACE_TRIES`` in all (``traces_taken``); counts that stay
+    wrong fail."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1394,11 +1482,20 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / (dispatches * k)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        want = None if per_dispatch is None else {
+            name: v * dispatches for name, v in per_dispatch.items()}
+        for tries in range(1, TRACE_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer._dispatch_once()  # the primer
+                torch.cuda._sleep(MARK_CYCLES)
+                run()
+                torch.cuda._sleep(MARK_CYCLES)
+                torch.cuda.synchronize()
+            events = marked_window(device_events(prof))
+            if events is not None and want in (None, traced_launches(events)):
+                break
+    check(events is not None, f"steady state: {TRACE_TRIES} traces without both markers")
     steps = dispatches * k
-    events = device_events(prof)
     by_cat, annotations = {}, {}
     for e in events:
         by_cat[e.cat] = by_cat.get(e.cat, 0.0) + (e.end - e.start) / 1e3 / steps
@@ -1406,7 +1503,14 @@ def device_busy(trainer, dispatches: int = 4) -> dict:
             annotations[e.name] = annotations.get(e.name, 0.0) + (e.end - e.start) / 1e3 / steps
     device = [(e.start, e.end) for e in events if e.cat in DEVICE_CATS]
     device_ms = union_ms(device) / steps if device else None
+    replayed = traced_launches(events)
+    if want is not None:
+        check(replayed == want, f"steady state: traced kernel launches {replayed} in "
+              f"{dispatches} dispatches, expected {want}, in each of {tries} traces")
     return {
+        "replayed_launches": replayed,
+        "traced_dispatches": dispatches,
+        "traces_taken": tries,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
@@ -1421,7 +1525,9 @@ FINITE_KEYS = ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_ret
 
 def device_learner_run(Trainer, cfg, label: str, expect: dict, steady: bool = True):
     """``Trainer(cfg)`` on the card, launch counters zeroed right before
-    ``train()`` and read right after: the launches must equal ``expect``,
+    ``train()`` and read right after: the launches must equal ``expect``
+    (the run's launches) as :func:`captured` reads them, the steady-state
+    trace's replayed launches a dispatch's share of it,
     the run must take one dispatch per K grad steps and end with finite
     metrics, and a device PER tree's ``max_priority`` must have moved off
     its 1.0 seed. With ``steady``, a few more dispatches then give
@@ -1439,10 +1545,13 @@ def device_learner_run(Trainer, cfg, label: str, expect: dict, steady: bool = Tr
         launches = read_counts()
         stages = trainer.timers.scalars()
         dispatched = trainer._dispatches
-        busy = device_busy(trainer) if steady else None  # after the counts: extra dispatches
+        per = {key: v // dispatched for key, v in expect.items()}
+        # after the counts: extra dispatches, replays all
+        busy = device_busy(trainer, per_dispatch=per) if steady else None
     finally:
         trainer.close()
     n, k = cfg.total_steps, trainer.config.steps_per_dispatch
+    expect = captured(expect, n // k)
     check(launches == expect, f"{label}: launch counts {launches}, expected {expect}")
     check(dispatched == n // k and trainer.grad_steps == n,
           f"{label}: {dispatched} dispatches for {trainer.grad_steps} grad steps")
@@ -1700,8 +1809,9 @@ def resume_phase(Trainer, TrainConfig, card: str, log_dir: str):
     finally:
         leg2.close()
     dispatches = RESUME_STEPS // K
-    expect = dict(fused_fwd=0, fused_bwd=RESUME_STEPS, project=0, tree_count=dispatches,
-                  fused_step=RESUME_STEPS)
+    # one dispatch's worth: the capture (the compared dispatch above was the
+    # program's eager warm-up), the rest replays
+    expect = dict(fused_fwd=0, fused_bwd=K, project=0, tree_count=1, fused_step=K)
     check(launches == expect, f"resume: launch counts {launches}, expected {expect}")
     for k in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
         check(k in row and row[k] == row[k] and abs(row[k]) != float("inf"),
@@ -1838,14 +1948,17 @@ def async_run(Trainer, TrainConfig, phase: str, placement: str, k: int, backend:
                    "idle": trainer._wb_idle.is_set(),
                    "lagged_pending": trainer._pending is not None}
         n_guarded = len(guarded)
-        busy = device_busy(trainer)  # after the counts: these dispatches are extra
+        # after the counts: these dispatches are extra, replays all
+        busy = device_busy(trainer, per_dispatch=dict(fused_fwd=k, fused_bwd=k, project=0,
+                                                      tree_count=0, fused_step=0))
     finally:
         trainer.close()
     dispatches = n // k
     for key in ("critic_loss", "q_mean", "actor_loss", "priority_mean", "eval_return_mean"):
         check(key in row and row[key] == row[key] and abs(row[key]) != float("inf"),
               f"{phase}: {key} not finite: {row.get(key)}")
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+                      n // k)
     check(launches == expect, f"{phase}: launch counts {launches}, expected {expect}")
     check(trainer.grad_steps == n, f"{phase}: {trainer.grad_steps} grad steps")
     check(applied == dispatches and flusher["thread_stopped"] and flusher["queue_gone"]
@@ -1951,7 +2064,8 @@ def ingest_prefetch_pair(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
             trainer.close()
         stages = trainer.timers.scalars()
         dispatches = n // K
-        expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches, fused_step=n)
+        expect = captured(dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches,
+                               fused_step=n), dispatches)
         check(launches == expect, f"ingest_prefetch={on}: launch counts {launches}, expected {expect}")
         check(stages["stage_ingest_stage_calls"] == (dispatches if on else 0),
               f"ingest_prefetch={on}: {stages['stage_ingest_stage_calls']} ingest_stage calls")
@@ -2087,6 +2201,274 @@ def ingest_stage_phase(card: str, log_dir: str) -> None:
           "twin_chunks_ingested": sides[1][1].chunks_ingested, "ok": True})
 
 
+GRAPH_LEG_STEPS = 32            # each of graph_learner's two train() legs
+GRAPH_COMPARED = 4              # dispatches run eagerly and as replays from one state
+GRAPH_TIMED = 8                 # dispatches of each timed arm (graph, eager)
+GRAPH_WARMUP = 512              # env steps collected before the first leg (B = 256)
+GRAPH_BETA_STEPS = 80           # PER paths: β reaches 1 inside the compared dispatches
+GRAPH_PATHS = {
+    "host_k1": dict(steps_per_dispatch=1, tree_backend="native"),
+    "host_k4": dict(steps_per_dispatch=4, tree_backend="native"),
+    "device_uniform": dict(replay_placement="device", prioritized=False, steps_per_dispatch=K),
+    "device_per": dict(replay_placement="device", steps_per_dispatch=K),
+    "fused_descent": dict(replay_placement="device", fused_descent=True, steps_per_dispatch=K),
+    "hybrid": dict(replay_placement="hybrid", tree_backend="native", steps_per_dispatch=K),
+    # host_pixel's K (PIXEL_K)
+    "pixel_host": dict(env="pixel_pendulum", steps_per_dispatch=4, tree_backend="native"),
+}
+
+
+def graph_per_dispatch(path: str, k: int) -> dict:
+    """Each hand kernel's launches in one dispatch of a ``GRAPH_PATHS`` path."""
+    fused = path == "fused_descent"
+    return dict(fused_fwd=0 if fused else k, fused_bwd=k, project=0,
+                tree_count=1 if path in ("device_per", "fused_descent") else 0,
+                fused_step=k if fused else 0)
+
+
+class _EagerBody:
+    """A program's body called directly: the eager dispatch a program
+    replaces, for timing it against the replays."""
+
+    def __init__(self, prog):
+        self.body = prog.body
+
+    def __call__(self, *args):
+        return self.body(*args)
+
+
+@contextlib.contextmanager
+def eager_dispatches(trainer):
+    """The trainer's dispatch programs swapped for their eager bodies (the
+    ingest programs keep replaying)."""
+    names = ("_train_step_prog", "_fused_step_prog", "_megastep_prog")
+    saved = {a: getattr(trainer, a) for a in names}
+    for a, prog in saved.items():
+        if prog is not None:
+            setattr(trainer, a, _EagerBody(prog))
+    try:
+        yield
+    finally:
+        for a, prog in saved.items():
+            setattr(trainer, a, prog)
+
+
+def _dispatch_program(trainer):
+    """(program, the sentinel's entry name) of the trainer's dispatch."""
+    if trainer._megastep_prog is not None:
+        return trainer._megastep_prog, "megastep"
+    if trainer.config.steps_per_dispatch > 1:
+        return trainer._fused_step_prog, "fused_step"
+    return trainer._train_step_prog, "train_step"
+
+
+def _dispatch_inputs(trainer, n: int) -> list:
+    """``n`` dispatches' program inputs, drawn the way the trainer draws
+    them: host batches, the hybrid host tree's [K, B] blocks, or the PER
+    tiers' β at each dispatch's step (the uniform tier takes none)."""
+    import numpy as np
+
+    from d4pg_tpu_torch.replay import device_per as dper
+    from d4pg_tpu_torch.utils.h2d import to_device
+
+    cfg, k = trainer.config, trainer.config.steps_per_dispatch
+    out = []
+    for i in range(n):
+        step = trainer.state.step + i * k
+        if trainer.hybrid:
+            idx, weights, _ = trainer.buffer.sample_block_indices(cfg.batch_size, k, trainer._rng,
+                                                                  step=step)
+            dev = to_device({"idx": idx.astype(np.int32), "weights": weights}, trainer.device)
+            out.append((dev["idx"], dev["weights"]))
+        elif trainer.on_device:
+            agent = cfg.agent
+            out.append(() if trainer._dev_per is None else (dper.beta_tensor(
+                step, agent.per_beta0, agent.per_beta_steps, trainer.device),))
+        else:
+            _, batch, ready = trainer._sample_staged(k)
+            trainer._h2d.consume(batch, ready)
+            # kept past the staging slot's rotation: copies, and the slot
+            # released
+            out.append(({key: v.clone() for key, v in batch.items()},))
+            trainer._release_staging_holds(len(trainer._staging_holds))
+    return out
+
+
+def _learner_snapshot(trainer) -> tuple:
+    """(every tensor the dispatch program reads by address, cloned; each
+    generator's state; the host step)."""
+    from d4pg_tpu_torch.runtime import megastep as mega
+
+    tree = None if trainer._dev_per is None else trainer._dev_per.tree
+    tensors = mega.learner_tensors(trainer.state, trainer._ring, tree)
+    prog, _ = _dispatch_program(trainer)
+    return ([t.clone() for t in tensors], [g.get_state() for g in prog.generators],
+            trainer.state.step)
+
+
+def _learner_restore(trainer, snap) -> None:
+    import torch
+
+    from d4pg_tpu_torch.runtime import megastep as mega
+
+    tree = None if trainer._dev_per is None else trainer._dev_per.tree
+    tensors, gens, step = snap
+    with torch.no_grad():
+        for t, v in zip(mega.learner_tensors(trainer.state, trainer._ring, tree), tensors):
+            t.copy_(v)
+    prog, _ = _dispatch_program(trainer)
+    for g, st in zip(prog.generators, gens):
+        g.set_state(st)
+    trainer.state.step = step
+
+
+def _outputs_equal(a, b) -> bool:
+    import torch
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _plant_second_shape(trainer, name: str) -> str:
+    """Build a second specialization of a budgeted program and return the
+    sentinel's error: a host dispatch one row short, or (device and
+    hybrid placements) a ring ingest chunk one row short that writes the
+    ring's own first rows back onto themselves."""
+    import torch
+
+    from d4pg_tpu_torch.analysis.recompile import RecompileBudgetError
+
+    if name in ("train_step", "fused_step"):
+        (batch,) = _dispatch_inputs(trainer, 1)[0]
+        one = trainer.config.steps_per_dispatch == 1
+        short = {key: v[:-1] if one else v[:, :-1] for key, v in batch.items()}
+        trainer._run_program(_dispatch_program(trainer)[0], short)
+    else:
+        ring, n = trainer._ring, trainer._ring_sync.chunk_cap - 1
+        chunk = {key: getattr(ring, key)[:n].clone()
+                 for key in ("obs", "action", "reward", "next_obs", "discount")}
+        chunk["slots"] = torch.arange(n, device=trainer.device)
+        trainer._ring_sync.ingest_program(chunk, ring.size.clone())
+    try:
+        trainer.sentinel.check("planted second shape")
+    except RecompileBudgetError as e:
+        return str(e)
+    raise RuntimeError("chip_smoke: graph_learner: a planted second shape did not trip the sentinel")
+
+
+def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) -> dict:
+    """One path of ``graph_learner`` at full width (3x256, 51 atoms, B =
+    256; the pixel path at the preset's 48x48x2 frames): two ``train()``
+    legs under ``debug_guards`` with the sentinel's counts flat between
+    them; ``GRAPH_COMPARED`` dispatches replayed and the same dispatches
+    run as the eager body from the same state and generator states, every
+    tensor, generator state and output ``torch.equal``; the graph against
+    the eager dispatch timed in turns (:func:`device_busy`), the replays'
+    kernels counted in the trace; then a planted second shape that must
+    trip the sentinel."""
+    import torch
+
+    from d4pg_tpu_torch.agent.state import D4PGConfig
+    from d4pg_tpu_torch.runtime import megastep as mega
+
+    kw = dict(GRAPH_PATHS[path])
+    env = kw.pop("env", "pendulum")
+    cfg = TrainConfig(env=env, total_steps=GRAPH_LEG_STEPS, eval_interval=10**9, eval_episodes=1,
+                      warmup_steps=GRAPH_WARMUP, log_dir=log_dir, seed=SEED, debug_guards=True,
+                      agent=D4PGConfig(per_beta_steps=GRAPH_BETA_STEPS), **kw)
+    # cuDNN's convolution backward may sum in another order from call to
+    # call: the pixel path's comparison asks for its deterministic
+    # algorithms, in the capture and the eager calls alike
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = env == "pixel_pendulum"
+    trainer = Trainer(cfg, device="cuda")
+    try:
+        k = trainer.config.steps_per_dispatch
+        prog, name = _dispatch_program(trainer)
+        reset_counts()
+        trainer.train()
+        launches = read_counts()
+        leg1 = trainer.sentinel.counts()
+        trainer.train()
+        leg2 = trainer.sentinel.counts()
+        check(leg1 == leg2 and leg1[name] == 1, f"graph_learner {path}: sentinel {leg1} -> {leg2}")
+        check(prog.captures == 1, f"graph_learner {path}: {prog.captures} captures")
+        torch.cuda.synchronize()
+
+        inputs = _dispatch_inputs(trainer, GRAPH_COMPARED)
+        betas = [float(i[0]) for i in inputs if len(i) == 1 and isinstance(i[0], torch.Tensor)]
+        snap = _learner_snapshot(trainer)
+        graph_out = [trainer._run_program(prog, *i) for i in inputs]
+        graph_state = _learner_snapshot(trainer)
+        _learner_restore(trainer, snap)
+        eager_out = []
+        for i in inputs:
+            step = trainer.state.step
+            eager_out.append(prog.body(*i))
+            trainer.state.step = step + k
+        eager_state = _learner_snapshot(trainer)
+        tree = None if trainer._dev_per is None else trainer._dev_per.tree
+        n_tensors = len(mega.learner_tensors(trainer.state, trainer._ring, tree))
+        differ = [i for i, (a, b) in enumerate(zip(graph_state[0], eager_state[0]))
+                  if not torch.equal(a, b)]
+        gens_equal = all(torch.equal(a, b) for a, b in zip(graph_state[1], eager_state[1]))
+        outs_equal = all(_outputs_equal(a, b) for a, b in zip(graph_out, eager_out))
+        check(not differ and gens_equal and outs_equal and graph_state[2] == eager_state[2],
+              f"graph_learner {path}: replays vs eager: tensors {differ} of {n_tensors} "
+              f"differ, generators equal {gens_equal}, outputs equal {outs_equal}")
+
+        # the graph and the eager dispatch timed in turns, the replays'
+        # kernels counted in the graph arm's trace
+        per = graph_per_dispatch(path, k)
+        graph_a = device_busy(trainer, GRAPH_TIMED, per_dispatch=per)
+        with eager_dispatches(trainer):
+            eager_a = device_busy(trainer, GRAPH_TIMED)
+        graph_b = device_busy(trainer, GRAPH_TIMED, per_dispatch=per)
+        with eager_dispatches(trainer):
+            eager_b = device_busy(trainer, GRAPH_TIMED)
+        planted = _plant_second_shape(trainer, name)
+    finally:
+        trainer.close()
+        torch.backends.cudnn.deterministic = deterministic
+    # the first leg's host counts: its warm-up dispatch and its capture
+    check(launches == {key: 2 * v for key, v in per.items()},
+          f"graph_learner {path}: host launches {launches}, per dispatch {per}")
+    return {"phase": "graph_learner", "path": path, "card": card, "env": env,
+            "width": {"hidden": list(trainer.config.agent.hidden_sizes),
+                      "atoms": trainer.config.agent.dist.num_atoms,
+                      "batch": trainer.config.batch_size, "steps_per_dispatch": k,
+                      "pixel_shape": trainer.config.agent.pixel_shape},
+            "program": name, "captures": prog.captures,
+            "host_launches_warmup_and_capture": launches,
+            "replayed_launches_per_dispatch": per,
+            "torch_equal": {"tensors": n_tensors, "differ": differ, "generators": gens_equal,
+                            "outputs": outs_equal, "dispatches": GRAPH_COMPARED},
+            "cudnn_deterministic": env == "pixel_pendulum",
+            "betas": betas,
+            "sentinel": {"leg1": leg1, "leg2": leg2, "planted_error": planted},
+            "graph": [graph_a, graph_b], "eager": [eager_a, eager_b],
+            "wall_ms_per_step": {"graph": [graph_a["wall_ms_per_step"], graph_b["wall_ms_per_step"]],
+                                 "eager": [eager_a["wall_ms_per_step"], eager_b["wall_ms_per_step"]]},
+            "device_ms_per_step": {"graph": [graph_a["device_ms_per_step"],
+                                             graph_b["device_ms_per_step"]],
+                                   "eager": [eager_a["device_ms_per_step"],
+                                             eager_b["device_ms_per_step"]]},
+            "ok": True}
+
+
+def graph_learner_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
+    """Every single-device dispatch as a replayed CUDA graph
+    (:func:`graph_learner_run` for each path of ``GRAPH_PATHS``); one line
+    a path. Returns each path's replayed launches a dispatch."""
+    out = {}
+    for path in GRAPH_PATHS:
+        line = graph_learner_run(Trainer, TrainConfig, path, card, f"{log_dir}/graph_{path}")
+        emit(line)
+        out[path] = line["replayed_launches_per_dispatch"]
+    return out
+
+
 PROFILE_RANGES = ("host/sample", "host/h2d_stage", "host/train_dispatch", "host/prefetch",
                   "host/priority_writeback")
 
@@ -2185,6 +2567,10 @@ ON_DEVICE_EVAL_STEPS = 100
 # train iterations a phase; pendulum_bf16 is bf16_wire's on-device leg
 ON_DEVICE_ITERS = {"pendulum": 2, "halfcheetah": 1, "hopper_twin": 1, "pendulum_bf16": 1,
                    "humanoid": 1, "pixel_pendulum": 1}
+# env steps a grad step on the four widest on-device phases (the depth
+# cut of PR 23): a quarter of an iteration's K grad steps, the envs,
+# widths and segment as their recipes have them
+ON_DEVICE_RATIO = 4.0
 
 
 def planar_step_parity(card: str) -> dict:
@@ -2385,7 +2771,10 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
     the uint8 ring at the preset's 100 000 rows, rounded down to a multiple
     of 16 envs x 32 steps as the JAX ``run_on_device`` rounds (99 840
     rows, 0.92 GB of obs and next_obs), n-step 3, PER: K = 512, one warmup segment, one
-    train iteration, one eval of 10 episodes. Depth is the only cut."""
+    train iteration, one eval of 10 episodes. Depth is the only cut: since
+    PR 23 HalfCheetah, Hopper twin, Humanoid and the pixel pendulum train
+    ``ON_DEVICE_RATIO`` env steps a grad step, a quarter of their K (1024,
+    512, 512, 128), at their recipes' envs, widths and segment."""
     from d4pg_tpu_torch.agent.state import D4PGConfig
     from d4pg_tpu_torch.models.critic import DistConfig
 
@@ -2398,40 +2787,41 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
                            log_dir=log_dir, seed=SEED, debug_guards=True,
                            ring_dtype="bfloat16" if bf16 else "auto",
                            agent=D4PGConfig(compute_dtype="bfloat16" if bf16 else "float32"))
+    cut = dict(env_steps_per_train_step=ON_DEVICE_RATIO)
     if env_name == "pixel_pendulum":
-        k = 16 * 32
-        return TrainConfig(env="pixel_pendulum", num_envs=16, n_step=3, warmup_steps=k,
+        k = int(16 * 32 / ON_DEVICE_RATIO)
+        return TrainConfig(env="pixel_pendulum", num_envs=16, n_step=3, warmup_steps=16 * 32,
                            total_steps=ON_DEVICE_ITERS[env_name] * k,
                            eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=10,
-                           log_dir=log_dir, seed=SEED, debug_guards=True)
+                           log_dir=log_dir, seed=SEED, debug_guards=True, **cut)
     if env_name == "hopper_twin":
         # runs/hopper_ondevice_tpu_r3/NOTES.md's twin arm: 64 envs, PER,
         # C51 over the preset's [0, 500], n-step 3, noise 1.0 -> 0.15 over
-        # 2M env steps, lr 1e-4, tau 1e-3, --twin-critic; K = 2048
-        k = 64 * 32
+        # 2M env steps, lr 1e-4, tau 1e-3, --twin-critic; K = 2048 / 4
+        k = int(64 * 32 / ON_DEVICE_RATIO)
         return TrainConfig(env="hopper", num_envs=64, n_step=3,
                            max_episode_steps=ON_DEVICE_EVAL_STEPS,
                            total_steps=ON_DEVICE_ITERS[env_name] * k,
                            eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
                            agent=D4PGConfig(twin_critic=True, noise_decay_steps=2_000_000,
                                             noise_scale_final=0.15),
-                           log_dir=log_dir, seed=SEED, debug_guards=True)
+                           log_dir=log_dir, seed=SEED, debug_guards=True, **cut)
     if env_name == "humanoid":
-        k = 64 * 32
+        k = int(64 * 32 / ON_DEVICE_RATIO)
         return TrainConfig(env="humanoid", num_envs=64, n_step=3, replay_capacity=524_288,
                            max_episode_steps=ON_DEVICE_EVAL_STEPS,
                            total_steps=ON_DEVICE_ITERS[env_name] * k,
                            eval_interval=ON_DEVICE_ITERS[env_name] * k, eval_episodes=1,
                            agent=D4PGConfig(dist=DistConfig(v_min=0.0, v_max=1500.0),
                                             noise_decay_steps=2_000_000, noise_scale_final=0.1),
-                           log_dir=log_dir, seed=SEED, debug_guards=True)
-    k = 128 * 32
+                           log_dir=log_dir, seed=SEED, debug_guards=True, **cut)
+    k = int(128 * 32 / ON_DEVICE_RATIO)
     return TrainConfig(env="halfcheetah", num_envs=128, n_step=5, replay_capacity=1_048_576,
                        max_episode_steps=ON_DEVICE_EVAL_STEPS,
                        total_steps=ON_DEVICE_ITERS["halfcheetah"] * k,
                        eval_interval=ON_DEVICE_ITERS["halfcheetah"] * k, eval_episodes=1,
                        agent=D4PGConfig(dist=DistConfig(v_min=-100.0, v_max=1500.0)),
-                       log_dir=log_dir, seed=SEED, debug_guards=True)
+                       log_dir=log_dir, seed=SEED, debug_guards=True, **cut)
 
 
 def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict:
@@ -2766,11 +3156,13 @@ def large_batch_phase(Trainer, TrainConfig, card: str, log_dir: str):
         wall = time.perf_counter() - t0
         launches = read_counts()
         dispatched = trainer._dispatches
-        busy = device_busy(trainer)
+        k = c.steps_per_dispatch
+        busy = device_busy(trainer, per_dispatch=dict(fused_fwd=0, fused_bwd=k, project=0,
+                                                      tree_count=1, fused_step=k))
     finally:
         trainer.close()
-    k = c.steps_per_dispatch
-    expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=n // k, fused_step=n)
+    expect = captured(dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=n // k,
+                           fused_step=n), n // k)
     check(launches == expect, f"large_batch: launch counts {launches}, expected {expect}")
     check(dispatched == n // k and trainer.grad_steps == n,
           f"large_batch: {dispatched} dispatches for {trainer.grad_steps} grad steps")
@@ -2831,7 +3223,7 @@ def wire_host_run(Trainer, TrainConfig, card: str, log_dir: str):
         launches = read_counts()
     finally:
         trainer.close()
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0), n)
     check(launches == expect, f"bf16_wire host: launch counts {launches}, expected {expect}")
     for key in ("critic_loss", "q_mean", "actor_loss", "eval_return_mean"):
         check(row[key] == row[key] and abs(row[key]) != float("inf"),
@@ -3851,7 +4243,9 @@ def host_pool_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict
         alive = [p for p in alive if _pid_alive(p)]
         time.sleep(0.1)
     n = 2 * POOL_LEG_STEPS
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    # two legs, two trainers: two programs
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+                      n // PIXEL_K, programs=2)
     check(launches == expect, f"host_pool_pixel: launches {launches}, expected {expect}")
     for leg in legs:
         name = f"host_pool_pixel leg {leg['leg']}"
@@ -4010,7 +4404,8 @@ def guards_chaos_pool_phase(Trainer, TrainConfig, card: str, log_dir: str) -> di
           f"guards_chaos_pool: ledger {ledger}")
     check(witness is not None and witness["contradictions"] == 0,
           f"guards_chaos_pool: lock witness {witness}")
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+                      n // PIXEL_K)
     check(launches == expect, f"guards_chaos_pool: launches {launches}, expected {expect}")
     check(steps == [n // 2, n], f"guards_chaos_pool: committed steps {steps}")
     check(fallbacks == 1 and restored_at == n // 2 and row2.get("checkpoint_fallbacks") == 1.0
@@ -4019,7 +4414,8 @@ def guards_chaos_pool_phase(Trainer, TrainConfig, card: str, log_dir: str) -> di
           f"guards_chaos_pool resume: restored at {restored_at}, {fallbacks} fallbacks, "
           f"grad steps {resumed.grad_steps}, row {row2}")
     m = GUARDS_RESUME_STEPS
-    expect2 = dict(fused_fwd=m, fused_bwd=m, project=0, tree_count=0, fused_step=0)
+    expect2 = captured(dict(fused_fwd=m, fused_bwd=m, project=0, tree_count=0, fused_step=0),
+                       m // PIXEL_K)
     check(launches_resumed == expect2,
           f"guards_chaos_pool resume: launches {launches_resumed}, expected {expect2}")
     check(resumed_ledger["trips"] == 0 and resumed_ledger["active_holds"] == 0,
@@ -4241,7 +4637,8 @@ def fleet_pixel_leg(Trainer, TrainConfig, leg: str, log_dir: str, steps: int, wa
     leg_s = time.perf_counter() - t0
     ledger = trainer._ledger.stats()
     n = steps
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+                      n // PIXEL_K)
     name = f"fleet_pixel {leg}"
     check(trainer.grad_steps == n and np.isfinite(row["critic_loss"]),
           f"{name}: {trainer.grad_steps} grad steps, critic loss {row.get('critic_loss')}")
@@ -4453,8 +4850,8 @@ def fleet_device_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
         flowledger.reset()
     lat.sort()
     n_steps = FLEET_DEVICE_STEPS
-    expect = dict(fused_fwd=0, fused_bwd=n_steps, project=0, tree_count=n_steps // K,
-                  fused_step=n_steps)
+    expect = captured(dict(fused_fwd=0, fused_bwd=n_steps, project=0, tree_count=n_steps // K,
+                           fused_step=n_steps), n_steps // K)
     check(trainer.grad_steps == n_steps and np.isfinite(row["critic_loss"]),
           f"fleet_device: {trainer.grad_steps} grad steps, critic loss {row.get('critic_loss')}")
     check(launches == expect, f"fleet_device: launches {launches}, expected {expect}")
@@ -4793,7 +5190,8 @@ def flywheel_pixel_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
     tap = books["mirror"]
     name = "flywheel_pixel"
     n = FLYWHEEL_STEPS
-    expect = dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0)
+    expect = captured(dict(fused_fwd=n, fused_bwd=n, project=0, tree_count=0, fused_step=0),
+                      n // PIXEL_K)
     none = {k: 0 for k in expect}
     check(trainer.grad_steps == n and np.isfinite(row["critic_loss"]),
           f"{name}: {trainer.grad_steps} grad steps, critic loss {row.get('critic_loss')}")
@@ -5046,7 +5444,8 @@ def guards_device_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
     finally:
         trainer_mod.no_transfers = real
     dispatches = n // K
-    expect = dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches, fused_step=n)
+    expect = captured(dict(fused_fwd=0, fused_bwd=n, project=0, tree_count=dispatches,
+                           fused_step=n), dispatches)
     check(launches == expect, f"guards_device: launches {launches}, expected {expect}")
     check(guarded == dispatches - 1 and trainer._dispatches == dispatches,
           f"guards_device: {guarded} of {trainer._dispatches} dispatches under no_transfers")
@@ -6503,6 +6902,15 @@ def _pid_alive(pid: int) -> bool:
 
 
 def main() -> int:
+    try:
+        from d4pg_tpu_torch.utils.backend_probe import probe_default_backend
+    except ImportError as e:
+        print(f"chip_smoke: the d4pg_tpu_torch package is not here ({e})", file=sys.stderr)
+        return 2
+    platform, count = probe_default_backend()
+    if platform is None:
+        print("chip_smoke: the device probe found no CUDA card; nothing run", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -6558,6 +6966,7 @@ def main() -> int:
     paths = {}
     run_actor = {}
     with tempfile.TemporaryDirectory() as tmp:
+        replayed = graph_learner_phase(Trainer, TrainConfig, card, f"{tmp}/graph_learner")
         paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card,
                                         f"{tmp}/fused", keep=run_actor)
         paths["host_projection"] = slice_run(
@@ -6654,7 +7063,11 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": f"d4pg_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": paths[path][counter], "main_path": path,
-            "launches_by_path": per_path(counter), "max_abs_err": error,
+            "launches_by_path": per_path(counter),
+            # launches a dispatch of each graph_learner path, counted by name
+            # in a trace of its replays (no host counter sees a replay)
+            "replayed_per_dispatch_by_path": {p: r[counter] for p, r in replayed.items()},
+            "max_abs_err": error,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "floor_ms": t["floor_ms"], "ok": True,

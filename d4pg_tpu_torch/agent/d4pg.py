@@ -116,11 +116,16 @@ def build_networks(
 
 def make_optimizers(config: D4PGConfig, actor: Actor, critic: Critic):
     """Adam with the reference's betas; eps=1e-8 is optax.adam's default, so
-    the update is the same as ``optax.adam(lr, b1, b2)``."""
+    the update is the same as ``optax.adam(lr, b1, b2)``. On the card it is
+    ``capturable``: its step count lives on the device, so a CUDA graph
+    captures ``step()`` (a host step would be read once, at the capture)."""
     betas = (config.adam_b1, config.adam_b2)
+    capturable = next(actor.parameters()).is_cuda
     return (
-        torch.optim.Adam(actor.parameters(), lr=config.lr_actor, betas=betas, eps=1e-8),
-        torch.optim.Adam(critic.parameters(), lr=config.lr_critic, betas=betas, eps=1e-8),
+        torch.optim.Adam(actor.parameters(), lr=config.lr_actor, betas=betas, eps=1e-8,
+                         capturable=capturable),
+        torch.optim.Adam(critic.parameters(), lr=config.lr_critic, betas=betas, eps=1e-8,
+                         capturable=capturable),
     )
 
 

@@ -16,9 +16,12 @@ counterpart of ``d4pg_tpu/analysis``).
 - ``flowledger``: the conservation identities of the port's counter
   families (``flow_identities.py``), checked at drain.
 
-The JAX package's fourth guard, the recompile sentinel
-(``analysis/recompile.py``), becomes counts of CUDA-graph recaptures
-once the K-step loop runs in a graph (ROADMAP A11 (a), after A6 (e)).
+- :class:`~d4pg_tpu_torch.analysis.recompile.RecompileSentinel`: the
+  specializations of every compiled program (``utils/graphs.py``: one
+  CUDA graph a specialization on the card) against a budget, checked at
+  eval crossings, at the end of ``train()`` and at the serve drain; an
+  entry over budget raises
+  :class:`~d4pg_tpu_torch.analysis.recompile.RecompileBudgetError`.
 
 The package imports no torch: ``ledger`` and ``lockwitness`` ride into
 the host actor pool's module, which spawned workers import; hence the
@@ -41,6 +44,8 @@ _EXPORTS = {
     "sync_debug_error": "d4pg_tpu_torch.analysis.transfer",
     "ConservationError": "d4pg_tpu_torch.analysis.flowledger",
     "LockOrderWitnessError": "d4pg_tpu_torch.analysis.lockwitness",
+    "RecompileSentinel": "d4pg_tpu_torch.analysis.recompile",
+    "RecompileBudgetError": "d4pg_tpu_torch.analysis.recompile",
 }
 
 __getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

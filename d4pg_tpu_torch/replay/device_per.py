@@ -34,6 +34,7 @@ import torch
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.ops import cuda_tree
 from d4pg_tpu_torch.parallel.partition import dp_fields, tree_partition_specs
+from d4pg_tpu_torch.utils import graphs
 
 
 @dataclass
@@ -192,16 +193,25 @@ def beta_at(step: int, beta0: float, beta_steps: int) -> float:
     return float(np.float32(beta0) + np.float32(frac) * np.float32(1.0 - beta0))
 
 
+def beta_tensor(step: int, beta0: float, beta_steps: int, device) -> torch.Tensor:
+    """:func:`beta_at` as a 0-d float32 tensor on ``device``, made by a fill
+    (no host-to-device copy): a dispatch's β as an INPUT of the captured
+    megastep, so every replay anneals it (a Python float would be frozen
+    at its capture-time value)."""
+    return torch.full((), beta_at(step, beta0, beta_steps), dtype=torch.float32, device=device)
+
+
 def importance_weights(
     p_leaf: torch.Tensor, total: torch.Tensor, min_ratio: torch.Tensor,
-    n_filled: torch.Tensor, beta: float, n_shards: int = 1,
+    n_filled: torch.Tensor, beta, n_shards: int = 1,
 ) -> torch.Tensor:
     """Max-normalized IS weights ``(N·p)^{−β} / (N·min_ratio)^{−β}`` with
     N the GLOBAL fill count and ``p = p_leaf / (D·total)`` the probability
     of drawing the row: each of D lanes draws ``batch/D`` rows from its own
     mass ``total`` (the JAX shard-stratified scheme), ``min_ratio`` the
     smallest such probability over all lanes. At D = 1 the host formula
-    term for term."""
+    term for term. ``beta`` is a float or a 0-d float32 device tensor
+    (:func:`beta_tensor`)."""
     n = n_filled.to(torch.float32)
     w = (p_leaf / (total if n_shards == 1 else n_shards * total) * n) ** (-beta)
     max_w = (min_ratio * n) ** (-beta)
@@ -256,6 +266,18 @@ class DevicePerSync:
         self.local_capacity = self.capacity // self.n_shards
         self.trees = [device_per_init(self.local_capacity, max_priority, dev)
                       for dev in self.lane_devices]
+        # the single-lane seed as a compiled program (utils/graphs.py): the
+        # ring sync ships fixed [chunk_cap] slot blocks, so one
+        # specialization serves the run; the lanes' seeds stay eager
+        self.ingest_program = None
+        if mesh is None:
+            self.ingest_program = graphs.Program(
+                "tree_ingest", self._seed_one_lane, device=self.lane_devices[0],
+                state=lambda: [self.tree.sums, self.tree.max_priority])
+
+    def _seed_one_lane(self, slots: torch.Tensor) -> None:
+        t = self.tree
+        tree_ingest_lane_body(self.alpha, self.local_capacity, t.sums, t.max_priority, slots)
 
     @property
     def tree(self) -> DevicePerTree:
@@ -267,8 +289,8 @@ class DevicePerSync:
 
     def on_chunk(self, slots: torch.Tensor) -> None:
         """The single-device ring sync's tree_hook target: seed this
-        chunk's rows."""
-        self.on_lane_chunk(0, slots)
+        chunk's rows (pad slots drop), through :attr:`ingest_program`."""
+        self.ingest_program(slots)
 
     def on_lane_chunk(self, j: int, rows: torch.Tensor) -> None:
         """The sharded ring sync's tree_hook target: seed local lane ``j``'s
@@ -314,8 +336,9 @@ class DevicePerSync:
         global-order α-exponentiated priorities ``pa_host`` (zeros stay
         zero-mass), on the lane's device. The level sums are the device
         repair's float32 pairwise adds, so a rebuilt tree equals the
-        snapshotted one bit for bit. Replaces ``self.trees``: readers take
-        it at each use and hold no older tensor."""
+        snapshotted one bit for bit. Each rebuilt tree is copied INTO the
+        live one: a captured megastep or tree ingest reads ``sums`` and
+        ``max_priority`` by address."""
         from d4pg_tpu_torch.replay.device_ring import striped_perm
 
         pa_host = np.asarray(pa_host, np.float32)
@@ -323,10 +346,11 @@ class DevicePerSync:
             raise ValueError(
                 f"device PER tree: priorities shape {pa_host.shape} != ({self.capacity},)")
         perm = striped_perm(self.capacity, self.n_shards)
-        self.trees = [
-            tree_from_priorities(pa_host[perm[d]], self.local_capacity, max_priority, device=dev)
-            for d, dev in zip(self.lanes, self.lane_devices)
-        ]
+        for tree, d, dev in zip(self.trees, self.lanes, self.lane_devices):
+            new = tree_from_priorities(pa_host[perm[d]], self.local_capacity, max_priority,
+                                       device=dev)
+            tree.sums.copy_(new.sums)
+            tree.max_priority.copy_(new.max_priority)
 
 
 def tree_from_priorities(

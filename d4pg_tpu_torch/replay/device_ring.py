@@ -10,16 +10,16 @@ host-to-device batch copy per grad step.
   tensors on the device, plus ``size``, the fill count, as a 0-d int32
   device tensor (the megastep reads it there, never on the host);
 - :func:`ingest_body`: scatters one chunk of rows into the ring at
-  explicit slots, IN PLACE;
+  explicit slots, IN PLACE; pad rows (slot ``capacity``) drop;
 - :class:`DeviceRingSync`: the host-side flusher. It diffs the host
   buffer's monotone ``total_added`` counter and ships only the rows
-  written since the last flush, in chunks of at most ``chunk_cap`` rows,
-  through pinned memory and asynchronous copies; ``stage`` starts the
-  next flush's first chunk early (``--ingest-prefetch``).
-
-Chunks are exactly as long as the rows they carry: eager PyTorch has no
-per-shape compile, so the fixed-shape padding the JAX ingest needs is not
-used, and no pad row or pad slot exists to land.
+  written since the last flush, in chunks of exactly ``chunk_cap`` rows
+  (the tail padded, as the JAX ingest pads it), through pinned memory and
+  asynchronous copies, into the ring through ONE compiled program
+  (:attr:`DeviceRingSync.ingest_program`, ``utils/graphs.py``; a CUDA
+  graph on the card) whose fill count is a device input, so the run
+  builds exactly one specialization; ``stage`` starts the next flush's
+  first chunk early (``--ingest-prefetch``).
 
 Data parallelism (``--dp``, ``parallel/``) stripes the ring over the
 lanes (:func:`striped_perm`): host slot ``j`` lives on lane ``j % dp`` at
@@ -49,6 +49,7 @@ from d4pg_tpu_torch.parallel.distributed import (
     local_shard_span,
 )
 from d4pg_tpu_torch.parallel.partition import dp_fields, ring_partition_specs
+from d4pg_tpu_torch.utils import graphs
 from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
 
 FIELDS = ("obs", "action", "reward", "next_obs", "discount")
@@ -97,12 +98,25 @@ def device_ring_init(capacity: int, obs_dim: int, action_dim: int, device=None) 
     )
 
 
-def ingest_body(ring: DeviceRing, chunk: dict, slots: torch.Tensor, new_size: int) -> DeviceRing:
+def ingest_body(ring: DeviceRing, chunk: dict, slots: torch.Tensor, new_size) -> DeviceRing:
     """Write the chunk's rows at ring ``slots`` (int64 [n], distinct) and
-    set the fill count, IN PLACE; returns ``ring``."""
+    set the fill count (an int, or a 0-d int32 device tensor), IN PLACE;
+    returns ``ring``. A pad row carries slot ``capacity`` (the JAX
+    ingest's out-of-bounds slot, dropped by its ``mode="drop"``
+    scatter) and sits after the real rows: it writes the chunk's last real
+    row again, at that row's slot, the same bytes to the same place, so it
+    lands as nothing. No host value is read."""
+    n = slots.shape[0]
+    keep = slots < ring.obs.shape[0]
+    last = (keep.sum() - 1).clamp_min(0)
+    src = torch.where(keep, torch.arange(n, device=slots.device), last)
+    target = slots.index_select(0, src)
     for k in FIELDS:
-        getattr(ring, k).index_copy_(0, slots, chunk[k])
-    ring.size.fill_(new_size)
+        getattr(ring, k).index_copy_(0, target, chunk[k].index_select(0, src))
+    if isinstance(new_size, torch.Tensor):
+        ring.size.copy_(new_size.reshape(()))
+    else:
+        ring.size.fill_(new_size)
     return ring
 
 
@@ -112,10 +126,13 @@ class _StagedChunk:
 
     synced_at: int     # the sync's mirrored count when it was staged
     covers: int        # the mirrored count once it lands
-    dev_chunk: dict    # FIELDS and "slots" (int64), on the device
+    dev_chunk: dict    # FIELDS, "slots" (int64) and "new_size" (0-d int32), on the device
     ready: object      # the copy-done event (None on the CPU)
-    new_size: int
     nbytes: int
+
+
+def _ingest_state(ring: DeviceRing) -> list:
+    return [getattr(ring, f.name) for f in dataclasses.fields(ring)]
 
 
 class DeviceRingSync:
@@ -129,7 +146,15 @@ class DeviceRingSync:
     exist to ship. Rows are copied to the ring's own device on the
     current stream, which scatters them next.
     ``tree_hook``, when set, is called with each chunk's device slot tensor
-    (``DevicePerSync.on_chunk`` seeds the priority leaves of the same rows).
+    (``DevicePerSync.on_chunk`` seeds the priority leaves of the same rows;
+    its pad slots drop there too).
+
+    Every chunk is ``chunk_cap`` rows: the real rows, then pad rows (slot
+    ``capacity``, gathered from host slot 0, as the JAX ingest pads them).
+    The fill count travels with the chunk as a 0-d device input. So
+    :attr:`ingest_program` keeps one specialization for the run whatever
+    the flushes carry; it is bound to the first ring flushed, and a flush
+    into another ring raises.
 
     ``stage(ring)`` (``--ingest-prefetch``) gathers the next flush's first
     chunk and starts its copy early, while a dispatch runs, on a copy
@@ -148,6 +173,22 @@ class DeviceRingSync:
         self.chunks_ingested = 0
         self._staged: Optional[_StagedChunk] = None
         self._h2d: Optional[H2DStream] = None
+        self._ring: Optional[DeviceRing] = None  # bound at the first flush
+        self.ingest_program = graphs.Program("ring_ingest", self._ingest_into_ring,
+                                             state=lambda: _ingest_state(self._ring))
+
+    def _ingest_into_ring(self, chunk: dict, new_size: torch.Tensor) -> None:
+        ingest_body(self._ring, chunk, chunk["slots"], new_size)
+
+    def _program(self, ring: DeviceRing) -> graphs.Program:
+        """The ingest program, bound to ``ring`` at the first flush."""
+        if self._ring is None:
+            self._ring = ring
+        elif ring is not self._ring:
+            raise graphs.GraphBindingError(
+                "DeviceRingSync mirrors one ring: its ingest program is bound to the first "
+                "ring flushed")
+        return self.ingest_program
 
     def pending(self) -> int:
         return min(self._buffer.total_added - self._synced, self.capacity)
@@ -158,22 +199,28 @@ class DeviceRingSync:
             self._h2d = H2DStream(device)
         return self._h2d
 
-    def _gather(self, ring: DeviceRing, first: int, n: int, ahead: bool):
-        """The rows of writes [first, first + n) and their slots, copy
-        started on the current stream, or with ``ahead`` on the copy
-        stream: ``(device chunk, ready event or None, bytes)``."""
-        slots = (first + np.arange(n)) % self.capacity
-        chunk = dict(self._buffer.gather(slots))  # locked: never a torn row
-        chunk["slots"] = slots.astype(np.int64)
+    def _gather(self, ring: DeviceRing, first: int, n: int, new_size: int, ahead: bool):
+        """The rows of writes [first, first + n), padded to ``chunk_cap``
+        rows, their slots and the fill count, copy started on the current
+        stream, or with ``ahead`` on the copy stream: ``(device chunk,
+        ready event or None, bytes)``."""
+        slots = np.full(self.chunk_cap, self.capacity, np.int64)
+        slots[:n] = (first + np.arange(n)) % self.capacity
+        gidx = np.zeros(self.chunk_cap, np.int64)  # pad rows re-read slot 0
+        gidx[:n] = slots[:n]
+        chunk = dict(self._buffer.gather(gidx))  # locked: never a torn row
+        chunk["slots"] = slots
+        chunk["new_size"] = np.asarray(new_size, np.int32)
         nbytes = sum(v.nbytes for v in chunk.values())
         if ahead:
             return (*self._copier(ring).put(chunk), nbytes)
         return to_device(chunk, ring.obs.device), None, nbytes
 
-    def _ingest(self, ring: DeviceRing, dev_chunk: dict, ready, new_size: int, nbytes: int) -> None:
+    def _ingest(self, ring: DeviceRing, dev_chunk: dict, ready, nbytes: int) -> None:
         if ready is not None:
             self._h2d.consume(dev_chunk, ready)
-        ingest_body(ring, dev_chunk, dev_chunk["slots"], new_size)
+        chunk = {k: v for k, v in dev_chunk.items() if k != "new_size"}
+        self._program(ring)(chunk, dev_chunk["new_size"])
         if self.tree_hook is not None:
             self.tree_hook(dev_chunk["slots"])
         self.bytes_ingested += nbytes
@@ -194,11 +241,12 @@ class DeviceRingSync:
             return False
         first = total - n_pending
         n = min(n_pending, self.chunk_cap)
-        dev_chunk, ready, nbytes = self._gather(ring, first, n, ahead=True)
         covers = first + n
+        dev_chunk, ready, nbytes = self._gather(ring, first, n, min(covers, self.capacity),
+                                                ahead=True)
         self._staged = _StagedChunk(
             synced_at=self._synced, covers=covers, dev_chunk=dev_chunk, ready=ready,
-            new_size=min(covers, self.capacity), nbytes=nbytes,
+            nbytes=nbytes,
         )
         return True
 
@@ -210,7 +258,7 @@ class DeviceRingSync:
             # Its rows were current when staged; rows written (or
             # overwritten) since fall in [covers, total) and ship below, in
             # write order, so this scatter never shadows a newer row.
-            self._ingest(ring, staged.dev_chunk, staged.ready, staged.new_size, staged.nbytes)
+            self._ingest(ring, staged.dev_chunk, staged.ready, staged.nbytes)
             self._synced = staged.covers
         total = self._buffer.total_added
         n_pending = min(total - self._synced, self.capacity)
@@ -220,8 +268,8 @@ class DeviceRingSync:
         new_size = min(total, self.capacity)
         for lo in range(0, n_pending, self.chunk_cap):
             n = min(self.chunk_cap, n_pending - lo)
-            dev_chunk, ready, nbytes = self._gather(ring, first + lo, n, ahead=False)
-            self._ingest(ring, dev_chunk, ready, new_size, nbytes)
+            dev_chunk, ready, nbytes = self._gather(ring, first + lo, n, new_size, ahead=False)
+            self._ingest(ring, dev_chunk, ready, nbytes)
         self._synced = total
         return ring
 

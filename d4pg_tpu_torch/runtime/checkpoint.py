@@ -114,13 +114,46 @@ def _steps_on_cpu(opt: torch.optim.Optimizer) -> None:
                 st["step"] = st["step"].cpu()
 
 
+# Optimizer options that say how this run's Adam executes, not what it
+# computes: the live ones stay, whatever the checkpoint's run used.
+_EXECUTION_OPTIONS = ("capturable", "foreach", "fused", "differentiable")
+
+
+def load_optimizer_into(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """Load an optimizer ``state_dict`` IN PLACE. ``load_state_dict``
+    replaces every state tensor (Adam's moments, a capturable Adam's step);
+    a CUDA graph that captured the step reads the old ones by address. So
+    a state tensor that exists already, of the same shape, takes the saved
+    values by ``copy_`` and stays the tensor it was; only one that does not
+    exist yet (a restore before the first step) is the loaded one. The live
+    execution options (``capturable`` and the like) are kept."""
+    options = [{k: g[k] for k in _EXECUTION_OPTIONS if k in g} for g in opt.param_groups]
+    live = {p: dict(opt.state[p]) for g in opt.param_groups for p in g["params"]
+            if p in opt.state}
+    opt.load_state_dict(saved)
+    for group, kept in zip(opt.param_groups, options):
+        group.update(kept)
+        for p in group["params"]:
+            st, old = opt.state.get(p), live.get(p, {})
+            for key, value in (st or {}).items():
+                prev = old.get(key)
+                if isinstance(prev, torch.Tensor) and isinstance(value, torch.Tensor) \
+                        and prev.shape == value.shape:
+                    prev.copy_(value)
+                    st[key] = prev
+                elif key == "step" and isinstance(value, torch.Tensor) and kept.get("capturable"):
+                    st[key] = value.to(p.device, torch.float32)
+    _steps_on_cpu(opt)
+
+
 def load_state_into(state: TrainState, saved: dict) -> TrainState:
     """Load a :func:`state_dict_of` dict IN PLACE: the live modules and
     optimizers keep their identity (the optimizers keep their parameter
-    references). Raises :class:`StackMismatch` before touching anything if
-    the critic configurations differ. A tp-sharded state loads the whole
-    arrays into its gathered copy and is re-sharded from it (the shard
-    fns)."""
+    references) and every tensor a captured program reads stays the
+    tensor it was (:func:`load_optimizer_into`). Raises
+    :class:`StackMismatch` before touching anything if the critic
+    configurations differ. A tp-sharded state loads the whole arrays into
+    its gathered copy and is re-sharded from it (the shard fns)."""
     if hasattr(state, "load_whole"):
         check_stack(state, saved)
         whole = load_state_into(state.whole(), saved)
@@ -130,9 +163,7 @@ def load_state_into(state: TrainState, saved: dict) -> TrainState:
     for name in NETWORKS:
         getattr(state, name).load_state_dict(saved[name])
     for name in OPTIMIZERS:
-        opt = getattr(state, name)
-        opt.load_state_dict(saved[name])
-        _steps_on_cpu(opt)
+        load_optimizer_into(getattr(state, name), saved[name])
     if state.subset_gen is not None and "subset_gen" in saved:
         # map_location moved the saved ByteTensor; set_state takes it on the host
         state.subset_gen.set_state(saved["subset_gen"].cpu())

@@ -8,11 +8,17 @@ back into the device tree. Nothing is read on the host: the state, the
 ring, the tree and the generator stay on the device between dispatches,
 and every body runs clean under ``torch.cuda.set_sync_debug_mode("error")``.
 
-JAX jits each body into one donated-buffer program; here the bodies run
-eagerly and update the train state (``train_step``), the tree's ``sums``
-and ``max_priority`` IN PLACE. Each returns the K-step mean of the step
-metrics as 0-d device tensors (the hybrid body also its [K, B]
-priorities).
+JAX jits each body into one donated-buffer program. Here each body
+updates the train state (``train_step``), the tree's ``sums`` and
+``max_priority`` IN PLACE, and :func:`megastep_program` and
+:func:`hybrid_program` make the single-device bodies compiled programs
+(``utils/graphs.py``): a CUDA graph captured after one eager dispatch and
+replayed on the card, the same body run eagerly on static buffers on the
+CPU. Each returns the K-step mean of the step metrics as 0-d device
+tensors (the hybrid body also its [K, B] priorities). The PER tiers' β is
+an input of the program (:func:`~d4pg_tpu_torch.replay.device_per.
+beta_tensor` of the host step at dispatch start), so every replay anneals
+it.
 
 Four bodies, one per tier:
 
@@ -51,8 +57,11 @@ it is given.
 A CUDA graph of a PER dispatch must be captured after one eager dispatch
 on the same device: kernel B3 (``ops/cuda_tree.py``) makes its ticket
 counters at a device's first call, and refuses that first call inside a
-capture. The graph then keeps the counter of the stream it was captured
-on, so it must not replay while a B3 call on that stream is in flight.
+capture. The program's one eager warm-up dispatch is that call. The graph
+then keeps the counter of the program's capture stream, on which nothing
+else runs B3, so no replay meets a B3 call in flight on that counter.
+
+The sharded bodies stay eager (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from d4pg_tpu_torch.agent.d4pg import fused_train_scan, gather_batches, train_st
 from d4pg_tpu_torch.agent.state import D4PGConfig, TrainState
 from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay.device_ring import DeviceRing
+from d4pg_tpu_torch.utils import graphs
 
 
 def _mean(metrics: dict) -> dict:
@@ -113,20 +123,29 @@ def _write_back(config, ring, tree, idx, priorities) -> None:
     tree.max_priority.copy_(torch.maximum(tree.max_priority, mp))
 
 
+def _beta(config: D4PGConfig, state: TrainState, device, beta):
+    """The dispatch's β: the given 0-d input, else the host step's."""
+    if beta is not None:
+        return beta
+    return dper.beta_tensor(state.step, config.per_beta0, config.per_beta_steps, device)
+
+
 def megastep_device_per_body(
     config: D4PGConfig, k: int, batch: int,
     state: TrainState, ring: DeviceRing, tree: dper.DevicePerTree,
     generator: torch.Generator, prefixes: torch.Tensor | None = None,
+    beta: torch.Tensor | None = None,
 ) -> dict:
     """K grad steps on PER draws from the device tree: stratified prefixes,
     one B3 descent of the whole [K, B] block, IS weights from the leaves
-    and β at dispatch start, K train steps, then the last-wins
+    and β at dispatch start (``beta``, a 0-d float32 device tensor; by
+    default the host step's), K train steps, then the last-wins
     priority write-back and the max-priority update, all IN PLACE on
     ``tree``."""
     pre = _draw_prefixes(generator, k, batch, tree.sums[1], prefixes)
     idx, p_leaf, total = dper.lane_draw(tree.sums, pre, ring.size)
     min_ratio = dper.lane_min_leaf(tree.sums) / total
-    beta = dper.beta_at(state.step, config.per_beta0, config.per_beta_steps)
+    beta = _beta(config, state, tree.sums.device, beta)
     batches = gather_batches(ring, idx)
     batches["weights"] = dper.importance_weights(p_leaf, total, min_ratio, ring.size, beta)
     _, metrics, priorities = fused_train_scan(config, state, batches)
@@ -138,6 +157,7 @@ def megastep_device_per_fused_body(
     config: D4PGConfig, k: int, batch: int,
     state: TrainState, ring: DeviceRing, tree: dper.DevicePerTree,
     generator: torch.Generator, prefixes: torch.Tensor | None = None,
+    beta: torch.Tensor | None = None,
 ) -> dict:
     """The fused-descent tier: the draws, weights and write-back of
     :func:`megastep_device_per_body`, but pipelined. The tree is constant until the write-back, so every step's
@@ -152,7 +172,7 @@ def megastep_device_per_fused_body(
     raw0, chunk_offsets = dper.find_leaves(sums, pre[0])
     idx_t = dper.clamp_to_fill(raw0, ring.size)
     min_ratio = dper.lane_min_leaf(sums) / total
-    beta = dper.beta_at(state.step, config.per_beta0, config.per_beta_steps)
+    beta = _beta(config, state, sums.device, beta)
     pre_next = torch.roll(pre, -1, dims=0)
     step_metrics, priorities, drawn = [], [], []
     for t in range(k):
@@ -184,6 +204,60 @@ def megastep_hybrid_body(
     batches["weights"] = weights
     _, metrics, priorities = fused_train_scan(config, state, batches)
     return _mean(metrics), priorities
+
+
+def learner_tensors(state: TrainState, ring: DeviceRing | None = None,
+                    tree: dper.DevicePerTree | None = None) -> list:
+    """Every tensor a learner program reads by address: the four networks'
+    parameters and buffers, both optimizers' state (Adam's moments and, on
+    the card, its step), the ring's fields and the tree. What
+    ``graphs.Program`` records at the capture and checks at each replay."""
+    out = graphs.module_tensors(state.actor, state.critic, state.target_actor,
+                                state.target_critic)
+    out += graphs.optimizer_tensors(state.actor_opt, state.critic_opt)
+    if ring is not None:
+        out += [ring.obs, ring.action, ring.reward, ring.next_obs, ring.discount, ring.size]
+    if tree is not None:
+        out += [tree.sums, tree.max_priority]
+    return out
+
+
+def learner_generators(state: TrainState, *more) -> tuple:
+    """The device generators a learner program draws from: the given ones,
+    the REDQ subsets' and the DrQ shift's (each None when unused)."""
+    return (*more, state.subset_gen, state.augment_gen)
+
+
+def megastep_program(config: D4PGConfig, k: int, batch: int, state: TrainState,
+                     ring: DeviceRing, tree: dper.DevicePerTree | None,
+                     generator: torch.Generator, fused: bool = False) -> graphs.Program:
+    """The device placement's megastep as one compiled program named
+    ``megastep``: the uniform tier (no input; ``tree`` None), the device
+    PER tier or, with ``fused``, the fused-descent tier (input: the
+    dispatch's β, :func:`~d4pg_tpu_torch.replay.device_per.beta_tensor`).
+    Returns the K-step mean metrics. The caller advances ``state.step``
+    (a replay runs no Python)."""
+    if tree is None:
+        def body():
+            return megastep_uniform_body(config, k, batch, state, ring, generator)
+    else:
+        tier = megastep_device_per_fused_body if fused else megastep_device_per_body
+
+        def body(beta):
+            return tier(config, k, batch, state, ring, tree, generator, beta=beta)
+    return graphs.Program("megastep", body, device=ring.obs.device,
+                          state=lambda: learner_tensors(state, ring, tree),
+                          generators=learner_generators(state, generator))
+
+
+def hybrid_program(config: D4PGConfig, state: TrainState, ring: DeviceRing) -> graphs.Program:
+    """The hybrid placement's megastep as one compiled program named
+    ``megastep``: inputs the host tree's [K, B] ``idx`` and ``weights``,
+    outputs ``(metrics, priorities)``."""
+    return graphs.Program("megastep", partial(megastep_hybrid_body, config, state, ring),
+                          device=ring.obs.device,
+                          state=lambda: learner_tensors(state, ring),
+                          generators=learner_generators(state))
 
 
 def make_megastep_uniform(config: D4PGConfig, k: int, batch: int):
@@ -264,7 +338,7 @@ def sharded_megastep_device_per_body(
         draws.append((idx, p_leaf, total))
         ratios.append(dper.lane_min_leaf(sums) / (D * total))
     min_ratio = sync.min(torch.stack(ratios))
-    beta = dper.beta_at(state.step, config.per_beta0, config.per_beta_steps)
+    beta = _beta(config, state, trees[0].sums.device, None)
     batches = []
     for ring, (idx, p_leaf, total) in zip(rings, draws):
         lane = gather_batches(ring, idx)

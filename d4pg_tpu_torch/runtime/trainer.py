@@ -161,6 +161,16 @@ the save's gathers (the replay snapshot and the PER sidecar in global
 slot order, so any topology restores them; a process of several deals
 itself its rows). The state is replicated, so process 0 saves its copy.
 
+Compiled programs (``utils/graphs.py``, the JAX trainer's jits): on one
+device every dispatch is a program, ``train_step`` (host, K = 1),
+``fused_step`` (host, K > 1) or ``megastep`` (device and hybrid), and so
+are the ring's ``ring_ingest`` and the device tree's ``tree_ingest``. On
+the card each is a CUDA graph captured after one eager call and replayed;
+on the CPU the same bodies run eagerly on the programs' static buffers.
+The host step count advances by K around each call
+(:meth:`Trainer._run_program`), and the PER tiers take β as an input. The
+lanes' steps and the sharded megastep stay eager.
+
 Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
 the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
 leg (``utils/profiling.py``).
@@ -171,11 +181,14 @@ every dispatch after the first runs under the zero-transfer budget
 once on entry, none on the host, and it runs under
 ``torch.cuda.set_sync_debug_mode("error")``. A
 :class:`~d4pg_tpu_torch.analysis.ledger.StagingLedger` polices PER ``sample_block``'s staging slots and the
-actor pool's reply slots, and ``close()`` checks the lock witness's
-observed nesting against the port's committed graph last (a no-op unless
-the CLI armed it). Chaos (``chaos``, :mod:`d4pg_tpu_torch.chaos`): the
-flusher ticks ``wb_stall`` at each wake, a checkpoint ``ckpt_truncate``
-after its manifest, a megastep or hybrid dispatch ``host_kill``, the pool
+actor pool's reply slots, the recompile sentinel
+(:attr:`Trainer.sentinel`, ``analysis/recompile.py``) holds the programs
+to their budgets (the dispatch's count after its first call of a leg,
+the ingests 1) at every eval crossing and at the end of ``train()``, and
+``close()`` checks the lock witness's observed nesting against the port's
+committed graph last (a no-op unless the CLI armed it). Chaos
+(``chaos``, :mod:`d4pg_tpu_torch.chaos`): the flusher ticks ``wb_stall``
+at each wake, a checkpoint ``ckpt_truncate`` after its manifest, a megastep or hybrid dispatch ``host_kill``, the pool
 ``worker_kill`` and its workers ``env_raise`` / ``env_hang``; every
 metrics row carries ``chaos_injections``.
 
@@ -205,7 +218,6 @@ import threading
 import time
 import zipfile
 from collections import deque
-from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -223,6 +235,7 @@ from d4pg_tpu_torch.agent.d4pg import decode_obs, fused_train_scan
 from d4pg_tpu_torch.agent.state import check_supported
 from d4pg_tpu_torch.analysis import lockwitness
 from d4pg_tpu_torch.analysis.ledger import StagingLedger
+from d4pg_tpu_torch.analysis.recompile import RecompileSentinel
 from d4pg_tpu_torch.analysis.transfer import no_transfers, sync_debug_error
 from d4pg_tpu_torch.chaos import ChaosInjector, ChaosPlan, truncate_checkpoint_step
 from d4pg_tpu_torch.config import (
@@ -253,6 +266,7 @@ from d4pg_tpu_torch.replay import (
     Transition,
     noise_scale_schedule,
 )
+from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay.device_per import DevicePerSync
 from d4pg_tpu_torch.replay.device_ring import (
     DeviceRingSync,
@@ -282,6 +296,7 @@ from d4pg_tpu_torch.runtime.collect import (
 )
 from d4pg_tpu_torch.runtime.evaluator import evaluate
 from d4pg_tpu_torch.runtime.metrics import MetricsLogger, StageTimers, interval_crossed
+from d4pg_tpu_torch.utils import graphs
 from d4pg_tpu_torch.utils.h2d import H2DStream, to_device
 from d4pg_tpu_torch.utils.profiling import annotate, profile_trace
 from d4pg_tpu_torch.weights import best_actor_path, save_best_actor
@@ -307,6 +322,12 @@ def live_prefix(terminated: np.ndarray, truncated: np.ndarray) -> tuple[int, boo
     done = (terminated > 0.5) | (truncated > 0.5)
     T = int(done.argmax()) + 1 if done.any() else len(done)
     return T, bool(terminated[T - 1] > 0.5)
+
+
+def _widened(batch: dict) -> dict:
+    """The bfloat16 or uint8 wire's observations back to float32, on the
+    device (the dispatch's first op)."""
+    return {key: decode_obs(v) if key in WIRE_FIELDS else v for key, v in batch.items()}
 
 
 def _rss_gb() -> float:
@@ -447,6 +468,10 @@ class Trainer:
         self._init_host_state()
 
         self._ring = self._ring_sync = self._dev_per = self._megastep = None
+        # the single-device dispatches as compiled programs (utils/graphs.py:
+        # a CUDA graph captured after one eager dispatch on the card); the
+        # lanes' steps and the sharded megastep stay eager
+        self._train_step_prog = self._fused_step_prog = self._megastep_prog = None
         self._dispatches = 0
         # host-to-device batch copies, on a stream of their own on the card
         self._h2d = H2DStream(self.device)
@@ -481,8 +506,14 @@ class Trainer:
             self._ring_sync = DeviceRingSync(self.buffer)
             if self.hybrid:
                 self._megastep = megastep.make_megastep_hybrid(agent_cfg)
+                if self.mesh is None:
+                    self._megastep_prog = megastep.hybrid_program(agent_cfg, self.state,
+                                                                  self._ring)
             else:
                 self._init_megastep()
+        if self.mesh is None:
+            self._init_host_programs()
+        self._init_sentinel()
 
         self.env_steps = 0
         self.grad_steps = 0
@@ -549,6 +580,66 @@ class Trainer:
             self._megastep = megastep.make_megastep_uniform(agent_cfg, K, B)
         # the megastep's draws come from their own device generator
         self._megastep_gen = torch.Generator(self.device).manual_seed(cfg.seed + 3)
+        self._megastep_prog = megastep.megastep_program(
+            agent_cfg, K, B, self.state, self._ring,
+            None if self._dev_per is None else self._dev_per.tree, self._megastep_gen,
+            fused=cfg.prioritized and cfg.fused_descent)
+
+    def _init_host_programs(self) -> None:
+        """The host placement's dispatches as compiled programs: ``train_step``
+        (K = 1) and, with K > 1, ``fused_step`` (``fused_train_scan``). Both
+        exist on every single-device placement, as the JAX trainer's jits
+        do; only the host placement calls them. Input: the device batch
+        (the wire's bfloat16 or uint8 observations are widened inside);
+        outputs: the K-step mean metrics and the priorities."""
+        state = lambda: megastep.learner_tensors(self.state)  # noqa: E731
+        gens = megastep.learner_generators(self.state)
+        self._train_step_prog = graphs.Program("train_step", self._host_step_body,
+                                               self.device, state=state, generators=gens)
+        if self.config.steps_per_dispatch > 1:
+            self._fused_step_prog = graphs.Program("fused_step", self._host_scan_body,
+                                                   self.device, state=state, generators=gens)
+
+    def _host_step_body(self, batch: dict):
+        _, metrics, priorities = train_step(self.config.agent, self.state, _widened(batch))
+        return metrics, priorities
+
+    def _host_scan_body(self, batch: dict):
+        _, metrics_k, priorities = fused_train_scan(self.config.agent, self.state,
+                                                    _widened(batch))
+        return {key: v.mean() for key, v in metrics_k.items()}, priorities
+
+    def _init_sentinel(self) -> None:
+        """The recompile sentinel under ``debug_guards`` (the JAX trainer's
+        entries): ``train_step``, ``fused_step`` (K > 1) and, on the device
+        and hybrid placements, ``megastep`` and ``ring_ingest`` (budget 1:
+        one fixed chunk shape), with device PER ``tree_ingest`` (budget 1).
+        The dispatch's budget is pinned after the first dispatch of each
+        ``train()`` leg and checked at every eval crossing and at its end.
+        An eager entry (the lanes' steps, the sharded megastep) counts 0."""
+        self.sentinel = None
+        if not self.config.debug_guards:
+            return
+        self.sentinel = RecompileSentinel().start()
+        self.sentinel.track("train_step", self._train_step_prog or self._dp_step)
+        if self.config.steps_per_dispatch > 1:
+            self.sentinel.track("fused_step", self._fused_step_prog or self._dp_fused)
+        if self._megastep is not None:
+            self.sentinel.track("megastep", self._megastep_prog or self._megastep)
+            self.sentinel.track("ring_ingest", getattr(self._ring_sync, "ingest_program", None),
+                                budget=1)
+            if self._dev_per is not None:
+                self.sentinel.track("tree_ingest", self._dev_per.ingest_program, budget=1)
+
+    def _run_program(self, prog, *args):
+        """One call of a learner program. The host step count advances by K
+        here, whatever the call ran: an eager call (which advances it in
+        the body), a capture (whose Python ran once), or a replay (no
+        Python)."""
+        step = self.state.step
+        out = prog(*args)
+        self.state.step = step + self.config.steps_per_dispatch
+        return out
 
     def _init_sharded_megastep(self) -> None:
         """The sharded megastep of ``--dp`` on the device placement: this
@@ -1556,7 +1647,14 @@ class Trainer:
         trees = None if self._dev_per is None else self._dev_per.trees
         with self.timers.stage("megastep_dispatch"), \
                 self._dispatch_guard(self.state, self._ring, trees):
-            metrics = self._megastep(self.state, self._ring, trees, self._megastep_gen)
+            if self._megastep_prog is None:
+                metrics = self._megastep(self.state, self._ring, trees, self._megastep_gen)
+            elif self._dev_per is None:
+                metrics = self._run_program(self._megastep_prog)
+            else:
+                agent = self.config.agent
+                metrics = self._run_program(self._megastep_prog, dper.beta_tensor(
+                    self.state.step, agent.per_beta0, agent.per_beta_steps, self.device))
         self._dispatches += 1
         if self.config.ingest_prefetch:
             with self.timers.stage("ingest_stage"):
@@ -1584,7 +1682,12 @@ class Trainer:
             dev = to_device({"idx": idx.astype(np.int32), "weights": weights}, self.device)
         with self.timers.stage("megastep_dispatch"), \
                 self._dispatch_guard(self.state, self._ring, dev):
-            metrics, priorities = self._megastep(self.state, self._ring, dev["idx"], dev["weights"])
+            if self._megastep_prog is None:
+                metrics, priorities = self._megastep(self.state, self._ring, dev["idx"],
+                                                     dev["weights"])
+            else:
+                metrics, priorities = self._run_program(self._megastep_prog, dev["idx"],
+                                                        dev["weights"])
         self._dispatches += 1
         self._hand_off(SampledIndices(idx, gen), priorities)
         return metrics
@@ -1606,18 +1709,15 @@ class Trainer:
             indices, dev_batch, ready = self._sample_staged(k)
         self._h2d.consume(dev_batch, ready)
         with self.timers.stage("train_dispatch"), self._dispatch_guard(self.state, dev_batch):
-            # the bfloat16 or uint8 wire's observations back to float32, on
-            # the device
-            dev_batch = {key: decode_obs(v) if key in WIRE_FIELDS else v
-                         for key, v in dev_batch.items()}
             if k == 1 and self._dp_step is not None:
-                _, metrics, priorities = self._dp_step(self.state, dev_batch)
+                _, metrics, priorities = self._dp_step(self.state, _widened(dev_batch))
             elif k == 1:
-                _, metrics, priorities = train_step(cfg.agent, self.state, dev_batch)
-            else:
-                scan = self._dp_fused or partial(fused_train_scan, cfg.agent)
-                _, metrics_k, priorities = scan(self.state, dev_batch)
+                metrics, priorities = self._run_program(self._train_step_prog, dev_batch)
+            elif self._dp_fused is not None:
+                _, metrics_k, priorities = self._dp_fused(self.state, _widened(dev_batch))
                 metrics = {key: v.mean() for key, v in metrics_k.items()}
+            else:
+                metrics, priorities = self._run_program(self._fused_step_prog, dev_batch)
         self._dispatches += 1
         self._release_staging_holds(1)  # the dispatch has read its block
         if prefetch_next:
@@ -1684,6 +1784,13 @@ class Trainer:
                         collect_budget = self._collect_budgeted(
                             collect_budget + cfg.env_steps_per_train_step * K)
                     metrics = self._dispatch_once(prefetch_next=done + K < total)
+                    if self.sentinel is not None and done == 0:
+                        # the first dispatch built the leg's program: its
+                        # count IS the budget (one a config); the ingests
+                        # keep their track-time budget of 1
+                        name = ("megastep" if self._megastep is not None
+                                else "train_step" if K == 1 else "fused_step")
+                        self.sentinel.set_budget(name, self.sentinel.count(name))
                     done += K
                     self.grad_steps += K
                     self._learner_steps += K
@@ -1696,6 +1803,8 @@ class Trainer:
                         self._fleet_gen += 1
                         self._fleet_publish()
                     eval_crossed = interval_crossed(done - K, done, cfg.eval_interval)
+                    if self.sentinel is not None and eval_crossed:
+                        self.sentinel.check(f"eval crossing @ step {self.grad_steps}")
                     if eval_crossed or done >= total:
                         last = self._periodic(metrics, t_start, done, env_steps_start)
                     # crossings of the LEG's count, saved under the global step
@@ -1725,6 +1834,8 @@ class Trainer:
         # The host tree's lagged write-back lands after the loop, so after a
         # preemption checkpoint too (as in the JAX trainer).
         self._flush_write_back()
+        if self.sentinel is not None:
+            self.sentinel.check("end of train()")
         if self.host_env and cfg.concurrent_eval:
             # the final crossing's eval may still be in flight; its row must
             # exist before train() returns
@@ -2039,5 +2150,7 @@ class Trainer:
                 self._eval_env.close()
         if self.host_env and hasattr(self.env, "close"):
             self.env.close()
+        if self.sentinel is not None:
+            self.sentinel.stop()
         if self.config.debug_guards:
             lockwitness.check_against_committed(where="trainer close")

@@ -103,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "torch.cuda.set_sync_debug_mode('error'), a staging "
                         "ledger polices the batcher's input slots, and drain "
                         "checks that every CUDA graph still reads the "
-                        "parameters hot reload writes into, the lock witness against the "
+                        "parameters hot reload writes into, the recompile "
+                        "sentinel (one program specialization a bucket), "
+                        "the lock witness against the "
                         "port's lock graph and the serve-stats identity; the "
                         "mirror tap's close checks the mirror-tap identity")
     return p

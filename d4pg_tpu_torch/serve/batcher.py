@@ -13,11 +13,14 @@ sizes (powers of two up to ``max_batch``). On the card each bucket is ONE
 CUDA graph, captured at warmup and replayed for every batch of that size:
 the actor forward, ``clamp(-1, 1)`` and the affine map to the env's
 bounds, reading a static input ``[b, obs_dim]`` and writing a static
-output ``[b, action_dim]``. A hot reload copies the new weights into the
-captured parameters and never recaptures. :attr:`DynamicBatcher.
-compile_count` counts the captures (on the CPU, where there is no graph,
-the per-bucket programs built at warmup): only ``warmup()`` builds them,
-once, so it is ``len(buckets)`` by construction. What a hot reload could
+output ``[b, action_dim]``: one specialization a bucket of the batcher's
+``<name>.infer`` program (``utils/graphs.py``). A hot reload copies the
+new weights into the captured parameters and never recaptures.
+:attr:`DynamicBatcher.compile_count` counts the specializations (on the
+CPU, where there is no graph, the per-bucket programs built at warmup):
+only ``warmup()`` builds them, once, so it is ``len(buckets)`` by
+construction, and the recompile sentinel (``sentinel=``, the server's
+``debug_guards``) holds it to that budget. What a hot reload could
 break is the binding: a graph reads its parameters by address, and
 :meth:`DynamicBatcher.rebound_params` names any parameter that is no
 longer the tensor the graphs captured. :attr:`DynamicBatcher.replays`
@@ -56,6 +59,7 @@ from d4pg_tpu_torch.analysis.ledger import NULL_LEDGER
 from d4pg_tpu_torch.analysis.transfer import sync_guard
 from d4pg_tpu_torch.serve.bundle import build_actor
 from d4pg_tpu_torch.serve.stats import ServeStats
+from d4pg_tpu_torch.utils import graphs
 from d4pg_tpu_torch.utils.profiling import StageTimers
 
 WARMUP_CALLS = 3  # eager forwards on the batcher's stream before each capture
@@ -84,16 +88,6 @@ class _Request:
         self.t_submit = t_submit
 
 
-@contextlib.contextmanager
-def _cudnn_benchmark_off():
-    prev = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.benchmark = prev
-
-
 def default_buckets(max_batch: int) -> tuple:
     """Powers of two up to ``max_batch``, always ending exactly at it."""
     out = []
@@ -106,20 +100,31 @@ def default_buckets(max_batch: int) -> tuple:
 
 
 class _Bucket:
-    """One bucket's program: the static input and output on the device,
-    the captured graph (None on the CPU), and two host slots each way
-    (pinned on the card) with one completion event a slot."""
+    """One bucket: its specialization of the batcher's ``<name>.infer``
+    program (the static input and output on the device, the captured
+    graph, None on the CPU) and two host slots each way (pinned on the
+    card) with one completion event a slot."""
 
-    __slots__ = ("size", "static_in", "static_out", "graph", "in_slots", "out_slots", "events")
+    __slots__ = ("size", "spec", "in_slots", "out_slots", "events")
 
-    def __init__(self, size, static_in, static_out, graph, in_slots, out_slots, events):
+    def __init__(self, size, spec, in_slots, out_slots, events):
         self.size = size
-        self.static_in = static_in
-        self.static_out = static_out
-        self.graph = graph
+        self.spec = spec
         self.in_slots = in_slots
         self.out_slots = out_slots
         self.events = events
+
+    @property
+    def static_in(self) -> torch.Tensor:
+        return self.spec.inputs[0]
+
+    @property
+    def static_out(self) -> torch.Tensor:
+        return self.spec.outputs[0]
+
+    @property
+    def graph(self):
+        return self.spec.graph
 
 
 class DynamicBatcher:
@@ -146,6 +151,7 @@ class DynamicBatcher:
         name: str = "serve",
         device=None,
         ledger=None,
+        sentinel=None,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -205,8 +211,15 @@ class DynamicBatcher:
         self._guard_sync = bool(guard_sync)
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._upload_stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # ONE compiled program, one specialization (and on the card one
+        # CUDA graph) a bucket; its count is the sentinel's and
+        # compile_count's
+        self._program = graphs.Program(f"{name}.infer", self._body, self.device,
+                                       state=lambda: list(self._serving.values()),
+                                       warmup=WARMUP_CALLS)
+        if sentinel is not None:
+            sentinel.track(f"{name}.infer", self._program, budget=len(self.buckets))
         self._programs: dict[int, _Bucket] = {}
-        self._captures = 0
         self._replays = 0
         # Two rotating host slots per bucket each way. The H2D copy out of
         # an input slot and the D2H copy into an output slot are
@@ -277,42 +290,29 @@ class DynamicBatcher:
 
     @torch.no_grad()
     def warmup(self) -> None:
-        """Build every bucket's program up front, so no live request pays a
-        capture. On the card each is a CUDA graph captured on this
-        batcher's stream after a few eager forwards there (which also pick
+        """Build every bucket's specialization up front, so no live request
+        pays a capture. On the card each is a CUDA graph captured on the
+        program's stream after a few eager forwards there (which also pick
         and load a pixel actor's cuDNN convolutions); a failed capture
         raises. cuDNN's autotuner stays off throughout, so the capture
-        records the algorithms the eager forwards ran."""
+        records the algorithms the eager forwards ran
+        (``utils/graphs.py``)."""
         if self._programs:
             return
-        with _cudnn_benchmark_off():
-            self._build_programs()
-
-    def _build_programs(self) -> None:
         obs_dim, action_dim = self.config.obs_dim, self.config.action_dim
         for b in self.buckets:
-            static_in = torch.zeros(b, obs_dim, device=self.device)
-            graph = None
-            if self._cuda:
-                self._stream.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self._stream):
-                    for _ in range(WARMUP_CALLS):
-                        self._body(static_in)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    static_out = self._body(static_in)
-                self._stream.synchronize()
-            else:
-                static_out = self._body(static_in)
+            spec, leaves = self._program.specialization(torch.zeros(b, obs_dim, device=self.device))
+            spec.load(leaves)
+            spec.prepare()
             pin = self._cuda
             self._programs[b] = _Bucket(
-                b, static_in, static_out, graph,
+                b, spec,
                 [torch.zeros(b, obs_dim, pin_memory=pin) for _ in range(2)],
                 [torch.zeros(b, action_dim, pin_memory=pin) for _ in range(2)],
                 [torch.cuda.Event() if self._cuda else None for _ in range(2)],
             )
-            self._captures += 1
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
         self._captured_ptrs = {k: v.data_ptr() for k, v in self._serving.items()}
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
@@ -342,9 +342,10 @@ class DynamicBatcher:
 
     @property
     def compile_count(self) -> int:
-        """Programs built: CUDA graph captures on the card, per-bucket
-        programs on the CPU. Only warmup() builds them, one per bucket."""
-        return self._captures
+        """Specializations of ``<name>.infer`` built, the count the recompile
+        sentinel reads: one CUDA graph captured a bucket on the card, one
+        program a bucket on the CPU. Only warmup() builds them."""
+        return self._program._cache_size()
 
     def rebound_params(self) -> list:
         """The parameters that are no longer the tensors the bucket graphs
@@ -553,13 +554,13 @@ class DynamicBatcher:
             self._apply_pending_params()
             prog.static_in.copy_(prog.in_slots[flip])
             with torch.no_grad():
-                prog.static_out.copy_(self._body(prog.static_in))
+                prog.spec.run()
             prog.out_slots[flip].copy_(prog.static_out)
             return None
         with torch.cuda.stream(self._stream):
             self._apply_pending_params()
             prog.static_in.copy_(prog.in_slots[flip], non_blocking=True)
-            prog.graph.replay()
+            prog.spec.run()
             prog.out_slots[flip].copy_(prog.static_out, non_blocking=True)
             event = prog.events[flip]
             event.record(self._stream)

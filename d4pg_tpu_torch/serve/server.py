@@ -28,9 +28,10 @@ recaptures and in-flight batches finish on the params they started with.
 Graceful drain (SIGTERM path, wired in ``__main__``): stop accepting,
 shed new submissions with ``draining``, answer everything queued, then
 close. Under ``debug_guards`` the drain then checks, last, that no
-captured parameter was rebound, the lock witness against the port's lock
-graph and each policy's ``serve-stats`` flow identity (the latter two
-no-ops unless the CLI armed them).
+captured parameter was rebound, the recompile sentinel (each policy's
+``<name>.infer`` at one specialization a bucket), the lock witness
+against the port's lock graph and each policy's ``serve-stats`` flow
+identity (the latter two no-ops unless the CLI armed them).
 
 Chaos (a :class:`~d4pg_tpu_torch.chaos.ChaosInjector`, the JAX server's
 sites): ``sock_reset`` ticks per received frame and resets the
@@ -58,6 +59,7 @@ import numpy as np
 from d4pg_tpu_torch import netio
 from d4pg_tpu_torch.analysis import flowledger, lockwitness
 from d4pg_tpu_torch.analysis.ledger import StagingLedger
+from d4pg_tpu_torch.analysis.recompile import RecompileSentinel
 from d4pg_tpu_torch.netio import attack as netio_attack
 from d4pg_tpu_torch.serve import protocol
 from d4pg_tpu_torch.serve.batcher import DynamicBatcher, ShedError
@@ -166,12 +168,13 @@ class PolicyServer:
         # --debug-guards: every batch after warmup dispatches under
         # set_sync_debug_mode("error"), a staging ledger polices every
         # batcher's input slots (its groups scoped by the batcher's name),
-        # and drain() checks that every
-        # policy's graphs still read the parameters hot reload writes into
-        # (the recompile sentinel's counterpart: a graph is never rebuilt,
-        # so what can go wrong is its binding).
+        # and drain() checks that every policy's graphs still read the
+        # parameters hot reload writes into and that the recompile sentinel
+        # holds each policy's <name>.infer program to one specialization a
+        # bucket.
         self.debug_guards = bool(debug_guards)
         self.ledger = StagingLedger("serve") if debug_guards else None
+        self.sentinel = RecompileSentinel().start() if debug_guards else None
 
         def _mk_batcher(pid: str, b: PolicyBundle):
             return DynamicBatcher(
@@ -187,6 +190,7 @@ class PolicyServer:
                 name="serve" if pid == protocol.DEFAULT_POLICY else f"serve[{pid}]",
                 device=device,
                 ledger=self.ledger,
+                sentinel=self.sentinel,
             )
 
         # N resident policies behind one front-end: ``bundle`` is the
@@ -316,6 +320,10 @@ class PolicyServer:
                     "serve drain: parameters rebound after capture, the "
                     f"graphs serve stale weights (policy: names): {rebound}"
                 )
+            # one specialization a bucket for the whole run: hot reloads and
+            # traffic never built another
+            self.sentinel.stop()
+            self.sentinel.check("serve drain")
             # the runtime lock order against the port's committed graph
             lockwitness.check_against_committed(where="serve drain")
         # every admitted request resolved as exactly one of ok / shed

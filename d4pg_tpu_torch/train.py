@@ -211,7 +211,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "every host, megastep and hybrid dispatch after the first "
                         "under the zero-transfer budget (no CPU tensor operand, "
                         "no host sync inside), a "
-                        "staging ledger on the PER and pool staging slots, and "
+                        "staging ledger on the PER and pool staging slots, the "
+                        "recompile sentinel (the dispatch's program and the "
+                        "ingests at one specialization each, checked at every "
+                        "eval and at the end of a leg), and "
                         "the lock witness checked against the port's lock graph "
                         "at close; a trip raises")
     p.add_argument("--chaos", default=None, metavar="PLAN",

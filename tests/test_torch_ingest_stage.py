@@ -68,7 +68,8 @@ class _Pair:
         assert self.tsync.chunks_ingested == self.jsync.chunks_ingested
         assert len(self.tslots) == len(self.jslots)
         for t, js in zip(self.tslots, self.jslots):
-            np.testing.assert_array_equal(t, js[js < CAP])
+            # the same fixed [chunk_cap] blocks, pads (slot CAP) and all
+            np.testing.assert_array_equal(t, js)
 
 
 def test_stage_then_flush_equals_the_reference_plain_flush():

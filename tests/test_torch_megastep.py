@@ -147,6 +147,9 @@ def _assert_state_close(tst, jst):
 
 # ------------------------------------------------------------------ ring
 def test_ring_sync_mirrors_wraps_and_ships_no_pads():
+    """Every chunk is ``chunk_cap`` rows (the JAX ingest's fixed shape), the
+    tail padded with slot ``CAP``; no pad lands in the ring or reaches a
+    real tree slot."""
     buf = ReplayBuffer(CAP, 3, 1)
     ring = device_ring_init(CAP, 3, 1, "cpu")
     sync = DeviceRingSync(buf, chunk_cap=16)
@@ -161,23 +164,28 @@ def test_ring_sync_mirrors_wraps_and_ships_no_pads():
         # rows never written stay zero: a partial chunk lands nothing else
         assert float(ring.obs[n:].abs().sum()) == 0.0
 
+    def real(blocks):
+        return [x for x in torch.cat(blocks).tolist() if x < CAP]
+
     buf.add_batch(Transition(*_rows(21, 0)))  # one full chunk + a partial one
     assert sync.pending() == 21
     sync.flush(ring)
     check()
-    assert [len(s) for s in seeded] == [16, 5] and sync.chunks_ingested == 2
-    assert torch.cat(seeded).tolist() == list(range(21))
+    assert [len(s) for s in seeded] == [16, 16] and sync.chunks_ingested == 2
+    assert seeded[1][5:].tolist() == [CAP] * 11  # the partial chunk's pads
+    assert real(seeded) == list(range(21))
     sync.flush(ring)  # nothing pending: nothing shipped
     assert sync.chunks_ingested == 2
     buf.add_batch(Transition(*_rows(50, 1)))  # wraps the ring
     sync.flush(ring)
     check()
-    assert torch.cat(seeded[2:]).tolist() == [(21 + i) % CAP for i in range(50)]
+    assert real(seeded[2:]) == [(21 + i) % CAP for i in range(50)]
     buf.add_batch(Transition(*_rows(3 * CAP, 2)))  # more than the ring: one resync
     seeded.clear()
     sync.flush(ring)
     check()
-    assert sorted(torch.cat(seeded).tolist()) == list(range(CAP))
+    assert sorted(real(seeded)) == list(range(CAP))
+    assert sync.ingest_program._cache_size() == 1  # one fixed shape, one program
 
 
 def test_ring_sync_seeds_the_tree_like_the_reference():

@@ -40,6 +40,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import d4pg_tpu_torch.league, d4pg_tpu_torch.league.controller\n"
         "import d4pg_tpu_torch.league.__main__, d4pg_tpu_torch.tools.multihost_smoke\n"
         "import d4pg_tpu_torch.tools.league_stub_learner\n"
+        "import d4pg_tpu_torch.analysis.recompile, d4pg_tpu_torch.utils.graphs\n"
+        "import d4pg_tpu_torch.utils.backend_probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
@@ -74,6 +76,30 @@ def test_no_source_file_imports_jax_or_the_reference():
     assert len(files) > 20
     bad = [(f, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+# The JAX modules with no file of the same path in the port, and why: the
+# Pallas kernels became the CUDA modules ops/cuda_*.py (ROADMAP queue B);
+# parallel/compat.py only picks where the JAX version keeps shard_map.
+JAX_ONLY = {"ops/pallas_projection.py": "ops/cuda_projection.py",
+            "ops/pallas_tree.py": "ops/cuda_tree.py",
+            "ops/pallas_fused_step.py": "ops/cuda_fused_step.py",
+            "parallel/compat.py": None}
+
+
+def _modules(root):
+    return {os.path.relpath(os.path.join(d, n), root) for d, _, names in os.walk(root)
+            for n in names if n.endswith(".py")}
+
+
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    """A file list of ``d4pg_tpu/`` against ``d4pg_tpu_torch/`` leaves only
+    the Pallas kernels (ported as ``ops/cuda_*.py``) and ``parallel/
+    compat.py``."""
+    missing = _modules(os.path.join(REPO, "d4pg_tpu")) - _modules(PKG)
+    assert missing == set(JAX_ONLY)
+    for port in filter(None, JAX_ONLY.values()):
+        assert os.path.exists(os.path.join(PKG, port)), port
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
