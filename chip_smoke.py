@@ -161,11 +161,12 @@ JSON line (with ``at_s``, the seconds since the script started):
    default width (3x256, 51 atoms, B = 256, 16 envs x 32 steps, so K = 512
    grad steps a train iteration, n-step 3, PER): one warmup segment, 2
    train iterations, the second under ``set_sync_debug_mode("error")``;
-   B1f and B1b exactly K x 2 launches, B2, B3 and B4 none, finite metrics,
-   the ring's fill equal to the rows appended, ``max_priority`` off 1.0.
-   Then one segment alone and one more train iteration under the guard and
-   a device-only ``torch.profiler`` trace: wall ms, device busy ms (the
-   union of kernel, copy and memset intervals) and idle share.
+   B1f and B1b K x 2 launches (counted as phase 39 says),
+   B2, B3 and B4 none, finite metrics, the ring's fill equal to the rows
+   appended, ``max_priority`` off 1.0. Then one segment alone and one more
+   train iteration under the guard and a device-only ``torch.profiler``
+   trace: wall ms, device busy ms (the union of kernel, copy and memset
+   intervals) and idle share.
 19. ``on_device_halfcheetah``: the same at the README's HalfCheetah
    command (128 envs, n-step 5, support [-100, 1500], a 2^20-row ring,
    PER, default widths), at 4 env steps a grad step (K = 1024, not 4096):
@@ -449,15 +450,35 @@ JSON line (with ``at_s``, the seconds since the script started):
    counters hold the eager warm-up dispatch and the capture
    (:func:`captured`), and the steady-state traces count the replays.
    The script asks ``utils/backend_probe.py`` for the card first.
+39. The on-device loop as compiled programs (ROADMAP A13 (a)): every
+   ``on_device_*`` phase (18, 19, 22, 22b, 24's on-device leg, and the
+   pixel pendulum's) runs its warmup segments, iterations and evals as
+   CUDA graphs (``runtime/on_device.py:OnDevicePrograms``,
+   ``runtime/evaluator.py:GreedyEval``). Their host launch counters hold
+   the ``train_block`` program's eager warm-up call and its capture (B1f
+   and B1b twice a block of up to 8 grad steps), and a trace of one
+   replayed iteration (the markers padded, retaken up to three times)
+   holds exactly K B1f and K B1b, no B2, B3 or B4; each program one
+   specialization. Then ``graph_on_device``, one line for Pendulum and one
+   for HalfCheetah at the README's width (the runs of phases 18 and 19):
+   from one snapshot of the carry one iteration eager and one replayed,
+   each traced (wall and device busy ms, idle share), every carry tensor,
+   generator state and metric ``torch.equal``, and one eval episode
+   eager and replayed with ``torch.equal`` returns.
 
-Then the ``kernels`` line (all five kernels; each one's ``launches`` from
-the run of its ``main_path``, with ``launches_by_path`` for every run;
-B3's ``max_abs_err`` is the largest index distance to its plain version,
-B4's the largest ce/ov error; ``replayed_per_dispatch_by_path``: its
-launches a dispatch in the traced replays of each ``graph_learner``
-path), the card's name and power limit as
-``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero; with no CUDA device, or alone in a
+Every phase line also carries ``phase_s``: the seconds since its phase
+started (or since its phase's previous line). A failing phase prints
+``chip_smoke: phase <name> FAILED: ...`` on both streams and the script
+exits 1. Then the ``kernels`` line (all five kernels; each one's
+``launches`` from the run of its ``main_path``, with ``launches_by_path``
+for every run; B3's ``max_abs_err`` is the largest index distance to its
+plain version, B4's the largest ce/ov error;
+``replayed_per_dispatch_by_path``: its launches a dispatch in the traced
+replays of each ``graph_learner`` path;
+``replayed_per_iteration_by_on_device_phase``: in one replayed iteration
+of each on-device phase), the card's name and power limit as
+``nvidia-smi`` gives them, ``{"total_s": ...}``, the script's seconds, and
+last ``{"ok": true, "device": {...}}``. With no CUDA device, or alone in a
 directory without the package, it exits 2 before printing any result.
 """
 
@@ -469,7 +490,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
@@ -504,12 +527,18 @@ SEED = 0
 START = time.perf_counter()  # the script's start, for each phase line's ``at_s``
 
 
+_CLOCK = threading.local()  # per thread: when its phase, or its last phase line, began
+
+
 def emit(obj) -> None:
     """Print one JSON line; a phase's line also carries ``at_s``, the
-    seconds since the script started, so a run's time splits by phase.
-    One write a line: two phases may run side by side."""
+    seconds since the script started, and ``phase_s``, the seconds since
+    its phase started or, for a phase's later lines, since its previous
+    line. One write a line: two phases may run side by side."""
     if "phase" in obj:
-        obj = {**obj, "at_s": time.perf_counter() - START}
+        now = time.perf_counter()
+        obj = {**obj, "at_s": now - START, "phase_s": now - getattr(_CLOCK, "t", START)}
+        _CLOCK.t = now
     sys.stdout.write(json.dumps(obj) + "\n")
     sys.stdout.flush()
 
@@ -517,6 +546,30 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+class PhaseFailed(RuntimeError):
+    """A phase raised; :func:`run_phase` printed which and why."""
+
+
+def run_phase(name: str, fn, *args, **kwargs):
+    """Run the phase ``name`` (``fn``, which emits its lines); if it raises,
+    print a line naming the phase and what went wrong (on the standard
+    output and error) and raise :class:`PhaseFailed`, which ``main`` turns
+    into exit 1."""
+    _CLOCK.t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:
+        import torch
+
+        line = f"chip_smoke: phase {name} FAILED: {type(e).__name__}: {e}"
+        print(line, flush=True)
+        traceback.print_exc()
+        print(f"chip_smoke: device memory at the failure: {torch.cuda.memory_allocated() / 2**30:.2f} "
+              f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+        print(line, file=sys.stderr, flush=True)
+        raise PhaseFailed(name) from e
 
 
 def launch_counters():
@@ -1416,6 +1469,8 @@ def device_events(prof) -> list:
 
 MARK_CYCLES = 1000  # a marker kernel's spin (torch.cuda._sleep)
 TRACE_TRIES = 3     # traces taken at most where one lost events
+TRACE_PADS = 8      # marked_trace's pad kernels outside each marker
+TRACE_SETTLE_S = 0.1  # and its host pause at each edge of the session
 
 
 def marked_window(events) -> list | None:
@@ -1441,6 +1496,43 @@ def union_ms(spans) -> float:
             total += s1 - reach
             reach = s1
     return total / 1e3
+
+
+def marked_trace(fn) -> tuple:
+    """``fn()`` alone under a device-only ``torch.profiler`` trace, between
+    two marker kernels; outside each, a host pause and a few pad kernels.
+    Returns (``fn``'s result, its wall ms up to the second marker's
+    synchronize, its device events). They are the events between the
+    markers where the trace holds both; else, since ``fn`` is all the
+    session ran, every device event but a marker (the pads add a few
+    microseconds). On the H100 a session that follows a large trace can
+    drop device events, a marker among them (after a 600 000-event trace
+    each later one lost one of its two markers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a settle and a few pad kernels at each edge, outside the window
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+        for _ in range(TRACE_PADS):
+            pad.add_(1.0)
+        torch.cuda._sleep(MARK_CYCLES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(TRACE_PADS):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+    whole = device_events(prof)
+    window = marked_window(whole)
+    if window is None:
+        window = [e for e in whole if "spin_kernel" not in e.name]
+    return out, wall_ms, window
 
 
 def device_busy(trainer, dispatches: int = 4, per_dispatch: dict | None = None) -> dict:
@@ -2824,23 +2916,58 @@ def on_device_config(TrainConfig, env_name: str, log_dir: str):
                        log_dir=log_dir, seed=SEED, debug_guards=True, **cut)
 
 
-def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict:
+def on_device_programs(run) -> dict:
+    """Each compiled program of an ``OnDeviceRun``: its five iteration
+    programs and its evaluator's two."""
+    progs = {p.name: p for p in run.programs.all()}
+    progs.update(eval_reset=run.evaluator.reset, eval_step=run.evaluator.step)
+    return progs
+
+
+def traced_iteration(run, scale: float) -> tuple:
+    """One replayed train iteration under the sync guard and
+    :func:`marked_trace`: (its wall ms, its device events, the hand
+    kernels' launches among them by name, those of every take). A trace
+    that lost events (B1f and B1b short of K each) is taken again, up to
+    ``TRACE_TRIES`` in all."""
+    from d4pg_tpu_torch.analysis.transfer import sync_debug_error
+
+    def iteration():
+        with sync_debug_error():
+            run.iteration(scale)
+
+    want = dict(fused_fwd=run.K, fused_bwd=run.K, project=0, tree_count=0, fused_step=0)
+    takes = []
+    for _ in range(TRACE_TRIES):
+        _, wall_ms, events = marked_trace(iteration)
+        takes.append(traced_launches(events))
+        if takes[-1] == want:
+            break
+    return wall_ms, events, takes[-1], takes
+
+
+def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str, keep: bool = False):
     """``OnDeviceRun`` (what ``train --on-device`` runs) at full width on
-    the card: exact launch counts (B1f and B1b K times a train iteration,
-    B2, B3 and B4 never), finite metrics, the ring's fill equal to the rows
+    the card, its warmup segments, iterations and evals compiled programs
+    (CUDA graphs): the host launch counters hold only the ``train_block``
+    program's eager warm-up call and its capture (B1f and B1b twice its
+    block each, B2, B3 and B4 never), finite metrics, the ring's fill
+    (the host mirror and the device's ``size``) equal to the rows
     appended, and every train iteration after the first under
-    ``set_sync_debug_mode("error")``. Then, past the counts, one segment
-    alone and one more train iteration (under the guard and a
-    ``torch.profiler`` trace of the device only): their wall ms, and the
-    iteration's device busy ms (the union of kernel, copy and memset
-    intervals, read by :func:`device_events`) and idle share."""
+    ``set_sync_debug_mode("error")``. Then, past the counts, one more
+    iteration (the programs called once a run are captured there), one
+    segment alone, an untraced iteration and one under the guard and a
+    ``torch.profiler`` trace: their wall ms, the iteration's device busy ms
+    (the union of kernel, copy and memset intervals, read by
+    :func:`device_events`) and idle share, and the replays' hand-kernel
+    launches counted by name (exactly K B1f and K B1b, no B2, B3 or B4).
+    Each program holds one specialization and at most one capture.
+    Returns the host launches, or with ``keep`` (launches, run)."""
     import math
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from d4pg_tpu_torch.runtime.on_device import OnDeviceRun
-    from d4pg_tpu_torch.analysis.transfer import sync_debug_error
 
     phase = f"on_device_{env_name}"
     iters = ON_DEVICE_ITERS[env_name]
@@ -2851,37 +2978,51 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    k = run.K
-    expect = dict(fused_fwd=k * iters, fused_bwd=k * iters, project=0, tree_count=0, fused_step=0)
-    check(launches == expect, f"{phase}: launch counts {launches}, expected {expect}")
+    k, blocks = run.K, run.K // run.loop.block
+    total = dict(fused_fwd=k * iters, fused_bwd=k * iters, project=0, tree_count=0,
+                 fused_step=0)
+    expect = captured(total, blocks * iters)
+    check(launches == expect, f"{phase}: host launch counts {launches}, expected the "
+          f"train_block program's warm-up call and capture, {expect}")
     check(run.iterations == iters and run.grad_steps == k * iters,
           f"{phase}: {run.iterations} iterations, {run.grad_steps} grad steps")
     check(run.guarded_iterations == iters - 1,
           f"{phase}: {run.guarded_iterations} of {iters} iterations under the sync guard")
     filled = min(run.rows_appended, run.capacity)
-    check(run.carry.replay.size == filled == row["replay_size"],
-          f"{phase}: ring size {run.carry.replay.size}, row {row['replay_size']}, appended {filled}")
+    size = int(run.carry.replay.size)
+    check(run.ring_size == size == filled == row["replay_size"],
+          f"{phase}: ring size {size} (host mirror {run.ring_size}), row "
+          f"{row['replay_size']}, appended {filled}")
     check(all(isinstance(v, float) and math.isfinite(v) for v in row.values()
               if not isinstance(v, int)), f"{phase}: metrics not finite: {row}")
     max_priority = float(run.carry.replay.max_priority)
     check(max_priority > 1.0, f"{phase}: max_priority {max_priority} did not move off 1.0")
 
     scale = run._noise_scale()
+    run.iteration(scale)  # the programs called once a run so far are captured here
     torch.cuda.synchronize()
     s0 = time.perf_counter()
-    run.carry = run.warmup_fn(run.carry, scale)
+    run.segment(scale)
     torch.cuda.synchronize()
     segment_ms = (time.perf_counter() - s0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        i0 = time.perf_counter()
-        with sync_debug_error():
-            run.carry, _ = run.iterate_fn(run.carry, scale)
-        torch.cuda.synchronize()
-        iteration_ms = (time.perf_counter() - i0) * 1e3
-    device = [e for e in device_events(prof) if e.cat in DEVICE_CATS]
+    i0 = time.perf_counter()
+    run.iteration(scale)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - i0) * 1e3
+    iteration_ms, events, replayed, takes = traced_iteration(run, scale)
+    tries = len(takes)
+    want = dict(fused_fwd=k, fused_bwd=k, project=0, tree_count=0, fused_step=0)
+    check(replayed == want, f"{phase}: traced kernel launches of one replayed iteration "
+          f"{replayed}, expected {want}, in each of {tries} traces")
+    device = [e for e in events if e.cat in DEVICE_CATS]
     busy = union_ms((e.start, e.end) for e in device)
-    b1f_traced = sum(1 for e in device if "fused_loss_fwd_kernel" in e.name)
+    progs = on_device_programs(run)
+    specs = {name: p._cache_size() for name, p in progs.items()}
+    caps = {name: p.captures for name, p in progs.items()}
+    check(all(v == 1 for v in specs.values()) and all(v <= 1 for v in caps.values())
+          and all(caps[p] == 1 for p in ("collect_step", "ring_append", "train_draw",
+                                         "train_block", "train_finish", "eval_step")),
+          f"{phase}: specializations {specs}, captures {caps}")
     a = run.config.agent
     ring_dtype = (torch.uint8 if a.pixel_shape else
                   torch.bfloat16 if run.config.ring_dtype == "bfloat16" else torch.float32)
@@ -2897,7 +3038,8 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
                   "support": [a.dist.v_min, a.dist.v_max], "batch": run.config.batch_size,
                   "num_envs": run.config.num_envs, "segment_len": 32, "n_step": a.n_step,
                   "prioritized": run.config.prioritized, "replay_capacity": run.capacity,
-                  "grad_steps_per_iteration": k, "eval_episodes": run.config.eval_episodes,
+                  "grad_steps_per_iteration": k, "train_block": run.loop.block,
+                  "eval_episodes": run.config.eval_episodes,
                   "max_episode_steps": run.config.max_episode_steps},
         "train_iterations": iters, "grad_steps": run.grad_steps,
         "sync_guard": f"set_sync_debug_mode('error') on {run.guarded_iterations} of {iters} "
@@ -2912,17 +3054,132 @@ def on_device_phase(TrainConfig, env_name: str, card: str, log_dir: str) -> dict
         "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
         "priority_mean": row["priority_mean"], "eval_return_mean": row["eval_return_mean"],
         "train_reward_per_episode_boundary": row["train_reward_per_episode_boundary"],
-        "max_priority": max_priority, "launches": launches,
+        "max_priority": max_priority,
+        # the host counters: the train_block program's warm-up call and
+        # its capture; a replay runs no host code
+        "launches": launches, "programs": {"specializations": specs, "captures": caps},
         "steady_state": {"segment_wall_ms": segment_ms,
+                         "iteration_wall_ms": untraced_ms,
                          "iteration_wall_ms_traced": iteration_ms,
                          "iteration_device_busy_ms": busy,
                          "iteration_device_idle_share": 1.0 - busy / iteration_ms,
-                         "device_events": len(device), "b1f_launches_in_trace": b1f_traced,
-                         "trace_complete": b1f_traced == k},
+                         "device_events": len(device),
+                         "replayed_launches_per_iteration": replayed,
+                         "traces_taken": tries, "launches_by_take": takes},
         "ok": True,
     }
     emit(out)
-    return launches
+    result = {"launches": launches, "replayed": replayed}
+    return (result, run) if keep else result
+
+
+GRAPH_ON_DEVICE_EVAL = 1   # graph_on_device's eval episodes (eager against replayed)
+
+
+def _carry_snapshot(run) -> tuple:
+    """(every tensor of the run's carry, cloned; each generator's state;
+    the host step)."""
+    from d4pg_tpu_torch.runtime.on_device import carry_generators, carry_tensors
+
+    return ([t.clone() for t in carry_tensors(run.carry)],
+            [g.get_state() for g in carry_generators(run.carry)], run.carry.state.step)
+
+
+def _carry_restore(run, snap) -> None:
+    import torch
+
+    from d4pg_tpu_torch.runtime.on_device import carry_generators, carry_tensors
+
+    tensors, gens, step = snap
+    with torch.no_grad():
+        for t, v in zip(carry_tensors(run.carry), tensors):
+            t.copy_(v)
+    for g, st in zip(carry_generators(run.carry), gens):
+        g.set_state(st)
+    run.carry.state.step = step
+
+
+def _traced(fn) -> tuple:
+    """``fn()`` under :func:`marked_trace`: (its result, wall ms, device
+    busy ms, device events)."""
+    out, wall_ms, events = marked_trace(fn)
+    device = [e for e in events if e.cat in DEVICE_CATS]
+    return out, wall_ms, union_ms((e.start, e.end) for e in device), len(device)
+
+
+def graph_on_device_run(run, env_name: str, card: str) -> dict:
+    """One ``on_device`` phase's run, its programs captured: from one
+    snapshot of the carry (learner state and Adam, env, observation and
+    noise states, ring, scratch, generator states, host step) one train
+    iteration run as the eager bodies (``OnDeviceLoop.iterate``) and one
+    replayed (``OnDevicePrograms.iterate``), each traced, every tensor,
+    generator state and metric ``torch.equal``; then one eval episode run
+    eagerly and replayed (a compiled evaluator's second run, from the same
+    generator state), the returns ``torch.equal``. Each program holds one
+    specialization."""
+    import torch
+
+    from d4pg_tpu_torch.runtime.evaluator import GreedyEval
+
+    phase = "graph_on_device"
+    scale = run._noise_scale()
+    snap = _carry_snapshot(run)
+    eager_m, eager_ms, eager_busy, eager_n = _traced(
+        lambda: run.loop.iterate(run.carry, scale)[1])
+    eager_state = _carry_snapshot(run)
+    _carry_restore(run, snap)
+    graph_m, graph_ms, graph_busy, graph_n = _traced(
+        lambda: run.programs.iterate(scale))
+    graph_state = _carry_snapshot(run)
+    differ = [i for i, (a, b) in enumerate(zip(graph_state[0], eager_state[0]))
+              if not torch.equal(a, b)]
+    gens_equal = all(torch.equal(a, b) for a, b in zip(graph_state[1], eager_state[1]))
+    metrics_equal = set(graph_m) == set(eager_m) and all(
+        torch.equal(graph_m[key], eager_m[key]) for key in eager_m)
+    check(not differ and gens_equal and metrics_equal and graph_state[2] == eager_state[2],
+          f"{phase} {env_name}: replayed vs eager iteration: tensors {differ} of "
+          f"{len(eager_state[0])} differ, generators equal {gens_equal}, metrics equal "
+          f"{metrics_equal}, steps {graph_state[2]} / {eager_state[2]}")
+
+    agent, actor = run.config.agent, run.carry.state.actor
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    start = gen.get_state()
+    evals = {}
+    for arm, compiled, runs in (("eager", False, 1), ("replayed", True, 2)):
+        ev = GreedyEval(agent, run.env, actor, gen, GRAPH_ON_DEVICE_EVAL, compiled=compiled)
+        for _ in range(runs):  # a compiled evaluator captures in its first run
+            gen.set_state(start)
+            ev.run()
+        evals[arm] = ev
+    eval_equal = torch.equal(evals["eager"].returns, evals["replayed"].returns)
+    check(eval_equal, f"{phase} {env_name}: eval returns eager "
+          f"{evals['eager'].returns.tolist()} vs replayed {evals['replayed'].returns.tolist()}")
+    progs = on_device_programs(run)
+    # and the compiled evaluator built here
+    progs.update(compared_eval_reset=evals["replayed"].reset,
+                 compared_eval_step=evals["replayed"].step)
+    specs = {name: p._cache_size() for name, p in progs.items()}
+    check(all(v == 1 for v in specs.values()), f"{phase} {env_name}: specializations {specs}")
+    a = run.config.agent
+    out = {"phase": phase, "env": env_name, "card": card,
+           "width": {"hidden": list(a.hidden_sizes), "atoms": a.dist.num_atoms,
+                     "batch": run.config.batch_size, "num_envs": run.config.num_envs,
+                     "n_step": a.n_step, "support": [a.dist.v_min, a.dist.v_max],
+                     "replay_capacity": run.capacity, "prioritized": run.config.prioritized,
+                     "grad_steps_per_iteration": run.K, "train_block": run.loop.block},
+           "torch_equal": {"tensors": len(eager_state[0]), "differ": differ,
+                           "generators": gens_equal, "metrics": metrics_equal,
+                           "eval_returns": eval_equal,
+                           "eval_steps": run.env.max_episode_steps},
+           "specializations": specs,
+           "iteration_wall_ms_traced": {"replayed": graph_ms, "eager": eager_ms},
+           "iteration_device_busy_ms": {"replayed": graph_busy, "eager": eager_busy},
+           "iteration_device_idle_share": {"replayed": 1.0 - graph_busy / graph_ms,
+                                           "eager": 1.0 - eager_busy / eager_ms},
+           "device_events": {"replayed": graph_n, "eager": eager_n},
+           "eval_return": float(evals["replayed"].returns.mean()), "ok": True}
+    emit(out)
+    return out
 
 
 # ----------------------------------------------------------- stacked critics
@@ -6517,7 +6774,7 @@ def on_device_dp_phase(TrainConfig, card: str, log_dir: str) -> dict:
     check(launches == expect, f"on_device_dp: launch counts {launches}, expected {expect}")
     check(run.guarded_iterations == OD_DP_ITERS - 1,
           f"on_device_dp: {run.guarded_iterations} guarded iterations")
-    sizes = [r.size for r in run.carry.replay]
+    sizes = [int(r.size) for r in run.carry.replay]
     check(row["replay_size"] == sum(sizes) == run.rows_appended,
           f"on_device_dp: replay_size {row['replay_size']}, lanes {sizes}, "
           f"appended {run.rows_appended}")
@@ -6901,6 +7158,142 @@ def _pid_alive(pid: int) -> bool:
         return False
 
 
+def run_phases(cp, cuda_tree, cuda_fused_step, dper, make_support, D4PGConfig,
+               create_train_state, train_step, TrainConfig, Trainer, card: str) -> dict:
+    """Every phase after the build, in order, each through
+    :func:`run_phase`. Returns the kernel phases' errors and timings, each
+    path's host launches, each ``graph_learner`` path's replayed launches
+    a dispatch and each on-device phase's replayed launches an
+    iteration."""
+    floor = run_phase("floor", floor_ms)
+    emit({"phase": "floor", "op": "zero_() of a one-element CUDA tensor", "floor_ms": floor})
+    err, timing = run_phase("kernel", kernel_phase, cp, make_support, floor)
+    tree_err, mismatch, tree_timing = run_phase(
+        "tree_kernel", tree_kernel_phase, cp, cuda_tree, cuda_fused_step, dper, make_support,
+        floor)
+    stacked_err, stacked_timing = run_phase(
+        "stacked_kernel", stacked_kernel_phase, cp, cuda_tree, cuda_fused_step, dper,
+        make_support, floor)
+    run_phase("step_parity", step_parity, D4PGConfig, create_train_state, train_step)
+    run_phase("stacked_step_parity", stacked_step_parity, D4PGConfig, create_train_state,
+              train_step)
+    run_phase("heads_step_parity", heads_step_parity, D4PGConfig, create_train_state,
+              train_step)
+    run_phase("pixel_step_parity", pixel_step_parity, D4PGConfig, create_train_state,
+              train_step, card)
+    run_phase("sync_guard", check_sync_guard)
+    run_phase("native_tree", native_tree_phase)
+    paths, run_actor, on_device = {}, {}, {}
+    T, C = Trainer, TrainConfig
+    with tempfile.TemporaryDirectory() as tmp:
+        replayed = run_phase("graph_learner", graph_learner_phase, T, C, card,
+                             f"{tmp}/graph_learner")
+        paths["host_fused"] = run_phase("host_fused", slice_run, T, C, "fused", GRAD_STEPS,
+                                        card, f"{tmp}/fused", keep=run_actor)
+        paths["host_projection"] = run_phase(
+            "host_projection", slice_run, T, C, "projection", GRAD_STEPS_PROJECTION, card,
+            f"{tmp}/projection")
+        paths["host_async_k1"] = run_phase(
+            "host_async_k1", async_run, T, C, "host_async", "host", 1, "numpy", card,
+            f"{tmp}/async1")
+        paths["host_block"] = run_phase("host_block", host_data_plane_run, T, C, "host", card,
+                                        f"{tmp}/block")
+        paths["host_async_k8"] = run_phase(
+            "host_async_k8", async_run, T, C, "host_async", "host", K, "native", card,
+            f"{tmp}/async8")
+        run_phase("prefetch_first_step", prefetch_first_step, T, C, card, tmp)
+        for tier in DEVICE_STEPS:
+            paths[f"device_{tier}"] = run_phase(f"device_{tier}", device_slice_run, T, C, tier,
+                                                card, f"{tmp}/{tier}")
+        paths["guards_device"] = run_phase("guards_device", guards_device_phase, T, C, card,
+                                           f"{tmp}/guards_device")
+        paths.update(run_phase("ingest_prefetch", ingest_prefetch_pair, T, C, card, tmp))
+        run_phase("ingest_stage", ingest_stage_phase, card, tmp)
+        paths["hybrid_slice"] = run_phase("hybrid_slice", host_data_plane_run, T, C, "hybrid",
+                                          card, f"{tmp}/hybrid")
+        paths["hybrid_async"] = run_phase(
+            "hybrid_async", async_run, T, C, "hybrid_async", "hybrid", K, "native", card,
+            f"{tmp}/hybrid_async")
+        paths["device_resumed"] = run_phase("resume", resume_phase, T, C, card, tmp)
+        run_phase("profile", profile_phase, T, C, card, tmp)
+        run_phase("planar_step_parity", planar_step_parity, card)
+        # on_device_pendulum and _halfcheetah keep their runs, whose
+        # programs graph_on_device then holds against their eager bodies
+        runs = {}
+        for env_name in ("pendulum", "halfcheetah"):
+            on_device[env_name], runs[env_name] = run_phase(
+                f"on_device_{env_name}", on_device_phase, C, env_name, card,
+                f"{tmp}/on_device_{env_name}", keep=True)
+        for env_name in ("pendulum", "halfcheetah"):
+            run_phase("graph_on_device", graph_on_device_run, runs.pop(env_name), env_name, card)
+        on_device["hopper_twin"] = run_phase("on_device_hopper_twin", on_device_phase, C,
+                                             "hopper_twin", card, f"{tmp}/on_device_hopper_twin")
+        for env_name in ("humanoid", "ant"):
+            run_phase(f"spatial_step_parity_{env_name}", spatial_step_parity, card, env_name)
+        on_device["humanoid"] = run_phase("on_device_humanoid", on_device_phase, C, "humanoid",
+                                          card, f"{tmp}/on_device_humanoid")
+        paths["large_batch"] = run_phase("large_batch", large_batch_phase, T, C, card,
+                                         f"{tmp}/large_batch")
+        # bf16_wire: the bf16 ring on the device, then the bf16 host wire
+        on_device["pendulum_bf16"] = run_phase(
+            "on_device_pendulum_bf16", on_device_phase, C, "pendulum_bf16", card,
+            f"{tmp}/on_device_pendulum_bf16")
+        paths["host_transfer_bf16"] = run_phase("host_transfer_bf16", wire_host_run, T, C, card,
+                                                f"{tmp}/wire")
+        for head in ("mixture_gaussian", "scalar"):
+            paths[f"heads_device_{head}"] = run_phase(
+                f"heads_device_{head}", heads_device_run, T, C, head, card, f"{tmp}/heads_{head}")
+        paths["her_pointmass"] = run_phase("her_pointmass", her_pointmass_phase, T, C, card,
+                                           f"{tmp}/her")
+        for wire in ("float32", "uint8"):
+            paths[f"host_pixel_{wire}"] = run_phase(
+                f"host_pixel_{wire}", host_pixel_run, T, C, wire, card, f"{tmp}/pixel_{wire}")
+        on_device["pixel_pendulum"] = run_phase(
+            "on_device_pixel_pendulum", on_device_phase, C, "pixel_pendulum", card,
+            f"{tmp}/on_device_pixel_pendulum")
+        paths["host_pool_pixel"] = run_phase("host_pool_pixel", host_pool_pixel_phase, T, C,
+                                             card, f"{tmp}/host_pool_pixel")
+        paths["guards_chaos_pool"] = run_phase("guards_chaos_pool", guards_chaos_pool_phase, T, C,
+                                               card, f"{tmp}/guards_chaos_pool")
+        paths["fleet_pixel"] = run_phase("fleet_pixel", fleet_pixel_phase, T, C, card,
+                                         f"{tmp}/fleet_pixel")
+        paths["fleet_device"] = run_phase("fleet_device", fleet_device_phase, T, C, card,
+                                          f"{tmp}/fleet_device")
+        paths["flywheel_pixel"] = run_phase("flywheel_pixel", flywheel_pixel_phase, T, C, card,
+                                            f"{tmp}/flywheel_pixel")
+        paths["dp_lanes"] = run_phase("dp_lanes", dp_lanes_phase, T, C, cuda_tree, dper, card,
+                                      f"{tmp}/dp_lanes")
+        paths["dp_ranks"] = run_phase("dp_ranks", dp_ranks_phase, C, card)
+        # side by side: each phase drives CLI processes of its own on the
+        # card and checks them by their output and files, and neither
+        # waits on a clock that the other's load could make it miss
+        with ThreadPoolExecutor(1) as pool:
+            relaunch = pool.submit(run_phase, "host_kill_relaunch", host_kill_relaunch_phase,
+                                   card, f"{tmp}/host_kill")
+            paths["league_device"] = run_phase("league_device", league_device_phase, card,
+                                               f"{tmp}/league_device")
+            paths["host_kill_relaunch"] = relaunch.result()
+        for mode in ("dp", "dp_hogwild"):
+            paths[f"dp_host_{mode}"] = run_phase(f"dp_host_{mode}", dp_host_run, T, C, mode,
+                                                 card, f"{tmp}/{mode}")
+        paths["tp_host"] = run_phase("tp_host", tp_host_phase, T, C, card, f"{tmp}/tp_host")
+        paths["tp_members"] = run_phase("tp_members", tp_members_phase, card)
+        paths["on_device_dp"] = run_phase("on_device_dp", on_device_dp_phase, C, card,
+                                          f"{tmp}/on_device_dp")
+        run_phase("gloo_legs", tp_gloo_legs_phase, C, card)
+        paths["serve"] = run_phase("serve", serve_phase, card, f"{tmp}/fused", tmp, run_actor)
+        paths["serve_guards_chaos"] = run_phase("serve_guards_chaos", serve_guards_chaos_phase,
+                                                card, f"{tmp}/bundle_default")
+        paths["router_serve"] = run_phase("router_serve", router_serve_phase, card,
+                                          f"{tmp}/bundle_default", tmp)
+    for env_name, od in on_device.items():
+        paths[f"on_device_{env_name}"] = od["launches"]
+    return {"kernels": (err, timing, tree_err, mismatch, tree_timing, stacked_err,
+                        stacked_timing),
+            "paths": paths, "replayed": replayed,
+            "on_device": {name: od["replayed"] for name, od in on_device.items()}}
+
+
 def main() -> int:
     try:
         from d4pg_tpu_torch.utils.backend_probe import probe_default_backend
@@ -6950,95 +7343,13 @@ def main() -> int:
                   for n, log in _build.build_logs.items()},
     })
 
-    floor = floor_ms()
-    emit({"phase": "floor", "op": "zero_() of a one-element CUDA tensor", "floor_ms": floor})
-    err, timing = kernel_phase(cp, make_support, floor)
-    tree_err, mismatch, tree_timing = tree_kernel_phase(
-        cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
-    stacked_err, stacked_timing = stacked_kernel_phase(
-        cp, cuda_tree, cuda_fused_step, dper, make_support, floor)
-    step_parity(D4PGConfig, create_train_state, train_step)
-    stacked_step_parity(D4PGConfig, create_train_state, train_step)
-    heads_step_parity(D4PGConfig, create_train_state, train_step)
-    pixel_step_parity(D4PGConfig, create_train_state, train_step, card)
-    check_sync_guard()
-    native_tree_phase()
-    paths = {}
-    run_actor = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        replayed = graph_learner_phase(Trainer, TrainConfig, card, f"{tmp}/graph_learner")
-        paths["host_fused"] = slice_run(Trainer, TrainConfig, "fused", GRAD_STEPS, card,
-                                        f"{tmp}/fused", keep=run_actor)
-        paths["host_projection"] = slice_run(
-            Trainer, TrainConfig, "projection", GRAD_STEPS_PROJECTION, card, f"{tmp}/projection")
-        paths["host_async_k1"] = async_run(
-            Trainer, TrainConfig, "host_async", "host", 1, "numpy", card, f"{tmp}/async1")
-        paths["host_block"] = host_data_plane_run(Trainer, TrainConfig, "host", card, f"{tmp}/block")
-        paths["host_async_k8"] = async_run(
-            Trainer, TrainConfig, "host_async", "host", K, "native", card, f"{tmp}/async8")
-        prefetch_first_step(Trainer, TrainConfig, card, tmp)
-        for tier in DEVICE_STEPS:
-            paths[f"device_{tier}"] = device_slice_run(Trainer, TrainConfig, tier, card, f"{tmp}/{tier}")
-        paths["guards_device"] = guards_device_phase(Trainer, TrainConfig, card,
-                                                     f"{tmp}/guards_device")
-        paths.update(ingest_prefetch_pair(Trainer, TrainConfig, card, tmp))
-        ingest_stage_phase(card, tmp)
-        paths["hybrid_slice"] = host_data_plane_run(Trainer, TrainConfig, "hybrid", card, f"{tmp}/hybrid")
-        paths["hybrid_async"] = async_run(
-            Trainer, TrainConfig, "hybrid_async", "hybrid", K, "native", card, f"{tmp}/hybrid_async")
-        paths["device_resumed"] = resume_phase(Trainer, TrainConfig, card, tmp)
-        profile_phase(Trainer, TrainConfig, card, tmp)
-        planar_step_parity(card)
-        for env_name in ("pendulum", "halfcheetah", "hopper_twin"):
-            paths[f"on_device_{env_name}"] = on_device_phase(
-                TrainConfig, env_name, card, f"{tmp}/on_device_{env_name}")
-        for env_name in ("humanoid", "ant"):
-            spatial_step_parity(card, env_name)
-        paths["on_device_humanoid"] = on_device_phase(
-            TrainConfig, "humanoid", card, f"{tmp}/on_device_humanoid")
-        paths["large_batch"] = large_batch_phase(Trainer, TrainConfig, card, f"{tmp}/large_batch")
-        # bf16_wire: the bf16 ring on the device, then the bf16 host wire
-        paths["on_device_pendulum_bf16"] = on_device_phase(
-            TrainConfig, "pendulum_bf16", card, f"{tmp}/on_device_pendulum_bf16")
-        paths["host_transfer_bf16"] = wire_host_run(Trainer, TrainConfig, card, f"{tmp}/wire")
-        for head in ("mixture_gaussian", "scalar"):
-            paths[f"heads_device_{head}"] = heads_device_run(
-                Trainer, TrainConfig, head, card, f"{tmp}/heads_{head}")
-        paths["her_pointmass"] = her_pointmass_phase(Trainer, TrainConfig, card, f"{tmp}/her")
-        for wire in ("float32", "uint8"):
-            paths[f"host_pixel_{wire}"] = host_pixel_run(
-                Trainer, TrainConfig, wire, card, f"{tmp}/pixel_{wire}")
-        paths["on_device_pixel_pendulum"] = on_device_phase(
-            TrainConfig, "pixel_pendulum", card, f"{tmp}/on_device_pixel_pendulum")
-        paths["host_pool_pixel"] = host_pool_pixel_phase(
-            Trainer, TrainConfig, card, f"{tmp}/host_pool_pixel")
-        paths["guards_chaos_pool"] = guards_chaos_pool_phase(
-            Trainer, TrainConfig, card, f"{tmp}/guards_chaos_pool")
-        paths["fleet_pixel"] = fleet_pixel_phase(Trainer, TrainConfig, card, f"{tmp}/fleet_pixel")
-        paths["fleet_device"] = fleet_device_phase(Trainer, TrainConfig, card,
-                                                   f"{tmp}/fleet_device")
-        paths["flywheel_pixel"] = flywheel_pixel_phase(Trainer, TrainConfig, card,
-                                                       f"{tmp}/flywheel_pixel")
-        paths["dp_lanes"] = dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card,
-                                           f"{tmp}/dp_lanes")
-        paths["dp_ranks"] = dp_ranks_phase(TrainConfig, card)
-        # side by side: each phase drives CLI processes of its own on the
-        # card and checks them by their output and files, and neither
-        # waits on a clock that the other's load could make it miss
-        with ThreadPoolExecutor(1) as pool:
-            relaunch = pool.submit(host_kill_relaunch_phase, card, f"{tmp}/host_kill")
-            paths["league_device"] = league_device_phase(card, f"{tmp}/league_device")
-            paths["host_kill_relaunch"] = relaunch.result()
-        for mode in ("dp", "dp_hogwild"):
-            paths[f"dp_host_{mode}"] = dp_host_run(Trainer, TrainConfig, mode, card,
-                                                   f"{tmp}/{mode}")
-        paths["tp_host"] = tp_host_phase(Trainer, TrainConfig, card, f"{tmp}/tp_host")
-        paths["tp_members"] = tp_members_phase(card)
-        paths["on_device_dp"] = on_device_dp_phase(TrainConfig, card, f"{tmp}/on_device_dp")
-        tp_gloo_legs_phase(TrainConfig, card)
-        paths["serve"] = serve_phase(card, f"{tmp}/fused", tmp, run_actor)
-        paths["serve_guards_chaos"] = serve_guards_chaos_phase(card, f"{tmp}/bundle_default")
-        paths["router_serve"] = router_serve_phase(card, f"{tmp}/bundle_default", tmp)
+    try:
+        phases = run_phases(cp, cuda_tree, cuda_fused_step, dper, make_support, D4PGConfig,
+                            create_train_state, train_step, TrainConfig, Trainer, card)
+    except PhaseFailed:
+        return 1
+    err, timing, tree_err, mismatch, tree_timing, stacked_err, stacked_timing = phases["kernels"]
+    paths, replayed, on_device = phases["paths"], phases["replayed"], phases["on_device"]
 
     def per_path(counter):
         return {path: counts[counter] for path, counts in paths.items()}
@@ -7067,6 +7378,10 @@ def main() -> int:
             # launches a dispatch of each graph_learner path, counted by name
             # in a trace of its replays (no host counter sees a replay)
             "replayed_per_dispatch_by_path": {p: r[counter] for p, r in replayed.items()},
+            # launches in one replayed train iteration of each on-device
+            # phase, counted by name in its trace (K each of B1f and B1b)
+            "replayed_per_iteration_by_on_device_phase": {
+                f"on_device_{p}": r[counter] for p, r in on_device.items()},
             "max_abs_err": error,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
@@ -7083,6 +7398,7 @@ def main() -> int:
         kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)
+    emit({"total_s": time.perf_counter() - START})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

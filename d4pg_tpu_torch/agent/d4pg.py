@@ -506,6 +506,12 @@ def _step_metrics(config, critic_loss, actor_loss, priorities, q_mean) -> dict:
     return metrics
 
 
+def step_metric_keys(config: D4PGConfig) -> list:
+    """The keys of :func:`train_step`'s metrics under ``config``."""
+    keys = ["critic_loss", "actor_loss", "priority_mean", "q_mean"]
+    return keys + (["q_support_frac"] if config.dist.kind == "categorical" else [])
+
+
 def _flat_grads(loss: torch.Tensor, params: list, sources: list | None = None) -> torch.Tensor:
     """d loss / d params as one flat row (zeros for an unused parameter).
     ``sources`` (a tp network's ``grad_sources``) gives parameter ``i`` the

@@ -3,7 +3,9 @@
 
 The JAX package scans one env over T steps and vmaps that over N envs.
 Here the N envs step together as one set of tensor ops and the T steps
-are a Python loop; the trajectory comes back stacked as [N, T, ...].
+are a Python loop over :func:`rollout_step`; the trajectory comes back
+stacked as [N, T, ...]. The on-device loop calls :func:`rollout_step`
+itself, one compiled program a step (``runtime/collect.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,32 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 @torch.no_grad()
+def rollout_step(
+    env,
+    policy: Callable,
+    generator: torch.Generator,
+    state: EnvState,
+    obs: torch.Tensor,
+    pstate: Any,
+    policy_state_reset: Callable | None = None,
+):
+    """One step of every env under ``policy`` (see :func:`rollout`):
+    returns (state, obs, policy_state, transition), where ``transition``
+    is (obs, action, reward, next_obs, terminated, truncated) in
+    :class:`Trajectory` field order, ``next_obs`` before the auto-reset."""
+    action, pstate = policy(obs, generator, pstate)
+    state2, obs2, reward, terminated, truncated = env.step(state, action)
+    done = torch.maximum(terminated, truncated)
+    transition = (obs, action, reward, obs2, terminated, truncated)
+    state, obs = env.reset_where(state2, obs2, done, generator)
+    if policy_state_reset is not None:
+        mask = done.bool()
+        reset = policy_state_reset(pstate)
+        pstate = type(pstate)(*(_where(mask, r, s) for r, s in zip(reset, pstate)))
+    return state, obs, pstate, transition
+
+
+@torch.no_grad()
 def rollout(
     env,
     policy: Callable,
@@ -56,15 +84,9 @@ def rollout(
     state, obs, pstate = init_state, init_obs, policy_state
     cols = {k: [] for k in Trajectory._fields}
     for _ in range(num_steps):
-        action, pstate = policy(obs, generator, pstate)
-        state2, obs2, reward, terminated, truncated = env.step(state, action)
-        done = torch.maximum(terminated, truncated)
-        for k, v in zip(Trajectory._fields, (obs, action, reward, obs2, terminated, truncated)):
+        state, obs, pstate, transition = rollout_step(
+            env, policy, generator, state, obs, pstate, policy_state_reset)
+        for k, v in zip(Trajectory._fields, transition):
             cols[k].append(v)
-        state, obs = env.reset_where(state2, obs2, done, generator)
-        if policy_state_reset is not None:
-            mask = done.bool()
-            reset = policy_state_reset(pstate)
-            pstate = type(pstate)(*(_where(mask, r, s) for r, s in zip(reset, pstate)))
     traj = Trajectory(**{k: torch.stack(v, dim=1) for k, v in cols.items()})
     return state, obs, pstate, traj

@@ -49,7 +49,10 @@ bodies at once):
 Every function runs in its inputs' dtype (float32 in the envs; the tests
 also take a float64 run as a reference). The solve uses
 ``torch.linalg.solve_ex(..., check_errors=False)``, which does not read
-back from the device. Integration is semi-implicit Euler
+back from the device; on the card under the cuSOLVER/cuBLAS preference
+(:func:`_capturable_solve`), since ATen's default picks MAGMA's batched
+LU for these sizes (nv > 16 over more than 16 rows), which cannot be
+captured in a CUDA graph (the on-device loop's programs). Integration is semi-implicit Euler
 over a Python loop of substeps (the JAX ``lax.scan``); each quaternion is
 rebuilt as ``u ⊗ exp(dt·ω)`` and renormalised.
 """
@@ -755,7 +758,22 @@ def forward_dynamics(model: SpatialModel, q: torch.Tensor, v: torch.Tensor,
     W = torch.cat([-_bias_wrench(plan, kin, V, Vp, xd, v),
                    _contact_wrench(plan, model, kin, xd)], 1)
     rhs = _joint_force(plan, model, q, v, ctrl) + _pull_back(plan, kin, plan.MP, W)
-    return torch.linalg.solve_ex(_mass_matrix(plan, kin), rhs, check_errors=False)[0]
+    return _capturable_solve(_mass_matrix(plan, kin), rhs)
+
+
+def _capturable_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``solve_ex`` of A x = b without a read back. On the card ATen's
+    linear-algebra preference is cuSOLVER for the call (batched cuBLAS LU
+    for these sizes, cuSOLVER's for one row), whose kernels a CUDA graph
+    captures, and is restored after it; the CPU is unaffected."""
+    if A.device.type != "cuda":
+        return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
 
 
 def integrate_qpos(model: SpatialModel, q: torch.Tensor, v: torch.Tensor,

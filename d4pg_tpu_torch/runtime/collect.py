@@ -46,10 +46,11 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from d4pg_tpu_torch.agent.d4pg import act_deterministic, make_noise, noisy_explore
 from d4pg_tpu_torch.agent.state import D4PGConfig
-from d4pg_tpu_torch.envs.rollouts import Trajectory, rollout
+from d4pg_tpu_torch.envs.rollouts import Trajectory, rollout, rollout_step
 from d4pg_tpu_torch.ops.nstep import nstep_returns
 
 
@@ -76,29 +77,88 @@ def collapse_nstep(traj: Trajectory, gamma: float, n: int) -> dict[str, torch.Te
     return {k: v.reshape((N * T,) + v.shape[2:]) for k, v in flat.items()}
 
 
-def make_segment_collector(
-    config: D4PGConfig, env, num_envs: int, segment_len: int, noise_fns=None
-):
-    """Build ``collect(actor, env_states, obs, noise_states, generator,
-    noise_scale) -> (env_states, obs, noise_states, flat, traj)`` where
-    ``flat`` is :func:`collapse_nstep` of the segment and ``traj`` the raw
-    [N, T] segment."""
-    _, noise_sample, noise_reset = noise_fns or make_noise(config, (num_envs,))
+def copy_into(dst, src) -> None:
+    """Copy a pytree of tensors (an env state, a noise state) into the
+    same-shaped tree ``dst``, leaf by leaf, IN PLACE: the tensors a
+    compiled program reads by address keep their identity."""
+    for d, s in zip(pytree.tree_leaves(dst), pytree.tree_leaves(src)):
+        if d is not s:
+            d.copy_(s)
+
+
+class SegmentCollector:
+    """Rolls ``num_envs`` envs one ``segment_len``-step segment under the
+    noisy actor and n-step-collapses it.
+
+    - ``collect(actor, env_states, obs, noise_states, generator,
+      noise_scale) -> (env_states, obs, noise_states, flat, traj)``
+      (calling the collector): ``flat`` is :func:`collapse_nstep` of the
+      segment and ``traj`` the raw [N, T] segment; new tensors throughout;
+    - :meth:`step` is one control step of the same segment IN PLACE: the
+      env, observation and noise states are overwritten and the step's
+      transition is written at slot ``t`` (a 0-d int64 tensor) of [N, T]
+      trajectory buffers (:meth:`trajectory_buffers`), at a noise scale
+      that is a 0-d tensor too. The on-device loop runs it as a compiled
+      program, replayed ``segment_len`` times a segment
+      (``runtime/on_device.py``), then :meth:`collapse`."""
+
+    def __init__(self, config: D4PGConfig, env, num_envs: int, segment_len: int,
+                 noise_fns=None):
+        self.config = config
+        self.env = env
+        self.num_envs = num_envs
+        self.segment_len = segment_len
+        _, self._noise_sample, self._noise_reset = noise_fns or make_noise(config, (num_envs,))
+
+    def _policy(self, actor, noise_scale):
+        def policy(o, gen, nstate):
+            return noisy_explore(self.config, self._noise_sample, actor(o), gen, nstate,
+                                 noise_scale)
+        return policy
 
     @torch.no_grad()
-    def collect(actor, env_states, obs, noise_states, generator, noise_scale):
-        def policy(o, gen, nstate):
-            return noisy_explore(config, noise_sample, actor(o), gen, nstate, noise_scale)
-
+    def __call__(self, actor, env_states, obs, noise_states, generator, noise_scale):
         env_states, obs, noise_states, traj = rollout(
-            env, policy, generator, segment_len,
+            self.env, self._policy(actor, noise_scale), generator, self.segment_len,
             init_state=env_states, init_obs=obs,
-            policy_state=noise_states, policy_state_reset=noise_reset,
+            policy_state=noise_states, policy_state_reset=self._noise_reset,
         )
-        flat = collapse_nstep(traj, config.gamma, config.n_step)
-        return env_states, obs, noise_states, flat, traj
+        return env_states, obs, noise_states, self.collapse(traj), traj
 
-    return collect
+    def trajectory_buffers(self, obs_dim: int, action_dim: int, device) -> Trajectory:
+        """Zeroed [N, T] float32 buffers for :meth:`step` to write."""
+        n, t = self.num_envs, self.segment_len
+
+        def z(*tail):
+            return torch.zeros((n, t) + tail, dtype=torch.float32, device=device)
+
+        return Trajectory(obs=z(obs_dim), action=z(action_dim), reward=z(), next_obs=z(obs_dim),
+                          terminated=z(), truncated=z())
+
+    @torch.no_grad()
+    def step(self, actor, env_states, obs, noise_states, generator, noise_scale,
+             traj: Trajectory, t: torch.Tensor) -> None:
+        state2, obs2, noise2, transition = rollout_step(
+            self.env, self._policy(actor, noise_scale), generator, env_states, obs, noise_states,
+            self._noise_reset)
+        at = t.reshape(1)
+        for buf, v in zip(traj, transition):
+            buf.index_copy_(1, at, v.unsqueeze(1).to(buf.dtype))
+        copy_into(env_states, state2)
+        obs.copy_(obs2)
+        copy_into(noise_states, noise2)
+
+    def collapse(self, traj: Trajectory) -> dict:
+        return collapse_nstep(traj, self.config.gamma, self.config.n_step)
+
+
+def make_segment_collector(
+    config: D4PGConfig, env, num_envs: int, segment_len: int, noise_fns=None
+) -> SegmentCollector:
+    """A :class:`SegmentCollector`; calling it rolls and collapses one
+    segment: ``collect(actor, env_states, obs, noise_states, generator,
+    noise_scale) -> (env_states, obs, noise_states, flat, traj)``."""
+    return SegmentCollector(config, env, num_envs, segment_len, noise_fns)
 
 
 # ---------------------------------------------------------------- host envs

@@ -263,7 +263,7 @@ def run_on_device_lanes(mesh, agent_cfg, env_name: str, num_envs: int, capacity:
         "state": [t.detach().cpu().clone() for t in float_tensors(carry.state)],
         "step": carry.state.step,
         "rings": [{f: getattr(r, f).cpu().clone() for f in ring_keys} for r in carry.replay],
-        "sizes": [r.size for r in carry.replay],
+        "sizes": [int(r.size) for r in carry.replay],
         "metrics": {key: v.cpu() for key, v in metrics.items()},
     }
 

@@ -19,7 +19,8 @@ metrics a metrics row reads).
   program's capture stream (real calls with the caller's inputs: a
   learner's first dispatch makes Adam's moments, a PER tier's first
   descent makes kernel B3's ticket counters), with cuDNN's autotuner off,
-  so the capture records the algorithms the eager calls ran. A capture
+  so the capture records the algorithms the eager calls ran, and with
+  Python's garbage collector held off (:func:`_no_collection`). A capture
   that fails raises; nothing falls back to eager.
 - On the CPU the same body runs eagerly on the same static buffers, and its
   outputs are copied into static outputs before the copies are returned.
@@ -51,6 +52,7 @@ program built on the CPU) is reported to the listeners of
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 from typing import Callable, Iterable, Optional
 
@@ -104,6 +106,25 @@ def build_context():
         torch.backends.cudnn.benchmark = prev_bench
         if prev_sync:
             torch.cuda.set_sync_debug_mode(prev_sync)
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic garbage collector run to its end, then held off,
+    around a capture: a collection inside the capture could destroy an
+    unreachable graph (a program and its specializations refer to each
+    other), and ``cudaGraphExecDestroy`` on the capturing thread
+    invalidates the capture (seen on the H100: "operation not permitted
+    when stream is capturing (function reset)", then the capture's end
+    failing)."""
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def _signature(leaves: list, spec) -> tuple:
@@ -214,7 +235,7 @@ class Specialization:
         for gen in prog.generators:
             graph.register_generator_state(gen)
         stream = prog.stream()
-        with build_context():
+        with build_context(), _no_collection():
             stream.wait_stream(torch.cuda.current_stream(prog.device))
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                 out = self._flat(prog.body(*pytree.tree_unflatten(self.inputs, self.in_spec)))
