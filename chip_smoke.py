@@ -465,6 +465,24 @@ JSON line (with ``at_s``, the seconds since the script started):
    each traced (wall and device busy ms, idle share), every carry tensor,
    generator state and metric ``torch.equal``, and one eval episode
    eager and replayed with ``torch.equal`` returns.
+40. The in-process lanes as compiled programs (ROADMAP A13 (b)):
+   ``dp_lanes``, ``dp_host_*``, ``tp_host`` and ``on_device_dp`` run
+   their dispatches (or iterations) through the lanes' programs, so their
+   host launch counters hold the warm-up call and the capture
+   (:func:`captured`); ``tp_members`` times its tp arm through
+   ``auto_parallel_train_step``'s program (host counters: warm-up and
+   capture). Then ``graph_lanes``, one line a lane path at full width (B
+   = 256 as 128 a dp lane): ``dp_lanes`` (the sharded device-PER
+   megastep, K = 8), ``dp_host`` (K = 8), ``hogwild`` and ``tp_host`` (dp
+   2 x tp 2) as ``graph_learner`` runs its paths (two legs with the
+   sentinel flat, every learner program at one specialization,
+   ``GRAPH_COMPARED`` dispatches replayed and eager from one state
+   ``torch.equal``, graph and eager timed in turns, the replays' B1f and
+   B1b counted by name, 2 x K a dispatch, B3 2 a dispatch on
+   ``dp_lanes``), and ``on_device_dp`` as ``graph_on_device`` runs its
+   (one iteration of K = 256 eager and replayed from one carry, the
+   replay's trace holding 2 x K B1f and B1b). ``dp_ranks`` and
+   ``gloo_legs`` stay eager: their combines cross processes over gloo.
 
 Every phase line also carries ``phase_s``: the seconds since its phase
 started (or since its phase's previous line). A failing phase prints
@@ -476,7 +494,8 @@ plain version, B4's the largest ce/ov error;
 ``replayed_per_dispatch_by_path``: its launches a dispatch in the traced
 replays of each ``graph_learner`` path;
 ``replayed_per_iteration_by_on_device_phase``: in one replayed iteration
-of each on-device phase), the card's name and power limit as
+of each on-device phase; ``replayed_by_lane_path``: a dispatch of each
+``graph_lanes`` trainer path, an iteration of ``on_device_dp``), the card's name and power limit as
 ``nvidia-smi`` gives them, ``{"total_s": ...}``, the script's seconds, and
 last ``{"ok": true, "device": {...}}``. With no CUDA device, or alone in a
 directory without the package, it exits 2 before printing any result.
@@ -2293,11 +2312,14 @@ def ingest_stage_phase(card: str, log_dir: str) -> None:
           "twin_chunks_ingested": sides[1][1].chunks_ingested, "ok": True})
 
 
-GRAPH_LEG_STEPS = 32            # each of graph_learner's two train() legs
+DP_LANES_GRAPH = 2              # graph_lanes' dp lanes
+# graph_learner's and graph_lanes' depth (PR 26 halved the legs and the
+# timed arms, to make room for graph_lanes inside the script's limit)
+GRAPH_LEG_STEPS = 16            # each of the two train() legs of a path
 GRAPH_COMPARED = 4              # dispatches run eagerly and as replays from one state
-GRAPH_TIMED = 8                 # dispatches of each timed arm (graph, eager)
+GRAPH_TIMED = 4                 # dispatches of each timed arm (graph, eager)
 GRAPH_WARMUP = 512              # env steps collected before the first leg (B = 256)
-GRAPH_BETA_STEPS = 80           # PER paths: β reaches 1 inside the compared dispatches
+GRAPH_BETA_STEPS = 48           # PER paths: β reaches 1 inside the compared dispatches
 GRAPH_PATHS = {
     "host_k1": dict(steps_per_dispatch=1, tree_backend="native"),
     "host_k4": dict(steps_per_dispatch=4, tree_backend="native"),
@@ -2310,11 +2332,25 @@ GRAPH_PATHS = {
 }
 
 
+# graph_lanes' trainer paths: the in-process lanes (dp 2, and 2 x 2 with
+# tp) at full width, B = 256 as 128 a dp lane
+LANE_PATHS = {
+    "dp_lanes": dict(replay_placement="device", steps_per_dispatch=K, dp=DP_LANES_GRAPH),
+    "dp_host": dict(steps_per_dispatch=K, tree_backend="native", dp=DP_LANES_GRAPH),
+    "hogwild": dict(steps_per_dispatch=K, tree_backend="native", dp=DP_LANES_GRAPH,
+                    dp_hogwild=True),
+    "tp_host": dict(steps_per_dispatch=K, tree_backend="native", dp=DP_LANES_GRAPH, tp=2),
+}
+
+
 def graph_per_dispatch(path: str, k: int) -> dict:
-    """Each hand kernel's launches in one dispatch of a ``GRAPH_PATHS`` path."""
+    """Each hand kernel's launches in one dispatch of a ``GRAPH_PATHS`` or
+    ``LANE_PATHS`` path: a lane's a grad step (B1f, B1b) and a dispatch
+    (B3) on the lanes' paths."""
     fused = path == "fused_descent"
-    return dict(fused_fwd=0 if fused else k, fused_bwd=k, project=0,
-                tree_count=1 if path in ("device_per", "fused_descent") else 0,
+    lanes = DP_LANES_GRAPH if path in LANE_PATHS else 1
+    return dict(fused_fwd=0 if fused else lanes * k, fused_bwd=lanes * k, project=0,
+                tree_count=lanes if path in ("device_per", "fused_descent", "dp_lanes") else 0,
                 fused_step=k if fused else 0)
 
 
@@ -2387,28 +2423,22 @@ def _dispatch_inputs(trainer, n: int) -> list:
 
 
 def _learner_snapshot(trainer) -> tuple:
-    """(every tensor the dispatch program reads by address, cloned; each
-    generator's state; the host step)."""
-    from d4pg_tpu_torch.runtime import megastep as mega
-
-    tree = None if trainer._dev_per is None else trainer._dev_per.tree
-    tensors = mega.learner_tensors(trainer.state, trainer._ring, tree)
+    """(every tensor the dispatch program reads by address, cloned: the
+    learner's, the ring's and the tree's, every lane's, a hogwild
+    window's replicas'; each generator's state; the host step)."""
     prog, _ = _dispatch_program(trainer)
-    return ([t.clone() for t in tensors], [g.get_state() for g in prog.generators],
+    return ([t.clone() for t in prog.state()], [g.get_state() for g in prog.generators],
             trainer.state.step)
 
 
 def _learner_restore(trainer, snap) -> None:
     import torch
 
-    from d4pg_tpu_torch.runtime import megastep as mega
-
-    tree = None if trainer._dev_per is None else trainer._dev_per.tree
     tensors, gens, step = snap
-    with torch.no_grad():
-        for t, v in zip(mega.learner_tensors(trainer.state, trainer._ring, tree), tensors):
-            t.copy_(v)
     prog, _ = _dispatch_program(trainer)
+    with torch.no_grad():
+        for t, v in zip(prog.state(), tensors):
+            t.copy_(v)
     for g, st in zip(prog.generators, gens):
         g.set_state(st)
     trainer.state.step = step
@@ -2449,7 +2479,8 @@ def _plant_second_shape(trainer, name: str) -> str:
     raise RuntimeError("chip_smoke: graph_learner: a planted second shape did not trip the sentinel")
 
 
-def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) -> dict:
+def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str,
+                      phase: str = "graph_learner") -> dict:
     """One path of ``graph_learner`` at full width (3x256, 51 atoms, B =
     256; the pixel path at the preset's 48x48x2 frames): two ``train()``
     legs under ``debug_guards`` with the sentinel's counts flat between
@@ -2457,14 +2488,15 @@ def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) 
     run as the eager body from the same state and generator states, every
     tensor, generator state and output ``torch.equal``; the graph against
     the eager dispatch timed in turns (:func:`device_busy`), the replays'
-    kernels counted in the trace; then a planted second shape that must
-    trip the sentinel."""
+    kernels counted in the trace; then (``graph_learner``) a planted
+    second shape that must trip the sentinel. ``graph_lanes`` runs the
+    ``LANE_PATHS`` through the same, every learner program at one
+    specialization."""
     import torch
 
     from d4pg_tpu_torch.agent.state import D4PGConfig
-    from d4pg_tpu_torch.runtime import megastep as mega
 
-    kw = dict(GRAPH_PATHS[path])
+    kw = dict(GRAPH_PATHS[path] if phase == "graph_learner" else LANE_PATHS[path])
     env = kw.pop("env", "pendulum")
     cfg = TrainConfig(env=env, total_steps=GRAPH_LEG_STEPS, eval_interval=10**9, eval_episodes=1,
                       warmup_steps=GRAPH_WARMUP, log_dir=log_dir, seed=SEED, debug_guards=True,
@@ -2484,8 +2516,8 @@ def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) 
         leg1 = trainer.sentinel.counts()
         trainer.train()
         leg2 = trainer.sentinel.counts()
-        check(leg1 == leg2 and leg1[name] == 1, f"graph_learner {path}: sentinel {leg1} -> {leg2}")
-        check(prog.captures == 1, f"graph_learner {path}: {prog.captures} captures")
+        check(leg1 == leg2 and leg1[name] == 1, f"{phase} {path}: sentinel {leg1} -> {leg2}")
+        check(prog.captures == 1, f"{phase} {path}: {prog.captures} captures")
         torch.cuda.synchronize()
 
         inputs = _dispatch_inputs(trainer, GRAPH_COMPARED)
@@ -2500,14 +2532,13 @@ def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) 
             eager_out.append(prog.body(*i))
             trainer.state.step = step + k
         eager_state = _learner_snapshot(trainer)
-        tree = None if trainer._dev_per is None else trainer._dev_per.tree
-        n_tensors = len(mega.learner_tensors(trainer.state, trainer._ring, tree))
+        n_tensors = len(graph_state[0])
         differ = [i for i, (a, b) in enumerate(zip(graph_state[0], eager_state[0]))
                   if not torch.equal(a, b)]
         gens_equal = all(torch.equal(a, b) for a, b in zip(graph_state[1], eager_state[1]))
         outs_equal = all(_outputs_equal(a, b) for a, b in zip(graph_out, eager_out))
         check(not differ and gens_equal and outs_equal and graph_state[2] == eager_state[2],
-              f"graph_learner {path}: replays vs eager: tensors {differ} of {n_tensors} "
+              f"{phase} {path}: replays vs eager: tensors {differ} of {n_tensors} "
               f"differ, generators equal {gens_equal}, outputs equal {outs_equal}")
 
         # the graph and the eager dispatch timed in turns, the replays'
@@ -2519,14 +2550,20 @@ def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) 
         graph_b = device_busy(trainer, GRAPH_TIMED, per_dispatch=per)
         with eager_dispatches(trainer):
             eager_b = device_busy(trainer, GRAPH_TIMED)
-        planted = _plant_second_shape(trainer, name)
+        specs = {n: trainer.sentinel.count(n) for n in trainer.sentinel.counts()}
+        check(all(v <= 1 for v in specs.values()) and specs[name] == 1,
+              f"{phase} {path}: specializations {specs}")
+        planted = _plant_second_shape(trainer, name) if phase == "graph_learner" else None
     finally:
         trainer.close()
         torch.backends.cudnn.deterministic = deterministic
     # the first leg's host counts: its warm-up dispatch and its capture
     check(launches == {key: 2 * v for key, v in per.items()},
-          f"graph_learner {path}: host launches {launches}, per dispatch {per}")
-    return {"phase": "graph_learner", "path": path, "card": card, "env": env,
+          f"{phase} {path}: host launches {launches}, per dispatch {per}")
+    return {"phase": phase, "path": path, "card": card, "env": env,
+            "lanes": {"dp": trainer.config.dp, "tp": trainer.config.tp,
+                      "hogwild": trainer.config.dp_hogwild},
+            "specializations": specs,
             "width": {"hidden": list(trainer.config.agent.hidden_sizes),
                       "atoms": trainer.config.agent.dist.num_atoms,
                       "batch": trainer.config.batch_size, "steps_per_dispatch": k,
@@ -2540,6 +2577,10 @@ def graph_learner_run(Trainer, TrainConfig, path: str, card: str, log_dir: str) 
             "betas": betas,
             "sentinel": {"leg1": leg1, "leg2": leg2, "planted_error": planted},
             "graph": [graph_a, graph_b], "eager": [eager_a, eager_b],
+            "device_idle_share": {"graph": [graph_a["device_idle_share"],
+                                            graph_b["device_idle_share"]],
+                                  "eager": [eager_a["device_idle_share"],
+                                            eager_b["device_idle_share"]]},
             "wall_ms_per_step": {"graph": [graph_a["wall_ms_per_step"], graph_b["wall_ms_per_step"]],
                                  "eager": [eager_a["wall_ms_per_step"], eager_b["wall_ms_per_step"]]},
             "device_ms_per_step": {"graph": [graph_a["device_ms_per_step"],
@@ -3101,35 +3142,45 @@ def _carry_restore(run, snap) -> None:
 
 def _traced(fn) -> tuple:
     """``fn()`` under :func:`marked_trace`: (its result, wall ms, device
-    busy ms, device events)."""
+    busy ms, device events, the hand kernels' launches among them)."""
     out, wall_ms, events = marked_trace(fn)
     device = [e for e in events if e.cat in DEVICE_CATS]
-    return out, wall_ms, union_ms((e.start, e.end) for e in device), len(device)
+    return (out, wall_ms, union_ms((e.start, e.end) for e in device), len(device),
+            traced_launches(events))
 
 
-def graph_on_device_run(run, env_name: str, card: str) -> dict:
+def graph_on_device_run(run, env_name: str, card: str, phase: str = "graph_on_device") -> dict:
     """One ``on_device`` phase's run, its programs captured: from one
     snapshot of the carry (learner state and Adam, env, observation and
     noise states, ring, scratch, generator states, host step) one train
-    iteration run as the eager bodies (``OnDeviceLoop.iterate``) and one
-    replayed (``OnDevicePrograms.iterate``), each traced, every tensor,
-    generator state and metric ``torch.equal``; then one eval episode run
-    eagerly and replayed (a compiled evaluator's second run, from the same
-    generator state), the returns ``torch.equal``. Each program holds one
-    specialization."""
+    iteration run as the eager bodies (``OnDeviceLoop.iterate``, with dp
+    ``LanesLoop.iterate``) and one replayed (``OnDevicePrograms.iterate``),
+    each traced, every tensor, generator state and metric ``torch.equal``,
+    the replay's trace holding B1f and B1b lanes x K times (a trace that
+    lost events is taken again from the snapshot, up to ``TRACE_TRIES``
+    in all); then one eval episode run eagerly and replayed (a compiled
+    evaluator's second run, from the same generator state), the returns
+    ``torch.equal``. Each program holds one specialization."""
     import torch
 
     from d4pg_tpu_torch.runtime.evaluator import GreedyEval
 
-    phase = "graph_on_device"
     scale = run._noise_scale()
+    lanes = 1 if run.mesh is None else run.mesh.dp
+    want = dict(fused_fwd=lanes * run.K, fused_bwd=lanes * run.K, project=0, tree_count=0,
+                fused_step=0)
     snap = _carry_snapshot(run)
-    eager_m, eager_ms, eager_busy, eager_n = _traced(
+    eager_m, eager_ms, eager_busy, eager_n, _ = _traced(
         lambda: run.loop.iterate(run.carry, scale)[1])
     eager_state = _carry_snapshot(run)
-    _carry_restore(run, snap)
-    graph_m, graph_ms, graph_busy, graph_n = _traced(
-        lambda: run.programs.iterate(scale))
+    for tries in range(1, TRACE_TRIES + 1):
+        _carry_restore(run, snap)
+        graph_m, graph_ms, graph_busy, graph_n, replayed = _traced(
+            lambda: run.programs.iterate(scale))
+        if replayed == want:
+            break
+    check(replayed == want, f"{phase} {env_name}: traced launches of the replayed iteration "
+          f"{replayed}, expected {want}, in each of {tries} traces")
     graph_state = _carry_snapshot(run)
     differ = [i for i, (a, b) in enumerate(zip(graph_state[0], eager_state[0]))
               if not torch.equal(a, b)]
@@ -3172,11 +3223,15 @@ def graph_on_device_run(run, env_name: str, card: str) -> dict:
                            "eval_returns": eval_equal,
                            "eval_steps": run.env.max_episode_steps},
            "specializations": specs,
+           "lanes": lanes,
            "iteration_wall_ms_traced": {"replayed": graph_ms, "eager": eager_ms},
            "iteration_device_busy_ms": {"replayed": graph_busy, "eager": eager_busy},
+           "wall_ms_per_step": {"replayed": graph_ms / run.K, "eager": eager_ms / run.K},
+           "device_ms_per_step": {"replayed": graph_busy / run.K, "eager": eager_busy / run.K},
            "iteration_device_idle_share": {"replayed": 1.0 - graph_busy / graph_ms,
                                            "eager": 1.0 - eager_busy / eager_ms},
            "device_events": {"replayed": graph_n, "eager": eager_n},
+           "replayed_launches_per_iteration": replayed, "traces_taken": tries,
            "eval_return": float(evals["replayed"].returns.mean()), "ok": True}
     emit(out)
     return out
@@ -6255,8 +6310,10 @@ def dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card: str, log_dir: st
     in one process, both lanes on ``cuda:0``: 200 grad steps (25
     dispatches of K = 8, B = 256 as 128 a lane, a 1M-row ring striped as
     2 x 500 000 rows with a 2^19-leaf subtree a lane), every dispatch after
-    the first under the sync guard. Exact launches (B3 once a lane a
-    dispatch, B1f and B1b once a lane a grad step, B2 = B4 = 0), finite
+    the first under the sync guard. Exact host launches, those of the
+    sharded megastep program's warm-up dispatch and capture (B3 once a
+    lane a dispatch, B1f and B1b once a lane a grad step, B2 = B4 = 0;
+    ``graph_lanes`` counts the replays), finite
     metrics, the lanes' max_priority equal and off 1.0; then each lane's
     B3 on its own leaves against the plain version (valid under a float64
     cumsum within ``chain_length(2^19)``), and one grad step's combine
@@ -6285,8 +6342,9 @@ def dp_lanes_phase(Trainer, TrainConfig, cuda_tree, dper, card: str, log_dir: st
     finally:
         trainer.close()
     c = trainer.config
-    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0,
-                  tree_count=DP_LANES * n // K, fused_step=0)
+    # the sharded megastep program's warm-up dispatch and its capture
+    expect = captured(dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0,
+                           tree_count=DP_LANES * n // K, fused_step=0), n // K)
     check(launches == expect, f"dp_lanes: launch counts {launches}, expected {expect}")
     check(dispatched == n // K and trainer.grad_steps == n,
           f"dp_lanes: {dispatched} dispatches for {trainer.grad_steps} grad steps")
@@ -6399,9 +6457,10 @@ def dp_host_run(Trainer, TrainConfig, mode: str, card: str, log_dir: str) -> dic
     lanes' gradients combined every step) or ``--dp-hogwild`` (each lane
     steps its own copy through the dispatch, then one fixed-order mean of
     every float tensor), 200 grad steps at full width on the native tree,
-    every dispatch after the first under the sync guard. B1f = B1b = 400
-    (one a lane a step), the rest 0; finite metrics; the combine's ms a
-    grad step on the card."""
+    every dispatch after the first under the sync guard. The host counters
+    hold the ``fused_step`` program's warm-up dispatch and capture: B1f =
+    B1b = 32 (one a lane a step of two dispatches), the rest 0; finite
+    metrics; the combine's ms a grad step on the card."""
     import torch
 
     from d4pg_tpu_torch.tools import dp_ranks
@@ -6432,8 +6491,9 @@ def dp_host_run(Trainer, TrainConfig, mode: str, card: str, log_dir: str) -> dic
                                           COMBINE_REPS)
     finally:
         trainer.close()
-    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0, tree_count=0,
-                  fused_step=0)
+    # the fused_step program's warm-up dispatch and its capture
+    expect = captured(dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0,
+                           tree_count=0, fused_step=0), n // K)
     check(launches == expect, f"{mode}: launch counts {launches}, expected {expect}")
     check(stages["stage_train_dispatch_calls"] == n // K and trainer.grad_steps == n,
           f"{mode}: {stages['stage_train_dispatch_calls']} dispatches for "
@@ -6522,8 +6582,11 @@ def tp_host_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
     torch.equal across the tp lanes. (2) The ``Trainer`` with ``--dp 2
     --tp 2 --steps-per-dispatch 8`` on the host placement (native tree),
     96 grad steps, every dispatch after the first under the sync guard:
-    B1f = B1b = 1 a dp lane a grad step (192), the rest 0; finite metrics;
-    the replicated leaves still equal."""
+    the host counters hold the ``fused_step`` program's warm-up dispatch
+    and capture, B1f = B1b = 1 a dp lane a grad step (32), the rest 0;
+    finite metrics; the replicated leaves still equal. The step of (1) is
+    ``auto_parallel_train_step``'s program, its first call the eager
+    warm-up."""
     import copy
 
     import numpy as np
@@ -6584,8 +6647,8 @@ def tp_host_phase(Trainer, TrainConfig, card: str, log_dir: str) -> dict:
                           n=COMBINE_REPS, warmup=3)
     finally:
         trainer.close()
-    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0, tree_count=0,
-                  fused_step=0)
+    expect = captured(dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0,
+                           tree_count=0, fused_step=0), n // K)
     check(launches == expect, f"tp_host: launch counts {launches}, expected {expect}")
     check(stages["stage_train_dispatch_calls"] == n // K and trainer.grad_steps == n,
           f"tp_host: {stages['stage_train_dispatch_calls']} dispatches for "
@@ -6623,7 +6686,8 @@ def tp_members_phase(card: str) -> dict:
     same subset fed to both: priorities and critic_loss within BF16_REL
     (6·2^-7) relative, every parameter within 10·lr; B1f = B1b = 2 (one
     stacked launch a tp lane, 5 members each). Then each arm's ms a grad
-    step (median of 10, CUDA events)."""
+    step (median of 10, CUDA events), the tp arm through the step's
+    compiled program (host counters: its warm-up call and capture)."""
     import copy
 
     import numpy as np
@@ -6679,7 +6743,17 @@ def tp_members_phase(card: str) -> dict:
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
-    tp_ms = timed(lambda: train_step(agent, tps, lanes, subset=subset, sync_fn=step.sync))
+    # the timed tp arm is the step's compiled program (its own subsets)
+    reset_counts()
+    tp_ms = timed(lambda: step(tps, batch))
+    program_launches = read_counts()
+    want = captured({k: v * (3 + TP_TIMED_STEPS) for k, v in expect.items()},
+                    3 + TP_TIMED_STEPS)
+    check(program_launches == want, f"tp_members: program host launches {program_launches}, "
+          f"expected its warm-up call and capture, {want}")
+    check(len(step.programs) == 1 and step.programs[0][1]._cache_size() == 1
+          and step.programs[0][1].captures == 1,
+          f"tp_members: programs {[(p._cache_size(), p.captures) for _, p in step.programs]}")
     whole_ms = timed(lambda: train_step(agent, whole, batch, subset=subset))
     emit({
         "phase": "tp_members", "card": card, "dp": 1, "tp": TP, "members": TP_MEMBERS_E,
@@ -6687,7 +6761,8 @@ def tp_members_phase(card: str) -> dict:
         "kinds": tps.critic.kinds, "subset": subset.tolist(),
         "priority_max_abs_err": pri_err, "param_max_abs_err": param_err,
         "tp": tm, "unsharded": wm, "replicated_leaves_equal": n_rep, "launches": launches,
-        "ms_per_grad_step": {"tp_members": tp_ms, "unsharded": whole_ms},
+        "program_launches_warmup_and_capture": program_launches,
+        "ms_per_grad_step": {"tp_members_program": tp_ms, "unsharded_eager": whole_ms},
         "ok": True,
     })
     return launches
@@ -6702,9 +6777,13 @@ def on_device_dp_phase(TrainConfig, card: str, log_dir: str) -> dict:
     device, n-step sums), priorities rtol 1e-3, metrics rtol 1e-3, every
     parameter within 10·lr. (2) ``OnDeviceRun`` with ``--on-device --dp
     2`` (8 envs, 4 a lane: K = 256 an iteration, B = 256 as 128 a lane),
-    one warmup segment and two train iterations, every iteration after
-    the first under the sync guard: B1f = B1b = 1 a lane a grad step
-    (1024), the rest 0; finite metrics; replay_size the lanes' sum."""
+    one warmup segment and two train iterations through the lanes'
+    compiled programs, every iteration after the first under the sync
+    guard: the host counters hold the ``train_block`` program's warm-up
+    call and capture, B1f = B1b = 1 a lane a grad step of two blocks (32),
+    the rest 0; finite metrics; replay_size the lanes' sum. Returns
+    (launches, the run), which ``graph_lanes`` holds against its eager
+    bodies."""
     import numpy as np
     import torch
 
@@ -6769,8 +6848,9 @@ def on_device_dp_phase(TrainConfig, card: str, log_dir: str) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     n = OD_DP_ITERS * run.K
-    expect = dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0, tree_count=0,
-                  fused_step=0)
+    # the lanes' train_block program's warm-up call and its capture
+    expect = captured(dict(fused_fwd=DP_LANES * n, fused_bwd=DP_LANES * n, project=0,
+                           tree_count=0, fused_step=0), OD_DP_ITERS * run.K // run.loop.block)
     check(launches == expect, f"on_device_dp: launch counts {launches}, expected {expect}")
     check(run.guarded_iterations == OD_DP_ITERS - 1,
           f"on_device_dp: {run.guarded_iterations} guarded iterations")
@@ -6799,7 +6879,28 @@ def on_device_dp_phase(TrainConfig, card: str, log_dir: str) -> dict:
         "critic_loss": row["critic_loss"], "q_mean": row["q_mean"],
         "eval_return_mean": row["eval_return_mean"], "launches": launches, "ok": True,
     })
-    return launches
+    return launches, run
+
+
+def graph_lanes_phase(Trainer, TrainConfig, run, card: str, log_dir: str) -> dict:
+    """Every in-process lane path's dispatch as a replayed CUDA graph,
+    against its eager body from one saved state, at full width (3x256,
+    51 atoms, B = 256 as 128 a dp lane): ``dp_lanes`` (the sharded
+    device-PER megastep, K = 8), ``dp_host`` (K = 8), ``hogwild`` and
+    ``tp_host`` (dp 2 x tp 2) through :func:`graph_learner_run`, and
+    ``on_device_dp`` (``on_device_dp``'s run, K = 256 an iteration)
+    through :func:`graph_on_device_run`. One line a path; returns each
+    trainer path's replayed launches a dispatch and the on-device
+    iteration's."""
+    out = {}
+    for path in LANE_PATHS:
+        line = graph_learner_run(Trainer, TrainConfig, path, card, f"{log_dir}/{path}",
+                                 phase="graph_lanes")
+        emit(line)
+        out[path] = line["replayed_launches_per_dispatch"]
+    line = graph_on_device_run(run, "pendulum", card, phase="graph_lanes")
+    out["on_device_dp"] = line["replayed_launches_per_iteration"]
+    return out
 
 
 SEGMENT_LEN_OD = 32                   # the on-device loop's segment length
@@ -7099,7 +7200,8 @@ def league_device_phase(card: str, log_dir: str) -> dict:
         child_rows = [json.loads(line) for line in f]
     check(meta.get("variant_id") == int(child) and child_rows
           and all(r["variant_id"] == int(child) for r in child_rows),
-          f"league_device: the clone's attestation {meta}")
+          f"league_device: the clone's attestation {meta}, its metrics rows "
+          f"{len(child_rows)} with variant ids {sorted({r.get('variant_id') for r in child_rows})}")
     left = pids_with_cmdline(league)
     check(not left, f"league_device: processes left {left}")
     # every exit 0 / 75 printed its launch line
@@ -7278,8 +7380,11 @@ def run_phases(cp, cuda_tree, cuda_fused_step, dper, make_support, D4PGConfig,
                                                  card, f"{tmp}/{mode}")
         paths["tp_host"] = run_phase("tp_host", tp_host_phase, T, C, card, f"{tmp}/tp_host")
         paths["tp_members"] = run_phase("tp_members", tp_members_phase, card)
-        paths["on_device_dp"] = run_phase("on_device_dp", on_device_dp_phase, C, card,
-                                          f"{tmp}/on_device_dp")
+        paths["on_device_dp"], od_dp_run = run_phase("on_device_dp", on_device_dp_phase, C,
+                                                     card, f"{tmp}/on_device_dp")
+        lanes_replayed = run_phase("graph_lanes", graph_lanes_phase, T, C, od_dp_run, card,
+                                   f"{tmp}/graph_lanes")
+        del od_dp_run
         run_phase("gloo_legs", tp_gloo_legs_phase, C, card)
         paths["serve"] = run_phase("serve", serve_phase, card, f"{tmp}/fused", tmp, run_actor)
         paths["serve_guards_chaos"] = run_phase("serve_guards_chaos", serve_guards_chaos_phase,
@@ -7290,7 +7395,7 @@ def run_phases(cp, cuda_tree, cuda_fused_step, dper, make_support, D4PGConfig,
         paths[f"on_device_{env_name}"] = od["launches"]
     return {"kernels": (err, timing, tree_err, mismatch, tree_timing, stacked_err,
                         stacked_timing),
-            "paths": paths, "replayed": replayed,
+            "paths": paths, "replayed": replayed, "lanes": lanes_replayed,
             "on_device": {name: od["replayed"] for name, od in on_device.items()}}
 
 
@@ -7382,6 +7487,9 @@ def main() -> int:
             # phase, counted by name in its trace (K each of B1f and B1b)
             "replayed_per_iteration_by_on_device_phase": {
                 f"on_device_{p}": r[counter] for p, r in on_device.items()},
+            # the in-process lanes' replays (graph_lanes): a dispatch of each
+            # trainer path, the on-device lanes' iteration
+            "replayed_by_lane_path": {p: r[counter] for p, r in phases["lanes"].items()},
             "max_abs_err": error,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),

@@ -15,8 +15,8 @@ graph each on the card. Two mechanisms, as in the JAX sentinel:
 - **per-entry accounting** — :meth:`RecompileSentinel.track` registers a
   program by name and reads its specialization count
   (``fn._cache_size()``). Anything that is not such a program (an eager
-  callable: the sharded lanes' steps, the on-device loop) counts 0, as the
-  JAX rule counts anything that is not a jit.
+  callable: the lanes' steps of a run of several processes) counts 0, as
+  the JAX rule counts anything that is not a jit.
 - **global build stream** — a listener of ``utils/graphs.py`` counts every
   specialization built in the process while started
   (:attr:`total_compiles`): on the card each CUDA graph captured, on the

@@ -52,7 +52,8 @@ def det_pmean(rows: torch.Tensor) -> torch.Tensor:
 class LaneSync:
     """The lanes' ``sync_fn``: :func:`det_pmean` over a mesh's lanes, plus
     the exact lane-wise min and max the sharded megastep takes of its PER
-    scalars. ``calls`` counts the means."""
+    scalars. ``calls`` counts the means (through a compiled program, its
+    :class:`LaneProgram` keeps the count)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -144,13 +145,30 @@ class HogwildStep:
     B])``: each local lane steps its own copy of the state through its K
     shards with no per-step sync, then every float tensor of every copy is
     set to the fixed-order mean over all lanes. Copy 0 is ``state``; the
-    others persist between windows (equal to it after each resync)."""
+    others persist between windows (equal to it after each resync). A
+    call makes them for a state it has not seen; a compiled program makes
+    them first (:meth:`bind`), since a replay runs no Python."""
 
     def __init__(self, config, mesh):
         self.config = config
         self.mesh = mesh
         self.sync = LaneSync(mesh)
         self.replicas = None
+
+    def bind(self, state) -> list:
+        """Make ``state``'s replicas now (copies of it as it stands);
+        returns the copies other than ``state``."""
+        self.replicas = replicate(state, _local_lanes(self.mesh))
+        return self.replicas[1:]
+
+    def reload(self) -> None:
+        """Copy copy 0 (restored in place by a resume) into the other
+        copies, IN PLACE: a captured program reads them by address."""
+        from d4pg_tpu_torch.runtime.checkpoint import load_state_into, state_dict_of
+
+        saved = copy.deepcopy(state_dict_of(self.replicas[0]))
+        for r in self.replicas[1:]:
+            load_state_into(r, saved)
 
     @torch.no_grad()
     def _resync(self) -> None:
@@ -165,7 +183,7 @@ class HogwildStep:
     def __call__(self, state, batches):
         n = _local_lanes(self.mesh)
         if self.replicas is None or self.replicas[0] is not state:
-            self.replicas = replicate(state, n)
+            self.bind(state)
         lanes = split_lanes(batches, n, axis=1, dp=self.mesh.dp)
         outs = [fused_train_scan(self.config, r, lb) for r, lb in zip(self.replicas, lanes)]
         self._resync()
@@ -175,3 +193,45 @@ class HogwildStep:
 
 def make_hogwild_dp_train_step(config, mesh) -> HogwildStep:
     return HogwildStep(config, mesh)
+
+
+class LaneProgram:
+    """A compiled program whose body combines through :class:`LaneSync` objects.
+    The body's own count of its combines stops at the capture on the card
+    (a replay runs no Python), so this wrapper counts them outside the
+    body: the combines the program's first call made, again at every
+    call, the way ``Trainer._run_program`` advances the step. So
+    ``LaneSync.calls`` reads the same on the CPU and on the card. Every
+    other attribute is the program's."""
+
+    def __init__(self, program, *syncs):
+        self.program = program
+        self.syncs = syncs
+        self.combines = None  # per call, one count a sync
+
+    def __call__(self, *args):
+        before = [s.calls for s in self.syncs]
+        out = self.program(*args)
+        if self.combines is None:
+            self.combines = [s.calls - b for s, b in zip(self.syncs, before)]
+        for s, b, n in zip(self.syncs, before, self.combines):
+            s.calls = b + n
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.program, name)
+
+
+def lane_program(name: str, body, states, syncs, device=None) -> LaneProgram:
+    """``body`` (tensors in and out) as a compiled program named ``name``
+    over the train states ``states()`` returns (a state, or a hogwild
+    window's state and its replicas): every tensor of every state bound by
+    address, every state's generators registered."""
+    from d4pg_tpu_torch.runtime.megastep import learner_generators, learner_tensors
+    from d4pg_tpu_torch.utils import graphs
+
+    prog = graphs.Program(
+        name, body, device=device,
+        state=lambda: [t for st in states() for t in learner_tensors(st)],
+        generators=[g for st in states() for g in learner_generators(st)])
+    return LaneProgram(prog, *syncs)

@@ -299,22 +299,45 @@ def auto_parallel_train_step(config, mesh, rules=DEFAULT_RULES, ensemble_axis: s
     shards a whole state with this step's rules and stack axes). Each dp
     lane runs the Megatron forward over its tp lanes, the critic loss
     once on the combined logits, and the gradients of each tp index are
-    combined over the dp lanes by the fixed-order mean."""
-    from d4pg_tpu_torch.parallel.dp import make_dp_train_step
+    combined over the dp lanes by the fixed-order mean.
+
+    In one process a call runs through a compiled program
+    (``parallel/dp.py:lane_program``, the JAX package's ``jit``), one for
+    each state it is given (``step.programs``: (state, program) pairs), so
+    a replay on the card reads that state's tensors by address; the step
+    count advances here, outside the program. Over several processes the
+    step stays eager (its combines cross the processes on the host)."""
+    from d4pg_tpu_torch.parallel.dp import lane_program, make_dp_train_step
 
     stack_axes = stack_axes_for(config, ensemble_axis)
     inner = make_dp_train_step(config, mesh)
+    programs: list = []
+
+    def program(state):
+        for st, prog in programs:
+            if st is state:
+                return prog
+        prog = lane_program("train_step", lambda batch: inner(state, batch)[1:], lambda: [state],
+                            [inner.sync])
+        programs.append((state, prog))
+        return prog
 
     def step(state, batch):
         if getattr(state, "tp", None) != mesh.tp:
             raise TypeError(
                 f"auto_parallel_train_step over tp={mesh.tp} needs the state sharded over "
                 "that many lanes: pass step.shard(state) (or shard_train_state)")
-        return inner(state, batch)
+        if mesh.num_processes > 1:
+            return inner(state, batch)
+        k = state.step
+        metrics, priorities = program(state)(batch)
+        state.step = k + 1
+        return state, metrics, priorities
 
     step.shard = lambda state: shard_train_state(state, mesh, rules, stack_axes)
     step.sync = inner.sync
     step.stack_axes = stack_axes
+    step.programs = programs
     return step
 
 

@@ -263,6 +263,19 @@ def _opt_like(opt: torch.optim.Optimizer, params) -> torch.optim.Optimizer:
     return type(opt)(params, **opt.defaults)
 
 
+def _copy_into_state(opt_state, param, new: dict) -> None:
+    """Set a parameter's Adam state to ``new``. Tensors it holds already,
+    of the same shape and device, take the values by ``copy_`` and stay
+    the tensors they were: a captured program reads them by address."""
+    old = opt_state.get(param)
+    if old and old.keys() == new.keys() and all(
+            old[k].shape == v.shape and old[k].device == v.device for k, v in new.items()):
+        for k, v in new.items():
+            old[k].copy_(v)
+    else:
+        opt_state[param] = new
+
+
 def _clone_gen(gen):
     if gen is None:
         return None
@@ -308,8 +321,8 @@ class TPTrainState(TrainState):
                     continue
                 moments = {k: tpm._shard[name](st[k]) for k in ("exp_avg", "exp_avg_sq")}
                 for t, q in enumerate(lanes):
-                    opt.state[q] = {"step": st["step"].clone(),
-                                    **{k: v[t] for k, v in moments.items()}}
+                    new = {"step": st["step"].clone(), **{k: v[t] for k, v in moments.items()}}
+                    _copy_into_state(opt.state, q, new)
 
     def whole(self) -> TrainState:
         """The whole state: every network, Adam moment and counter

@@ -239,6 +239,16 @@ def tree_ingest_lane_body(
     return set_leaves(sums, slots, max_priority**alpha, capacity)
 
 
+def tree_ingest_lanes_body(alpha: float, capacity: int, trees: list, slots: torch.Tensor,
+                           lane: torch.Tensor) -> None:
+    """Seed ``slots`` in the subtree ``trees[lane]`` (``lane`` a 0-d int64
+    device tensor), IN PLACE: every lane's seed runs, with the slots of
+    the other lanes all pads, which drop."""
+    for j, t in enumerate(trees):
+        mine = torch.where(lane == j, slots, torch.full_like(slots, capacity))
+        tree_ingest_lane_body(alpha, capacity, t.sums, t.max_priority, mine)
+
+
 class DevicePerSync:
     """The trainer-side holder of the device PER trees: one subtree a lane
     of this process over the lane's ``capacity/dp`` striped ring rows
@@ -266,18 +276,27 @@ class DevicePerSync:
         self.local_capacity = self.capacity // self.n_shards
         self.trees = [device_per_init(self.local_capacity, max_priority, dev)
                       for dev in self.lane_devices]
-        # the single-lane seed as a compiled program (utils/graphs.py): the
-        # ring sync ships fixed [chunk_cap] slot blocks, so one
-        # specialization serves the run; the lanes' seeds stay eager
+        # the seed as a compiled program (utils/graphs.py): the ring sync
+        # ships fixed [chunk_cap] (lanes: [chunk_local]) slot blocks, so
+        # one specialization serves the run; the lanes' program takes the
+        # lane as a 0-d device input. Several processes seed eagerly, as
+        # their ring sync ships its chunks unpadded.
         self.ingest_program = None
         if mesh is None:
             self.ingest_program = graphs.Program(
                 "tree_ingest", self._seed_one_lane, device=self.lane_devices[0],
                 state=lambda: [self.tree.sums, self.tree.max_priority])
+        elif mesh.num_processes == 1:
+            self.ingest_program = graphs.Program(
+                "tree_ingest", self._seed_lane, device=self.lane_devices[0],
+                state=lambda: [t for tree in self.trees for t in (tree.sums, tree.max_priority)])
 
     def _seed_one_lane(self, slots: torch.Tensor) -> None:
         t = self.tree
         tree_ingest_lane_body(self.alpha, self.local_capacity, t.sums, t.max_priority, slots)
+
+    def _seed_lane(self, slots: torch.Tensor, lane: torch.Tensor) -> None:
+        tree_ingest_lanes_body(self.alpha, self.local_capacity, self.trees, slots, lane)
 
     @property
     def tree(self) -> DevicePerTree:
@@ -294,9 +313,13 @@ class DevicePerSync:
 
     def on_lane_chunk(self, j: int, rows: torch.Tensor) -> None:
         """The sharded ring sync's tree_hook target: seed local lane ``j``'s
-        ``rows``."""
-        t = self.trees[j]
-        tree_ingest_lane_body(self.alpha, self.local_capacity, t.sums, t.max_priority, rows)
+        ``rows`` (pad rows drop), through :attr:`ingest_program` in one
+        process."""
+        if self.ingest_program is None:
+            t = self.trees[j]
+            tree_ingest_lane_body(self.alpha, self.local_capacity, t.sums, t.max_priority, rows)
+        else:
+            self.ingest_program(rows, torch.full((), j, dtype=torch.int64, device=rows.device))
 
     # ------------------------------------------------- snapshot / restore
     def snapshot_host(self) -> tuple[np.ndarray, float]:

@@ -26,17 +26,22 @@ lanes (:func:`striped_perm`): host slot ``j`` lives on lane ``j % dp`` at
 row ``j // dp``, so every lane fills evenly from the first rows. Each lane
 holds a :class:`DeviceRing` of ``capacity/dp`` rows on its device whose
 ``size`` is the GLOBAL fill count. :class:`ShardedDeviceRingSync` deals a
-host buffer to this process's lanes; :class:`MultihostRingSync` does it
+host buffer to this process's lanes, in one process through ONE compiled
+program (:attr:`ShardedDeviceRingSync.ingest_program`) that writes a
+lane's chunk, padded to ``chunk_local`` rows, the lane and the fill count
+its device inputs (:func:`lane_ingest_body`); :class:`MultihostRingSync` does it
 for a process that owns ``capacity/P`` of the rows in a buffer of its own,
 agreeing the global fill count with the other processes at each flush,
 and assembles (and deals back) a snapshot in global slot order, so a
-checkpoint does not depend on the topology that wrote it.
+checkpoint does not depend on the topology that wrote it. Its flushes
+stay eager: their fill count is agreed across the processes on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 from typing import Mapping, Optional
 
 import numpy as np
@@ -118,6 +123,34 @@ def ingest_body(ring: DeviceRing, chunk: dict, slots: torch.Tensor, new_size) ->
     else:
         ring.size.fill_(new_size)
     return ring
+
+
+def lane_ingest_body(rings: list, chunk: dict, slots: torch.Tensor, lane: torch.Tensor,
+                     new_size) -> None:
+    """Write the chunk's rows into ``rings[lane]`` at lane rows ``slots``
+    (int64 [n], distinct; pad rows carry the lane capacity and sit after
+    the real rows) and set every lane's fill count to ``new_size``, IN
+    PLACE. ``lane`` is a 0-d int64 device tensor, so one compiled program
+    serves every lane: each lane's write takes the chunk's rows where it
+    is ``lane`` and otherwise writes its own row 0 back onto itself, the
+    same bytes to the same place, as :func:`ingest_body` lands a pad row.
+    No host value is read."""
+    for j, ring in enumerate(rings):
+        cap = ring.obs.shape[0]
+        mine = torch.where(lane == j, slots, torch.full_like(slots, cap))
+        keep = mine < cap
+        any_row = keep.any()
+        last = (keep.sum() - 1).clamp_min(0)
+        src = torch.where(keep, torch.arange(slots.shape[0], device=slots.device), last)
+        target = torch.where(any_row, mine.index_select(0, src), torch.zeros_like(mine))
+        for k in FIELDS:
+            dst = getattr(ring, k)
+            rows = torch.where(any_row, chunk[k].index_select(0, src), dst.index_select(0, target))
+            dst.index_copy_(0, target, rows)
+        if isinstance(new_size, torch.Tensor):
+            ring.size.copy_(new_size.reshape(()))
+        else:
+            ring.size.fill_(new_size)
 
 
 @dataclass
@@ -314,10 +347,19 @@ class ShardedDeviceRingSync:
     Single process (every lane local): the buffer is the whole replay and
     host slot ``j`` goes to lane ``j % dp``, row ``j // dp``. Each flush
     ships the pending rows of every lane, in write order, in chunks of at
-    most ``chunk_cap / dp`` rows, and calls ``tree_hook(j, rows)`` with the
-    local lane index and the lane rows it wrote (``DevicePerSync.
-    on_lane_chunk`` seeds the same rows of that lane's subtree). Every
-    lane's ``size`` is the global fill count.
+    most ``chunk_local = chunk_cap / dp`` rows, and calls ``tree_hook(j,
+    rows)`` with the local lane index and the lane rows it wrote
+    (``DevicePerSync.on_lane_chunk`` seeds the same rows of that lane's
+    subtree). Every lane's ``size`` is the global fill count.
+
+    In one process every chunk is ``chunk_local`` rows (the real rows, then
+    pad rows at lane row ``local_capacity``, gathered from the lane's first
+    host slot) and goes through :attr:`ingest_program`
+    (:func:`lane_ingest_body`), whose lane index and fill count are device
+    inputs: one specialization for the run, bound to the first rings
+    flushed. ``tree_hook`` then gets the padded slots, which the tree's
+    seed drops. Several processes (:class:`MultihostRingSync`) ship their
+    chunks unpadded and eagerly (``ingest_program`` None).
 
     The layout algebra (the JAX ``MultihostRingSync``'s): process ``p``
     owns lanes ``[p·L, (p+1)·L)`` and a buffer of ``capacity/P`` rows, its
@@ -344,6 +386,15 @@ class ShardedDeviceRingSync:
         self.tree_hook = None
         self.bytes_ingested = 0
         self.chunks_ingested = 0
+        self._rings: Optional[list] = None  # bound at the first flush
+        self.ingest_program = None
+        if self.n_processes == 1:
+            self.ingest_program = graphs.Program(
+                "ring_ingest", self._ingest_into_lane,
+                state=lambda: [t for r in self._rings for t in _ingest_state(r)])
+
+    def _ingest_into_lane(self, chunk: dict, lane: torch.Tensor, new_size: torch.Tensor) -> None:
+        lane_ingest_body(self._rings, chunk, chunk["slots"], lane, new_size)
 
     def pending(self) -> int:
         return min(self._buffer.total_added - self._synced, self.host_capacity)
@@ -352,15 +403,39 @@ class ShardedDeviceRingSync:
         return min(total, self.capacity)
 
     def _ingest(self, ring: DeviceRing, j: int, rows: np.ndarray, new_size: int) -> None:
-        chunk = dict(self._buffer.gather(rows * self.local_shards + j))  # locked
-        chunk["slots"] = rows.astype(np.int64)
+        L = self.local_shards
+        if self.ingest_program is None:
+            gidx, slots = rows * L + j, rows.astype(np.int64)
+        else:
+            # padded to chunk_local rows; a pad re-reads the lane's first slot
+            gidx = np.full(self.chunk_local, j, np.int64)
+            gidx[:len(rows)] = rows * L + j
+            slots = np.full(self.chunk_local, self.local_capacity, np.int64)
+            slots[:len(rows)] = rows
+        chunk = dict(self._buffer.gather(gidx))  # locked
+        chunk["slots"] = slots
         nbytes = sum(v.nbytes for v in chunk.values())
         dev = to_device(chunk, ring.obs.device)
-        ingest_body(ring, dev, dev["slots"], new_size)
+        if self.ingest_program is None:
+            ingest_body(ring, dev, dev["slots"], new_size)
+        else:
+            fill = partial(torch.full, (), device=ring.obs.device)
+            self.ingest_program(dev, fill(j, dtype=torch.int64),
+                                fill(new_size, dtype=torch.int32))
         if self.tree_hook is not None:
             self.tree_hook(j, dev["slots"])
         self.bytes_ingested += nbytes
         self.chunks_ingested += 1
+
+    def _bind(self, rings: list) -> None:
+        """Bind the ingest program to ``rings`` at the first flush."""
+        if self._rings is None:
+            self._rings = list(rings)
+        elif len(rings) != len(self._rings) or any(
+                a is not b for a, b in zip(rings, self._rings)):
+            raise graphs.GraphBindingError(
+                "ShardedDeviceRingSync mirrors one set of lane rings: its ingest program is "
+                "bound to the first rings flushed")
 
     def flush(self, rings: list) -> list:
         """Mirror all pending host writes into ``rings`` (this process's
@@ -369,6 +444,8 @@ class ShardedDeviceRingSync:
         new_size = self._fill_count(total)  # collective on MultihostRingSync
         n_pending = min(total - self._synced, self.host_capacity)
         L = self.local_shards
+        if self.ingest_program is not None:
+            self._bind(rings)
         if n_pending > 0:
             pend = (total - n_pending + np.arange(n_pending)) % self.host_capacity
             for j, ring in enumerate(rings):

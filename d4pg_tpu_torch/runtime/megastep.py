@@ -49,6 +49,9 @@ over the lanes. B3 runs once per lane per dispatch, B1f and B1b once per
 lane per grad step. In one process the lanes run one after another, which
 is the JAX package's single-device vmap oracle; split over processes they
 give the same bits. The fused-descent tier stays single-device.
+:func:`sharded_megastep_program` makes them a compiled program as
+:func:`megastep_program` does the single-device ones, its bound state
+every local lane's ring, subtree and generator; β is its input here too.
 
 Every other body takes an explicit ``idx`` / ``prefixes`` for tests that
 feed the JAX package's draws; by default it draws from the ``torch.Generator``
@@ -61,7 +64,8 @@ capture. The program's one eager warm-up dispatch is that call. The graph
 then keeps the counter of the program's capture stream, on which nothing
 else runs B3, so no replay meets a B3 call in flight on that counter.
 
-The sharded bodies stay eager (ROADMAP queue A).
+Over several processes the sharded bodies stay eager: their combines
+cross the processes on the host, which no CUDA graph can hold.
 """
 
 from __future__ import annotations
@@ -215,6 +219,13 @@ def learner_tensors(state: TrainState, ring: DeviceRing | None = None,
     out = graphs.module_tensors(state.actor, state.critic, state.target_actor,
                                 state.target_critic)
     out += graphs.optimizer_tensors(state.actor_opt, state.critic_opt)
+    return out + replay_tensors(ring, tree)
+
+
+def replay_tensors(ring: DeviceRing | None, tree: dper.DevicePerTree | None = None) -> list:
+    """The ring's fields and fill count, then the tree's sums and max
+    priority (each part empty when None)."""
+    out = []
     if ring is not None:
         out += [ring.obs, ring.action, ring.reward, ring.next_obs, ring.discount, ring.size]
     if tree is not None:
@@ -320,14 +331,16 @@ def sharded_megastep_uniform_body(
 def sharded_megastep_device_per_body(
     config: D4PGConfig, k: int, b_local: int, mesh, sync,
     state: TrainState, rings: list, trees: list, generators: list,
-    prefixes: list | None = None,
+    prefixes: list | None = None, beta: torch.Tensor | None = None,
 ) -> dict:
     """K grad steps on PER draws from every lane's subtree: each lane's
     stratified prefixes over its own mass, one B3 descent of its [k,
     b_local] block, the IS weights of the two-level scheme normalized by
     the smallest draw probability over ALL lanes (an exact min), K train
     steps over the lanes, then each lane's last-wins write-back and the
-    max priority over all lanes (an exact max) into every lane's tree."""
+    max priority over all lanes (an exact max) into every lane's tree.
+    ``beta`` is the dispatch's β (a 0-d float32 device tensor; by default
+    the host step's)."""
     D = mesh.dp
     draws, ratios = [], []
     for j, d in enumerate(mesh.local_lanes):
@@ -338,7 +351,7 @@ def sharded_megastep_device_per_body(
         draws.append((idx, p_leaf, total))
         ratios.append(dper.lane_min_leaf(sums) / (D * total))
     min_ratio = sync.min(torch.stack(ratios))
-    beta = _beta(config, state, trees[0].sums.device, None)
+    beta = _beta(config, state, trees[0].sums.device, beta)
     batches = []
     for ring, (idx, p_leaf, total) in zip(rings, draws):
         lane = gather_batches(ring, idx)
@@ -391,6 +404,44 @@ def make_megastep_device_per_sharded(config: D4PGConfig, k: int, batch: int, mes
                   sync)
     run.sync = sync
     return run
+
+
+def sharded_megastep_program(config: D4PGConfig, k: int, batch: int, mesh, state: TrainState,
+                             rings: list, trees: list | None, generators: list):
+    """The sharded megastep of one process's lanes as one compiled program
+    named ``megastep`` (a :class:`~d4pg_tpu_torch.parallel.dp.LaneProgram`,
+    ``.sync`` its combine): the uniform tier (no input; ``trees`` None) or
+    the device-PER tier (input: the dispatch's β, :func:`~d4pg_tpu_torch.
+    replay.device_per.beta_tensor`). Its bound state is the train state
+    and every local lane's ring and subtree; it draws from every lane's
+    generator. Returns the K-step mean metrics. The caller advances
+    ``state.step``."""
+    from d4pg_tpu_torch.parallel.dp import LaneProgram, LaneSync
+
+    if mesh.num_processes > 1:
+        raise ValueError("the sharded megastep of several processes stays eager: its "
+                         "combines cross the processes on the host")
+    sync = LaneSync(mesh)
+    b_local = _check_sharded(mesh, batch)
+    if trees is None:
+        def body():
+            return sharded_megastep_uniform_body(config, k, b_local, mesh, sync, state, rings,
+                                                 generators)
+    else:
+        def body(beta):
+            return sharded_megastep_device_per_body(config, k, b_local, mesh, sync, state,
+                                                    rings, trees, generators, beta=beta)
+
+    def tensors():
+        lanes = zip(rings, trees or [None] * len(rings))
+        return learner_tensors(state) + [t for ring, tree in lanes
+                                         for t in replay_tensors(ring, tree)]
+
+    prog = graphs.Program("megastep", body, device=rings[0].obs.device, state=tensors,
+                          generators=learner_generators(state, *generators))
+    out = LaneProgram(prog, sync)
+    out.sync = sync
+    return out
 
 
 def _oracle_mesh(n_shards: int, device):

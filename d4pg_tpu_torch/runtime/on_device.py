@@ -44,8 +44,11 @@ lanes (:func:`~d4pg_tpu_torch.agent.d4pg.fused_train_scan` with
 and the proxy metric their fixed-order mean. The lanes of one process
 run one after another; over several ranks the same sync gathers across
 them. The carry then holds one env state, observation block, noise
-state, ring and generator pair a local lane, in lists. The lanes' loop
-stays eager (ROADMAP A13 (b)).
+state, ring, generator pair and scratch a local lane, in lists.
+:class:`LanesLoop` cuts the lanes' loop into the same five bodies, each
+over every local lane, and :class:`OnDevicePrograms` compiles them as it
+does one device's. Several processes keep the eager loop of
+:func:`make_on_device_trainer`: their combines are host round trips.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ from d4pg_tpu_torch.config import (
 from d4pg_tpu_torch.envs import make_env
 from d4pg_tpu_torch.envs.api import EnvState
 from d4pg_tpu_torch.envs.rollouts import Trajectory
-from d4pg_tpu_torch.parallel.dp import LaneSync
+from d4pg_tpu_torch.parallel.dp import LaneProgram, LaneSync
 from d4pg_tpu_torch.parallel.mesh import check_one_device, make_mesh
 from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay import noise_scale_schedule
@@ -263,10 +266,11 @@ class IterationBuffers(NamedTuple):
 class Carry(NamedTuple):
     """Everything one iteration reads and updates: the learner state, the
     envs, their observations and noise states, the ring and the two device
-    generators (collection, train draws); on one device also the
-    iteration's scratch (``buffers``). With a mesh every field but
-    ``state`` is a list, one entry a local lane, and ``buffers`` is None.
-    The single-device loop updates every tensor IN PLACE."""
+    generators (collection, train draws), and the iteration's scratch
+    (``buffers``). With a mesh every field but ``state`` is a list, one
+    entry a local lane (the eager loop of :func:`make_on_device_trainer`
+    has no scratch: ``buffers`` None). The five bodies update every
+    tensor IN PLACE."""
 
     state: TrainState
     env_states: EnvState
@@ -297,23 +301,30 @@ def _proxy(traj) -> torch.Tensor:
         torch.maximum(traj.terminated, traj.truncated).sum(), 1.0)
 
 
+def _lanes(x) -> list:
+    """A lanes carry's field as it is (a list, one entry a lane), a
+    single-device carry's as a list of one."""
+    return x if isinstance(x, list) else [x]
+
+
 def carry_tensors(carry: Carry) -> list:
-    """Every tensor of a single-device carry: the learner's (networks and
-    Adam), the envs', observations' and noise states', the ring's and the
-    scratch's."""
-    buf = carry.buffers
+    """Every tensor of a carry: the learner's (networks and Adam), the
+    envs', observations' and noise states', the ring's and the scratch's
+    (with lanes, every lane's)."""
     out = megastep.learner_tensors(carry.state)
     out += pytree.tree_leaves((carry.env_states, carry.obs, carry.noise_states))
-    out += ring_tensors(carry.replay) + list(buf.traj) + [buf.idx, buf.priorities]
-    out += ([buf.weights] if buf.weights is not None else []) + list(buf.metrics.values())
+    for replay, buf in zip(_lanes(carry.replay), _lanes(carry.buffers)):
+        out += ring_tensors(replay) + list(buf.traj) + [buf.idx, buf.priorities]
+        out += ([buf.weights] if buf.weights is not None else []) + list(buf.metrics.values())
     return out
 
 
 def carry_generators(carry: Carry) -> list:
     """The device generators an iteration draws from: collection, train
-    draws, and the state's REDQ subsets and DrQ shifts where used."""
-    return [g for g in (carry.collect_gen, carry.train_gen, carry.state.subset_gen,
-                        carry.state.augment_gen) if g is not None]
+    draws (one each a lane), and the state's REDQ subsets and DrQ shifts
+    where used."""
+    return [g for g in (*_lanes(carry.collect_gen), *_lanes(carry.train_gen),
+                        carry.state.subset_gen, carry.state.augment_gen) if g is not None]
 
 
 class OnDeviceLoop:
@@ -459,6 +470,145 @@ class OnDeviceLoop:
         return OnDevicePrograms(self, carry)
 
 
+class LanesLoop:
+    """The loop of :func:`make_on_device_trainer` with a mesh (this
+    process's dp lanes) as :class:`OnDeviceLoop`'s five bodies, each IN
+    PLACE on a lanes :class:`Carry` (every field but ``state`` a list, one
+    entry a local lane; ``buffers`` one :class:`IterationBuffers` a lane,
+    the lanes' combined metrics in lane 0's):
+
+    - :meth:`collect_step` and :meth:`append`: every lane's control step,
+      its n-step collapse and its ring append;
+    - :meth:`draw`: every lane's [K, B/D] draw from its own ring and
+      generator (``draws``: one block a lane);
+    - :meth:`train_block`: grad steps over the lanes, the gradients and
+      metrics combined by :class:`~d4pg_tpu_torch.parallel.dp.LaneSync`'s
+      fixed-order mean each step (``fused_train_scan(sync_fn=)``);
+    - :meth:`finish`: every lane's write-back, then the exact max of the
+      lanes' ``max_priority`` into each, and the proxy metric's mean over
+      the lanes.
+
+    The bodies compute what the eager mesh loop of
+    :func:`make_on_device_trainer` computes, in the same order, so the two
+    agree bit for bit; :meth:`programs` makes each body a compiled program
+    (:class:`OnDevicePrograms`), which several processes cannot have
+    (their combines cross the processes on the host)."""
+
+    def __init__(self, config: D4PGConfig, env, mesh, num_envs: int, segment_len: int,
+                 replay_capacity: int, batch_size: int, k: int, prioritized: bool, device,
+                 obs_dtype: torch.dtype, noise_fns: list):
+        self.config, self.env, self.mesh = config, env, mesh
+        self.num_envs, self.segment_len = num_envs, segment_len
+        self.capacity, self.B, self.K = replay_capacity, batch_size, k
+        self.prioritized = prioritized
+        self.device = device
+        self.obs_dtype = obs_dtype
+        self.n_new = num_envs * segment_len
+        self.lanes = list(mesh.local_lanes)
+        self.noise_inits = [fns[0] for fns in noise_fns]
+        self.collectors = [SegmentCollector(config, env, num_envs, segment_len, fns)
+                           for fns in noise_fns]
+        self.sync = LaneSync(mesh)
+        self.block = train_block_size(k)
+        self.steps = torch.arange(segment_len, device=device)
+        self.blocks = torch.arange(k // self.block, device=device)
+        self._block_rows = torch.arange(self.block, device=device)
+
+    def init(self, state: TrainState, seed: int) -> Carry:
+        """Every local lane's envs reset, empty ring, scratch and
+        generators, seeded from ``(seed, stream, lane)`` as the eager mesh
+        loop seeds them."""
+        dev, cfg, K, B = self.device, self.config, self.K, self.B
+
+        def gen(stream, lane):
+            return torch.Generator(dev).manual_seed(leg_seed(seed, stream, lane))
+
+        per_lane = []
+        for j, lane in enumerate(self.lanes):
+            env_states, obs = self.env.reset(self.num_envs, gen(0, lane), dev)
+            replay = device_replay_init(self.capacity, cfg.obs_dim, cfg.action_dim, dev,
+                                        obs_dtype=self.obs_dtype)
+            buffers = IterationBuffers(
+                traj=self.collectors[j].trajectory_buffers(cfg.obs_dim, cfg.action_dim, dev),
+                idx=torch.zeros((K, B), dtype=torch.int64, device=dev),
+                weights=torch.zeros((K, B), device=dev) if self.prioritized else None,
+                priorities=torch.zeros((K, B), device=dev),
+                metrics={key: torch.zeros(K, device=dev) for key in step_metric_keys(cfg)}
+                if j == 0 else {})
+            per_lane.append((env_states, obs, self.noise_inits[j](), replay, gen(1, lane),
+                             gen(2, lane), buffers))
+        return Carry(state, *(list(f) for f in zip(*per_lane)))
+
+    scale_tensor = OnDeviceLoop.scale_tensor
+    beta = OnDeviceLoop.beta
+
+    # ------------------------------------------------------------ bodies
+    def collect_step(self, carry: Carry, t: torch.Tensor, noise_scale: torch.Tensor) -> None:
+        for j, collector in enumerate(self.collectors):
+            collector.step(carry.state.actor, carry.env_states[j], carry.obs[j],
+                           carry.noise_states[j], carry.collect_gen[j], noise_scale,
+                           carry.buffers[j].traj, t)
+
+    def append(self, carry: Carry) -> None:
+        for collector, replay, buf in zip(self.collectors, carry.replay, carry.buffers):
+            _append(replay, collector.collapse(buf.traj), self.n_new, self.config.per_alpha)
+
+    def draw(self, carry: Carry, beta: Optional[torch.Tensor] = None,
+             draws: Optional[list] = None) -> None:
+        """``draws`` replaces the lanes' train generators: one [K, B/D]
+        block a lane, uniform numbers in [0, 1) with PER, indices
+        without."""
+        for j, (replay, buf, gen) in enumerate(zip(carry.replay, carry.buffers,
+                                                   carry.train_gen)):
+            fed = None if draws is None else draws[j]
+            if self.prioritized:
+                u = fed if fed is not None else torch.rand((self.K, self.B), generator=gen,
+                                                           device=self.device)
+                idx, weights = per_draw(self.config, replay.priority, replay.size, u, beta=beta)
+                buf.weights.copy_(weights)
+            else:
+                idx = fed if fed is not None else megastep.draw_uniform_indices(
+                    gen, self.K, self.B, replay.size)
+            buf.idx.copy_(idx)
+
+    def train_block(self, carry: Carry, j: torch.Tensor) -> None:
+        rows = j * self.block + self._block_rows
+        lanes = []
+        for replay, buf in zip(carry.replay, carry.buffers):
+            # a pixel ring's rows stay uint8 until their step decodes them
+            batches = gather_batches(replay, buf.idx.index_select(0, rows), decode=False)
+            if self.prioritized:
+                batches["weights"] = buf.weights.index_select(0, rows)
+            lanes.append(batches)
+        _, metrics, priorities = fused_train_scan(self.config, carry.state, lanes,
+                                                  sync_fn=self.sync)
+        for buf, pri in zip(carry.buffers, priorities.split(self.B, dim=1)):
+            buf.priorities.index_copy_(0, rows, pri)
+        for key, v in metrics.items():
+            carry.buffers[0].metrics[key].index_copy_(0, rows, v)
+
+    def finish(self, carry: Carry) -> dict:
+        if self.prioritized:
+            for replay, buf in zip(carry.replay, carry.buffers):
+                per_write_back(self.config, replay, buf.idx, buf.priorities)
+            top = self.sync.max(torch.stack([r.max_priority for r in carry.replay]))
+            for replay in carry.replay:
+                replay.max_priority.copy_(top)
+        metrics = {key: v.mean() for key, v in carry.buffers[0].metrics.items()}
+        proxies = torch.stack([_proxy(buf.traj) for buf in carry.buffers])
+        metrics["train_reward_per_episode_boundary"] = self.sync(proxies[:, None])[0]
+        return metrics
+
+    warmup = OnDeviceLoop.warmup
+    iterate = OnDeviceLoop.iterate
+
+    def programs(self, carry: Carry) -> "OnDevicePrograms":
+        if self.mesh.num_processes > 1:
+            raise ValueError("the on-device lanes of several processes stay eager: their "
+                             "combines cross the processes on the host")
+        return OnDevicePrograms(self, carry)
+
+
 class OnDevicePrograms:
     """:class:`OnDeviceLoop`'s five bodies as compiled programs
     (``utils/graphs.py``) over one carry, the counterpart of the JAX
@@ -474,14 +624,21 @@ class OnDevicePrograms:
     read by address, never copied in or out; the only output is
     ``train_finish``'s metrics. Each program registers the generators it
     draws from. A replay runs no Python, so :meth:`iterate` advances the
-    host step count by K itself."""
+    host step count by K itself. Over a :class:`LanesLoop` the same five
+    programs run every local lane (state: every lane's envs, ring and
+    scratch; generators: every lane's), ``train_block`` and
+    ``train_finish`` counting their combines outside the body
+    (:class:`~d4pg_tpu_torch.parallel.dp.LaneProgram`); one block of 8
+    grad steps over two lanes holds about twice the kernels of one
+    device's."""
 
-    def __init__(self, loop: OnDeviceLoop, carry: Carry):
+    def __init__(self, loop, carry: Carry):
         self.loop, self.carry = loop, carry
-        c, buf, dev = carry, carry.buffers, loop.device
-        traj = list(buf.traj)
-        drawn = [buf.idx] + ([buf.weights] if buf.weights is not None else [])
-        trained = drawn + [buf.priorities, *buf.metrics.values()]
+        c, bufs, dev = carry, _lanes(carry.buffers), loop.device
+        traj = [t for buf in bufs for t in buf.traj]
+        drawn = [t for buf in bufs
+                 for t in [buf.idx] + ([buf.weights] if buf.weights is not None else [])]
+        trained = drawn + [t for buf in bufs for t in [buf.priorities, *buf.metrics.values()]]
 
         def actor():
             return graphs.module_tensors(c.state.actor)
@@ -490,21 +647,26 @@ class OnDevicePrograms:
             return pytree.tree_leaves((c.env_states, c.obs, c.noise_states))
 
         def ring():
-            return ring_tensors(c.replay)
+            return [t for replay in _lanes(c.replay) for t in ring_tensors(replay)]
 
         self.collect_step = graphs.Program(
             "collect_step", partial(loop.collect_step, c), dev,
-            state=lambda: actor() + lane() + traj, generators=(c.collect_gen,))
+            state=lambda: actor() + lane() + traj, generators=_lanes(c.collect_gen))
         self.ring_append = graphs.Program("ring_append", partial(loop.append, c), dev,
                                           state=lambda: traj + ring())
         self.train_draw = graphs.Program("train_draw", partial(loop.draw, c), dev,
-                                         state=lambda: ring() + drawn, generators=(c.train_gen,))
+                                         state=lambda: ring() + drawn,
+                                         generators=_lanes(c.train_gen))
         self.train_block = graphs.Program(
             "train_block", partial(loop.train_block, c), dev,
             state=lambda: megastep.learner_tensors(c.state) + ring() + trained,
             generators=megastep.learner_generators(c.state))
         self.train_finish = graphs.Program("train_finish", partial(loop.finish, c), dev,
                                            state=lambda: ring() + traj + trained)
+        sync = getattr(loop, "sync", None)
+        if sync is not None:  # the lanes' combines, counted outside the bodies
+            self.train_block = LaneProgram(self.train_block, sync)
+            self.train_finish = LaneProgram(self.train_finish, sync)
 
     def all(self) -> list:
         return [self.collect_step, self.ring_append, self.train_draw, self.train_block,
@@ -570,6 +732,54 @@ def make_on_device_loop(
                         noise_fns)
 
 
+def _lane_shapes(config, mesh, num_envs, segment_len, replay_capacity, batch_size, obs_uint8,
+                 obs_bf16, noise_fns):
+    """A mesh loop's lane sizes from the global ones (refusing what the
+    lanes do not divide), its device, ring dtype and noise processes (one
+    a local lane)."""
+    D = mesh.dp
+    for name, val in (("num_envs", num_envs), ("replay_capacity", replay_capacity),
+                      ("batch_size", batch_size)):
+        if val % D != 0:
+            raise ValueError(f"{name} ({val}) must be divisible by mesh axis 'dp' size {D}")
+    num_envs //= D
+    replay_capacity //= D
+    batch_size //= D
+    device = check_one_device(mesh)
+    if obs_uint8 and obs_bf16:
+        raise ValueError("obs_uint8 and obs_bf16 are mutually exclusive")
+    n_new = _check_sizes(num_envs, replay_capacity, segment_len, D)
+    device = resolve_device(device)
+    if not isinstance(noise_fns, list):
+        noise_fns = [noise_fns or make_noise(config, (num_envs,), device)] * len(mesh.local_lanes)
+    obs_dtype = torch.uint8 if obs_uint8 else torch.bfloat16 if obs_bf16 else torch.float32
+    return num_envs, replay_capacity, batch_size, n_new, device, obs_dtype, noise_fns
+
+
+def make_lanes_loop(
+    config: D4PGConfig,
+    env,
+    mesh,
+    num_envs: int = 64,
+    segment_len: int = SEGMENT_LEN,
+    replay_capacity: int = 131_072,
+    batch_size: int = 256,
+    train_steps_per_iter: int = 32,
+    prioritized: bool = True,
+    obs_uint8: bool = False,
+    obs_bf16: bool = False,
+    noise_fns=None,
+) -> LanesLoop:
+    """The lanes' loop (:class:`LanesLoop`); the arguments are
+    :func:`make_on_device_trainer`'s with a mesh (``num_envs``,
+    ``replay_capacity`` and ``batch_size`` global)."""
+    num_envs, replay_capacity, batch_size, _, device, obs_dtype, noise_fns = _lane_shapes(
+        config, mesh, num_envs, segment_len, replay_capacity, batch_size, obs_uint8, obs_bf16,
+        noise_fns)
+    return LanesLoop(config, env, mesh, num_envs, segment_len, replay_capacity, batch_size,
+                     train_steps_per_iter, prioritized, device, obs_dtype, noise_fns)
+
+
 def make_on_device_trainer(
     config: D4PGConfig,
     env,
@@ -611,34 +821,25 @@ def make_on_device_trainer(
     frames); the two are exclusive. ``mesh`` (``parallel/mesh.py``) splits
     the loop over its dp lanes (see the module docstring); ``num_envs``,
     ``replay_capacity`` and ``batch_size`` are then global and must
-    divide by ``mesh.dp``. The mesh's loop stays eager (ROADMAP A13 (b)).
+    divide by ``mesh.dp``. The mesh's functions here are the eager loop,
+    whole segments and all K grad steps at once, which a run of several
+    processes uses and against which the tests hold :class:`LanesLoop`
+    (:func:`make_lanes_loop`), whose bodies :class:`OnDevicePrograms`
+    compiles.
     """
     if mesh is None:
         loop = make_on_device_loop(
             config, env, num_envs, segment_len, replay_capacity, batch_size,
             train_steps_per_iter, prioritized, device, obs_uint8, obs_bf16, noise_fns)
         return loop.init, loop.warmup, loop.iterate
-    D = mesh.dp
-    for name, val in (("num_envs", num_envs), ("replay_capacity", replay_capacity),
-                      ("batch_size", batch_size)):
-        if val % D != 0:
-            raise ValueError(f"{name} ({val}) must be divisible by mesh axis 'dp' size {D}")
-    num_envs //= D
-    replay_capacity //= D
-    batch_size //= D
-    device = check_one_device(mesh)
-    if obs_uint8 and obs_bf16:
-        raise ValueError("obs_uint8 and obs_bf16 are mutually exclusive")
-    n_new = _check_sizes(num_envs, replay_capacity, segment_len, D)
-    device = resolve_device(device)
+    num_envs, replay_capacity, batch_size, n_new, device, obs_dtype, noise_fns = _lane_shapes(
+        config, mesh, num_envs, segment_len, replay_capacity, batch_size, obs_uint8, obs_bf16,
+        noise_fns)
     lanes = list(mesh.local_lanes)
-    if not isinstance(noise_fns, list):
-        noise_fns = [noise_fns or make_noise(config, (num_envs,), device)] * len(lanes)
     collects = [make_segment_collector(config, env, num_envs, segment_len, fns)
                 for fns in noise_fns]
     sync = LaneSync(mesh)
     K, B = train_steps_per_iter, batch_size
-    obs_dtype = torch.uint8 if obs_uint8 else torch.bfloat16 if obs_bf16 else torch.float32
 
     def _gen(seed, stream, lane):
         return torch.Generator(device).manual_seed(leg_seed(seed, stream, lane))
@@ -718,7 +919,7 @@ class OnDeviceRun:
     best-eval snapshot, ``--resume``, preemption and the RSS watchdog.
 
     One iteration = ``num_envs × 32`` env steps and ``K = round(num_envs ×
-    32 / env_steps_per_train_step)`` grad steps. On one device the warmup
+    32 / env_steps_per_train_step)`` grad steps. The warmup
     segments and the iterations run as :class:`OnDevicePrograms` (CUDA
     graphs on the card), and the evals as a compiled
     :class:`~d4pg_tpu_torch.runtime.evaluator.GreedyEval`; the programs
@@ -730,10 +931,10 @@ class OnDeviceRun:
     ``(seed, grad_steps)`` on every start, so a resumed leg draws a stream
     of its own. With ``debug_guards`` on the card every iteration after
     the first runs under ``torch.cuda.set_sync_debug_mode("error")``. With
-    ``dp`` the loop runs eagerly on ``dp`` lanes of this process
-    (``replay_size`` is the global fill, a lane's times ``dp``; ROADMAP
-    A13 (b)); several processes are refused as the JAX CLI refuses them
-    (``multihost_device_placement_only``).
+    ``dp`` the same programs run the ``dp`` lanes of this process
+    (:class:`LanesLoop`; ``replay_size`` is the global fill, a lane's
+    times ``dp``); several processes are refused as the JAX CLI refuses
+    them (``multihost_device_placement_only``).
     """
 
     def __init__(self, config: TrainConfig, device=None, preempt_event=None):
@@ -777,14 +978,13 @@ class OnDeviceRun:
             obs_uint8=bool(agent.pixel_shape),
             obs_bf16=config.ring_dtype == "bfloat16" and not agent.pixel_shape,
         )
-        self.loop: Optional[OnDeviceLoop] = None
         if self.mesh is None:
             self.loop = make_on_device_loop(agent, self.env, **loop_kw)
-            self.init_fn, self.warmup_fn, self.iterate_fn = (
-                self.loop.init, self.loop.warmup, self.loop.iterate)
         else:
-            self.init_fn, self.warmup_fn, self.iterate_fn = make_on_device_trainer(
-                agent, self.env, mesh=self.mesh, **loop_kw)
+            loop_kw.pop("device")
+            self.loop = make_lanes_loop(agent, self.env, self.mesh, **loop_kw)
+        self.init_fn, self.warmup_fn, self.iterate_fn = (
+            self.loop.init, self.loop.warmup, self.loop.iterate)
         state = create_train_state(agent, config.seed, self.device)
         self.ckpt = CheckpointManager(os.path.join(config.log_dir, "checkpoints"))
         # the champion of the evals, kept apart from the rolling checkpoints
@@ -817,7 +1017,7 @@ class OnDeviceRun:
         self.carry = self.init_fn(state, self.leg_seed)
         self.eval_gen = torch.Generator(self.device).manual_seed(leg_seed(config.seed, self.grad_steps, 3))
         # built after the restore above: a program reads the state by address
-        self.programs = None if self.loop is None else self.loop.programs(self.carry)
+        self.programs = self.loop.programs(self.carry)
         self.evaluator = GreedyEval(agent, self.env, state.actor, self.eval_gen,
                                     config.eval_episodes, compiled=True)
         self.ring_pos = self.ring_size = 0  # host mirrors of a lane ring's pos and size
@@ -847,20 +1047,14 @@ class OnDeviceRun:
 
     def segment(self, noise_scale: float) -> None:
         """One warmup segment into the ring (the ``collect_step`` and
-        ``ring_append`` programs on one device)."""
-        if self.programs is not None:
-            self.programs.warmup(noise_scale)
-        else:
-            self.carry = self.warmup_fn(self.carry, noise_scale)
+        ``ring_append`` programs)."""
+        self.programs.warmup(noise_scale)
         self._advance_mirrors()
 
     def iteration(self, noise_scale: float) -> dict:
-        """One train iteration (every program on one device); returns the
-        metrics, 0-d device tensors."""
-        if self.programs is not None:
-            metrics = self.programs.iterate(noise_scale)
-        else:
-            self.carry, metrics = self.iterate_fn(self.carry, noise_scale)
+        """One train iteration (every program); returns the metrics, 0-d
+        device tensors."""
+        metrics = self.programs.iterate(noise_scale)
         self._advance_mirrors()
         return metrics
 

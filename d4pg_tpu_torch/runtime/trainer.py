@@ -161,15 +161,21 @@ the save's gathers (the replay snapshot and the PER sidecar in global
 slot order, so any topology restores them; a process of several deals
 itself its rows). The state is replicated, so process 0 saves its copy.
 
-Compiled programs (``utils/graphs.py``, the JAX trainer's jits): on one
-device every dispatch is a program, ``train_step`` (host, K = 1),
-``fused_step`` (host, K > 1) or ``megastep`` (device and hybrid), and so
-are the ring's ``ring_ingest`` and the device tree's ``tree_ingest``. On
-the card each is a CUDA graph captured after one eager call and replayed;
-on the CPU the same bodies run eagerly on the programs' static buffers.
-The host step count advances by K around each call
-(:meth:`Trainer._run_program`), and the PER tiers take β as an input. The
-lanes' steps and the sharded megastep stay eager.
+Compiled programs (``utils/graphs.py``, the JAX trainer's jits): every
+dispatch is a program, ``train_step`` (host, K = 1), ``fused_step``
+(host, K > 1) or ``megastep`` (device and hybrid), and so are the ring's
+``ring_ingest`` and the device tree's ``tree_ingest``, on one device and
+over the ``dp`` lanes of one process alike (the lanes' steps, hogwild
+with its replicas, ``--dp D --tp N`` over the sharded state, the sharded
+megastep and the lanes' ingests). On the card each is a CUDA graph
+captured after one eager call and replayed; on the CPU the same bodies
+run eagerly on the programs' static buffers. The host step count
+advances by K around each call (:meth:`Trainer._run_program`), the PER
+tiers take β as an input, and a lane program counts its combines
+outside its body (``parallel/dp.py:LaneProgram``). The one eager branch,
+chosen when the trainer is built: a process of several keeps its lanes'
+entries eager, since their combines (gloo) are host round trips that no
+CUDA graph can hold.
 
 Each stage is also a ``host/<name>`` profiler range (and an NVTX range on
 the card); ``profile_dir`` traces grad steps [10, max(60, 10 + K)) of a
@@ -253,6 +259,7 @@ from d4pg_tpu_torch.envs.pointmass_goal import PointMassGoal
 from d4pg_tpu_torch.ops.obs_norm import RunningObsNorm
 from d4pg_tpu_torch.parallel.distributed import process_count, process_index
 from d4pg_tpu_torch.parallel.dp import (
+    lane_program,
     make_dp_fused_train_step,
     make_dp_train_step,
     make_hogwild_dp_train_step,
@@ -468,10 +475,12 @@ class Trainer:
         self._init_host_state()
 
         self._ring = self._ring_sync = self._dev_per = self._megastep = None
-        # the single-device dispatches as compiled programs (utils/graphs.py:
-        # a CUDA graph captured after one eager dispatch on the card); the
-        # lanes' steps and the sharded megastep stay eager
+        # the dispatches as compiled programs (utils/graphs.py: a CUDA graph
+        # captured after one eager dispatch on the card), on one device and
+        # over the lanes of one process; the lanes of several processes
+        # stay eager (their combines cross the processes on the host)
         self._train_step_prog = self._fused_step_prog = self._megastep_prog = None
+        self._compiled = self._procs == 1
         self._dispatches = 0
         # host-to-device batch copies, on a stream of their own on the card
         self._h2d = H2DStream(self.device)
@@ -497,8 +506,10 @@ class Trainer:
         self._dp_step = self._dp_fused = None
         if self.mesh is not None and config.replay_placement == "host":
             self._dp_step = make_dp_train_step(agent_cfg, self.mesh)
-            fused = make_hogwild_dp_train_step if config.dp_hogwild else make_dp_fused_train_step
-            self._dp_fused = fused(agent_cfg, self.mesh)
+            if config.steps_per_dispatch > 1:
+                fused = (make_hogwild_dp_train_step if config.dp_hogwild
+                         else make_dp_fused_train_step)
+                self._dp_fused = fused(agent_cfg, self.mesh)
         if self.mesh is not None and self.on_device:
             self._init_sharded_megastep()
         elif self.on_device or self.hybrid:
@@ -511,7 +522,7 @@ class Trainer:
                                                                   self._ring)
             else:
                 self._init_megastep()
-        if self.mesh is None:
+        if self._compiled:
             self._init_host_programs()
         self._init_sentinel()
 
@@ -587,43 +598,71 @@ class Trainer:
 
     def _init_host_programs(self) -> None:
         """The host placement's dispatches as compiled programs: ``train_step``
-        (K = 1) and, with K > 1, ``fused_step`` (``fused_train_scan``). Both
-        exist on every single-device placement, as the JAX trainer's jits
-        do; only the host placement calls them. Input: the device batch
-        (the wire's bfloat16 or uint8 observations are widened inside);
-        outputs: the K-step mean metrics and the priorities."""
-        state = lambda: megastep.learner_tensors(self.state)  # noqa: E731
-        gens = megastep.learner_generators(self.state)
-        self._train_step_prog = graphs.Program("train_step", self._host_step_body,
-                                               self.device, state=state, generators=gens)
-        if self.config.steps_per_dispatch > 1:
-            self._fused_step_prog = graphs.Program("fused_step", self._host_scan_body,
+        (K = 1) and, with K > 1, ``fused_step`` (``fused_train_scan``). On
+        one device both exist on every placement, as the JAX trainer's
+        jits do; only the host placement calls them. With ``dp`` (one
+        process, the host placement) they run the lanes' steps
+        (``parallel/dp.py``), each a :class:`~d4pg_tpu_torch.parallel.dp.
+        LaneProgram` that counts its combines outside the body; with
+        ``tp`` over the sharded state, with ``dp_hogwild`` over the state
+        and its replicas, made here. Input: the device batch (the wire's
+        bfloat16 or uint8 observations are widened inside); outputs: the
+        K-step mean metrics and the priorities."""
+        k = self.config.steps_per_dispatch
+        if self.mesh is None:
+            state = lambda: megastep.learner_tensors(self.state)  # noqa: E731
+            gens = megastep.learner_generators(self.state)
+            self._train_step_prog = graphs.Program("train_step", self._host_step_body,
                                                    self.device, state=state, generators=gens)
+            if k > 1:
+                self._fused_step_prog = graphs.Program("fused_step", self._host_scan_body,
+                                                       self.device, state=state, generators=gens)
+            return
+        if self._dp_step is None:
+            return  # the sharded megastep's placement: no host dispatch
+        states = lambda: [self.state]  # noqa: E731
+        self._train_step_prog = lane_program("train_step", self._host_step_body, states,
+                                             [self._dp_step.sync], self.device)
+        if k > 1:
+            if self.config.dp_hogwild:
+                replicas = self._dp_fused.bind(self.state)
+                states = lambda: [self.state, *replicas]  # noqa: E731
+            self._fused_step_prog = lane_program("fused_step", self._host_scan_body, states,
+                                                 [self._dp_fused.sync], self.device)
 
     def _host_step_body(self, batch: dict):
-        _, metrics, priorities = train_step(self.config.agent, self.state, _widened(batch))
+        if self._dp_step is None:
+            _, metrics, priorities = train_step(self.config.agent, self.state, _widened(batch))
+        else:
+            _, metrics, priorities = self._dp_step(self.state, _widened(batch))
         return metrics, priorities
 
     def _host_scan_body(self, batch: dict):
-        _, metrics_k, priorities = fused_train_scan(self.config.agent, self.state,
-                                                    _widened(batch))
+        if self._dp_fused is None:
+            _, metrics_k, priorities = fused_train_scan(self.config.agent, self.state,
+                                                        _widened(batch))
+        else:
+            _, metrics_k, priorities = self._dp_fused(self.state, _widened(batch))
         return {key: v.mean() for key, v in metrics_k.items()}, priorities
 
     def _init_sentinel(self) -> None:
         """The recompile sentinel under ``debug_guards`` (the JAX trainer's
         entries): ``train_step``, ``fused_step`` (K > 1) and, on the device
         and hybrid placements, ``megastep`` and ``ring_ingest`` (budget 1:
-        one fixed chunk shape), with device PER ``tree_ingest`` (budget 1).
-        The dispatch's budget is pinned after the first dispatch of each
+        one fixed chunk shape), with device PER ``tree_ingest`` (budget 1),
+        on one device and over the lanes of one process alike. The
+        dispatch's budget is pinned after the first dispatch of each
         ``train()`` leg and checked at every eval crossing and at its end.
-        An eager entry (the lanes' steps, the sharded megastep) counts 0."""
+        The eager entries of several processes count 0, where the JAX
+        multi-process jits count 1 (ROADMAP, "Not mirrored, on purpose")."""
         self.sentinel = None
         if not self.config.debug_guards:
             return
         self.sentinel = RecompileSentinel().start()
         self.sentinel.track("train_step", self._train_step_prog or self._dp_step)
-        if self.config.steps_per_dispatch > 1:
-            self.sentinel.track("fused_step", self._fused_step_prog or self._dp_fused)
+        fused = self._fused_step_prog or self._dp_fused
+        if fused is not None:  # K > 1 off the sharded megastep's placement
+            self.sentinel.track("fused_step", fused)
         if self._megastep is not None:
             self.sentinel.track("megastep", self._megastep_prog or self._megastep)
             self.sentinel.track("ring_ingest", getattr(self._ring_sync, "ingest_program", None),
@@ -659,6 +698,10 @@ class Trainer:
         else:
             self._megastep = megastep.make_megastep_uniform_sharded(agent_cfg, K, B, self.mesh)
         self._megastep_gen = megastep.lane_generators(cfg.seed + 3, self.mesh)
+        if self._compiled:
+            self._megastep_prog = megastep.sharded_megastep_program(
+                agent_cfg, K, B, self.mesh, self.state, self._ring,
+                None if self._dev_per is None else self._dev_per.trees, self._megastep_gen)
 
     def _init_host_state(self) -> None:
         """The host-env collection, publication and evaluation state (inert
@@ -729,6 +772,9 @@ class Trainer:
         for fb in fallbacks:
             print(f"[checkpoint] fallback: {fb}")
         print(f"[checkpoint] resumed from step {restored_step}", flush=True)
+        if getattr(self._dp_fused, "replicas", None):
+            # the hogwild program's replicas take the restored state by copy_
+            self._dp_fused.reload()
         self.grad_steps = self.state.step
         meta = load_trainer_meta(self._shared_dir)
         # env_steps drives the noise schedule: without it a resumed run
@@ -1709,15 +1755,12 @@ class Trainer:
             indices, dev_batch, ready = self._sample_staged(k)
         self._h2d.consume(dev_batch, ready)
         with self.timers.stage("train_dispatch"), self._dispatch_guard(self.state, dev_batch):
-            if k == 1 and self._dp_step is not None:
-                _, metrics, priorities = self._dp_step(self.state, _widened(dev_batch))
-            elif k == 1:
-                metrics, priorities = self._run_program(self._train_step_prog, dev_batch)
-            elif self._dp_fused is not None:
-                _, metrics_k, priorities = self._dp_fused(self.state, _widened(dev_batch))
-                metrics = {key: v.mean() for key, v in metrics_k.items()}
-            else:
-                metrics, priorities = self._run_program(self._fused_step_prog, dev_batch)
+            prog = self._train_step_prog if k == 1 else self._fused_step_prog
+            if prog is not None:
+                metrics, priorities = self._run_program(prog, dev_batch)
+            else:  # the lanes of several processes
+                body = self._host_step_body if k == 1 else self._host_scan_body
+                metrics, priorities = body(dev_batch)
         self._dispatches += 1
         self._release_staging_holds(1)  # the dispatch has read its block
         if prefetch_next:

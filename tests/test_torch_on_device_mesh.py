@@ -123,18 +123,37 @@ def mesh_pair(request):
     tst = create_train_state(tcfg, device="cpu")
     load_jax_params(tst, *init_params)
     tc = t_init(tst, 0)
-    tc = tc._replace(
-        env_states=[EnvState(torch.tensor(_lane_rows(env_states.physics, j, N_LANE)),
-                             torch.tensor(_lane_rows(env_states.t, j, N_LANE)))
-                    for j in range(D)],
-        obs=[torch.tensor(_lane_rows(obs, j, N_LANE)) for j in range(D)])
+    tc_env = [EnvState(torch.tensor(_lane_rows(env_states.physics, j, N_LANE)),
+                       torch.tensor(_lane_rows(env_states.t, j, N_LANE))) for j in range(D)]
+    tc_obs = [torch.tensor(_lane_rows(obs, j, N_LANE)) for j in range(D)]
+    tc = tc._replace(env_states=[EnvState(e.physics.clone(), e.t.clone()) for e in tc_env],
+                     obs=[o.clone() for o in tc_obs])
     tc = t_warm(tc, 3.0)
     tc, tm = t_iter(tc, 1.0, draws=draws)
-    return carry, {k: float(v) for k, v in jm.items()}, tc, {k: float(v) for k, v in tm.items()}
+    # the same through the lanes' compiled programs (LanesLoop), the same
+    # noise and draws fed in (the draw program's body given them)
+    noise = [_fed_noise([_lane_noise(k_roll_w, jcfg, lane), _lane_noise(k_roll_i, jcfg, lane)])
+             for lane in range(D)]
+    loop = od.make_lanes_loop(tcfg, Pendulum(), mesh, num_envs=N_ENVS, segment_len=SEG,
+                              replay_capacity=CAP, batch_size=B, train_steps_per_iter=K,
+                              prioritized=prioritized, noise_fns=noise)
+    pst = create_train_state(tcfg, device="cpu")
+    load_jax_params(pst, *init_params)
+    pc = loop.init(pst, 0)
+    for j in range(D):
+        pc.env_states[j].physics.copy_(tc_env[j].physics)
+        pc.env_states[j].t.copy_(tc_env[j].t)
+        pc.obs[j].copy_(tc_obs[j])
+    progs = loop.programs(pc)
+    progs.train_draw.body = lambda *beta: loop.draw(pc, *beta, draws=draws)
+    progs.warmup(3.0)
+    pm = progs.iterate(1.0)
+    return (carry, {k: float(v) for k, v in jm.items()}, tc, {k: float(v) for k, v in tm.items()},
+            (pc, pm, progs))
 
 
 def test_lanes_fill_the_same_ring_shards(mesh_pair):
-    jc, _, tc, _ = mesh_pair
+    jc, _, tc, _, _ = mesh_pair
     jr = jc[4]
     assert len(tc.replay) == D
     for lane, tr in enumerate(tc.replay):
@@ -150,7 +169,7 @@ def test_lanes_fill_the_same_ring_shards(mesh_pair):
 
 
 def test_lanes_train_to_the_same_state(mesh_pair):
-    jc, jm, tc, tm = mesh_pair
+    jc, jm, tc, tm, _ = mesh_pair
     jst, tst = jc[0], tc.state
     assert tst.step == int(jst.step) == K
     for module, tree in ((tst.actor, jst.actor_params), (tst.critic, jst.critic_params),
@@ -172,6 +191,26 @@ def test_lanes_train_to_the_same_state(mesh_pair):
         np.testing.assert_allclose(float(tr.max_priority), float(jc[4].max_priority),
                                    rtol=1e-3)
     assert len({float(tr.max_priority) for tr in tc.replay}) == 1
+
+
+def test_lane_programs_equal_the_eager_lanes_and_the_reference(mesh_pair):
+    """The lanes' five compiled programs (``LanesLoop``, one warmup and one
+    iteration, the JAX noise and draws fed in) give the eager mesh loop's
+    bits, so the reference tolerances above hold for them too."""
+    jc, jm, tc, tm, (pc, pm, progs) = mesh_pair
+    assert pc.state.step == tc.state.step == K
+    from d4pg_tpu_torch.runtime import megastep
+
+    for a, b in zip(megastep.learner_tensors(pc.state), megastep.learner_tensors(tc.state)):
+        assert torch.equal(a, b)
+    for lane in range(D):
+        for f in od.RING_FIELDS:
+            assert torch.equal(getattr(pc.replay[lane], f), getattr(tc.replay[lane], f)), f
+        assert torch.equal(pc.obs[lane], tc.obs[lane])
+    assert {k: float(v) for k, v in pm.items()} == tm
+    for k in jm:
+        np.testing.assert_allclose(float(pm[k]), jm[k], rtol=1e-3, atol=1e-6, err_msg=k)
+    assert all(p._cache_size() == 1 for p in progs.all())
 
 
 def test_lane_generators_differ_and_are_seeded_by_lane():

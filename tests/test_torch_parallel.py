@@ -168,6 +168,45 @@ def test_dp_fused_train_step_matches_the_reference_oracle():
     _assert_params_close(tst, jst)
 
 
+def test_dp_step_programs_match_the_reference_oracle():
+    """The trainer's dp ``train_step`` (K = 1) and ``fused_step`` (K = 3)
+    as compiled programs (``dp.lane_program`` over the eager steps), held
+    against the same oracles at the same tolerances; the combines counted
+    outside the bodies, one specialization each."""
+    jcfg, tcfg, jst, tst = _pair()
+    jstep = _oracle(j_train_step, jcfg)
+    step = dp.make_dp_train_step(tcfg, make_mesh(D, device="cpu"))
+    prog = dp.lane_program("train_step", lambda b: step(tst, b)[1:], lambda: [tst], [step.sync])
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        b = _batch(rng)
+        jout, jm, jpri = jstep(jst, _shards(b, 0))
+        jst = jax.tree.map(lambda x: x[0], jout)
+        k0 = tst.step
+        tm, tpri = prog({k: torch.from_numpy(v) for k, v in b.items()})
+        tst.step = k0 + 1
+        np.testing.assert_allclose(tpri.numpy(), np.asarray(jpri).reshape(-1),
+                                   rtol=1e-4, atol=1e-6)
+        _assert_metrics_close(tm, jax.tree.map(lambda x: x[0], jm))
+    assert tst.step == int(jst.step) == 3 and step.sync.calls == 9
+    assert prog._cache_size() == 1
+    _assert_params_close(tst, jst)
+
+    jcfg, tcfg, jst, tst = _pair(seed=2)
+    jscan = _oracle(j_fused_train_scan, jcfg)
+    scan = dp.make_dp_fused_train_step(tcfg, make_mesh(D, device="cpu"))
+    prog = dp.lane_program("fused_step", lambda b: scan(tst, b)[1:], lambda: [tst], [scan.sync])
+    b = _batch(np.random.default_rng(3), lead=(3,))
+    jout, jm, jpri = jscan(jst, _shards(b, 1))
+    jst = jax.tree.map(lambda x: x[0], jout)
+    tm, tpri = prog({k: torch.from_numpy(v) for k, v in b.items()})
+    np.testing.assert_allclose(tpri.numpy(), np.concatenate(list(np.asarray(jpri)), axis=1),
+                               rtol=1e-4, atol=1e-6)
+    _assert_metrics_close(tm, jax.tree.map(lambda x: x[0], jm))
+    assert scan.sync.calls == 9
+    _assert_params_close(tst, jst)
+
+
 def test_dp_batch_not_divisible_raises():
     _, tcfg, _, tst = _pair()
     step = dp.make_dp_train_step(tcfg, make_mesh(D, device="cpu"))

@@ -146,6 +146,14 @@ PLACEMENTS = {
                          steps_per_dispatch=4, total_steps=8),
     "hybrid": dict(replay_placement="hybrid", prioritized=True, steps_per_dispatch=4,
                    total_steps=8),
+    # the in-process lanes (conftest.py's 8 host devices give the JAX
+    # trainer its dp x tp mesh)
+    "host_dp": dict(dp=2),
+    "host_dp_k4": dict(dp=2, steps_per_dispatch=4, total_steps=8),
+    "host_hogwild_k4": dict(dp=2, dp_hogwild=True, steps_per_dispatch=4, total_steps=8),
+    "host_dp_tp": dict(dp=2, tp=2, steps_per_dispatch=4, total_steps=8),
+    "device_dp": dict(replay_placement="device", prioritized=True, dp=2, steps_per_dispatch=4,
+                      total_steps=8),
 }
 
 
@@ -177,7 +185,9 @@ def test_trainer_learner_entries_stay_flat_and_equal_the_jax_trainers(tmp_path, 
         t.close()
 
 
-@pytest.mark.parametrize("placement", ["host", "host_prefetch", "device", "hybrid"])
+@pytest.mark.parametrize("placement", ["host", "host_prefetch", "device", "hybrid",
+                                       "host_dp_k4", "host_hogwild_k4", "host_dp_tp",
+                                       "device_dp"])
 def test_trainer_entries_stay_flat_across_a_resume(tmp_path, placement):
     from d4pg_tpu_torch.runtime.trainer import Trainer
 

@@ -182,6 +182,74 @@ def test_sharded_device_per_megastep_matches_the_reference_oracle():
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, err_msg=k)
 
 
+def _program_run(tcfg, tst, rings, trees):
+    """The trainer's sharded ``megastep`` program over ``rings`` (and
+    ``trees``), its body given the fed lane draws as inputs: ``run(draws)
+    -> metrics``, the host step advanced outside, as the trainer does."""
+    mesh = make_mesh(D, device="cpu", num_processes=1, process_index=0)
+    prog = megastep.sharded_megastep_program(tcfg, K, B, mesh, tst, rings, trees,
+                                             megastep.lane_generators(0, mesh))
+    if trees is None:
+        prog.program.body = lambda *idx: megastep.sharded_megastep_uniform_body(
+            tcfg, K, B // D, mesh, prog.sync, tst, rings, None, idx=list(idx))
+    else:
+        prog.program.body = lambda beta, *pre: megastep.sharded_megastep_device_per_body(
+            tcfg, K, B // D, mesh, prog.sync, tst, rings, trees, None, prefixes=list(pre),
+            beta=beta)
+
+    def run(draws):
+        step = tst.step
+        beta = () if trees is None else (dper.beta_tensor(step, tcfg.per_beta0,
+                                                          tcfg.per_beta_steps, "cpu"),)
+        out = prog(*beta, *draws)
+        tst.step = step + K
+        return out
+
+    run.program = prog
+    return run
+
+
+def test_sharded_megastep_programs_match_the_reference_oracle():
+    """Both tiers through the trainer's compiled ``megastep`` program, the
+    JAX lane draws fed in: the oracles' tolerances above, the combines
+    counted outside the body (3 a grad step) and one specialization."""
+    (jcfg, jst, jlanes, _), (tcfg, tst, rings, _) = _sides(prioritized=False)
+    jrun = jmega.make_megastep_uniform_oracle(jcfg, K, B, D)
+    run = _program_run(tcfg, tst, rings, None)
+    key = jax.random.PRNGKey(7)
+    for _ in range(DISPATCHES):
+        k_idx = jax.random.split(key)[1]
+        idx = [torch.tensor(np.asarray(jax.random.randint(
+            jax.random.fold_in(k_idx, d), (K, B // D), 0, SIZE // D))) for d in range(D)]
+        jst, key, jm = jrun(jst, jlanes, key)
+        tm = run(idx)
+    assert tst.step == int(jst.step) == K * DISPATCHES
+    assert run.program.sync.calls == 3 * K * DISPATCHES
+    assert run.program._cache_size() == 1
+    _assert_state_close(tst, jst)
+    for k in ("critic_loss", "priority_mean"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, err_msg=k)
+
+    (jcfg, jst, jlanes, jtree), (tcfg, tst, rings, per) = _sides(prioritized=True)
+    jrun = jmega.make_megastep_device_per_oracle(jcfg, K, B, D, tree_backend="xla")
+    run = _program_run(tcfg, tst, rings, per.trees)
+    key = jax.random.PRNGKey(11)
+    for _ in range(DISPATCHES):
+        k_draw = jax.random.split(key)[1]
+        prefixes = [torch.tensor(jdper.host_prefixes(jax.random.fold_in(k_draw, d), K, B // D,
+                                                     float(jtree.sums[d][1]))) for d in range(D)]
+        jst, jtree, key, jm = jrun(jst, jlanes, jtree, key)
+        tm = run(prefixes)
+        for d in range(D):
+            np.testing.assert_allclose(per.trees[d].sums.numpy(), np.asarray(jtree.sums)[d],
+                                       rtol=1e-3)
+            assert float(per.trees[d].max_priority) == pytest.approx(
+                float(jtree.max_priority), rel=1e-3)
+    _assert_state_close(tst, jst)
+    for k in ("critic_loss", "priority_mean"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, err_msg=k)
+
+
 def test_importance_weights_of_one_lane_are_the_single_device_formula():
     g = torch.Generator().manual_seed(0)
     p, total = torch.rand(3, 4, generator=g) + 0.1, torch.tensor(7.5)
